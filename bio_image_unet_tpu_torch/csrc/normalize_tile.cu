@@ -1,0 +1,120 @@
+// K2: fused normalize -> reflect pad -> uint8 -> tile gather -> batch pad.
+//
+// Replaces the fused-pipeline stage at bio_image_unet_tpu/predict/predictor.py
+// :742-755 (:203 _normalize_clip, jnp.pad(mode="reflect"), astype(uint8),
+// :102 _extract_tiles, and the batch padded by repeating the last tile).  The
+// JAX program materialises the normalized float32 frames, the padded frames,
+// the uint8 frames and the row-gathered frames before the column gather.
+//
+// What bounds it on the card: bytes.  The least work reads each source pixel
+// once (16 MB for a (16, 1024, 1024) uint8 chunk) and writes each tile pixel
+// once (n_pad * th * tw bytes, 16 MB for the exact 256-tile grid).  This
+// kernel writes every output byte once and reads the source directly: one
+// thread makes VEC (4) neighbouring pixels of one tile row, mapping each
+// through the grid start and the reflect pad to its source pixel, normalizing
+// it in float32 and truncating.  Nothing intermediate touches device memory;
+// overlapping tiles re-read source pixels, which stay in L2 (50 MB).
+//
+// Exactness: clip = min(max(v, lo), hi) as jnp.clip; (v - fmin) / (fmax - fmin)
+// * 255 with __fsub_rn/__fdiv_rn/__fmul_rn (no FMA, IEEE division), 255 - v
+// for invert, truncation toward zero to uint8 -- the same float32 steps as the
+// JAX program, so the tiles are bit-identical.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+template <typename T, int VEC>
+__global__ void normalize_tile(const T* __restrict__ x, int H, int W,
+                               const float* __restrict__ bounds, int Fb,
+                               const int* __restrict__ xs, const int* __restrict__ ys,
+                               int nx, int ny, int th, int tw, long long n_real,
+                               long long n_total, int invert,
+                               uint8_t* __restrict__ out) {
+  const int twv = tw / VEC;
+  const long long groups = n_total * th * twv;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= groups) return;
+  const long long t = g / ((long long)th * twv);
+  const int rem = (int)(g - t * th * twv);
+  const int r = rem / twv;
+  const int c0 = (rem - r * twv) * VEC;
+
+  // batch padding repeats the last real tile
+  const long long ts = t < n_real ? t : n_real - 1;
+  const int per = nx * ny;
+  const long long f = ts / per;
+  const int ij = (int)(ts - f * per);
+  const int i = ij / ny, j = ij - (ij / ny) * ny;
+
+  int pr = xs[i] + r;
+  if (pr >= H) pr = 2 * (H - 1) - pr;  // numpy/jnp 'reflect' (edge not repeated)
+  const T* row = x + ((size_t)f * H + pr) * W;
+
+  const int fb = Fb == 1 ? 0 : (int)f;
+  const float lo = bounds[0 * Fb + fb], hi = bounds[1 * Fb + fb];
+  const float fmin = bounds[2 * Fb + fb], fmax = bounds[3 * Fb + fb];
+  const bool span = fmax > fmin;
+  const float den = __fsub_rn(fmax, fmin);
+
+  uint8_t res[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    int pc = ys[j] + c0 + k;
+    if (pc >= W) pc = 2 * (W - 1) - pc;
+    float v = (float)row[pc];
+    v = fminf(fmaxf(v, lo), hi);
+    v = span ? __fmul_rn(__fdiv_rn(__fsub_rn(v, fmin), den), 255.0f) : 0.0f;
+    if (invert) v = __fsub_rn(255.0f, v);
+    res[k] = (uint8_t)__float2uint_rz(v);
+  }
+  uint8_t* o = out + (size_t)t * th * tw + (size_t)r * tw + c0;
+  if (VEC == 4) {
+    *reinterpret_cast<uchar4*>(o) = make_uchar4(res[0], res[VEC > 1 ? 1 : 0],
+                                                res[VEC > 2 ? 2 : 0], res[VEC > 3 ? 3 : 0]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) o[k] = res[k];
+  }
+}
+
+template <typename T>
+static int launch(const void* x, int H, int W, const void* bounds, int Fb,
+                  const void* xs, const void* ys, int nx, int ny, int th, int tw,
+                  long long n_real, long long n_total, int invert, void* out,
+                  void* stream) {
+  const int threads = 256;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tw % 4 == 0) {
+    const long long groups = n_total * th * (tw / 4);
+    const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
+    normalize_tile<T, 4><<<blocks, threads, 0, s>>>(
+        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys,
+        nx, ny, th, tw, n_real, n_total, invert, (uint8_t*)out);
+  } else {
+    const long long groups = n_total * th * tw;
+    const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
+    normalize_tile<T, 1><<<blocks, threads, 0, s>>>(
+        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys,
+        nx, ny, th, tw, n_real, n_total, invert, (uint8_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// dtype: 0 = uint8, 1 = uint16, 2 = float32.  x is (F, H, W) contiguous;
+// bounds is (4, Fb) float32 (Fb = F per-frame, or 1 for stack-global bounds);
+// xs (nx,) and ys (ny,) int32 tile starts; out is (n_total, th, tw) uint8.
+int k2_normalize_tile(const void* x, int dtype, int H, int W, const void* bounds,
+                      int Fb, const void* xs, const void* ys, int nx, int ny,
+                      int th, int tw, long long n_real, long long n_total,
+                      int invert, void* out, void* stream) {
+  switch (dtype) {
+    case 0: return launch<uint8_t>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
+    case 1: return launch<uint16_t>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
+    case 2: return launch<float>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,3 @@
+from .weights import state_dict_from_jax
+
+__all__ = ["state_dict_from_jax"]

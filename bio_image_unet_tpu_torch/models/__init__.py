@@ -1,0 +1,35 @@
+"""Model registry (counterpart of ``bio_image_unet_tpu/models/__init__.py``).
+Only the plain 2D ``Unet`` is ported so far; the other registry names of the
+JAX package raise a clear "not ported yet" error."""
+
+import inspect
+
+from .unet2d import Unet
+
+MODEL_REGISTRY = {"Unet": Unet}
+
+# registry names of the JAX package that later slices port
+_NOT_PORTED = ("AttentionUnet", "Unet_v0", "BabyUnet", "Siam_UNet", "UNet3D",
+               "MultiOutputUnet", "MultiOutputNestedUNet",
+               "MultiOutputNestedUNet_3Levels", "MultiOutputUnet3D")
+
+
+def get_model(name, **kwargs):
+    """Instantiate a model by registry name or class, dropping unknown kwargs
+    (checkpoints carry extra hyperparameters)."""
+    if isinstance(name, str):
+        if name in _NOT_PORTED:
+            raise NotImplementedError(
+                f"model '{name}' is not ported to PyTorch yet; ported: "
+                f"{sorted(MODEL_REGISTRY)}")
+        if name not in MODEL_REGISTRY:
+            raise ValueError(f"unknown model '{name}'; available: "
+                             f"{sorted(MODEL_REGISTRY)}")
+        cls = MODEL_REGISTRY[name]
+    else:
+        cls = name
+    fields = set(inspect.signature(cls.__init__).parameters) - {"self"}
+    return cls(**{k: v for k, v in kwargs.items() if k in fields})
+
+
+__all__ = ["Unet", "MODEL_REGISTRY", "get_model"]

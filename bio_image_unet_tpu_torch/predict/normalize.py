@@ -1,0 +1,151 @@
+"""Percentile normalization: the host version and K2, the fused
+normalize → reflect pad → uint8 → tile stage of the device pipeline.
+
+Host side (numpy, counterpart of ``predictor.py:30-84``): ``_int_percentile``,
+``_percentile`` and ``_normalize_stack`` are copies of the JAX package's
+host-staged normalization, percentiles in float64.
+
+K2 (counterpart of ``predictor.py:742-755``: ``:203 _normalize_clip``, the
+reflect pad, ``astype(uint8)``, ``:102 _extract_tiles`` and the batch padded
+by the last tile): ``normalize_tile(frames, bounds, plan, n_total, invert)``
+maps (F, H, W) uint8/uint16/float32 frames and (4, F) or (4, 1) float32
+``(lo, hi, fmin, fmax)`` bounds to (n_total, th, tw) uint8 tiles in
+frame-major grid order; tiles past the chunk's F·nx·ny repeat the last one.
+On a CUDA tensor the wrapper launches ``csrc/normalize_tile.cu`` or raises;
+on a CPU tensor it takes the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import _cuda
+
+
+# --- host normalization (numpy) ---------------------------------------------
+
+def _int_percentile(img: np.ndarray, q: float) -> float:
+    """Exact percentile of an integer array via bincount (numpy's 'linear'
+    rule without the sort)."""
+    flat = img.reshape(-1)
+    lo = int(flat.min())
+    counts = np.bincount(flat.astype(np.int64) - lo)
+    cum = np.cumsum(counts)
+    pos = (flat.size - 1) * (q / 100.0)
+    lo_k, hi_k = int(np.floor(pos)), int(np.ceil(pos))
+    v_lo = int(np.searchsorted(cum, lo_k + 1))
+    if hi_k == lo_k:
+        return float(lo + v_lo)
+    v_hi = int(np.searchsorted(cum, hi_k + 1))
+    return float(lo + v_lo + (pos - lo_k) * (v_hi - v_lo))
+
+
+def _percentile(img: np.ndarray, q: float) -> float:
+    if img.dtype in (np.uint8, np.uint16, np.int8, np.int16):
+        return _int_percentile(img, q)
+    return float(np.nanpercentile(img, q))
+
+
+def _normalize_stack(imgs: np.ndarray, mode: str, clip_threshold, invert: bool = False,
+                     scale: float = 255.0) -> np.ndarray:
+    """Percentile clip + min-max normalize a (N, ...) stack: 'single' per
+    frame, 'first' from the first frame, 'all' from the whole stack."""
+    raw = imgs
+    imgs = imgs.astype(np.float32)
+    if mode == "single":
+        out = np.empty_like(imgs)
+        for i, img in enumerate(imgs):
+            img = np.clip(img, _percentile(raw[i], clip_threshold[0]),
+                          _percentile(raw[i], clip_threshold[1]))
+            img = img - np.min(img)
+            peak = np.max(img)
+            if peak > 0:
+                img = img / peak * scale
+            out[i] = scale - img if invert else img
+        return out
+    if mode in ("first", "all"):
+        ref = raw[0] if mode == "first" else raw
+        lo = _percentile(ref, clip_threshold[0])
+        hi = _percentile(ref, clip_threshold[1])
+        imgs = np.clip(imgs, lo, hi)
+        imgs = imgs - np.min(imgs)
+        peak = np.max(imgs)
+        if peak > 0:
+            imgs = imgs / peak * scale
+        return scale - imgs if invert else imgs
+    raise ValueError(f"normalization_mode {mode} not valid!")
+
+
+# --- K2 ---------------------------------------------------------------------
+
+def _check_bounds(bounds: torch.Tensor, n_frames: int) -> int:
+    if bounds.dtype != torch.float32 or bounds.dim() != 2 or bounds.shape[0] != 4 \
+            or bounds.shape[1] not in (1, n_frames):
+        raise ValueError(f"bounds must be (4, {n_frames}) or (4, 1) float32, "
+                         f"got {tuple(bounds.shape)} {bounds.dtype}")
+    return bounds.shape[1]
+
+
+def normalize_tile_plain(frames: torch.Tensor, bounds: torch.Tensor, plan,
+                         n_total: int, invert: bool) -> torch.Tensor:
+    """Plain PyTorch K2."""
+    n_frames = frames.shape[0]
+    _check_bounds(bounds, n_frames)
+    lo, hi, fmin, fmax = (b[:, None, None] for b in bounds)
+    f = torch.minimum(torch.maximum(frames.float(), lo), hi)
+    f = torch.where(fmax > fmin, (f - fmin) / (fmax - fmin) * 255.0,
+                    torch.zeros((), dtype=torch.float32, device=f.device))
+    if invert:
+        f = 255.0 - f
+    th, tw = plan.th, plan.tw
+    pad_h, pad_w = max(0, th - plan.h), max(0, tw - plan.w)
+    if pad_h or pad_w:
+        f = F.pad(f[:, None], (0, pad_w, 0, pad_h), mode="reflect")[:, 0]
+    u8 = f.to(torch.uint8)
+    dev = u8.device
+    rows = torch.as_tensor((plan.xs[:, None] + np.arange(th)[None]).ravel(), device=dev)
+    cols = torch.as_tensor((plan.ys[:, None] + np.arange(tw)[None]).ravel(), device=dev)
+    tiles = (u8.index_select(1, rows).index_select(2, cols)
+             .reshape(n_frames, plan.nx, th, plan.ny, tw)
+             .permute(0, 1, 3, 2, 4)
+             .reshape(n_frames * plan.per_frame, th, tw))
+    n = tiles.shape[0]
+    if n_total > n:
+        tiles = torch.cat([tiles, tiles[-1:].expand(n_total - n, th, tw)])
+    return tiles.contiguous()
+
+
+def normalize_tile(frames: torch.Tensor, bounds: torch.Tensor, plan,
+                   n_total: int, invert: bool) -> torch.Tensor:
+    """K2 (see the module docstring)."""
+    n_frames = frames.shape[0]
+    if tuple(frames.shape[1:]) != (plan.h, plan.w):
+        raise ValueError(f"frames {tuple(frames.shape[1:])} do not match the "
+                         f"plan's frame {(plan.h, plan.w)}")
+    if frames.dtype not in _cuda.DTYPE_CODE:
+        raise ValueError(f"normalize_tile takes uint8/uint16/float32, got {frames.dtype}")
+    if n_total < n_frames * plan.per_frame:
+        raise ValueError(f"n_total {n_total} < {n_frames * plan.per_frame} tiles")
+    if frames.device.type == "cpu":
+        return normalize_tile_plain(frames, bounds, plan, n_total, invert)
+    dev = frames.device
+    _cuda.require_cuda(frames, "normalize_tile")
+    _cuda.require_cuda(bounds, "normalize_tile bounds", dev)
+    _cuda.require_cuda(plan.xs_t, "normalize_tile plan", dev)
+    fb = _check_bounds(bounds, n_frames)
+    out = torch.empty((n_total, plan.th, plan.tw), dtype=torch.uint8, device=dev)
+    A = _cuda
+    fn = A.function("normalize_tile", "k2_normalize_tile",
+                    [A.P, A.I32, A.I32, A.I32, A.P, A.I32, A.P, A.P, A.I32, A.I32,
+                     A.I32, A.I32, A.I64, A.I64, A.I32, A.P, A.P])
+    A.launch(fn, dev, frames.data_ptr(), A.DTYPE_CODE[frames.dtype], plan.h, plan.w,
+             bounds.data_ptr(), fb, plan.xs_t.data_ptr(), plan.ys_t.data_ptr(),
+             plan.nx, plan.ny, plan.th, plan.tw, n_frames * plan.per_frame,
+             n_total, int(invert), out.data_ptr())
+    normalize_tile.launches += 1
+    return out
+
+
+normalize_tile.launches = 0

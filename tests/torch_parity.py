@@ -1,0 +1,62 @@
+"""Shared helpers of the PyTorch port's parity tests (``test_torch_*.py``).
+
+The port is held against the JAX package on the same weights and inputs:
+one JAX ``Unet`` with warmed BatchNorm statistics is written to a reference
+``.pt`` by ``bio_image_unet_tpu.interop.torch_export``, and both packages load
+that same file.  Inputs are drawn with numpy from a seed and handed to both.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from bio_image_unet_tpu.interop.torch_export import export_torch_checkpoint
+from bio_image_unet_tpu.models import Unet
+
+N_FILTER = 8
+
+
+def warm_unet_variables(n_filter: int = N_FILTER, size: int = 32, steps: int = 3,
+                        seed: int = 0):
+    """A JAX ``Unet`` and its variables after a few train-mode applies, so the
+    BatchNorm running statistics are not the trivial mean 0 / var 1 and a BN
+    fold has something to fold (the pattern of ``tests/test_fastpath.py``)."""
+    model = Unet(n_filter=n_filter)
+    variables = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 1)))
+
+    @jax.jit
+    def step(variables, x, key):
+        _, mutated = model.apply(variables, x, train=True, mutable=["batch_stats"],
+                                 rngs={"dropout": key})
+        return {"params": variables["params"], "batch_stats": mutated["batch_stats"]}
+
+    key = jax.random.PRNGKey(seed + 7)
+    for i in range(steps):
+        x = jax.random.uniform(jax.random.fold_in(key, i), (2, size, size, 1))
+        variables = step(variables, x, jax.random.fold_in(key, 100 + i))
+    return model, jax.tree_util.tree_map(np.asarray, variables)
+
+
+def write_unet_checkpoint(path, n_filter: int = N_FILTER):
+    """Write a reference-schema ``.pt`` of a warmed JAX ``Unet``; returns
+    ``(path, model, variables)``."""
+    model, variables = warm_unet_variables(n_filter)
+    export_torch_checkpoint(str(path), variables,
+                            {"model_name": "Unet", "n_filter": n_filter,
+                             "in_channels": 1, "out_channels": 1},
+                            epoch=1, best_loss=0.5)
+    return str(path), model, variables
+
+
+def assert_u8_contract(ours, ref, max_levels: int = 1, max_fraction: float = 1e-3):
+    """uint8 masks agree within ``max_levels`` on at most ``max_fraction`` of
+    pixels (the cross-layout contract of ``bio_image_unet_tpu.testing``)."""
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    assert ours.shape == ref.shape, (ours.shape, ref.shape)
+    assert ours.dtype == ref.dtype, (ours.dtype, ref.dtype)
+    diff = np.abs(ours.astype(np.int64) - ref.astype(np.int64))
+    assert diff.max() <= max_levels, f"max divergence {diff.max()} > {max_levels}"
+    frac = float(np.mean(diff > 0))
+    assert frac <= max_fraction, f"{frac:.3%} of pixels diverge (allowed {max_fraction:.1%})"
