@@ -1,0 +1,170 @@
+// K4: gather one training batch from the resident tile set and augment it.
+//
+// Replaces bio_image_unet_tpu/data/augment_jax.py:132 augment_batch (with
+// :27-129: the per-sample rot90 by k and the H/V flips of _spatial_tx, the
+// brightness/contrast, multiplicative-noise and Gaussian-noise stages of
+// _intensity, the p_pipeline gate) and, in the Trainer's device-cache path,
+// the gather `v[idx]` of bio_image_unet_tpu/train/trainer.py:569 in front of
+// it.  The random draws are made by the caller (a torch.Generator) and passed
+// in: per sample, the flags (gate, k, flip_h, flip_v, brightness/contrast
+// apply, multiplicative apply, Gaussian apply) and (alpha, beta); per pixel,
+// in the output frame, the multiplier field and the standard normal field.
+//
+// What bounds it on the card: bytes.  The least work reads each gathered
+// source pixel of image and mask (and prev) once, each noise field once, and
+// writes each output pixel once: about 16 MB for a batch of 12 one-channel
+// 256^2 tiles with one noise field, a few microseconds at 3.35 TB/s.  There
+// is no arithmetic to speak of, so the design is one pass: a thread owns 4
+// neighbouring output pixels of one row of one sample, maps each back through
+// flip_v, flip_h and rot90 to its source pixel (a rotated tile is read along
+// a column, the gather's cost), applies the intensity stage to the image in
+// registers, and stores 4 floats at once (float4) when the tile width allows.
+// Mask and prev share the source offsets, so the index arithmetic is done
+// once for all targets.
+//
+// Exactness: every float step is __fmul_rn/__fadd_rn (and the library is
+// built with -fmad=false), so the image equals the plain version's
+// x*alpha + beta, x*m, x + sigma*n, each clipped to [0, 1], step by step.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum { F_GATE = 0, F_K, F_FH, F_FV, F_BC, F_MULT, F_GAUSS, N_FLAGS };
+
+__device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+
+struct Noise {
+  const float* mult;   // (B, C, S, S) multiplier field or nullptr
+  const float* gauss;  // (B, C, S, S) standard normal field or nullptr
+};
+
+__device__ __forceinline__ float intensity(float v, const int* fl, float alpha, float beta,
+                                           Noise nz, float sigma, size_t o) {
+  if (fl[F_BC]) v = clip01(__fadd_rn(__fmul_rn(v, alpha), beta));
+  if (nz.mult != nullptr && fl[F_MULT]) v = clip01(__fmul_rn(v, nz.mult[o]));
+  if (nz.gauss != nullptr && fl[F_GAUSS]) v = clip01(__fadd_rn(v, __fmul_rn(sigma, nz.gauss[o])));
+  return v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store(float* out, const float* v, int n) {
+  if (VEC) {
+    *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int j = 0; j < n; ++j) out[j] = v[j];
+  }
+}
+
+// one target (image, prev or mask): `channels` planes of one gathered tile
+template <bool VEC>
+__device__ __forceinline__ void emit(const float* __restrict__ src, float* __restrict__ out,
+                                     long long s, int b, int channels, size_t plane,
+                                     size_t out_row, const int* src_off, int nx, bool augment,
+                                     const int* fl, float alpha, float beta, Noise nz,
+                                     float sigma) {
+  for (int c = 0; c < channels; ++c) {
+    const float* p = src + ((size_t)s * channels + c) * plane;
+    const size_t ob = ((size_t)b * channels + c) * plane + out_row;
+    float v[4];
+    for (int j = 0; j < nx; ++j) {
+      v[j] = p[src_off[j]];
+      if (augment) v[j] = intensity(v[j], fl, alpha, beta, nz, sigma, ob + j);
+    }
+    store<VEC>(out + ob, v, nx);
+  }
+}
+
+template <bool VEC>
+__global__ void augment_batch(const float* __restrict__ img_src, const float* __restrict__ mask_src,
+                              const float* __restrict__ prev_src, const long long* __restrict__ index,
+                              int n_src, int B, int ci, int co, int S,
+                              const int* __restrict__ flags, const float* __restrict__ coef,
+                              Noise img_noise, Noise prev_noise, float sigma,
+                              float* __restrict__ img_out, float* __restrict__ mask_out,
+                              float* __restrict__ prev_out) {
+  const int groups = (S + 3) / 4;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)B * S * groups) return;
+  const int g = (int)(t % groups);
+  const long long row = t / groups;
+  const int y = (int)(row % S);
+  const int b = (int)(row / S);
+
+  const int* fl = flags + (size_t)b * N_FLAGS;
+  long long s = index != nullptr ? index[b] : b;
+  s = s < 0 ? 0 : (s >= n_src ? n_src - 1 : s);  // never read outside the tile set
+  const bool gate = fl[F_GATE] != 0;
+  const int k = fl[F_K] & 3;
+  const float alpha = coef[2 * b], beta = coef[2 * b + 1];
+
+  const int x0 = g * 4;
+  const int nx = S - x0 < 4 ? S - x0 : 4;
+  int src_off[4];
+  for (int j = 0; j < nx; ++j) {
+    const int x = x0 + j;
+    if (!gate) {  // the untransformed source pixel (augment_jax.py:155-156)
+      src_off[j] = y * S + x;
+      continue;
+    }
+    // out = flip_v(flip_h(rot90(src, k))) (augment_jax.py:41-47): undo the
+    // flips, then read rot90's pixel (yy, xx) from the source
+    const int yy = fl[F_FV] ? S - 1 - y : y;
+    const int xx = fl[F_FH] ? S - 1 - x : x;
+    int sy, sx;
+    switch (k) {
+      case 0: sy = yy; sx = xx; break;
+      case 1: sy = xx; sx = S - 1 - yy; break;
+      case 2: sy = S - 1 - yy; sx = S - 1 - xx; break;
+      default: sy = S - 1 - xx; sx = yy; break;
+    }
+    src_off[j] = sy * S + sx;
+  }
+  const size_t plane = (size_t)S * S;
+  const size_t out_row = (size_t)y * S + x0;
+  emit<VEC>(img_src, img_out, s, b, ci, plane, out_row, src_off, nx, gate, fl, alpha, beta,
+            img_noise, sigma);
+  if (prev_src != nullptr)
+    emit<VEC>(prev_src, prev_out, s, b, ci, plane, out_row, src_off, nx, gate, fl, alpha, beta,
+              prev_noise, sigma);
+  emit<VEC>(mask_src, mask_out, s, b, co, plane, out_row, src_off, nx, false, fl, alpha, beta,
+            img_noise, sigma);
+}
+
+}  // namespace
+
+extern "C" {
+
+// img_src (n_src, ci, S, S), mask_src (n_src, co, S, S), prev_src (n_src, ci,
+// S, S) or null: float32 tile sets.  index: (B,) int64 rows of the tile set,
+// or null for rows 0..B-1.  flags: (B, 7) int32 (gate, k, flip_h, flip_v,
+// bc apply, mult apply, gauss apply); coef: (B, 2) float32 (alpha, beta).
+// mult/gauss (and mult_prev/gauss_prev): (B, ci, S, S) float32 fields in the
+// output frame, or null when that stage is off.  Outputs (B, ci|co, S, S)
+// float32.  One launch.
+int k4_augment_batch(const void* img_src, const void* mask_src, const void* prev_src,
+                     const void* index, int n_src, int B, int ci, int co, int S,
+                     const void* flags, const void* coef, const void* mult, const void* gauss,
+                     const void* mult_prev, const void* gauss_prev, float sigma, void* img_out,
+                     void* mask_out, void* prev_out, void* stream) {
+  const int threads = 256;
+  const long long total = (long long)B * S * ((S + 3) / 4);
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const Noise img_noise{(const float*)mult, (const float*)gauss};
+  const Noise prev_noise{(const float*)mult_prev, (const float*)gauss_prev};
+  if (S % 4 == 0)
+    augment_batch<true><<<blocks, threads, 0, st>>>(
+        (const float*)img_src, (const float*)mask_src, (const float*)prev_src,
+        (const long long*)index, n_src, B, ci, co, S, (const int*)flags, (const float*)coef,
+        img_noise, prev_noise, sigma, (float*)img_out, (float*)mask_out, (float*)prev_out);
+  else
+    augment_batch<false><<<blocks, threads, 0, st>>>(
+        (const float*)img_src, (const float*)mask_src, (const float*)prev_src,
+        (const long long*)index, n_src, B, ci, co, S, (const int*)flags, (const float*)coef,
+        img_noise, prev_noise, sigma, (float*)img_out, (float*)mask_out, (float*)prev_out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

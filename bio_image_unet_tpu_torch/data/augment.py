@@ -1,0 +1,228 @@
+"""Host-side image augmentation of the offline 2D pipeline (the port's copy of
+the transforms of ``bio_image_unet_tpu/data/augment.py`` that
+``DataProcess2D._augment`` composes: ``Transform``/``Compose`` :53-106,
+``RandomRotate90`` :108, ``ShiftScaleRotate`` :128,
+``RandomBrightnessContrast`` :293, ``Blur`` :316, ``MultiplicativeNoise``
+:351, ``rotate_array_90`` :473).
+
+numpy/scipy only.  Every transform draws from the ``np.random.Generator`` in
+the same order and with the same calls as the JAX package's, so one seed gives
+bit-equal tiles in both packages.  The other transforms of the JAX module
+come with the pipelines that use them.
+
+One divergence: the JAX ``ShiftScaleRotate`` warps with OpenCV, which the port
+does not depend on.  Here the same affine map (OpenCV's
+``getRotationMatrix2D`` about the pixel-centre, plus the shift) goes through
+``scipy.ndimage.affine_transform`` with the reflect-101 border (``mirror``),
+linear for images and nearest for masks.  The identity transform (the
+pipeline's default limits ``(0, 0, 0)``) is an exact copy in both; other
+parameters can differ from OpenCV's fixed-point interpolation by a level.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+from scipy import ndimage
+
+
+def _max_value(img: np.ndarray) -> float:
+    return 255.0 if img.dtype == np.uint8 else 1.0
+
+
+def _clip_like(img: np.ndarray, out: np.ndarray) -> np.ndarray:
+    if img.dtype == np.uint8:
+        return np.clip(out, 0, 255).astype(np.uint8)
+    return np.clip(out, 0.0, 1.0).astype(img.dtype, copy=False)
+
+
+class Transform:
+    """Base transform: ``sample`` draws shared params once per call,
+    ``apply``/``apply_mask`` use them on each target."""
+
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def sample(self, rng: np.random.Generator, shape) -> dict:
+        return {}
+
+    def apply(self, img: np.ndarray, params: dict) -> np.ndarray:
+        return img
+
+    def apply_mask(self, mask: np.ndarray, params: dict) -> np.ndarray:
+        return self.apply(mask, params)
+
+
+class Compose:
+    """Apply transforms in order; the whole pipeline fires with prob ``p``.
+    Spatial params are shared across all targets.  ``targets`` maps extra
+    target names to 'image' (intensity ops too) or 'mask' (spatial only)."""
+
+    def __init__(self, transforms: Sequence[Transform], p: float = 1.0,
+                 targets: Optional[Dict[str, str]] = None):
+        self.transforms = list(transforms)
+        self.p = p
+        self.targets = dict(targets or {})
+
+    def __call__(self, rng: Optional[np.random.Generator] = None, **data):
+        rng = rng or np.random.default_rng()
+        if rng.random() >= self.p:
+            return dict(data)
+        out = dict(data)
+        for t in self.transforms:
+            if rng.random() >= t.p:
+                continue
+            ref_shape = out["image"].shape if "image" in out else next(iter(out.values())).shape
+            params = t.sample(rng, ref_shape)
+            for name, arr in out.items():
+                kind = "image" if name == "image" else self.targets.get(name, "mask")
+                out[name] = t.apply(arr, params) if kind == "image" else t.apply_mask(arr, params)
+        return out
+
+
+# --- spatial -------------------------------------------------------------------
+
+
+class RandomRotate90(Transform):
+    """k ∈ {0, 1, 2, 3} quarter-turns."""
+
+    def sample(self, rng, shape):
+        return {"k": int(rng.integers(0, 4))}
+
+    def apply(self, img, params):
+        return np.ascontiguousarray(np.rot90(img, params["k"]))
+
+
+class ShiftScaleRotate(Transform):
+    """Affine with shift ∈ ±shift_limit·(W, H), scale ∈ 1 ± scale_limit,
+    angle ∈ ±rotate_limit (degrees); reflect-101 border, linear interpolation
+    for images, nearest for masks (see the module docstring for the
+    difference from OpenCV)."""
+
+    def __init__(self, shift_limit=0.0625, scale_limit=0.1, rotate_limit=45, p=0.5):
+        super().__init__(p)
+        self.shift_limit = self._pair(shift_limit)
+        self.scale_limit = self._pair(scale_limit)
+        self.rotate_limit = self._pair(rotate_limit)
+
+    @staticmethod
+    def _pair(v):
+        return tuple(v) if isinstance(v, (tuple, list)) else (-v, v)
+
+    def sample(self, rng, shape):
+        return {
+            "dx": rng.uniform(*self.shift_limit),
+            "dy": rng.uniform(*self.shift_limit),
+            "scale": 1.0 + rng.uniform(*self.scale_limit),
+            "angle": rng.uniform(*self.rotate_limit),
+        }
+
+    @staticmethod
+    def _matrix(params, h: int, w: int) -> np.ndarray:
+        """OpenCV's ``getRotationMatrix2D((w/2 − 0.5, h/2 − 0.5), angle,
+        scale)`` plus the shift: the 2×3 map from source (x, y) to
+        destination (x, y)."""
+        a = math.radians(params["angle"])
+        alpha, beta = params["scale"] * math.cos(a), params["scale"] * math.sin(a)
+        cx, cy = w / 2 - 0.5, h / 2 - 0.5
+        return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy + params["dx"] * w],
+                         [-beta, alpha, beta * cx + (1 - alpha) * cy + params["dy"] * h]])
+
+    def _warp(self, img, params, nearest: bool):
+        h, w = img.shape[:2]
+        m = self._matrix(params, h, w)
+        if np.array_equal(m, [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]):
+            return img.copy()
+        inv = np.linalg.inv(np.vstack([m, [0.0, 0.0, 1.0]]))
+        # (x, y) → (row, col) order for scipy: out[r, c] = in[M·(r, c) + o]
+        mat = np.array([[inv[1, 1], inv[1, 0]], [inv[0, 1], inv[0, 0]]])
+        off = np.array([inv[1, 2], inv[0, 2]])
+        order = 0 if nearest else 1
+        planes = img[..., None] if img.ndim == 2 else img
+        out = np.stack([ndimage.affine_transform(planes[..., c], mat, off, order=order,
+                                                 mode="mirror", output=img.dtype)
+                        for c in range(planes.shape[-1])], axis=-1)
+        return out[..., 0] if img.ndim == 2 else out
+
+    def apply(self, img, params):
+        return self._warp(img, params, nearest=False)
+
+    def apply_mask(self, mask, params):
+        return self._warp(mask, params, nearest=True)
+
+
+# --- intensity (image only) ----------------------------------------------------
+
+
+class RandomBrightnessContrast(Transform):
+    """out = img·(1 + c) + b·max_value."""
+
+    def __init__(self, brightness_limit=0.2, contrast_limit=0.2, p=0.5):
+        super().__init__(p)
+        self.brightness_limit = brightness_limit
+        self.contrast_limit = contrast_limit
+
+    def sample(self, rng, shape):
+        return {
+            "alpha": 1.0 + rng.uniform(-self.contrast_limit, self.contrast_limit),
+            "beta": rng.uniform(-self.brightness_limit, self.brightness_limit),
+        }
+
+    def apply(self, img, params):
+        out = img.astype(np.float32) * params["alpha"] + params["beta"] * _max_value(img)
+        return _clip_like(img, out)
+
+    def apply_mask(self, mask, params):
+        return mask
+
+
+class Blur(Transform):
+    """Box blur with a random odd kernel size in ``blur_limit``."""
+
+    def __init__(self, blur_limit=(3, 7), p=0.5):
+        super().__init__(p)
+        self.blur_limit = (
+            tuple(blur_limit) if isinstance(blur_limit, (tuple, list)) else (3, blur_limit))
+
+    def sample(self, rng, shape):
+        lo, hi = self.blur_limit
+        return {"ksize": int(rng.integers(lo // 2, hi // 2 + 1)) * 2 + 1}
+
+    def apply(self, img, params):
+        k = params["ksize"]
+        size = (k, k) + (1,) * (img.ndim - 2)
+        out = ndimage.uniform_filter(img.astype(np.float32), size=size, mode="nearest")
+        return _clip_like(img, out)
+
+    def apply_mask(self, mask, params):
+        return mask
+
+
+class MultiplicativeNoise(Transform):
+    """Per-pixel (``elementwise``) or per-image uniform multiplier."""
+
+    def __init__(self, multiplier=(0.9, 1.1), elementwise=True, p=0.5):
+        super().__init__(p)
+        self.multiplier = tuple(multiplier)
+        self.elementwise = elementwise
+
+    def sample(self, rng, shape):
+        return {"rng": rng}
+
+    def apply(self, img, params):
+        rng = params["rng"]
+        m = (rng.uniform(*self.multiplier, size=img.shape) if self.elementwise
+             else rng.uniform(*self.multiplier))
+        return _clip_like(img, img.astype(np.float32) * m)
+
+    def apply_mask(self, mask, params):
+        return mask
+
+
+def rotate_array_90(x: np.ndarray, factor: int) -> np.ndarray:
+    """rot90 that handles CHW layout (``augment.py:473``)."""
+    if x.ndim == 3 and x.shape[0] < x.shape[1]:
+        return np.ascontiguousarray(np.rot90(x, factor, axes=(1, 2)))
+    return np.ascontiguousarray(np.rot90(x, factor))

@@ -1,0 +1,249 @@
+"""On-device batched augmentation of the training hot path (counterpart of
+``bio_image_unet_tpu/data/augment_jax.py:132 augment_batch``), with K4.
+
+The JAX function draws its randomness from a threefry key inside the jitted
+step; threefry and Philox streams differ, so here the work is split in two:
+
+1. :func:`draw` makes every random draw with a ``torch.Generator`` on the
+   tensors' device, as small tensors and per-pixel fields
+   (:class:`AugmentDraws`);
+2. :func:`augment_apply` does everything else in one launch of K4
+   (``csrc/augment_batch.cu``): gather the tiles ``index`` of the resident
+   tile set, rot90 by k then flip_h then flip_v (``augment_jax.py:41-47``),
+   brightness/contrast, multiplicative noise and Gaussian noise on the image
+   (``:71-129``), and the untransformed tile where the p=0.8 gate is off
+   (``:155-156``).
+
+Because the draws are explicit, :func:`augment_apply_plain` (the plain
+PyTorch version) is held against JAX on the CPU with JAX's own draws, and K4
+against the plain version on the card.  On a CPU tensor ``augment_apply``
+takes the plain version; on a CUDA tensor it launches K4 or raises.
+
+Layout is NCHW: image (N, C, S, S), mask (N, C', S, S) float32 with square
+tiles (as ``jnp.rot90`` under ``lax.switch`` requires).  The pair form
+(``prev``, ``augment_jax.py:159-170``) shares the spatial draw, the
+brightness/contrast draw and the noise apply flags, and draws its own noise
+fields.  The 3D form (5-D tensors) and ``augment_batch_heads`` (``:192``)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops import _cuda
+
+__all__ = ["AugmentDraws", "FLAGS", "draw", "augment_apply", "augment_apply_plain",
+           "augment_batch"]
+
+
+FLAGS = ("gate", "k", "flip_h", "flip_v", "bc_apply", "mult_apply", "gauss_apply")
+
+
+@dataclass
+class AugmentDraws:
+    """One batch's random draws, in the form K4 takes them.
+
+    ``flags`` is (B, 7) int32, one column per name of ``FLAGS``: the p=0.8
+    gate, the quarter-turns k (0..3), flip_h, flip_v, and the apply flags of
+    brightness/contrast, multiplicative noise and Gaussian noise.  ``coef`` is
+    (B, 2) float32: the contrast factor ``alpha = 1 + U(−c, c)`` and the
+    brightness offset ``beta = U(−b, b)`` (images in [0, 1]).  ``mult`` is the
+    multiplier field and ``gauss`` the standard normal field that K4 scales
+    by ``sigma``, each (B, C, S, S) in the output frame; a field left
+    ``None`` switches its stage off.  The pair form carries its own fields in
+    ``mult_prev``/``gauss_prev``."""
+
+    flags: torch.Tensor
+    coef: torch.Tensor
+    mult: Optional[torch.Tensor] = None
+    gauss: Optional[torch.Tensor] = None
+    sigma: float = 0.0
+    mult_prev: Optional[torch.Tensor] = None
+    gauss_prev: Optional[torch.Tensor] = None
+
+    def flag(self, name: str) -> torch.Tensor:
+        return self.flags[:, FLAGS.index(name)]
+
+
+def draw(generator: torch.Generator, batch: int, field_shape, prev: bool = False,
+         brightness_contrast: Tuple[float, float] = (0.25, 0.25),
+         noise_mult: Optional[Tuple[float, float]] = (0.5, 1.2),
+         gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8) -> AugmentDraws:
+    """Every draw of one ``augment_batch`` call, on ``generator``'s device,
+    with the JAX function's distributions and probabilities: gate
+    p=``p_pipeline``; k uniform on 0..3; flips p=0.5; brightness/contrast
+    p=0.5; each noise stage p=0.3.  ``field_shape`` is the image batch's
+    (B, C, S, S); images are in [0, 1] (``max_value`` 1 of the JAX
+    function)."""
+    dev = generator.device
+    u = torch.rand((batch, 9), generator=generator, device=dev)
+    bright, contrast = brightness_contrast
+    # columns in the order of FLAGS; built from Python scalars only, so a
+    # draw never copies from the host and never waits for the device
+    cols = (u[:, 0] < p_pipeline, torch.clamp(u[:, 1] * 4, max=3.0), u[:, 2] < 0.5,
+            u[:, 3] < 0.5, u[:, 4] < 0.5, u[:, 7] < 0.3, u[:, 8] < 0.3)
+    flags = torch.stack([c.to(torch.int32) for c in cols], 1)
+    coef = torch.stack([1.0 + (u[:, 5] * (2 * contrast) - contrast),
+                        u[:, 6] * (2 * bright) - bright], 1)
+    out = AugmentDraws(flags=flags, coef=coef,
+                       sigma=0.0 if gauss_sigma is None else float(gauss_sigma))
+
+    def uniform():
+        return torch.empty(field_shape, device=dev).uniform_(*noise_mult, generator=generator)
+
+    def normal():
+        return torch.randn(field_shape, generator=generator, device=dev)
+
+    if noise_mult is not None:
+        out.mult = uniform()
+        out.mult_prev = uniform() if prev else None
+    if gauss_sigma is not None:
+        out.gauss = normal()
+        out.gauss_prev = normal() if prev else None
+    return out
+
+
+def _check(image: torch.Tensor, mask: torch.Tensor, prev: Optional[torch.Tensor]):
+    if image.dim() == 5:
+        raise NotImplementedError("3D volumes (B, C, Z, X, Y) are augmented by the 3D "
+                                  "slice of the port, not ported yet")
+    if image.dim() != 4 or mask.dim() != 4:
+        raise ValueError(f"augment_apply takes NCHW tensors, got {tuple(image.shape)} "
+                         f"and {tuple(mask.shape)}")
+    s = image.shape[-1]
+    if (image.shape[-2] != s or tuple(mask.shape[-2:]) != (s, s)
+            or mask.shape[0] != image.shape[0]):
+        raise ValueError("augment_apply needs square tiles of one size and as many masks "
+                         f"as images, got {tuple(image.shape)} and {tuple(mask.shape)}")
+    if prev is not None and prev.shape != image.shape:
+        raise ValueError(f"prev {tuple(prev.shape)} must match image {tuple(image.shape)}")
+
+
+def _spatial(x: torch.Tensor, k: int, fh: bool, fv: bool) -> torch.Tensor:
+    """One (C, S, S) sample: rot90 by k in the (H, W) plane, then the flips
+    (``augment_jax.py:41 _spatial_tx``)."""
+    x = torch.rot90(x, k, dims=(1, 2))
+    if fh:
+        x = torch.flip(x, dims=(2,))
+    if fv:
+        x = torch.flip(x, dims=(1,))
+    return x
+
+
+def _intensity(x: torch.Tensor, d: AugmentDraws, mult, gauss) -> torch.Tensor:
+    """The image-only stage (``augment_jax.py:116 _intensity``)."""
+    col = (-1, 1, 1, 1)
+
+    def on(name):
+        return d.flag(name).bool().view(col)
+
+    alpha, beta = d.coef[:, 0].view(col), d.coef[:, 1].view(col)
+    out = torch.where(on("bc_apply"), torch.clamp(x * alpha + beta, 0.0, 1.0), x)
+    if mult is not None:
+        out = torch.where(on("mult_apply"), torch.clamp(out * mult, 0.0, 1.0), out)
+    if gauss is not None:
+        out = torch.where(on("gauss_apply"), torch.clamp(out + d.sigma * gauss, 0.0, 1.0), out)
+    return out
+
+
+def augment_apply_plain(image, mask, draws: AugmentDraws, index=None, prev=None):
+    """Plain PyTorch K4 (``torch.rot90``, ``torch.flip``, ``torch.where``,
+    ``clamp``); same arguments and results as :func:`augment_apply`."""
+    _check(image, mask, prev)
+    if index is not None:
+        image, mask = image[index], mask[index]
+        prev = None if prev is None else prev[index]
+    ks, fhs, fvs = (draws.flag(n).tolist() for n in ("k", "flip_h", "flip_v"))
+
+    def spatial(t):
+        return torch.stack([_spatial(t[b], ks[b], bool(fhs[b]), bool(fvs[b]))
+                            for b in range(t.shape[0])])
+
+    gate = draws.flag("gate").bool().view(-1, 1, 1, 1)
+    outs = [torch.where(gate, _intensity(spatial(image), draws, draws.mult, draws.gauss), image),
+            torch.where(gate, spatial(mask), mask)]
+    if prev is not None:
+        outs.append(torch.where(gate, _intensity(spatial(prev), draws, draws.mult_prev,
+                                                 draws.gauss_prev), prev))
+    return tuple(outs)
+
+
+def augment_apply(image: torch.Tensor, mask: torch.Tensor, draws: AugmentDraws,
+                  index: Optional[torch.Tensor] = None, prev: Optional[torch.Tensor] = None):
+    """K4: gather rows ``index`` (default: all, in order) of the tile sets
+    ``image`` (N, C, S, S) and ``mask`` (N, C', S, S) (and ``prev``) and apply
+    ``draws`` → ``(image, mask)`` or ``(image, mask, prev)``, each (B, ·, S, S)
+    float32.  On CUDA tensors one kernel launch; on CPU tensors the plain
+    version."""
+    _check(image, mask, prev)
+    if image.device.type == "cpu":
+        return augment_apply_plain(image, mask, draws, index, prev)
+    dev = image.device
+    for t, what in ((image, "image"), (mask, "mask"), (prev, "prev"),
+                    (draws.mult, "mult"), (draws.gauss, "gauss"),
+                    (draws.mult_prev, "mult_prev"), (draws.gauss_prev, "gauss_prev")):
+        if t is None:
+            continue
+        _cuda.require_cuda(t, f"augment_apply {what}", dev)
+        if t.dtype != torch.float32:
+            raise ValueError(f"augment_apply {what}: expected float32, got {t.dtype}")
+    n_src, ci, s = image.shape[0], image.shape[1], image.shape[-1]
+    co = mask.shape[1]
+    if index is not None:
+        if index.dtype != torch.int64 or index.dim() != 1:
+            raise ValueError("augment_apply index: expected a 1-D int64 tensor")
+        _cuda.require_cuda(index, "augment_apply index", dev)
+    b = n_src if index is None else index.shape[0]
+    for f, what in ((draws.mult, "mult"), (draws.gauss, "gauss")):
+        if f is not None and tuple(f.shape) != (b, ci, s, s):
+            raise ValueError(f"augment_apply {what}: field {tuple(f.shape)}, "
+                             f"want {(b, ci, s, s)}")
+    if prev is not None and ((draws.mult is None) != (draws.mult_prev is None)
+                             or (draws.gauss is None) != (draws.gauss_prev is None)):
+        raise ValueError("augment_apply: the pair form needs its own noise fields")
+    flags, coef = draws.flags, draws.coef
+    _cuda.require_cuda(flags, "augment_apply flags", dev)
+    _cuda.require_cuda(coef, "augment_apply coef", dev)
+    if (flags.dtype, coef.dtype) != (torch.int32, torch.float32) or (
+            tuple(flags.shape), tuple(coef.shape)) != ((b, len(FLAGS)), (b, 2)):
+        raise ValueError(f"augment_apply: draws {tuple(flags.shape)} {flags.dtype} / "
+                         f"{tuple(coef.shape)} {coef.dtype} for a batch of {b}")
+    img_out = torch.empty((b, ci, s, s), dtype=torch.float32, device=dev)
+    mask_out = torch.empty((b, co, s, s), dtype=torch.float32, device=dev)
+    prev_out = None if prev is None else torch.empty_like(img_out)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    A = _cuda
+    fn = A.function("augment_batch", "k4_augment_batch",
+                    [A.P, A.P, A.P, A.P, A.I32, A.I32, A.I32, A.I32, A.I32, A.P, A.P,
+                     A.P, A.P, A.P, A.P, A.F32, A.P, A.P, A.P, A.P])
+    A.launch(fn, dev, ptr(image), ptr(mask), ptr(prev), ptr(index), n_src, b, ci, co, s,
+             ptr(flags), ptr(coef), ptr(draws.mult), ptr(draws.gauss), ptr(draws.mult_prev),
+             ptr(draws.gauss_prev), float(draws.sigma), ptr(img_out), ptr(mask_out),
+             ptr(prev_out))
+    augment_apply.launches += 1
+    return (img_out, mask_out) if prev is None else (img_out, mask_out, prev_out)
+
+
+augment_apply.launches = 0
+
+
+def augment_batch(generator: torch.Generator, image, mask, prev=None, index=None,
+                  brightness_contrast: Tuple[float, float] = (0.25, 0.25),
+                  noise_mult: Optional[Tuple[float, float]] = (0.5, 1.2),
+                  gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8):
+    """One full augmentation draw of a batch (``augment_jax.py:132``): the
+    draws from ``generator``, then K4.  ``index`` gathers from a resident
+    tile set; without it ``image`` is the batch."""
+    b = image.shape[0] if index is None else index.shape[0]
+    if image.dim() == 5:
+        _check(image, mask, prev)
+    d = draw(generator, b, (b,) + tuple(image.shape[1:]), prev is not None,
+             brightness_contrast, noise_mult, gauss_sigma, p_pipeline)
+    return augment_apply(image, mask, d, index, prev)

@@ -32,6 +32,7 @@ SOURCES = {
     "clip_bounds": "clip_bounds.cu",
     "normalize_tile": "normalize_tile.cu",
     "sigmoid_stitch": "sigmoid_stitch.cu",
+    "augment_batch": "augment_batch.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -4,7 +4,10 @@
 The JAX package builds ``ConvBlock`` as flax modules in NHWC; here they are
 ``nn.Sequential(Conv2d, BatchNorm2d, LeakyReLU, Dropout2d)`` in NCHW, so a
 reference ``.pt`` state dict (keys ``<block>.0.*`` for the conv, ``<block>.1.*``
-for the BatchNorm) loads with ``load_state_dict(strict=True)``.
+for the BatchNorm) loads with ``load_state_dict(strict=True)``.  In train mode
+``BatchNorm2d(momentum=0.1, eps=1e-5)`` has the JAX ``TorchBatchNorm``
+semantics: biased batch variance to normalize, unbiased ``n/(n-1)`` for the
+running variance.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _BN_EPS = 1e-5
@@ -20,22 +24,53 @@ _BN_EPS = 1e-5
 _KAIMING_SLOPE = 0.01
 
 
-def conv_block(in_ch: int, out_ch: int, dilation: int = 1,
-               dropout: float = 0.0, negative_slope: float = 0.1) -> nn.Sequential:
+class ConvBlock(nn.Sequential):
     """Conv(k3, padding=dilation, dilation) + BatchNorm(eps 1e-5) +
-    LeakyReLU + channel Dropout (``ops/blocks.py:107 ConvBlock``)."""
-    return nn.Sequential(
-        nn.Conv2d(in_ch, out_ch, 3, padding=dilation, dilation=dilation),
-        nn.BatchNorm2d(out_ch, eps=_BN_EPS),
-        nn.LeakyReLU(negative_slope),
-        nn.Dropout2d(dropout),
-    )
+    LeakyReLU + channel Dropout (``ops/blocks.py:107 ConvBlock``).
+
+    With ``compute_dtype`` set (bfloat16, the Trainer's ``half_precision``)
+    the block mirrors the JAX block's casts (``ops/blocks.py:143-148``): the
+    conv runs on bf16 copies of the input and of the float32 parameters, the
+    BatchNorm on a float32 copy of the conv output (so its statistics and
+    running averages stay float32), and the result returns to bf16.  The
+    casts are explicit, not left to autocast."""
+
+    def __init__(self, in_ch: int, out_ch: int, dilation: int = 1,
+                 dropout: float = 0.0, negative_slope: float = 0.1):
+        super().__init__(
+            nn.Conv2d(in_ch, out_ch, 3, padding=dilation, dilation=dilation),
+            nn.BatchNorm2d(out_ch, eps=_BN_EPS, momentum=0.1),
+            nn.LeakyReLU(negative_slope),
+            nn.Dropout2d(dropout),
+        )
+        self.compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn, act, drop = self
+        dt = self.compute_dtype
+        if dt is None:
+            x = bn(conv(x))
+        else:
+            x = F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                         padding=conv.padding, dilation=conv.dilation)
+            x = bn(x.float()).to(dt)
+        return drop(act(x))
 
 
-def conv_transpose(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:
+class ConvTranspose(nn.ConvTranspose2d):
     """ConvTranspose2d(kernel 2, stride 2) upsampling
-    (``ops/blocks.py:165 ConvTranspose``)."""
-    return nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+    (``ops/blocks.py:165 ConvTranspose``); with ``compute_dtype`` set it runs
+    on bf16 copies of input and parameters, as the JAX module does."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 2, stride=2)
+        self.compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=2)
 
 
 def he_normal_leaky_(weight: torch.Tensor,

@@ -1,0 +1,419 @@
+"""The Trainer of the 2D ``Unet`` (counterpart of
+``bio_image_unet_tpu/train/trainer.py:114 Trainer`` for ``network="Unet"``).
+
+What it keeps of the JAX Trainer, so that one seed and one set of initial
+weights give the same ``metrics.csv`` rows:
+
+- the split and batch order: ``random_split``/``DataLoader`` with
+  ``np.random.default_rng`` (``trainer.py:249-255``), and with
+  ``device_cache`` the ``seed + 1`` permutation per epoch (``:627-632``);
+- the loss: per-channel ``criterion(logits[:, ch], mask[:, ch])`` weighted by
+  ``channel_weights`` (``:460-467``);
+- Adam (``torch.optim.Adam``, the optax Adam of ``:275-280``; ``grad_clip``
+  through ``clip_grad_norm_``) and the torch-semantics ``ReduceLROnPlateau``
+  (``:76``) stepped on the validation loss after every epoch, the train loss
+  standing in when there is no validation batch (``:784-789``);
+- ``metrics.csv`` (``:365-371, 798-801``), the best-validation save, the
+  ``save_iter`` saves, the emergency checkpoint on an interrupt (``:759-771``)
+  and ``start(test_data_path=...)`` through the port's ``Predict``.
+
+How it runs on the card: an eager PyTorch step (autograd through cuDNN and
+PyTorch ops stands in for XLA's autodiff; the JAX package has no hand-written
+backward).  ``half_precision`` runs the convs in bf16 with float32
+parameters, BatchNorm and logits (``models.Unet(dtype=...)``).
+``device_cache`` keeps the training tiles on the card and takes one index
+row per step; ``device_augment`` draws on a ``torch.Generator`` and gathers
+and augments each batch in one launch of K4 (``data/augment_device.py``).
+On the card, weights and activations are channels-last.
+
+Checkpoints are reference-schema ``.pt`` files (``checkpoint.save``) that
+both packages' ``Predict`` read.  One divergence: ``epoch`` in every
+checkpoint is the number of epochs completed, the epoch a resume continues
+from (the JAX package stores that only in its emergency checkpoint and the
+finished epoch's index elsewhere).  A resume restores weights, BatchNorm
+statistics, Adam and scheduler state and best loss, and advances the shuffle
+streams past the completed epochs, so one epoch, a resume and one more equal
+two epochs straight.
+
+Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
+raises without a card.  Not ported yet, each raising NotImplementedError:
+networks other than ``Unet``, ``mode`` (Siam), ``output_heads``/
+``deep_supervision`` (multi-output), ``use_interpolation``/
+``time_loss_weight`` (3D), ``mesh`` and ``device_cache="sharded"``
+(multi-GPU), ``remat``, ``tensorboard``/``log_images``/``profile_dir``.
+"""
+
+from __future__ import annotations
+
+import csv
+import glob
+import os
+import time
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .. import checkpoint
+from ..data import tiff
+from ..data.augment_device import augment_batch
+from ..data.pipelines import DataLoader, random_split
+from ..losses import get_loss
+from ..models import get_model
+from ..ops.blocks import init_weights_
+from ..utils.device import resolve_device
+
+__all__ = ["ReduceLROnPlateau", "Trainer"]
+
+
+class ReduceLROnPlateau:
+    """torch ``ReduceLROnPlateau(mode='min')`` semantics with its relative
+    threshold 1e-4 (``trainer.py:76``).  Its state (``best``, ``num_bad``,
+    ``scale``) is the ``scheduler_state`` of the checkpoints."""
+
+    def __init__(self, factor=0.1, patience=4, min_lr=0.0,
+                 threshold=1e-4, threshold_mode="rel"):
+        if threshold_mode not in ("rel", "abs"):
+            raise ValueError(f"threshold_mode {threshold_mode!r} not in ('rel', 'abs')")
+        self.factor, self.patience, self.min_lr = factor, patience, min_lr
+        self.threshold, self.threshold_mode = threshold, threshold_mode
+        self.best = float("inf")
+        self.num_bad = 0
+        self.scale = 1.0
+
+    def _is_better(self, metric: float) -> bool:
+        if self.best == float("inf"):
+            return True
+        if self.threshold_mode == "rel":
+            return metric < self.best * (1.0 - self.threshold)
+        return metric < self.best - self.threshold
+
+    def step(self, metric: float) -> float:
+        if self._is_better(metric):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                self.scale = max(self.scale * self.factor, self.min_lr)
+                self.num_bad = 0
+        return self.scale
+
+    def state(self) -> Dict[str, float]:
+        return {"best": self.best, "num_bad": self.num_bad, "scale": self.scale}
+
+    def load(self, state: Dict[str, float]) -> None:
+        self.best = float(state["best"])
+        self.num_bad = int(state["num_bad"])
+        self.scale = float(state["scale"])
+
+
+def _not_ported(what: str, slice_name: str):
+    raise NotImplementedError(f"{what} is not ported to PyTorch yet (the {slice_name} "
+                              "slice of the port); the 2D Unet trainer is")
+
+
+class Trainer:
+    """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet``;
+    the dataset yields ``{'image': (C, H, W), 'mask': (C', H, W)}`` float32
+    numpy items (``data.pipelines.DataProcess2D``)."""
+
+    def __init__(
+        self,
+        dataset,
+        num_epochs: int,
+        network: str = "Unet",
+        batch_size: int = 4,
+        lr: float = 1e-3,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        channel_weights: Optional[Sequence[float]] = None,
+        n_filter: int = 64,
+        dilation: Union[int, bool] = 1,
+        val_split: float = 0.2,
+        save_dir: str = "./",
+        save_name: str = "model.pt",
+        save_iter: bool = False,
+        load_weights: Union[bool, str, None] = False,
+        loss_function: str = "BCEDice",
+        loss_params: Tuple[float, float] = (0.5, 0.5),
+        mode: Optional[str] = None,
+        use_interpolation: bool = False,
+        time_loss_weight: Optional[float] = None,
+        output_heads: Optional[Dict[str, dict]] = None,
+        deep_supervision: bool = False,
+        levels: int = 4,
+        grad_clip: Optional[float] = None,
+        scheduler_patience: int = 4,
+        scheduler_factor: float = 0.1,
+        mesh=None,
+        seed: int = 0,
+        half_precision: bool = False,
+        remat: bool = False,
+        device_cache: Union[bool, str] = False,
+        device_augment: bool = False,
+        tensorboard: bool = False,
+        log_images: bool = False,
+        profile_dir: Optional[str] = None,
+        device=None,
+    ):
+        del levels  # only the multi-output trainer reads it
+        if network != "Unet":
+            _not_ported(f"training network {network!r}", "model's")
+        if mode is not None:
+            _not_ported("mode= (the siamese trainer)", "Siam")
+        if output_heads is not None or deep_supervision:
+            _not_ported("output_heads=/deep_supervision= (the multi-output trainer)",
+                        "multi-output")
+        if use_interpolation or time_loss_weight is not None:
+            _not_ported("use_interpolation=/time_loss_weight= (the 3D trainer)", "3D")
+        if mesh is not None or device_cache == "sharded":
+            _not_ported("mesh=/device_cache='sharded' (multi-GPU training)", "multi-GPU")
+        if remat:
+            _not_ported("remat=True (activation checkpointing)", "trainer-options")
+        if tensorboard or log_images or profile_dir:
+            _not_ported("tensorboard=/log_images=/profile_dir=", "trainer-observability")
+        self.device = resolve_device(None if device == "auto" else device)
+        self.num_epochs = num_epochs
+        self.batch_size = batch_size
+        self.lr = lr
+        self.out_channels = out_channels
+        self.loss_function = loss_function
+        self.loss_params = tuple(loss_params)
+        self.save_dir = save_dir
+        self.save_name = save_name
+        self.save_iter = save_iter
+        self.device_augment = device_augment
+        self.grad_clip = grad_clip
+        self.seed = seed
+        self.best_loss = float("inf")
+        self.epoch_start = 0
+        # one dict per epoch run: the metrics.csv row plus the training
+        # pass's own wall time (``train_seconds``, validation excluded)
+        self.history = []
+        os.makedirs(save_dir, exist_ok=True)
+
+        # --- model: seeded init, float32 parameters ---
+        self.model = get_model(network, n_filter=n_filter, in_channels=in_channels,
+                               out_channels=out_channels, dilation=dilation,
+                               dtype=torch.bfloat16 if half_precision else None)
+        init_weights_(self.model, torch.Generator().manual_seed(seed))
+        self.channel_weights = torch.as_tensor(
+            np.ones(out_channels, np.float32) if channel_weights is None
+            else np.asarray(channel_weights, np.float32))
+        self.criterion = get_loss(loss_function, **self._loss_kwargs())
+
+        # --- data ---
+        train_data, val_data = random_split(dataset, val_split, seed=seed)
+        self.train_loader = DataLoader(train_data, batch_size, shuffle=True,
+                                       drop_last=True, seed=seed)
+        self.val_loader = DataLoader(val_data, batch_size, shuffle=False, drop_last=False)
+
+        # --- init / resume ---
+        load_path = None
+        if load_weights:
+            load_path = load_weights if isinstance(load_weights, str) else os.path.join(
+                save_dir, save_name)
+            state = checkpoint.load(load_path)
+            self.model.load_state_dict(state["state_dict"], strict=True)
+        self.model.to(self.device)
+        if self.device.type == "cuda":
+            self.model.to(memory_format=torch.channels_last)
+        self.channel_weights = self.channel_weights.to(self.device)
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr)
+        self.scheduler = ReduceLROnPlateau(scheduler_factor, scheduler_patience)
+        if load_path is not None:
+            if state["optimizer_state_dict"] is not None:
+                self.optimizer.load_state_dict(state["optimizer_state_dict"])
+            if state["epoch"] is not None:
+                self.epoch_start = int(state["epoch"])
+            if state["best_loss"] is not None:
+                self.best_loss = float(state["best_loss"])
+            sched = state["hyperparams"].get("scheduler_state")
+            if sched:
+                self.scheduler.load(sched)
+
+        # --- self-describing checkpoint hyperparams (trainer.py:324-354) ---
+        self.params_meta = {
+            "model_name": network, "lr": lr, "loss_function": loss_function,
+            "loss_params": self.loss_params, "n_filter": n_filter, "dilation": dilation,
+            "batch_size": batch_size, "in_channels": in_channels,
+            "out_channels": out_channels,
+        }
+        for attr in ("aug_factor", "clip_threshold", "noise_lims", "noise_amp",
+                     "brightness_contrast", "shiftscalerotate", "gauss_noise_lims",
+                     "shot_noise_lims", "random_rotate"):
+            if hasattr(dataset, attr):
+                key = "augmentation" if attr == "aug_factor" else attr
+                self.params_meta[key] = getattr(dataset, attr)
+        self.params_meta["use_interpolation"] = use_interpolation
+
+        self.metrics_path = os.path.join(save_dir, "metrics.csv")
+        if not load_weights or not os.path.exists(self.metrics_path):
+            with open(self.metrics_path, "w", newline="") as fh:
+                csv.writer(fh).writerow(["epoch", "train_loss", "val_loss", "lr", "seconds"])
+
+        # --- shuffle streams, advanced past the epochs a resume skips ---
+        self.train_loader.skip_epochs(self.epoch_start)
+        self._device_data = None
+        if device_cache:
+            # the training tiles live on the card; one index row per step
+            self._train_rng = np.random.default_rng(seed + 1)
+            samples = [train_data[i] for i in range(len(train_data))]
+            self._n_train = len(samples)
+            for _ in range(self.epoch_start):
+                self._train_rng.permutation(self._n_train)
+            self._device_data = {k: torch.from_numpy(np.stack([s_[k] for s_ in samples]))
+                                 .to(self.device) for k in ("image", "mask")}
+
+    def _loss_kwargs(self):
+        if self.loss_function in ("BCEDice", "Tversky", "logcoshTversky", "weightedBCE"):
+            return {"alpha": self.loss_params[0], "beta": self.loss_params[1]}
+        return {}
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def _compute_loss(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        w = self.channel_weights
+        total = sum(self.criterion(logits[:, ch], target[:, ch]) * w[ch]
+                    for ch in range(self.out_channels))
+        return total / torch.sum(w)
+
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        if self.device.type == "cuda":
+            return x.contiguous(memory_format=torch.channels_last)
+        return x
+
+    def _train_step(self, image: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        _, logits = self.model(self._input(image))
+        with torch.profiler.record_function("loss"):
+            loss = self._compute_loss(logits, mask)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if self.grad_clip is not None:
+            torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.grad_clip)
+        self.optimizer.step()
+        return loss.detach()
+
+    def _augment_generator(self, epoch: int) -> torch.Generator:
+        """The epoch's augmentation stream: seeded from (seed, epoch), so a
+        resumed run draws what the uninterrupted run would have."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed * 1_000_003 + epoch)
+        return gen
+
+    def _batches(self, epoch: int):
+        """(image, mask) training batches of one epoch, on the device."""
+        gen = self._augment_generator(epoch) if self.device_augment else None
+
+        def augment(image, mask, index=None):
+            with torch.profiler.record_function("augment"):
+                return augment_batch(gen, image, mask, index=index)
+
+        if self._device_data is not None:
+            n_steps = self._n_train // self.batch_size
+            perm = self._train_rng.permutation(self._n_train)[: n_steps * self.batch_size]
+            rows = torch.from_numpy(perm.reshape(n_steps, self.batch_size)).to(self.device)
+            image, mask = self._device_data["image"], self._device_data["mask"]
+            for idx in rows:
+                if gen is not None:
+                    yield augment(image, mask, idx)
+                else:
+                    yield image.index_select(0, idx), mask.index_select(0, idx)
+            return
+        for batch in self.train_loader:
+            image = torch.from_numpy(batch["image"]).to(self.device)
+            mask = torch.from_numpy(batch["mask"]).to(self.device)
+            yield augment(image, mask) if gen is not None else (image, mask)
+
+    def _iterate_train(self, epoch: int) -> float:
+        print(f"\nStarting training epoch {epoch} ...")
+        self.model.train()
+        losses = [self._train_step(image, mask) for image, mask in self._batches(epoch)]
+        if not losses:
+            return float("nan")
+        return float(torch.stack(losses).mean())
+
+    @torch.no_grad()
+    def _iterate_val(self, epoch: int) -> float:
+        print(f"\nStarting validation epoch {epoch} ...")
+        self.model.eval()
+        losses = []
+        for batch in self.val_loader:
+            image = torch.from_numpy(batch["image"]).to(self.device)
+            mask = torch.from_numpy(batch["mask"]).to(self.device)
+            _, logits = self.model(self._input(image))
+            losses.append(self._compute_loss(logits, mask))
+        return float(torch.stack(losses).mean()) if losses else float("nan")
+
+    # ------------------------------------------------------------------
+    # epoch loop
+    # ------------------------------------------------------------------
+
+    def _save(self, path: str, epoch: int) -> None:
+        meta = {**self.params_meta, "scheduler_state": self.scheduler.state()}
+        checkpoint.save(path, self.model.state_dict(), meta, epoch=epoch,
+                        best_loss=self.best_loss, optimizer_state=self.optimizer.state_dict())
+
+    def start(self, test_data_path=None, result_path=None, test_resize_dim=(512, 512)):
+        """Run training; optionally predict a folder of test tifs after each
+        epoch.  Returns the best validation loss."""
+        save_path = os.path.join(self.save_dir, self.save_name)
+        self._epoch_reached = self.epoch_start
+        try:
+            self._run_epochs(save_path, test_data_path, result_path, test_resize_dim)
+        except (KeyboardInterrupt, Exception):
+            emergency = os.path.join(self.save_dir, "model_interrupted.pt")
+            try:
+                self._save(emergency, self._epoch_reached)
+                print(f"\nInterrupted — state saved to {emergency}")
+            except Exception as save_err:
+                print(f"\nInterrupted — emergency checkpoint failed: {save_err}")
+            raise
+        return self.best_loss
+
+    def _run_epochs(self, save_path, test_data_path, result_path, test_resize_dim):
+        for epoch in range(self.epoch_start, self.epoch_start + self.num_epochs):
+            t0 = time.time()
+            train_loss = self._iterate_train(epoch)  # returns after the device is done
+            train_seconds = time.time() - t0
+            val_loss = self._iterate_val(epoch)
+            if np.isnan(val_loss):
+                val_loss = train_loss
+            lr_scale = self.scheduler.step(val_loss)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr * lr_scale
+            dt = time.time() - t0
+            print(f"\nEpoch {epoch} completed in {dt:.2f} seconds "
+                  f"(train {train_loss:.5f}, val {val_loss:.5f})")
+            with open(self.metrics_path, "a", newline="") as fh:
+                csv.writer(fh).writerow([epoch, train_loss, val_loss, self.lr * lr_scale,
+                                         round(dt, 2)])
+            self.history.append({"epoch": epoch, "train_loss": train_loss,
+                                 "val_loss": val_loss, "lr": self.lr * lr_scale,
+                                 "seconds": dt, "train_seconds": train_seconds})
+            self._epoch_reached = epoch + 1
+            if val_loss < self.best_loss:
+                print(f"\nValidation loss improved from {self.best_loss:.5f} "
+                      f"to {val_loss:.5f} - saving model state")
+                self.best_loss = val_loss
+                self._save(save_path, epoch + 1)
+            if self.save_iter:
+                self._save(os.path.join(self.save_dir, f"model_epoch_{epoch}.pt"), epoch + 1)
+            if test_data_path is not None:
+                self._predict_test_folder(epoch, test_data_path, result_path, test_resize_dim)
+
+    def _predict_test_folder(self, epoch, test_data_path, result_path, resize_dim):
+        from ..predict import Predict
+
+        print("\nPredicting test data...")
+        ckpt = os.path.join(self.save_dir, f"model_epoch_{epoch}.pt")
+        if not os.path.exists(ckpt):
+            self._save(ckpt, epoch + 1)
+        os.makedirs(result_path, exist_ok=True)
+        for file in glob.glob(os.path.join(test_data_path, "*.tif")):
+            Predict(tiff.imread(file),
+                    os.path.join(result_path, os.path.basename(file) + f"epoch_{epoch}.tif"),
+                    ckpt, resize_dim=resize_dim, show_progress=False, device=self.device)

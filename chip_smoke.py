@@ -25,7 +25,25 @@ non-zero without printing a result:
    (``device_pipeline=False``), and a small float32 ``Predict`` on the card
    against the same on the CPU.  Prints the end-to-end and device-resident
    MP/s (the definitions of ``bench.py``);
-5. the kernels' JSON line, then the last line
+5. kernels (training) — K4, the gather and augmentation of a training batch,
+   held against its plain version at the training shapes (12 tiles of 256²
+   gathered from a 120-tile resident set: mask bit-equal, image within one
+   float32 ulp) and timed beside its byte bound;
+6. train — the second main path, through the ``unet`` facade a user calls:
+   ``DataProcess`` on 150 blob frames of 256² (``utils.synth``), then
+   ``Trainer`` at the full width of ``benchmarks/train_bench.py``
+   (``Unet(n_filter=32)``, batch 12, lr 1e-4, BCEDice, bf16,
+   ``device_cache=True``, ``device_augment=True``) for 3 epochs of 10 steps.
+   The launch counts are set to 0 just before and read just after: K4 must
+   have launched once per step.  Prints the per-epoch losses, patches/s
+   (``train_bench.py``'s definition: steps·batch over the best training
+   epoch's wall time), step time, peak device memory and the implied share
+   of the card's bf16 peak; the last epoch's train loss must be below the
+   first's.  Then one profiled epoch (device time by stage, idle share), the
+   trained ``.pt`` through ``Predict`` on a 16-frame blob movie (mask IoU
+   against the blob truth), and a small float32 training run on the card
+   against the same on the CPU (``metrics.csv`` rows within rtol 1e-3);
+7. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -33,6 +51,7 @@ Without CUDA, or outside a checkout of the repository, it exits with code 2.
 
 from __future__ import annotations
 
+import csv
 import json
 import shutil
 import subprocess
@@ -45,14 +64,19 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 
-# published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
-# float32 rate outside the tensor cores (the kernels here do scalar work)
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth,
+# float32 rate outside the tensor cores (the kernels here do scalar work) and
+# the dense bf16 tensor-core rate (the training convolutions)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 FRAMES, H, W, TILE, N_FILTER = 64, 1024, 1024, 256, 32
 CHUNK = 16
 L2_FLUSH_BYTES = 128 << 20
+# the training path: train_bench.py's width and batch, 150 frames → 120
+# training tiles (10 steps of 12) + 30 validation tiles
+TRAIN_FRAMES, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_LR = 150, 12, 3, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -83,7 +107,10 @@ def main() -> int:
     card = phase_device()
     phase_build(_cuda)
     kernels = phase_kernels(torch, dev)
+    k4 = phase_kernel_augment(torch, dev)
     phase_main_path(torch, dev, kernels)
+    kernels.append(k4)
+    phase_train(torch, dev, kernels)
     for k in kernels:
         k.pop("_counter")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -439,6 +466,308 @@ def profile_device_resident(torch, fn, movie_dev, n_chunk) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (total, count) in top:
         log(f"[main]   {total / 1e3:8.2f} ms {count:5d}x  {name[:110]}")
+
+
+# --- 5. kernels of the training path ---------------------------------------------
+
+def phase_kernel_augment(torch, dev) -> dict:
+    """K4 at the training shapes: 12 of 120 resident 256² tiles, the draws
+    the Trainer makes (no Gaussian stage); the pair form with the Gaussian
+    stage is checked at the same shapes."""
+    from bio_image_unet_tpu_torch.data.augment_device import (augment_apply,
+                                                              augment_apply_plain, draw)
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, b, s = 120, TRAIN_BATCH, TILE
+    image = torch.rand((n, 1, s, s), generator=g, device=dev)
+    mask = (torch.rand((n, 1, s, s), generator=g, device=dev) > 0.5).float()
+    prev = torch.rand((n, 1, s, s), generator=g, device=dev)
+    index = torch.randperm(n, generator=g, device=dev)[:b]
+
+    def ulps(a, ref):
+        return (a.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max().item()
+
+    d = draw(g, b, (b, 1, s, s))
+    ours = augment_apply(image, mask, d, index=index)
+    torch.cuda.synchronize()
+    ref = augment_apply_plain(image, mask, d, index=index)
+    if not torch.equal(ours[1], ref[1]) or ulps(ours[0], ref[0]) > 1:
+        raise AssertionError(f"K4: mask equal {torch.equal(ours[1], ref[1])}, image "
+                             f"{ulps(ours[0], ref[0])} ulps from the plain version")
+    err = (ours[0] - ref[0]).abs().max().item()
+    dp = draw(g, b, (b, 1, s, s), prev=True, gauss_sigma=0.04)
+    pair = augment_apply(image, mask, dp, index=index, prev=prev)
+    torch.cuda.synchronize()
+    pref = augment_apply_plain(image, mask, dp, index=index, prev=prev)
+    if not torch.equal(pair[1], pref[1]) or max(ulps(pair[0], pref[0]),
+                                                ulps(pair[2], pref[2])) > 1:
+        raise AssertionError("K4 pair form with Gaussian noise differs from its plain version")
+
+    ms = timer(lambda: augment_apply(image, mask, d, index=index))
+    plain_ms = timer(lambda: augment_apply_plain(image, mask, d, index=index), 3)
+    flags = d.flags.cpu()
+    n_mult = int(((flags[:, 0] != 0) & (flags[:, 5] != 0)).sum())
+    plane = s * s * 4
+    # least work for this draw: index, flags and coefficients; each gathered
+    # image and mask pixel read once; the multiplier field read for the samples
+    # whose gate and noise flag are on; each output pixel written once; about
+    # six float operations per augmented image pixel
+    n_bytes = b * (8 + 7 * 4 + 2 * 4) + 2 * b * plane + n_mult * plane + 2 * b * plane
+    bound, by = bound_ms(n_bytes, 6 * b * s * s)
+    log(f"[kernels] k4_augment_batch: mask bit-equal, image max_abs_err {err} (<= 1 ulp); "
+        f"pair form + Gaussian checked | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+        f"bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.2f} MB) | library none")
+    return {"name": "k4_augment_batch", "route": "cuda",
+            "source": "bio_image_unet_tpu_torch/csrc/augment_batch.cu",
+            "replaces": "bio_image_unet_tpu/data/augment_jax.py:132", "launches": 0,
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "_counter": augment_apply}
+
+
+# --- 6. the training path ----------------------------------------------------------
+
+def unet_forward_flops(nf: int, s: int) -> float:
+    """Multiply-add FLOPs of one s² tile through ``Unet(n_filter=nf)``: the
+    3×3 convs of each level, the 2×2 stride-2 transposed convs and the final
+    1×1 conv."""
+    def conv(ci, co, hw, k=3):
+        return 2 * ci * co * k * k * hw
+
+    f, hw = 0.0, s * s
+    widths = [(1, nf), (nf, 2 * nf), (2 * nf, 4 * nf), (4 * nf, 8 * nf), (8 * nf, 16 * nf)]
+    for level, (ci, co) in enumerate(widths):
+        f += conv(ci, co, hw / 4 ** level) + conv(co, co, hw / 4 ** level)
+    for level in range(4, 0, -1):
+        ci, co = widths[level][1], widths[level - 1][1]
+        f += 2 * ci * co * 4 * hw / 4 ** level  # transposed conv, per input pixel
+        f += conv(2 * co, co, hw / 4 ** (level - 1)) + conv(co, co, hw / 4 ** (level - 1))
+    return f + 2 * nf * hw
+
+
+def write_blob_frames(root: Path, n: int, size: int, seed: int) -> tuple:
+    """``n`` blob frames and their masks as TIFFs under ``root``/image and
+    ``root``/label (the layout ``DataProcess`` reads)."""
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    rng = np.random.default_rng(seed)
+    for sub in ("image", "label"):
+        (root / sub).mkdir(parents=True)
+    for i in range(n):
+        img, mask = blob_sample(rng, (size, size), n_blobs=10, margin=16, radius=(8, 20))
+        tiff.imwrite(str(root / "image" / f"{i:04d}.tif"), img)
+        tiff.imwrite(str(root / "label" / f"{i:04d}.tif"), mask)
+    return (str(root / "image") + "/", str(root / "label") + "/")
+
+
+def phase_train(torch, dev, kernels) -> None:
+    from bio_image_unet_tpu_torch import unet
+
+    counters = {id(k["_counter"]): k["_counter"] for k in kernels}
+    k4 = kernels[-1]
+    # the user's defaults: cuDNN may use TF32 for float32 convolutions
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        source = write_blob_frames(tmp / "frames", TRAIN_FRAMES, TILE, seed=0)
+        data = unet.DataProcess(source, dim_out=(TILE, TILE), aug_factor=None,
+                                data_path=str(tmp / "data"), seed=0)
+        trainer = unet.Trainer(data, TRAIN_EPOCHS, n_filter=N_FILTER, batch_size=TRAIN_BATCH,
+                               lr=TRAIN_LR, save_dir=str(tmp / "run"), seed=0,
+                               half_precision=True, device_cache=True, device_augment=True)
+        steps = trainer._n_train // TRAIN_BATCH
+        log(f"[train] set-up (frames, DataProcess, Trainer, tiles to the card) "
+            f"{time.perf_counter() - t0:.2f} s: {len(data)} tiles, {trainer._n_train} "
+            f"training, {steps} steps of {TRAIN_BATCH} per epoch")
+
+        # the main path: every launch count is 0 just before, read just after
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.start()
+        torch.cuda.synchronize()
+        launches = {id(c): c.launches for c in counters.values()}
+        peak = torch.cuda.max_memory_allocated()
+        k4["launches"] = launches[id(k4["_counter"])]
+        log("[train] launches: " + ", ".join(f"{k['name']} {launches[id(k['_counter'])]}"
+                                             for k in kernels))
+        if k4["launches"] != steps * TRAIN_EPOCHS:
+            raise AssertionError(f"K4 launched {k4['launches']} times in "
+                                 f"{steps * TRAIN_EPOCHS} steps")
+        hist = trainer.history
+        for h in hist:
+            log(f"[train] epoch {h['epoch']}: train loss {h['train_loss']:.6f}, val loss "
+                f"{h['val_loss']:.6f}, lr {h['lr']:g}, training pass {h['train_seconds']:.3f} s, "
+                f"epoch {h['seconds']:.3f} s")
+        if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+            raise AssertionError("the training loss did not fall")
+        best = min(h["train_seconds"] for h in hist)
+        patches = steps * TRAIN_BATCH / best
+        flops = 3 * unet_forward_flops(N_FILTER, TILE)
+        log(f"[train] {patches:.1f} patches/s (best epoch), step {best / steps * 1e3:.2f} ms; "
+            f"peak device memory {peak / 2**30:.2f} GiB; {flops / 1e9:.1f} GFLOP per tile "
+            f"forward+backward → {flops * patches / 1e12:.1f} TFLOP/s, "
+            f"{flops * patches / PEAK_BF16_FLOPS:.4f} of the bf16 dense peak")
+
+        profile_train_epoch(torch, trainer, TRAIN_EPOCHS, best)
+        predict_trained(torch, str(tmp / "run" / "model.pt"), counters)
+    train_card_vs_cpu(torch)
+
+
+def _stage(kernel: str, ancestors) -> str:
+    """The training stage a device kernel belongs to, from its name and the
+    names of the CPU ranges that launched it."""
+    low = kernel.lower()
+    if "augment_batch" in low:
+        return "K4 augment"
+    if "augment" in ancestors:
+        return "augment draws (torch.rand, uniform_, flags)"
+    if any("Optimizer.step" in a for a in ancestors):
+        return "Adam"
+    if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low or "bn_bw" in low:
+        backward = any(k in low for k in ("backward", "bwtr", "bn_bw"))
+        return "BatchNorm backward" if backward else "BatchNorm forward"
+    for key, stage in (("wgrad", "conv wgrad"), ("dgrad", "conv dgrad"), ("fprop", "conv fprop")):
+        if key in low:
+            return stage
+    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit", "cutlass")):
+        return "conv (other cuDNN kernels)"
+    if "max_pool" in low:
+        return "max pool"
+    prefix = "autograd::engine::evaluate_function:"
+    nodes = [a[len(prefix):].strip() for a in ancestors if a.startswith(prefix)]
+    model_nodes = ("Convolution", "BatchNorm", "LeakyRelu", "Cat", "ToCopy", "MaxPool",
+                   "AccumulateGrad")
+    if "loss" in ancestors or any(not any(m in n for m in model_nodes) for n in nodes):
+        return "loss (BCEDice, forward+backward)"
+    if "reduce_kernel" in low and any("Convolution" in n for n in nodes):
+        return "conv bias gradients (reductions)"
+    if "copy" in low:
+        return "casts and copies (bf16/float32, layout)"
+    return "glue (bias add, LeakyReLU, concat, other elementwise)"
+
+
+def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float) -> None:
+    """One profiled training epoch (after the timed ones): device time by
+    stage and the device's idle share, of the profiled pass's wall time (the
+    profiler's own overhead lengthens it) and of ``unprofiled_s``, the best
+    unprofiled epoch's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.model.train()
+        trainer._iterate_train(epoch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    # device time per kernel name, from the device events; the device copies
+    # of record_function ranges ('loss', 'augment', the optimizer step) are
+    # spans over other kernels, not work
+    by_name = {}
+    for ev in events:
+        if (ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False)
+                or ev.name in ("loss", "augment")
+                or ev.name.startswith(("Optimizer.", "ProfilerStep"))):
+            continue
+        total, count = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (total + ev.time_range.elapsed_us(), count + 1)
+    # stages: each CPU op's kernels with the op's ancestors; what no op
+    # launched (K4, through ctypes) is classified by its name alone
+    by_stage, attributed = {}, {}
+    for ev in events:
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        ancestors, p = [], ev
+        while p is not None:
+            ancestors.append(p.name)
+            p = p.cpu_parent
+        for k in ev.kernels:
+            stage = _stage(k.name, ancestors)
+            by_stage[stage] = by_stage.get(stage, 0.0) + k.duration
+            attributed[k.name] = attributed.get(k.name, 0.0) + k.duration
+    for name, (total, _) in by_name.items():
+        rest = total - attributed.get(name, 0.0)
+        if rest > 0.5:
+            stage = _stage(name, [])
+            by_stage[stage] = by_stage.get(stage, 0.0) + rest
+    busy = sum(by_stage.values())
+    if busy == 0:
+        log("[train] profiler saw no device time: breakdown not measured")
+        return
+    log(f"[train] profiled epoch ({epoch}, profiler on): wall {wall_us / 1e3:.2f} ms, device "
+        f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.4f}; against the best "
+        f"unprofiled epoch ({unprofiled_s * 1e3:.2f} ms) {1 - busy / (unprofiled_s * 1e6):.4f}; "
+        f"{sum(attributed.values()) / 1e3:.2f} ms of it attributed through CPU ops")
+    for stage, us in sorted(by_stage.items(), key=lambda kv: -kv[1]):
+        log(f"[train]   {us / 1e3:9.3f} ms ({us / busy:6.1%})  {stage}")
+    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        log(f"[train]   {total / 1e3:9.3f} ms {count:5d}x  {name[:110]}")
+    k4 = [(t, c) for name, (t, c) in by_name.items() if "augment_batch" in name]
+    if k4:
+        total, count = map(sum, zip(*k4))
+        log(f"[train] K4 in the step: {count} launches, {total / count / 1e3:.4f} ms device "
+            f"time each (warm L2, profiler on)")
+
+
+def predict_trained(torch, ckpt: str, counters) -> None:
+    """The trained checkpoint through the port's ``Predict`` on a 16-frame
+    blob movie of 512²: the mask IoU against the blob truth."""
+    from bio_image_unet_tpu_torch.predict import Predict
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    rng = np.random.default_rng(7)
+    frames = [blob_sample(rng, (512, 512), n_blobs=40, margin=16, radius=(8, 20))
+              for _ in range(CHUNK)]
+    movie = np.stack([f[0] for f in frames])
+    truth = np.stack([f[1] for f in frames]) > 0
+    before = {id(c): c.launches for c in counters.values()}
+    res = Predict(movie, None, ckpt, resize_dim=(TILE, TILE), show_progress=False,
+                  half_precision=True).result
+    torch.cuda.synchronize()
+    if res.shape != movie.shape or res.dtype != np.uint8:
+        raise AssertionError(f"Predict on the trained model: {res.shape} {res.dtype}")
+    pred = res > 127
+    iou = float((pred & truth).sum() / max((pred | truth).sum(), 1))
+    ran = [c.__name__ for c in counters.values() if c.launches > before[id(c)]]
+    log(f"[train→predict] trained .pt through Predict on 16×512² blobs: mask IoU {iou:.4f} "
+        f"(foreground {truth.mean():.4f} of pixels, predicted {pred.mean():.4f}); "
+        f"kernels launched: {', '.join(ran)}")
+
+
+def train_card_vs_cpu(torch) -> None:
+    """``Unet(n_filter=8)`` on 15 blob tiles of 64² (12 training: 3 steps of
+    4), float32 with TF32 off, no augmentation, one epoch: the card's
+    ``metrics.csv`` rows against the CPU's, rtol 1e-3."""
+    from bio_image_unet_tpu_torch.train import Trainer
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    items = []
+    for _ in range(15):
+        img, mask = blob_sample(rng, (64, 64))
+        items.append({"image": (img / 255.0).astype(np.float32)[None],
+                      "mask": (mask / 255.0).astype(np.float32)[None]})
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            t = Trainer(items, 1, n_filter=8, batch_size=4, lr=TRAIN_LR,
+                        save_dir=str(Path(tmp) / dev), seed=0, device=dev)
+            t.start()
+            with open(Path(tmp) / dev / "metrics.csv") as fh:
+                rows[dev] = np.array([[float(v) for v in r[1:4]]
+                                      for r in list(csv.reader(fh))[1:]])
+    rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
+    log(f"[train] card vs CPU (n_filter=8, 64², float32, TF32 off, 1 epoch): card "
+        f"{rows['cuda'].tolist()}, CPU {rows['cpu'].tolist()}, max relative difference "
+        f"{rel.max():.2e}")
+    if not rel.max() <= 1e-3:
+        raise AssertionError("the card's training run disagrees with the CPU's")
 
 
 if __name__ == "__main__":

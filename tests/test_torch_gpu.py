@@ -9,10 +9,15 @@ machine that has only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 
+import csv
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from bio_image_unet_tpu_torch.data.augment_device import (augment_apply, augment_apply_plain,
+                                                          draw)
 from bio_image_unet_tpu_torch.models import Unet
 from bio_image_unet_tpu_torch.ops import histogram as hist
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
@@ -20,6 +25,8 @@ from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch, sigmoid_stitch_p
 from bio_image_unet_tpu_torch.predict import Predict
 from bio_image_unet_tpu_torch.predict.normalize import normalize_tile, normalize_tile_plain
 from bio_image_unet_tpu_torch.predict.tiling import TilePlan, grid_starts
+from bio_image_unet_tpu_torch.train import Trainer
+from bio_image_unet_tpu_torch.utils.synth import blob_sample
 
 pytestmark = pytest.mark.gpu
 
@@ -151,3 +158,102 @@ def test_predict_on_card_matches_cpu(cuda, gen, tmp_path, mode, dtype, add):
     host = Predict(movie, None, path, device_pipeline=False, **kw).result
     diff = np.abs(card.astype(int) - host.astype(int))
     assert np.mean(diff > 1) < 0.01 and diff.max() <= 16
+
+
+K4_CASES = [
+    # (id, tiles in the set, batch, image channels, mask channels, tile, pair, gauss)
+    ("train-shape", 120, 12, 1, 1, 256, False, None),
+    ("pair-gauss", 20, 6, 1, 1, 64, True, 0.04),
+    ("channels-odd-tile", 9, 5, 2, 3, 30, False, 0.1),
+]
+
+
+def _ulps(a, b):
+    ai = a.cpu().numpy().view(np.int32).astype(np.int64)
+    bi = b.cpu().numpy().view(np.int32).astype(np.int64)
+    return int(np.abs(ai - bi).max())
+
+
+@pytest.mark.parametrize("case", K4_CASES, ids=[c[0] for c in K4_CASES])
+def test_augment_kernel_equals_plain(cuda, case):
+    """K4 against its plain version on the same draws, gathering a
+    non-trivial index (repeats, out of order) from a resident tile set:
+    masks bit-equal, images within one float32 ulp."""
+    _, n, b, ci, co, s, pair, sigma = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    image = torch.rand((n, ci, s, s), generator=g, device=cuda)
+    mask = (torch.rand((n, co, s, s), generator=g, device=cuda) > 0.5).float()
+    prev = torch.rand((n, ci, s, s), generator=g, device=cuda) if pair else None
+    index = torch.randint(0, n, (b,), generator=g, device=cuda)
+    index[-1] = index[0]
+    d = draw(g, b, (b, ci, s, s), prev=pair, gauss_sigma=sigma)
+    before = augment_apply.launches
+    ours = augment_apply(image, mask, d, index=index, prev=prev)
+    torch.cuda.synchronize()
+    assert augment_apply.launches == before + 1
+    ref = augment_apply_plain(image, mask, d, index=index, prev=prev)
+    assert len(ours) == len(ref) == (3 if pair else 2)
+    assert torch.equal(ours[1], ref[1])
+    assert _ulps(ours[0], ref[0]) <= 1
+    if pair:
+        assert _ulps(ours[2], ref[2]) <= 1
+    # without an index the batch itself is augmented
+    whole = augment_apply(image[:b].contiguous(), mask[:b].contiguous(), d,
+                          prev=None if prev is None else prev[:b].contiguous())
+    assert torch.equal(whole[1], augment_apply_plain(image[:b], mask[:b], d)[1])
+
+
+def test_augment_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 1, 16, 16), device=cuda)
+    d = draw(torch.Generator(device=cuda), 4, (4, 1, 16, 16))
+    with pytest.raises(ValueError, match="float32"):
+        augment_apply(x.double(), x, d)
+    with pytest.raises(ValueError, match="int64"):
+        augment_apply(x, x, d, index=torch.zeros(4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="field"):
+        augment_apply(x, x, d, index=torch.zeros(2, dtype=torch.int64, device=cuda))
+
+
+class _Tiles:
+    def __init__(self, n=15, size=64):
+        rng = np.random.default_rng(0)
+        self.items = []
+        for _ in range(n):
+            img, m = blob_sample(rng, (size, size))
+            self.items.append({"image": (img / 255.0).astype(np.float32)[None],
+                               "mask": (m / 255.0).astype(np.float32)[None]})
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+@pytest.mark.parametrize("cache", [False, True], ids=["loader", "device_cache"])
+def test_trainer_on_card_matches_cpu(cuda, tmp_path, cache):
+    """3 steps (12 training tiles, batch 4) and a validation pass on the card
+    against the same on the CPU, float32 with TF32 off."""
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        t = Trainer(_Tiles(), 1, n_filter=8, batch_size=4, lr=1e-4, save_dir=str(out),
+                    seed=0, device=dev, device_cache=cache)
+        t.start()
+        with open(os.path.join(out, "metrics.csv")) as fh:
+            rows[dev] = np.array([[float(v) for v in r[1:3]] for r in list(csv.reader(fh))[1:]])
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-3)
+
+
+def test_trainer_on_card_with_augment_and_bf16(cuda, tmp_path):
+    """The slice's configuration at a small width: bf16, resident tiles, K4
+    once per step; the checkpoint it writes predicts on the card."""
+    before = augment_apply.launches
+    t = Trainer(_Tiles(n=30), 2, n_filter=8, batch_size=4, lr=1e-3, save_dir=str(tmp_path),
+                seed=0, device_cache=True, device_augment=True, half_precision=True)
+    t.start()
+    assert augment_apply.launches - before == 2 * (24 // 4)
+    assert all(np.isfinite(h["train_loss"]) for h in t.history)
+    res = Predict(np.random.default_rng(1).integers(0, 255, (2, 96, 96), dtype=np.uint8),
+                  None, str(tmp_path / "model.pt"), resize_dim=(64, 64), show_progress=False)
+    assert res.result.shape == (2, 96, 96)
