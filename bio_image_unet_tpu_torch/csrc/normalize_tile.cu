@@ -1,4 +1,5 @@
-// K2: fused normalize -> reflect pad -> uint8 -> tile gather -> batch pad.
+// K2: fused normalize -> reflect pad -> uint8 -> tile gather -> batch pad,
+// and K2h, its float-tile mode for the multi-head path.
 //
 // Replaces the fused-pipeline stage at bio_image_unet_tpu/predict/predictor.py
 // :742-755 (:203 _normalize_clip, jnp.pad(mode="reflect"), astype(uint8),
@@ -19,17 +20,32 @@
 // * 255 with __fsub_rn/__fdiv_rn/__fmul_rn (no FMA, IEEE division), 255 - v
 // for invert, truncation toward zero to uint8 -- the same float32 steps as the
 // JAX program, so the tiles are bit-identical.
+//
+// K2h replaces bio_image_unet_tpu/predict/predictor.py:1101-1117 (the
+// multi-head fused program: _normalize_clip with scale=1.0, the reflect pad,
+// :102 _extract_tiles, the batch padded by the last tile, and the forward's
+// astype of the float32 tile to the working dtype, :455).  Same gather, same
+// float32 steps with scale 1 (times 1.0 is exact), no truncation: the tile is
+// written as float32 or rounded to bfloat16 (round to nearest even, as
+// astype does).  Bound by bytes as K2; its output is 2 or 4 bytes a pixel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-template <typename T, int VEC>
+__device__ __forceinline__ void store(uint8_t* o, float v) { *o = (uint8_t)__float2uint_rz(v); }
+__device__ __forceinline__ void store(float* o, float v) { *o = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+// O = uint8_t: K2 (scale 255, truncation); O = float or __nv_bfloat16: K2h
+// (scale 1).
+template <typename T, typename O, int VEC>
 __global__ void normalize_tile(const T* __restrict__ x, int H, int W,
                                const float* __restrict__ bounds, int Fb,
                                const int* __restrict__ xs, const int* __restrict__ ys,
                                int nx, int ny, int th, int tw, long long n_real,
-                               long long n_total, int invert,
-                               uint8_t* __restrict__ out) {
+                               long long n_total, int invert, float scale,
+                               O* __restrict__ out) {
   const int twv = tw / VEC;
   const long long groups = n_total * th * twv;
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -56,48 +72,63 @@ __global__ void normalize_tile(const T* __restrict__ x, int H, int W,
   const bool span = fmax > fmin;
   const float den = __fsub_rn(fmax, fmin);
 
-  uint8_t res[VEC];
+  float res[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
     int pc = ys[j] + c0 + k;
     if (pc >= W) pc = 2 * (W - 1) - pc;
     float v = (float)row[pc];
     v = fminf(fmaxf(v, lo), hi);
-    v = span ? __fmul_rn(__fdiv_rn(__fsub_rn(v, fmin), den), 255.0f) : 0.0f;
-    if (invert) v = __fsub_rn(255.0f, v);
-    res[k] = (uint8_t)__float2uint_rz(v);
+    v = span ? __fmul_rn(__fdiv_rn(__fsub_rn(v, fmin), den), scale) : 0.0f;
+    if (invert) v = __fsub_rn(scale, v);
+    res[k] = v;
   }
-  uint8_t* o = out + (size_t)t * th * tw + (size_t)r * tw + c0;
-  if (VEC == 4) {
-    *reinterpret_cast<uchar4*>(o) = make_uchar4(res[0], res[VEC > 1 ? 1 : 0],
-                                                res[VEC > 2 ? 2 : 0], res[VEC > 3 ? 3 : 0]);
+  O* o = out + (size_t)t * th * tw + (size_t)r * tw + c0;
+  if constexpr (VEC == 4 && sizeof(O) == 1) {
+    // K2: one 4-byte store of the four truncated levels
+    *reinterpret_cast<uchar4*>(o) =
+        make_uchar4((uint8_t)__float2uint_rz(res[0]), (uint8_t)__float2uint_rz(res[1]),
+                    (uint8_t)__float2uint_rz(res[2]), (uint8_t)__float2uint_rz(res[3]));
   } else {
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) o[k] = res[k];
+    for (int k = 0; k < VEC; ++k) store(o + k, res[k]);
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 static int launch(const void* x, int H, int W, const void* bounds, int Fb,
                   const void* xs, const void* ys, int nx, int ny, int th, int tw,
-                  long long n_real, long long n_total, int invert, void* out,
+                  long long n_real, long long n_total, int invert, float scale, void* out,
                   void* stream) {
   const int threads = 256;
   cudaStream_t s = (cudaStream_t)stream;
   if (tw % 4 == 0) {
     const long long groups = n_total * th * (tw / 4);
     const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
-    normalize_tile<T, 4><<<blocks, threads, 0, s>>>(
+    normalize_tile<T, O, 4><<<blocks, threads, 0, s>>>(
         (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys,
-        nx, ny, th, tw, n_real, n_total, invert, (uint8_t*)out);
+        nx, ny, th, tw, n_real, n_total, invert, scale, (O*)out);
   } else {
     const long long groups = n_total * th * tw;
     const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
-    normalize_tile<T, 1><<<blocks, threads, 0, s>>>(
+    normalize_tile<T, O, 1><<<blocks, threads, 0, s>>>(
         (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys,
-        nx, ny, th, tw, n_real, n_total, invert, (uint8_t*)out);
+        nx, ny, th, tw, n_real, n_total, invert, scale, (O*)out);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename O>
+static int dispatch(const void* x, int dtype, int H, int W, const void* bounds, int Fb,
+                    const void* xs, const void* ys, int nx, int ny, int th, int tw,
+                    long long n_real, long long n_total, int invert, float scale, void* out,
+                    void* stream) {
+  switch (dtype) {
+    case 0: return launch<uint8_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, out, stream);
+    case 1: return launch<uint16_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, out, stream);
+    case 2: return launch<float, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" {
@@ -109,12 +140,21 @@ int k2_normalize_tile(const void* x, int dtype, int H, int W, const void* bounds
                       int Fb, const void* xs, const void* ys, int nx, int ny,
                       int th, int tw, long long n_real, long long n_total,
                       int invert, void* out, void* stream) {
-  switch (dtype) {
-    case 0: return launch<uint8_t>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
-    case 1: return launch<uint16_t>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
-    case 2: return launch<float>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<uint8_t>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real,
+                           n_total, invert, 255.0f, out, stream);
+}
+
+// K2h: the same arguments; out is (n_total, th, tw) float32 (out_bf16 = 0)
+// or bfloat16 (1) tiles of the frames normalized to [0, 1].
+int k2h_normalize_tile_float(const void* x, int dtype, int H, int W, const void* bounds,
+                             int Fb, const void* xs, const void* ys, int nx, int ny,
+                             int th, int tw, long long n_real, long long n_total,
+                             int invert, int out_bf16, void* out, void* stream) {
+  if (out_bf16)
+    return dispatch<__nv_bfloat16>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw,
+                                   n_real, n_total, invert, 1.0f, out, stream);
+  return dispatch<float>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real,
+                         n_total, invert, 1.0f, out, stream);
 }
 
 }  // extern "C"

@@ -9,6 +9,11 @@ array-like) leaves; output is the port's state dict of torch tensors:
 - BatchNorm scale/bias/mean/var → ``<block>.1.{weight,bias,running_mean,
   running_var}`` plus a zero ``num_batches_tracked``
 - the 1×1 ``final`` conv → ``final.0.*``
+- the 1×1 head convs ``output_layers_<head>`` → ``output_layers.<head>.*``
+- UNet++ grid blocks ``grid_conv<i>_<j>/conv{1,2}|bn{1,2}`` →
+  ``conv<i>_<j>.conv{1,2}.*`` / ``conv<i>_<j>.bn{1,2}.*``
+
+Any other block raises.
 """
 
 from __future__ import annotations
@@ -26,28 +31,41 @@ def _t(arr, perm=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _conv_bn(sd, prefix_conv: str, prefix_bn: str, conv: dict, bn: dict, stats: dict) -> None:
+    sd[f"{prefix_conv}.weight"] = _t(conv["kernel"], (3, 2, 0, 1))
+    sd[f"{prefix_conv}.bias"] = _t(conv["bias"])
+    sd[f"{prefix_bn}.weight"] = _t(bn["scale"])
+    sd[f"{prefix_bn}.bias"] = _t(bn["bias"])
+    sd[f"{prefix_bn}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix_bn}.running_var"] = _t(stats["var"])
+    sd[f"{prefix_bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
 def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet`` → the port's
-    state dict (loadable with ``load_state_dict(strict=True)``)."""
+    """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet``, ``MultiOutputUnet``
+    or UNet++ → the port's state dict (loadable with
+    ``load_state_dict(strict=True)``)."""
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
     for block, p in params.items():
         if "conv" in p and "bn" in p:
-            sd[f"{block}.0.weight"] = _t(p["conv"]["kernel"], (3, 2, 0, 1))
-            sd[f"{block}.0.bias"] = _t(p["conv"]["bias"])
-            sd[f"{block}.1.weight"] = _t(p["bn"]["scale"])
-            sd[f"{block}.1.bias"] = _t(p["bn"]["bias"])
-            bn = stats[block]["bn"]
-            sd[f"{block}.1.running_mean"] = _t(bn["mean"])
-            sd[f"{block}.1.running_var"] = _t(bn["var"])
-            sd[f"{block}.1.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+            _conv_bn(sd, f"{block}.0", f"{block}.1", p["conv"], p["bn"], stats[block]["bn"])
+        elif block.startswith("grid_") and set(p) == {"conv1", "bn1", "conv2", "bn2"}:
+            base = block[len("grid_"):]
+            for k in ("1", "2"):
+                _conv_bn(sd, f"{base}.conv{k}", f"{base}.bn{k}", p[f"conv{k}"], p[f"bn{k}"],
+                         stats[block][f"bn{k}"])
         elif block.startswith("up") and set(p) == {"kernel", "bias"}:
             sd[f"{block}.weight"] = _t(p["kernel"], (3, 2, 0, 1))
             sd[f"{block}.bias"] = _t(p["bias"])
         elif block == "final":
             sd["final.0.weight"] = _t(p["kernel"], (3, 2, 0, 1))
             sd["final.0.bias"] = _t(p["bias"])
+        elif block.startswith("output_layers_") and set(p) == {"kernel", "bias"}:
+            head = block[len("output_layers_"):]
+            sd[f"output_layers.{head}.weight"] = _t(p["kernel"], (3, 2, 0, 1))
+            sd[f"output_layers.{head}.bias"] = _t(p["bias"])
         else:
             raise ValueError(f"unmapped JAX param block: {block!r} "
                              f"(leaves {sorted(p)})")

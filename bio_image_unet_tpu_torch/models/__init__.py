@@ -1,17 +1,23 @@
 """Model registry (counterpart of ``bio_image_unet_tpu/models/__init__.py``).
-Only the plain 2D ``Unet`` is ported so far; the other registry names of the
-JAX package raise a clear "not ported yet" error."""
+Ported so far: the plain 2D ``Unet``, ``MultiOutputUnet`` and both UNet++
+depths; the other registry names of the JAX package raise a clear "not
+ported yet" error."""
 
 import inspect
 
-from .unet2d import Unet
+from .nested_unet import MultiOutputNestedUNet, MultiOutputNestedUNet_3Levels
+from .unet2d import MultiOutputUnet, Unet
 
-MODEL_REGISTRY = {"Unet": Unet}
+MODEL_REGISTRY = {
+    "Unet": Unet,
+    "MultiOutputUnet": MultiOutputUnet,
+    "MultiOutputNestedUNet": MultiOutputNestedUNet,
+    "MultiOutputNestedUNet_3Levels": MultiOutputNestedUNet_3Levels,
+}
 
 # registry names of the JAX package that later slices port
 _NOT_PORTED = ("AttentionUnet", "Unet_v0", "BabyUnet", "Siam_UNet", "UNet3D",
-               "MultiOutputUnet", "MultiOutputNestedUNet",
-               "MultiOutputNestedUNet_3Levels", "MultiOutputUnet3D")
+               "MultiOutputUnet3D")
 
 
 def get_model(name, **kwargs):
@@ -32,4 +38,5 @@ def get_model(name, **kwargs):
     return cls(**{k: v for k, v in kwargs.items() if k in fields})
 
 
-__all__ = ["Unet", "MODEL_REGISTRY", "get_model"]
+__all__ = ["Unet", "MultiOutputUnet", "MultiOutputNestedUNet",
+           "MultiOutputNestedUNet_3Levels", "MODEL_REGISTRY", "get_model"]

@@ -1,15 +1,20 @@
-"""The plain 2D U-Net (counterpart of ``bio_image_unet_tpu/models/unet2d.py``
-``UNet2DBase`` without the attention, siamese and multi-head options, which
-later slices port).
+"""The 2D U-Net trunk with a single or a multi-head output (counterpart of
+``bio_image_unet_tpu/models/unet2d.py`` ``UNet2DBase`` without the attention
+and siamese options, which later slices port).
+
+- ``Unet``            — plain 4-level U-Net, ``(sigmoid, logits)`` output
+- ``MultiOutputUnet`` — per-head 1×1 conv outputs from ``output_heads``,
+                        ``{head: activated float32}`` output
 
 NCHW at the boundary; submodule names follow the reference schema
-(``encode1..8``, ``middle_conv1/2``, ``up1..4``, ``decode1..8``, ``final.0``),
-so reference ``.pt`` state dicts load with ``strict=True``.
+(``encode1..8``, ``middle_conv1/2``, ``up1..4``, ``decode1..8``, ``final.0``
+or ``output_layers.<head>``), so reference ``.pt`` state dicts load with
+``strict=True``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -23,9 +28,23 @@ def normalize_dilation(dilation) -> int:
     return 1 if dilation in (False, None, True) else int(dilation)
 
 
+def apply_activation(x: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+    """Per-head activation (``unet2d.py:38``); anything else is the identity."""
+    if activation == "sigmoid":
+        return torch.sigmoid(x)
+    if activation == "tanh":
+        return torch.tanh(x)
+    if activation in ("relu", "ReLU"):
+        return torch.relu(x)
+    return x
+
+
 class Unet(nn.Module):
     """4-level encoder / 16·nf bottleneck / transposed-conv decoder trunk.
-    ``forward`` returns ``(sigmoid(logits), logits)`` with logits in float32.
+    ``forward`` returns ``(sigmoid(logits), logits)`` with logits in float32,
+    or, with heads (``output_heads``, or the default single sigmoid head when
+    ``multi_output`` is set; ``unet2d.py:62-70``), ``{head: activated
+    float32}`` from one 1×1 conv per head (``unet2d.py:207-211``).
 
     ``dtype=torch.bfloat16`` is the Trainer's ``half_precision``
     (``unet2d.py:60``): parameters stay float32, every conv, transposed conv,
@@ -35,7 +54,8 @@ class Unet(nn.Module):
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  n_filter: int = 32, dilation: int = 1, dropout: float = 0.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, multi_output: bool = False,
+                 output_heads: Optional[Dict[str, dict]] = None):
         super().__init__()
         nf = n_filter
         d = normalize_dilation(dilation)
@@ -66,7 +86,14 @@ class Unet(nn.Module):
         self.up4 = ConvTranspose(2 * nf, nf)
         self.decode7 = ConvBlock(2 * nf, nf, 1, dropout)
         self.decode8 = ConvBlock(nf, nf, 1, dropout)
-        self.final = nn.Sequential(nn.Conv2d(nf, out_channels, 1))
+        self.heads = (output_heads if output_heads is not None else
+                      {"default": {"channels": 1, "activation": "sigmoid"}}
+                      if multi_output else None)
+        if self.heads is None:
+            self.final = nn.Sequential(nn.Conv2d(nf, out_channels, 1))
+        else:
+            self.output_layers = nn.ModuleDict(
+                {name: nn.Conv2d(nf, cfg["channels"], 1) for name, cfg in self.heads.items()})
         self.dtype = dtype
         for m in self.modules():
             if isinstance(m, (ConvBlock, ConvTranspose)):
@@ -86,5 +113,20 @@ class Unet(nn.Module):
             u = getattr(self, f"up{i}")(h)
             h = torch.cat([u, skip], dim=1)
             h = getattr(self, f"decode{2 * i}")(getattr(self, f"decode{2 * i - 1}")(h))
-        logits = self.final(h.float())
-        return torch.sigmoid(logits), logits
+        if self.heads is None:
+            logits = self.final(h.float())
+            return torch.sigmoid(logits), logits
+        return {name: apply_activation(self.output_layers[name](h.float()), cfg.get("activation"))
+                for name, cfg in self.heads.items()}
+
+
+class MultiOutputUnet(Unet):
+    """The U-Net trunk with per-head 1×1 conv outputs and in-model
+    activations (``unet2d.py:233 MultiOutputUnet``)."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 n_filter: int = 32, dilation: int = 1, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, multi_output: bool = True,
+                 output_heads: Optional[Dict[str, dict]] = None):
+        super().__init__(in_channels, out_channels, n_filter, dilation, dropout, dtype,
+                         multi_output, output_heads)

@@ -33,6 +33,7 @@ SOURCES = {
     "normalize_tile": "normalize_tile.cu",
     "sigmoid_stitch": "sigmoid_stitch.cu",
     "augment_batch": "augment_batch.cu",
+    "margin_stitch": "margin_stitch.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -111,7 +112,11 @@ def launch(fn, device: torch.device, *args) -> None:
     """Call C entry point ``fn`` with ``device`` current, appending that
     device's current stream as the last argument, and raise when it returns
     a CUDA error (a refused launch never runs, and a later synchronize would
-    not report it)."""
+    not report it).  The argument count must match ``fn``'s argument types,
+    the stream included: ctypes would pass a surplus pointer as a C int."""
+    if len(args) + 1 != len(fn.argtypes):
+        raise TypeError(f"{fn.__name__}: {len(args)} arguments and the stream for "
+                        f"{len(fn.argtypes)} parameters")
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

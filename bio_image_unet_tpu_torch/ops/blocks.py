@@ -4,7 +4,9 @@
 The JAX package builds ``ConvBlock`` as flax modules in NHWC; here they are
 ``nn.Sequential(Conv2d, BatchNorm2d, LeakyReLU, Dropout2d)`` in NCHW, so a
 reference ``.pt`` state dict (keys ``<block>.0.*`` for the conv, ``<block>.1.*``
-for the BatchNorm) loads with ``load_state_dict(strict=True)``.  In train mode
+for the BatchNorm) loads with ``load_state_dict(strict=True)``; the UNet++
+grid's ``VGGBlock`` keeps the reference's ``conv1``/``bn1``/``conv2``/``bn2``
+names.  In train mode
 ``BatchNorm2d(momentum=0.1, eps=1e-5)`` has the JAX ``TorchBatchNorm``
 semantics: biased batch variance to normalize, unbiased ``n/(n-1)`` for the
 running variance.
@@ -71,6 +73,28 @@ class ConvTranspose(nn.ConvTranspose2d):
         if dt is None:
             return super().forward(x)
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=2)
+
+
+class VGGBlock(nn.Module):
+    """Two stages of Conv3×3 (padding and dilation ``d``) + BatchNorm(eps
+    1e-5) + LeakyReLU(0.1) + channel Dropout, with a middle width
+    (``ops/blocks.py:243 VGGBlock``).  The attributes ``conv1``, ``bn1``,
+    ``conv2``, ``bn2`` give the reference's keys (``conv<i>_<j>.conv1.weight``,
+    ``…bn1.running_var``), so a reference ``.pt`` loads with ``strict=True``."""
+
+    def __init__(self, in_ch: int, middle_ch: int, out_ch: int, dilation: int = 1,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, middle_ch, 3, padding=dilation, dilation=dilation)
+        self.bn1 = nn.BatchNorm2d(middle_ch, eps=_BN_EPS, momentum=0.1)
+        self.conv2 = nn.Conv2d(middle_ch, out_ch, 3, padding=dilation, dilation=dilation)
+        self.bn2 = nn.BatchNorm2d(out_ch, eps=_BN_EPS, momentum=0.1)
+        self.act = nn.LeakyReLU(0.1)
+        self.drop = nn.Dropout2d(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.drop(self.act(self.bn1(self.conv1(x))))
+        return self.drop(self.act(self.bn2(self.conv2(x))))
 
 
 def he_normal_leaky_(weight: torch.Tensor,

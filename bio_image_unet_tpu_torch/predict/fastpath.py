@@ -1,5 +1,6 @@
-"""BN-folded inference forward for the plain 2D U-Net (counterpart of the
-plain branch of ``bio_image_unet_tpu/predict/fastpath.py``).
+"""BN-folded inference forwards of the 2D U-Net family (counterpart of the
+plain and multi-head branches of ``bio_image_unet_tpu/predict/fastpath.py``
+``build_fast_apply`` and of ``:291 _build_fast_nested``).
 
 Eval-mode BatchNorm is an affine map, so it folds exactly into the preceding
 convolution (``fastpath.py:35 _fold``), in float32::
@@ -10,7 +11,13 @@ convolution (``fastpath.py:35 _fold``), in float32::
 A folded block is then one ``F.conv2d`` with bias plus LeakyReLU(0.1).  The
 convolutions go to cuDNN through torch.  In bfloat16 the weights and
 activations are kept ``channels_last`` (NHWC in memory), the layout the
-card's tensor-core convolutions run in; the logits return in float32.
+card's tensor-core convolutions run in.  Logits and head convolutions run in
+the working dtype and return in float32, where a head's activation runs
+(``fastpath.py:224-231``, ``:323-327``).
+
+- ``FoldedUnet2D``     — ``Unet`` and ``MultiOutputUnet``
+- ``FoldedNestedUNet`` — both UNet++ depths; a deep-supervision checkpoint
+                         emits only each head's deepest level
 """
 
 from __future__ import annotations
@@ -20,74 +27,162 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..models.unet2d import apply_activation
+from ..ops.functional import max_pool, upsample_linear
+
 _BN_EPS = 1e-5
 
 
-def fold_unet2d(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Fold a ``Unet`` state dict into ``{block: {'weight', 'bias'}}``
-    (``fastpath.py:88 fold_unet2d``).  All folding happens in float32."""
+def _block_of(key: str) -> str:
+    parts = key.split(".")
+    return ".".join(parts[:2]) if parts[0] == "output_layers" else parts[0]
+
+
+def _fold(sd, conv: str, bn: str) -> Dict[str, torch.Tensor]:
+    inv = sd[f"{bn}.weight"] * torch.rsqrt(sd[f"{bn}.running_var"] + _BN_EPS)
+    return {"weight": sd[f"{conv}.weight"] * inv[:, None, None, None],
+            "bias": (sd[f"{conv}.bias"] - sd[f"{bn}.running_mean"]) * inv + sd[f"{bn}.bias"]}
+
+
+def fold_unet2d(state_dict: Dict[str, torch.Tensor]) -> Dict[str, dict]:
+    """Fold a 2D U-Net family state dict (``fastpath.py:88 fold_unet2d``):
+    ``ConvBlock`` ``<b>.0``/``<b>.1`` → ``{b: {'weight', 'bias'}}``; UNet++
+    ``VGGBlock`` ``<b>.conv{1,2}``/``<b>.bn{1,2}`` → ``{b: {'stage1': …,
+    'stage2': …}}``; transposed convs, ``final`` and ``output_layers.<head>``
+    are kept as they are.  All folding happens in float32."""
     sd = {k: v.detach().to("cpu", torch.float32) for k, v in state_dict.items()
           if not k.endswith("num_batches_tracked")}
-    blocks = sorted({k.split(".")[0] for k in sd})
     folded = {}
-    for b in blocks:
+    for b in sorted({_block_of(k) for k in sd}):
         if f"{b}.1.running_var" in sd:  # conv + BatchNorm
-            inv = sd[f"{b}.1.weight"] * torch.rsqrt(sd[f"{b}.1.running_var"] + _BN_EPS)
-            folded[b] = {
-                "weight": sd[f"{b}.0.weight"] * inv[:, None, None, None],
-                "bias": (sd[f"{b}.0.bias"] - sd[f"{b}.1.running_mean"]) * inv
-                        + sd[f"{b}.1.bias"],
-            }
+            folded[b] = _fold(sd, f"{b}.0", f"{b}.1")
+        elif f"{b}.bn1.running_var" in sd:  # VGG block: two conv + BatchNorm stages
+            folded[b] = {"stage1": _fold(sd, f"{b}.conv1", f"{b}.bn1"),
+                         "stage2": _fold(sd, f"{b}.conv2", f"{b}.bn2")}
         elif b == "final":
             folded[b] = {"weight": sd["final.0.weight"], "bias": sd["final.0.bias"]}
-        else:  # up<i>: ConvTranspose2d, nothing to fold
+        else:  # up<i> (ConvTranspose2d) and the 1×1 heads: nothing to fold
             folded[b] = {"weight": sd[f"{b}.weight"], "bias": sd[f"{b}.bias"]}
     return folded
 
 
-class FoldedUnet2D:
-    """The folded forward of a ``Unet``: ``__call__(x)`` takes (N, 1, H, W)
-    input already scaled to [0, 1] in the working dtype and returns
-    ``(sigmoid(logits), logits)`` with float32 logits, like ``Unet.forward``
-    in eval mode.  ``logits(x)`` returns the final conv's output in the
-    working dtype (the device pipeline's K3 reads it directly)."""
+class _Folded:
+    """Folded parameters on the device in the working dtype, and the conv
+    helpers the forwards share."""
 
-    def __init__(self, model, dtype: Optional[torch.dtype] = None,
-                 device=None):
+    def __init__(self, model, dtype: Optional[torch.dtype] = None, device=None):
         self.dtype = dtype or torch.float32
         self.device = torch.device(device or "cpu")
-        self.dilation = int(getattr(model, "dilation", 1))
+        self.heads = getattr(model, "heads", None)
         self.channels_last = self.dtype == torch.bfloat16
         fmt = torch.channels_last if self.channels_last else torch.contiguous_format
-        self.params = {
-            b: {"weight": p["weight"].to(self.device, self.dtype).contiguous(memory_format=fmt),
-                "bias": p["bias"].to(self.device, self.dtype)}
-            for b, p in fold_unet2d(model.state_dict()).items()
-        }
 
-    def _conv(self, x, name, dilation=1):
-        p = self.params[name]
+        def place(p):
+            if "weight" not in p:
+                return {k: place(v) for k, v in p.items()}
+            return {"weight": p["weight"].to(self.device, self.dtype).contiguous(memory_format=fmt),
+                    "bias": p["bias"].to(self.device, self.dtype)}
+
+        self.params = {b: place(p) for b, p in fold_unet2d(model.state_dict()).items()}
+
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        return x.contiguous(memory_format=torch.channels_last) if self.channels_last else x
+
+    @staticmethod
+    def _conv(x, p, dilation=1):
         return F.leaky_relu(F.conv2d(x, p["weight"], p["bias"], padding=dilation,
                                      dilation=dilation), 0.1)
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final-conv output in the working dtype."""
-        if self.channels_last:
-            x = x.contiguous(memory_format=torch.channels_last)
+    def _head(self, h: torch.Tensor, layer: str, activation) -> torch.Tensor:
+        p = self.params[layer]
+        return apply_activation(F.conv2d(h, p["weight"], p["bias"]).float(), activation)
+
+
+class FoldedUnet2D(_Folded):
+    """The folded forward of a ``Unet`` or ``MultiOutputUnet``: ``__call__(x)``
+    takes (N, 1, H, W) input already scaled to [0, 1] in the working dtype
+    and returns what the model returns in eval mode: ``(sigmoid(logits),
+    logits)`` with float32 logits, or ``{head: activated float32}``.
+    ``logits(x)`` returns the final conv's output in the working dtype (the
+    device pipeline's K3 reads it directly); ``heads(x)`` the head dict."""
+
+    def __init__(self, model, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(model, dtype, device)
+        self.dilation = int(getattr(model, "dilation", 1))
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The decoder's last features (``decode8``) in the working dtype."""
+        x = self._input(x)
         d = self.dilation
-        e2 = self._conv(self._conv(x, "encode1", d), "encode2", d)
-        e4 = self._conv(self._conv(F.max_pool2d(e2, 2), "encode3", d), "encode4", d)
-        e6 = self._conv(self._conv(F.max_pool2d(e4, 2), "encode5", d), "encode6", d)
-        e8 = self._conv(self._conv(F.max_pool2d(e6, 2), "encode7", d), "encode8", d)
-        h = self._conv(self._conv(F.max_pool2d(e8, 2), "middle_conv1", d), "middle_conv2", d)
+        c = self._conv
+        P = self.params
+        e2 = c(c(x, P["encode1"], d), P["encode2"], d)
+        e4 = c(c(F.max_pool2d(e2, 2), P["encode3"], d), P["encode4"], d)
+        e6 = c(c(F.max_pool2d(e4, 2), P["encode5"], d), P["encode6"], d)
+        e8 = c(c(F.max_pool2d(e6, 2), P["encode7"], d), P["encode8"], d)
+        h = c(c(F.max_pool2d(e8, 2), P["middle_conv1"], d), P["middle_conv2"], d)
         for i, skip in zip(range(1, 5), (e8, e6, e4, e2)):
-            up = self.params[f"up{i}"]
+            up = P[f"up{i}"]
             u = F.conv_transpose2d(h, up["weight"], up["bias"], stride=2)
             h = torch.cat([u, skip], dim=1)
-            h = self._conv(self._conv(h, f"decode{2 * i - 1}"), f"decode{2 * i}")
+            h = c(c(h, P[f"decode{2 * i - 1}"]), P[f"decode{2 * i}"])
+        return h
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final-conv output in the working dtype."""
         fin = self.params["final"]
-        return F.conv2d(h, fin["weight"], fin["bias"])
+        return F.conv2d(self.trunk(x), fin["weight"], fin["bias"])
+
+    def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``{head: activated float32}`` of a multi-head trunk."""
+        h = self.trunk(x)
+        return {name: self._head(h, f"output_layers.{name}", cfg.get("activation"))
+                for name, cfg in self.heads.items()}
 
     def __call__(self, x: torch.Tensor):
+        if self.heads is not None:
+            return self.heads_out(x)
         logits = self.logits(x).float()
         return torch.sigmoid(logits), logits
+
+
+class FoldedNestedUNet(_Folded):
+    """The folded eval forward of UNet++ (``fastpath.py:291
+    _build_fast_nested``): the dense ``x_{i,j}`` grid of two-stage folded
+    VGG blocks with bilinear ``align_corners=True`` upsampling;
+    ``heads_out(x)`` (and ``__call__``) return ``{head: activated float32}``
+    from the deepest level (``output_layers.<head>_<L>`` for a
+    deep-supervision checkpoint)."""
+
+    def __init__(self, model, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(model, dtype, device)
+        self.levels = model.levels
+        self.dilations = model.dilations
+        self.deep_supervision = model.deep_supervision
+
+    def _vgg(self, x, p, d=1):
+        return self._conv(self._conv(x, p["stage1"], d), p["stage2"], d)
+
+    def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        L, P, dil = self.levels, self.params, self.dilations
+        col = {0: {0: self._vgg(self._input(x), P["conv0_0"], dil[0])}}
+        for i in range(1, L + 1):
+            col[i] = {0: self._vgg(max_pool(col[i - 1][0]), P[f"conv{i}_0"], dil[i])}
+            for k in range(i - 1, -1, -1):
+                j = i - k
+                inputs = [col[k][jj] for jj in range(j)] + [
+                    upsample_linear(col[k + 1][j - 1], 2, align_corners=True)]
+                col[k][j] = self._vgg(torch.cat(inputs, dim=1), P[f"conv{k}_{j}"])
+        suffix = f"_{L}" if self.deep_supervision else ""
+        return {name: self._head(col[0][L], f"output_layers.{name}{suffix}", cfg.get("activation"))
+                for name, cfg in self.heads.items()}
+
+    __call__ = heads_out
+
+
+def folded_forward(model, dtype: Optional[torch.dtype] = None, device=None) -> _Folded:
+    """The folded forward of a ported 2D model."""
+    from ..models.nested_unet import MultiOutputNestedUNet
+
+    cls = FoldedNestedUNet if isinstance(model, MultiOutputNestedUNet) else FoldedUnet2D
+    return cls(model, dtype, device)

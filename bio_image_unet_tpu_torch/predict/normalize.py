@@ -13,6 +13,14 @@ maps (F, H, W) uint8/uint16/float32 frames and (4, F) or (4, 1) float32
 frame-major grid order; tiles past the chunk's F·nx·ny repeat the last one.
 On a CUDA tensor the wrapper launches ``csrc/normalize_tile.cu`` or raises;
 on a CPU tensor it takes the plain PyTorch version.
+
+K2h (counterpart of ``predictor.py:1101-1117``, the multi-head fused
+program): ``normalize_tile_float(frames, bounds, plan, n_total, dtype)`` is
+K2's float-tile mode — the same clip, min-max, reflect pad and gather with
+``scale=1.0`` and no uint8 truncation, the float32 tile cast to the working
+``dtype`` (float32, or bfloat16 rounded to nearest even, as the forward's
+``astype`` does at ``:455``).  Same kernel source, its own entry point and
+launch counter.
 """
 
 from __future__ import annotations
@@ -89,25 +97,28 @@ def _check_bounds(bounds: torch.Tensor, n_frames: int) -> int:
 
 
 def normalize_tile_plain(frames: torch.Tensor, bounds: torch.Tensor, plan,
-                         n_total: int, invert: bool) -> torch.Tensor:
-    """Plain PyTorch K2."""
+                         n_total: int, invert: bool,
+                         out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """Plain PyTorch K2 (``out_dtype`` uint8: scale 255, truncated) and K2h
+    (float32 or bfloat16: scale 1)."""
     n_frames = frames.shape[0]
     _check_bounds(bounds, n_frames)
+    scale = 255.0 if out_dtype == torch.uint8 else 1.0
     lo, hi, fmin, fmax = (b[:, None, None] for b in bounds)
     f = torch.minimum(torch.maximum(frames.float(), lo), hi)
-    f = torch.where(fmax > fmin, (f - fmin) / (fmax - fmin) * 255.0,
+    f = torch.where(fmax > fmin, (f - fmin) / (fmax - fmin) * scale,
                     torch.zeros((), dtype=torch.float32, device=f.device))
     if invert:
-        f = 255.0 - f
+        f = scale - f
     th, tw = plan.th, plan.tw
     pad_h, pad_w = max(0, th - plan.h), max(0, tw - plan.w)
     if pad_h or pad_w:
         f = F.pad(f[:, None], (0, pad_w, 0, pad_h), mode="reflect")[:, 0]
-    u8 = f.to(torch.uint8)
-    dev = u8.device
+    f = f.to(out_dtype)
+    dev = f.device
     rows = torch.as_tensor((plan.xs[:, None] + np.arange(th)[None]).ravel(), device=dev)
     cols = torch.as_tensor((plan.ys[:, None] + np.arange(tw)[None]).ravel(), device=dev)
-    tiles = (u8.index_select(1, rows).index_select(2, cols)
+    tiles = (f.index_select(1, rows).index_select(2, cols)
              .reshape(n_frames, plan.nx, th, plan.ny, tw)
              .permute(0, 1, 3, 2, 4)
              .reshape(n_frames * plan.per_frame, th, tw))
@@ -117,35 +128,62 @@ def normalize_tile_plain(frames: torch.Tensor, bounds: torch.Tensor, plan,
     return tiles.contiguous()
 
 
-def normalize_tile(frames: torch.Tensor, bounds: torch.Tensor, plan,
-                   n_total: int, invert: bool) -> torch.Tensor:
-    """K2 (see the module docstring)."""
+def _check_frames(frames: torch.Tensor, plan, n_total: int, what: str) -> None:
     n_frames = frames.shape[0]
     if tuple(frames.shape[1:]) != (plan.h, plan.w):
         raise ValueError(f"frames {tuple(frames.shape[1:])} do not match the "
                          f"plan's frame {(plan.h, plan.w)}")
     if frames.dtype not in _cuda.DTYPE_CODE:
-        raise ValueError(f"normalize_tile takes uint8/uint16/float32, got {frames.dtype}")
+        raise ValueError(f"{what} takes uint8/uint16/float32, got {frames.dtype}")
     if n_total < n_frames * plan.per_frame:
         raise ValueError(f"n_total {n_total} < {n_frames * plan.per_frame} tiles")
-    if frames.device.type == "cpu":
-        return normalize_tile_plain(frames, bounds, plan, n_total, invert)
+
+
+def _launch(symbol: str, extra_types, frames, bounds, plan, n_total, invert, extra, out) -> None:
     dev = frames.device
-    _cuda.require_cuda(frames, "normalize_tile")
-    _cuda.require_cuda(bounds, "normalize_tile bounds", dev)
-    _cuda.require_cuda(plan.xs_t, "normalize_tile plan", dev)
-    fb = _check_bounds(bounds, n_frames)
-    out = torch.empty((n_total, plan.th, plan.tw), dtype=torch.uint8, device=dev)
+    _cuda.require_cuda(frames, symbol)
+    _cuda.require_cuda(bounds, f"{symbol} bounds", dev)
+    _cuda.require_cuda(plan.xs_t, f"{symbol} plan", dev)
+    fb = _check_bounds(bounds, frames.shape[0])
     A = _cuda
-    fn = A.function("normalize_tile", "k2_normalize_tile",
+    fn = A.function("normalize_tile", symbol,
                     [A.P, A.I32, A.I32, A.I32, A.P, A.I32, A.P, A.P, A.I32, A.I32,
-                     A.I32, A.I32, A.I64, A.I64, A.I32, A.P, A.P])
+                     A.I32, A.I32, A.I64, A.I64, A.I32] + extra_types + [A.P, A.P])
     A.launch(fn, dev, frames.data_ptr(), A.DTYPE_CODE[frames.dtype], plan.h, plan.w,
              bounds.data_ptr(), fb, plan.xs_t.data_ptr(), plan.ys_t.data_ptr(),
-             plan.nx, plan.ny, plan.th, plan.tw, n_frames * plan.per_frame,
-             n_total, int(invert), out.data_ptr())
+             plan.nx, plan.ny, plan.th, plan.tw, frames.shape[0] * plan.per_frame,
+             n_total, int(invert), *extra, out.data_ptr())
+
+
+def normalize_tile(frames: torch.Tensor, bounds: torch.Tensor, plan,
+                   n_total: int, invert: bool) -> torch.Tensor:
+    """K2 (see the module docstring)."""
+    _check_frames(frames, plan, n_total, "normalize_tile")
+    if frames.device.type == "cpu":
+        return normalize_tile_plain(frames, bounds, plan, n_total, invert)
+    out = torch.empty((n_total, plan.th, plan.tw), dtype=torch.uint8, device=frames.device)
+    _launch("k2_normalize_tile", [], frames, bounds, plan, n_total, invert, (), out)
     normalize_tile.launches += 1
     return out
 
 
 normalize_tile.launches = 0
+
+
+def normalize_tile_float(frames: torch.Tensor, bounds: torch.Tensor, plan,
+                         n_total: int, dtype: torch.dtype) -> torch.Tensor:
+    """K2h (see the module docstring): (n_total, th, tw) tiles in ``dtype``
+    (float32 or bfloat16) of the frames normalized to [0, 1]."""
+    _check_frames(frames, plan, n_total, "normalize_tile_float")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"normalize_tile_float writes float32/bfloat16 tiles, got {dtype}")
+    if frames.device.type == "cpu":
+        return normalize_tile_plain(frames, bounds, plan, n_total, False, dtype)
+    out = torch.empty((n_total, plan.th, plan.tw), dtype=dtype, device=frames.device)
+    _launch("k2h_normalize_tile_float", [_cuda.I32], frames, bounds, plan, n_total, False,
+            (int(dtype == torch.bfloat16),), out)
+    normalize_tile_float.launches += 1
+    return out
+
+
+normalize_tile_float.launches = 0

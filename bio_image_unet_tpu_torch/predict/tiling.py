@@ -1,10 +1,12 @@
-"""Host tile grids and the host mean stitch (counterpart of
-``bio_image_unet_tpu/predict/tiling.py:21 grid_starts`` and ``:58 stitch_mean``),
-plus the static tile plan the device stages share."""
+"""Host tile grids and host stitches (counterpart of
+``bio_image_unet_tpu/predict/tiling.py``: ``:21 grid_starts``, ``:38
+_accumulate``, ``:58 stitch_mean``, ``:72 _margin_weights``, ``:91
+_margin_factors``, ``:131 stitch_margin``), plus the static tile plan the
+device stages share and the static uncovered mask of a safe-margin grid."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +37,89 @@ def stitch_mean(patches: np.ndarray, starts_per_axis: Sequence[np.ndarray],
     return result
 
 
+def _accumulate(patches, weights, starts_per_axis, out_shape):
+    """Scatter-add ``patches·weights`` and ``weights`` into float32 (result,
+    weight) planes, patches in grid order (``tiling.py:38``)."""
+    result = np.zeros(out_shape, dtype=np.float32)
+    weight = np.zeros(out_shape, dtype=np.float32)
+    tile = patches.shape[1:]
+    idx_grids = np.meshgrid(*[np.arange(len(s)) for s in starts_per_axis], indexing="ij")
+    flat = [g.ravel() for g in idx_grids]
+    for n in range(patches.shape[0]):
+        sl = tuple(slice(starts_per_axis[a][flat[a][n]], starts_per_axis[a][flat[a][n]] + tile[a])
+                   for a in range(len(starts_per_axis)))
+        result[sl] += patches[n] * weights[n]
+        weight[sl] += weights[n]
+    return result, weight
+
+
+def _margin_weights(grid_shape: Sequence[int], tile: Sequence[int], margin: int) -> np.ndarray:
+    """Binary (n_tiles, *tile, 1) weights: a ``margin``-wide border zeroed on
+    the sides that overlap a neighbour (``tiling.py:72``).  ``margin=0`` keeps
+    the reference's quirk: ``slice(-0, None)`` is the whole axis, so every
+    tile but the last along an axis is zeroed entirely."""
+    weights = []
+    for idx in np.ndindex(*grid_shape):
+        w = np.ones(tuple(tile) + (1,), dtype=np.float32)
+        for a, (i, n) in enumerate(zip(idx, grid_shape)):
+            sl = [slice(None)] * (len(tile) + 1)
+            if i > 0:
+                sl[a] = slice(0, margin)
+                w[tuple(sl)] = 0
+            if i < n - 1:
+                sl[a] = slice(-margin, None)
+                w[tuple(sl)] = 0
+        weights.append(w)
+    return np.stack(weights)
+
+
+def _margin_factors(grid_shape: Sequence[int], tile: Sequence[int],
+                    margin: int) -> List[np.ndarray]:
+    """Per-axis (n_a, t_a) float32 factor tables whose outer MIN is
+    :func:`_margin_weights` (``tiling.py:91``), ``margin=0`` quirk included."""
+    factors = []
+    for n, t in zip(grid_shape, tile):
+        f = np.ones((n, t), np.float32)
+        for i in range(n):
+            if i > 0:
+                f[i, :margin] = 0
+            if i < n - 1:
+                f[i, (max(t - margin, 0) if margin > 0 else 0):] = 0
+        factors.append(f)
+    return factors
+
+
+def stitch_margin(patches: np.ndarray, starts_per_axis: Sequence[np.ndarray],
+                  out_spatial: Tuple[int, ...], safe_margin: int = 20) -> np.ndarray:
+    """Safe-margin stitch of (N, *tile, C) patches (``tiling.py:131``):
+    overlap borders weigh 0, uncovered pixels take the patch mean."""
+    grid_shape = [len(s) for s in starts_per_axis]
+    channels = patches.shape[-1]
+    w = _margin_weights(grid_shape, patches.shape[1:-1], safe_margin)
+    result, weight = _accumulate(patches.astype(np.float32), w, starts_per_axis,
+                                 tuple(out_spatial) + (channels,))
+    np.divide(result, weight, out=result, where=weight > 0)
+    result[np.broadcast_to(weight == 0, result.shape)] = float(patches.mean())
+    return result
+
+
+def uncovered_mask(starts_per_axis: Sequence[np.ndarray], factors: Sequence[np.ndarray],
+                   out_spatial: Tuple[int, ...]) -> np.ndarray:
+    """The pixels of ``out_spatial`` whose weight sum is 0 under min-combined
+    per-axis ``factors`` (the safe-margin weights): a pixel is covered when
+    some tile covers it with a positive factor along every axis.  It depends
+    on the grid and the margin only, never on the data."""
+    covered = None
+    for starts, f, n in zip(starts_per_axis, factors, out_spatial):
+        t = f.shape[1]
+        cov = np.zeros(n, bool)
+        for s, row in zip(np.asarray(starts, np.int64), f):
+            seg = cov[s:s + t]
+            seg |= row[: len(seg)] > 0
+        covered = cov if covered is None else np.logical_and.outer(covered, cov)
+    return ~covered
+
+
 def is_exact(h: int, w: int, th: int, tw: int, xs, ys) -> bool:
     """True when the starts are plain stride-th/tw tiling of the (padded)
     frame: each output pixel is covered by exactly one tile
@@ -57,9 +142,15 @@ def cover_ranges(starts, tile: int, extent: int) -> Tuple[np.ndarray, np.ndarray
 class TilePlan:
     """The static tiling of one (h, w) frame by (th, tw) tiles at starts
     ``xs`` × ``ys``, with the int32 index tables the device stages read,
-    uploaded once so that no chunk pays a host-to-device copy for them."""
+    uploaded once so that no chunk pays a host-to-device copy for them.
 
-    def __init__(self, h: int, w: int, th: int, tw: int, xs, ys, device):
+    With ``factors`` — the (nx, th) and (ny, tw) tables of
+    :func:`_margin_factors` — the plan also carries them as float32 on the
+    device (``fx_t``, ``fy_t``, read by K5) and ``uncovered``, the (h, w)
+    mask of pixels no tile weighs."""
+
+    def __init__(self, h: int, w: int, th: int, tw: int, xs, ys, device,
+                 factors: Optional[Sequence[np.ndarray]] = None):
         self.h, self.w, self.th, self.tw = int(h), int(w), int(th), int(tw)
         self.xs = np.asarray(xs, np.int64)
         self.ys = np.asarray(ys, np.int64)
@@ -76,3 +167,13 @@ class TilePlan:
         self.xs_t, self.ys_t = dev(self.xs), dev(self.ys)
         self.row_lo, self.row_hi = dev(row_lo), dev(row_hi)
         self.col_lo, self.col_hi = dev(col_lo), dev(col_hi)
+        self.factors = self.fx_t = self.fy_t = self.uncovered = None
+        if factors is not None:
+            fx, fy = (np.ascontiguousarray(f, np.float32) for f in factors)
+            if fx.shape != (self.nx, th) or fy.shape != (self.ny, tw):
+                raise ValueError(f"factor tables {fx.shape}, {fy.shape} do not match the "
+                                 f"grid {(self.nx, th)}, {(self.ny, tw)}")
+            self.factors = (fx, fy)
+            self.fx_t = torch.as_tensor(fx, device=self.device)
+            self.fy_t = torch.as_tensor(fy, device=self.device)
+            self.uncovered = uncovered_mask((self.xs, self.ys), (fx, fy), (self.h, self.w))

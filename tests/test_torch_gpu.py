@@ -18,13 +18,16 @@ import torch
 
 from bio_image_unet_tpu_torch.data.augment_device import (augment_apply, augment_apply_plain,
                                                           draw)
-from bio_image_unet_tpu_torch.models import Unet
+from bio_image_unet_tpu_torch.models import MultiOutputNestedUNet, MultiOutputUnet, Unet
 from bio_image_unet_tpu_torch.ops import histogram as hist
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
-from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch, sigmoid_stitch_plain
-from bio_image_unet_tpu_torch.predict import Predict
-from bio_image_unet_tpu_torch.predict.normalize import normalize_tile, normalize_tile_plain
-from bio_image_unet_tpu_torch.predict.tiling import TilePlan, grid_starts
+from bio_image_unet_tpu_torch.ops.stitch import (margin_stitch, margin_stitch_plain,
+                                                  sigmoid_stitch, sigmoid_stitch_plain, tile_sum,
+                                                  tile_sum_plain)
+from bio_image_unet_tpu_torch.predict import Predict, PredictMultiOutput
+from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile, normalize_tile_float,
+                                                        normalize_tile_plain)
+from bio_image_unet_tpu_torch.predict.tiling import TilePlan, _margin_factors, grid_starts
 from bio_image_unet_tpu_torch.train import Trainer
 from bio_image_unet_tpu_torch.utils.synth import blob_sample
 
@@ -257,3 +260,144 @@ def test_trainer_on_card_with_augment_and_bf16(cuda, tmp_path):
     res = Predict(np.random.default_rng(1).integers(0, 255, (2, 96, 96), dtype=np.uint8),
                   None, str(tmp_path / "model.pt"), resize_dim=(64, 64), show_progress=False)
     assert res.result.shape == (2, 96, 96)
+
+
+# --- the multi-head path: K2h, K5, K5s ------------------------------------------
+
+K2H_CASES = [
+    ("exact-bf16", np.uint8, (2, 128, 128), 64, 0, False, torch.bfloat16),
+    ("overlap-f32", np.uint16, (2, 100, 90), 32, 1, False, torch.float32),
+    ("reflect-pad-bf16", np.float32, (2, 48, 80), 64, 0, False, torch.bfloat16),
+    ("fixed-bounds-f32", np.uint16, (3, 96, 96), 64, 0, True, torch.float32),
+    ("odd-tile-bf16", np.uint8, (2, 40, 40), 30, 0, False, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", K2H_CASES, ids=[c[0] for c in K2H_CASES])
+def test_normalize_tile_float_kernel_equals_plain(cuda, gen, case):
+    _, dtype, (n_frames, h, w), t, add, fixed, out_dtype = case
+    x = torch.from_numpy(_frames(gen, dtype, (n_frames, h, w))).to(cuda)
+    bounds = hist.clip_bounds(x, 0.5, 99.5)
+    if fixed:
+        bounds = torch.stack([bounds[0, :1], bounds[1, :1], bounds[0, :1], bounds[1, :1]])
+    xs, ys = grid_starts(max(h, t), t, add), grid_starts(max(w, t), t, add)
+    plan = TilePlan(h, w, t, t, xs, ys, cuda)
+    n_total = n_frames * plan.per_frame + 3
+    before = normalize_tile_float.launches
+    ours = normalize_tile_float(x, bounds.contiguous(), plan, n_total, out_dtype)
+    torch.cuda.synchronize()
+    assert normalize_tile_float.launches == before + 1
+    ref = normalize_tile_plain(x, bounds, plan, n_total, False, out_dtype)
+    assert ours.dtype == ref.dtype == out_dtype
+    assert torch.equal(ours.float().view(torch.int32), ref.float().view(torch.int32))
+
+
+K5_CASES = [
+    # id, (frames, h, w), tile, add_tile, margin, channels, batch padding
+    ("exact", (3, 128, 128), 64, 0, 8, 1, 0),
+    ("overlap-2ch", (2, 100, 90), 32, 1, 4, 2, 3),
+    ("reflect-pad", (2, 48, 80), 64, 0, 5, 2, 0),
+    ("margin0-odd-tile", (2, 70, 70), 30, 1, 0, 1, 1),
+]
+
+
+@pytest.mark.parametrize("case", K5_CASES, ids=[c[0] for c in K5_CASES])
+def test_margin_stitch_and_tile_sum_kernels_equal_plain(cuda, gen, case):
+    """K5 bit-equal to its plain version in float16 and float32 (the same
+    additions in the same order); K5s's float64 sum of float16 values is
+    exact, so it equals the plain sum, and so does the fill."""
+    _, (n_frames, h, w), t, add, margin, c, extra = case
+    xs, ys = grid_starts(max(h, t), t, add), grid_starts(max(w, t), t, add)
+    plan = TilePlan(h, w, t, t, xs, ys, cuda, _margin_factors((len(xs), len(ys)), (t, t), margin))
+    n = n_frames * plan.per_frame
+    tiles = torch.from_numpy((gen.standard_normal((n + extra, c, t, t)) * 2)
+                             .astype(np.float16)).to(cuda)
+    for out_dtype in (torch.float16, torch.float32):
+        before = margin_stitch.launches
+        ours = margin_stitch(tiles, n_frames, plan, out_dtype)
+        torch.cuda.synchronize()
+        assert margin_stitch.launches == before + 1
+        ref = margin_stitch_plain(tiles, n_frames, plan, out_dtype)
+        assert ours.shape == (n_frames, c, h, w) and ours.dtype == out_dtype
+        view = torch.int16 if out_dtype == torch.float16 else torch.int32
+        assert torch.equal(ours.view(view), ref.view(view)), out_dtype
+    before = tile_sum.launches
+    total = tile_sum(tiles, n)
+    torch.cuda.synchronize()
+    assert tile_sum.launches == before + 1
+    ref_total = tile_sum_plain(tiles, n)
+    assert total.item() == ref_total.item()
+    count = n * c * t * t
+    assert np.float32(total.item() / count).astype(np.float16) == \
+        np.float32(ref_total.item() / count).astype(np.float16)
+
+
+@pytest.mark.parametrize("offset,size", [(0, 5), (1, 5), (1, 4), (1, 1)])
+def test_tile_sum_kernel_takes_any_float16_offset(cuda, gen, offset, size):
+    """K5s reads pairs of float16 values; a contiguous view that starts at an
+    odd float16 offset (not 4-byte aligned) sums its first value on its own."""
+    n_tiles = 3
+    flat = torch.from_numpy((gen.standard_normal(offset + n_tiles * size * size) * 2)
+                            .astype(np.float16)).to(cuda)
+    tiles = flat[offset:].view(n_tiles, 1, size, size)
+    assert tiles.is_contiguous() and tiles.data_ptr() % 4 == 2 * offset
+    total = tile_sum(tiles, n_tiles)
+    torch.cuda.synchronize()
+    assert total.item() == tile_sum_plain(tiles, n_tiles).item()
+
+
+def test_heads_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    factors = _margin_factors((2, 2), (16, 16), 2)
+    plan = TilePlan(32, 32, 16, 16, [0, 16], [0, 16], cuda, factors)
+    cpu_plan = TilePlan(32, 32, 16, 16, [0, 16], [0, 16], "cpu", factors)
+    tiles = torch.zeros((8, 2, 16, 16), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        margin_stitch(tiles.to(memory_format=torch.channels_last), 2, plan)
+    with pytest.raises(ValueError, match="plan"):
+        margin_stitch(tiles, 2, cpu_plan)
+    with pytest.raises(ValueError, match="float16"):
+        margin_stitch(tiles.float(), 2, plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_sum(tiles[:, :1], 8)
+    x = torch.zeros((2, 32, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        normalize_tile_float(x, torch.zeros((4, 2), device=cuda), plan, 8, torch.float16)
+
+
+@pytest.mark.parametrize("model,mode,dtype,add", [
+    ("nested", "single", np.uint8, 0), ("nested", "first", np.uint16, 1),
+    ("unet", "all", np.float32, 1)])
+def test_predict_multi_output_on_card_matches_cpu(cuda, gen, tmp_path, model, mode, dtype, add):
+    """``PredictMultiOutput`` on the card (K1 → K2h → forward → K5 + K5s)
+    against the CPU (plain versions, CPU convolutions), float32 with TF32
+    off: within 1e-3 + 1e-3·|CPU| on every head and pixel; the card's fused
+    path against its host-staged path within the JAX package's atol 2e-3."""
+    heads = {"mask": {"channels": 1, "activation": "sigmoid"},
+             "orientation": {"channels": 2, "activation": None}}
+    cls, name = ((MultiOutputNestedUNet, "MultiOutputNestedUNet") if model == "nested"
+                 else (MultiOutputUnet, "MultiOutputUnet"))
+    net = init_weights_(cls(n_filter=4, output_heads=heads), torch.Generator().manual_seed(0),
+                        random_bn_stats=True)
+    path = str(tmp_path / "heads.pt")
+    torch.save({"state_dict": net.state_dict(), "model_name": name, "n_filter": 4,
+                "output_heads": heads}, path)
+    movie = _frames(gen, dtype, (18, 64, 96))
+    kw = dict(max_patch_size=(32, 32), add_tile=add, normalization_mode=mode, safe_margin=4,
+              show_progress=False, batch_size=4)
+    counters = (hist.int_clip_bounds, hist.float_clip_bounds, normalize_tile_float,
+                margin_stitch, tile_sum)
+    before = [c.launches for c in counters]
+    card = PredictMultiOutput(movie, path, **kw).result
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    assert ran[2] > 0 and ran[3] > 0, ran
+    assert (ran[0] + ran[1] > 0) == (mode == "single")
+    # K5s runs where the grid leaves pixels no tile weighs: the seams of the
+    # exact grid, not the overlapping one (its margins are covered)
+    assert (ran[4] > 0) == (add == 0), ran
+    cpu = PredictMultiOutput(movie, path, device="cpu", **kw).result
+    host = PredictMultiOutput(movie, path, device_pipeline=False, **kw).result
+    for head in heads:
+        assert card[head].shape == cpu[head].shape
+        bad = np.abs(card[head] - cpu[head]) > 1e-3 + 1e-3 * np.abs(cpu[head])
+        assert not bad.any(), (head, int(bad.sum()))
+        np.testing.assert_allclose(card[head], host[head], atol=2e-3, rtol=0, err_msg=head)
