@@ -25,6 +25,17 @@
 // Exactness: every float step is __fmul_rn/__fadd_rn (and the library is
 // built with -fmad=false), so the image equals the plain version's
 // x*alpha + beta, x*m, x + sigma*n, each clipped to [0, 1], step by step.
+//
+// K4h, the multi-head form in the same library, replaces
+// bio_image_unet_tpu/data/augment_jax.py:192 augment_batch_heads (with
+// :178 _orientation_components) and the same gather: one spatial draw per
+// sample moves the image and every channel of the concatenated head targets
+// (N, CT, S, S); a per-channel code table marks the (cos, sin) pairs of the
+// orientation heads, which are re-expressed in the output frame from both
+// components at the shared source pixel: c' = c*ck + s*sk, s' = s*ck - c*sk
+// (ck, sk = cos, sin of k quarter turns, each 0 or +-1, so exact), then
+// c' = -c' on flip_h and s' = -s' on flip_v.  The intensity stage touches the
+// image only.  Same thread mapping as K4; same bound (bytes).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,36 +87,78 @@ __device__ __forceinline__ void emit(const float* __restrict__ src, float* __res
   }
 }
 
+// the orientation-pair codes of K4h's per-channel table
+enum { C_PLAIN = 0, C_COS = 1, C_SIN = 2 };
+
+// head targets of one gathered tile: every channel moves with the image;
+// the channels of an orientation pair are also rotated into the output frame
 template <bool VEC>
-__global__ void augment_batch(const float* __restrict__ img_src, const float* __restrict__ mask_src,
-                              const float* __restrict__ prev_src, const long long* __restrict__ index,
-                              int n_src, int B, int ci, int co, int S,
-                              const int* __restrict__ flags, const float* __restrict__ coef,
-                              Noise img_noise, Noise prev_noise, float sigma,
-                              float* __restrict__ img_out, float* __restrict__ mask_out,
-                              float* __restrict__ prev_out) {
+__device__ __forceinline__ void emit_heads(const float* __restrict__ src,
+                                           float* __restrict__ out, long long s, int b,
+                                           int channels, size_t plane, size_t out_row,
+                                           const int* src_off, int nx, bool augment,
+                                           const int* __restrict__ codes, const int* fl) {
+  const int k = fl[F_K] & 3;
+  const float ck = k == 0 ? 1.0f : (k == 2 ? -1.0f : 0.0f);
+  const float sk = k == 1 ? 1.0f : (k == 3 ? -1.0f : 0.0f);
+  for (int c = 0; c < channels; ++c) {
+    const float* p = src + ((size_t)s * channels + c) * plane;
+    const size_t ob = ((size_t)b * channels + c) * plane + out_row;
+    int code = augment ? codes[c] : C_PLAIN;
+    // a pair cut off by the channel range (a malformed table) only moves:
+    // never read outside the tile
+    if ((code == C_COS && c + 1 >= channels) || (code == C_SIN && c == 0)) code = C_PLAIN;
+    float v[4];
+    if (code == C_COS) {  // partner: the sin component in channel c + 1
+      for (int j = 0; j < nx; ++j) {
+        const float cv = p[src_off[j]], sv = p[plane + src_off[j]];
+        const float r = __fadd_rn(__fmul_rn(cv, ck), __fmul_rn(sv, sk));
+        v[j] = fl[F_FH] ? -r : r;
+      }
+    } else if (code == C_SIN) {  // partner: the cos component in channel c - 1
+      for (int j = 0; j < nx; ++j) {
+        const float sv = p[src_off[j]], cv = p[src_off[j] - (long long)plane];
+        const float r = __fsub_rn(__fmul_rn(sv, ck), __fmul_rn(cv, sk));
+        v[j] = fl[F_FV] ? -r : r;
+      }
+    } else {
+      for (int j = 0; j < nx; ++j) v[j] = p[src_off[j]];
+    }
+    store<VEC>(out + ob, v, nx);
+  }
+}
+
+// the sample, source row and source offsets of one thread's 4 output pixels
+// (shared by K4 and K4h); false when the thread has no pixels
+struct Pixels {
+  int b, nx;
+  long long s;
+  bool gate;
+  size_t out_row;
+  int src_off[4];
+};
+
+__device__ __forceinline__ bool map_pixels(Pixels& px, const long long* __restrict__ index,
+                                           int n_src, int B, int S,
+                                           const int* __restrict__ flags) {
   const int groups = (S + 3) / 4;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * S * groups) return;
+  if (t >= (long long)B * S * groups) return false;
   const int g = (int)(t % groups);
   const long long row = t / groups;
   const int y = (int)(row % S);
   const int b = (int)(row / S);
-
   const int* fl = flags + (size_t)b * N_FLAGS;
   long long s = index != nullptr ? index[b] : b;
   s = s < 0 ? 0 : (s >= n_src ? n_src - 1 : s);  // never read outside the tile set
   const bool gate = fl[F_GATE] != 0;
   const int k = fl[F_K] & 3;
-  const float alpha = coef[2 * b], beta = coef[2 * b + 1];
-
   const int x0 = g * 4;
   const int nx = S - x0 < 4 ? S - x0 : 4;
-  int src_off[4];
   for (int j = 0; j < nx; ++j) {
     const int x = x0 + j;
-    if (!gate) {  // the untransformed source pixel (augment_jax.py:155-156)
-      src_off[j] = y * S + x;
+    if (!gate) {  // the untransformed source pixel (augment_jax.py:155-156, :216-217)
+      px.src_off[j] = y * S + x;
       continue;
     }
     // out = flip_v(flip_h(rot90(src, k))) (augment_jax.py:41-47): undo the
@@ -119,17 +172,59 @@ __global__ void augment_batch(const float* __restrict__ img_src, const float* __
       case 2: sy = S - 1 - yy; sx = S - 1 - xx; break;
       default: sy = S - 1 - xx; sx = yy; break;
     }
-    src_off[j] = sy * S + sx;
+    px.src_off[j] = sy * S + sx;
   }
+  px.b = b;
+  px.nx = nx;
+  px.s = s;
+  px.gate = gate;
+  px.out_row = (size_t)y * S + x0;
+  return true;
+}
+
+template <bool VEC>
+__global__ void augment_heads(const float* __restrict__ img_src, const float* __restrict__ tgt_src,
+                              const long long* __restrict__ index, int n_src, int B, int ci,
+                              int ct, int S, const int* __restrict__ codes,
+                              const int* __restrict__ flags, const float* __restrict__ coef,
+                              Noise noise, float sigma, float* __restrict__ img_out,
+                              float* __restrict__ tgt_out) {
+  Pixels px;
+  if (!map_pixels(px, index, n_src, B, S, flags)) return;
+  const int* fl = flags + (size_t)px.b * N_FLAGS;
+  const float alpha = coef[2 * px.b], beta = coef[2 * px.b + 1];
   const size_t plane = (size_t)S * S;
-  const size_t out_row = (size_t)y * S + x0;
-  emit<VEC>(img_src, img_out, s, b, ci, plane, out_row, src_off, nx, gate, fl, alpha, beta,
-            img_noise, sigma);
+  emit<VEC>(img_src, img_out, px.s, px.b, ci, plane, px.out_row, px.src_off, px.nx, px.gate, fl,
+            alpha, beta, noise, sigma);
+  emit_heads<VEC>(tgt_src, tgt_out, px.s, px.b, ct, plane, px.out_row, px.src_off, px.nx,
+                  px.gate, codes, fl);
+}
+
+template <bool VEC>
+__global__ void augment_batch(const float* __restrict__ img_src, const float* __restrict__ mask_src,
+                              const float* __restrict__ prev_src, const long long* __restrict__ index,
+                              int n_src, int B, int ci, int co, int S,
+                              const int* __restrict__ flags, const float* __restrict__ coef,
+                              Noise img_noise, Noise prev_noise, float sigma,
+                              float* __restrict__ img_out, float* __restrict__ mask_out,
+                              float* __restrict__ prev_out) {
+  Pixels px;
+  if (!map_pixels(px, index, n_src, B, S, flags)) return;
+  const int* fl = flags + (size_t)px.b * N_FLAGS;
+  const float alpha = coef[2 * px.b], beta = coef[2 * px.b + 1];
+  const size_t plane = (size_t)S * S;
+  emit<VEC>(img_src, img_out, px.s, px.b, ci, plane, px.out_row, px.src_off, px.nx, px.gate, fl,
+            alpha, beta, img_noise, sigma);
   if (prev_src != nullptr)
-    emit<VEC>(prev_src, prev_out, s, b, ci, plane, out_row, src_off, nx, gate, fl, alpha, beta,
-              prev_noise, sigma);
-  emit<VEC>(mask_src, mask_out, s, b, co, plane, out_row, src_off, nx, false, fl, alpha, beta,
-            img_noise, sigma);
+    emit<VEC>(prev_src, prev_out, px.s, px.b, ci, plane, px.out_row, px.src_off, px.nx, px.gate,
+              fl, alpha, beta, prev_noise, sigma);
+  emit<VEC>(mask_src, mask_out, px.s, px.b, co, plane, px.out_row, px.src_off, px.nx, false, fl,
+            alpha, beta, img_noise, sigma);
+}
+
+unsigned blocks_for(int B, int S, int threads) {
+  const long long total = (long long)B * S * ((S + 3) / 4);
+  return (unsigned)((total + threads - 1) / threads);
 }
 
 }  // namespace
@@ -149,8 +244,7 @@ int k4_augment_batch(const void* img_src, const void* mask_src, const void* prev
                      const void* mult_prev, const void* gauss_prev, float sigma, void* img_out,
                      void* mask_out, void* prev_out, void* stream) {
   const int threads = 256;
-  const long long total = (long long)B * S * ((S + 3) / 4);
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  const unsigned blocks = blocks_for(B, S, threads);
   cudaStream_t st = (cudaStream_t)stream;
   const Noise img_noise{(const float*)mult, (const float*)gauss};
   const Noise prev_noise{(const float*)mult_prev, (const float*)gauss_prev};
@@ -164,6 +258,33 @@ int k4_augment_batch(const void* img_src, const void* mask_src, const void* prev
         (const float*)img_src, (const float*)mask_src, (const float*)prev_src,
         (const long long*)index, n_src, B, ci, co, S, (const int*)flags, (const float*)coef,
         img_noise, prev_noise, sigma, (float*)img_out, (float*)mask_out, (float*)prev_out);
+  return (int)cudaGetLastError();
+}
+
+// K4h.  img_src (n_src, ci, S, S) and tgt_src (n_src, ct, S, S): float32 tile
+// sets (the head targets concatenated along channels).  codes: (ct,) int32,
+// 0 for a channel that only moves, 1 for the cos and 2 for the sin component
+// of an orientation pair (1 is always followed by 2).  index, flags, coef,
+// mult, gauss and sigma as for k4_augment_batch.  Outputs (B, ci|ct, S, S)
+// float32.  One launch.
+int k4h_augment_heads(const void* img_src, const void* tgt_src, const void* index, int n_src,
+                      int B, int ci, int ct, int S, const void* codes, const void* flags,
+                      const void* coef, const void* mult, const void* gauss, float sigma,
+                      void* img_out, void* tgt_out, void* stream) {
+  const int threads = 256;
+  const unsigned blocks = blocks_for(B, S, threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const Noise noise{(const float*)mult, (const float*)gauss};
+  if (S % 4 == 0)
+    augment_heads<true><<<blocks, threads, 0, st>>>(
+        (const float*)img_src, (const float*)tgt_src, (const long long*)index, n_src, B, ci, ct,
+        S, (const int*)codes, (const int*)flags, (const float*)coef, noise, sigma,
+        (float*)img_out, (float*)tgt_out);
+  else
+    augment_heads<false><<<blocks, threads, 0, st>>>(
+        (const float*)img_src, (const float*)tgt_src, (const long long*)index, n_src, B, ci, ct,
+        S, (const int*)codes, (const int*)flags, (const float*)coef, noise, sigma,
+        (float*)img_out, (float*)tgt_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
-"""Host-side image augmentation of the offline 2D pipeline (the port's copy of
-the transforms of ``bio_image_unet_tpu/data/augment.py`` that
-``DataProcess2D._augment`` composes: ``Transform``/``Compose`` :53-106,
-``RandomRotate90`` :108, ``ShiftScaleRotate`` :128,
-``RandomBrightnessContrast`` :293, ``Blur`` :316, ``MultiplicativeNoise``
-:351, ``rotate_array_90`` :473).
+"""Host-side image augmentation of the offline 2D pipelines (the port's copy
+of the transforms of ``bio_image_unet_tpu/data/augment.py`` that
+``DataProcess2D._augment`` and ``DataProcessMultiOutput._augment`` compose:
+``Transform``/``Compose`` :53-106, ``RandomRotate90`` :108,
+``ShiftScaleRotate`` :128, ``RandomScale`` :183, ``PadIfNeeded`` :209,
+``RandomCrop`` :228, ``RandomBrightnessContrast`` :293, ``Blur`` :316,
+``MultiplicativeNoise`` :351, ``GaussNoise`` :376, ``ShotNoise`` :408, the
+NaN-aware ``rotate_array`` :434 and ``rotate_array_90`` :473).
 
 numpy/scipy only.  Every transform draws from the ``np.random.Generator`` in
 the same order and with the same calls as the JAX package's, so one seed gives
@@ -153,6 +155,65 @@ class ShiftScaleRotate(Transform):
         return self._warp(mask, params, nearest=True)
 
 
+class RandomScale(Transform):
+    """Resize by 1 + U(lo, hi), nearest neighbour for every target
+    (multi_output_unet/data.py:190-192)."""
+
+    def __init__(self, scale_limit=(0.0, 0.0), p=0.5):
+        super().__init__(p)
+        self.scale_limit = (tuple(scale_limit) if isinstance(scale_limit, (tuple, list))
+                            else (-scale_limit, scale_limit))
+
+    def sample(self, rng, shape):
+        return {"factor": 1.0 + rng.uniform(*self.scale_limit)}
+
+    def apply(self, img, params):
+        f = params["factor"]
+        if f == 1.0:
+            return img
+        h, w = img.shape[:2]
+        nh, nw = max(int(round(h * f)), 1), max(int(round(w * f)), 1)
+        yi = np.minimum((np.arange(nh) / f).astype(np.int64), h - 1)
+        xi = np.minimum((np.arange(nw) / f).astype(np.int64), w - 1)
+        return np.ascontiguousarray(img[yi][:, xi])
+
+
+class PadIfNeeded(Transform):
+    """Wrap padding to at least (min_height, min_width) with the content at
+    the bottom left: the padding fills the top and the right
+    (multi_output_unet/data.py:194-195)."""
+
+    def __init__(self, min_height: int, min_width: int, p: float = 1.0):
+        super().__init__(p)
+        self.min_height, self.min_width = min_height, min_width
+
+    def apply(self, img, params):
+        h, w = img.shape[:2]
+        pad_h = max(0, self.min_height - h)
+        pad_w = max(0, self.min_width - w)
+        if pad_h == 0 and pad_w == 0:
+            return img
+        widths = [(pad_h, 0), (0, pad_w)] + [(0, 0)] * (img.ndim - 2)
+        return np.pad(img, widths, mode="wrap")
+
+
+class RandomCrop(Transform):
+    """A (height, width) crop at a uniform offset."""
+
+    def __init__(self, height: int, width: int, p: float = 1.0):
+        super().__init__(p)
+        self.height, self.width = height, width
+
+    def sample(self, rng, shape):
+        h, w = shape[:2]
+        return {"y": int(rng.integers(0, max(h - self.height, 0) + 1)),
+                "x": int(rng.integers(0, max(w - self.width, 0) + 1))}
+
+    def apply(self, img, params):
+        y, x = params["y"], params["x"]
+        return np.ascontiguousarray(img[y:y + self.height, x:x + self.width])
+
+
 # --- intensity (image only) ----------------------------------------------------
 
 
@@ -219,6 +280,86 @@ class MultiplicativeNoise(Transform):
 
     def apply_mask(self, mask, params):
         return mask
+
+
+class GaussNoise(Transform):
+    """Additive Gaussian noise: ``var_limit``, the absolute-variance API
+    (siam_unet/data.py:239), or ``std_range``, a fraction of the maximum
+    value (multi_output_unet/data.py:198)."""
+
+    def __init__(self, var_limit=None, std_range=None, p=0.5):
+        super().__init__(p)
+        if (var_limit is None) == (std_range is None):
+            raise ValueError("pass exactly one of var_limit / std_range")
+        self.var_limit = var_limit
+        self.std_range = std_range
+
+    def sample(self, rng, shape):
+        if self.var_limit is not None:
+            lo, hi = (self.var_limit if isinstance(self.var_limit, (tuple, list))
+                      else (0, self.var_limit))
+            return {"sigma": float(np.sqrt(rng.uniform(lo, hi))), "relative": False,
+                    "rng": rng}
+        return {"sigma": float(rng.uniform(*self.std_range)), "relative": True, "rng": rng}
+
+    def apply(self, img, params):
+        sigma = params["sigma"] * (_max_value(img) if params["relative"] else 1.0)
+        noise = params["rng"].normal(0.0, sigma, size=img.shape)
+        return _clip_like(img, img.astype(np.float32) + noise)
+
+    def apply_mask(self, mask, params):
+        return mask
+
+
+class ShotNoise(Transform):
+    """Poisson (photon-count) noise, ``Poisson(img / scale) · scale`` on the
+    [0, max] intensity scale (multi_output_unet/data.py:197)."""
+
+    def __init__(self, scale_range=(0.1, 0.3), p=0.5):
+        super().__init__(p)
+        self.scale_range = tuple(scale_range)
+
+    def sample(self, rng, shape):
+        return {"scale": float(rng.uniform(*self.scale_range)), "rng": rng}
+
+    def apply(self, img, params):
+        scale = params["scale"] * _max_value(img)
+        lam = np.maximum(img.astype(np.float32), 0.0) / scale
+        return _clip_like(img, params["rng"].poisson(lam).astype(np.float32) * scale)
+
+    def apply_mask(self, mask, params):
+        return mask
+
+
+def rotate_array(x: np.ndarray, angle: float, order: int = 1) -> np.ndarray:
+    """Rotation by ``angle`` degrees with the grid-wrap border, keeping NaN
+    regions NaN and probability maps in their [min, max] range
+    (multi_output_unet/data.py:213-242, ``scipy.ndimage.rotate``).  A
+    channels-first (C, H, W) array rotates in its (H, W) plane, the JAX
+    package's documented divergence from the reference, whose default axes
+    rotate the (C, H) plane (``augment.py:439-444``)."""
+    if x.dtype == bool:
+        x = x.astype(np.float32)
+        xmin, xmax, needs_clip = 0.0, 1.0, True
+    elif np.nanmin(x) >= 0 and np.nanmax(x) <= 1:
+        xmin, xmax, needs_clip = float(np.nanmin(x)), float(np.nanmax(x)), True
+    else:
+        xmin = xmax = None
+        needs_clip = False
+    axes = (1, 2) if x.ndim == 3 and x.shape[0] < x.shape[1] else (0, 1)
+    if np.any(np.isnan(x)):
+        nan_mask = np.isnan(x)
+        rotated = ndimage.rotate(np.where(nan_mask, 0, x), angle, axes=axes[::-1],
+                                 reshape=False, mode="grid-wrap", order=order).astype(np.float32)
+        rotated_mask = ndimage.rotate(nan_mask.astype(np.uint8), angle, axes=axes[::-1],
+                                      reshape=False, mode="grid-wrap", order=order) > 0.5
+        rotated[rotated_mask] = np.nan
+    else:
+        rotated = ndimage.rotate(x, angle, axes=axes[::-1], reshape=False, mode="grid-wrap",
+                                 order=order).astype(np.float32)
+    if needs_clip:
+        rotated = np.clip(rotated, xmin, xmax)
+    return rotated
 
 
 def rotate_array_90(x: np.ndarray, factor: int) -> np.ndarray:

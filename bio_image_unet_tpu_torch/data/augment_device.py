@@ -23,21 +23,31 @@ Layout is NCHW: image (N, C, S, S), mask (N, C', S, S) float32 with square
 tiles (as ``jnp.rot90`` under ``lax.switch`` requires).  The pair form
 (``prev``, ``augment_jax.py:159-170``) shares the spatial draw, the
 brightness/contrast draw and the noise apply flags, and draws its own noise
-fields.  The 3D form (5-D tensors) and ``augment_batch_heads`` (``:192``)
-are not ported yet.
+fields.
+
+The multi-head form (``augment_jax.py:192 augment_batch_heads``) has the same
+split: :func:`draw`, then :func:`augment_heads_apply`, one launch of K4h
+(``csrc/augment_batch.cu``), on the head targets concatenated along channels
+(:class:`HeadLayout`).  Every target channel moves with the image; the
+(cos, sin) channels of each orientation head (every head whose name contains
+``"orientation"``, ``trainer.py:491-493``) are also rotated into the output
+frame (``augment_jax.py:178``).  Its plain version is
+:func:`augment_heads_apply_plain`.  The 3D form (5-D tensors) is not ported
+yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..ops import _cuda
 
 __all__ = ["AugmentDraws", "FLAGS", "draw", "augment_apply", "augment_apply_plain",
-           "augment_batch"]
+           "augment_batch", "HeadLayout", "orientation_keys", "augment_heads_apply",
+           "augment_heads_apply_plain", "augment_batch_heads"]
 
 
 FLAGS = ("gate", "k", "flip_h", "flip_v", "bc_apply", "mult_apply", "gauss_apply")
@@ -247,3 +257,191 @@ def augment_batch(generator: torch.Generator, image, mask, prev=None, index=None
     d = draw(generator, b, (b,) + tuple(image.shape[1:]), prev is not None,
              brightness_contrast, noise_mult, gauss_sigma, p_pipeline)
     return augment_apply(image, mask, d, index, prev)
+
+
+# --- the multi-head form (augment_jax.py:192) -------------------------------------
+
+# K4h's per-channel codes: a channel that only moves, and the cos and sin
+# components of an orientation pair (cos always directly before its sin)
+PLAIN, COS, SIN = 0, 1, 2
+# cos/sin of k quarter turns (augment_jax.py:174-175)
+_COS_K = (1.0, 0.0, -1.0, 0.0)
+_SIN_K = (0.0, 1.0, 0.0, -1.0)
+
+
+def orientation_keys(names) -> Tuple[str, ...]:
+    """The heads whose (cos, sin) channels rotate with the tile: every name
+    that contains ``"orientation"`` (``trainer.py:491-493``)."""
+    return tuple(k for k in names if "orientation" in k)
+
+
+@dataclass
+class HeadLayout:
+    """How head targets sit in one tensor concatenated along channels, the
+    form K4h takes: the heads' ``names`` and ``channels`` in order, and
+    ``codes`` (ΣC,) int32 on the tensors' device (``PLAIN``, ``COS``,
+    ``SIN``)."""
+
+    names: Tuple[str, ...]
+    channels: Tuple[int, ...]
+    codes: torch.Tensor
+
+    @classmethod
+    def of(cls, channels: Mapping[str, int], orientation=(), device=None) -> "HeadLayout":
+        """The layout of heads with ``channels`` ({head: C}, in order); the
+        heads in ``orientation`` must have 2 channels, (cos θ, sin θ)."""
+        codes = []
+        for name, c in channels.items():
+            if name in orientation:
+                if c != 2:
+                    raise ValueError(f"orientation head {name!r} has {c} channels, "
+                                     "want 2 (cos θ, sin θ)")
+                codes += [COS, SIN]
+            else:
+                codes += [PLAIN] * int(c)
+        return cls(tuple(channels), tuple(int(c) for c in channels.values()),
+                   torch.tensor(codes, dtype=torch.int32, device=device))
+
+    def concat(self, targets: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """{head: (N, C, S, S)} → (N, ΣC, S, S)."""
+        return torch.cat([targets[k] for k in self.names], 1).contiguous()
+
+    def split(self, t: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The per-head channel views of a (B, ΣC, S, S) tensor."""
+        out, start = {}, 0
+        for name, c in zip(self.names, self.channels):
+            out[name] = t[:, start:start + c]
+            start += c
+        return out
+
+
+def _check_codes(codes: Sequence[int], ct: int) -> None:
+    if len(codes) != ct:
+        raise ValueError(f"augment_heads_apply: {len(codes)} codes for {ct} target channels")
+    for c, code in enumerate(codes):
+        if not (code == PLAIN or (code == COS and c + 1 < ct and codes[c + 1] == SIN)
+                or (code == SIN and c > 0 and codes[c - 1] == COS)):
+            raise ValueError(f"augment_heads_apply: bad codes {list(codes)} (a COS channel "
+                             "must be followed by its SIN channel)")
+
+
+def _orient(t: torch.Tensor, codes: Sequence[int], k: int, fh: bool, fv: bool) -> torch.Tensor:
+    """One (ΣC, S, S) target sample, already moved: its orientation pairs
+    re-expressed in the output frame (``augment_jax.py:178``)."""
+    out = t.clone()
+    ck, sk = _COS_K[k], _SIN_K[k]
+    for c, code in enumerate(codes):
+        if code == COS:
+            r = t[c] * ck + t[c + 1] * sk
+            out[c] = -r if fh else r
+        elif code == SIN:
+            r = t[c] * ck - t[c - 1] * sk
+            out[c] = -r if fv else r
+    return out
+
+
+def augment_heads_apply_plain(image, targets, codes, draws: AugmentDraws, index=None):
+    """Plain PyTorch K4h (``torch.rot90``, ``torch.flip``, ``torch.where``);
+    same arguments and results as :func:`augment_heads_apply`."""
+    _check(image, targets, None)
+    codes = [int(c) for c in torch.as_tensor(codes).tolist()]
+    _check_codes(codes, targets.shape[1])
+    if index is not None:
+        image, targets = image[index], targets[index]
+    ks, fhs, fvs = (draws.flag(n).tolist() for n in ("k", "flip_h", "flip_v"))
+    spatial_img = torch.stack([_spatial(image[b], ks[b], bool(fhs[b]), bool(fvs[b]))
+                               for b in range(image.shape[0])])
+    spatial_tgt = torch.stack([_orient(_spatial(targets[b], ks[b], bool(fhs[b]), bool(fvs[b])),
+                                       codes, ks[b], bool(fhs[b]), bool(fvs[b]))
+                               for b in range(targets.shape[0])])
+    gate = draws.flag("gate").bool().view(-1, 1, 1, 1)
+    return (torch.where(gate, _intensity(spatial_img, draws, draws.mult, draws.gauss), image),
+            torch.where(gate, spatial_tgt, targets))
+
+
+def augment_heads_apply(image: torch.Tensor, targets: torch.Tensor, codes: torch.Tensor,
+                        draws: AugmentDraws, index: Optional[torch.Tensor] = None):
+    """K4h: gather rows ``index`` (default: all, in order) of the tile set
+    ``image`` (N, C, S, S) and of the concatenated head targets ``targets``
+    (N, ΣC, S, S) and apply ``draws``; ``codes`` (ΣC,) int32 marks the
+    orientation pairs (:class:`HeadLayout`).  → ``(image, targets)``, each
+    (B, ·, S, S) float32.  On CUDA tensors one kernel launch; on CPU tensors
+    the plain version.  The draws' ``mult_prev``/``gauss_prev`` are unused."""
+    _check(image, targets, None)
+    if image.device.type == "cpu":
+        return augment_heads_apply_plain(image, targets, codes, draws, index)
+    dev = image.device
+    for t, what in ((image, "image"), (targets, "targets"), (draws.mult, "mult"),
+                    (draws.gauss, "gauss")):
+        if t is None:
+            continue
+        _cuda.require_cuda(t, f"augment_heads_apply {what}", dev)
+        if t.dtype != torch.float32:
+            raise ValueError(f"augment_heads_apply {what}: expected float32, got {t.dtype}")
+    n_src, ci, s = image.shape[0], image.shape[1], image.shape[-1]
+    ct = targets.shape[1]
+    _cuda.require_cuda(codes, "augment_heads_apply codes", dev)
+    if codes.dtype != torch.int32 or tuple(codes.shape) != (ct,):
+        raise ValueError(f"augment_heads_apply codes: expected ({ct},) int32, got "
+                         f"{tuple(codes.shape)} {codes.dtype}")
+    if index is not None:
+        if index.dtype != torch.int64 or index.dim() != 1:
+            raise ValueError("augment_heads_apply index: expected a 1-D int64 tensor")
+        _cuda.require_cuda(index, "augment_heads_apply index", dev)
+    b = n_src if index is None else index.shape[0]
+    for f, what in ((draws.mult, "mult"), (draws.gauss, "gauss")):
+        if f is not None and tuple(f.shape) != (b, ci, s, s):
+            raise ValueError(f"augment_heads_apply {what}: field {tuple(f.shape)}, "
+                             f"want {(b, ci, s, s)}")
+    flags, coef = draws.flags, draws.coef
+    _cuda.require_cuda(flags, "augment_heads_apply flags", dev)
+    _cuda.require_cuda(coef, "augment_heads_apply coef", dev)
+    if (flags.dtype, coef.dtype) != (torch.int32, torch.float32) or (
+            tuple(flags.shape), tuple(coef.shape)) != ((b, len(FLAGS)), (b, 2)):
+        raise ValueError(f"augment_heads_apply: draws {tuple(flags.shape)} {flags.dtype} / "
+                         f"{tuple(coef.shape)} {coef.dtype} for a batch of {b}")
+    img_out = torch.empty((b, ci, s, s), dtype=torch.float32, device=dev)
+    tgt_out = torch.empty((b, ct, s, s), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    A = _cuda
+    fn = A.function("augment_batch", "k4h_augment_heads",
+                    [A.P, A.P, A.P, A.I32, A.I32, A.I32, A.I32, A.I32, A.P, A.P, A.P, A.P, A.P,
+                     A.F32, A.P, A.P, A.P])
+    A.launch(fn, dev, ptr(image), ptr(targets), ptr(index), n_src, b, ci, ct, s, ptr(codes),
+             ptr(flags), ptr(coef), ptr(draws.mult), ptr(draws.gauss), float(draws.sigma),
+             ptr(img_out), ptr(tgt_out))
+    augment_heads_apply.launches += 1
+    return img_out, tgt_out
+
+
+augment_heads_apply.launches = 0
+
+
+def augment_batch_heads(generator: torch.Generator, image,
+                        targets: Union[Mapping[str, torch.Tensor], torch.Tensor],
+                        orientation_keys: Sequence[str] = (), index=None,
+                        layout: Optional[HeadLayout] = None,
+                        brightness_contrast: Tuple[float, float] = (0.25, 0.25),
+                        noise_mult: Optional[Tuple[float, float]] = (0.5, 1.2),
+                        gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8):
+    """One full multi-head augmentation draw (``augment_jax.py:192``): the
+    draws from ``generator``, then K4h.  ``targets`` is {head: (N, C, S, S)},
+    concatenated here, with ``orientation_keys`` naming the orientation
+    heads; or the concatenated (N, ΣC, S, S) tensor itself with its
+    ``layout`` (a resident set is concatenated once).  ``index`` gathers from
+    a resident tile set; without it ``image`` is the batch.  → ``(image,
+    {head: (B, C, S, S)})``, the heads channel views of one tensor."""
+    if layout is None:
+        layout = HeadLayout.of({k: v.shape[1] for k, v in targets.items()}, orientation_keys,
+                               image.device)
+        targets = layout.concat(targets)
+    b = image.shape[0] if index is None else index.shape[0]
+    if image.dim() == 5:
+        _check(image, targets, None)
+    d = draw(generator, b, (b,) + tuple(image.shape[1:]), False, brightness_contrast,
+             noise_mult, gauss_sigma, p_pipeline)
+    img, tgt = augment_heads_apply(image, targets, layout.codes, d, index)
+    return img, layout.split(tgt)

@@ -1,7 +1,7 @@
-"""The 2D training-data pipeline and its loader (the port's copy of the 2D
-part of ``bio_image_unet_tpu/data/pipelines.py``: helpers :54-183,
-``DataProcess2D`` :191-352, ``Subset`` :971, ``random_split`` :983,
-``DataLoader`` :993).
+"""The 2D training-data pipelines and their loader (the port's copy of the 2D
+parts of ``bio_image_unet_tpu/data/pipelines.py``: helpers :54-183,
+``DataProcess2D`` :191-352, ``DataProcessMultiOutput`` :686-843, ``Subset``
+:971, ``random_split`` :983, ``DataLoader`` :993).
 
 The on-disk layout, the tiling rule and the augmentation stream are the JAX
 package's, so the same source TIFFs and seed give bit-equal tiles.  One
@@ -18,16 +18,17 @@ import os
 import queue
 import shutil
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from . import morphology, tiff
-from .augment import (Blur, Compose, MultiplicativeNoise, RandomBrightnessContrast,
-                      RandomRotate90, ShiftScaleRotate)
+from .augment import (Blur, Compose, GaussNoise, MultiplicativeNoise, PadIfNeeded,
+                      RandomBrightnessContrast, RandomCrop, RandomRotate90, RandomScale,
+                      ShiftScaleRotate, ShotNoise, rotate_array, rotate_array_90)
 
-__all__ = ["clip_and_normalize", "edit_mask", "tile_starts", "DataProcess2D", "Subset",
-           "random_split", "DataLoader"]
+__all__ = ["clip_and_normalize", "edit_mask", "tile_starts", "DataProcess2D",
+           "DataProcessMultiOutput", "Subset", "random_split", "DataLoader"]
 
 
 def clip_and_normalize(img: np.ndarray, clip_threshold=(0.2, 99.8), scale=255.0):
@@ -268,6 +269,162 @@ class DataProcess2D(_TileDataset):
             image = _read_split_chw(os.path.join(self.split_image_path, f"{idx}.tif"))
             mask = _read_split_chw(os.path.join(self.split_mask_path, f"{idx}.tif"))
         return {"image": image, "mask": mask}
+
+
+class DataProcessMultiOutput(_TileDataset):
+    """Multi-target 2D pipeline (``pipelines.py:686``; reference
+    multi_output_unet/data.py:19-349): images and their targets read into
+    memory, target dicts keyed by the basename of each target directory;
+    ``reps = max(int(area / tile area · aug_factor), 2)`` augmented patches
+    per image, each first rotated (with p 0.5 by a uniform angle, NaN-aware,
+    orientation targets shifted by ``−angle``; else by 0..2 quarter turns,
+    orientation shifted by ``−π/2·factor``, both mod 2π) and then sent
+    through the host pipeline; written as float32 TIFFs under ``data_dir``
+    (``image/image_<n>.tif``, ``<key>/<key>_<n>.tif``).
+
+    Items are CHW float32: ``image`` (1, S, S); a target named
+    ``orientation`` as (cos θ, sin θ), (2, S, S); every other target (C, S,
+    S); NaNs replaced by ``nan_to_val`` (``:827-843``)."""
+
+    def __init__(self, image_dir: str, target_dirs: List[str],
+                 target_types: Dict[str, str], data_dir: str = "../data/",
+                 dim_out=(256, 256), in_channels=1, out_channels=1, add_tile=0,
+                 nan_to_val: float = 0, val_split=0.2,
+                 clip_threshold=(0.0, 99.99), aug_factor: float = 2,
+                 gauss_noise_lims=(0.01, 0.1), shot_noise_lims=(0.001, 0.01),
+                 brightness_contrast=(0.1, 0.1), blur_limit=(3, 5),
+                 random_rotate=True, scale_limit=(0, 0), create=True,
+                 file_filter: Optional[Callable[[str], bool]] = None,
+                 cache=True, seed: Optional[int] = None):
+        super().__init__(cache)
+        self.image_dir = image_dir
+        self.target_dirs = list(target_dirs)
+        self.target_keys = [os.path.basename(os.path.normpath(d)) for d in target_dirs]
+        self.target_types = target_types
+        self.data_dir = data_dir
+        self.data: List[dict] = []
+        self.dim_out = tuple(dim_out)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.nan_to_val = nan_to_val
+        self.clip_threshold = clip_threshold
+        self.add_tile = add_tile
+        self.aug_factor = aug_factor
+        self.brightness_contrast = brightness_contrast
+        self.gauss_noise_lims = gauss_noise_lims
+        self.shot_noise_lims = shot_noise_lims
+        self.blur_limit = blur_limit
+        self.random_rotate = random_rotate
+        self.scale_limit = scale_limit
+        self.file_filter = file_filter
+        self.val_split = val_split
+        self.mode = "train"
+        if create:
+            _fresh_dirs(self.data_dir, [""], wipe=True)
+            rng = np.random.default_rng(seed)
+            self._read_and_edit()
+            self._augment(rng)
+
+    def _read_and_edit(self):
+        files = _tif_files(self.image_dir)
+        if self.file_filter:
+            files = [f for f in files if self.file_filter(f)]
+        for file_i in files:
+            img = clip_and_normalize(tiff.imread(file_i).astype(np.float32),
+                                     self.clip_threshold, scale=1.0)
+            data_i = {"image": img}
+            for target_dir, key in zip(self.target_dirs, self.target_keys):
+                path = os.path.join(target_dir, os.path.basename(file_i))
+                if not os.path.exists(path):
+                    print(f"Warning: Target file {path} does not exist.")
+                    break
+                data_i[key] = tiff.imread(path)
+            else:
+                shapes = [v.shape[-2:] for v in data_i.values()]
+                if any(sh != shapes[0] for sh in shapes):
+                    raise ValueError(f"File: {file_i}. Shape mismatch across targets: {shapes}")
+                self.data.append(data_i)
+
+    @staticmethod
+    def _chw_to_hwc(x):
+        return np.transpose(x, (1, 2, 0)) if x.ndim == 3 else x
+
+    @staticmethod
+    def _hwc_to_chw(x):
+        return np.transpose(x, (2, 0, 1)) if x.ndim == 3 else x
+
+    def _augment(self, rng):
+        pipeline = Compose([
+            RandomScale(scale_limit=self.scale_limit, p=0.75),
+            Blur(blur_limit=self.blur_limit, p=0.25),
+            PadIfNeeded(self.dim_out[0], self.dim_out[1]),
+            RandomCrop(self.dim_out[0], self.dim_out[1], p=1),
+            ShotNoise(scale_range=self.shot_noise_lims, p=0.25),
+            GaussNoise(std_range=self.gauss_noise_lims, p=0.25),
+            RandomBrightnessContrast(self.brightness_contrast[0],
+                                     self.brightness_contrast[1], p=0.5),
+        ], targets={k: self.target_types.get(k, "mask") for k in self.target_keys})
+        n = 0
+        image_out = os.path.join(self.data_dir, "image")
+        os.makedirs(image_out, exist_ok=True)
+        for data_i in self.data:
+            image = data_i["image"].astype(np.float32)
+            targets = {k: data_i[k].astype(np.float32) for k in data_i if k != "image"}
+            reps = max(int(image.shape[0] * image.shape[1]
+                           / (self.dim_out[0] * self.dim_out[1]) * self.aug_factor), 2)
+            for _ in range(reps):
+                aug_image, aug_targets = image.copy(), dict(targets)
+                if self.random_rotate:
+                    if rng.random() < 0.5:
+                        angle = float(rng.uniform(0, 360))
+                        aug_image = rotate_array(aug_image, angle, order=0)
+                        for key in aug_targets:
+                            aug_targets[key] = rotate_array(aug_targets[key], angle, order=3)
+                            if "orientation" in key:
+                                aug_targets[key] = (aug_targets[key] - np.radians(angle)) % (
+                                    2 * np.pi)
+                    else:
+                        # quarter turns 0..2, as in the JAX package
+                        factor = int(rng.integers(0, 3))
+                        aug_image = rotate_array_90(aug_image, factor)
+                        for key in aug_targets:
+                            if "orientation" in key:
+                                aug_targets[key] = (aug_targets[key] - (np.pi / 2 * factor)) % (
+                                    2 * np.pi)
+                            aug_targets[key] = rotate_array_90(aug_targets[key], factor)
+                sample = {"image": np.clip(aug_image, 0, 1)}
+                sample.update({k: self._chw_to_hwc(v) for k, v in aug_targets.items()})
+                out = pipeline(rng, **sample)
+                tiff.imwrite(os.path.join(image_out, f"image_{n}.tif"),
+                             np.asarray(self._hwc_to_chw(out["image"]), dtype=np.float32))
+                for key in targets:
+                    tdir = os.path.join(self.data_dir, key)
+                    os.makedirs(tdir, exist_ok=True)
+                    tiff.imwrite(os.path.join(tdir, f"{key}_{n}.tif"),
+                                 np.asarray(self._hwc_to_chw(out[key]), dtype=np.float32))
+                n += 1
+        print(f"Augmentation completed for {n} patches.")
+
+    def __len__(self):
+        image_dir = os.path.join(self.data_dir, "image")
+        return len([f for f in os.listdir(image_dir)
+                    if os.path.isfile(os.path.join(image_dir, f))])
+
+    def _load_item(self, idx):
+        image = tiff.imread(os.path.join(self.data_dir, "image", f"image_{idx}.tif"))
+        image = image.astype(np.float32)
+        sample = {"image": image[None] if image.ndim == 2 else image}
+        for key in self.target_keys:
+            path = os.path.join(self.data_dir, key, f"{key}_{idx}.tif")
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"Target file {path} not found.")
+            t = tiff.imread(path).astype(np.float32)
+            if key == "orientation":
+                t = np.stack([np.cos(t), np.sin(t)])
+            elif t.ndim == 2:
+                t = t[None]
+            sample[key] = np.nan_to_num(t, nan=self.nan_to_val)
+        return sample
 
 
 class Subset:

@@ -10,6 +10,13 @@ a reference ``.pt`` loads with ``strict=True``.
 Deep supervision: in train mode (with ``train_mode``) the output dict holds
 ``{head}_1..{head}_L`` plus ``head`` from the deepest level; in eval mode only
 ``head`` (``nested_unet.py:104-121``).
+
+``dtype=torch.bfloat16`` is the Trainer's ``half_precision``: parameters stay
+float32, every ``VGGBlock`` conv, pool, upsample and concat of the grid runs
+in bf16 (BatchNorm in float32), and the 1×1 head convs run in float32 on a
+float32 copy of the bf16 level-0 map, as flax promotes the JAX heads, which
+have no ``dtype`` (``nested_unet.py:26-31``), before the float32 activations
+(``:111-127``).
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ class MultiOutputNestedUNet(nn.Module):
     def __init__(self, in_channels: int = 1, output_heads: Optional[Dict[str, dict]] = None,
                  n_filter: int = 32, deep_supervision: bool = False,
                  dilation: Union[bool, int, Sequence[int], None] = False,
-                 train_mode: bool = True):
+                 train_mode: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         L = self.levels
         nb = [n_filter * 2 ** i for i in range(L + 1)]
@@ -67,6 +74,10 @@ class MultiOutputNestedUNet(nn.Module):
                       else [head]):
                 layers[n] = nn.Conv2d(nb[0], cfg["channels"], 1)
         self.output_layers = nn.ModuleDict(layers)
+        self.dtype = dtype
+        for m in self.modules():
+            if isinstance(m, VGGBlock):
+                m.compute_dtype = dtype
 
     def grid(self, x: torch.Tensor) -> Dict[int, Dict[int, torch.Tensor]]:
         """The dense ``x_{i,j}`` grid, column by column (``nested_unet.py:91-102``)."""
@@ -92,10 +103,10 @@ class MultiOutputNestedUNet(nn.Module):
             act = cfg.get("activation")
             if not self.deep_supervision:
                 outputs[name] = apply_activation(
-                    self.output_layers[name](col[0][L]).float(), act)
+                    self.output_layers[name](col[0][L].float()), act)
                 continue
             levels = {lvl: apply_activation(
-                self.output_layers[f"{name}_{lvl}"](col[0][lvl]).float(), act)
+                self.output_layers[f"{name}_{lvl}"](col[0][lvl].float()), act)
                 for lvl in range(1, L + 1)}
             if self.training and self.train_mode:
                 for lvl, value in levels.items():

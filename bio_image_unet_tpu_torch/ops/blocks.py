@@ -26,16 +26,27 @@ _BN_EPS = 1e-5
 _KAIMING_SLOPE = 0.01
 
 
+def conv_bn(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
+            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``bn(conv(x))``; with ``compute_dtype`` (bfloat16) the JAX blocks'
+    casts (``ops/blocks.py:143-148, 266-270``): the conv on bf16 copies of
+    ``x`` and of the float32 parameters, the BatchNorm on a float32 copy of
+    the conv output (its statistics and running averages stay float32), the
+    result back in bf16.  The casts are explicit, not left to autocast."""
+    if compute_dtype is None:
+        return bn(conv(x))
+    dt = compute_dtype
+    x = F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                 padding=conv.padding, dilation=conv.dilation)
+    return bn(x.float()).to(dt)
+
+
 class ConvBlock(nn.Sequential):
     """Conv(k3, padding=dilation, dilation) + BatchNorm(eps 1e-5) +
     LeakyReLU + channel Dropout (``ops/blocks.py:107 ConvBlock``).
 
     With ``compute_dtype`` set (bfloat16, the Trainer's ``half_precision``)
-    the block mirrors the JAX block's casts (``ops/blocks.py:143-148``): the
-    conv runs on bf16 copies of the input and of the float32 parameters, the
-    BatchNorm on a float32 copy of the conv output (so its statistics and
-    running averages stay float32), and the result returns to bf16.  The
-    casts are explicit, not left to autocast."""
+    the block mirrors the JAX block's casts (:func:`conv_bn`)."""
 
     def __init__(self, in_ch: int, out_ch: int, dilation: int = 1,
                  dropout: float = 0.0, negative_slope: float = 0.1):
@@ -49,14 +60,7 @@ class ConvBlock(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn, act, drop = self
-        dt = self.compute_dtype
-        if dt is None:
-            x = bn(conv(x))
-        else:
-            x = F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
-                         padding=conv.padding, dilation=conv.dilation)
-            x = bn(x.float()).to(dt)
-        return drop(act(x))
+        return drop(act(conv_bn(x, conv, bn, self.compute_dtype)))
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -80,7 +84,10 @@ class VGGBlock(nn.Module):
     1e-5) + LeakyReLU(0.1) + channel Dropout, with a middle width
     (``ops/blocks.py:243 VGGBlock``).  The attributes ``conv1``, ``bn1``,
     ``conv2``, ``bn2`` give the reference's keys (``conv<i>_<j>.conv1.weight``,
-    ``…bn1.running_var``), so a reference ``.pt`` loads with ``strict=True``."""
+    ``…bn1.running_var``), so a reference ``.pt`` loads with ``strict=True``.
+
+    ``compute_dtype`` (bfloat16) mirrors the JAX block's casts
+    (:func:`conv_bn`) in both stages; LeakyReLU and the result in bf16."""
 
     def __init__(self, in_ch: int, middle_ch: int, out_ch: int, dilation: int = 1,
                  dropout: float = 0.0):
@@ -91,10 +98,12 @@ class VGGBlock(nn.Module):
         self.bn2 = nn.BatchNorm2d(out_ch, eps=_BN_EPS, momentum=0.1)
         self.act = nn.LeakyReLU(0.1)
         self.drop = nn.Dropout2d(dropout)
+        self.compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop(self.act(self.bn1(self.conv1(x))))
-        return self.drop(self.act(self.bn2(self.conv2(x))))
+        dt = self.compute_dtype
+        x = self.drop(self.act(conv_bn(x, self.conv1, self.bn1, dt)))
+        return self.drop(self.act(conv_bn(x, self.conv2, self.bn2, dt)))
 
 
 def he_normal_leaky_(weight: torch.Tensor,

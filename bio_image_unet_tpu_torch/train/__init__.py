@@ -1,5 +1,5 @@
-"""Training (counterpart of ``bio_image_unet_tpu/train``): the 2D ``Unet``
-Trainer and its plateau scheduler."""
+"""Training (counterpart of ``bio_image_unet_tpu/train``): the Trainer of the
+2D ``Unet`` and the multi-output family, and its plateau scheduler."""
 
 from .trainer import ReduceLROnPlateau, Trainer
 

@@ -1,5 +1,7 @@
-"""The Trainer of the 2D ``Unet`` (counterpart of
-``bio_image_unet_tpu/train/trainer.py:114 Trainer`` for ``network="Unet"``).
+"""The Trainer of the 2D ``Unet`` and the multi-output family
+(counterpart of ``bio_image_unet_tpu/train/trainer.py:114 Trainer`` for
+``Unet``, ``MultiOutputUnet``, ``MultiOutputNestedUNet`` and
+``MultiOutputNestedUNet_3Levels``).
 
 What it keeps of the JAX Trainer, so that one seed and one set of initial
 weights give the same ``metrics.csv`` rows:
@@ -8,39 +10,50 @@ weights give the same ``metrics.csv`` rows:
   ``np.random.default_rng`` (``trainer.py:249-255``), and with
   ``device_cache`` the ``seed + 1`` permutation per epoch (``:627-632``);
 - the loss: per-channel ``criterion(logits[:, ch], mask[:, ch])`` weighted by
-  ``channel_weights`` (``:460-467``);
+  ``channel_weights`` (``:460-467``); with heads (``output_heads``, or the
+  model's default single sigmoid head, ``:208-221``) the weighted sum of
+  each head's loss (``get_head_loss``, ``:229-243``), with deep supervision
+  over every level's output weighted [0.5, 0.75, 1.0] or
+  [0.5, 0.75, 0.875, 1.0] in training and on the deepest output in
+  validation (``:436-458``);
 - Adam (``torch.optim.Adam``, the optax Adam of ``:275-280``; ``grad_clip``
   through ``clip_grad_norm_``) and the torch-semantics ``ReduceLROnPlateau``
   (``:76``) stepped on the validation loss after every epoch, the train loss
   standing in when there is no validation batch (``:784-789``);
 - ``metrics.csv`` (``:365-371, 798-801``), the best-validation save, the
-  ``save_iter`` saves, the emergency checkpoint on an interrupt (``:759-771``)
-  and ``start(test_data_path=...)`` through the port's ``Predict``.
+  ``save_iter`` saves, the emergency checkpoint on an interrupt (``:759-771``),
+  ``start(test_data_path=...)`` through the port's ``Predict``, and the
+  TensorBoard scalars ``Loss/train``/``Loss/val`` and validation image grids
+  (``tensorboard``, ``log_images``: ``:357-364, 689-734, 802-804``; the grids
+  need matplotlib and are skipped quietly without it, as in JAX).
 
 How it runs on the card: an eager PyTorch step (autograd through cuDNN and
 PyTorch ops stands in for XLA's autodiff; the JAX package has no hand-written
 backward).  ``half_precision`` runs the convs in bf16 with float32
-parameters, BatchNorm and logits (``models.Unet(dtype=...)``).
-``device_cache`` keeps the training tiles on the card and takes one index
-row per step; ``device_augment`` draws on a ``torch.Generator`` and gathers
-and augments each batch in one launch of K4 (``data/augment_device.py``).
-On the card, weights and activations are channels-last.
+parameters, BatchNorm, heads and logits (``models.*(dtype=...)``).
+``device_cache`` keeps the training tiles on the card, the head targets
+concatenated along channels into one tensor (``HeadLayout``), and takes one
+index row per step; ``device_augment`` draws on a ``torch.Generator`` and
+gathers and augments each batch in one launch: K4 for a single target, K4h
+for heads, orientation heads (names containing ``"orientation"``) rotated
+with the tile (``data/augment_device.py``).  On the card, weights and
+activations are channels-last.
 
 Checkpoints are reference-schema ``.pt`` files (``checkpoint.save``) that
-both packages' ``Predict`` read.  One divergence: ``epoch`` in every
-checkpoint is the number of epochs completed, the epoch a resume continues
-from (the JAX package stores that only in its emergency checkpoint and the
-finished epoch's index elsewhere).  A resume restores weights, BatchNorm
-statistics, Adam and scheduler state and best loss, and advances the shuffle
-streams past the completed epochs, so one epoch, a resume and one more equal
-two epochs straight.
+both packages' ``Predict``/``PredictMultiOutput`` read (with heads they carry
+``output_heads`` and ``deep_supervision``, ``:349-354``).  One divergence:
+``epoch`` in every checkpoint is the number of epochs completed, the epoch a
+resume continues from (the JAX package stores that only in its emergency
+checkpoint and the finished epoch's index elsewhere).  A resume restores
+weights, BatchNorm statistics, Adam and scheduler state and best loss, and
+advances the shuffle streams past the completed epochs, so one epoch, a
+resume and one more equal two epochs straight.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
 raises without a card.  Not ported yet, each raising NotImplementedError:
-networks other than ``Unet``, ``mode`` (Siam), ``output_heads``/
-``deep_supervision`` (multi-output), ``use_interpolation``/
-``time_loss_weight`` (3D), ``mesh`` and ``device_cache="sharded"``
-(multi-GPU), ``remat``, ``tensorboard``/``log_images``/``profile_dir``.
+networks other than the four above, ``mode`` (Siam),
+``use_interpolation``/``time_loss_weight`` (3D), ``mesh`` and
+``device_cache="sharded"`` (multi-GPU), ``remat``, ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -56,14 +69,23 @@ import torch
 
 from .. import checkpoint
 from ..data import tiff
-from ..data.augment_device import augment_batch
+from ..data.augment_device import (HeadLayout, augment_batch, augment_batch_heads,
+                                   orientation_keys)
 from ..data.pipelines import DataLoader, random_split
-from ..losses import get_loss
-from ..models import get_model
+from ..losses import get_head_loss, get_loss
+from ..models import MODEL_REGISTRY, get_model
 from ..ops.blocks import init_weights_
 from ..utils.device import resolve_device
 
 __all__ = ["ReduceLROnPlateau", "Trainer"]
+
+
+def _model_name(model) -> str:
+    """The registry name of ``model``'s class (``trainer.py:69-73``)."""
+    for name, cls in MODEL_REGISTRY.items():
+        if type(model) is cls:
+            return name
+    return type(model).__name__
 
 
 class ReduceLROnPlateau:
@@ -110,26 +132,28 @@ class ReduceLROnPlateau:
 
 def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported to PyTorch yet (the {slice_name} "
-                              "slice of the port); the 2D Unet trainer is")
+                              "slice of the port); the 2D Unet and multi-output trainers are")
 
 
 class Trainer:
-    """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet``;
-    the dataset yields ``{'image': (C, H, W), 'mask': (C', H, W)}`` float32
-    numpy items (``data.pipelines.DataProcess2D``)."""
+    """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet`` and
+    the multi-output family; the dataset yields ``{'image': (C, H, W),
+    'mask': (C', H, W)}`` float32 numpy items (``DataProcess2D``) or, with
+    heads, ``{'image': ..., <head>: (C_head, H, W), ...}``
+    (``DataProcessMultiOutput``)."""
 
     def __init__(
         self,
         dataset,
         num_epochs: int,
-        network: str = "Unet",
+        network: Union[str, type] = "Unet",
         batch_size: int = 4,
         lr: float = 1e-3,
         in_channels: int = 1,
         out_channels: int = 1,
         channel_weights: Optional[Sequence[float]] = None,
         n_filter: int = 64,
-        dilation: Union[int, bool] = 1,
+        dilation: Union[int, bool, Sequence[int]] = 1,
         val_split: float = 0.2,
         save_dir: str = "./",
         save_name: str = "model.pt",
@@ -157,22 +181,16 @@ class Trainer:
         profile_dir: Optional[str] = None,
         device=None,
     ):
-        del levels  # only the multi-output trainer reads it
-        if network != "Unet":
-            _not_ported(f"training network {network!r}", "model's")
         if mode is not None:
             _not_ported("mode= (the siamese trainer)", "Siam")
-        if output_heads is not None or deep_supervision:
-            _not_ported("output_heads=/deep_supervision= (the multi-output trainer)",
-                        "multi-output")
         if use_interpolation or time_loss_weight is not None:
             _not_ported("use_interpolation=/time_loss_weight= (the 3D trainer)", "3D")
         if mesh is not None or device_cache == "sharded":
             _not_ported("mesh=/device_cache='sharded' (multi-GPU training)", "multi-GPU")
         if remat:
             _not_ported("remat=True (activation checkpointing)", "trainer-options")
-        if tensorboard or log_images or profile_dir:
-            _not_ported("tensorboard=/log_images=/profile_dir=", "trainer-observability")
+        if profile_dir:
+            _not_ported("profile_dir= (a profiler trace per run)", "trainer-observability")
         self.device = resolve_device(None if device == "auto" else device)
         self.num_epochs = num_epochs
         self.batch_size = batch_size
@@ -185,6 +203,8 @@ class Trainer:
         self.save_iter = save_iter
         self.device_augment = device_augment
         self.grad_clip = grad_clip
+        self.deep_supervision = deep_supervision
+        self.log_images = log_images
         self.seed = seed
         self.best_loss = float("inf")
         self.epoch_start = 0
@@ -196,14 +216,36 @@ class Trainer:
         # --- model: seeded init, float32 parameters ---
         self.model = get_model(network, n_filter=n_filter, in_channels=in_channels,
                                out_channels=out_channels, dilation=dilation,
+                               output_heads=output_heads, deep_supervision=deep_supervision,
                                dtype=torch.bfloat16 if half_precision else None)
         init_weights_(self.model, torch.Generator().manual_seed(seed))
+        self.multi_output = output_heads is not None or bool(getattr(self.model, "heads", None))
+        # the deep-supervision weights follow the model's grid depth (:214)
+        self.levels = getattr(self.model, "levels", levels)
+        if deep_supervision and not hasattr(self.model, "levels"):
+            raise ValueError(f"deep_supervision needs a UNet++ network, got {network!r}")
+        self.output_heads = output_heads
+        if self.multi_output:
+            if self.output_heads is None:
+                # the model's default single sigmoid head with BCEDice (:215-221)
+                self.output_heads = {name: {"loss": "BCEDiceLoss", **dict(cfg)}
+                                     for name, cfg in self.model.heads.items()}
+            self.head_losses = {name: get_head_loss(cfg["loss"], family="2d")
+                                for name, cfg in self.output_heads.items()}
+            self.head_weights = {name: cfg.get("weight", 1.0)
+                                 for name, cfg in self.output_heads.items()}
+            self.criterion = None
+        else:
+            self.criterion = get_loss(loss_function, **self._loss_kwargs())
         self.channel_weights = torch.as_tensor(
             np.ones(out_channels, np.float32) if channel_weights is None
             else np.asarray(channel_weights, np.float32))
-        self.criterion = get_loss(loss_function, **self._loss_kwargs())
 
-        # --- data ---
+        # --- data: the targets' layout in one channel-concatenated tensor ---
+        sample = dataset[0]
+        keys = list(self.output_heads) if self.multi_output else ["mask"]
+        self.layout = HeadLayout.of({k: sample[k].shape[0] for k in keys},
+                                    orientation_keys(keys), self.device)
         train_data, val_data = random_split(dataset, val_split, seed=seed)
         self.train_loader = DataLoader(train_data, batch_size, shuffle=True,
                                        drop_last=True, seed=seed)
@@ -235,7 +277,7 @@ class Trainer:
 
         # --- self-describing checkpoint hyperparams (trainer.py:324-354) ---
         self.params_meta = {
-            "model_name": network, "lr": lr, "loss_function": loss_function,
+            "model_name": _model_name(self.model), "lr": lr, "loss_function": loss_function,
             "loss_params": self.loss_params, "n_filter": n_filter, "dilation": dilation,
             "batch_size": batch_size, "in_channels": in_channels,
             "out_channels": out_channels,
@@ -247,7 +289,17 @@ class Trainer:
                 key = "augmentation" if attr == "aug_factor" else attr
                 self.params_meta[key] = getattr(dataset, attr)
         self.params_meta["use_interpolation"] = use_interpolation
+        if self.multi_output:
+            # the resolved heads: PredictMultiOutput rebuilds the model from them
+            self.params_meta["output_heads"] = self.output_heads
+            self.params_meta["deep_supervision"] = deep_supervision
 
+        # --- observability ---
+        self.writer = None
+        if tensorboard:
+            from ..utils.tboard import SummaryWriter
+
+            self.writer = SummaryWriter(log_dir=os.path.join(save_dir, "logs"))
         self.metrics_path = os.path.join(save_dir, "metrics.csv")
         if not load_weights or not os.path.exists(self.metrics_path):
             with open(self.metrics_path, "w", newline="") as fh:
@@ -257,14 +309,17 @@ class Trainer:
         self.train_loader.skip_epochs(self.epoch_start)
         self._device_data = None
         if device_cache:
-            # the training tiles live on the card; one index row per step
+            # the training tiles live on the card, the targets concatenated
+            # along channels; one index row per step
             self._train_rng = np.random.default_rng(seed + 1)
             samples = [train_data[i] for i in range(len(train_data))]
             self._n_train = len(samples)
             for _ in range(self.epoch_start):
                 self._train_rng.permutation(self._n_train)
-            self._device_data = {k: torch.from_numpy(np.stack([s_[k] for s_ in samples]))
-                                 .to(self.device) for k in ("image", "mask")}
+            self._device_data = tuple(
+                torch.from_numpy(np.concatenate([np.stack([s_[k] for s_ in samples])
+                                                 for k in ks], 1)).to(self.device)
+                for ks in (["image"], self.layout.names))
 
     def _loss_kwargs(self):
         if self.loss_function in ("BCEDice", "Tversky", "logcoshTversky", "weightedBCE"):
@@ -275,8 +330,29 @@ class Trainer:
     # steps
     # ------------------------------------------------------------------
 
-    def _compute_loss(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        w = self.channel_weights
+    def _compute_loss(self, outputs, batch: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
+        """The loss of one batch (``trainer.py:436-467``): ``batch`` maps each
+        target name to its (B, C, H, W) tensor."""
+        if self.multi_output:
+            total = 0.0
+            if self.deep_supervision and train:
+                if self.levels == 3:
+                    sup_w = [0.5, 0.75, 1.0]
+                elif self.levels == 4:
+                    sup_w = [0.5, 0.75, 0.875, 1.0]
+                else:
+                    raise ValueError(f"N = {self.levels} levels not valid. Choose N=3 or N=4.")
+                for name in self.output_heads:
+                    for level, w in enumerate(sup_w, 1):
+                        total += w * self.head_weights[name] * self.head_losses[name](
+                            outputs[f"{name}_{level}"], batch[name])
+            else:
+                for name in self.output_heads:
+                    total += self.head_weights[name] * self.head_losses[name](
+                        outputs[name], batch[name])
+            return total
+        _, logits = outputs
+        target, w = batch["mask"], self.channel_weights
         total = sum(self.criterion(logits[:, ch], target[:, ch]) * w[ch]
                     for ch in range(self.out_channels))
         return total / torch.sum(w)
@@ -286,10 +362,10 @@ class Trainer:
             return x.contiguous(memory_format=torch.channels_last)
         return x
 
-    def _train_step(self, image: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        _, logits = self.model(self._input(image))
+    def _train_step(self, image: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        outputs = self.model(self._input(image))
         with torch.profiler.record_function("loss"):
-            loss = self._compute_loss(logits, mask)
+            loss = self._compute_loss(outputs, batch, train=True)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if self.grad_clip is not None:
@@ -304,34 +380,45 @@ class Trainer:
         gen.manual_seed(self.seed * 1_000_003 + epoch)
         return gen
 
+    def _upload(self, batch: dict):
+        """A loader batch on the device: the image and the targets
+        concatenated along channels."""
+        target = np.concatenate([batch[k] for k in self.layout.names], 1)
+        return (torch.from_numpy(batch["image"]).to(self.device),
+                torch.from_numpy(target).to(self.device))
+
     def _batches(self, epoch: int):
-        """(image, mask) training batches of one epoch, on the device."""
+        """(image, {target: tensor}) training batches of one epoch, on the
+        device."""
         gen = self._augment_generator(epoch) if self.device_augment else None
 
-        def augment(image, mask, index=None):
+        def augment(image, target, index=None):
             with torch.profiler.record_function("augment"):
-                return augment_batch(gen, image, mask, index=index)
+                if self.multi_output:
+                    return augment_batch_heads(gen, image, target, index=index,
+                                               layout=self.layout)
+                image, mask = augment_batch(gen, image, target, index=index)
+                return image, {"mask": mask}
 
         if self._device_data is not None:
             n_steps = self._n_train // self.batch_size
             perm = self._train_rng.permutation(self._n_train)[: n_steps * self.batch_size]
             rows = torch.from_numpy(perm.reshape(n_steps, self.batch_size)).to(self.device)
-            image, mask = self._device_data["image"], self._device_data["mask"]
+            image, target = self._device_data
             for idx in rows:
                 if gen is not None:
-                    yield augment(image, mask, idx)
+                    yield augment(image, target, idx)
                 else:
-                    yield image.index_select(0, idx), mask.index_select(0, idx)
+                    yield image.index_select(0, idx), self.layout.split(target.index_select(0, idx))
             return
         for batch in self.train_loader:
-            image = torch.from_numpy(batch["image"]).to(self.device)
-            mask = torch.from_numpy(batch["mask"]).to(self.device)
-            yield augment(image, mask) if gen is not None else (image, mask)
+            image, target = self._upload(batch)
+            yield augment(image, target) if gen is not None else (image, self.layout.split(target))
 
     def _iterate_train(self, epoch: int) -> float:
         print(f"\nStarting training epoch {epoch} ...")
         self.model.train()
-        losses = [self._train_step(image, mask) for image, mask in self._batches(epoch)]
+        losses = [self._train_step(image, batch) for image, batch in self._batches(epoch)]
         if not losses:
             return float("nan")
         return float(torch.stack(losses).mean())
@@ -340,13 +427,56 @@ class Trainer:
     def _iterate_val(self, epoch: int) -> float:
         print(f"\nStarting validation epoch {epoch} ...")
         self.model.eval()
-        losses = []
+        losses, last = [], None
         for batch in self.val_loader:
-            image = torch.from_numpy(batch["image"]).to(self.device)
-            mask = torch.from_numpy(batch["mask"]).to(self.device)
-            _, logits = self.model(self._input(image))
-            losses.append(self._compute_loss(logits, mask))
+            image, target = self._upload(batch)
+            targets = self.layout.split(target)
+            outputs = self.model(self._input(image))
+            losses.append(self._compute_loss(outputs, targets, train=False))
+            last = (image, targets, outputs)
+        if self.log_images and last is not None:
+            self._plot_validation(epoch, *last)
         return float(torch.stack(losses).mean()) if losses else float("nan")
+
+    def _plot_validation(self, epoch: int, image, targets, outputs) -> None:
+        """Per-epoch validation image grids of the last batch's first sample
+        (``trainer.py:689-734``); without matplotlib nothing is written."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except Exception:
+            return
+        out_dir = os.path.join(self.save_dir, "val_results")
+        os.makedirs(out_dir, exist_ok=True)
+
+        def first(t):  # channel 0 of the first sample, float32 numpy
+            return t[0, 0].float().cpu().numpy()
+
+        if self.multi_output:
+            names = list(self.output_heads)
+            preds = {k: first(outputs[k]) for k in names}
+        else:
+            names = ["mask"]
+            preds = {"mask": first(outputs[0])}
+        fig, axes = plt.subplots(2, len(names) + 1, figsize=(3 * (len(names) + 1), 6))
+        axes = np.atleast_2d(axes)
+        for row in range(2):
+            axes[row, 0].imshow(first(image), cmap="gray")
+            axes[row, 0].set_title("Input" if row == 0 else "")
+            axes[row, 0].axis("off")
+        for i, name in enumerate(names):
+            axes[0, i + 1].imshow(preds[name], cmap="viridis")
+            axes[0, i + 1].set_title(f"{name} (Pred)")
+            axes[0, i + 1].axis("off")
+            axes[1, i + 1].imshow(first(targets[name]), cmap="viridis")
+            axes[1, i + 1].set_title(f"{name} (True)")
+            axes[1, i + 1].axis("off")
+        fig.savefig(os.path.join(out_dir, f"epoch_{epoch}.png"), dpi=120)
+        plt.close(fig)
+        if self.writer is not None:
+            self.writer.add_image(f"val/{names[0]}", preds[names[0]][None], epoch)
 
     # ------------------------------------------------------------------
     # epoch loop
@@ -372,6 +502,9 @@ class Trainer:
             except Exception as save_err:
                 print(f"\nInterrupted — emergency checkpoint failed: {save_err}")
             raise
+        finally:
+            if self.writer is not None:
+                self.writer.flush()
         return self.best_loss
 
     def _run_epochs(self, save_path, test_data_path, result_path, test_resize_dim):
@@ -391,6 +524,9 @@ class Trainer:
             with open(self.metrics_path, "a", newline="") as fh:
                 csv.writer(fh).writerow([epoch, train_loss, val_loss, self.lr * lr_scale,
                                          round(dt, 2)])
+            if self.writer is not None:
+                self.writer.add_scalar("Loss/train", train_loss, epoch)
+                self.writer.add_scalar("Loss/val", val_loss, epoch)
             self.history.append({"epoch": epoch, "train_loss": train_loss,
                                  "val_loss": val_loss, "lr": self.lr * lr_scale,
                                  "seconds": dt, "train_seconds": train_seconds})

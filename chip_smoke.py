@@ -69,7 +69,31 @@ non-zero without printing a result:
    a float32 ``'first'`` movie with a reflect-padded axis; and holds a small
    float32 ``PredictMultiOutput`` (``n_filter=4``) on the card against the
    CPU (``|card − CPU| ≤ 1e-3 + 1e-3·|CPU|``);
-9. the kernels' JSON line, then the last line
+9. kernels (heads training) — K4h, the multi-head gather and augmentation,
+   held against its plain version at the shapes of the multi-output
+   training path (4 of 64 resident 256² tiles, image 1 channel, targets
+   1 + 2 channels, every (k, flip_h, flip_v) case forced once): targets
+   bit-equal (zeros by value), image within one float32 ulp; timed beside
+   its byte bound;
+10. train heads — the fourth main path, through the ``multi_output_unet``
+   facade a user calls: ``DataProcess`` on 40 blob frames of 256² with a
+   mask and an orientation-angle target (NaN where the angle is undefined),
+   ``aug_factor=2`` (80 tiles: 16 steps of 4 per epoch), then ``Trainer`` at
+   ``benchmarks/family_bench.py``'s training configuration
+   (``MultiOutputNestedUNet(n_filter=32)``, its two heads with their
+   losses, batch 4, lr 1e-4, bf16, ``device_cache=True``,
+   ``device_augment=True``, the facade's ``grad_clip=1.0``) for 3 epochs.
+   The launch counts are set to 0 just before and read just after: K4h
+   must have launched once per step and nothing else at all.  Prints the
+   per-epoch losses (the last epoch's train loss must be below the
+   first's), patches/s (``family_bench.py``'s definition), step time, peak
+   device memory, the implied share of the bf16 dense peak and one profiled
+   epoch by stage; then one epoch of ``MultiOutputNestedUNet_3Levels`` with
+   deep supervision through ``PredictMultiOutput``, the trained ``.pt``
+   through ``PredictMultiOutput`` on a 16-frame blob movie (mask IoU against
+   the truth), and a small float32 training run on the card against the
+   same on the CPU (``metrics.csv`` rows within rtol 1e-3);
+11. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -140,6 +164,9 @@ def main() -> int:
     heads = phase_kernels_heads(torch, dev)
     phase_heads(torch, dev, kernels, heads)
     kernels.extend(heads)
+    k4h = phase_kernel_augment_heads(torch, dev)
+    kernels.append(k4h)
+    phase_train_heads(torch, dev, kernels)
     for k in kernels:
         k.pop("_counter")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -669,8 +696,15 @@ def _stage(kernel: str, ancestors) -> str:
     low = kernel.lower()
     if "augment_batch" in low:
         return "K4 augment"
+    if "augment_heads" in low:
+        return "K4h augment heads"
     if "augment" in ancestors:
         return "augment draws (torch.rand, uniform_, flags)"
+    if "upsample" in low:
+        return ("bilinear upsample backward" if "backward" in low
+                else "bilinear upsample forward")
+    if "catarray" in low:
+        return "concat"
     if any("Optimizer.step" in a for a in ancestors):
         return "Adam"
     if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low or "bn_bw" in low:
@@ -686,7 +720,7 @@ def _stage(kernel: str, ancestors) -> str:
     prefix = "autograd::engine::evaluate_function:"
     nodes = [a[len(prefix):].strip() for a in ancestors if a.startswith(prefix)]
     model_nodes = ("Convolution", "BatchNorm", "LeakyRelu", "Cat", "ToCopy", "MaxPool",
-                   "AccumulateGrad")
+                   "AccumulateGrad", "Upsample")
     if "loss" in ancestors or any(not any(m in n for m in model_nodes) for n in nodes):
         return "loss (BCEDice, forward+backward)"
     if "reduce_kernel" in low and any("Convolution" in n for n in nodes):
@@ -696,7 +730,8 @@ def _stage(kernel: str, ancestors) -> str:
     return "glue (bias add, LeakyReLU, concat, other elementwise)"
 
 
-def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float) -> None:
+def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float,
+                        tag: str = "train") -> None:
     """One profiled training epoch (after the timed ones): device time by
     stage and the device's idle share, of the profiled pass's wall time (the
     profiler's own overhead lengthens it) and of ``unprofiled_s``, the best
@@ -743,21 +778,24 @@ def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float) -> None
             by_stage[stage] = by_stage.get(stage, 0.0) + rest
     busy = sum(by_stage.values())
     if busy == 0:
-        log("[train] profiler saw no device time: breakdown not measured")
+        log(f"[{tag}] profiler saw no device time: breakdown not measured")
         return
-    log(f"[train] profiled epoch ({epoch}, profiler on): wall {wall_us / 1e3:.2f} ms, device "
+    n_kernels = sum(count for _, count in by_name.values())
+    log(f"[{tag}] profiled epoch ({epoch}, profiler on): wall {wall_us / 1e3:.2f} ms, device "
         f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.4f}; against the best "
         f"unprofiled epoch ({unprofiled_s * 1e3:.2f} ms) {1 - busy / (unprofiled_s * 1e6):.4f}; "
-        f"{sum(attributed.values()) / 1e3:.2f} ms of it attributed through CPU ops")
+        f"{sum(attributed.values()) / 1e3:.2f} ms of it attributed through CPU ops; "
+        f"{n_kernels} device kernels")
     for stage, us in sorted(by_stage.items(), key=lambda kv: -kv[1]):
-        log(f"[train]   {us / 1e3:9.3f} ms ({us / busy:6.1%})  {stage}")
+        log(f"[{tag}]   {us / 1e3:9.3f} ms ({us / busy:6.1%})  {stage}")
     for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        log(f"[train]   {total / 1e3:9.3f} ms {count:5d}x  {name[:110]}")
-    k4 = [(t, c) for name, (t, c) in by_name.items() if "augment_batch" in name]
-    if k4:
-        total, count = map(sum, zip(*k4))
-        log(f"[train] K4 in the step: {count} launches, {total / count / 1e3:.4f} ms device "
-            f"time each (warm L2, profiler on)")
+        log(f"[{tag}]   {total / 1e3:9.3f} ms {count:5d}x  {name[:110]}")
+    for label, key in (("K4", "augment_batch"), ("K4h", "augment_heads")):
+        hits = [(t, c) for name, (t, c) in by_name.items() if key in name]
+        if hits:
+            total, count = map(sum, zip(*hits))
+            log(f"[{tag}] {label} in the step: {count} launches, {total / count / 1e3:.4f} ms "
+                f"device time each (warm L2, profiler on)")
 
 
 def predict_trained(torch, ckpt: str, counters) -> None:
@@ -1171,6 +1209,281 @@ def phase_heads(torch, dev, kernels, heads) -> None:
             if worst > 1.0:
                 raise AssertionError("the card's PredictMultiOutput disagrees with the CPU's")
 
+
+
+# --- 9. the kernel of the multi-head training path ----------------------------------
+
+# family_bench.py's training heads (MO_HEADS with their losses, :43-48)
+MO_TRAIN_HEADS = {"mask": {"channels": 1, "activation": "sigmoid", "loss": "BCEDiceLoss",
+                           "weight": 1.0},
+                  "orientation": {"channels": 2, "activation": None, "loss": "MSELoss",
+                                  "weight": 1.0}}
+# 40 frames of 256² at aug_factor 2: 80 tiles, 64 training (16 steps of 4)
+MO_FRAMES, MO_BATCH, MO_EPOCHS, MO_LR = 40, 4, 3, 1e-4
+
+
+def phase_kernel_augment_heads(torch, dev) -> dict:
+    """K4h at the multi-output training shapes: 4 of 64 resident 256² tiles,
+    image 1 channel, targets mask (1) + orientation (2), the draws the
+    Trainer makes; four launches force the 16 (k, flip_h, flip_v) cases
+    once each, one of them with a sample gated off."""
+    import itertools
+
+    from bio_image_unet_tpu_torch.data.augment_device import (HeadLayout, augment_heads_apply,
+                                                              augment_heads_apply_plain, draw)
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, b, s = 64, MO_BATCH, TILE
+    layout = HeadLayout.of({"mask": 1, "orientation": 2}, ("orientation",), dev)
+    image = torch.rand((n, 1, s, s), generator=g, device=dev)
+    theta = torch.rand((n, 1, s, s), generator=g, device=dev) * 6.2832
+    target = torch.cat([(torch.rand((n, 1, s, s), generator=g, device=dev) > 0.5).float(),
+                        theta.cos(), theta.sin()], 1).contiguous()
+    index = torch.randperm(n, generator=g, device=dev)[:b]
+
+    def ulps(a, ref):
+        return (a.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max().item()
+
+    cases = list(itertools.product(range(4), (0, 1), (0, 1)))
+    err = 0.0
+    for i in range(0, len(cases), b):
+        d = draw(g, b, (b, 1, s, s))
+        d.flags[:, :4] = torch.tensor([[1, *c] for c in cases[i:i + b]], dtype=torch.int32,
+                                      device=dev)
+        if i == 0:
+            d.flags[0, 0] = 0  # the gate off: the tile passes through
+        ours = augment_heads_apply(image, target, layout.codes, d, index=index)
+        torch.cuda.synchronize()
+        ref = augment_heads_apply_plain(image, target, layout.codes, d, index=index)
+        if not torch.equal(ours[1], ref[1]) or ulps(ours[0], ref[0]) > 1:
+            raise AssertionError(f"K4h cases {cases[i:i + b]}: targets equal "
+                                 f"{torch.equal(ours[1], ref[1])}, image "
+                                 f"{ulps(ours[0], ref[0])} ulps from the plain version")
+        err = max(err, (ours[0] - ref[0]).abs().max().item())
+
+    d = draw(g, b, (b, 1, s, s))
+    ms = timer(lambda: augment_heads_apply(image, target, layout.codes, d, index=index))
+    # what the event-timed call above is made of when the host is slower
+    # than the kernel: the wrapper's host time (checks, allocation, ctypes
+    # call) and the kernel's own device time (profiler, L2 flushed)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        augment_heads_apply(image, target, layout.codes, d, index=index)
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            timer.flush.fill_(1)
+            augment_heads_apply(image, target, layout.codes, d, index=index)
+        torch.cuda.synchronize()
+    dev_us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "augment_heads" in e.name]
+    log(f"[kernels heads training] k4h wrapper host time {host_ms:.4f} ms a call; kernel "
+        + (f"device time {np.mean(dev_us) / 1e3:.4f} ms ({len(dev_us)} launches, L2 flushed)"
+           if dev_us else "device time not measured (the profiler saw no kernel)"))
+    plain_ms = timer(lambda: augment_heads_apply_plain(image, target, layout.codes, d,
+                                                       index=index), 3)
+    flags = d.flags.cpu()
+    n_mult = int(((flags[:, 0] != 0) & (flags[:, 5] != 0)).sum())
+    n_on = int((flags[:, 0] != 0).sum())
+    plane = s * s * 4
+    # least work for this draw: index, flags, coefficients and the code
+    # table; each gathered image and target pixel read once (1 + 3 planes per
+    # sample); the multiplier field for the samples whose gate and noise flag
+    # are on; each output pixel written once; about six float operations per
+    # augmented image pixel and three per augmented orientation component
+    n_bytes = b * (8 + 7 * 4 + 2 * 4) + 3 * 4 + 4 * b * plane + n_mult * plane + 4 * b * plane
+    bound, by = bound_ms(n_bytes, (6 + 2 * 3) * n_on * s * s)
+    log(f"[kernels heads training] k4h_augment_heads: 16 (k, flip) cases, targets bit-equal, "
+        f"image max_abs_err {err} (<= 1 ulp) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+        f"bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.2f} MB) | library none")
+    return {"name": "k4h_augment_heads", "route": "cuda",
+            "source": "bio_image_unet_tpu_torch/csrc/augment_batch.cu",
+            "replaces": "bio_image_unet_tpu/data/augment_jax.py:192", "launches": 0,
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "_counter": augment_heads_apply}
+
+
+# --- 10. the multi-output training path -------------------------------------------
+
+def write_head_frames(root: Path, n: int, size: int, seed: int) -> tuple:
+    """``n`` blob frames with their mask and an orientation-angle target
+    (the direction of the smoothed mask's gradient, NaN where it is below 1%
+    of its largest value) as TIFFs under ``root``/image, /mask,
+    /orientation."""
+    from scipy import ndimage
+
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: root / k for k in ("image", "mask", "orientation")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    for i in range(n):
+        img, mask = blob_sample(rng, (size, size), n_blobs=10, margin=16, radius=(8, 20))
+        gy, gx = np.gradient(ndimage.gaussian_filter(mask / 255.0, 8.0))
+        angle = (np.arctan2(gy, gx) % (2 * np.pi)).astype(np.float32)
+        mag = np.hypot(gy, gx)
+        angle[mag < 0.01 * mag.max()] = np.nan
+        tiff.imwrite(str(dirs["image"] / f"{i:04d}.tif"), img)
+        tiff.imwrite(str(dirs["mask"] / f"{i:04d}.tif"), (mask / 255.0).astype(np.float32))
+        tiff.imwrite(str(dirs["orientation"] / f"{i:04d}.tif"), angle)
+    return str(dirs["image"]), [str(dirs["mask"]), str(dirs["orientation"])]
+
+
+def phase_train_heads(torch, dev, kernels) -> None:
+    from bio_image_unet_tpu_torch import multi_output_unet
+
+    counters = {id(k["_counter"]): k["_counter"] for k in kernels}
+    k4h = kernels[-1]
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        image_dir, target_dirs = write_head_frames(tmp / "frames", MO_FRAMES, TILE, seed=4)
+        data = multi_output_unet.DataProcess(
+            image_dir, target_dirs, {"mask": "mask", "orientation": "mask"},
+            data_dir=str(tmp / "data"), dim_out=(TILE, TILE), aug_factor=2, seed=0)
+        t_data = time.perf_counter() - t0
+        trainer = multi_output_unet.Trainer(
+            data, MO_EPOCHS, n_filter=HEADS_FILTER, output_heads=MO_TRAIN_HEADS,
+            batch_size=MO_BATCH, lr=MO_LR, save_dir=str(tmp / "run"), seed=0,
+            half_precision=True, device_cache=True, device_augment=True)
+        steps = trainer._n_train // MO_BATCH
+        nan_filled = sum(int((data[i]["orientation"] == 0).all(0).sum()) for i in range(len(data)))
+        log(f"[train heads] set-up {time.perf_counter() - t0:.2f} s (frames and DataProcess "
+            f"{t_data:.2f} s): {len(data)} tiles, {trainer._n_train} training, {steps} steps "
+            f"of {MO_BATCH} per epoch; {nan_filled} orientation pixels NaN-filled")
+
+        # the main path: every launch count is 0 just before, read just after
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.start()
+        torch.cuda.synchronize()
+        launches = {id(c): c.launches for c in counters.values()}
+        peak = torch.cuda.max_memory_allocated()
+        k4h["launches"] = launches[id(k4h["_counter"])]
+        log("[train heads] launches: " + ", ".join(
+            f"{c.__name__} {launches[id(c)]}" for c in counters.values()))
+        for c in counters.values():
+            want = steps * MO_EPOCHS if c is k4h["_counter"] else 0
+            if launches[id(c)] != want:
+                raise AssertionError(f"{c.__name__} launched {launches[id(c)]} times in "
+                                     f"{steps * MO_EPOCHS} steps, want {want}")
+        hist = trainer.history
+        for h in hist:
+            log(f"[train heads] epoch {h['epoch']}: train loss {h['train_loss']:.6f}, val loss "
+                f"{h['val_loss']:.6f}, lr {h['lr']:g}, training pass {h['train_seconds']:.3f} s, "
+                f"epoch {h['seconds']:.3f} s")
+        if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+            raise AssertionError("the multi-output training loss did not fall")
+        best = min(h["train_seconds"] for h in hist)
+        patches = steps * MO_BATCH / best
+        flops = 3 * nested_unet_forward_flops(HEADS_FILTER, TILE)
+        log(f"[train heads] {patches:.1f} patches/s (best epoch), step {best / steps * 1e3:.2f} "
+            f"ms; peak device memory {peak / 2**30:.2f} GiB; {flops / 1e9:.1f} GFLOP per tile "
+            f"forward+backward → {flops * patches / 1e12:.1f} TFLOP/s, "
+            f"{flops * patches / PEAK_BF16_FLOPS:.4f} of the bf16 dense peak")
+        profile_train_epoch(torch, trainer, MO_EPOCHS, best, tag="train heads")
+
+        # deep supervision: one epoch of the 3-level UNet++, then its .pt
+        # through PredictMultiOutput
+        deep = multi_output_unet.Trainer(
+            data, 1, network="MultiOutputNestedUNet_3Levels", n_filter=HEADS_FILTER,
+            output_heads=MO_TRAIN_HEADS, deep_supervision=True, batch_size=MO_BATCH, lr=MO_LR,
+            save_dir=str(tmp / "deep"), seed=0, half_precision=True, device_cache=True,
+            device_augment=True)
+        deep.start()
+        loss = deep.history[0]["train_loss"]
+        if not np.isfinite(loss):
+            raise AssertionError(f"deep supervision: training loss {loss}")
+        res = predict_heads_trained(torch, str(tmp / "deep" / "model.pt"), frames=2)
+        log(f"[train heads] MultiOutputNestedUNet_3Levels, deep supervision, 1 epoch: train "
+            f"loss {loss:.6f}, val loss {deep.history[0]['val_loss']:.6f}; its .pt through "
+            f"PredictMultiOutput: " + ", ".join(f"{h} {v.shape}" for h, v in res.items()))
+        predict_heads_trained(torch, str(tmp / "run" / "model.pt"), frames=CHUNK, iou=True)
+    train_heads_card_vs_cpu(torch)
+
+
+def predict_heads_trained(torch, ckpt: str, frames: int, iou: bool = False) -> dict:
+    """A trained multi-output ``.pt`` through ``PredictMultiOutput`` on blob
+    frames of 512²: finite heads, the mask in [0, 1]; with ``iou`` the mask
+    IoU against the blob truth is printed."""
+    from bio_image_unet_tpu_torch.predict import PredictMultiOutput
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    rng = np.random.default_rng(9)
+    pairs = [blob_sample(rng, (512, 512), n_blobs=40, margin=16, radius=(8, 20))
+             for _ in range(frames)]
+    movie = np.stack([p[0] for p in pairs])
+    truth = np.stack([p[1] for p in pairs]) > 0
+    t0 = time.perf_counter()
+    res = PredictMultiOutput(movie, ckpt, max_patch_size=(TILE, TILE), half_precision=True,
+                             show_progress=False).result
+    dt = time.perf_counter() - t0
+    for head, cfg in MO_TRAIN_HEADS.items():
+        r = res[head]
+        want = movie.shape if cfg["channels"] == 1 else (frames, cfg["channels"]) + movie.shape[1:]
+        if r.shape != want or not np.isfinite(r).all():
+            raise AssertionError(f"PredictMultiOutput on the trained model, {head}: {r.shape}, "
+                                 f"finite {np.isfinite(r).all()}")
+    if not (res["mask"].min() >= 0.0 and res["mask"].max() <= 1.0):
+        raise AssertionError("the trained model's mask head leaves [0, 1]")
+    if iou:
+        pred = res["mask"] > 0.5
+        score = float((pred & truth).sum() / max((pred | truth).sum(), 1))
+        norm = np.sqrt((res["orientation"] ** 2).sum(1))
+        log(f"[train heads→predict] trained .pt through PredictMultiOutput on {frames}×512² "
+            f"blobs ({dt:.3f} s): mask IoU {score:.4f} (foreground {truth.mean():.4f} of "
+            f"pixels, predicted {pred.mean():.4f}); orientation |(cos, sin)| on the mask "
+            f"{norm[truth].mean():.4f}, off it {norm[~truth].mean():.4f}")
+    return res
+
+
+def train_heads_card_vs_cpu(torch) -> None:
+    """``MultiOutputNestedUNet(n_filter=4)`` with both heads on 15 tiles of 64²
+    (12 training: 3 steps of 4), float32 with TF32 off, resident tiles, no
+    augmentation, one epoch: the card's ``metrics.csv`` rows against the
+    CPU's, rtol 1e-3 (the bilinear upsample's backward accumulates with
+    atomics on the card)."""
+    from bio_image_unet_tpu_torch.train import Trainer
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[:64, :64]
+    items = []
+    for _ in range(15):
+        img, mask = blob_sample(rng, (64, 64))
+        theta = np.arctan2(yy - rng.uniform(0, 64), xx - rng.uniform(0, 64))
+        items.append({"image": (img / 255.0).astype(np.float32)[None],
+                      "mask": (mask / 255.0).astype(np.float32)[None],
+                      "orientation": np.stack([np.cos(theta), np.sin(theta)]).astype(np.float32)})
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            t = Trainer(items, 1, network="MultiOutputNestedUNet", n_filter=4,
+                        output_heads=MO_TRAIN_HEADS, batch_size=4, lr=MO_LR, grad_clip=1.0,
+                        save_dir=str(Path(tmp) / dev), seed=0, device=dev, device_cache=True)
+            t.start()
+            with open(Path(tmp) / dev / "metrics.csv") as fh:
+                rows[dev] = np.array([[float(v) for v in r[1:4]]
+                                      for r in list(csv.reader(fh))[1:]])
+    rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
+    log(f"[train heads] card vs CPU (UNet++ n_filter=4, 64², float32, TF32 off, 1 epoch): card "
+        f"{rows['cuda'].tolist()}, CPU {rows['cpu'].tolist()}, max relative difference "
+        f"{rel.max():.2e}")
+    if not rel.max() <= 1e-3:
+        raise AssertionError("the card's multi-output training run disagrees with the CPU's")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,5 +1,6 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
-card, and ``Predict`` on the card held against ``Predict`` on the CPU.
+card, and ``Predict``, ``PredictMultiOutput`` and the ``Trainer`` on the card
+held against the same on the CPU.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -10,14 +11,17 @@ machine that has only PyTorch:
 """
 
 import csv
+import itertools
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from bio_image_unet_tpu_torch.data.augment_device import (augment_apply, augment_apply_plain,
-                                                          draw)
+from bio_image_unet_tpu_torch.data.augment_device import (HeadLayout, augment_apply,
+                                                          augment_apply_plain,
+                                                          augment_heads_apply,
+                                                          augment_heads_apply_plain, draw)
 from bio_image_unet_tpu_torch.models import MultiOutputNestedUNet, MultiOutputUnet, Unet
 from bio_image_unet_tpu_torch.ops import histogram as hist
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
@@ -401,3 +405,134 @@ def test_predict_multi_output_on_card_matches_cpu(cuda, gen, tmp_path, model, mo
         bad = np.abs(card[head] - cpu[head]) > 1e-3 + 1e-3 * np.abs(cpu[head])
         assert not bad.any(), (head, int(bad.sum()))
         np.testing.assert_allclose(card[head], host[head], atol=2e-3, rtol=0, err_msg=head)
+
+
+# --- the multi-head training path: K4h -------------------------------------------
+
+K4H_CASES = [
+    # name, resident tiles, batch, tile size, heads {name: channels}
+    ("slice-shapes", 64, 4, 256, {"mask": 1, "orientation": 2}),
+    ("all-cases-gather", 20, 16, 32, {"mask": 1, "orientation": 2, "distance": 1}),
+    ("odd-tile-scalar-stores", 20, 16, 30, {"orientation": 2, "mask": 1}),
+    ("two-orientation-heads", 6, 5, 12, {"orientation": 2, "orientation_b": 2}),
+]
+
+
+@pytest.mark.parametrize("case", K4H_CASES, ids=[c[0] for c in K4H_CASES])
+def test_augment_heads_kernel_equals_plain(cuda, case):
+    """K4h against its plain version on the same draws, gathering a
+    non-trivial index (repeats, out of order), with every (k, flip_h,
+    flip_v) case forced on where the batch allows it and one sample gated
+    off: targets equal (zeros by value), image within one float32 ulp."""
+    _, n, b, s, channels = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    layout = HeadLayout.of(channels, [k for k in channels if "orientation" in k], cuda)
+    image = torch.rand((n, 1, s, s), generator=g, device=cuda)
+    parts = []
+    for name, c in channels.items():
+        if "orientation" in name:
+            theta = torch.rand((n, 1, s, s), generator=g, device=cuda) * 6.2832
+            parts.append(torch.cat([theta.cos(), theta.sin()], 1))
+        else:
+            parts.append((torch.rand((n, c, s, s), generator=g, device=cuda) > 0.5).float())
+    target = torch.cat(parts, 1).contiguous()
+    index = torch.randint(0, n, (b,), generator=g, device=cuda)
+    index[-1] = index[0]
+    d = draw(g, b, (b, 1, s, s), gauss_sigma=0.04)
+    for i, (k, fh, fv) in enumerate(itertools.product(range(4), (0, 1), (0, 1))):
+        if i < b - 1:
+            d.flags[i, :4] = torch.tensor([1, k, fh, fv], dtype=torch.int32, device=cuda)
+    d.flags[b - 1, 0] = 0
+    before = augment_heads_apply.launches
+    ours = augment_heads_apply(image, target, layout.codes, d, index=index)
+    torch.cuda.synchronize()
+    assert augment_heads_apply.launches == before + 1
+    ref = augment_heads_apply_plain(image, target, layout.codes, d, index=index)
+    assert torch.equal(ours[1], ref[1])
+    assert _ulps(ours[0], ref[0]) <= 1
+    assert torch.equal(ours[1][b - 1], target[index[b - 1]])  # gated off: untouched
+    # without an index the batch itself is augmented
+    whole = augment_heads_apply(image[:b].contiguous(), target[:b].contiguous(), layout.codes, d)
+    assert torch.equal(whole[1], augment_heads_apply_plain(image[:b], target[:b],
+                                                           layout.codes, d)[1])
+
+
+def test_augment_heads_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 1, 16, 16), device=cuda)
+    t = torch.zeros((4, 3, 16, 16), device=cuda)
+    layout = HeadLayout.of({"mask": 1, "orientation": 2}, ("orientation",), cuda)
+    d = draw(torch.Generator(device=cuda), 4, (4, 1, 16, 16))
+    with pytest.raises(ValueError, match="CUDA tensor"):  # a CPU/CUDA mix
+        augment_heads_apply(x, t.cpu(), layout.codes, d)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        augment_heads_apply(x, t, layout.codes.cpu(), d)
+    with pytest.raises(ValueError, match="float32"):
+        augment_heads_apply(x, t.double(), layout.codes, d)
+    with pytest.raises(ValueError, match="int32"):
+        augment_heads_apply(x, t, layout.codes.long(), d)
+    with pytest.raises(ValueError, match="int64"):
+        augment_heads_apply(x, t, layout.codes, d,
+                            index=torch.zeros(4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="field"):
+        augment_heads_apply(x, t, layout.codes, d,
+                            index=torch.zeros(2, dtype=torch.int64, device=cuda))
+
+
+class _HeadTiles:
+    def __init__(self, n=15, size=64):
+        rng = np.random.default_rng(0)
+        yy, xx = np.mgrid[:size, :size]
+        self.items = []
+        for _ in range(n):
+            img, m = blob_sample(rng, (size, size))
+            theta = np.arctan2(yy - rng.uniform(0, size), xx - rng.uniform(0, size))
+            self.items.append({"image": (img / 255.0).astype(np.float32)[None],
+                               "mask": (m / 255.0).astype(np.float32)[None],
+                               "orientation": np.stack([np.cos(theta),
+                                                        np.sin(theta)]).astype(np.float32)})
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+HEAD_LOSSES = {"mask": {"channels": 1, "activation": "sigmoid", "loss": "BCEDiceLoss"},
+               "orientation": {"channels": 2, "activation": None, "loss": "MSELoss"}}
+
+
+@pytest.mark.parametrize("network,deep,cache", [
+    ("MultiOutputUnet", False, False), ("MultiOutputNestedUNet_3Levels", True, True)])
+def test_multi_output_trainer_on_card_matches_cpu(cuda, tmp_path, network, deep, cache):
+    """3 steps and a validation pass of the multi-output Trainer on the card
+    against the CPU, float32 with TF32 off: ``metrics.csv`` within rtol 1e-3
+    (the bilinear upsample's backward accumulates with atomics on the card)."""
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        t = Trainer(_HeadTiles(), 1, network=network, n_filter=8, output_heads=HEAD_LOSSES,
+                    deep_supervision=deep, batch_size=4, lr=1e-4, grad_clip=1.0,
+                    save_dir=str(out), seed=0, device=dev, device_cache=cache)
+        t.start()
+        with open(os.path.join(out, "metrics.csv")) as fh:
+            rows[dev] = np.array([[float(v) for v in r[1:3]] for r in list(csv.reader(fh))[1:]])
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-3)
+
+
+def test_multi_output_trainer_on_card_with_augment_and_bf16(cuda, tmp_path):
+    """bf16, resident tiles, K4h once per step and K4 never; the checkpoint it
+    writes predicts on the card."""
+    before = (augment_heads_apply.launches, augment_apply.launches)
+    t = Trainer(_HeadTiles(n=30), 2, network="MultiOutputNestedUNet", n_filter=8,
+                output_heads=HEAD_LOSSES, batch_size=4, lr=1e-3, save_dir=str(tmp_path),
+                seed=0, device_cache=True, device_augment=True, half_precision=True)
+    t.start()
+    assert augment_heads_apply.launches - before[0] == 2 * (24 // 4)
+    assert augment_apply.launches == before[1]
+    assert all(np.isfinite(h["train_loss"]) for h in t.history)
+    res = PredictMultiOutput(np.random.default_rng(1).integers(0, 255, (2, 96, 96),
+                                                               dtype=np.uint8),
+                             str(tmp_path / "model.pt"), max_patch_size=(64, 64),
+                             show_progress=False).result
+    assert res["mask"].shape == (2, 96, 96) and res["orientation"].shape == (2, 2, 96, 96)

@@ -239,9 +239,9 @@ def test_trainer_device_rule_and_unported_options(tmp_path):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="auto")
-    for kw in ({"network": "AttentionUnet"}, {"mode": "max"}, {"output_heads": {}},
-               {"deep_supervision": True}, {"time_loss_weight": 0.1}, {"mesh": object()},
-               {"device_cache": "sharded"}, {"remat": True}, {"tensorboard": True}):
+    for kw in ({"network": "AttentionUnet"}, {"mode": "max"}, {"time_loss_weight": 0.1},
+               {"mesh": object()}, {"device_cache": "sharded"}, {"remat": True},
+               {"profile_dir": str(tmp_path / "prof")}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu", **kw)
 
