@@ -4,16 +4,17 @@ The port sits beside the JAX package ``bio_image_unet_tpu`` (the reference it
 is held against) and imports nothing of it, nor JAX.  Its layout mirrors the
 JAX package's, so each module's counterpart is easy to find:
 
-- :mod:`~bio_image_unet_tpu_torch.models`     — ``Unet``, ``MultiOutputUnet`` and
-  both UNet++ depths (``nn.Module``, float32 or bf16 compute)
+- :mod:`~bio_image_unet_tpu_torch.models`     — ``Unet``, ``MultiOutputUnet``,
+  both UNet++ depths, ``UNet3D`` and ``MultiOutputUnet3D`` (``nn.Module``,
+  float32 or bf16 compute)
 - :mod:`~bio_image_unet_tpu_torch.checkpoint` — reference ``.pt`` loading and saving
 - :mod:`~bio_image_unet_tpu_torch.interop`    — JAX variables → the port's state dict
 - :mod:`~bio_image_unet_tpu_torch.ops`        — blocks and the hand-written kernels
-  (K1 clip bounds, K3 sigmoid + stitch, K5/K5s safe-margin stitch) with their
-  plain PyTorch versions
-- :mod:`~bio_image_unet_tpu_torch.predict`    — BN fold, K2/K2h normalize-and-tile,
-  tiled 2D ``Predict`` and ``PredictMultiOutput`` (fused device pipeline and
-  host-staged path)
+  (K1 clip bounds, K3/K3v sigmoid + stitch, K5/K5s safe-margin stitch, K5v
+  3D blend stitch) with their plain PyTorch versions
+- :mod:`~bio_image_unet_tpu_torch.predict`    — BN fold, K2/K2h/K2v
+  normalize-and-tile, tiled ``Predict``, ``PredictMultiOutput``, ``Predict3D``
+  and ``PredictMultiOutput3D`` (fused device pipeline and host-staged path)
 - :mod:`~bio_image_unet_tpu_torch.data`       — the TIFF codec, ``DataProcess2D``,
   ``DataProcessMultiOutput`` and their loader, host augmentation, and the K4 /
   K4h on-device augmentation
@@ -21,7 +22,10 @@ JAX package's, so each module's counterpart is easy to find:
 - :mod:`~bio_image_unet_tpu_torch.train`      — the ``Trainer`` of the 2D ``Unet``
   and the multi-output family
 - :mod:`~bio_image_unet_tpu_torch.unet`, :mod:`~bio_image_unet_tpu_torch.multi_output_unet`
-  — the facades (DataProcess, Trainer, Predict)
+  — the facades (DataProcess, Trainer, Predict);
+  :mod:`~bio_image_unet_tpu_torch.unet3d`,
+  :mod:`~bio_image_unet_tpu_torch.multi_output_unet3d` — the 3D facades
+  (Predict; their DataProcess and Trainer raise until 3D training is ported)
 - :mod:`~bio_image_unet_tpu_torch.utils`      — device rule, synthetic data,
   TIFF saving, the TensorBoard event writer
 

@@ -33,6 +33,23 @@
 // What bounds both on the card: bytes.  K5 reads each real tile value once
 // on an exact grid (64 tiles x C x 512^2 float16 per chunk) and writes each
 // output pixel once; K5s reads the real tiles once.
+//
+// K5v is K5's 3D linear-blend form.  It replaces ops/stitch.py:163
+// _stitch_factored_xla with the 3D factors of predict/tiling.py:113
+// _blend_factors and the epilogue of predictor.py:1354-1365 (fused path,
+// float16 out), and the host form ops/stitch.py:138 / :204 with
+// fill_mean=False (float32 out).  One thread per output voxel (volume,
+// channel, z, row, column) loops over the covering tiles in the scan's order
+// (z outer, y inner), takes w = min(fz, fx, fy) from the factor tables and
+// accumulates acc = fma(tile, w, acc), wsum = wsum + w: XLA contracts the
+// scan's block + patch * w into one fused multiply-add, and the blend
+// weights are fractions, so the rounding of each step is that of
+// __fmaf_rn (with -fmad=false nothing else is contracted).  Where
+// wsum > 0 the voxel is acc / wsum (IEEE), elsewhere 0: the reference fills
+// uncovered voxels with 0.  No atomics, no planes in device memory,
+// bit-equal to the scan for the same float16 tiles.  Bound by bytes: each
+// real tile value read once on a one-cover grid, each output voxel written
+// once; an overlapping grid re-reads tile values only at the seams.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -75,6 +92,54 @@ __global__ void margin_stitch(const __half* __restrict__ tiles, int C, int h, in
     }
   }
   store(out + ((size_t)fc * h + r) * w + q, wsum > 0.0f ? __fdiv_rn(acc, wsum) : 0.0f);
+}
+
+template <typename O>
+__global__ void blend_stitch_3d(const __half* __restrict__ tiles, int C, int d, int h, int w,
+                                int tz, int tx, int ty, int nz, int nx, int ny,
+                                const int* __restrict__ zs, const int* __restrict__ xs,
+                                const int* __restrict__ ys, const int* __restrict__ z_lo,
+                                const int* __restrict__ z_hi,
+                                const int* __restrict__ row_lo, const int* __restrict__ row_hi,
+                                const int* __restrict__ col_lo, const int* __restrict__ col_hi,
+                                const float* __restrict__ fz, const float* __restrict__ fx,
+                                const float* __restrict__ fy, long long total,
+                                O* __restrict__ out) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const long long plane = (long long)h * w;
+  const long long vc = idx / (plane * d);  // volume * C + channel
+  const long long vox = idx - vc * plane * d;
+  const int z = (int)(vox / plane);
+  const int rem = (int)(vox - (long long)z * plane);
+  const int r = rem / w;
+  const int q = rem - r * w;
+  const int v = (int)(vc / C);
+  const int c = (int)(vc - (long long)v * C);
+
+  const int k0 = z_lo[z], k1 = z_hi[z];
+  const int i0 = row_lo[r], i1 = row_hi[r];
+  const int j0 = col_lo[q], j1 = col_hi[q];
+  const size_t tile = (size_t)tz * tx * ty;
+  float acc = 0.0f, wsum = 0.0f;
+  for (int k = k0; k < k1; ++k) {
+    const int tzo = z - zs[k];
+    const float wz = fz[(size_t)k * tz + tzo];
+    for (int i = i0; i < i1; ++i) {
+      const int txo = r - xs[i];
+      const float wzx = fminf(wz, fx[(size_t)i * tx + txo]);
+      for (int j = j0; j < j1; ++j) {
+        const int tyo = q - ys[j];
+        const float wt = fminf(wzx, fy[(size_t)j * ty + tyo]);
+        const size_t t = (((size_t)v * nz + k) * nx + i) * ny + j;
+        const float val = __half2float(
+            tiles[(t * C + c) * tile + ((size_t)tzo * tx + txo) * ty + tyo]);
+        acc = __fmaf_rn(val, wt, acc);
+        wsum = __fadd_rn(wsum, wt);
+      }
+    }
+  }
+  store(out + idx, wsum > 0.0f ? __fdiv_rn(acc, wsum) : 0.0f);
 }
 
 constexpr int kSumThreads = 256;
@@ -158,6 +223,36 @@ int k5s_tile_sum(const void* x, long long n, int n_blocks, void* partials, void*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   tile_sum_final<<<1, kSumThreads, 0, s>>>((const double*)partials, n_blocks, (double*)out);
+  return (int)cudaGetLastError();
+}
+
+// K5v: tiles (>= n_vols*nz*nx*ny, C, tz, tx, ty) float16, volume-major z/x/y
+// grid order; zs, xs, ys int32 tile starts; z_lo/z_hi (d,), row_lo/row_hi
+// (h,), col_lo/col_hi (w,) int32 cover ranges; fz (nz, tz), fx (nx, tx), fy
+// (ny, ty) float32 factor tables; out is (n_vols, C, d, h, w) float16
+// (out_f32 = 0) or float32 (1).  One launch.
+int k5v_blend_stitch_3d(const void* tiles, int n_vols, int C, int d, int h, int w, int tz,
+                        int tx, int ty, int nz, int nx, int ny, const void* zs, const void* xs,
+                        const void* ys, const void* z_lo, const void* z_hi,
+                        const void* row_lo, const void* row_hi, const void* col_lo,
+                        const void* col_hi, const void* fz, const void* fx, const void* fy,
+                        int out_f32, void* out, void* stream) {
+  const int threads = 256;
+  const long long total = (long long)n_vols * C * d * h * w;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (out_f32)
+    blend_stitch_3d<float><<<blocks, threads, 0, s>>>(
+        (const __half*)tiles, C, d, h, w, tz, tx, ty, nz, nx, ny, (const int*)zs,
+        (const int*)xs, (const int*)ys, (const int*)z_lo, (const int*)z_hi,
+        (const int*)row_lo, (const int*)row_hi, (const int*)col_lo, (const int*)col_hi,
+        (const float*)fz, (const float*)fx, (const float*)fy, total, (float*)out);
+  else
+    blend_stitch_3d<__half><<<blocks, threads, 0, s>>>(
+        (const __half*)tiles, C, d, h, w, tz, tx, ty, nz, nx, ny, (const int*)zs,
+        (const int*)xs, (const int*)ys, (const int*)z_lo, (const int*)z_hi,
+        (const int*)row_lo, (const int*)row_hi, (const int*)col_lo, (const int*)col_hi,
+        (const float*)fz, (const float*)fx, (const float*)fy, total, (__half*)out);
   return (int)cudaGetLastError();
 }
 

@@ -4,11 +4,14 @@
 Input is the JAX package's ``{'params', 'batch_stats'}`` tree with numpy (or
 array-like) leaves; output is the port's state dict of torch tensors:
 
-- conv kernel (kh, kw, I, O) → (O, I, kh, kw) under ``<block>.0.*``
-- transposed-conv kernel (kh, kw, O, I) → (I, O, kh, kw) under ``up<i>.*``
+- conv kernel (*k, I, O) → (O, I, *k) under ``<block>.0.*`` (2D: (kh, kw);
+  3D: (kd, kh, kw)), the ConvBlocks ``up<i>_conv`` of ``MultiOutputUnet3D``
+  included
+- transposed-conv kernel (*k, O, I) → (I, O, *k) under ``up<i>.*``
 - BatchNorm scale/bias/mean/var → ``<block>.1.{weight,bias,running_mean,
   running_var}`` plus a zero ``num_batches_tracked``
-- the 1×1 ``final`` conv → ``final.0.*``
+- the 1×1 ``final`` conv → ``final.0.*`` in 2D; ``UNet3D``'s is a bare
+  ``Conv3d``, ``final.*``
 - the 1×1 head convs ``output_layers_<head>`` → ``output_layers.<head>.*``
 - UNet++ grid blocks ``grid_conv<i>_<j>/conv{1,2}|bn{1,2}`` →
   ``conv<i>_<j>.conv{1,2}.*`` / ``conv<i>_<j>.bn{1,2}.*``
@@ -24,15 +27,20 @@ import numpy as np
 import torch
 
 
-def _t(arr, perm=None) -> torch.Tensor:
+def _t(arr) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(arr, dtype=np.float32)))
+
+
+def _kernel(arr) -> torch.Tensor:
+    """(*k, A, B) → (B, A, *k) at any spatial rank: a conv's (*k, I, O) to
+    (O, I, *k), a transposed conv's (*k, O, I) to (I, O, *k)."""
     a = np.asarray(arr, dtype=np.float32)
-    if perm is not None:
-        a = np.transpose(a, perm)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    nsp = a.ndim - 2
+    return _t(np.transpose(a, (nsp + 1, nsp) + tuple(range(nsp))))
 
 
 def _conv_bn(sd, prefix_conv: str, prefix_bn: str, conv: dict, bn: dict, stats: dict) -> None:
-    sd[f"{prefix_conv}.weight"] = _t(conv["kernel"], (3, 2, 0, 1))
+    sd[f"{prefix_conv}.weight"] = _kernel(conv["kernel"])
     sd[f"{prefix_conv}.bias"] = _t(conv["bias"])
     sd[f"{prefix_bn}.weight"] = _t(bn["scale"])
     sd[f"{prefix_bn}.bias"] = _t(bn["bias"])
@@ -42,9 +50,9 @@ def _conv_bn(sd, prefix_conv: str, prefix_bn: str, conv: dict, bn: dict, stats: 
 
 
 def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet``, ``MultiOutputUnet``
-    or UNet++ → the port's state dict (loadable with
-    ``load_state_dict(strict=True)``)."""
+    """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet``, ``MultiOutputUnet``,
+    UNet++, ``UNet3D`` or ``MultiOutputUnet3D`` → the port's state dict
+    (loadable with ``load_state_dict(strict=True)``)."""
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
@@ -57,14 +65,15 @@ def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
                 _conv_bn(sd, f"{base}.conv{k}", f"{base}.bn{k}", p[f"conv{k}"], p[f"bn{k}"],
                          stats[block][f"bn{k}"])
         elif block.startswith("up") and set(p) == {"kernel", "bias"}:
-            sd[f"{block}.weight"] = _t(p["kernel"], (3, 2, 0, 1))
+            sd[f"{block}.weight"] = _kernel(p["kernel"])
             sd[f"{block}.bias"] = _t(p["bias"])
         elif block == "final":
-            sd["final.0.weight"] = _t(p["kernel"], (3, 2, 0, 1))
-            sd["final.0.bias"] = _t(p["bias"])
+            prefix = "final" if np.ndim(p["kernel"]) == 5 else "final.0"
+            sd[f"{prefix}.weight"] = _kernel(p["kernel"])
+            sd[f"{prefix}.bias"] = _t(p["bias"])
         elif block.startswith("output_layers_") and set(p) == {"kernel", "bias"}:
             head = block[len("output_layers_"):]
-            sd[f"output_layers.{head}.weight"] = _t(p["kernel"], (3, 2, 0, 1))
+            sd[f"output_layers.{head}.weight"] = _kernel(p["kernel"])
             sd[f"output_layers.{head}.bias"] = _t(p["bias"])
         else:
             raise ValueError(f"unmapped JAX param block: {block!r} "

@@ -1,23 +1,25 @@
 """Model registry (counterpart of ``bio_image_unet_tpu/models/__init__.py``).
-Ported so far: the plain 2D ``Unet``, ``MultiOutputUnet`` and both UNet++
-depths; the other registry names of the JAX package raise a clear "not
+Ported so far: the plain 2D ``Unet``, ``MultiOutputUnet``, both UNet++
+depths, ``UNet3D`` and ``MultiOutputUnet3D``; the other registry names of the JAX package raise a clear "not
 ported yet" error."""
 
 import inspect
 
 from .nested_unet import MultiOutputNestedUNet, MultiOutputNestedUNet_3Levels
 from .unet2d import MultiOutputUnet, Unet
+from .unet3d import MultiOutputUnet3D, UNet3D
 
 MODEL_REGISTRY = {
     "Unet": Unet,
     "MultiOutputUnet": MultiOutputUnet,
     "MultiOutputNestedUNet": MultiOutputNestedUNet,
     "MultiOutputNestedUNet_3Levels": MultiOutputNestedUNet_3Levels,
+    "UNet3D": UNet3D,
+    "MultiOutputUnet3D": MultiOutputUnet3D,
 }
 
 # registry names of the JAX package that later slices port
-_NOT_PORTED = ("AttentionUnet", "Unet_v0", "BabyUnet", "Siam_UNet", "UNet3D",
-               "MultiOutputUnet3D")
+_NOT_PORTED = ("AttentionUnet", "Unet_v0", "BabyUnet", "Siam_UNet")
 
 
 def get_model(name, **kwargs):
@@ -39,4 +41,5 @@ def get_model(name, **kwargs):
 
 
 __all__ = ["Unet", "MultiOutputUnet", "MultiOutputNestedUNet",
-           "MultiOutputNestedUNet_3Levels", "MODEL_REGISTRY", "get_model"]
+           "MultiOutputNestedUNet_3Levels", "UNet3D", "MultiOutputUnet3D", "MODEL_REGISTRY",
+           "get_model"]

@@ -1,5 +1,6 @@
 """The stitches of the device pipelines: K3 (single-head masks), K5 and K5s
-(multi-head safe-margin stitch and its fill).
+(multi-head safe-margin stitch and its fill), and their 3D forms K3v (the
+volume's mean stitch) and K5v (the multi-head linear-blend stitch).
 
 K3: sigmoid·255 → uint8 per tile, then the mean-overlap stitch
 (counterpart of ``bio_image_unet_tpu/predict/predictor.py:450-463``'s epilogue,
@@ -32,6 +33,29 @@ the total over its chunks divided by the count of real tile values.
 
 Each wrapper launches ``csrc/margin_stitch.cu`` on a CUDA tensor or raises,
 and takes the plain PyTorch version on a CPU tensor.
+
+K3v (counterpart of ``predictor.py:1242-1256``, the quantize of
+``_forward_with`` :460-462, and ``ops/stitch.py:95 _stitch_xla_3d`` / ``:114
+_stitch_3d_jit``): ``sigmoid_stitch_3d(logits, plan)`` takes the logits of
+one volume's tiles in z/x/y grid order — (n, tz, tx, ty) or (n, 1, tz, tx,
+ty), float32 or bfloat16, ``n >= nz·nx·ny`` — and returns the (d, h, w)
+uint8 volume: each tile voxel quantized as trunc(sigmoid(z)·255), the
+covering tiles' uint8 values averaged in float32 and truncated.  Kernel in
+``csrc/sigmoid_stitch.cu``.
+
+K5v (counterpart of ``ops/stitch.py:163 _stitch_factored_xla`` with the 3D
+linear-blend factors of ``predict/tiling.py:113 _blend_factors`` and the
+epilogue ``predictor.py:1354-1365``; host form ``ops/stitch.py:138`` /
+``:204`` with ``fill_mean=False``): ``blend_stitch_3d(tiles, n_vols, plan,
+out_dtype)`` takes one head's float16 tiles, (n, C, tz, tx, ty) in
+volume-major grid order, and the plan's three factor tables, and returns
+(n_vols, C, d, h, w): each tile weighs min(fz, fx, fy), Σ tile·w / Σ w in
+float32 accumulated in the scan's order where Σ w > 0, else 0; float16 (the
+fused path) or float32 (the host path).  Each step of the weighted sum is
+one fused multiply-add, ``fma(tile, w, acc)`` rounded once: XLA contracts the
+scan's ``block + patch * w`` so (the blend weights are fractions, so the two
+roundings of a separate multiply and add would differ from it).  Kernel in
+``csrc/margin_stitch.cu``.
 """
 
 from __future__ import annotations
@@ -196,3 +220,153 @@ def tile_sum(tiles: torch.Tensor, n_real: int) -> torch.Tensor:
 
 
 tile_sum.launches = 0
+
+
+# --- K3v / K5v ---------------------------------------------------------------
+
+def _tiles_3d(logits: torch.Tensor, plan) -> torch.Tensor:
+    if logits.dim() == 5:
+        if logits.shape[1] != 1:
+            raise ValueError("sigmoid_stitch_3d takes single-channel logits")
+        logits = logits[:, 0]
+    if logits.dim() != 4 or tuple(logits.shape[1:]) != plan.tile:
+        raise ValueError(f"logit tiles {tuple(logits.shape)} do not match the plan's tile "
+                         f"{plan.tile}")
+    if logits.shape[0] < plan.per_volume:
+        raise ValueError(f"{logits.shape[0]} tiles for a volume of {plan.per_volume}")
+    return logits
+
+
+def sigmoid_stitch_3d_plain(logits: torch.Tensor, plan) -> torch.Tensor:
+    """Plain PyTorch K3v."""
+    tz, tx, ty = plan.tile
+    tiles = _tiles_3d(logits, plan)[: plan.per_volume]
+    u8 = (torch.sigmoid(tiles.float()) * 255.0).to(torch.uint8)
+    grid = u8.reshape(plan.nz, plan.nx, plan.ny, tz, tx, ty)
+    if plan.exact:
+        out = grid.permute(0, 3, 1, 4, 2, 5).reshape(plan.nz * tz, plan.nx * tx, plan.ny * ty)
+        return out[: plan.d, : plan.h, : plan.w].contiguous()
+    shape = (max(tz, plan.d), max(tx, plan.h), max(ty, plan.w))
+    acc = torch.zeros(shape, dtype=torch.float32, device=u8.device)
+    cnt = torch.zeros(shape, dtype=torch.float32, device=u8.device)
+    for k, z0 in enumerate(plan.zs.tolist()):
+        for i, x0 in enumerate(plan.xs.tolist()):
+            for j, y0 in enumerate(plan.ys.tolist()):
+                win = (slice(z0, z0 + tz), slice(x0, x0 + tx), slice(y0, y0 + ty))
+                acc[win] += grid[k, i, j].float()
+                cnt[win] += 1.0
+    out = (acc / torch.clamp(cnt, min=1.0)).to(torch.uint8)
+    return out[: plan.d, : plan.h, : plan.w].contiguous()
+
+
+def sigmoid_stitch_3d(logits: torch.Tensor, plan) -> torch.Tensor:
+    """K3v (see the module docstring)."""
+    tiles = _tiles_3d(logits, plan)
+    if tiles.device.type == "cpu":
+        return sigmoid_stitch_3d_plain(tiles, plan)
+    dev = tiles.device
+    _cuda.require_cuda(tiles, "sigmoid_stitch_3d")
+    _cuda.require_cuda(plan.zs_t, "sigmoid_stitch_3d plan", dev)
+    if tiles.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sigmoid_stitch_3d takes float32/bfloat16 logits, got {tiles.dtype}")
+    out = torch.empty((plan.d, plan.h, plan.w), dtype=torch.uint8, device=dev)
+    A = _cuda
+    fn = A.function("sigmoid_stitch", "k3v_sigmoid_stitch_3d",
+                    [A.P] + [A.I32] * 9 + [A.P] * 11)
+    A.launch(fn, dev, tiles.data_ptr(), int(tiles.dtype == torch.bfloat16), plan.d, plan.h,
+             plan.w, *plan.tile, plan.nx, plan.ny, *_plan_tables(plan), out.data_ptr())
+    sigmoid_stitch_3d.launches += 1
+    return out
+
+
+sigmoid_stitch_3d.launches = 0
+
+
+def _plan_tables(plan) -> list:
+    """The device pointers of a :class:`TilePlan3D`'s start and cover tables."""
+    return [t.data_ptr() for t in (plan.zs_t, plan.xs_t, plan.ys_t, plan.z_lo, plan.z_hi,
+                                   plan.row_lo, plan.row_hi, plan.col_lo, plan.col_hi)]
+
+
+def _check_heads_3d(tiles: torch.Tensor, n_vols: int, plan) -> None:
+    if tiles.dim() != 5 or tuple(tiles.shape[2:]) != plan.tile:
+        raise ValueError(f"head tiles {tuple(tiles.shape)} are not (n, C, *{plan.tile})")
+    if tiles.dtype != torch.float16:
+        raise ValueError(f"blend_stitch_3d takes float16 head tiles, got {tiles.dtype}")
+    if tiles.shape[0] < n_vols * plan.per_volume:
+        raise ValueError(f"{tiles.shape[0]} tiles for {n_vols} volumes of "
+                         f"{plan.per_volume} tiles each")
+    if plan.factors is None:
+        raise ValueError("blend_stitch_3d needs a TilePlan3D built with factor tables")
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a·b + c`` of float32 tensors rounded once to float32, as a fused
+    multiply-add.  The product is exact in float64 and the float64 sum ``s``
+    carries its rounding error ``e`` (TwoSum); rounding ``s`` to float32 is
+    then the correct rounding except where ``s`` is exactly a float32
+    midpoint and ``e`` breaks the tie."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    z = s - p
+    e = (p - (s - z)) + (cd - z)
+    r = s.float()
+    inf = torch.tensor(float("inf"), device=r.device)
+    up = torch.where(r.double() > s, r, torch.nextafter(r, inf))
+    down = torch.where(r.double() < s, r, torch.nextafter(r, -inf))
+    tie = (r.double() != s) & ((up.double() + down.double()) * 0.5 == s)
+    return torch.where(tie & (e > 0), up, torch.where(tie & (e < 0), down, r))
+
+
+def blend_stitch_3d_plain(tiles: torch.Tensor, n_vols: int, plan,
+                          out_dtype: torch.dtype = torch.float16) -> torch.Tensor:
+    """Plain PyTorch K5v: the JAX scan's arithmetic, tile by tile in grid
+    order."""
+    _check_heads_3d(tiles, n_vols, plan)
+    (tz, tx, ty), c, dev = plan.tile, tiles.shape[1], tiles.device
+    t = (tiles[: n_vols * plan.per_volume].float()
+         .reshape(n_vols, plan.nz, plan.nx, plan.ny, c, tz, tx, ty))
+    shape = (max(tz, plan.d), max(tx, plan.h), max(ty, plan.w))
+    acc = torch.zeros((n_vols, c) + shape, dtype=torch.float32, device=dev)
+    wsum = torch.zeros(shape, dtype=torch.float32, device=dev)
+    fz, fx, fy = (torch.as_tensor(f, device=dev) for f in plan.factors)
+    for k, z0 in enumerate(plan.zs.tolist()):
+        for i, x0 in enumerate(plan.xs.tolist()):
+            for j, y0 in enumerate(plan.ys.tolist()):
+                wt = torch.minimum(torch.minimum(fz[k][:, None, None], fx[i][None, :, None]),
+                                   fy[j][None, None, :])
+                win = (slice(z0, z0 + tz), slice(x0, x0 + tx), slice(y0, y0 + ty))
+                acc[(...,) + win] = _fma_f32(t[:, k, i, j], wt, acc[(...,) + win])
+                wsum[win] = wsum[win] + wt
+    covered = wsum > 0
+    out = torch.where(covered, acc / torch.where(covered, wsum, torch.ones_like(wsum)),
+                      torch.zeros((), dtype=torch.float32, device=dev))
+    return out[..., : plan.d, : plan.h, : plan.w].to(out_dtype).contiguous()
+
+
+def blend_stitch_3d(tiles: torch.Tensor, n_vols: int, plan,
+                    out_dtype: torch.dtype = torch.float16) -> torch.Tensor:
+    """K5v (see the module docstring)."""
+    _check_heads_3d(tiles, n_vols, plan)
+    if out_dtype not in (torch.float16, torch.float32):
+        raise ValueError(f"blend_stitch_3d writes float16/float32, got {out_dtype}")
+    if tiles.device.type == "cpu":
+        return blend_stitch_3d_plain(tiles, n_vols, plan, out_dtype)
+    dev = tiles.device
+    _cuda.require_cuda(tiles, "blend_stitch_3d")
+    _cuda.require_cuda(plan.fz_t, "blend_stitch_3d plan", dev)
+    c = tiles.shape[1]
+    out = torch.empty((n_vols, c, plan.d, plan.h, plan.w), dtype=out_dtype, device=dev)
+    A = _cuda
+    fn = A.function("margin_stitch", "k5v_blend_stitch_3d",
+                    [A.P] + [A.I32] * 11 + [A.P] * 12 + [A.I32, A.P, A.P])
+    A.launch(fn, dev, tiles.data_ptr(), n_vols, c, plan.d, plan.h, plan.w, *plan.tile,
+             plan.nz, plan.nx, plan.ny, *_plan_tables(plan), plan.fz_t.data_ptr(),
+             plan.fx_t.data_ptr(), plan.fy_t.data_ptr(), int(out_dtype == torch.float32),
+             out.data_ptr())
+    blend_stitch_3d.launches += 1
+    return out
+
+
+blend_stitch_3d.launches = 0

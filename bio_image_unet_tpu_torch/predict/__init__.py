@@ -1,12 +1,17 @@
-"""Tiled 2D inference: the fused device pipeline and the host-staged path.
+"""Tiled 2D and 3D inference: the fused device pipeline and the host-staged path.
 
 - :class:`Predict`            ≙ ``bio_image_unet_tpu.predict.Predict`` (K1 → K2 →
   cuDNN forward → K3 per 16-frame chunk)
 - :class:`PredictMultiOutput` ≙ ``bio_image_unet_tpu.predict.PredictMultiOutput``
   (K1 → K2h → multi-head forward → K5, with the K5s fill)
+- :class:`Predict3D`          ≙ ``bio_image_unet_tpu.predict.Predict3D`` (K1 over the
+  volume → K2v → 3D forward → K3v)
+- :class:`PredictMultiOutput3D` ≙ ``bio_image_unet_tpu.predict.PredictMultiOutput3D``
+  (K1 → K2v float tiles → multi-head 3D forward → K5v blend stitch)
 """
 
-from .predictor import Predict, PredictMultiOutput
-from .tiling import grid_starts, stitch_margin, stitch_mean
+from .predictor import Predict, Predict3D, PredictMultiOutput, PredictMultiOutput3D
+from .tiling import grid_starts, overlap_starts, stitch_blend3d, stitch_margin, stitch_mean
 
-__all__ = ["Predict", "PredictMultiOutput", "grid_starts", "stitch_mean", "stitch_margin"]
+__all__ = ["Predict", "PredictMultiOutput", "Predict3D", "PredictMultiOutput3D", "grid_starts",
+           "overlap_starts", "stitch_mean", "stitch_margin", "stitch_blend3d"]

@@ -1,6 +1,7 @@
-"""BN-folded inference forwards of the 2D U-Net family (counterpart of the
+"""BN-folded inference forwards of the U-Net family (counterpart of the
 plain and multi-head branches of ``bio_image_unet_tpu/predict/fastpath.py``
-``build_fast_apply`` and of ``:291 _build_fast_nested``).
+``build_fast_apply``, of ``:236 _build_fast_3d`` and of ``:291
+_build_fast_nested``).
 
 Eval-mode BatchNorm is an affine map, so it folds exactly into the preceding
 convolution (``fastpath.py:35 _fold``), in float32::
@@ -8,16 +9,19 @@ convolution (``fastpath.py:35 _fold``), in float32::
     k' = k · γ/√(σ²+ε)        (per output channel)
     b' = (b − μ) · γ/√(σ²+ε) + β
 
-A folded block is then one ``F.conv2d`` with bias plus LeakyReLU(0.1).  The
-convolutions go to cuDNN through torch.  In bfloat16 the weights and
-activations are kept ``channels_last`` (NHWC in memory), the layout the
-card's tensor-core convolutions run in.  Logits and head convolutions run in
+A folded block is then one ``F.conv2d`` (``F.conv3d`` for volumes) with bias
+plus LeakyReLU(0.1).  The convolutions go to cuDNN through torch.  In
+bfloat16 the weights and activations are kept ``channels_last`` (NHWC in
+memory; ``channels_last_3d``, NDHWC, for volumes), the layout the card's
+tensor-core convolutions run in.  Logits and head convolutions run in
 the working dtype and return in float32, where a head's activation runs
 (``fastpath.py:224-231``, ``:323-327``).
 
 - ``FoldedUnet2D``     — ``Unet`` and ``MultiOutputUnet``
 - ``FoldedNestedUNet`` — both UNet++ depths; a deep-supervision checkpoint
                          emits only each head's deepest level
+- ``FoldedUNet3D``     — ``UNet3D`` and ``MultiOutputUnet3D``, both decoder
+                         styles
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.unet2d import apply_activation
-from ..ops.functional import max_pool, upsample_linear
+from ..ops.functional import downsample_nearest, max_pool, upsample_linear, upsample_nearest
 
 _BN_EPS = 1e-5
 
@@ -40,16 +44,18 @@ def _block_of(key: str) -> str:
 
 def _fold(sd, conv: str, bn: str) -> Dict[str, torch.Tensor]:
     inv = sd[f"{bn}.weight"] * torch.rsqrt(sd[f"{bn}.running_var"] + _BN_EPS)
-    return {"weight": sd[f"{conv}.weight"] * inv[:, None, None, None],
+    w = sd[f"{conv}.weight"]
+    return {"weight": w * inv.reshape((-1,) + (1,) * (w.dim() - 1)),
             "bias": (sd[f"{conv}.bias"] - sd[f"{bn}.running_mean"]) * inv + sd[f"{bn}.bias"]}
 
 
 def fold_unet2d(state_dict: Dict[str, torch.Tensor]) -> Dict[str, dict]:
-    """Fold a 2D U-Net family state dict (``fastpath.py:88 fold_unet2d``):
-    ``ConvBlock`` ``<b>.0``/``<b>.1`` → ``{b: {'weight', 'bias'}}``; UNet++
-    ``VGGBlock`` ``<b>.conv{1,2}``/``<b>.bn{1,2}`` → ``{b: {'stage1': …,
-    'stage2': …}}``; transposed convs, ``final`` and ``output_layers.<head>``
-    are kept as they are.  All folding happens in float32."""
+    """Fold a U-Net family state dict, 2D or 3D (``fastpath.py:88
+    fold_unet2d``): ``ConvBlock`` ``<b>.0``/``<b>.1`` → ``{b: {'weight',
+    'bias'}}``; UNet++ ``VGGBlock`` ``<b>.conv{1,2}``/``<b>.bn{1,2}`` → ``{b:
+    {'stage1': …, 'stage2': …}}``; transposed convs, ``final`` (``final.0``
+    in 2D, a bare ``final`` in ``UNet3D``) and ``output_layers.<head>`` are
+    kept as they are.  All folding happens in float32."""
     sd = {k: v.detach().to("cpu", torch.float32) for k, v in state_dict.items()
           if not k.endswith("num_batches_tracked")}
     folded = {}
@@ -60,7 +66,8 @@ def fold_unet2d(state_dict: Dict[str, torch.Tensor]) -> Dict[str, dict]:
             folded[b] = {"stage1": _fold(sd, f"{b}.conv1", f"{b}.bn1"),
                          "stage2": _fold(sd, f"{b}.conv2", f"{b}.bn2")}
         elif b == "final":
-            folded[b] = {"weight": sd["final.0.weight"], "bias": sd["final.0.bias"]}
+            fin = "final.0" if "final.0.weight" in sd else "final"
+            folded[b] = {"weight": sd[f"{fin}.weight"], "bias": sd[f"{fin}.bias"]}
         else:  # up<i> (ConvTranspose2d) and the 1×1 heads: nothing to fold
             folded[b] = {"weight": sd[f"{b}.weight"], "bias": sd[f"{b}.bias"]}
     return folded
@@ -75,27 +82,36 @@ class _Folded:
         self.device = torch.device(device or "cpu")
         self.heads = getattr(model, "heads", None)
         self.channels_last = self.dtype == torch.bfloat16
-        fmt = torch.channels_last if self.channels_last else torch.contiguous_format
 
         def place(p):
             if "weight" not in p:
                 return {k: place(v) for k, v in p.items()}
-            return {"weight": p["weight"].to(self.device, self.dtype).contiguous(memory_format=fmt),
+            w = p["weight"].to(self.device, self.dtype)
+            return {"weight": w.contiguous(memory_format=self._format(w)),
                     "bias": p["bias"].to(self.device, self.dtype)}
 
         self.params = {b: place(p) for b, p in fold_unet2d(model.state_dict()).items()}
 
+    def _format(self, t: torch.Tensor) -> torch.memory_format:
+        if not self.channels_last:
+            return torch.contiguous_format
+        return torch.channels_last if t.dim() == 4 else torch.channels_last_3d
+
     def _input(self, x: torch.Tensor) -> torch.Tensor:
-        return x.contiguous(memory_format=torch.channels_last) if self.channels_last else x
+        return x.contiguous(memory_format=self._format(x))
 
     @staticmethod
     def _conv(x, p, dilation=1):
-        return F.leaky_relu(F.conv2d(x, p["weight"], p["bias"], padding=dilation,
-                                     dilation=dilation), 0.1)
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        return F.leaky_relu(conv(x, p["weight"], p["bias"], padding=dilation,
+                                 dilation=dilation), 0.1)
+
+    @staticmethod
+    def _conv1x1(h, p):
+        return (F.conv2d if h.dim() == 4 else F.conv3d)(h, p["weight"], p["bias"])
 
     def _head(self, h: torch.Tensor, layer: str, activation) -> torch.Tensor:
-        p = self.params[layer]
-        return apply_activation(F.conv2d(h, p["weight"], p["bias"]).float(), activation)
+        return apply_activation(self._conv1x1(h, self.params[layer]).float(), activation)
 
 
 class FoldedUnet2D(_Folded):
@@ -130,8 +146,7 @@ class FoldedUnet2D(_Folded):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final-conv output in the working dtype."""
-        fin = self.params["final"]
-        return F.conv2d(self.trunk(x), fin["weight"], fin["bias"])
+        return self._conv1x1(self.trunk(x), self.params["final"])
 
     def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``{head: activated float32}`` of a multi-head trunk."""
@@ -180,9 +195,50 @@ class FoldedNestedUNet(_Folded):
     __call__ = heads_out
 
 
-def folded_forward(model, dtype: Optional[torch.dtype] = None, device=None) -> _Folded:
-    """The folded forward of a ported 2D model."""
-    from ..models.nested_unet import MultiOutputNestedUNet
+class FoldedUNet3D(FoldedUnet2D):
+    """The folded eval forward of ``UNet3D`` and ``MultiOutputUnet3D``
+    (``fastpath.py:236 _build_fast_3d``): three levels on (N, 1, D, H, W)
+    input; max pools, or nearest ×0.5 for ``MultiOutputUnet3D`` with
+    ``use_interpolation``; the decoder's ×2 is a transposed conv, or
+    trilinear (``align_corners=False``) for ``UNet3D`` and nearest + a folded
+    conv block for ``MultiOutputUnet3D`` with ``use_interpolation``.
+    ``logits``, ``heads_out`` and ``__call__`` are those of
+    :class:`FoldedUnet2D`."""
 
-    cls = FoldedNestedUNet if isinstance(model, MultiOutputNestedUNet) else FoldedUnet2D
+    def __init__(self, model, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(model, dtype, device)
+        self.interp = bool(model.use_interpolation)
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """``decode6``'s output in the working dtype."""
+        c, P, interp, multi = self._conv, self.params, self.interp, self.heads is not None
+        down = downsample_nearest if (multi and interp) else max_pool
+        e2 = c(c(self._input(x), P["encode1"]), P["encode2"])
+        e4 = c(c(down(e2), P["encode3"]), P["encode4"])
+        e6 = c(c(down(e4), P["encode5"]), P["encode6"])
+        h = c(c(down(e6), P["middle_conv1"]), P["middle_conv2"])
+        for i, skip in zip(range(1, 4), (e6, e4, e2)):
+            if not interp:
+                up = P[f"up{i}"]
+                u = F.conv_transpose3d(h, up["weight"], up["bias"], stride=2)
+            elif multi:
+                u = c(upsample_nearest(h), P[f"up{i}_conv"])
+            else:
+                u = upsample_linear(h)
+            h = torch.cat([u, skip], dim=1)
+            h = c(c(h, P[f"decode{2 * i - 1}"]), P[f"decode{2 * i}"])
+        return h
+
+
+def folded_forward(model, dtype: Optional[torch.dtype] = None, device=None) -> _Folded:
+    """The folded forward of a ported model."""
+    from ..models.nested_unet import MultiOutputNestedUNet
+    from ..models.unet3d import MultiOutputUnet3D, UNet3D
+
+    if isinstance(model, MultiOutputNestedUNet):
+        cls = FoldedNestedUNet
+    elif isinstance(model, (UNet3D, MultiOutputUnet3D)):
+        cls = FoldedUNet3D
+    else:
+        cls = FoldedUnet2D
     return cls(model, dtype, device)

@@ -21,6 +21,19 @@ K2's float-tile mode — the same clip, min-max, reflect pad and gather with
 ``dtype`` (float32, or bfloat16 rounded to nearest even, as the forward's
 ``astype`` does at ``:455``).  Same kernel source, its own entry point and
 launch counter.
+
+K2v (counterpart of ``predictor.py:1222-1235`` in ``Predict3D``'s fused
+program and ``:1324-1340`` in ``PredictMultiOutput3D``'s: ``:203
+_normalize_clip``, the 3D reflect pad, ``:158 _extract_tiles_3d`` over the
+``:143 _tile_plan_3d`` grid and the batch padded by the last tile):
+``normalize_tile_3d(vols, bounds, plan, n_total, invert, out_dtype)`` maps
+(V, D, H, W) uint8/uint16/float32 volumes and (4, V) or (4, 1) float32
+bounds to (n_total, tz, tx, ty) tiles in volume-major z/x/y grid order.
+``out_dtype`` uint8 is ``Predict3D``'s mode (scale 255, ``invert``,
+truncation); float32 or bfloat16 is ``PredictMultiOutput3D``'s (scale 1, the
+tile cast to the working dtype).  The reflect pad acts only on an axis whose
+tile exceeds the volume, by less than the volume's extent.  Kernel in the
+same source, its own entry point and launch counter.
 """
 
 from __future__ import annotations
@@ -187,3 +200,78 @@ def normalize_tile_float(frames: torch.Tensor, bounds: torch.Tensor, plan,
 
 
 normalize_tile_float.launches = 0
+
+
+# --- K2v ----------------------------------------------------------------------
+
+_OUT_CODE = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def normalize_tile_3d_plain(vols: torch.Tensor, bounds: torch.Tensor, plan, n_total: int,
+                            invert: bool = False,
+                            out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """Plain PyTorch K2v."""
+    n_vols = vols.shape[0]
+    _check_bounds(bounds, n_vols)
+    scale = 255.0 if out_dtype == torch.uint8 else 1.0
+    lo, hi, fmin, fmax = (b[:, None, None, None] for b in bounds)
+    f = torch.minimum(torch.maximum(vols.float(), lo), hi)
+    f = torch.where(fmax > fmin, (f - fmin) / (fmax - fmin) * scale,
+                    torch.zeros((), dtype=torch.float32, device=f.device))
+    if invert:
+        f = scale - f
+    pads = [max(0, t - e) for t, e in zip(plan.tile, (plan.d, plan.h, plan.w))]
+    if any(pads):
+        f = F.pad(f[:, None], (0, pads[2], 0, pads[1], 0, pads[0]), mode="reflect")[:, 0]
+    f = f.to(out_dtype)
+    for axis, (starts, t) in enumerate(zip((plan.zs, plan.xs, plan.ys), plan.tile), start=1):
+        idx = torch.as_tensor((starts[:, None] + np.arange(t)[None]).ravel(), device=f.device)
+        f = f.index_select(axis, idx)
+    tz, tx, ty = plan.tile
+    tiles = (f.reshape(n_vols, plan.nz, tz, plan.nx, tx, plan.ny, ty)
+             .permute(0, 1, 3, 5, 2, 4, 6)
+             .reshape(n_vols * plan.per_volume, tz, tx, ty))
+    n = tiles.shape[0]
+    if n_total > n:
+        tiles = torch.cat([tiles, tiles[-1:].expand(n_total - n, tz, tx, ty)])
+    return tiles.contiguous()
+
+
+def normalize_tile_3d(vols: torch.Tensor, bounds: torch.Tensor, plan, n_total: int,
+                      invert: bool = False,
+                      out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """K2v (see the module docstring)."""
+    if vols.dim() != 4 or tuple(vols.shape[1:]) != (plan.d, plan.h, plan.w):
+        raise ValueError(f"volumes {tuple(vols.shape)} are not (V, {plan.d}, {plan.h}, "
+                         f"{plan.w})")
+    if vols.dtype not in _cuda.DTYPE_CODE:
+        raise ValueError(f"normalize_tile_3d takes uint8/uint16/float32, got {vols.dtype}")
+    if out_dtype not in _OUT_CODE:
+        raise ValueError(f"normalize_tile_3d writes uint8/float32/bfloat16, got {out_dtype}")
+    if n_total < vols.shape[0] * plan.per_volume:
+        raise ValueError(f"n_total {n_total} < {vols.shape[0] * plan.per_volume} tiles")
+    if any(t - e >= e for t, e in zip(plan.tile, (plan.d, plan.h, plan.w))):
+        raise ValueError(f"tile {plan.tile} is 2x or more the volume {(plan.d, plan.h, plan.w)}:"
+                         " the reflect pad cannot reach")
+    if vols.device.type == "cpu":
+        return normalize_tile_3d_plain(vols, bounds, plan, n_total, invert, out_dtype)
+    dev = vols.device
+    _cuda.require_cuda(vols, "normalize_tile_3d")
+    _cuda.require_cuda(bounds, "normalize_tile_3d bounds", dev)
+    _cuda.require_cuda(plan.zs_t, "normalize_tile_3d plan", dev)
+    fb = _check_bounds(bounds, vols.shape[0])
+    out = torch.empty((n_total,) + plan.tile, dtype=out_dtype, device=dev)
+    A = _cuda
+    fn = A.function("normalize_tile", "k2v_normalize_tile_3d",
+                    [A.P, A.I32, A.I32, A.I32, A.I32, A.P, A.I32, A.P, A.P, A.P]
+                    + [A.I32] * 6 + [A.I64, A.I64, A.I32, A.I32, A.P, A.P])
+    A.launch(fn, dev, vols.data_ptr(), A.DTYPE_CODE[vols.dtype], plan.d, plan.h, plan.w,
+             bounds.data_ptr(), fb, plan.zs_t.data_ptr(), plan.xs_t.data_ptr(),
+             plan.ys_t.data_ptr(), plan.nz, plan.nx, plan.ny, *plan.tile,
+             vols.shape[0] * plan.per_volume, n_total, int(invert), _OUT_CODE[out_dtype],
+             out.data_ptr())
+    normalize_tile_3d.launches += 1
+    return out
+
+
+normalize_tile_3d.launches = 0

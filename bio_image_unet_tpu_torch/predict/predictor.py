@@ -1,6 +1,6 @@
-"""Tiled 2D prediction on the card (counterpart of
-``bio_image_unet_tpu/predict/predictor.py``: ``_Engine``, ``Predict`` and
-``PredictMultiOutput``).
+"""Tiled prediction on the card (counterpart of
+``bio_image_unet_tpu/predict/predictor.py``: ``_Engine``, ``Predict``,
+``PredictMultiOutput``, ``Predict3D`` and ``PredictMultiOutput3D``).
 
 The fused device pipeline runs per 16-frame chunk: K1 per-frame clip bounds
 (``ops/histogram.py``), K2 normalize → reflect pad → uint8 → tiles
@@ -20,6 +20,16 @@ each head's float16 tiles).  The JAX program stitches the whole movie at once
 and fills the pixels no tile weighs with the mean of every real head tile;
 here K5s adds each chunk's real tiles into a float64 total, and after the
 last chunk the mean is written into the grid's static uncovered mask.
+
+3D prediction runs a volume as one unit, as the JAX programs do: the raw
+volume goes up once; ``Predict3D`` (``UNet3D``) runs K1 over the whole
+volume → K2v (normalize → reflect pad → uint8 → 3-axis tiles) → the folded
+3D forward → K3v (sigmoid·255 → uint8 → mean stitch) and the uint8 volume
+comes down; ``PredictMultiOutput3D`` (``MultiOutputUnet3D``) runs K1 per
+volume (or stack-global bounds) → K2v in float mode → the multi-head forward
+→ K5v (linear-blend stitch, float16) over all its volumes at once.  Their
+host-staged paths normalize and tile in numpy and share the forward and the
+stitch.
 """
 
 from __future__ import annotations
@@ -35,13 +45,16 @@ from .. import checkpoint
 from ..data import tiff
 from ..models import get_model
 from ..ops.histogram import clip_bounds
-from ..ops.stitch import margin_stitch, sigmoid_stitch, tile_sum
+from ..ops.stitch import (blend_stitch_3d, margin_stitch, sigmoid_stitch, sigmoid_stitch_3d,
+                          tile_sum)
 from ..progress import ProgressNotifier
 from ..utils.device import resolve_device
 from ..utils.utils import save_as_tif
 from .fastpath import folded_forward
-from .normalize import _normalize_stack, _percentile, normalize_tile, normalize_tile_float
-from .tiling import TilePlan, _margin_factors, grid_starts
+from .normalize import (_normalize_stack, _percentile, normalize_tile, normalize_tile_3d,
+                        normalize_tile_float)
+from .tiling import (TilePlan, TilePlan3D, _blend_factors, _margin_factors, grid_starts,
+                     overlap_starts)
 
 _TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.uint16,
                 np.dtype(np.float16): torch.float16, np.dtype(np.float32): torch.float32}
@@ -60,6 +73,49 @@ def _resolve_device_pipeline(device_pipeline, blocker) -> bool:
             f"device_pipeline=True cannot be honored: {blocker}; "
             "falling back to the host-staged path", stacklevel=3)
     return (device_pipeline is not False) and blocker is None
+
+
+def _progress(show_progress: bool, progress_notifier):
+    return progress_notifier if (show_progress and progress_notifier) else (
+        ProgressNotifier.progress_notifier_tqdm() if show_progress else None)
+
+
+def _single_tick(progress_notifier, show_progress):
+    """One step for the paths that run in one unit (a volume): a caller's
+    notifier still starts and completes (``predictor.py:255``)."""
+    progress = progress_notifier if (show_progress and progress_notifier) else None
+    return progress.iterator([0], total=1) if progress else [0]
+
+
+def _fixed_bounds(imgs: np.ndarray, mode: str, clip_threshold) -> Optional[np.ndarray]:
+    """Stack-global ``(lo, hi, lo, hi)`` of the fused paths' ``'first'`` and
+    ``'all'`` modes, once on the host: after clipping, the stack's extremes
+    are exactly (lo, hi) (``predictor.py:1544``, ``:2219-2231``); ``None``
+    for ``'single'`` (bounds per frame or volume, on the device)."""
+    if mode in ("first", "all"):
+        ref = imgs[0] if mode == "first" else imgs
+        lo = _percentile(ref, clip_threshold[0])
+        hi = _percentile(ref, clip_threshold[1])
+        return np.array([lo, hi, lo, hi], np.float32)
+    if mode != "single":
+        raise ValueError(f"normalization_mode {mode} not valid!")
+    return None
+
+
+def _fused_blocker(imgs: np.ndarray, device_pipeline, n_px: int = 0, max_px: int = 0,
+                   thing: str = "pixels") -> Optional[str]:
+    """What keeps the fused program from an input (``predictor.py:1942-1954``
+    and the 2D classes): a dtype it does not normalize, NaNs, more tile
+    pixels than its budget."""
+    if not (imgs.dtype in (np.uint8, np.uint16) or np.issubdtype(imgs.dtype, np.floating)):
+        return (f"input dtype {imgs.dtype} (the fused program normalizes "
+                "uint8/uint16/float on device)")
+    if (np.issubdtype(imgs.dtype, np.floating) and device_pipeline is not False
+            and np.isnan(imgs).any()):
+        return "float input contains NaNs (handled by the host nanpercentile path)"
+    if max_px and n_px > max_px:
+        return f"{n_px} patch {thing} exceed the single-program budget"
+    return None
 
 
 def _pad_frames(block: np.ndarray, n: int) -> np.ndarray:
@@ -349,6 +405,118 @@ class _Engine:
         self._fill(res, totals, plan, n_frames)
         return res
 
+    # --- 3D prediction ----------------------------------------------------------
+
+    # tile voxels of one 3D forward step (predictor.py:1206, :1297): 3D U-Net
+    # activations are deep
+    VOLUME_STEP_VOXELS = 1 << 23
+
+    def _run_once(self, host: np.ndarray, fn: Callable):
+        """Upload ``host`` once, map it with ``fn`` on the device and bring
+        the result (a tensor or a dict of them) back as numpy: the volume
+        paths' single unit, with no chunking."""
+        out = fn(torch.from_numpy(np.ascontiguousarray(host)).to(self.device))
+        if isinstance(out, dict):
+            return {k: v.cpu().numpy() for k, v in out.items()}
+        return out.cpu().numpy()
+
+    def volume_runner(self, d: int, h: int, w: int, zs, xs, ys, tile, clip_threshold,
+                      invert: bool = False):
+        """The fused ``Predict3D`` program (``predictor.py:1182
+        fused_predict_volume``): ``fn(vol)`` maps a (d, h, w) raw volume on
+        the engine's device to the (d, h, w) uint8 volume — K1 over the whole
+        volume (one row of d·h·w voxels), K2v, the batched forward, K3v.
+        Returns ``(fn, plan, bs)``; benches time ``fn`` on a resident
+        volume."""
+        plan = TilePlan3D(d, h, w, tile, zs, xs, ys, self.device)
+        n = plan.per_volume
+        bs = max(self.batch_size, min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile))))
+        n_pad = _round_up(n, bs)
+        q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
+
+        @torch.inference_mode()
+        def fn(vol: torch.Tensor) -> torch.Tensor:
+            vols = vol[None]
+            tiles = normalize_tile_3d(vols, clip_bounds(vols, q_lo, q_hi), plan, n_pad, invert)
+            return sigmoid_stitch_3d(self.forward_tiles(tiles, bs), plan)
+
+        return fn, plan, bs
+
+    def fused_predict_volume(self, vol: np.ndarray, zs, xs, ys, tile, clip_threshold,
+                             invert: bool = False) -> np.ndarray:
+        """(d, h, w) uint8/uint16/float32 volume → (d, h, w) uint8 through
+        the fused program."""
+        fn, _, _ = self.volume_runner(*vol.shape, zs, xs, ys, tile, clip_threshold, invert)
+        return self._run_once(vol, fn)
+
+    def host_predict_volume(self, patches: np.ndarray, plan: TilePlan3D) -> np.ndarray:
+        """Host-staged ``Predict3D`` (``predictor.py:1981-2013``): (n, tz, tx,
+        ty) uint8 tiles cut on the host go up once, the forward runs in
+        batches of ``batch_size`` and K3v stitches the (d, h, w) uint8
+        volume."""
+        bs = self.batch_size
+
+        @torch.inference_mode()
+        def fn(x: torch.Tensor) -> torch.Tensor:
+            return sigmoid_stitch_3d(self.forward_tiles(x, bs), plan)
+
+        return self._run_once(_pad_frames(patches, _round_up(len(patches), bs)), fn)
+
+    def heads_3d_runner(self, n_vols: int, d: int, h: int, w: int, zs, xs, ys, tile,
+                        clip_threshold, factors, fixed_bounds=None, bs: Optional[int] = None):
+        """The fused ``PredictMultiOutput3D`` program (``predictor.py:1262
+        fused_predict_heads_3d``): ``fn(vols)`` maps (n_vols, d, h, w) raw
+        volumes on the device to ``{head: (n_vols, C, d, h, w) float16}`` —
+        K1 per volume (or the stack-global ``fixed_bounds``), K2v in the
+        working dtype, the multi-head forward, K5v.  Returns ``(fn, plan,
+        bs)``."""
+        plan = TilePlan3D(d, h, w, tile, zs, xs, ys, self.device, factors)
+        n = n_vols * plan.per_volume
+        bs = bs or max(1, min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile))))
+        n_pad = _round_up(n, bs)
+        bounds_dev = None
+        if fixed_bounds is not None:
+            bounds_dev = torch.as_tensor(np.asarray(fixed_bounds, np.float32).reshape(4, 1),
+                                         device=self.device)
+        q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
+
+        @torch.inference_mode()
+        def fn(vols: torch.Tensor) -> Dict[str, torch.Tensor]:
+            bounds = bounds_dev if bounds_dev is not None else clip_bounds(vols, q_lo, q_hi)
+            tiles = normalize_tile_3d(vols, bounds, plan, n_pad, False, self.dtype)
+            return {name: blend_stitch_3d(t, n_vols, plan, torch.float16)
+                    for name, t in self.forward_heads(tiles, bs).items()}
+
+        return fn, plan, bs
+
+    def fused_predict_heads_3d(self, vols: np.ndarray, zs, xs, ys, tile, clip_threshold,
+                               factors, fixed_bounds=None,
+                               _bs: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """(n_vols, d, h, w) raw volumes → ``{head: (n_vols, C, d, h, w)
+        float16}`` through the fused program; ``_bs`` is the OOM back-off's
+        batch."""
+        fn, _, bs = self.heads_3d_runner(*vols.shape, zs, xs, ys, tile, clip_threshold,
+                                         factors, fixed_bounds, _bs)
+        return self._dispatch_with_oom_backoff(
+            lambda: self._run_once(vols, fn), bs,
+            lambda smaller: self.fused_predict_heads_3d(vols, zs, xs, ys, tile, clip_threshold,
+                                                        factors, fixed_bounds, smaller))
+
+    def host_predict_heads_3d(self, patches: np.ndarray, n_vols: int,
+                              plan: TilePlan3D) -> Dict[str, np.ndarray]:
+        """Host-staged ``PredictMultiOutput3D`` (``predictor.py:2241-2277``):
+        (n, tz, tx, ty) float32 tiles of volumes normalized to [0, 1] on the
+        host go up once, the forward runs in batches of ``batch_size`` and K5v
+        stitches each head's float16 tiles in float32 (float32 out)."""
+        bs = self.batch_size
+
+        @torch.inference_mode()
+        def fn(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+            return {name: blend_stitch_3d(t, n_vols, plan, torch.float32)
+                    for name, t in self.forward_heads(x, bs).items()}
+
+        return self._run_once(_pad_frames(patches, _round_up(len(patches), bs)), fn)
+
     def _dispatch_with_oom_backoff(self, run: Callable, bs: int, retry: Callable):
         """Run ``run()``; when the card runs out of memory, halve the forward
         batch, warn and ``retry(smaller)`` on the card (``predictor.py:1160``).
@@ -487,18 +655,9 @@ class Predict:
             raise ValueError(f"{type(engine.model).__name__} is a multi-head model: "
                              "predict with PredictMultiOutput")
 
-        fused_blocker = None
-        if not (imgs.dtype in (np.uint8, np.uint16)
-                or np.issubdtype(imgs.dtype, np.floating)):
-            fused_blocker = (f"input dtype {imgs.dtype} (the fused program "
-                             "normalizes uint8/uint16/float on device)")
-        elif (np.issubdtype(imgs.dtype, np.floating)
-              and device_pipeline is not False
-              and np.isnan(imgs).any()):
-            fused_blocker = ("float input contains NaNs (handled by the "
-                             "host nanpercentile path)")
-        elif any(self.resize_dim[a] - imgs.shape[a + 1] >= imgs.shape[a + 1]
-                 for a in range(2)):
+        fused_blocker = _fused_blocker(imgs, device_pipeline)
+        if fused_blocker is None and any(self.resize_dim[a] - imgs.shape[a + 1]
+                                         >= imgs.shape[a + 1] for a in range(2)):
             fused_blocker = ("tile more than 2× the frame extent (reflect "
                              "pad cannot exceed the axis size)")
         use_fused = _resolve_device_pipeline(device_pipeline, fused_blocker)
@@ -506,8 +665,7 @@ class Predict:
         h, w = self.imgs_shape[1], self.imgs_shape[2]
         xs = grid_starts(h, self.resize_dim[0], add_tile)
         ys = grid_starts(w, self.resize_dim[1], add_tile)
-        progress = progress_notifier if (show_progress and progress_notifier) else (
-            ProgressNotifier.progress_notifier_tqdm() if show_progress else None)
+        progress = _progress(show_progress, progress_notifier)
         if show_progress:
             print("Predicting data ...")
 
@@ -515,19 +673,9 @@ class Predict:
             if np.issubdtype(imgs.dtype, np.floating) and imgs.dtype != np.float32:
                 # float16/float64 movies normalize in float32 on the device
                 imgs = imgs.astype(np.float32)
-            fixed_bounds = None
-            if normalization_mode in ("first", "all"):
-                # stack-global bounds once on the host; after clipping the
-                # stack extremes are exactly (lo, hi) (predictor.py:1544)
-                ref = imgs[0] if normalization_mode == "first" else imgs
-                lo = _percentile(ref, clip_threshold[0])
-                hi = _percentile(ref, clip_threshold[1])
-                fixed_bounds = np.array([lo, hi, lo, hi], np.float32)
-            elif normalization_mode != "single":
-                raise ValueError(f"normalization_mode {normalization_mode} not valid!")
             result = engine.fused_predict_frames(
-                imgs, xs, ys, self.resize_dim, clip_threshold, invert,
-                progress=progress, fixed_bounds=fixed_bounds)
+                imgs, xs, ys, self.resize_dim, clip_threshold, invert, progress=progress,
+                fixed_bounds=_fixed_bounds(imgs, normalization_mode, clip_threshold))
         else:
             norm = _normalize_stack(imgs, normalization_mode, clip_threshold, invert)
             result = engine.host_predict_frames(norm, xs, ys, self.resize_dim,
@@ -584,50 +732,191 @@ class PredictMultiOutput:
         ys = grid_starts(max(pw, w), pw, add_tile)
         n_px = n_frames * len(xs) * len(ys) * ph * pw
 
-        fused_blocker = None
-        if not (imgs.dtype in (np.uint8, np.uint16)
-                or np.issubdtype(imgs.dtype, np.floating)):
-            fused_blocker = (f"input dtype {imgs.dtype} (the fused program "
-                             "normalizes uint8/uint16/float on device)")
-        elif (np.issubdtype(imgs.dtype, np.floating)
-              and device_pipeline is not False
-              and np.isnan(imgs).any()):
-            fused_blocker = ("float input contains NaNs (handled by the "
-                             "host nanpercentile path)")
-        elif n_px > _Engine.FUSED_HEADS_MAX_PX:
-            fused_blocker = (f"{n_px} patch pixels exceed the single-program "
-                             "budget (the uncovered-pixel fill is a "
-                             "whole-stack statistic)")
-        elif ph - h >= h or pw - w >= w:
+        # the uncovered-pixel fill is a whole-stack statistic: one program
+        fused_blocker = _fused_blocker(imgs, device_pipeline, n_px,
+                                       _Engine.FUSED_HEADS_MAX_PX)
+        if fused_blocker is None and (ph - h >= h or pw - w >= w):
             fused_blocker = ("patch more than 2× the frame extent (reflect "
                              "pad cannot exceed the axis size)")
         use_fused = _resolve_device_pipeline(device_pipeline, fused_blocker)
 
-        progress = progress_notifier if (show_progress and progress_notifier) else (
-            ProgressNotifier.progress_notifier_tqdm() if show_progress else None)
+        progress = _progress(show_progress, progress_notifier)
         if show_progress:
             print("Predicting data ...")
         factors = _margin_factors((len(xs), len(ys)), (ph, pw), safe_margin)
         if use_fused:
             if np.issubdtype(imgs.dtype, np.floating) and imgs.dtype != np.float32:
                 imgs = imgs.astype(np.float32)  # normalized in float32 on the device
-            fixed_bounds = None
-            if normalization_mode in ("first", "all"):
-                # after clipping the stack extremes are exactly (lo, hi)
-                # (predictor.py:2096-2100)
-                ref = imgs[0] if normalization_mode == "first" else imgs
-                lo = _percentile(ref, clip_threshold[0])
-                hi = _percentile(ref, clip_threshold[1])
-                fixed_bounds = np.array([lo, hi, lo, hi], np.float32)
-            elif normalization_mode != "single":
-                raise ValueError(f"normalization_mode {normalization_mode} not valid!")
-            preds = engine.fused_predict_heads(imgs, xs, ys, (ph, pw), clip_threshold,
-                                               factors, fixed_bounds, progress)
+            preds = engine.fused_predict_heads(
+                imgs, xs, ys, (ph, pw), clip_threshold, factors,
+                _fixed_bounds(imgs, normalization_mode, clip_threshold), progress)
         else:
             # host normalization in [0, 1] before the reflect pad (:2112-2116)
             norm = _normalize_stack(imgs.astype(np.float32), normalization_mode,
                                     clip_threshold, scale=1.0)
             preds = engine.host_predict_heads(norm, xs, ys, (ph, pw), factors, progress)
+
+        self.result = {}
+        for key in self.target_keys:
+            r = preds[key]
+            if r.shape[1] == 1:
+                r = r[:, 0]
+            self.result[key] = np.squeeze(r).astype(np.float32)
+            if result_path is not None:
+                os.makedirs(result_path, exist_ok=True)
+                tiff.imwrite(os.path.join(result_path, f"{key}.tif"), self.result[key],
+                             compress=6 if compress_tif else None)
+
+
+class Predict3D:
+    """Tiled 3D prediction with mean-overlap stitching (``predictor.py:1900``):
+    a 3-axis linspace grid over a (Z, X, Y) volume, whole-volume
+    normalization, a ``UNet3D`` checkpoint.  The uint8 result is kept in
+    ``self.result`` and saved as a tif when ``result_name`` is given.  Runs
+    on CUDA unless ``device='cpu'`` is passed; raises when no card is present
+    and the CPU was not asked for.
+
+    ``normalization_mode`` is accepted and, as in the reference and the JAX
+    package, has no effect: the whole volume's percentiles normalize it
+    (``predictor.py:1905-1909``).  ``add_patch`` adds one grid row per axis,
+    z included (``:1929-1935``)."""
+
+    def __init__(self, vol, result_name, model_params, network="UNet3D",
+                 resize_dim=(64, 128, 128), invert=False, normalization_mode="single",
+                 clip_threshold=(0.0, 99.8), add_patch=0, normalize_result=False,
+                 show_progress=True, batch_size: int = 4, half_precision=False, mesh=None,
+                 device=None, device_pipeline: Optional[bool] = None, quantized: bool = False,
+                 progress_notifier: ProgressNotifier = None):
+        del normalization_mode  # accepted and ignored, as in the reference
+        if mesh is not None:
+            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
+        if quantized:
+            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
+        device = resolve_device(device)
+        if isinstance(vol, (str, os.PathLike)):
+            vol = tiff.imread(vol)
+        vol = np.asarray(vol)  # raw dtype kept: the fused path uploads integers
+        if vol.ndim != 3:
+            raise ValueError(f"Predict3D takes a (Z, X, Y) volume, got shape {vol.shape}")
+        self.vol_shape = vol.shape
+        self.resize_dim = tuple(int(v) for v in resize_dim)
+        engine = _Engine(model_params, network, batch_size, half_precision, device)
+        self.engine = engine
+        if engine.heads is not None:
+            raise ValueError(f"{type(engine.model).__name__} is a multi-head model: "
+                             "predict with PredictMultiOutput3D")
+
+        starts = [grid_starts(e, t, add_patch) for e, t in zip(self.vol_shape, self.resize_dim)]
+        n_vox = int(np.prod([len(s) for s in starts])) * int(np.prod(self.resize_dim))
+        blocker = _fused_blocker(vol, device_pipeline, n_vox, _Engine.FUSED_HEADS_MAX_PX,
+                                 "voxels")
+        if blocker is None and any(t - e >= e for t, e in zip(self.resize_dim, self.vol_shape)):
+            blocker = "tile more than 2× the volume extent (reflect pad cannot exceed the axis size)"
+        use_fused = _resolve_device_pipeline(device_pipeline, blocker)
+
+        if show_progress:
+            print("Predicting data ...")
+        for _ in _single_tick(progress_notifier, show_progress):
+            if use_fused:
+                if np.issubdtype(vol.dtype, np.floating) and vol.dtype != np.float32:
+                    vol = vol.astype(np.float32)  # normalized in float32 on the device
+                self.result = engine.fused_predict_volume(vol, *starts, self.resize_dim,
+                                                          clip_threshold, invert)
+            else:
+                # whole-volume normalization only (unet3d/predict.py:109-117)
+                norm = _normalize_stack(vol.astype(np.float32)[None], "all", clip_threshold,
+                                        invert)[0]
+                pads = [max(0, t - e) for t, e in zip(self.resize_dim, self.vol_shape)]
+                norm = np.pad(norm, [(0, p) for p in pads], "reflect")
+                plan = TilePlan3D(*self.vol_shape, self.resize_dim, *starts, engine.device)
+                self.result = engine.host_predict_volume(
+                    _cut_tiles(norm[None], plan, np.uint8), plan)
+        if result_name is not None:
+            save_as_tif(self.result, result_name, normalize=normalize_result)
+
+
+def _cut_tiles(vols: np.ndarray, plan: TilePlan3D, dtype) -> np.ndarray:
+    """(V, Z', X', Y') host volumes → (V·nz·nx·ny, tz, tx, ty) tiles in
+    volume-major z/x/y grid order; a uint8 buffer truncates on assignment,
+    as the reference's patch array does."""
+    tz, tx, ty = plan.tile
+    out = np.empty((len(vols) * plan.per_volume,) + plan.tile, dtype)
+    n = 0
+    for vol in vols:
+        for z0 in plan.zs:
+            for x0 in plan.xs:
+                for y0 in plan.ys:
+                    out[n] = vol[z0:z0 + tz, x0:x0 + tx, y0:y0 + ty]
+                    n += 1
+    return out
+
+
+class PredictMultiOutput3D:
+    """Multi-head 3D prediction with the linear-blend stitch
+    (``predictor.py:2159``): per-axis tiles of min(extent, max_patch_size),
+    an ``overlap_factor`` stride grid, a batched forward of a
+    ``MultiOutputUnet3D`` checkpoint, per-head float32 results in
+    ``self.result[head]`` — (V, C, Z, X, Y) for C > 1 channels, squeezed —
+    saved as ``<result_path>/<head>.tif`` when ``result_path`` is given.
+    ``'single'`` normalizes volume by volume, ``'first'``/``'all'`` with
+    stack-global bounds.  Runs on CUDA unless ``device='cpu'`` is passed;
+    raises when no card is present and the CPU was not asked for.
+
+    The fused path rounds each stitched head to float16 (as JAX's does); the
+    host-staged path (``device_pipeline=False``) keeps float32.  Voxels no
+    tile weighs are 0."""
+
+    def __init__(self, imgs, model_params, result_path=None, network=None,
+                 max_patch_size=(64, 256, 256), overlap_factor=0.1, batch_size=2,
+                 normalization_mode="single", clip_threshold=(0.0, 99.98), add_tile=0,
+                 compress_tif=False, show_progress=True, half_precision=False,
+                 blend_margin: int = 16, mesh=None, device=None,
+                 device_pipeline: Optional[bool] = None, quantized: bool = False,
+                 progress_notifier: ProgressNotifier = None):
+        del add_tile  # accepted in the reference's position; the grid is overlap_factor's
+        if mesh is not None:
+            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
+        if quantized:
+            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
+        device = resolve_device(device)
+        if isinstance(imgs, (str, os.PathLike)):
+            imgs = tiff.imread(imgs)
+        imgs = np.asarray(imgs)  # raw dtype kept: the fused path uploads integers
+        if imgs.ndim == 3:
+            imgs = imgs[None]  # (n_volumes, Z, X, Y)
+        self.imgs_shape = imgs.shape
+        engine = _Engine(model_params, network, batch_size, half_precision, device)
+        self.engine = engine
+        self.target_keys = list(engine.hyperparams["output_heads"])
+        if normalization_mode not in ("single", "first", "all"):
+            raise ValueError(f"normalization_mode {normalization_mode} not valid!")
+
+        n_vols, d, h, w = imgs.shape
+        tile = tuple(min(e, m) for e, m in zip((d, h, w), max_patch_size))
+        self.patch_size = tile
+        starts = [overlap_starts(e, t, overlap_factor) for e, t in zip((d, h, w), tile)]
+        n_vox = n_vols * int(np.prod([len(s) for s in starts])) * int(np.prod(tile))
+        use_fused = _resolve_device_pipeline(device_pipeline, _fused_blocker(
+            imgs, device_pipeline, n_vox, _Engine.FUSED_HEADS_MAX_PX, "voxels"))
+        factors = _blend_factors([len(s) for s in starts], tile, blend_margin)
+
+        if show_progress:
+            print("Predicting data ...")
+        for _ in _single_tick(progress_notifier, show_progress):
+            if use_fused:
+                if np.issubdtype(imgs.dtype, np.floating) and imgs.dtype != np.float32:
+                    imgs = imgs.astype(np.float32)  # normalized in float32 on the device
+                preds = engine.fused_predict_heads_3d(
+                    imgs, *starts, tile, clip_threshold, factors,
+                    _fixed_bounds(imgs, normalization_mode, clip_threshold))
+            else:
+                # per volume ('single') or stack-global bounds, in [0, 1]
+                # (multi_output_unet3d/predict.py:104-125)
+                norm = _normalize_stack(imgs.astype(np.float32), normalization_mode,
+                                        clip_threshold, scale=1.0)
+                plan = TilePlan3D(d, h, w, tile, *starts, engine.device, factors)
+                preds = engine.host_predict_heads_3d(_cut_tiles(norm, plan, np.float32),
+                                                     n_vols, plan)
 
         self.result = {}
         for key in self.target_keys:

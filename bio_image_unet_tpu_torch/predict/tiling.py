@@ -1,8 +1,11 @@
 """Host tile grids and host stitches (counterpart of
-``bio_image_unet_tpu/predict/tiling.py``: ``:21 grid_starts``, ``:38
-_accumulate``, ``:58 stitch_mean``, ``:72 _margin_weights``, ``:91
-_margin_factors``, ``:131 stitch_margin``), plus the static tile plan the
-device stages share and the static uncovered mask of a safe-margin grid."""
+``bio_image_unet_tpu/predict/tiling.py``: ``:21 grid_starts``, ``:28
+overlap_starts``, ``:38 _accumulate``, ``:58 stitch_mean``, ``:72
+_margin_weights``, ``:91 _margin_factors``, ``:113 _blend_factors``, ``:131
+stitch_margin``, ``:147 _blend_weights``, ``:183 stitch_blend3d``), plus the
+static tile plans the device stages share (frames: :class:`TilePlan`;
+volumes: :class:`TilePlan3D`) and the static uncovered mask of a
+safe-margin grid."""
 
 from __future__ import annotations
 
@@ -17,6 +20,16 @@ def grid_starts(extent: int, tile: int, add: int = 0) -> np.ndarray:
     [0, extent - tile] (reference unet/predict.py:154-172)."""
     n = int(np.ceil(extent / tile)) + add
     return np.linspace(0, max(extent - tile, 0), max(n, 1)).astype(int)
+
+
+def overlap_starts(extent: int, tile: int, overlap_factor: float) -> List[int]:
+    """Stride grid of ``PredictMultiOutput3D`` (``tiling.py:28``): stride
+    ``int(tile·(1−overlap))`` (at least 1), plus a flush-right start."""
+    stride = max(1, int(tile * (1.0 - overlap_factor)))
+    starts = list(range(0, max(extent - tile + 1, 1), stride))
+    if starts[-1] + tile < extent:
+        starts.append(extent - tile)
+    return starts
 
 
 def stitch_mean(patches: np.ndarray, starts_per_axis: Sequence[np.ndarray],
@@ -87,6 +100,63 @@ def _margin_factors(grid_shape: Sequence[int], tile: Sequence[int],
                 f[i, (max(t - margin, 0) if margin > 0 else 0):] = 0
         factors.append(f)
     return factors
+
+
+def _blend_factors(grid_shape: Sequence[int], tile: Sequence[int],
+                   margin: int) -> List[np.ndarray]:
+    """Per-axis (n_a, t_a) float32 factor tables whose outer MIN is
+    :func:`_blend_weights` (``tiling.py:113``): a 0 → (m−1)/margin ramp on
+    each side that overlaps a neighbour, m = min(margin, t_a)."""
+    factors = []
+    for n, t in zip(grid_shape, tile):
+        f = np.ones((n, t), np.float32)
+        m = min(margin, t)
+        ramp = np.arange(m, dtype=np.float32) / margin
+        for i in range(n):
+            if i > 0:
+                f[i, :m] = np.minimum(f[i, :m], ramp)
+            if i < n - 1:
+                f[i, t - m:] = np.minimum(f[i, t - m:], ramp[::-1])
+        factors.append(f)
+    return factors
+
+
+def _blend_weights(grid_shape: Sequence[int], tile: Sequence[int], margin: int) -> np.ndarray:
+    """Dense (n_tiles, *tile, 1) linear-blend weights (``tiling.py:147``):
+    per axis the symmetric ramp of :func:`_blend_factors`, combined by
+    ``np.minimum`` (the JAX package's documented divergence from the
+    reference's clobbering loops)."""
+    weights = []
+    for idx in np.ndindex(*grid_shape):
+        w = np.ones(tuple(tile) + (1,), dtype=np.float32)
+        for a, (i, n) in enumerate(zip(idx, grid_shape)):
+            m = min(margin, tile[a])
+            ramp = np.arange(m, dtype=np.float32) / margin
+            shape = [1] * (len(tile) + 1)
+            shape[a] = m
+            if i > 0:
+                sl = [slice(None)] * (len(tile) + 1)
+                sl[a] = slice(0, m)
+                w[tuple(sl)] = np.minimum(w[tuple(sl)], ramp.reshape(shape))
+            if i < n - 1:
+                sl = [slice(None)] * (len(tile) + 1)
+                sl[a] = slice(tile[a] - m, None)
+                w[tuple(sl)] = np.minimum(w[tuple(sl)], ramp[::-1].reshape(shape))
+        weights.append(w)
+    return np.stack(weights)
+
+
+def stitch_blend3d(patches: np.ndarray, starts_per_axis: Sequence[Sequence[int]],
+                   out_spatial: Tuple[int, ...], blend_margin: int = 16) -> np.ndarray:
+    """Linear-blend stitch of (N, *tile, C) 3D patches (``tiling.py:183``);
+    voxels no tile weighs are 0."""
+    channels = patches.shape[-1]
+    w = _blend_weights([len(s) for s in starts_per_axis], patches.shape[1:-1], blend_margin)
+    result, weight = _accumulate(patches.astype(np.float32), w, starts_per_axis,
+                                 tuple(out_spatial) + (channels,))
+    np.divide(result, weight, out=result, where=weight > 0)
+    result[np.broadcast_to(weight == 0, result.shape)] = 0.0
+    return result
 
 
 def stitch_margin(patches: np.ndarray, starts_per_axis: Sequence[np.ndarray],
@@ -177,3 +247,46 @@ class TilePlan:
             self.fx_t = torch.as_tensor(fx, device=self.device)
             self.fy_t = torch.as_tensor(fy, device=self.device)
             self.uncovered = uncovered_mask((self.xs, self.ys), (fx, fy), (self.h, self.w))
+
+
+class TilePlan3D:
+    """The static tiling of (V, d, h, w) volumes by (tz, tx, ty) tiles at
+    starts ``zs`` × ``xs`` × ``ys``, grid order z-major, then x, then y
+    (``predictor.py:143 _tile_plan_3d``), with the int32 start and cover
+    tables the device stages read, uploaded once.  ``exact`` is the
+    one-cover grid (stride-tile starts that span the padded volume).
+
+    With ``factors`` — the (nz, tz), (nx, tx), (ny, ty) tables of
+    :func:`_blend_factors` — the plan also carries them as float32 on the
+    device (``fz_t``, ``fx_t``, ``fy_t``, read by K5v)."""
+
+    def __init__(self, d: int, h: int, w: int, tile: Sequence[int], zs, xs, ys, device,
+                 factors: Optional[Sequence[np.ndarray]] = None):
+        self.d, self.h, self.w = int(d), int(h), int(w)
+        self.tz, self.tx, self.ty = (int(t) for t in tile)
+        self.tile = (self.tz, self.tx, self.ty)
+        self.zs, self.xs, self.ys = (np.asarray(s, np.int64) for s in (zs, xs, ys))
+        self.nz, self.nx, self.ny = len(self.zs), len(self.xs), len(self.ys)
+        self.per_volume = self.nz * self.nx * self.ny
+        self.exact = all(
+            tuple(int(v) for v in s) == tuple(range(0, max(e, t), t)) and max(e, t) == len(s) * t
+            for s, e, t in zip((self.zs, self.xs, self.ys), (self.d, self.h, self.w), self.tile))
+        self.device = torch.device(device)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+
+        self.zs_t, self.xs_t, self.ys_t = dev(self.zs), dev(self.xs), dev(self.ys)
+        self.z_lo, self.z_hi = (dev(a) for a in cover_ranges(self.zs, self.tz, self.d))
+        self.row_lo, self.row_hi = (dev(a) for a in cover_ranges(self.xs, self.tx, self.h))
+        self.col_lo, self.col_hi = (dev(a) for a in cover_ranges(self.ys, self.ty, self.w))
+        self.factors = self.fz_t = self.fx_t = self.fy_t = None
+        if factors is not None:
+            facs = tuple(np.ascontiguousarray(f, np.float32) for f in factors)
+            want = ((self.nz, self.tz), (self.nx, self.tx), (self.ny, self.ty))
+            if tuple(f.shape for f in facs) != want:
+                raise ValueError(f"factor tables {[f.shape for f in facs]} do not match the "
+                                 f"grid {list(want)}")
+            self.factors = facs
+            self.fz_t, self.fx_t, self.fy_t = (torch.as_tensor(f, device=self.device)
+                                               for f in facs)

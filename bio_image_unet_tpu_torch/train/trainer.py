@@ -52,7 +52,7 @@ resume and one more equal two epochs straight.
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
 raises without a card.  Not ported yet, each raising NotImplementedError:
 networks other than the four above, ``mode`` (Siam),
-``use_interpolation``/``time_loss_weight`` (3D), ``mesh`` and
+``use_interpolation``/``time_loss_weight`` and the 3D networks (3D), ``mesh`` and
 ``device_cache="sharded"`` (multi-GPU), ``remat``, ``profile_dir``.
 """
 
@@ -183,8 +183,10 @@ class Trainer:
     ):
         if mode is not None:
             _not_ported("mode= (the siamese trainer)", "Siam")
-        if use_interpolation or time_loss_weight is not None:
-            _not_ported("use_interpolation=/time_loss_weight= (the 3D trainer)", "3D")
+        if (use_interpolation or time_loss_weight is not None
+                or network in ("UNet3D", "MultiOutputUnet3D")):
+            _not_ported("use_interpolation=/time_loss_weight=/3D networks (the 3D trainer)",
+                        "3D")
         if mesh is not None or device_cache == "sharded":
             _not_ported("mesh=/device_cache='sharded' (multi-GPU training)", "multi-GPU")
         if remat:

@@ -93,7 +93,34 @@ non-zero without printing a result:
    through ``PredictMultiOutput`` on a 16-frame blob movie (mask IoU against
    the truth), and a small float32 training run on the card against the
    same on the CPU (``metrics.csv`` rows within rtol 1e-3);
-11. the kernels' JSON line, then the last line
+11. kernels (3d) — K2v (a volume's normalize and 3-axis tiles, uint8 and
+   bf16 modes), K3v (sigmoid·255 and the volume's mean stitch) and K5v (the
+   multi-head linear-blend stitch, float16 and float32 out) against their
+   plain versions at the 3D paths' shapes (K2v equal, K3v within one uint8
+   level, K5v bit-equal), timed beside their byte bounds; and K1 on one
+   whole volume (a 16.7 M-voxel uint8 row and a 67 M-voxel uint16 row)
+   bit-equal to its plain version;
+12. 3d — the fifth main path, ``Predict3D`` at
+   ``benchmarks/family_bench.py``'s 3D configuration: ``UNet3D(n_filter=32)``
+   (seeded, with BatchNorm statistics) on a 64×512² uint8 volume, tiles
+   (32, 128, 128), bf16, ``batch_size=4`` (forward batch 16).  Around each
+   call the launch counts are set to 0 just before and read just after, and
+   must be exactly K1's two uint8 launches, K2v once, K3v once.  Prints the
+   end-to-end and device-resident Mvox/s, peak device memory, the implied
+   share of the bf16 dense peak (``unet3d_forward_flops``) and a profiled
+   pass by stage; holds fused against host-staged at the same forward batch
+   and a small float32 ``Predict3D`` on the card against the CPU within the
+   uint8 contract; covers the trilinear decoder and uint16 with
+   ``add_patch=1``;
+13. 3d heads — the sixth main path, ``PredictMultiOutput3D`` on
+   ``MultiOutputUnet3D(n_filter=32)`` (nearest decoder, heads ``mask``: 1
+   channel, sigmoid; ``vec``: 2 channels, none) over 2 uint8 volumes of
+   64×512², the class defaults (tiles (64, 256, 256), ``overlap_factor=0.1``,
+   ``blend_margin=16``, ``batch_size=2``), bf16.  Launch counts exact around
+   each call (K1 2, K2v 1, K5v once per head); the same prints; fused
+   against host-staged at the same forward batch within 2e-3 + 1e-3·|host|;
+   a small float32 case on the card against the CPU;
+14. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -167,6 +194,10 @@ def main() -> int:
     k4h = phase_kernel_augment_heads(torch, dev)
     kernels.append(k4h)
     phase_train_heads(torch, dev, kernels)
+    k3d = phase_kernels_3d(torch, dev)
+    phase_3d(torch, dev, kernels, k3d)
+    phase_3d_heads(torch, dev, kernels, k3d)
+    kernels.extend(k3d)
     for k in kernels:
         k.pop("_counter")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -358,17 +389,18 @@ def phase_kernels(torch, dev) -> list:
 
 # --- 4. main path ---------------------------------------------------------------
 
-def write_checkpoint(torch, path: str, n_filter: int, seed: int = 0) -> None:
-    """A reference-schema ``.pt`` of a ``Unet`` with seeded random weights and
-    random BatchNorm statistics (so the BN fold has something to fold)."""
-    from bio_image_unet_tpu_torch.models import Unet
+def write_checkpoint(torch, path: str, name: str, n_filter: int, seed: int = 0,
+                     **hyper) -> None:
+    """A reference-schema ``.pt`` of registry model ``name`` with seeded random
+    weights and random BatchNorm statistics (so the BN fold has something to
+    fold); ``hyper`` are further hyperparams (``output_heads``, …)."""
+    from bio_image_unet_tpu_torch.models import get_model
     from bio_image_unet_tpu_torch.ops.blocks import init_weights_
 
-    net = init_weights_(Unet(n_filter=n_filter), torch.Generator().manual_seed(seed),
+    hyper = {"model_name": name, "n_filter": n_filter, "in_channels": 1, **hyper}
+    net = init_weights_(get_model(name, **hyper), torch.Generator().manual_seed(seed),
                         random_bn_stats=True)
-    torch.save({"state_dict": net.state_dict(), "epoch": 0, "best_loss": None,
-                "model_name": "Unet", "n_filter": n_filter, "in_channels": 1,
-                "out_channels": 1}, path)
+    torch.save({"state_dict": net.state_dict(), "epoch": 0, "best_loss": None, **hyper}, path)
 
 
 def check_fused_vs_host(name: str, fused: np.ndarray, host: np.ndarray, shape) -> None:
@@ -407,7 +439,7 @@ def phase_main_path(torch, dev, kernels) -> None:
     ]
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = str(Path(tmp) / "unet_nf32.pt")
-        write_checkpoint(torch, ckpt, N_FILTER)
+        write_checkpoint(torch, ckpt, "Unet", N_FILTER, out_channels=1)
 
         # the main path: every launch count is 0 just before, read just after
         for c in counters.values():
@@ -470,7 +502,7 @@ def phase_main_path(torch, dev, kernels) -> None:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         small = str(Path(tmp) / "unet_nf8.pt")
-        write_checkpoint(torch, small, 8, seed=1)
+        write_checkpoint(torch, small, "Unet", 8, seed=1, out_channels=1)
         for add, m in ((0, rng.integers(0, 255, (3, 128, 128), dtype=np.uint8)),
                        (1, rng.integers(0, 65535, (3, 100, 90), dtype=np.uint16))):
             skw = dict(resize_dim=(64, 64), add_tile=add, show_progress=False, batch_size=4)
@@ -485,12 +517,13 @@ def phase_main_path(torch, dev, kernels) -> None:
 
 # kernel-name fragments of each stage of the chunk programs (first match wins)
 STAGES = (("k1 clip bounds", ("hist_pass", "finalize")),
-          ("k2/k2h normalize+tile", ("normalize_tile",)),
-          ("k3 sigmoid+stitch", ("sigmoid_stitch",)),
-          ("k5 margin stitch", ("margin_stitch",)),
+          ("k2/k2h/k2v normalize+tile", ("normalize_tile",)),
+          ("k3/k3v sigmoid+stitch", ("sigmoid_stitch",)),
+          ("k5/k5v weighted stitch", ("margin_stitch", "blend_stitch")),
           ("k5s tile sum", ("tile_sum",)),
-          ("bilinear upsample", ("upsample",)),
+          ("upsample (bilinear, trilinear, nearest)", ("upsample",)),
           ("concat", ("catarray",)),
+          ("copies (layout, dtype)", ("direct_copy",)),
           ("convolutions", ("conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "cutlass",
                             "fprop", "dgrad")),
           ("max pool", ("max_pool",)))
@@ -958,19 +991,6 @@ def phase_kernels_heads(torch, dev) -> list:
 
 # --- 8. the multi-head path ------------------------------------------------------
 
-def write_heads_checkpoint(torch, path: str, name: str, n_filter: int, seed: int = 0) -> None:
-    """A reference-schema ``.pt`` of a multi-head model with ``MO_HEADS``,
-    seeded random weights and random BatchNorm statistics."""
-    from bio_image_unet_tpu_torch.models import get_model
-    from bio_image_unet_tpu_torch.ops.blocks import init_weights_
-
-    hyper = {"model_name": name, "n_filter": n_filter, "in_channels": 1,
-             "output_heads": MO_HEADS}
-    net = init_weights_(get_model(name, **hyper), torch.Generator().manual_seed(seed),
-                        random_bn_stats=True)
-    torch.save({"state_dict": net.state_dict(), "epoch": 0, "best_loss": None, **hyper}, path)
-
-
 def nested_unet_forward_flops(nf: int, s: int, levels: int = 4, out_channels: int = 3) -> float:
     """Multiply-add FLOPs of one s² tile through ``MultiOutputNestedUNet``:
     the two 3×3 convs of every VGG block of the dense grid (column x_{i,0}
@@ -988,6 +1008,23 @@ def nested_unet_forward_flops(nf: int, s: int, levels: int = 4, out_channels: in
         for j in range(1, levels + 1 - i):
             f += vgg(nb[i] * j + nb[i + 1], nb[i], hw)
     return f + 2 * nf * out_channels * s * s
+
+
+def counted(torch, tag: str, counters, what: str, call, expect: dict):
+    """``call()`` with every launch count 0 just before and read just after;
+    each kernel must have launched exactly as ``expect`` says (kernels it
+    does not name: never)."""
+    for c in counters:
+        c.launches = 0
+    out = call()
+    torch.cuda.synchronize()
+    got = {c: c.launches for c in counters}
+    log(f"[{tag}] launches, {what}: " + ", ".join(f"{c.__name__} {n}" for c, n in got.items()))
+    for c, n in got.items():
+        if n != expect.get(c, 0):
+            raise AssertionError(f"{what}: {c.__name__} launched {n} times, "
+                                 f"want {expect.get(c, 0)}")
+    return out, got
 
 
 def check_heads(name: str, res: dict, shape) -> None:
@@ -1027,23 +1064,6 @@ def phase_heads(torch, dev, kernels, heads) -> None:
                     margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads}
     host_expect = {margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads}
 
-    def counted(what: str, call, expect: dict):
-        """``call()`` with every launch count 0 just before and read just
-        after; each kernel must have launched exactly as ``expect`` says
-        (kernels it does not name: never)."""
-        for c in counters:
-            c.launches = 0
-        out = call()
-        torch.cuda.synchronize()
-        got = {c: c.launches for c in counters}
-        log(f"[heads] launches, {what}: "
-            + ", ".join(f"{c.__name__} {n}" for c, n in got.items()))
-        for c, n in got.items():
-            if n != expect.get(c, 0):
-                raise AssertionError(f"{what}: {c.__name__} launched {n} times, "
-                                     f"want {expect.get(c, 0)}")
-        return out, got
-
     def max_diff(a, b) -> dict:
         return {h: float(np.abs(a[h] - b[h]).max()) for h in MO_HEADS}
 
@@ -1052,9 +1072,11 @@ def phase_heads(torch, dev, kernels, heads) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         nested = str(Path(tmp) / "nested_nf32.pt")
-        write_heads_checkpoint(torch, nested, "MultiOutputNestedUNet", HEADS_FILTER)
+        write_checkpoint(torch, nested, "MultiOutputNestedUNet", HEADS_FILTER,
+                         output_heads=MO_HEADS)
         mo = str(Path(tmp) / "mo_unet_nf32.pt")
-        write_heads_checkpoint(torch, mo, "MultiOutputUnet", HEADS_FILTER, seed=1)
+        write_checkpoint(torch, mo, "MultiOutputUnet", HEADS_FILTER, seed=1,
+                         output_heads=MO_HEADS)
 
         # the main path, fused: a warm-up call and two timed calls, each
         # counted on its own
@@ -1062,7 +1084,7 @@ def phase_heads(torch, dev, kernels, heads) -> None:
         best = float("inf")
         for rep in ("warm-up", "timed 1", "timed 2"):
             t0 = time.perf_counter()
-            res, got = counted(f"{main}, {rep}",
+            res, got = counted(torch, "heads", counters, f"{main}, {rep}",
                                lambda: PredictMultiOutput(movie, nested, **kw).result,
                                fused_expect)
             if rep != "warm-up":
@@ -1083,7 +1105,7 @@ def phase_heads(torch, dev, kernels, heads) -> None:
         engine = _Engine(nested, None, batch_size=8, half_precision=True, device=dev)
         t_engine = time.perf_counter() - t0
         bs = engine.heads_batch(CHUNK * (H // P) * (W // P), P, P)
-        host, _ = counted(f"{main}, host-staged at batch {bs}",
+        host, _ = counted(torch, "heads", counters, f"{main}, host-staged at batch {bs}",
                           lambda: PredictMultiOutput(movie, nested, device_pipeline=False,
                                                      batch_size=bs, **kw).result,
                           host_expect)
@@ -1197,7 +1219,7 @@ def phase_heads(torch, dev, kernels, heads) -> None:
                 ("MultiOutputUnet", 4, "all", 1,
                  (rng.standard_normal((3, 100, 90)) * 30).astype(np.float32))):
             small = str(Path(tmp) / f"{name}_nf4.pt")
-            write_heads_checkpoint(torch, small, name, 4, seed=seed)
+            write_checkpoint(torch, small, name, 4, seed=seed, output_heads=MO_HEADS)
             skw = dict(max_patch_size=(32, 32), add_tile=add, normalization_mode=mode,
                        safe_margin=4, show_progress=False, batch_size=4)
             on_card = PredictMultiOutput(m, small, **skw).result
@@ -1484,6 +1506,421 @@ def train_heads_card_vs_cpu(torch) -> None:
         f"{rel.max():.2e}")
     if not rel.max() <= 1e-3:
         raise AssertionError("the card's multi-output training run disagrees with the CPU's")
+
+
+# --- 11. kernels of the 3D paths ---------------------------------------------------
+
+# benchmarks/family_bench.py's 3D configuration (ours_unet3d, :368-406)
+VOL_D, VOL_H, VOL_W, VOL_TILE, VOL_FILTER, VOL_BATCH = 64, 512, 512, (32, 128, 128), 32, 4
+VOL_CLIP = (0.0, 99.8)  # Predict3D's default clip_threshold
+# PredictMultiOutput3D's defaults (predictor.py:2164-2168) on 2 volumes, with
+# the heads of tests/test_quant_families.py:26-27
+MO3_HEADS = {"mask": {"channels": 1, "activation": "sigmoid"},
+             "vec": {"channels": 2, "activation": None}}
+MO3_VOLS, MO3_PATCH, MO3_OVERLAP, MO3_MARGIN, MO3_BATCH = 2, (64, 256, 256), 0.1, 16, 2
+MO3_CLIP = (0.0, 99.98)  # PredictMultiOutput3D's default clip_threshold
+
+
+def vol_grid(tile, add: int = 0) -> list:
+    from bio_image_unet_tpu_torch.predict.tiling import grid_starts
+
+    return [grid_starts(e, t, add) for e, t in zip((VOL_D, VOL_H, VOL_W), tile)]
+
+
+def heads3d_grid() -> tuple:
+    """The starts and blend factors of ``PredictMultiOutput3D``'s grid."""
+    from bio_image_unet_tpu_torch.predict.tiling import _blend_factors, overlap_starts
+
+    starts = [overlap_starts(e, t, MO3_OVERLAP) for e, t in zip((VOL_D, VOL_H, VOL_W), MO3_PATCH)]
+    return starts, _blend_factors([len(s) for s in starts], MO3_PATCH, MO3_MARGIN)
+
+
+def phase_kernels_3d(torch, dev) -> list:
+    """K1 on whole volumes, K2v, K3v and K5v at the 3D paths' shapes."""
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.stitch import (blend_stitch_3d, blend_stitch_3d_plain,
+                                                      sigmoid_stitch_3d, sigmoid_stitch_3d_plain)
+    from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile_3d,
+                                                            normalize_tile_3d_plain)
+    from bio_image_unet_tpu_torch.predict.tiling import TilePlan3D
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    n_vox = VOL_D * VOL_H * VOL_W
+    rows = []
+
+    def row(*args):
+        rows.append(kernel_row("kernels 3d", *args))
+
+    # K1 on one whole volume: N = 1 row (the ranks reach 16.7 M, 67 M for uint16)
+    for dt, top, n in ((torch.uint8, 256, n_vox), (torch.uint16, 65536, 4 * n_vox)):
+        x = torch.randint(0, top, (1, n), generator=g, device=dev, dtype=torch.int32).to(dt)
+        ours = hist.int_clip_bounds(x, *VOL_CLIP)
+        torch.cuda.synchronize()
+        ref = hist.clip_bounds_plain(x, *VOL_CLIP)
+        if not torch.equal(ours.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K1 on a {dt} volume row: {ours.tolist()} != {ref.tolist()}")
+        log(f"[kernels 3d] k1_int_clip_bounds, one {dt} row of {n} voxels: bit-equal to plain "
+            f"{ours[:, 0].tolist()} | kernel {timer(lambda: hist.int_clip_bounds(x, *VOL_CLIP)):.4f}"
+            f" ms | bound {bound_ms(x.numel() * x.element_size(), n)[0]:.4f} ms")
+        del x
+
+    # K2v (uint8 mode) and K3v on the Predict3D grid: 32 tiles of (32, 128, 128)
+    vol = torch.randint(0, 256, (1, VOL_D, VOL_H, VOL_W), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    plan = TilePlan3D(VOL_D, VOL_H, VOL_W, VOL_TILE, *vol_grid(VOL_TILE), dev)
+    n = plan.per_volume
+    tvox = int(np.prod(VOL_TILE))
+    bounds = hist.clip_bounds(vol, *VOL_CLIP)
+    ours = normalize_tile_3d(vol, bounds, plan, n)
+    torch.cuda.synchronize()
+    ref = normalize_tile_3d_plain(vol, bounds, plan, n)
+    err = (ours.int() - ref.int()).abs().max().item()
+    if err != 0:
+        raise AssertionError(f"K2v uint8: kernel differs from plain by {err} levels")
+    row("k2v_normalize_tile_3d[uint8]", "bio_image_unet_tpu_torch/csrc/normalize_tile.cu",
+        "bio_image_unet_tpu/predict/predictor.py:1222", normalize_tile_3d, err,
+        timer(lambda: normalize_tile_3d(vol, bounds, plan, n)),
+        timer(lambda: normalize_tile_3d_plain(vol, bounds, plan, n), 3),
+        # read each voxel once, write each tile voxel once; about five float
+        # operations per tile voxel (clip, subtract, divide, scale)
+        bound_ms(vol.numel() + 16 + n * tvox, 5 * n * tvox), None)
+
+    logits = (torch.randn((n, 1) + VOL_TILE, generator=g, device=dev) * 4).to(torch.bfloat16)
+    ours = sigmoid_stitch_3d(logits, plan)
+    torch.cuda.synchronize()
+    ref = sigmoid_stitch_3d_plain(logits, plan)
+    err = (ours.int() - ref.int()).abs().max().item()
+    if err > 1:
+        raise AssertionError(f"K3v: kernel differs from plain by {err} levels")
+    row("k3v_sigmoid_stitch_3d", "bio_image_unet_tpu_torch/csrc/sigmoid_stitch.cu",
+        "bio_image_unet_tpu/ops/stitch.py:95", sigmoid_stitch_3d, err,
+        timer(lambda: sigmoid_stitch_3d(logits, plan)),
+        timer(lambda: sigmoid_stitch_3d_plain(logits, plan), 3),
+        # read each real logit once (bf16), write each voxel once; about four
+        # operations per logit (exp, add, divide, scale) and the sum
+        bound_ms(n * tvox * 2 + n_vox, 5 * n * tvox), None)
+    # the overlapping grid of add_patch=1 (3 × 5 × 5 tiles): averages
+    over = TilePlan3D(VOL_D, VOL_H, VOL_W, VOL_TILE, *vol_grid(VOL_TILE, 1), dev)
+    logits = (torch.randn((over.per_volume, 1) + VOL_TILE, generator=g, device=dev) * 4
+              ).to(torch.bfloat16)
+    ours = sigmoid_stitch_3d(logits, over)
+    torch.cuda.synchronize()
+    diff = (ours.int() - sigmoid_stitch_3d_plain(logits, over).int()).abs()
+    log(f"[kernels 3d] k3v on the add_patch=1 grid ({over.per_volume} tiles): max "
+        f"{diff.max().item()} levels on {diff.gt(0).float().mean().item():.2e} of voxels | kernel "
+        f"{timer(lambda: sigmoid_stitch_3d(logits, over)):.4f} ms")
+    if diff.max().item() > 1:
+        raise AssertionError("K3v on the overlapping grid differs from plain by > 1 level")
+    del vol, logits, ours, ref, diff
+
+    # K2v (float mode) and K5v on PredictMultiOutput3D's grid: 2 volumes, 18
+    # tiles of (64, 256, 256), bf16 tiles, heads of 1 and 2 channels
+    starts, factors = heads3d_grid()
+    hplan = TilePlan3D(VOL_D, VOL_H, VOL_W, MO3_PATCH, *starts, dev, factors)
+    nh = MO3_VOLS * hplan.per_volume
+    hvox = int(np.prod(MO3_PATCH))
+    vols = torch.randint(0, 256, (MO3_VOLS, VOL_D, VOL_H, VOL_W), generator=g, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+    bounds = hist.clip_bounds(vols, *MO3_CLIP)
+    ours = normalize_tile_3d(vols, bounds, hplan, nh, False, torch.bfloat16)
+    torch.cuda.synchronize()
+    ref = normalize_tile_3d_plain(vols, bounds, hplan, nh, False, torch.bfloat16)
+    if not torch.equal(ours.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError("K2v bf16: kernel differs from its plain version")
+    row("k2v_normalize_tile_3d[uint8->bf16 heads]",
+        "bio_image_unet_tpu_torch/csrc/normalize_tile.cu",
+        "bio_image_unet_tpu/predict/predictor.py:1324", normalize_tile_3d,
+        (ours.float() - ref.float()).abs().max().item(),
+        timer(lambda: normalize_tile_3d(vols, bounds, hplan, nh, False, torch.bfloat16)),
+        timer(lambda: normalize_tile_3d_plain(vols, bounds, hplan, nh, False, torch.bfloat16), 3),
+        bound_ms(vols.numel() + 32 + nh * hvox * 2, 5 * nh * hvox), None)
+    del vols, ours, ref
+
+    for c in (1, 2):
+        tiles = (torch.rand((nh, c) + MO3_PATCH, generator=g, device=dev) * 4 - 2).half()
+        for out_dtype, view in ((torch.float16, torch.int16), (torch.float32, torch.int32)):
+            ours = blend_stitch_3d(tiles, MO3_VOLS, hplan, out_dtype)
+            torch.cuda.synchronize()
+            ref = blend_stitch_3d_plain(tiles, MO3_VOLS, hplan, out_dtype)
+            if not torch.equal(ours.view(view), ref.view(view)):
+                bad = (ours.view(view) != ref.view(view)).sum().item()
+                raise AssertionError(f"K5v c={c} {out_dtype}: {bad} values differ from plain")
+            del ours, ref
+        out_vox = MO3_VOLS * c * n_vox
+        row(f"k5v_blend_stitch_3d[c={c}]", "bio_image_unet_tpu_torch/csrc/margin_stitch.cu",
+            "bio_image_unet_tpu/ops/stitch.py:163", blend_stitch_3d, 0.0,
+            timer(lambda: blend_stitch_3d(tiles, MO3_VOLS, hplan, torch.float16)),
+            timer(lambda: blend_stitch_3d_plain(tiles, MO3_VOLS, hplan, torch.float16), 3),
+            # read each real tile value once (float16), write each voxel once
+            # (float16); per tile value two mins, a multiply-add and an add,
+            # per voxel a divide
+            bound_ms(nh * c * hvox * 2 + out_vox * 2, 4 * nh * c * hvox + out_vox), None)
+        del tiles
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- 12. the 3D path --------------------------------------------------------------
+
+def unet3d_forward_flops(nf: int, nearest_decoder: bool = False, out_channels: int = 1) -> float:
+    """Multiply-add FLOPs per tile voxel through ``UNet3D(n_filter=nf)`` —
+    or, with ``nearest_decoder``, ``MultiOutputUnet3D``'s nearest ×2 + conv
+    block decoder: the 3×3×3 convs of each level, the decoder's 2×2×2
+    stride-2 transposed convs (per input voxel) or ``up<i>_conv`` blocks (at
+    the upsampled resolution), the 1×1×1 output convs.  Pools, resampling
+    and concats are not counted."""
+    def conv(ci, co, frac, taps=27):
+        return 2 * ci * co * taps * frac
+
+    h = nf // 2
+    f = conv(1, h, 1) + conv(h, nf, 1) + conv(nf, nf, 1 / 8) + conv(nf, 2 * nf, 1 / 8)
+    f += conv(2 * nf, 2 * nf, 1 / 64) + conv(2 * nf, 4 * nf, 1 / 64)
+    f += conv(4 * nf, 4 * nf, 1 / 512) + conv(4 * nf, 8 * nf, 1 / 512)
+    for width, frac in ((8 * nf, 1 / 512), (4 * nf, 1 / 64), (2 * nf, 1 / 8)):
+        f += conv(width, width, 8 * frac) if nearest_decoder else conv(width, width, frac, 8)
+    f += conv(12 * nf, 4 * nf, 1 / 64) + conv(4 * nf, 4 * nf, 1 / 64)
+    f += conv(6 * nf, 2 * nf, 1 / 8) + conv(2 * nf, 2 * nf, 1 / 8)
+    f += conv(3 * nf, nf, 1) + conv(nf, h, 1)
+    return f + 2 * h * out_channels
+
+
+def check_u8_volume(tag: str, what: str, ours: np.ndarray, ref: np.ndarray, shape) -> None:
+    """The uint8 contract: within one level on at most 0.1% of voxels."""
+    if ours.shape != tuple(shape) or ours.dtype != np.uint8 or ref.shape != ours.shape:
+        raise AssertionError(f"{what}: {ours.shape} {ours.dtype} vs {ref.shape}, want {shape}")
+    diff = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
+    frac = float(np.mean(diff > 0))
+    log(f"[{tag}] {what}: max {int(diff.max())} levels on {frac:.6f} of voxels; mean "
+        f"{ours.mean():.2f}, std {ours.std():.2f}")
+    if diff.max() > 1 or frac > 1e-3:
+        raise AssertionError(f"{what}: beyond the uint8 contract")
+
+
+def phase_3d(torch, dev, kernels, k3d) -> None:
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch_3d
+    from bio_image_unet_tpu_torch.predict import Predict3D
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_3d
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + k3d}.values())
+    rows = {k["name"]: k for k in k3d}
+    shape = (VOL_D, VOL_H, VOL_W)
+    rng = np.random.default_rng(10)
+    vol = rng.integers(0, 255, shape, dtype=np.uint8)
+    vol_u16 = rng.integers(0, 65535, shape, dtype=np.uint16)
+    kw = dict(resize_dim=VOL_TILE, show_progress=False, batch_size=VOL_BATCH, half_precision=True)
+    main = "UNet3D uint8 64x512^2 (family_bench)"
+    # per call: K1's two uint8 launches over the whole volume, K2v once, K3v once
+    fused_expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "unet3d_nf32.pt")
+        write_checkpoint(torch, ckpt, "UNet3D", VOL_FILTER, seed=5)
+        torch.cuda.reset_peak_memory_stats()
+        best = float("inf")
+        for rep in ("warm-up", "timed 1", "timed 2"):
+            t0 = time.perf_counter()
+            res, got = counted(torch, "3d", counters, f"{main}, {rep}",
+                               lambda: Predict3D(vol, None, ckpt, **kw).result, fused_expect)
+            if rep != "warm-up":
+                best = min(best, time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        rows["k2v_normalize_tile_3d[uint8]"]["launches"] = got[normalize_tile_3d]
+        rows["k3v_sigmoid_stitch_3d"]["launches"] = got[sigmoid_stitch_3d]
+
+        # host-staged at the fused path's forward batch: the same uint8 tiles
+        # up to the host's float64 percentiles, into the same batches
+        t0 = time.perf_counter()
+        engine = _Engine(ckpt, "UNet3D", batch_size=VOL_BATCH, half_precision=True, device=dev)
+        t_engine = time.perf_counter() - t0
+        fn, plan, bs = engine.volume_runner(*shape, *vol_grid(VOL_TILE), VOL_TILE, VOL_CLIP)
+        host, _ = counted(torch, "3d", counters, f"{main}, host-staged at batch {bs}",
+                          lambda: Predict3D(vol, None, ckpt, device_pipeline=False,
+                                            **dict(kw, batch_size=bs)).result,
+                          {sigmoid_stitch_3d: 1})
+        check_u8_volume("3d", f"{main}: fused vs host-staged", res, host, shape)
+
+        # device-resident: the same program on a volume already on the card
+        vol_dev = torch.from_numpy(vol).to(dev)
+        fn(vol_dev)
+        torch.cuda.synchronize()
+        best_dev = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn(vol_dev)
+            torch.cuda.synchronize()
+            best_dev = min(best_dev, time.perf_counter() - t0)
+        same = int(np.abs(out.cpu().numpy().astype(np.int16) - res).max())
+        log(f"[3d] device-resident run vs its Predict3D run: max {same} levels")
+        if same != 0:
+            raise AssertionError("the device-resident program disagrees with Predict3D")
+        # two passes: the profiler misses the first launches of its window
+        profile_pass(torch, lambda: [fn(vol_dev) for _ in range(2)], "3d",
+                     "two passes over one volume")
+        del vol_dev, out
+        mvox = VOL_D * VOL_H * VOL_W / 1e6
+        e2e, resident = mvox / best, mvox / best_dev
+        flops = unet3d_forward_flops(VOL_FILTER)
+        tile_vox_per_vox = plan.per_volume * np.prod(VOL_TILE) / (mvox * 1e6)
+        log(f"[3d] {main}: end-to-end {e2e:.2f} Mvox/s ({best:.3f} s); device-resident "
+            f"{resident:.2f} Mvox/s ({best_dev * 1e3:.2f} ms); forward batch {bs}; engine set-up "
+            f"{t_engine:.3f} s; peak device memory {peak / 2**30:.2f} GiB; {flops / 1e6:.4f} MFLOP "
+            f"per tile voxel ({flops * np.prod(VOL_TILE) / 1e9:.1f} GFLOP per tile) → "
+            f"{flops * tile_vox_per_vox * e2e / 1e6:.1f} TFLOP/s end to end "
+            f"({flops * tile_vox_per_vox * e2e * 1e6 / PEAK_BF16_FLOPS:.4f} of the bf16 dense "
+            f"peak), {flops * tile_vox_per_vox * resident / 1e6:.1f} TFLOP/s device-resident "
+            f"({flops * tile_vox_per_vox * resident * 1e6 / PEAK_BF16_FLOPS:.4f})")
+
+        # coverage: the trilinear decoder; uint16 on the add_patch=1 grid
+        tri = str(Path(tmp) / "unet3d_trilinear_nf32.pt")
+        write_checkpoint(torch, tri, "UNet3D", VOL_FILTER, seed=6, use_interpolation=True)
+        for name, path, v, extra in (
+                ("UNet3D trilinear uint8 64x512^2", tri, vol, {}),
+                ("UNet3D uint16 64x512^2 add_patch=1", ckpt, vol_u16, {"add_patch": 1})):
+            t0 = time.perf_counter()
+            fused = Predict3D(v, None, path, **kw, **extra).result
+            dt = time.perf_counter() - t0
+            host = Predict3D(v, None, path, device_pipeline=False, **dict(kw, batch_size=16),
+                             **extra).result
+            log(f"[3d] {name}: {dt:.3f} s end to end ({mvox / dt:.2f} Mvox/s, one call, set-up "
+                "included)")
+            check_u8_volume("3d", f"{name}: fused vs host-staged at batch 16", fused, host, shape)
+
+        # a small float32 reference: the card against the CPU, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        small = str(Path(tmp) / "unet3d_nf8.pt")
+        for interp, add, v in ((False, 0, rng.integers(0, 255, (16, 64, 64), dtype=np.uint8)),
+                               (True, 1, rng.integers(0, 65535, (12, 40, 36), dtype=np.uint16))):
+            write_checkpoint(torch, small, "UNet3D", 8, seed=7, use_interpolation=interp)
+            skw = dict(resize_dim=(8, 32, 32), add_patch=add, show_progress=False)
+            check_u8_volume("3d", f"small float32 {v.dtype} add_patch={add} interp={interp}: "
+                            "card vs CPU", Predict3D(v, None, small, **skw).result,
+                            Predict3D(v, None, small, device="cpu", **skw).result, v.shape)
+        torch.backends.cudnn.allow_tf32 = True
+
+
+# --- 13. the multi-head 3D path ------------------------------------------------------
+
+def check_heads3d(name: str, res: dict, shape) -> None:
+    for head, cfg in MO3_HEADS.items():
+        want = shape if cfg["channels"] == 1 else (shape[0], cfg["channels"]) + shape[1:]
+        r = res[head]
+        if r.shape != tuple(want) or r.dtype != np.float32 or not np.isfinite(r).all():
+            raise AssertionError(f"{name} {head}: {r.shape} {r.dtype}, want {want} float32 "
+                                 "and finite")
+
+
+def heads_within(tag: str, what: str, ours: dict, ref: dict) -> None:
+    """Every head and voxel within 2e-3 + 1e-3·|ref| (float16 heads)."""
+    worst = {h: float((np.abs(ours[h] - ref[h]) / (2e-3 + 1e-3 * np.abs(ref[h]))).max())
+             for h in MO3_HEADS}
+    log(f"[{tag}] {what}: " + ", ".join(
+        f"{h} max {float(np.abs(ours[h] - ref[h]).max()):.3e} (|ref| up to "
+        f"{float(np.abs(ref[h]).max()):.3f}; {worst[h]:.3f} of the tolerance)" for h in MO3_HEADS))
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"{what}: beyond 2e-3 + 1e-3·|ref|")
+
+
+def phase_3d_heads(torch, dev, kernels, k3d) -> None:
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.stitch import blend_stitch_3d
+    from bio_image_unet_tpu_torch.predict import PredictMultiOutput3D
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_3d
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + k3d}.values())
+    rows = {k["name"]: k for k in k3d}
+    shape = (MO3_VOLS, VOL_D, VOL_H, VOL_W)
+    rng = np.random.default_rng(11)
+    vols = rng.integers(0, 255, shape, dtype=np.uint8)
+    kw = dict(max_patch_size=MO3_PATCH, overlap_factor=MO3_OVERLAP, blend_margin=MO3_MARGIN,
+              batch_size=MO3_BATCH, half_precision=True, show_progress=False)
+    main = "MultiOutputUnet3D uint8 2x64x512^2 (class defaults)"
+    # per call: K1's two uint8 launches (one row per volume), K2v once, K5v once per head
+    expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, blend_stitch_3d: len(MO3_HEADS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "mo_unet3d_nf32.pt")
+        write_checkpoint(torch, ckpt, "MultiOutputUnet3D", VOL_FILTER, seed=8,
+                            output_heads=MO3_HEADS)
+        torch.cuda.reset_peak_memory_stats()
+        best = float("inf")
+        for rep in ("warm-up", "timed 1", "timed 2"):
+            t0 = time.perf_counter()
+            res, got = counted(torch, "3d heads", counters, f"{main}, {rep}",
+                               lambda: PredictMultiOutput3D(vols, ckpt, **kw).result, expect)
+            if rep != "warm-up":
+                best = min(best, time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        check_heads3d(main, res, shape)
+        rows["k2v_normalize_tile_3d[uint8->bf16 heads]"]["launches"] = got[normalize_tile_3d]
+        for c in (1, 2):
+            rows[f"k5v_blend_stitch_3d[c={c}]"]["launches"] = got[blend_stitch_3d]
+
+        t0 = time.perf_counter()
+        engine = _Engine(ckpt, None, batch_size=MO3_BATCH, half_precision=True, device=dev)
+        t_engine = time.perf_counter() - t0
+        starts, factors = heads3d_grid()
+        fn, plan, bs = engine.heads_3d_runner(*shape, *starts, MO3_PATCH, MO3_CLIP, factors)
+        host, _ = counted(torch, "3d heads", counters, f"{main}, host-staged at batch {bs}",
+                          lambda: PredictMultiOutput3D(vols, ckpt, device_pipeline=False,
+                                                       **dict(kw, batch_size=bs)).result,
+                          {blend_stitch_3d: len(MO3_HEADS)})
+        check_heads3d(main + " host", host, shape)
+        heads_within("3d heads", f"{main}: bf16 fused vs host-staged at batch {bs}", res, host)
+        del host
+
+        vols_dev = torch.from_numpy(vols).to(dev)
+        fn(vols_dev)
+        torch.cuda.synchronize()
+        best_dev = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn(vols_dev)
+            torch.cuda.synchronize()
+            best_dev = min(best_dev, time.perf_counter() - t0)
+        for h, cfg in MO3_HEADS.items():
+            ours = out[h].float().cpu().numpy()
+            ref = res[h].reshape(ours.shape)
+            same = float(np.abs(ours - ref).max())
+            log(f"[3d heads] device-resident run vs its PredictMultiOutput3D run, {h}: max {same}")
+            if same != 0.0:
+                raise AssertionError(f"{h}: the device-resident program disagrees")
+        profile_pass(torch, lambda: [fn(vols_dev) for _ in range(2)], "3d heads",
+                     f"two passes over {MO3_VOLS} volumes")
+        del vols_dev, out
+        mvox = MO3_VOLS * VOL_D * VOL_H * VOL_W / 1e6
+        e2e, resident = mvox / best, mvox / best_dev
+        flops = unet3d_forward_flops(VOL_FILTER, nearest_decoder=True, out_channels=3)
+        tile_vox_per_vox = MO3_VOLS * plan.per_volume * np.prod(MO3_PATCH) / (mvox * 1e6)
+        log(f"[3d heads] {main}: end-to-end {e2e:.2f} Mvox/s ({best:.3f} s); device-resident "
+            f"{resident:.2f} Mvox/s ({best_dev * 1e3:.2f} ms); {plan.per_volume} tiles a volume, "
+            f"forward batch {bs}; engine set-up {t_engine:.3f} s; peak device memory "
+            f"{peak / 2**30:.2f} GiB; {flops / 1e6:.4f} MFLOP per tile voxel, "
+            f"{tile_vox_per_vox:.3f} tile voxels per voxel → "
+            f"{flops * tile_vox_per_vox * e2e / 1e6:.1f} TFLOP/s end to end "
+            f"({flops * tile_vox_per_vox * e2e * 1e6 / PEAK_BF16_FLOPS:.4f} of the bf16 dense "
+            f"peak), {flops * tile_vox_per_vox * resident / 1e6:.1f} TFLOP/s device-resident "
+            f"({flops * tile_vox_per_vox * resident * 1e6 / PEAK_BF16_FLOPS:.4f})")
+
+        # a small float32 reference: the card against the CPU, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        small = str(Path(tmp) / "mo_unet3d_nf4.pt")
+        for interp, mode, v in (
+                (True, "single", rng.integers(0, 255, (2, 12, 40, 36), dtype=np.uint8)),
+                (False, "all", (rng.standard_normal((2, 10, 36, 40)) * 30).astype(np.float32))):
+            write_checkpoint(torch, small, "MultiOutputUnet3D", 4, seed=9,
+                                output_heads=MO3_HEADS, use_interpolation=interp)
+            skw = dict(max_patch_size=(8, 32, 32), normalization_mode=mode, blend_margin=4,
+                       show_progress=False)
+            heads_within("3d heads", f"small float32 {v.dtype} '{mode}' interp={interp}: card vs "
+                         "CPU", PredictMultiOutput3D(v, small, **skw).result,
+                         PredictMultiOutput3D(v, small, device="cpu", **skw).result)
+        torch.backends.cudnn.allow_tf32 = True
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,6 +1,7 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
-card, and ``Predict``, ``PredictMultiOutput`` and the ``Trainer`` on the card
-held against the same on the CPU.
+card, and ``Predict``, ``PredictMultiOutput``, ``Predict3D``,
+``PredictMultiOutput3D`` and the ``Trainer`` on the card held against the
+same on the CPU.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -22,16 +23,24 @@ from bio_image_unet_tpu_torch.data.augment_device import (HeadLayout, augment_ap
                                                           augment_apply_plain,
                                                           augment_heads_apply,
                                                           augment_heads_apply_plain, draw)
-from bio_image_unet_tpu_torch.models import MultiOutputNestedUNet, MultiOutputUnet, Unet
+from bio_image_unet_tpu_torch.models import (MultiOutputNestedUNet, MultiOutputUnet,
+                                             MultiOutputUnet3D, UNet3D, Unet)
 from bio_image_unet_tpu_torch.ops import histogram as hist
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
-from bio_image_unet_tpu_torch.ops.stitch import (margin_stitch, margin_stitch_plain,
-                                                  sigmoid_stitch, sigmoid_stitch_plain, tile_sum,
-                                                  tile_sum_plain)
-from bio_image_unet_tpu_torch.predict import Predict, PredictMultiOutput
-from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile, normalize_tile_float,
+from bio_image_unet_tpu_torch.ops.stitch import (blend_stitch_3d, blend_stitch_3d_plain,
+                                                  margin_stitch, margin_stitch_plain,
+                                                  sigmoid_stitch, sigmoid_stitch_3d,
+                                                  sigmoid_stitch_3d_plain, sigmoid_stitch_plain,
+                                                  tile_sum, tile_sum_plain)
+from bio_image_unet_tpu_torch.predict import (Predict, Predict3D, PredictMultiOutput,
+                                              PredictMultiOutput3D)
+from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile, normalize_tile_3d,
+                                                        normalize_tile_3d_plain,
+                                                        normalize_tile_float,
                                                         normalize_tile_plain)
-from bio_image_unet_tpu_torch.predict.tiling import TilePlan, _margin_factors, grid_starts
+from bio_image_unet_tpu_torch.predict.tiling import (TilePlan, TilePlan3D, _blend_factors,
+                                                     _margin_factors, grid_starts,
+                                                     overlap_starts)
 from bio_image_unet_tpu_torch.train import Trainer
 from bio_image_unet_tpu_torch.utils.synth import blob_sample
 
@@ -536,3 +545,175 @@ def test_multi_output_trainer_on_card_with_augment_and_bf16(cuda, tmp_path):
                              str(tmp_path / "model.pt"), max_patch_size=(64, 64),
                              show_progress=False).result
     assert res["mask"].shape == (2, 96, 96) and res["orientation"].shape == (2, 2, 96, 96)
+
+
+# --- 3D prediction: K2v, K3v, K5v ---------------------------------------------------
+
+K2V_CASES = [
+    # name, dtype, (V, d, h, w), tile, add_patch, invert, fixed bounds, out dtype, batch pad
+    ("exact-u8", np.uint8, (1, 16, 64, 64), (8, 32, 32), 0, False, False, torch.uint8, 0),
+    ("overlap-u16-invert", np.uint16, (1, 12, 40, 36), (8, 32, 32), 1, True, False,
+     torch.uint8, 3),
+    ("reflect-pad-f32", np.float32, (1, 6, 40, 20), (8, 32, 32), 0, False, False, torch.uint8, 1),
+    ("two-volumes-bf16", np.uint8, (2, 12, 40, 36), (8, 32, 32), 0, False, False,
+     torch.bfloat16, 0),
+    ("fixed-bounds-f32-odd", np.uint16, (2, 9, 21, 23), (5, 15, 15), 0, False, True,
+     torch.float32, 2),
+    ("main-path", np.uint8, (1, 64, 512, 512), (32, 128, 128), 0, False, False, torch.uint8, 0),
+]
+
+
+@pytest.mark.parametrize("case", K2V_CASES, ids=[c[0] for c in K2V_CASES])
+def test_normalize_tile_3d_kernel_equals_plain(cuda, gen, case):
+    _, dtype, (n_vols, d, h, w), tile, add, invert, fixed, out_dtype, extra = case
+    x = torch.from_numpy(_frames(gen, dtype, (n_vols, d, h, w))).to(cuda)
+    bounds = hist.clip_bounds(x, 0.5, 99.5)
+    if fixed:
+        bounds = torch.stack([bounds[0, :1], bounds[1, :1], bounds[0, :1], bounds[1, :1]])
+    starts = [grid_starts(e, t, add) for e, t in zip((d, h, w), tile)]
+    plan = TilePlan3D(d, h, w, tile, *starts, cuda)
+    n_total = n_vols * plan.per_volume + extra
+    before = normalize_tile_3d.launches
+    ours = normalize_tile_3d(x, bounds.contiguous(), plan, n_total, invert, out_dtype)
+    torch.cuda.synchronize()
+    assert normalize_tile_3d.launches == before + 1
+    ref = normalize_tile_3d_plain(x, bounds, plan, n_total, invert, out_dtype)
+    assert ours.shape == ref.shape == (n_total,) + tuple(tile) and ours.dtype == out_dtype
+    assert torch.equal(ours.float().view(torch.int32), ref.float().view(torch.int32))
+
+
+K3V_CASES = [
+    # name, (d, h, w), tile, add_patch, logits dtype
+    ("exact-bf16", (16, 64, 64), (8, 32, 32), 0, torch.bfloat16),
+    ("overlap-f32", (12, 40, 36), (8, 32, 32), 1, torch.float32),
+    ("shallow-bf16", (6, 40, 40), (8, 32, 32), 0, torch.bfloat16),
+    ("odd-tile-f32", (9, 21, 23), (5, 15, 15), 1, torch.float32),
+    ("main-path-bf16", (64, 512, 512), (32, 128, 128), 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", K3V_CASES, ids=[c[0] for c in K3V_CASES])
+def test_sigmoid_stitch_3d_kernel_equals_plain(cuda, gen, case):
+    """K3v within one uint8 level of its plain version: both take the same
+    float32 steps; ``expf`` and torch's sigmoid may differ by an ulp."""
+    _, (d, h, w), tile, add, dtype = case
+    starts = [grid_starts(e, t, add) for e, t in zip((d, h, w), tile)]
+    plan = TilePlan3D(d, h, w, tile, *starts, cuda)
+    logits = (torch.randn((plan.per_volume + 2, 1) + tuple(tile), device=cuda) * 4).to(dtype)
+    before = sigmoid_stitch_3d.launches
+    ours = sigmoid_stitch_3d(logits, plan)
+    torch.cuda.synchronize()
+    assert sigmoid_stitch_3d.launches == before + 1
+    ref = sigmoid_stitch_3d_plain(logits, plan)
+    assert ours.shape == (d, h, w) and ours.dtype == torch.uint8
+    diff = (ours.int() - ref.int()).abs()
+    assert diff.max().item() <= 1 and diff.float().mean().item() < 1e-3
+
+
+K5V_CASES = [
+    # name, (V, d, h, w), max tile, overlap, margin, channels, batch pad
+    ("two-volumes-2ch", (2, 12, 40, 36), (8, 32, 32), 0.1, 4, 2, 0),
+    ("margin-over-tile", (1, 10, 24, 40), (6, 16, 16), 0.25, 8, 1, 3),
+    ("uncovered-seams", (1, 8, 33, 33), (8, 16, 16), 0.0, 5, 1, 0),
+    ("main-path", (2, 64, 512, 512), (64, 256, 256), 0.1, 16, 2, 0),
+]
+
+
+@pytest.mark.parametrize("case", K5V_CASES, ids=[c[0] for c in K5V_CASES])
+def test_blend_stitch_3d_kernel_equals_plain(cuda, gen, case):
+    """K5v bit-equal to its plain version in float16 and float32: the same
+    fused multiply-adds in the same order, the same division."""
+    _, (n_vols, d, h, w), max_tile, overlap, margin, c, extra = case
+    tile = tuple(min(e, m) for e, m in zip((d, h, w), max_tile))
+    starts = [overlap_starts(e, t, overlap) for e, t in zip((d, h, w), tile)]
+    plan = TilePlan3D(d, h, w, tile, *starts, cuda,
+                      _blend_factors([len(s) for s in starts], tile, margin))
+    n = n_vols * plan.per_volume
+    tiles = (torch.randn((n + extra, c) + tile, device=cuda) * 2).half()
+    for out_dtype in (torch.float16, torch.float32):
+        before = blend_stitch_3d.launches
+        ours = blend_stitch_3d(tiles, n_vols, plan, out_dtype)
+        torch.cuda.synchronize()
+        assert blend_stitch_3d.launches == before + 1
+        ref = blend_stitch_3d_plain(tiles, n_vols, plan, out_dtype)
+        assert ours.shape == (n_vols, c, d, h, w) and ours.dtype == out_dtype
+        view = torch.int16 if out_dtype == torch.float16 else torch.int32
+        assert torch.equal(ours.view(view), ref.view(view)), out_dtype
+
+
+def test_3d_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    tile = (4, 16, 16)
+    plan = TilePlan3D(8, 32, 32, tile, [0, 4], [0, 16], [0, 16], cuda,
+                      _blend_factors((2, 2, 2), tile, 2))
+    cpu_plan = TilePlan3D(8, 32, 32, tile, [0, 4], [0, 16], [0, 16], "cpu",
+                          _blend_factors((2, 2, 2), tile, 2))
+    tiles = torch.zeros((8, 2) + tile, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        blend_stitch_3d(tiles.to(memory_format=torch.channels_last_3d), 1, plan)
+    with pytest.raises(ValueError, match="plan"):
+        blend_stitch_3d(tiles, 1, cpu_plan)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        sigmoid_stitch_3d(tiles[:, :1].contiguous(), plan)
+    vol = torch.zeros((1, 8, 32, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="plan"):
+        normalize_tile_3d(vol, torch.zeros((4, 1), device=cuda), cpu_plan, 8)
+    with pytest.raises(ValueError, match="bounds"):
+        normalize_tile_3d(vol, torch.zeros((4, 1), device="cpu"), plan, 8)
+
+
+def _3d_checkpoint(tmp_path, cls, name, **hyper):
+    net = init_weights_(cls(n_filter=4, **hyper), torch.Generator().manual_seed(0),
+                        random_bn_stats=True)
+    path = str(tmp_path / f"{name}.pt")
+    torch.save({"state_dict": net.state_dict(), "model_name": name, "n_filter": 4, **hyper}, path)
+    return path
+
+
+@pytest.mark.parametrize("dtype,shape,add,interp", [
+    (np.uint8, (16, 64, 64), 0, False), (np.uint16, (12, 40, 36), 1, True),
+    (np.float32, (6, 40, 40), 0, False)])
+def test_predict_3d_on_card_matches_cpu(cuda, gen, tmp_path, dtype, shape, add, interp):
+    """``Predict3D`` on the card (K1 → K2v → forward → K3v) against the CPU
+    (plain versions, CPU convolutions), float32 with TF32 off: within one
+    level on at most 0.1% of voxels; fused against host-staged on the card
+    within the same contract."""
+    path = _3d_checkpoint(tmp_path, UNet3D, "UNet3D", use_interpolation=interp)
+    vol = _frames(gen, dtype, shape)
+    kw = dict(resize_dim=(8, 32, 32), add_patch=add, show_progress=False)
+    counters = (hist.int_clip_bounds, hist.float_clip_bounds, normalize_tile_3d,
+                sigmoid_stitch_3d)
+    before = [c.launches for c in counters]
+    card = Predict3D(vol, None, path, **kw).result
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    assert ran[0] + ran[1] > 0 and ran[2] == 1 and ran[3] == 1, ran
+    cpu = Predict3D(vol, None, path, device="cpu", **kw).result
+    host = Predict3D(vol, None, path, device_pipeline=False, **kw).result
+    for other in (cpu, host):
+        assert card.shape == other.shape == shape and card.dtype == other.dtype == np.uint8
+        diff = np.abs(card.astype(int) - other.astype(int))
+        assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3
+
+
+@pytest.mark.parametrize("mode,dtype,interp", [
+    ("single", np.uint8, True), ("first", np.uint16, False), ("all", np.float32, True)])
+def test_predict_multi_output_3d_on_card_matches_cpu(cuda, gen, tmp_path, mode, dtype, interp):
+    """``PredictMultiOutput3D`` on the card (K1 → K2v → forward → K5v)
+    against the CPU, float32 with TF32 off, and the card's fused path against
+    its host-staged path: within atol 2e-3 + 1e-3·|CPU| (float16 heads)."""
+    heads = {"mask": {"channels": 1, "activation": "sigmoid"},
+             "vec": {"channels": 2, "activation": None}}
+    path = _3d_checkpoint(tmp_path, MultiOutputUnet3D, "MultiOutputUnet3D", output_heads=heads,
+                          use_interpolation=interp)
+    vols = _frames(gen, dtype, (2, 12, 40, 36))
+    kw = dict(max_patch_size=(8, 32, 32), normalization_mode=mode, blend_margin=4,
+              show_progress=False)
+    before = blend_stitch_3d.launches, normalize_tile_3d.launches
+    card = PredictMultiOutput3D(vols, path, **kw).result
+    assert (blend_stitch_3d.launches - before[0], normalize_tile_3d.launches - before[1]) == (2, 1)
+    cpu = PredictMultiOutput3D(vols, path, device="cpu", **kw).result
+    host = PredictMultiOutput3D(vols, path, device_pipeline=False, **kw).result
+    for head, cfg in heads.items():
+        want = vols.shape if cfg["channels"] == 1 else (2, 2) + vols.shape[1:]
+        assert card[head].shape == cpu[head].shape == host[head].shape == want
+        for other in (cpu[head], host[head]):
+            np.testing.assert_allclose(card[head], other, atol=2e-3, rtol=1e-3, err_msg=head)

@@ -60,3 +60,28 @@ def assert_u8_contract(ours, ref, max_levels: int = 1, max_fraction: float = 1e-
     assert diff.max() <= max_levels, f"max divergence {diff.max()} > {max_levels}"
     frac = float(np.mean(diff > 0))
     assert frac <= max_fraction, f"{frac:.3%} of pixels diverge (allowed {max_fraction:.1%})"
+
+
+def write_3d_checkpoint(root, name: str, registry: str, seed: int, n_filter: int = 4,
+                        **extra):
+    """A reference-schema ``.pt`` of a seeded 3D model both packages load:
+    random weights and BatchNorm statistics (so the BN fold has something to
+    fold) drawn in the port's model, read by the JAX package's ``.pt``
+    reader and written back by its ``export_torch_checkpoint``
+    (``final_sequential=False``: ``UNet3D``'s ``final`` is a bare
+    ``Conv3d``).  Returns ``(path, JAX variables)``."""
+    import torch
+
+    from bio_image_unet_tpu import checkpoint as jcheckpoint
+    from bio_image_unet_tpu_torch.models import get_model
+    from bio_image_unet_tpu_torch.ops.blocks import init_weights_
+
+    hyper = {"model_name": registry, "n_filter": n_filter, "in_channels": 1, **extra}
+    net = init_weights_(get_model(registry, **hyper), torch.Generator().manual_seed(seed),
+                        random_bn_stats=True)
+    drawn = str(root / f"{name}_drawn.pt")
+    torch.save({"state_dict": net.state_dict(), **hyper}, drawn)
+    variables = jcheckpoint.load(drawn)["variables"]
+    path = str(root / f"{name}.pt")
+    export_torch_checkpoint(path, variables, hyper, final_sequential=registry != "UNet3D")
+    return path, variables
