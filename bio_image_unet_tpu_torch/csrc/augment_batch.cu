@@ -36,6 +36,20 @@
 // (ck, sk = cos, sin of k quarter turns, each 0 or +-1, so exact), then
 // c' = -c' on flip_h and s' = -s' on flip_v.  The intensity stage touches the
 // image only.  Same thread mapping as K4; same bound (bytes).
+//
+// K4v and K4hv, the 5-D forms of both (augment_jax.py:132 and :192 with
+// image.ndim == 5), take resident volume sets (N, C, Z, S, S) (JAX's
+// (B, Z, X, Y, C) moved to channels-first): rot90 and the flips move the
+// (X, Y) plane alike for every z (spatial_axes=(1, 2), :147), and an
+// orientation pair's partner is the same z of the neighbouring channel, Z
+// planes away.  z is in the launch grid (blockIdx.y) so that a small batch
+// of deep volumes still fills the card: the main path's 4 volumes of
+// (16, 64, 64) are 16 x 16 blocks of 256 threads, where folding z into a
+// per-thread loop would leave 4096 threads.  A thread's 4 source offsets are
+// computed once and reused for every z it visits; every offset into a
+// tensor is 64-bit (a (1 + 3)-channel 128^3 volume is 8.4 M floats, so a
+// resident set of 256 of them passes 2^31).  Bound: bytes, as for K4 (the
+// main path's step moves about 5 MB, some 1.6 microseconds at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +61,8 @@ enum { F_GATE = 0, F_K, F_FH, F_FV, F_BC, F_MULT, F_GAUSS, N_FLAGS };
 __device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
 
 struct Noise {
-  const float* mult;   // (B, C, S, S) multiplier field or nullptr
-  const float* gauss;  // (B, C, S, S) standard normal field or nullptr
+  const float* mult;   // (B, C[, Z], S, S) multiplier field or nullptr
+  const float* gauss;  // (B, C[, Z], S, S) standard normal field or nullptr
 };
 
 __device__ __forceinline__ float intensity(float v, const int* fl, float alpha, float beta,
@@ -68,16 +82,24 @@ __device__ __forceinline__ void store(float* out, const float* v, int n) {
   }
 }
 
-// one target (image, prev or mask): `channels` planes of one gathered tile
+// the offset of plane z of channel c of sample n in a (N, channels, zdim, S, S)
+// tensor (zdim 1 for 2D tiles), 64-bit
+__device__ __forceinline__ size_t plane_at(long long n, int channels, int c, int zdim, int z,
+                                           size_t plane) {
+  return (((size_t)n * channels + c) * zdim + z) * plane;
+}
+
+// one target (image, prev or mask): plane z of the `channels` channels of one
+// gathered tile or volume
 template <bool VEC>
 __device__ __forceinline__ void emit(const float* __restrict__ src, float* __restrict__ out,
-                                     long long s, int b, int channels, size_t plane,
-                                     size_t out_row, const int* src_off, int nx, bool augment,
-                                     const int* fl, float alpha, float beta, Noise nz,
-                                     float sigma) {
+                                     long long s, int b, int channels, int zdim, int z,
+                                     size_t plane, size_t out_row, const int* src_off, int nx,
+                                     bool augment, const int* fl, float alpha, float beta,
+                                     Noise nz, float sigma) {
   for (int c = 0; c < channels; ++c) {
-    const float* p = src + ((size_t)s * channels + c) * plane;
-    const size_t ob = ((size_t)b * channels + c) * plane + out_row;
+    const float* p = src + plane_at(s, channels, c, zdim, z, plane);
+    const size_t ob = plane_at(b, channels, c, zdim, z, plane) + out_row;
     float v[4];
     for (int j = 0; j < nx; ++j) {
       v[j] = p[src_off[j]];
@@ -90,20 +112,24 @@ __device__ __forceinline__ void emit(const float* __restrict__ src, float* __res
 // the orientation-pair codes of K4h's per-channel table
 enum { C_PLAIN = 0, C_COS = 1, C_SIN = 2 };
 
-// head targets of one gathered tile: every channel moves with the image;
-// the channels of an orientation pair are also rotated into the output frame
+// head targets of one gathered tile (plane z of a volume): every channel
+// moves with the image; the channels of an orientation pair are also rotated
+// into the output frame.  A pair's partner is the same pixel of the same z
+// in the neighbouring channel, zdim planes away.
 template <bool VEC>
 __device__ __forceinline__ void emit_heads(const float* __restrict__ src,
                                            float* __restrict__ out, long long s, int b,
-                                           int channels, size_t plane, size_t out_row,
-                                           const int* src_off, int nx, bool augment,
-                                           const int* __restrict__ codes, const int* fl) {
+                                           int channels, int zdim, int z, size_t plane,
+                                           size_t out_row, const int* src_off, int nx,
+                                           bool augment, const int* __restrict__ codes,
+                                           const int* fl) {
   const int k = fl[F_K] & 3;
   const float ck = k == 0 ? 1.0f : (k == 2 ? -1.0f : 0.0f);
   const float sk = k == 1 ? 1.0f : (k == 3 ? -1.0f : 0.0f);
+  const size_t chan = (size_t)zdim * plane;  // one channel's extent
   for (int c = 0; c < channels; ++c) {
-    const float* p = src + ((size_t)s * channels + c) * plane;
-    const size_t ob = ((size_t)b * channels + c) * plane + out_row;
+    const float* p = src + plane_at(s, channels, c, zdim, z, plane);
+    const size_t ob = plane_at(b, channels, c, zdim, z, plane) + out_row;
     int code = augment ? codes[c] : C_PLAIN;
     // a pair cut off by the channel range (a malformed table) only moves:
     // never read outside the tile
@@ -111,13 +137,13 @@ __device__ __forceinline__ void emit_heads(const float* __restrict__ src,
     float v[4];
     if (code == C_COS) {  // partner: the sin component in channel c + 1
       for (int j = 0; j < nx; ++j) {
-        const float cv = p[src_off[j]], sv = p[plane + src_off[j]];
+        const float cv = p[src_off[j]], sv = p[chan + src_off[j]];
         const float r = __fadd_rn(__fmul_rn(cv, ck), __fmul_rn(sv, sk));
         v[j] = fl[F_FH] ? -r : r;
       }
     } else if (code == C_SIN) {  // partner: the cos component in channel c - 1
       for (int j = 0; j < nx; ++j) {
-        const float sv = p[src_off[j]], cv = p[src_off[j] - (long long)plane];
+        const float sv = p[src_off[j]], cv = p[src_off[j] - (long long)chan];
         const float r = __fsub_rn(__fmul_rn(sv, ck), __fmul_rn(cv, sk));
         v[j] = fl[F_FV] ? -r : r;
       }
@@ -194,9 +220,9 @@ __global__ void augment_heads(const float* __restrict__ img_src, const float* __
   const int* fl = flags + (size_t)px.b * N_FLAGS;
   const float alpha = coef[2 * px.b], beta = coef[2 * px.b + 1];
   const size_t plane = (size_t)S * S;
-  emit<VEC>(img_src, img_out, px.s, px.b, ci, plane, px.out_row, px.src_off, px.nx, px.gate, fl,
-            alpha, beta, noise, sigma);
-  emit_heads<VEC>(tgt_src, tgt_out, px.s, px.b, ct, plane, px.out_row, px.src_off, px.nx,
+  emit<VEC>(img_src, img_out, px.s, px.b, ci, 1, 0, plane, px.out_row, px.src_off, px.nx,
+            px.gate, fl, alpha, beta, noise, sigma);
+  emit_heads<VEC>(tgt_src, tgt_out, px.s, px.b, ct, 1, 0, plane, px.out_row, px.src_off, px.nx,
                   px.gate, codes, fl);
 }
 
@@ -213,18 +239,68 @@ __global__ void augment_batch(const float* __restrict__ img_src, const float* __
   const int* fl = flags + (size_t)px.b * N_FLAGS;
   const float alpha = coef[2 * px.b], beta = coef[2 * px.b + 1];
   const size_t plane = (size_t)S * S;
-  emit<VEC>(img_src, img_out, px.s, px.b, ci, plane, px.out_row, px.src_off, px.nx, px.gate, fl,
-            alpha, beta, img_noise, sigma);
+  emit<VEC>(img_src, img_out, px.s, px.b, ci, 1, 0, plane, px.out_row, px.src_off, px.nx,
+            px.gate, fl, alpha, beta, img_noise, sigma);
   if (prev_src != nullptr)
-    emit<VEC>(prev_src, prev_out, px.s, px.b, ci, plane, px.out_row, px.src_off, px.nx, px.gate,
-              fl, alpha, beta, prev_noise, sigma);
-  emit<VEC>(mask_src, mask_out, px.s, px.b, co, plane, px.out_row, px.src_off, px.nx, false, fl,
-            alpha, beta, img_noise, sigma);
+    emit<VEC>(prev_src, prev_out, px.s, px.b, ci, 1, 0, plane, px.out_row, px.src_off, px.nx,
+              px.gate, fl, alpha, beta, prev_noise, sigma);
+  emit<VEC>(mask_src, mask_out, px.s, px.b, co, 1, 0, plane, px.out_row, px.src_off, px.nx,
+            false, fl, alpha, beta, img_noise, sigma);
+}
+
+// K4v and K4hv, the 5-D forms: (N, C, Z, S, S) volumes, rot90 and flips in
+// the (X, Y) plane alike for every z.  blockIdx.x maps (sample, row,
+// 4-pixel group) as K4's grid does, so a thread computes its 4 source offsets
+// once (map_pixels); blockIdx.y walks the z planes, and the thread reuses
+// those offsets for every z it visits.
+template <bool VEC>
+__global__ void augment_volume(const float* __restrict__ img_src,
+                               const float* __restrict__ mask_src,
+                               const long long* __restrict__ index, int n_src, int B, int ci,
+                               int co, int Z, int S, const int* __restrict__ flags,
+                               const float* __restrict__ coef, Noise noise, float sigma,
+                               float* __restrict__ img_out, float* __restrict__ mask_out) {
+  Pixels px;
+  if (!map_pixels(px, index, n_src, B, S, flags)) return;
+  const int* fl = flags + (size_t)px.b * N_FLAGS;
+  const float alpha = coef[2 * px.b], beta = coef[2 * px.b + 1];
+  const size_t plane = (size_t)S * S;
+  for (int z = blockIdx.y; z < Z; z += gridDim.y) {
+    emit<VEC>(img_src, img_out, px.s, px.b, ci, Z, z, plane, px.out_row, px.src_off, px.nx,
+              px.gate, fl, alpha, beta, noise, sigma);
+    emit<VEC>(mask_src, mask_out, px.s, px.b, co, Z, z, plane, px.out_row, px.src_off, px.nx,
+              false, fl, alpha, beta, noise, sigma);
+  }
+}
+
+template <bool VEC>
+__global__ void augment_heads_volume(const float* __restrict__ img_src,
+                                     const float* __restrict__ tgt_src,
+                                     const long long* __restrict__ index, int n_src, int B,
+                                     int ci, int ct, int Z, int S, const int* __restrict__ codes,
+                                     const int* __restrict__ flags,
+                                     const float* __restrict__ coef, Noise noise, float sigma,
+                                     float* __restrict__ img_out, float* __restrict__ tgt_out) {
+  Pixels px;
+  if (!map_pixels(px, index, n_src, B, S, flags)) return;
+  const int* fl = flags + (size_t)px.b * N_FLAGS;
+  const float alpha = coef[2 * px.b], beta = coef[2 * px.b + 1];
+  const size_t plane = (size_t)S * S;
+  for (int z = blockIdx.y; z < Z; z += gridDim.y) {
+    emit<VEC>(img_src, img_out, px.s, px.b, ci, Z, z, plane, px.out_row, px.src_off, px.nx,
+              px.gate, fl, alpha, beta, noise, sigma);
+    emit_heads<VEC>(tgt_src, tgt_out, px.s, px.b, ct, Z, z, plane, px.out_row, px.src_off,
+                    px.nx, px.gate, codes, fl);
+  }
 }
 
 unsigned blocks_for(int B, int S, int threads) {
   const long long total = (long long)B * S * ((S + 3) / 4);
   return (unsigned)((total + threads - 1) / threads);
+}
+
+dim3 volume_grid(int B, int Z, int S, int threads) {
+  return dim3(blocks_for(B, S, threads), (unsigned)(Z < 65535 ? Z : 65535));
 }
 
 }  // namespace
@@ -284,6 +360,57 @@ int k4h_augment_heads(const void* img_src, const void* tgt_src, const void* inde
     augment_heads<false><<<blocks, threads, 0, st>>>(
         (const float*)img_src, (const float*)tgt_src, (const long long*)index, n_src, B, ci, ct,
         S, (const int*)codes, (const int*)flags, (const float*)coef, noise, sigma,
+        (float*)img_out, (float*)tgt_out);
+  return (int)cudaGetLastError();
+}
+
+// K4v.  img_src (n_src, ci, Z, S, S) and mask_src (n_src, co, Z, S, S):
+// float32 volume sets.  index, flags and coef as for k4_augment_batch;
+// mult/gauss: (B, ci, Z, S, S) float32 fields in the output frame, or null.
+// Outputs (B, ci|co, Z, S, S) float32.  One launch.
+int k4v_augment_volume(const void* img_src, const void* mask_src, const void* index, int n_src,
+                       int B, int ci, int co, int Z, int S, const void* flags, const void* coef,
+                       const void* mult, const void* gauss, float sigma, void* img_out,
+                       void* mask_out, void* stream) {
+  const int threads = 256;
+  const dim3 grid = volume_grid(B, Z, S, threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const Noise noise{(const float*)mult, (const float*)gauss};
+  if (S % 4 == 0)
+    augment_volume<true><<<grid, threads, 0, st>>>(
+        (const float*)img_src, (const float*)mask_src, (const long long*)index, n_src, B, ci, co,
+        Z, S, (const int*)flags, (const float*)coef, noise, sigma, (float*)img_out,
+        (float*)mask_out);
+  else
+    augment_volume<false><<<grid, threads, 0, st>>>(
+        (const float*)img_src, (const float*)mask_src, (const long long*)index, n_src, B, ci, co,
+        Z, S, (const int*)flags, (const float*)coef, noise, sigma, (float*)img_out,
+        (float*)mask_out);
+  return (int)cudaGetLastError();
+}
+
+// K4hv.  img_src (n_src, ci, Z, S, S) and tgt_src (n_src, ct, Z, S, S): float32
+// volume sets (the head targets concatenated along channels); codes as for
+// k4h_augment_heads; index, flags, coef, mult, gauss and sigma as for
+// k4v_augment_volume.  Outputs (B, ci|ct, Z, S, S) float32.  One launch.
+int k4hv_augment_heads_volume(const void* img_src, const void* tgt_src, const void* index,
+                              int n_src, int B, int ci, int ct, int Z, int S, const void* codes,
+                              const void* flags, const void* coef, const void* mult,
+                              const void* gauss, float sigma, void* img_out, void* tgt_out,
+                              void* stream) {
+  const int threads = 256;
+  const dim3 grid = volume_grid(B, Z, S, threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const Noise noise{(const float*)mult, (const float*)gauss};
+  if (S % 4 == 0)
+    augment_heads_volume<true><<<grid, threads, 0, st>>>(
+        (const float*)img_src, (const float*)tgt_src, (const long long*)index, n_src, B, ci, ct,
+        Z, S, (const int*)codes, (const int*)flags, (const float*)coef, noise, sigma,
+        (float*)img_out, (float*)tgt_out);
+  else
+    augment_heads_volume<false><<<grid, threads, 0, st>>>(
+        (const float*)img_src, (const float*)tgt_src, (const long long*)index, n_src, B, ci, ct,
+        Z, S, (const int*)codes, (const int*)flags, (const float*)coef, noise, sigma,
         (float*)img_out, (float*)tgt_out);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
-"""Host-side image augmentation of the offline 2D pipelines (the port's copy
+"""Host-side image augmentation of the offline pipelines (the port's copy
 of the transforms of ``bio_image_unet_tpu/data/augment.py`` that
-``DataProcess2D._augment`` and ``DataProcessMultiOutput._augment`` compose:
+``DataProcess2D``, ``DataProcessMultiOutput``, ``DataProcess3D`` and
+``DataProcessMultiOutput3D`` compose in their ``_augment``:
 ``Transform``/``Compose`` :53-106, ``RandomRotate90`` :108,
 ``ShiftScaleRotate`` :128, ``RandomScale`` :183, ``PadIfNeeded`` :209,
-``RandomCrop`` :228, ``RandomBrightnessContrast`` :293, ``Blur`` :316,
+``RandomCrop`` :228, ``RandomCrop3D`` :247, ``ShiftScaleRotate3D`` :265,
+``RandomBrightnessContrast`` :293, ``Blur`` :316,
 ``MultiplicativeNoise`` :351, ``GaussNoise`` :376, ``ShotNoise`` :408, the
 NaN-aware ``rotate_array`` :434 and ``rotate_array_90`` :473).
 
@@ -19,6 +21,7 @@ does not depend on.  Here the same affine map (OpenCV's
 linear for images and nearest for masks.  The identity transform (the
 pipeline's default limits ``(0, 0, 0)``) is an exact copy in both; other
 parameters can differ from OpenCV's fixed-point interpolation by a level.
+``ShiftScaleRotate3D`` warps each z slice of a volume with it, on one draw.
 """
 
 from __future__ import annotations
@@ -214,6 +217,43 @@ class RandomCrop(Transform):
         return np.ascontiguousarray(img[y:y + self.height, x:x + self.width])
 
 
+class RandomCrop3D(Transform):
+    """A (Z, X, Y) crop of a volume at a uniform offset per axis."""
+
+    def __init__(self, size: Sequence[int], p: float = 1.0):
+        super().__init__(p)
+        self.size = tuple(size)
+
+    def sample(self, rng, shape):
+        return {"starts": [int(rng.integers(0, max(shape[i] - self.size[i], 0) + 1))
+                           for i in range(3)]}
+
+    def apply(self, img, params):
+        z, x, y = params["starts"]
+        dz, dx, dy = self.size
+        return np.ascontiguousarray(img[z:z + dz, x:x + dx, y:y + dy])
+
+
+class ShiftScaleRotate3D(Transform):
+    """The affine of :class:`ShiftScaleRotate` (one draw) on every z slice of
+    a (Z, X, Y) volume: a rotation about the Z axis, with scale and shift in
+    the (X, Y) plane."""
+
+    def __init__(self, shift_limit=0.0, scale_limit=(-0.75, 0.0),
+                 rotate_limit=(0.0, 360.0), p=0.8):
+        super().__init__(p)
+        self._ssr = ShiftScaleRotate(shift_limit, scale_limit, rotate_limit, p=1.0)
+
+    def sample(self, rng, shape):
+        return self._ssr.sample(rng, shape[1:])
+
+    def apply(self, vol, params):
+        return np.stack([self._ssr.apply(sl, params) for sl in vol])
+
+    def apply_mask(self, vol, params):
+        return np.stack([self._ssr.apply_mask(sl, params) for sl in vol])
+
+
 # --- intensity (image only) ----------------------------------------------------
 
 
@@ -240,12 +280,16 @@ class RandomBrightnessContrast(Transform):
 
 
 class Blur(Transform):
-    """Box blur with a random odd kernel size in ``blur_limit``."""
+    """Box blur with a random odd kernel size in ``blur_limit``: over the
+    first two axes of an (H, W[, C]) image, or with ``volumetric`` in-plane
+    over the last two axes of a channel-less (Z, X, Y) volume, each z slice
+    on its own (a (1, k, k) filter)."""
 
-    def __init__(self, blur_limit=(3, 7), p=0.5):
+    def __init__(self, blur_limit=(3, 7), p=0.5, volumetric: bool = False):
         super().__init__(p)
         self.blur_limit = (
             tuple(blur_limit) if isinstance(blur_limit, (tuple, list)) else (3, blur_limit))
+        self.volumetric = volumetric
 
     def sample(self, rng, shape):
         lo, hi = self.blur_limit
@@ -253,7 +297,10 @@ class Blur(Transform):
 
     def apply(self, img, params):
         k = params["ksize"]
-        size = (k, k) + (1,) * (img.ndim - 2)
+        if self.volumetric:
+            size = (1,) * (img.ndim - 2) + (k, k)
+        else:
+            size = (k, k) + (1,) * (img.ndim - 2)
         out = ndimage.uniform_filter(img.astype(np.float32), size=size, mode="nearest")
         return _clip_like(img, out)
 

@@ -32,8 +32,15 @@ split: :func:`draw`, then :func:`augment_heads_apply`, one launch of K4h
 (cos, sin) channels of each orientation head (every head whose name contains
 ``"orientation"``, ``trainer.py:491-493``) are also rotated into the output
 frame (``augment_jax.py:178``).  Its plain version is
-:func:`augment_heads_apply_plain`.  The 3D form (5-D tensors) is not ported
-yet.
+:func:`augment_heads_apply_plain`.
+
+The 3D forms take 5-D volume sets, (N, C, Z, S, S) (JAX: (B, Z, X, Y, C)):
+rot90 and the flips move the (X, Y) plane alike for every z
+(``augment_jax.py:147``, ``:207``); the intensity stage, its fields and the
+gate are as in 2D.  :func:`augment_volume_apply` launches K4v and
+:func:`augment_heads_volume_apply` K4hv (``csrc/augment_batch.cu``); the
+plain versions above take both ranks, and :func:`augment_batch` and
+:func:`augment_batch_heads` pick the kernel by the image's rank.
 """
 
 from __future__ import annotations
@@ -46,8 +53,9 @@ import torch
 from ..ops import _cuda
 
 __all__ = ["AugmentDraws", "FLAGS", "draw", "augment_apply", "augment_apply_plain",
-           "augment_batch", "HeadLayout", "orientation_keys", "augment_heads_apply",
-           "augment_heads_apply_plain", "augment_batch_heads"]
+           "augment_volume_apply", "augment_batch", "HeadLayout", "orientation_keys",
+           "augment_heads_apply", "augment_heads_apply_plain", "augment_heads_volume_apply",
+           "augment_batch_heads"]
 
 
 FLAGS = ("gate", "k", "flip_h", "flip_v", "bc_apply", "mult_apply", "gauss_apply")
@@ -63,7 +71,8 @@ class AugmentDraws:
     (B, 2) float32: the contrast factor ``alpha = 1 + U(−c, c)`` and the
     brightness offset ``beta = U(−b, b)`` (images in [0, 1]).  ``mult`` is the
     multiplier field and ``gauss`` the standard normal field that K4 scales
-    by ``sigma``, each (B, C, S, S) in the output frame; a field left
+    by ``sigma``, each shaped like the image batch, (B, C, S, S) or
+    (B, C, Z, S, S), in the output frame; a field left
     ``None`` switches its stage off.  The pair form carries its own fields in
     ``mult_prev``/``gauss_prev``."""
 
@@ -87,8 +96,8 @@ def draw(generator: torch.Generator, batch: int, field_shape, prev: bool = False
     with the JAX function's distributions and probabilities: gate
     p=``p_pipeline``; k uniform on 0..3; flips p=0.5; brightness/contrast
     p=0.5; each noise stage p=0.3.  ``field_shape`` is the image batch's
-    (B, C, S, S); images are in [0, 1] (``max_value`` 1 of the JAX
-    function)."""
+    (B, C, S, S) or (B, C, Z, S, S); images are in [0, 1] (``max_value`` 1
+    of the JAX function)."""
     dev = generator.device
     u = torch.rand((batch, 9), generator=generator, device=dev)
     bright, contrast = brightness_contrast
@@ -118,35 +127,37 @@ def draw(generator: torch.Generator, batch: int, field_shape, prev: bool = False
 
 
 def _check(image: torch.Tensor, mask: torch.Tensor, prev: Optional[torch.Tensor]):
-    if image.dim() == 5:
-        raise NotImplementedError("3D volumes (B, C, Z, X, Y) are augmented by the 3D "
-                                  "slice of the port, not ported yet")
-    if image.dim() != 4 or mask.dim() != 4:
-        raise ValueError(f"augment_apply takes NCHW tensors, got {tuple(image.shape)} "
-                         f"and {tuple(mask.shape)}")
+    """NCHW tiles (N, C, S, S) or NCDHW volumes (N, C, Z, S, S), the square
+    (S, S) plane the one that rotates; the targets share N and the spatial
+    extent."""
+    if image.dim() not in (4, 5) or mask.dim() != image.dim():
+        raise ValueError(f"augment_apply takes NCHW or NCDHW tensors of one rank, got "
+                         f"{tuple(image.shape)} and {tuple(mask.shape)}")
     s = image.shape[-1]
-    if (image.shape[-2] != s or tuple(mask.shape[-2:]) != (s, s)
+    if (image.shape[-2] != s or mask.shape[2:] != image.shape[2:]
             or mask.shape[0] != image.shape[0]):
-        raise ValueError("augment_apply needs square tiles of one size and as many masks "
-                         f"as images, got {tuple(image.shape)} and {tuple(mask.shape)}")
+        raise ValueError("augment_apply needs square (X, Y) planes of one size and as many "
+                         f"masks as images, got {tuple(image.shape)} and {tuple(mask.shape)}")
     if prev is not None and prev.shape != image.shape:
         raise ValueError(f"prev {tuple(prev.shape)} must match image {tuple(image.shape)}")
 
 
 def _spatial(x: torch.Tensor, k: int, fh: bool, fv: bool) -> torch.Tensor:
-    """One (C, S, S) sample: rot90 by k in the (H, W) plane, then the flips
-    (``augment_jax.py:41 _spatial_tx``)."""
-    x = torch.rot90(x, k, dims=(1, 2))
+    """One (C, S, S) or (C, Z, S, S) sample: rot90 by k in the last two
+    axes' plane, then flip_h along the last axis and flip_v along the one
+    before (``augment_jax.py:41 _spatial_tx``, whose 3D ``axes`` are (1, 2)
+    of (Z, X, Y, C))."""
+    x = torch.rot90(x, k, dims=(-2, -1))
     if fh:
-        x = torch.flip(x, dims=(2,))
+        x = torch.flip(x, dims=(-1,))
     if fv:
-        x = torch.flip(x, dims=(1,))
+        x = torch.flip(x, dims=(-2,))
     return x
 
 
 def _intensity(x: torch.Tensor, d: AugmentDraws, mult, gauss) -> torch.Tensor:
     """The image-only stage (``augment_jax.py:116 _intensity``)."""
-    col = (-1, 1, 1, 1)
+    col = (-1,) + (1,) * (x.dim() - 1)
 
     def on(name):
         return d.flag(name).bool().view(col)
@@ -173,7 +184,7 @@ def augment_apply_plain(image, mask, draws: AugmentDraws, index=None, prev=None)
         return torch.stack([_spatial(t[b], ks[b], bool(fhs[b]), bool(fvs[b]))
                             for b in range(t.shape[0])])
 
-    gate = draws.flag("gate").bool().view(-1, 1, 1, 1)
+    gate = draws.flag("gate").bool().view((-1,) + (1,) * (image.dim() - 1))
     outs = [torch.where(gate, _intensity(spatial(image), draws, draws.mult, draws.gauss), image),
             torch.where(gate, spatial(mask), mask)]
     if prev is not None:
@@ -182,61 +193,85 @@ def augment_apply_plain(image, mask, draws: AugmentDraws, index=None, prev=None)
     return tuple(outs)
 
 
+def _require_args(what: str, image, named, codes, draws: AugmentDraws, index,
+                  pair: bool = False) -> int:
+    """The checks of a kernel wrapper before its launch: every tensor on
+    ``image``'s card, contiguous and float32 (``codes`` (ΣC,) int32), a 1-D
+    int64 ``index``, noise fields shaped like the image batch (the pair
+    form's own fields too) and draws for that batch.  Returns the batch
+    size."""
+    dev = image.device
+    fields = (("mult", draws.mult), ("gauss", draws.gauss))
+    if pair:
+        fields += (("mult_prev", draws.mult_prev), ("gauss_prev", draws.gauss_prev))
+    for name, t in named + fields:
+        if t is None:
+            continue
+        _cuda.require_cuda(t, f"{what} {name}", dev)
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what} {name}: expected float32, got {t.dtype}")
+    if codes is not None:
+        ct = named[-1][1].shape[1]
+        _cuda.require_cuda(codes, f"{what} codes", dev)
+        if codes.dtype != torch.int32 or tuple(codes.shape) != (ct,):
+            raise ValueError(f"{what} codes: expected ({ct},) int32, got "
+                             f"{tuple(codes.shape)} {codes.dtype}")
+    if index is not None:
+        if index.dtype != torch.int64 or index.dim() != 1:
+            raise ValueError(f"{what} index: expected a 1-D int64 tensor")
+        _cuda.require_cuda(index, f"{what} index", dev)
+    b = image.shape[0] if index is None else index.shape[0]
+    want = (b,) + tuple(image.shape[1:])
+    for name, f in fields:
+        if f is not None and tuple(f.shape) != want:
+            raise ValueError(f"{what} {name}: field {tuple(f.shape)}, want {want}")
+    if pair and ((draws.mult is None) != (draws.mult_prev is None)
+                 or (draws.gauss is None) != (draws.gauss_prev is None)):
+        raise ValueError(f"{what}: the pair form needs its own noise fields")
+    flags, coef = draws.flags, draws.coef
+    _cuda.require_cuda(flags, f"{what} flags", dev)
+    _cuda.require_cuda(coef, f"{what} coef", dev)
+    if (flags.dtype, coef.dtype) != (torch.int32, torch.float32) or (
+            tuple(flags.shape), tuple(coef.shape)) != ((b, len(FLAGS)), (b, 2)):
+        raise ValueError(f"{what}: draws {tuple(flags.shape)} {flags.dtype} / "
+                         f"{tuple(coef.shape)} {coef.dtype} for a batch of {b}")
+    return b
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def augment_apply(image: torch.Tensor, mask: torch.Tensor, draws: AugmentDraws,
                   index: Optional[torch.Tensor] = None, prev: Optional[torch.Tensor] = None):
     """K4: gather rows ``index`` (default: all, in order) of the tile sets
     ``image`` (N, C, S, S) and ``mask`` (N, C', S, S) (and ``prev``) and apply
     ``draws`` → ``(image, mask)`` or ``(image, mask, prev)``, each (B, ·, S, S)
     float32.  On CUDA tensors one kernel launch; on CPU tensors the plain
-    version."""
+    version.  Volume sets (5-D) go to :func:`augment_volume_apply`."""
     _check(image, mask, prev)
+    if image.dim() == 5 and prev is None:
+        return augment_volume_apply(image, mask, draws, index)
     if image.device.type == "cpu":
         return augment_apply_plain(image, mask, draws, index, prev)
-    dev = image.device
-    for t, what in ((image, "image"), (mask, "mask"), (prev, "prev"),
-                    (draws.mult, "mult"), (draws.gauss, "gauss"),
-                    (draws.mult_prev, "mult_prev"), (draws.gauss_prev, "gauss_prev")):
-        if t is None:
-            continue
-        _cuda.require_cuda(t, f"augment_apply {what}", dev)
-        if t.dtype != torch.float32:
-            raise ValueError(f"augment_apply {what}: expected float32, got {t.dtype}")
+    if image.dim() == 5:
+        raise ValueError("augment_apply: the pair form (prev) takes NCHW tiles only")
+    b = _require_args("augment_apply", image, (("image", image), ("mask", mask),
+                                               ("prev", prev)), None, draws, index,
+                      pair=prev is not None)
     n_src, ci, s = image.shape[0], image.shape[1], image.shape[-1]
-    co = mask.shape[1]
-    if index is not None:
-        if index.dtype != torch.int64 or index.dim() != 1:
-            raise ValueError("augment_apply index: expected a 1-D int64 tensor")
-        _cuda.require_cuda(index, "augment_apply index", dev)
-    b = n_src if index is None else index.shape[0]
-    for f, what in ((draws.mult, "mult"), (draws.gauss, "gauss")):
-        if f is not None and tuple(f.shape) != (b, ci, s, s):
-            raise ValueError(f"augment_apply {what}: field {tuple(f.shape)}, "
-                             f"want {(b, ci, s, s)}")
-    if prev is not None and ((draws.mult is None) != (draws.mult_prev is None)
-                             or (draws.gauss is None) != (draws.gauss_prev is None)):
-        raise ValueError("augment_apply: the pair form needs its own noise fields")
-    flags, coef = draws.flags, draws.coef
-    _cuda.require_cuda(flags, "augment_apply flags", dev)
-    _cuda.require_cuda(coef, "augment_apply coef", dev)
-    if (flags.dtype, coef.dtype) != (torch.int32, torch.float32) or (
-            tuple(flags.shape), tuple(coef.shape)) != ((b, len(FLAGS)), (b, 2)):
-        raise ValueError(f"augment_apply: draws {tuple(flags.shape)} {flags.dtype} / "
-                         f"{tuple(coef.shape)} {coef.dtype} for a batch of {b}")
+    co, dev = mask.shape[1], image.device
     img_out = torch.empty((b, ci, s, s), dtype=torch.float32, device=dev)
     mask_out = torch.empty((b, co, s, s), dtype=torch.float32, device=dev)
     prev_out = None if prev is None else torch.empty_like(img_out)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     A = _cuda
     fn = A.function("augment_batch", "k4_augment_batch",
                     [A.P, A.P, A.P, A.P, A.I32, A.I32, A.I32, A.I32, A.I32, A.P, A.P,
                      A.P, A.P, A.P, A.P, A.F32, A.P, A.P, A.P, A.P])
-    A.launch(fn, dev, ptr(image), ptr(mask), ptr(prev), ptr(index), n_src, b, ci, co, s,
-             ptr(flags), ptr(coef), ptr(draws.mult), ptr(draws.gauss), ptr(draws.mult_prev),
-             ptr(draws.gauss_prev), float(draws.sigma), ptr(img_out), ptr(mask_out),
-             ptr(prev_out))
+    A.launch(fn, dev, _ptr(image), _ptr(mask), _ptr(prev), _ptr(index), n_src, b, ci, co, s,
+             _ptr(draws.flags), _ptr(draws.coef), _ptr(draws.mult), _ptr(draws.gauss),
+             _ptr(draws.mult_prev), _ptr(draws.gauss_prev), float(draws.sigma),
+             _ptr(img_out), _ptr(mask_out), _ptr(prev_out))
     augment_apply.launches += 1
     return (img_out, mask_out) if prev is None else (img_out, mask_out, prev_out)
 
@@ -244,16 +279,46 @@ def augment_apply(image: torch.Tensor, mask: torch.Tensor, draws: AugmentDraws,
 augment_apply.launches = 0
 
 
+def augment_volume_apply(image: torch.Tensor, mask: torch.Tensor, draws: AugmentDraws,
+                         index: Optional[torch.Tensor] = None):
+    """K4v: gather rows ``index`` (default: all, in order) of the volume sets
+    ``image`` (N, C, Z, S, S) and ``mask`` (N, C', Z, S, S) and apply
+    ``draws`` (fields (B, C, Z, S, S)) → ``(image, mask)``, each
+    (B, ·, Z, S, S) float32: rot90 and flips in the (X, Y) plane for every z.
+    On CUDA tensors one kernel launch; on CPU tensors the plain version."""
+    _check(image, mask, None)
+    if image.dim() != 5:
+        raise ValueError(f"augment_volume_apply takes NCDHW volumes, got {tuple(image.shape)}")
+    if image.device.type == "cpu":
+        return augment_apply_plain(image, mask, draws, index)
+    b = _require_args("augment_volume_apply", image, (("image", image), ("mask", mask)),
+                      None, draws, index)
+    n_src, ci, z, s = image.shape[0], image.shape[1], image.shape[2], image.shape[-1]
+    co = mask.shape[1]
+    img_out = torch.empty((b, ci, z, s, s), dtype=torch.float32, device=image.device)
+    mask_out = torch.empty((b, co, z, s, s), dtype=torch.float32, device=image.device)
+    A = _cuda
+    fn = A.function("augment_batch", "k4v_augment_volume",
+                    [A.P, A.P, A.P, A.I32, A.I32, A.I32, A.I32, A.I32, A.I32, A.P, A.P, A.P, A.P,
+                     A.F32, A.P, A.P, A.P])
+    A.launch(fn, image.device, _ptr(image), _ptr(mask), _ptr(index), n_src, b, ci, co, z, s,
+             _ptr(draws.flags), _ptr(draws.coef), _ptr(draws.mult), _ptr(draws.gauss),
+             float(draws.sigma), _ptr(img_out), _ptr(mask_out))
+    augment_volume_apply.launches += 1
+    return img_out, mask_out
+
+
+augment_volume_apply.launches = 0
+
+
 def augment_batch(generator: torch.Generator, image, mask, prev=None, index=None,
                   brightness_contrast: Tuple[float, float] = (0.25, 0.25),
                   noise_mult: Optional[Tuple[float, float]] = (0.5, 1.2),
                   gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8):
     """One full augmentation draw of a batch (``augment_jax.py:132``): the
-    draws from ``generator``, then K4.  ``index`` gathers from a resident
-    tile set; without it ``image`` is the batch."""
+    draws from ``generator``, then K4, or K4v for volumes (5-D).  ``index``
+    gathers from a resident tile set; without it ``image`` is the batch."""
     b = image.shape[0] if index is None else index.shape[0]
-    if image.dim() == 5:
-        _check(image, mask, prev)
     d = draw(generator, b, (b,) + tuple(image.shape[1:]), prev is not None,
              brightness_contrast, noise_mult, gauss_sigma, p_pipeline)
     return augment_apply(image, mask, d, index, prev)
@@ -354,7 +419,7 @@ def augment_heads_apply_plain(image, targets, codes, draws: AugmentDraws, index=
     spatial_tgt = torch.stack([_orient(_spatial(targets[b], ks[b], bool(fhs[b]), bool(fvs[b])),
                                        codes, ks[b], bool(fhs[b]), bool(fvs[b]))
                                for b in range(targets.shape[0])])
-    gate = draws.flag("gate").bool().view(-1, 1, 1, 1)
+    gate = draws.flag("gate").bool().view((-1,) + (1,) * (image.dim() - 1))
     return (torch.where(gate, _intensity(spatial_img, draws, draws.mult, draws.gauss), image),
             torch.where(gate, spatial_tgt, targets))
 
@@ -366,58 +431,64 @@ def augment_heads_apply(image: torch.Tensor, targets: torch.Tensor, codes: torch
     (N, ΣC, S, S) and apply ``draws``; ``codes`` (ΣC,) int32 marks the
     orientation pairs (:class:`HeadLayout`).  → ``(image, targets)``, each
     (B, ·, S, S) float32.  On CUDA tensors one kernel launch; on CPU tensors
-    the plain version.  The draws' ``mult_prev``/``gauss_prev`` are unused."""
+    the plain version.  The draws' ``mult_prev``/``gauss_prev`` are unused.
+    Volume sets (5-D) go to :func:`augment_heads_volume_apply`."""
     _check(image, targets, None)
+    if image.dim() == 5:
+        return augment_heads_volume_apply(image, targets, codes, draws, index)
     if image.device.type == "cpu":
         return augment_heads_apply_plain(image, targets, codes, draws, index)
-    dev = image.device
-    for t, what in ((image, "image"), (targets, "targets"), (draws.mult, "mult"),
-                    (draws.gauss, "gauss")):
-        if t is None:
-            continue
-        _cuda.require_cuda(t, f"augment_heads_apply {what}", dev)
-        if t.dtype != torch.float32:
-            raise ValueError(f"augment_heads_apply {what}: expected float32, got {t.dtype}")
+    b = _require_args("augment_heads_apply", image, (("image", image), ("targets", targets)),
+                      codes, draws, index)
     n_src, ci, s = image.shape[0], image.shape[1], image.shape[-1]
-    ct = targets.shape[1]
-    _cuda.require_cuda(codes, "augment_heads_apply codes", dev)
-    if codes.dtype != torch.int32 or tuple(codes.shape) != (ct,):
-        raise ValueError(f"augment_heads_apply codes: expected ({ct},) int32, got "
-                         f"{tuple(codes.shape)} {codes.dtype}")
-    if index is not None:
-        if index.dtype != torch.int64 or index.dim() != 1:
-            raise ValueError("augment_heads_apply index: expected a 1-D int64 tensor")
-        _cuda.require_cuda(index, "augment_heads_apply index", dev)
-    b = n_src if index is None else index.shape[0]
-    for f, what in ((draws.mult, "mult"), (draws.gauss, "gauss")):
-        if f is not None and tuple(f.shape) != (b, ci, s, s):
-            raise ValueError(f"augment_heads_apply {what}: field {tuple(f.shape)}, "
-                             f"want {(b, ci, s, s)}")
-    flags, coef = draws.flags, draws.coef
-    _cuda.require_cuda(flags, "augment_heads_apply flags", dev)
-    _cuda.require_cuda(coef, "augment_heads_apply coef", dev)
-    if (flags.dtype, coef.dtype) != (torch.int32, torch.float32) or (
-            tuple(flags.shape), tuple(coef.shape)) != ((b, len(FLAGS)), (b, 2)):
-        raise ValueError(f"augment_heads_apply: draws {tuple(flags.shape)} {flags.dtype} / "
-                         f"{tuple(coef.shape)} {coef.dtype} for a batch of {b}")
+    ct, dev = targets.shape[1], image.device
     img_out = torch.empty((b, ci, s, s), dtype=torch.float32, device=dev)
     tgt_out = torch.empty((b, ct, s, s), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     A = _cuda
     fn = A.function("augment_batch", "k4h_augment_heads",
                     [A.P, A.P, A.P, A.I32, A.I32, A.I32, A.I32, A.I32, A.P, A.P, A.P, A.P, A.P,
                      A.F32, A.P, A.P, A.P])
-    A.launch(fn, dev, ptr(image), ptr(targets), ptr(index), n_src, b, ci, ct, s, ptr(codes),
-             ptr(flags), ptr(coef), ptr(draws.mult), ptr(draws.gauss), float(draws.sigma),
-             ptr(img_out), ptr(tgt_out))
+    A.launch(fn, dev, _ptr(image), _ptr(targets), _ptr(index), n_src, b, ci, ct, s, _ptr(codes),
+             _ptr(draws.flags), _ptr(draws.coef), _ptr(draws.mult), _ptr(draws.gauss),
+             float(draws.sigma), _ptr(img_out), _ptr(tgt_out))
     augment_heads_apply.launches += 1
     return img_out, tgt_out
 
 
 augment_heads_apply.launches = 0
+
+
+def augment_heads_volume_apply(image: torch.Tensor, targets: torch.Tensor, codes: torch.Tensor,
+                               draws: AugmentDraws, index: Optional[torch.Tensor] = None):
+    """K4hv: K4h on volume sets, ``image`` (N, C, Z, S, S) and the
+    concatenated head targets ``targets`` (N, ΣC, Z, S, S); an orientation
+    pair is rotated from both components at the same z and source pixel.
+    → ``(image, targets)``, each (B, ·, Z, S, S) float32.  On CUDA tensors one
+    kernel launch; on CPU tensors the plain version."""
+    _check(image, targets, None)
+    if image.dim() != 5:
+        raise ValueError("augment_heads_volume_apply takes NCDHW volumes, got "
+                         f"{tuple(image.shape)}")
+    if image.device.type == "cpu":
+        return augment_heads_apply_plain(image, targets, codes, draws, index)
+    b = _require_args("augment_heads_volume_apply", image,
+                      (("image", image), ("targets", targets)), codes, draws, index)
+    n_src, ci, z, s = image.shape[0], image.shape[1], image.shape[2], image.shape[-1]
+    ct = targets.shape[1]
+    img_out = torch.empty((b, ci, z, s, s), dtype=torch.float32, device=image.device)
+    tgt_out = torch.empty((b, ct, z, s, s), dtype=torch.float32, device=image.device)
+    A = _cuda
+    fn = A.function("augment_batch", "k4hv_augment_heads_volume",
+                    [A.P, A.P, A.P, A.I32, A.I32, A.I32, A.I32, A.I32, A.I32, A.P, A.P, A.P, A.P,
+                     A.P, A.F32, A.P, A.P, A.P])
+    A.launch(fn, image.device, _ptr(image), _ptr(targets), _ptr(index), n_src, b, ci, ct, z, s,
+             _ptr(codes), _ptr(draws.flags), _ptr(draws.coef), _ptr(draws.mult),
+             _ptr(draws.gauss), float(draws.sigma), _ptr(img_out), _ptr(tgt_out))
+    augment_heads_volume_apply.launches += 1
+    return img_out, tgt_out
+
+
+augment_heads_volume_apply.launches = 0
 
 
 def augment_batch_heads(generator: torch.Generator, image,
@@ -428,7 +499,8 @@ def augment_batch_heads(generator: torch.Generator, image,
                         noise_mult: Optional[Tuple[float, float]] = (0.5, 1.2),
                         gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8):
     """One full multi-head augmentation draw (``augment_jax.py:192``): the
-    draws from ``generator``, then K4h.  ``targets`` is {head: (N, C, S, S)},
+    draws from ``generator``, then K4h, or K4hv for volumes (5-D).
+    ``targets`` is {head: (N, C, S, S)} (or (N, C, Z, S, S)),
     concatenated here, with ``orientation_keys`` naming the orientation
     heads; or the concatenated (N, ΣC, S, S) tensor itself with its
     ``layout`` (a resident set is concatenated once).  ``index`` gathers from
@@ -439,8 +511,6 @@ def augment_batch_heads(generator: torch.Generator, image,
                                image.device)
         targets = layout.concat(targets)
     b = image.shape[0] if index is None else index.shape[0]
-    if image.dim() == 5:
-        _check(image, targets, None)
     d = draw(generator, b, (b,) + tuple(image.shape[1:]), False, brightness_contrast,
              noise_mult, gauss_sigma, p_pipeline)
     img, tgt = augment_heads_apply(image, targets, layout.codes, d, index)

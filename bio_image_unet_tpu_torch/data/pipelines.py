@@ -1,14 +1,17 @@
-"""The 2D training-data pipelines and their loader (the port's copy of the 2D
-parts of ``bio_image_unet_tpu/data/pipelines.py``: helpers :54-183,
-``DataProcess2D`` :191-352, ``DataProcessMultiOutput`` :686-843, ``Subset``
-:971, ``random_split`` :983, ``DataLoader`` :993).
+"""The training-data pipelines and their loader (the port's copy of
+``bio_image_unet_tpu/data/pipelines.py`` but its Siam pipeline: helpers
+:54-183, ``DataProcess2D`` :191-352, ``DataProcess3D`` :538-683,
+``DataProcessMultiOutput`` :686-843, ``DataProcessMultiOutput3D`` :851-968,
+``Subset`` :971, ``random_split`` :983, ``DataLoader`` :993).
 
 The on-disk layout, the tiling rule and the augmentation stream are the JAX
 package's, so the same source TIFFs and seed give bit-equal tiles.  One
 difference, the torch idiom: items are channels-first float32 numpy arrays,
-``{'image': (C, H, W), 'mask': (C, H, W)}`` in [0, 1] (JAX: HWC), and the
-loader stacks them to (B, C, H, W).  Shuffles keep ``np.random.default_rng``,
-so a seed gives the JAX Trainer's split and batch order.
+``{'image': (C, H, W), 'mask': (C, H, W)}`` in [0, 1] (JAX: HWC), or for
+volumes ``{'volume': (1, Z, X, Y), 'mask': (1, Z, X, Y)}`` (JAX: ZXYC), and
+the loader stacks them to (B, C, ...).  Shuffles keep
+``np.random.default_rng``, so a seed gives the JAX Trainer's split and batch
+order.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ import numpy as np
 
 from . import morphology, tiff
 from .augment import (Blur, Compose, GaussNoise, MultiplicativeNoise, PadIfNeeded,
-                      RandomBrightnessContrast, RandomCrop, RandomRotate90, RandomScale,
-                      ShiftScaleRotate, ShotNoise, rotate_array, rotate_array_90)
+                      RandomBrightnessContrast, RandomCrop, RandomCrop3D, RandomRotate90,
+                      RandomScale, ShiftScaleRotate, ShiftScaleRotate3D, ShotNoise,
+                      rotate_array, rotate_array_90)
 
-__all__ = ["clip_and_normalize", "edit_mask", "tile_starts", "DataProcess2D",
-           "DataProcessMultiOutput", "Subset", "random_split", "DataLoader"]
+__all__ = ["clip_and_normalize", "edit_mask", "tile_starts", "DataProcess2D", "DataProcess3D",
+           "DataProcessMultiOutput", "DataProcessMultiOutput3D", "Subset", "random_split",
+           "DataLoader"]
 
 
 def clip_and_normalize(img: np.ndarray, clip_threshold=(0.2, 99.8), scale=255.0):
@@ -271,6 +276,138 @@ class DataProcess2D(_TileDataset):
         return {"image": image, "mask": mask}
 
 
+class DataProcess3D(_TileDataset):
+    """Volumetric pipeline (``pipelines.py:538``; reference unet3d/data.py:
+    15-260): each (Z, X, Y) volume clip-normalized to uint8 and its mask
+    edited slice by slice → merge (volume ‖ mask, (Z, X, Y, 2)) → reflect pad
+    and linspace tiling on all three axes → ``aug_factor`` augmented copies
+    per tile, the 2D pipeline run on the (X, Y, Z) transposed stack (2.5D),
+    written under ``data_path`` (volume/ mask/ merge/ split/ augmentation/).
+
+    ``add_patch`` adds patches on every axis with more than one tile, the
+    JAX package's reading of the reference rule (``:621-626``).  Items are
+    ``{'volume': (1, Z, X, Y), 'mask': (1, Z, X, Y)}`` float32 in [0, 1]."""
+
+    def __init__(self, source_dir, dim_out=(128, 128, 128), aug_factor=10,
+                 data_path="../data/", dilate_mask=0, dilate_kernel="disk",
+                 add_patch=0, val_split=0.2, invert=False, skeletonize=False,
+                 clip_threshold=(0.2, 99.8), shiftscalerotate=(0, 0, 0),
+                 noise_amp=10, brightness_contrast=(0.25, 0.25), create=True,
+                 cache=True, seed: Optional[int] = None):
+        super().__init__(cache)
+        self.source_dir = source_dir
+        self.data_path = data_path
+        self.dim_out = tuple(dim_out)
+        self.aug_factor = aug_factor
+        self.add_patch = add_patch
+        self.val_split = val_split
+        self.skeletonize = skeletonize
+        self.invert = invert
+        self.clip_threshold = clip_threshold
+        self.shiftscalerotate = shiftscalerotate
+        self.noise_amp = noise_amp
+        self.brightness_contrast = brightness_contrast
+        self.dilate_mask = dilate_mask
+        self.dilate_kernel = dilate_kernel
+        self.mode = "train"
+        d = _fresh_dirs(data_path, [
+            "volume", "mask", "merge", "split/merge", "split/volume", "split/mask",
+            "augmentation/aug_volume", "augmentation/aug_mask",
+        ], wipe=create)
+        self.volume_path, self.mask_path, self.merge_path = d["volume"], d["mask"], d["merge"]
+        self.split_merge_path = d["split/merge"]
+        self.split_volume_path, self.split_mask_path = d["split/volume"], d["split/mask"]
+        self.aug_volume_path = d["augmentation/aug_volume"]
+        self.aug_mask_path = d["augmentation/aug_mask"]
+        if create:
+            rng = np.random.default_rng(seed)
+            self._move_and_edit()
+            self._merge_volumes()
+            self._split()
+            if self.aug_factor is not None:
+                self._augment(rng)
+
+    def _move_and_edit(self):
+        for file_i in _tif_files(self.source_dir[0]):
+            vol = clip_and_normalize(tiff.imread(file_i), self.clip_threshold).astype(np.uint8)
+            name = os.path.splitext(os.path.basename(file_i))[0].replace(" ", "_")
+            tiff.imwrite(os.path.join(self.volume_path, name + ".tif"), vol)
+        files_mask = _tif_files(self.source_dir[1])
+        print(f"{len(files_mask)} files found")
+        for file_i in files_mask:
+            mask = np.stack([edit_mask(sl, self.skeletonize, self.dilate_mask,
+                                       self.dilate_kernel, self.invert)
+                             for sl in tiff.imread(file_i)])
+            name = os.path.splitext(os.path.basename(file_i))[0].replace(" ", "_")
+            tiff.imwrite(os.path.join(self.mask_path, name + ".tif"), mask.astype(np.uint8))
+
+    def _merge_volumes(self):
+        mask_files = _tif_files(self.mask_path)
+        volume_files = _tif_files(self.volume_path)
+        if len(mask_files) != len(volume_files):
+            raise ValueError("Number of ground truth does not match number of volume stacks")
+        for i, file_i in enumerate(mask_files):
+            base = os.path.basename(file_i)
+            mask = tiff.imread(os.path.join(self.mask_path, base))
+            vol = tiff.imread(os.path.join(self.volume_path, base))
+            merge = np.stack([vol, mask], axis=3).astype(np.uint8)  # (Z, X, Y, 2)
+            tiff.imwrite(os.path.join(self.merge_path, f"{i}.tif"), merge)
+
+    def _split(self):
+        n = 0
+        for i in range(len(_tif_files(self.merge_path))):
+            merge = tiff.imread(os.path.join(self.merge_path, f"{i}.tif"))
+            gaps = [max(0, self.dim_out[a] - merge.shape[a]) for a in range(3)]
+            merge = np.pad(merge, [(0, g) for g in gaps] + [(0, 0)], "reflect")
+            zs, xs, ys = (tile_starts(merge.shape[a], self.dim_out[a], self.add_patch)
+                          for a in range(3))
+            dz, dx, dy = self.dim_out
+            for z0 in zs:
+                for x0 in xs:
+                    for y0 in ys:
+                        patch = merge[z0:z0 + dz, x0:x0 + dx, y0:y0 + dy]
+                        tiff.imwrite(os.path.join(self.split_merge_path, f"{n}.tif"), patch)
+                        tiff.imwrite(os.path.join(self.split_volume_path, f"{n}.tif"),
+                                     patch[..., 0])
+                        tiff.imwrite(os.path.join(self.split_mask_path, f"{n}.tif"),
+                                     patch[..., 1])
+                        n += 1
+
+    def _augment(self, rng, p=0.8):
+        pipeline = Compose([
+            RandomRotate90(p=1.0),
+            ShiftScaleRotate(*self.shiftscalerotate),
+            GaussNoise(var_limit=(self.noise_amp, self.noise_amp), p=0.3),
+            RandomBrightnessContrast(self.brightness_contrast[0],
+                                     self.brightness_contrast[1], p=0.5),
+        ], p=p)
+        k = 0
+        for i in range(len(_tif_files(self.split_volume_path))):
+            vol = tiff.imread(os.path.join(self.split_volume_path, f"{i}.tif"))
+            mask = tiff.imread(os.path.join(self.split_mask_path, f"{i}.tif"))
+            # 2.5D: the 2D pipeline on the (X, Y, Z) transposed stack
+            vol_t, mask_t = vol.transpose(1, 2, 0), mask.transpose(1, 2, 0)
+            for _ in range(self.aug_factor):
+                out = pipeline(rng, image=vol_t, mask=mask_t)
+                tiff.imwrite(os.path.join(self.aug_volume_path, f"{k}.tif"),
+                             out["image"].transpose(2, 0, 1))
+                tiff.imwrite(os.path.join(self.aug_mask_path, f"{k}.tif"),
+                             out["mask"].transpose(2, 0, 1))
+                k += 1
+        print(f"Number of training volumes: {k}")
+
+    def __len__(self):
+        path = self.aug_volume_path if self.aug_factor is not None else self.split_volume_path
+        return len(_tif_files(path))
+
+    def _load_item(self, idx):
+        root = ((self.aug_volume_path, self.aug_mask_path) if self.aug_factor is not None
+                else (self.split_volume_path, self.split_mask_path))
+        vol, mask = (tiff.imread(os.path.join(d, f"{idx}.tif")).astype(np.float32)[None] / 255.0
+                     for d in root)
+        return {"volume": vol, "mask": mask}
+
+
 class DataProcessMultiOutput(_TileDataset):
     """Multi-target 2D pipeline (``pipelines.py:686``; reference
     multi_output_unet/data.py:19-349): images and their targets read into
@@ -423,6 +560,121 @@ class DataProcessMultiOutput(_TileDataset):
                 t = np.stack([np.cos(t), np.sin(t)])
             elif t.ndim == 2:
                 t = t[None]
+            sample[key] = np.nan_to_num(t, nan=self.nan_to_val)
+        return sample
+
+
+class DataProcessMultiOutput3D(_TileDataset):
+    """Multi-target 3D pipeline (``pipelines.py:851``; reference
+    multi_output_unet3d/data.py:15-267): volumes (clip-normalized to [0, 1])
+    and their targets read into memory, target dicts keyed by the basename of
+    each target directory; ``aug_factor`` patches per volume, each through a
+    spatial stage (``ShiftScaleRotate3D`` with p 0.8, then ``RandomCrop3D``
+    to ``dim_out``, on the volume and every target) and an intensity stage
+    on the volume under p 0.8 (brightness/contrast, in-plane ``Blur``, shot
+    noise, Gaussian noise); written as float32 TIFFs under ``data_dir``
+    (``volume/volume_<n>.tif``, ``<key>/<key>_<n>.tif``).
+
+    Items are channels-first float32: ``volume`` (1, Z, X, Y); a target named
+    ``orientation`` (an angle volume) as (cos θ, sin θ), (2, Z, X, Y); every
+    other target (1, Z, X, Y); NaNs replaced by ``nan_to_val``."""
+
+    def __init__(self, volume_dir: str, target_dirs: List[str],
+                 data_dir: str = "../data/", dim_out=(128, 128, 128),
+                 in_channels=1, add_tile=0, nan_to_val: float = 0,
+                 val_split=0.2, clip_threshold=(0.0, 99.99), aug_factor=10,
+                 scale_limit=(-0.75, 0), rotate_limit=(0, 360),
+                 gauss_noise_lims=(0.01, 0.1), shot_noise_lims=(0.005, 0.01),
+                 brightness_contrast=(0.1, 0.1), blur_limit=(3, 7),
+                 random_rotate=True, create=True, cache=True,
+                 seed: Optional[int] = None):
+        super().__init__(cache)
+        self.volume_dir = volume_dir
+        self.target_dirs = list(target_dirs)
+        self.target_keys = [os.path.basename(os.path.normpath(d)) for d in target_dirs]
+        self.data_dir = data_dir
+        self.data: List[dict] = []
+        self.dim_out = tuple(dim_out)
+        self.in_channels = in_channels
+        self.add_tile = add_tile
+        self.nan_to_val = nan_to_val
+        self.clip_threshold = clip_threshold
+        self.aug_factor = aug_factor
+        self.scale_limit = scale_limit
+        self.rotate_limit = rotate_limit
+        self.gauss_noise_lims = gauss_noise_lims
+        self.shot_noise_lims = shot_noise_lims
+        self.brightness_contrast = brightness_contrast
+        self.blur_limit = blur_limit
+        self.random_rotate = random_rotate
+        self.val_split = val_split
+        self.mode = "train"
+        if create:
+            _fresh_dirs(self.data_dir, [""], wipe=True)
+            rng = np.random.default_rng(seed)
+            self._read_and_edit()
+            if self.aug_factor is not None:
+                self._augment(rng)
+
+    def _read_and_edit(self):
+        for file_i in _tif_files(self.volume_dir):
+            vol = clip_and_normalize(tiff.imread(file_i).astype(np.float32),
+                                     self.clip_threshold, scale=1.0)
+            data_i = {"volume": vol}
+            for target_dir, key in zip(self.target_dirs, self.target_keys):
+                path = os.path.join(target_dir, os.path.basename(file_i))
+                if not os.path.exists(path):
+                    print(f"Warning: Target file {path} does not exist.")
+                    break
+                data_i[key] = tiff.imread(path)
+            else:
+                self.data.append(data_i)
+
+    def _augment(self, rng, p=0.8):
+        targets = {k: "mask" for k in self.target_keys}
+        spatial = Compose([
+            ShiftScaleRotate3D(0, self.scale_limit, self.rotate_limit, p=0.8),
+            RandomCrop3D(self.dim_out),
+        ], targets=targets)
+        intensity = Compose([
+            RandomBrightnessContrast(self.brightness_contrast[0],
+                                     self.brightness_contrast[1], p=0.5),
+            Blur(blur_limit=self.blur_limit, p=0.3, volumetric=True),
+            ShotNoise(scale_range=self.shot_noise_lims, p=0.5),
+            GaussNoise(std_range=self.gauss_noise_lims, p=0.5),
+        ], p=p, targets=targets)
+        n = 0
+        vol_out = os.path.join(self.data_dir, "volume")
+        os.makedirs(vol_out, exist_ok=True)
+        for data_i in self.data:
+            sample = {"image": data_i["volume"].astype(np.float32)}
+            sample.update({k: data_i[k].astype(np.float32) for k in self.target_keys})
+            for _ in range(self.aug_factor):
+                out = intensity(rng, **spatial(rng, **sample))
+                tiff.imwrite(os.path.join(vol_out, f"volume_{n}.tif"),
+                             np.asarray(out["image"], dtype=np.float32))
+                for key in self.target_keys:
+                    tdir = os.path.join(self.data_dir, key)
+                    os.makedirs(tdir, exist_ok=True)
+                    tiff.imwrite(os.path.join(tdir, f"{key}_{n}.tif"),
+                                 np.asarray(out[key], dtype=np.float32))
+                n += 1
+        print(f"Augmentation completed for {n} patches.")
+
+    def __len__(self):
+        vol_dir = os.path.join(self.data_dir, "volume")
+        return len([f for f in os.listdir(vol_dir)
+                    if os.path.isfile(os.path.join(vol_dir, f))])
+
+    def _load_item(self, idx):
+        vol = tiff.imread(os.path.join(self.data_dir, "volume", f"volume_{idx}.tif"))
+        sample = {"volume": vol.astype(np.float32)[None]}
+        for key in self.target_keys:
+            path = os.path.join(self.data_dir, key, f"{key}_{idx}.tif")
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"Target file {path} not found.")
+            t = tiff.imread(path).astype(np.float32)
+            t = np.stack([np.cos(t), np.sin(t)]) if key == "orientation" else t[None]
             sample[key] = np.nan_to_num(t, nan=self.nan_to_val)
         return sample
 

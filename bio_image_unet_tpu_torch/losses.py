@@ -48,6 +48,14 @@ def _as_probs(x, from_logits: bool):
     return torch.sigmoid(x) if from_logits else x
 
 
+def _clip(x, lo: float, hi: float):
+    """``jnp.clip``'s values and gradient: an input exactly on a bound gets
+    half the gradient, as JAX's max/min split a tie (``torch.clamp`` passes
+    it whole), and a saturated sigmoid lands on 1 − 1e-7 often enough to
+    matter."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def bce_loss(inputs, targets, from_logits: bool = True, eps: float = 1e-7):
     """Mean binary cross-entropy; ``from_logits=True`` is the stable
     BCE-with-logits form ``max(x, 0) − x·t + log1p(exp(−|x|))``
@@ -56,7 +64,7 @@ def bce_loss(inputs, targets, from_logits: bool = True, eps: float = 1e-7):
         loss = (torch.clamp(inputs, min=0) - inputs * targets
                 + torch.log1p(torch.exp(-torch.abs(inputs))))
     else:
-        p = torch.clamp(inputs, eps, 1.0 - eps)
+        p = _clip(inputs, eps, 1.0 - eps)
         loss = -(targets * torch.log(p) + (1.0 - targets) * torch.log(1.0 - p))
     return torch.mean(loss)
 
@@ -64,7 +72,7 @@ def bce_loss(inputs, targets, from_logits: bool = True, eps: float = 1e-7):
 def weighted_bce_loss(logits, targets, alpha: float = 1.0, beta: float = 0.1):
     """Per-pixel weighted BCE: ``alpha`` where target ≥ 0.5, else ``beta``
     (``losses.py:70``)."""
-    probs = torch.clamp(torch.sigmoid(logits), 1e-7, 1.0 - 1e-7)
+    probs = _clip(torch.sigmoid(logits), 1e-7, 1.0 - 1e-7)
     pixel_bce = -(targets * torch.log(probs) + (1.0 - targets) * torch.log(1.0 - probs))
     weights = torch.where(targets >= 0.5, alpha, beta)
     return torch.mean(pixel_bce * weights)

@@ -1,7 +1,7 @@
-"""The Trainer of the 2D ``Unet`` and the multi-output family
-(counterpart of ``bio_image_unet_tpu/train/trainer.py:114 Trainer`` for
-``Unet``, ``MultiOutputUnet``, ``MultiOutputNestedUNet`` and
-``MultiOutputNestedUNet_3Levels``).
+"""The generic Trainer (counterpart of ``bio_image_unet_tpu/train/trainer.py:114
+Trainer``) for the 2D ``Unet``, the multi-output family (``MultiOutputUnet``,
+``MultiOutputNestedUNet``, ``MultiOutputNestedUNet_3Levels``) and the 3D
+networks (``UNet3D``, ``MultiOutputUnet3D``).
 
 What it keeps of the JAX Trainer, so that one seed and one set of initial
 weights give the same ``metrics.csv`` rows:
@@ -12,10 +12,16 @@ weights give the same ``metrics.csv`` rows:
 - the loss: per-channel ``criterion(logits[:, ch], mask[:, ch])`` weighted by
   ``channel_weights`` (``:460-467``); with heads (``output_heads``, or the
   model's default single sigmoid head, ``:208-221``) the weighted sum of
-  each head's loss (``get_head_loss``, ``:229-243``), with deep supervision
-  over every level's output weighted [0.5, 0.75, 1.0] or
+  each head's loss (``get_head_loss``, ``:229-243``; the 3D head family for a
+  ``MultiOutputUnet3D``, chosen by the built model's class), with deep
+  supervision over every level's output weighted [0.5, 0.75, 1.0] or
   [0.5, 0.75, 0.875, 1.0] in training and on the deepest output in
-  validation (``:436-458``);
+  validation (``:436-458``); ``time_loss_weight`` adds SmoothL1 between
+  batch-adjacent logits of a single-output model, skipped at batch 1
+  (``:468-472``);
+- the 3D input: a sample's ``volume`` if it has one, else its ``image``
+  (``:288``); ``use_interpolation`` goes to the model (``:204``) and, with
+  ``time_loss_weight``, into the checkpoint (``:341-348``);
 - Adam (``torch.optim.Adam``, the optax Adam of ``:275-280``; ``grad_clip``
   through ``clip_grad_norm_``) and the torch-semantics ``ReduceLROnPlateau``
   (``:76``) stepped on the validation loss after every epoch, the train loss
@@ -24,8 +30,9 @@ weights give the same ``metrics.csv`` rows:
   ``save_iter`` saves, the emergency checkpoint on an interrupt (``:759-771``),
   ``start(test_data_path=...)`` through the port's ``Predict``, and the
   TensorBoard scalars ``Loss/train``/``Loss/val`` and validation image grids
-  (``tensorboard``, ``log_images``: ``:357-364, 689-734, 802-804``; the grids
-  need matplotlib and are skipped quietly without it, as in JAX).
+  (``tensorboard``, ``log_images``: ``:357-364, 689-734, 802-804``; a volume's
+  grid shows its middle z slice; the grids need matplotlib and are skipped
+  quietly without it, as in JAX).
 
 How it runs on the card: an eager PyTorch step (autograd through cuDNN and
 PyTorch ops stands in for XLA's autodiff; the JAX package has no hand-written
@@ -36,8 +43,9 @@ concatenated along channels into one tensor (``HeadLayout``), and takes one
 index row per step; ``device_augment`` draws on a ``torch.Generator`` and
 gathers and augments each batch in one launch: K4 for a single target, K4h
 for heads, orientation heads (names containing ``"orientation"``) rotated
-with the tile (``data/augment_device.py``).  On the card, weights and
-activations are channels-last.
+with the tile, and K4v / K4hv for volumes (``data/augment_device.py``).  On
+the card, weights and activations are channels-last (``channels_last_3d``
+for the 3D networks).
 
 Checkpoints are reference-schema ``.pt`` files (``checkpoint.save``) that
 both packages' ``Predict``/``PredictMultiOutput`` read (with heads they carry
@@ -51,8 +59,7 @@ resume and one more equal two epochs straight.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
 raises without a card.  Not ported yet, each raising NotImplementedError:
-networks other than the four above, ``mode`` (Siam),
-``use_interpolation``/``time_loss_weight`` and the 3D networks (3D), ``mesh`` and
+networks other than the six above, ``mode`` (Siam), ``mesh`` and
 ``device_cache="sharded"`` (multi-GPU), ``remat``, ``profile_dir``.
 """
 
@@ -72,8 +79,8 @@ from ..data import tiff
 from ..data.augment_device import (HeadLayout, augment_batch, augment_batch_heads,
                                    orientation_keys)
 from ..data.pipelines import DataLoader, random_split
-from ..losses import get_head_loss, get_loss
-from ..models import MODEL_REGISTRY, get_model
+from ..losses import get_head_loss, get_loss, smooth_l1_loss
+from ..models import MODEL_REGISTRY, MultiOutputUnet3D, get_model
 from ..ops.blocks import init_weights_
 from ..utils.device import resolve_device
 
@@ -132,15 +139,18 @@ class ReduceLROnPlateau:
 
 def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported to PyTorch yet (the {slice_name} "
-                              "slice of the port); the 2D Unet and multi-output trainers are")
+                              "slice of the port); the 2D Unet, multi-output and 3D "
+                              "trainers are")
 
 
 class Trainer:
-    """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet`` and
-    the multi-output family; the dataset yields ``{'image': (C, H, W),
-    'mask': (C', H, W)}`` float32 numpy items (``DataProcess2D``) or, with
-    heads, ``{'image': ..., <head>: (C_head, H, W), ...}``
-    (``DataProcessMultiOutput``)."""
+    """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet``, the
+    multi-output family and the 3D networks; the dataset yields
+    ``{'image': (C, H, W), 'mask': (C', H, W)}`` float32 numpy items
+    (``DataProcess2D``) or, with heads, ``{'image': ..., <head>: (C_head, H,
+    W), ...}`` (``DataProcessMultiOutput``); for the 3D networks the same
+    with (C, Z, X, Y) arrays, the input under ``volume`` or ``image``
+    (``DataProcess3D``, ``DataProcessMultiOutput3D``)."""
 
     def __init__(
         self,
@@ -183,10 +193,6 @@ class Trainer:
     ):
         if mode is not None:
             _not_ported("mode= (the siamese trainer)", "Siam")
-        if (use_interpolation or time_loss_weight is not None
-                or network in ("UNet3D", "MultiOutputUnet3D")):
-            _not_ported("use_interpolation=/time_loss_weight=/3D networks (the 3D trainer)",
-                        "3D")
         if mesh is not None or device_cache == "sharded":
             _not_ported("mesh=/device_cache='sharded' (multi-GPU training)", "multi-GPU")
         if remat:
@@ -206,6 +212,7 @@ class Trainer:
         self.device_augment = device_augment
         self.grad_clip = grad_clip
         self.deep_supervision = deep_supervision
+        self.time_loss_weight = time_loss_weight
         self.log_images = log_images
         self.seed = seed
         self.best_loss = float("inf")
@@ -218,7 +225,8 @@ class Trainer:
         # --- model: seeded init, float32 parameters ---
         self.model = get_model(network, n_filter=n_filter, in_channels=in_channels,
                                out_channels=out_channels, dilation=dilation,
-                               output_heads=output_heads, deep_supervision=deep_supervision,
+                               use_interpolation=use_interpolation, output_heads=output_heads,
+                               deep_supervision=deep_supervision,
                                dtype=torch.bfloat16 if half_precision else None)
         init_weights_(self.model, torch.Generator().manual_seed(seed))
         self.multi_output = output_heads is not None or bool(getattr(self.model, "heads", None))
@@ -232,7 +240,9 @@ class Trainer:
                 # the model's default single sigmoid head with BCEDice (:215-221)
                 self.output_heads = {name: {"loss": "BCEDiceLoss", **dict(cfg)}
                                      for name, cfg in self.model.heads.items()}
-            self.head_losses = {name: get_head_loss(cfg["loss"], family="2d")
+            # the 3D multi-output losses are parameterized otherwise (:230-235)
+            family = "3d" if isinstance(self.model, MultiOutputUnet3D) else "2d"
+            self.head_losses = {name: get_head_loss(cfg["loss"], family=family)
                                 for name, cfg in self.output_heads.items()}
             self.head_weights = {name: cfg.get("weight", 1.0)
                                  for name, cfg in self.output_heads.items()}
@@ -243,8 +253,10 @@ class Trainer:
             np.ones(out_channels, np.float32) if channel_weights is None
             else np.asarray(channel_weights, np.float32))
 
-        # --- data: the targets' layout in one channel-concatenated tensor ---
+        # --- data: the input key, the targets' layout in one
+        # channel-concatenated tensor ---
         sample = dataset[0]
+        self.input_key = "volume" if "volume" in sample else "image"
         keys = list(self.output_heads) if self.multi_output else ["mask"]
         self.layout = HeadLayout.of({k: sample[k].shape[0] for k in keys},
                                     orientation_keys(keys), self.device)
@@ -261,8 +273,9 @@ class Trainer:
             state = checkpoint.load(load_path)
             self.model.load_state_dict(state["state_dict"], strict=True)
         self.model.to(self.device)
+        self.volumetric = any(p.dim() == 5 for p in self.model.parameters())
         if self.device.type == "cuda":
-            self.model.to(memory_format=torch.channels_last)
+            self.model.to(memory_format=self._memory_format())
         self.channel_weights = self.channel_weights.to(self.device)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr)
         self.scheduler = ReduceLROnPlateau(scheduler_factor, scheduler_patience)
@@ -290,6 +303,8 @@ class Trainer:
             if hasattr(dataset, attr):
                 key = "augmentation" if attr == "aug_factor" else attr
                 self.params_meta[key] = getattr(dataset, attr)
+        if time_loss_weight is not None:
+            self.params_meta["time_loss_weight"] = time_loss_weight
         self.params_meta["use_interpolation"] = use_interpolation
         if self.multi_output:
             # the resolved heads: PredictMultiOutput rebuilds the model from them
@@ -321,7 +336,7 @@ class Trainer:
             self._device_data = tuple(
                 torch.from_numpy(np.concatenate([np.stack([s_[k] for s_ in samples])
                                                  for k in ks], 1)).to(self.device)
-                for ks in (["image"], self.layout.names))
+                for ks in ([self.input_key], self.layout.names))
 
     def _loss_kwargs(self):
         if self.loss_function in ("BCEDice", "Tversky", "logcoshTversky", "weightedBCE"):
@@ -333,8 +348,8 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _compute_loss(self, outputs, batch: Dict[str, torch.Tensor], train: bool) -> torch.Tensor:
-        """The loss of one batch (``trainer.py:436-467``): ``batch`` maps each
-        target name to its (B, C, H, W) tensor."""
+        """The loss of one batch (``trainer.py:436-473``): ``batch`` maps each
+        target name to its (B, C, H, W) or (B, C, Z, X, Y) tensor."""
         if self.multi_output:
             total = 0.0
             if self.deep_supervision and train:
@@ -357,11 +372,18 @@ class Trainer:
         target, w = batch["mask"], self.channel_weights
         total = sum(self.criterion(logits[:, ch], target[:, ch]) * w[ch]
                     for ch in range(self.out_channels))
-        return total / torch.sum(w)
+        loss = total / torch.sum(w)
+        if self.time_loss_weight is not None and logits.shape[0] > 1:
+            # SmoothL1 between batch-adjacent logits; a batch of one has no pair
+            loss = loss + self.time_loss_weight * smooth_l1_loss(logits[1:], logits[:-1])
+        return loss
+
+    def _memory_format(self) -> torch.memory_format:
+        return torch.channels_last_3d if self.volumetric else torch.channels_last
 
     def _input(self, x: torch.Tensor) -> torch.Tensor:
         if self.device.type == "cuda":
-            return x.contiguous(memory_format=torch.channels_last)
+            return x.contiguous(memory_format=self._memory_format())
         return x
 
     def _train_step(self, image: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -386,7 +408,7 @@ class Trainer:
         """A loader batch on the device: the image and the targets
         concatenated along channels."""
         target = np.concatenate([batch[k] for k in self.layout.names], 1)
-        return (torch.from_numpy(batch["image"]).to(self.device),
+        return (torch.from_numpy(batch[self.input_key]).to(self.device),
                 torch.from_numpy(target).to(self.device))
 
     def _batches(self, epoch: int):
@@ -453,8 +475,9 @@ class Trainer:
         out_dir = os.path.join(self.save_dir, "val_results")
         os.makedirs(out_dir, exist_ok=True)
 
-        def first(t):  # channel 0 of the first sample, float32 numpy
-            return t[0, 0].float().cpu().numpy()
+        def first(t):  # channel 0 of the first sample (a volume's middle z), float32 numpy
+            t = t[0, 0]
+            return (t[t.shape[0] // 2] if t.dim() == 3 else t).float().cpu().numpy()
 
         if self.multi_output:
             names = list(self.output_heads)

@@ -120,7 +120,32 @@ non-zero without printing a result:
    each call (K1 2, K2v 1, K5v once per head); the same prints; fused
    against host-staged at the same forward batch within 2e-3 + 1e-3·|host|;
    a small float32 case on the card against the CPU;
-14. the kernels' JSON line, then the last line
+14. kernels (3d training) — K4v, the gather and augmentation of a batch of
+   volumes, at the 3D training path's shapes (4 of 40 resident
+   (1, 16, 64, 64) volumes) and K4hv, its multi-head form, at the coverage
+   path's (2 of 16 resident volumes of (32, 128, 128), targets mask +
+   orientation), against their plain versions with every (k, flip_h,
+   flip_v) case forced once and a sample gated off: targets bit-equal,
+   image within one float32 ulp; timed beside their byte bounds;
+15. train 3d — the seventh main path, ``benchmarks/family_bench.py``'s 3D
+   training through the ``unet3d`` facade: ``UNet3D(n_filter=32)``
+   (transposed-conv decoder, the facade's ``time_loss_weight=0.1``) on 40
+   resident volumes of (16, 64, 64), batch 4, bf16, ``val_split=0``,
+   ``device_augment=True``, a warm-up epoch and 3 timed ones.  The launch
+   counts are set to 0 just before ``Trainer.start()`` and read just after:
+   K4v exactly once per step, nothing else.  Prints volumes/s (the best
+   timed epoch, ``family_bench.py``'s definition), step time, peak device
+   memory, the share of the bf16 dense peak and a profiled epoch (device
+   busy time by stage, idle share).  Then the coverage path: the
+   ``multi_output_unet3d`` facade on ``MultiOutputUnet3D(n_filter=32)``
+   (its ``use_interpolation=False``), mask and orientation heads with the
+   3D head losses, 16 resident volumes of (32, 128, 128), batch 2, bf16,
+   3 epochs, K4hv exactly once per step; each trained ``.pt`` through
+   ``Predict3D`` / ``PredictMultiOutput3D`` on the card with K1, K2v and
+   K3v / K5v launched exactly as those paths launch them; and a small
+   float32 ``UNet3D`` training run on the card against the CPU
+   (``metrics.csv`` rows within rtol 1e-3);
+16. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -198,6 +223,8 @@ def main() -> int:
     phase_3d(torch, dev, kernels, k3d)
     phase_3d_heads(torch, dev, kernels, k3d)
     kernels.extend(k3d)
+    kernels.extend(phase_kernels_3d_training(torch, dev))
+    phase_train_3d(torch, dev, kernels)
     for k in kernels:
         k.pop("_counter")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -727,15 +754,15 @@ def _stage(kernel: str, ancestors) -> str:
     """The training stage a device kernel belongs to, from its name and the
     names of the CPU ranges that launched it."""
     low = kernel.lower()
-    if "augment_batch" in low:
-        return "K4 augment"
-    if "augment_heads" in low:
-        return "K4h augment heads"
+    for key, stage in (("augment_heads_volume", "K4hv augment heads (volumes)"),
+                       ("augment_volume", "K4v augment (volumes)"),
+                       ("augment_batch", "K4 augment"), ("augment_heads", "K4h augment heads")):
+        if key in low:
+            return stage
     if "augment" in ancestors:
         return "augment draws (torch.rand, uniform_, flags)"
     if "upsample" in low:
-        return ("bilinear upsample backward" if "backward" in low
-                else "bilinear upsample forward")
+        return ("upsample backward" if "backward" in low else "upsample forward")
     if "catarray" in low:
         return "concat"
     if any("Optimizer.step" in a for a in ancestors):
@@ -814,8 +841,11 @@ def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float,
         log(f"[{tag}] profiler saw no device time: breakdown not measured")
         return
     n_kernels = sum(count for _, count in by_name.values())
+    steps = (trainer._n_train if trainer._device_data is not None
+             else len(trainer.train_loader.dataset)) // trainer.batch_size
     log(f"[{tag}] profiled epoch ({epoch}, profiler on): wall {wall_us / 1e3:.2f} ms, device "
-        f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.4f}; against the best "
+        f"busy {busy / 1e3:.2f} ms ({busy / 1e3 / max(steps, 1):.3f} ms a step of {steps}), "
+        f"idle share {1 - busy / wall_us:.4f}; against the best "
         f"unprofiled epoch ({unprofiled_s * 1e3:.2f} ms) {1 - busy / (unprofiled_s * 1e6):.4f}; "
         f"{sum(attributed.values()) / 1e3:.2f} ms of it attributed through CPU ops; "
         f"{n_kernels} device kernels")
@@ -823,7 +853,8 @@ def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float,
         log(f"[{tag}]   {us / 1e3:9.3f} ms ({us / busy:6.1%})  {stage}")
     for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"[{tag}]   {total / 1e3:9.3f} ms {count:5d}x  {name[:110]}")
-    for label, key in (("K4", "augment_batch"), ("K4h", "augment_heads")):
+    for label, key in (("K4", "augment_batch<"), ("K4h", "augment_heads<"),
+                       ("K4v", "augment_volume<"), ("K4hv", "augment_heads_volume<")):
         hits = [(t, c) for name, (t, c) in by_name.items() if key in name]
         if hits:
             total, count = map(sum, zip(*hits))
@@ -1921,6 +1952,297 @@ def phase_3d_heads(torch, dev, kernels, k3d) -> None:
                          "CPU", PredictMultiOutput3D(v, small, **skw).result,
                          PredictMultiOutput3D(v, small, device="cpu", **skw).result)
         torch.backends.cudnn.allow_tf32 = True
+
+
+# --- 14. kernels of the 3D training paths ------------------------------------------
+
+# benchmarks/family_bench.py's 3D training (ours_unet3d, :408-432): UNet3D(32)
+# through the unet3d facade, 40 resident volumes of (16, 64, 64), batch 4, bf16,
+# val_split 0, a warm-up epoch and 3 timed ones; K4v on (device_augment)
+T3_VOLS, T3_SHAPE, T3_BATCH, T3_EPOCHS = 40, (16, 64, 64), 4, 4
+# the multi-output 3D coverage path: MultiOutputUnet3D(32) through its facade,
+# 16 resident volumes of (32, 128, 128), batch 2, the heads of [train heads]
+T3H_VOLS, T3H_SHAPE, T3H_BATCH, T3H_EPOCHS = 16, (32, 128, 128), 2, 3
+
+
+def _k4v_bound(flags, b: int, planes_in: int, planes_out: int, vol_bytes: int, n_ops: float):
+    """Least work of one K4v / K4hv call on these draws: index, flags and
+    coefficients (and the code table); each gathered input channel read
+    once; the multiplier field for the samples whose gate and noise flag are
+    on; each output channel written once."""
+    n_mult = int(((flags[:, 0] != 0) & (flags[:, 5] != 0)).sum())
+    n_bytes = (b * (8 + 7 * 4 + 2 * 4) + 3 * 4 + planes_in * b * vol_bytes
+               + n_mult * vol_bytes + planes_out * b * vol_bytes)
+    return n_bytes, bound_ms(n_bytes, n_ops)
+
+
+def phase_kernels_3d_training(torch, dev) -> list:
+    """K4v at the main path's shapes (4 of 40 resident (1, 16, 64, 64)
+    volumes) and K4hv at the coverage path's (2 of 16 resident volumes of
+    (32, 128, 128), targets mask + orientation), each against its plain
+    version on the same draws with every (k, flip_h, flip_v) case forced
+    once and a sample gated off: targets bit-equal, image within one float32
+    ulp; timed beside its byte bound."""
+    import itertools
+
+    from bio_image_unet_tpu_torch.data.augment_device import (HeadLayout, augment_apply_plain,
+                                                              augment_heads_apply_plain,
+                                                              augment_heads_volume_apply,
+                                                              augment_volume_apply, draw)
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    cases = list(itertools.product(range(4), (0, 1), (0, 1)))
+
+    def ulps(a, ref):
+        return (a.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max().item()
+
+    def check(name, apply, plain, shape, b, src, tgt, extra):
+        err = 0.0
+        for i in range(0, len(cases), b):
+            d = draw(g, b, (b,) + shape)
+            d.flags[:, :4] = torch.tensor([[1, *c] for c in cases[i:i + b]], dtype=torch.int32,
+                                          device=dev)
+            if i == 0:
+                d.flags[0, 0] = 0  # the gate off: the volume passes through
+            index = torch.randperm(src.shape[0], generator=g, device=dev)[:b]
+            ours = apply(src, tgt, *extra, d, index=index)
+            torch.cuda.synchronize()
+            ref = plain(src, tgt, *extra, d, index=index)
+            if not torch.equal(ours[1], ref[1]) or ulps(ours[0], ref[0]) > 1:
+                raise AssertionError(f"{name} cases {cases[i:i + b]}: targets equal "
+                                     f"{torch.equal(ours[1], ref[1])}, image "
+                                     f"{ulps(ours[0], ref[0])} ulps from the plain version")
+            err = max(err, (ours[0] - ref[0]).abs().max().item())
+        return err
+
+    rows = []
+    # K4v: the main path
+    b, shape = T3_BATCH, (1,) + T3_SHAPE
+    image = torch.rand((T3_VOLS,) + shape, generator=g, device=dev)
+    mask = (torch.rand((T3_VOLS,) + shape, generator=g, device=dev) > 0.5).float()
+    err = check("K4v", augment_volume_apply, augment_apply_plain, shape, b, image, mask, ())
+    d = draw(g, b, (b,) + shape)
+    index = torch.randperm(T3_VOLS, generator=g, device=dev)[:b]
+    ms = timer(lambda: augment_volume_apply(image, mask, d, index=index))
+    plain_ms = timer(lambda: augment_apply_plain(image, mask, d, index=index), 3)
+    vox = int(np.prod(T3_SHAPE))
+    n_on = int((d.flags[:, 0] != 0).sum())
+    n_bytes, (bound, by) = _k4v_bound(d.flags.cpu(), b, 2, 2, vox * 4, 6 * n_on * vox)
+    log(f"[kernels 3d training] k4v_augment_volume: 16 (k, flip) cases, mask bit-equal, image "
+        f"max_abs_err {err} (<= 1 ulp) | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+        f"{bound:.4f} ms ({by}, {n_bytes / 1e6:.2f} MB) | library none")
+    rows.append({"name": "k4v_augment_volume", "route": "cuda",
+                 "source": "bio_image_unet_tpu_torch/csrc/augment_batch.cu",
+                 "replaces": "bio_image_unet_tpu/data/augment_jax.py:132", "launches": 0,
+                 "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None, "_counter": augment_volume_apply})
+    del image, mask
+
+    # K4hv: the multi-output coverage path
+    b, shape = T3H_BATCH, (1,) + T3H_SHAPE
+    layout = HeadLayout.of({"mask": 1, "orientation": 2}, ("orientation",), dev)
+    image = torch.rand((T3H_VOLS,) + shape, generator=g, device=dev)
+    theta = torch.rand((T3H_VOLS,) + shape, generator=g, device=dev) * 6.2832
+    target = torch.cat([(torch.rand((T3H_VOLS,) + shape, generator=g, device=dev) > 0.5).float(),
+                        theta.cos(), theta.sin()], 1).contiguous()
+    del theta
+    err = check("K4hv", augment_heads_volume_apply, augment_heads_apply_plain, shape, b, image,
+                target, (layout.codes,))
+    d = draw(g, b, (b,) + shape)
+    index = torch.randperm(T3H_VOLS, generator=g, device=dev)[:b]
+    ms = timer(lambda: augment_heads_volume_apply(image, target, layout.codes, d, index=index))
+    plain_ms = timer(lambda: augment_heads_apply_plain(image, target, layout.codes, d,
+                                                       index=index), 3)
+    vox = int(np.prod(T3H_SHAPE))
+    n_on = int((d.flags[:, 0] != 0).sum())
+    n_bytes, (bound, by) = _k4v_bound(d.flags.cpu(), b, 4, 4, vox * 4,
+                                      (6 + 2 * 3) * n_on * vox)
+    log(f"[kernels 3d training] k4hv_augment_heads_volume: 16 (k, flip) cases, targets "
+        f"bit-equal, image max_abs_err {err} (<= 1 ulp) | kernel {ms:.4f} ms | plain "
+        f"{plain_ms:.4f} ms | bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.2f} MB) | library none")
+    rows.append({"name": "k4hv_augment_heads_volume", "route": "cuda",
+                 "source": "bio_image_unet_tpu_torch/csrc/augment_batch.cu",
+                 "replaces": "bio_image_unet_tpu/data/augment_jax.py:192", "launches": 0,
+                 "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None, "_counter": augment_heads_volume_apply})
+    del image, target
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- 15. the 3D training paths --------------------------------------------------------
+
+class _Items:
+    """In-memory training items, dicts of channels-first float32 arrays (the
+    form of ``family_bench.py``'s ``Synth3D`` and ``SynthMO``: uniform random
+    volumes; here the mask is the volume above 0.5, so the loss has something
+    to learn)."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def _report_epochs(torch, tag: str, trainer, steps: int, batch: int, flops_per_volume: float,
+                   timed) -> float:
+    """The per-epoch losses; volumes/s over the best of the ``timed`` epochs
+    (``family_bench.py``'s definition, steps·batch over the best training
+    pass); the loss must fall.  Returns the best epoch's seconds."""
+    hist = trainer.history
+    for h in hist:
+        log(f"[{tag}] epoch {h['epoch']}: train loss {h['train_loss']:.6f}, val loss "
+            f"{h['val_loss']:.6f}, lr {h['lr']:g}, training pass {h['train_seconds']:.3f} s, "
+            f"epoch {h['seconds']:.3f} s")
+    if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+        raise AssertionError(f"[{tag}] the training loss did not fall")
+    best = min(hist[e]["train_seconds"] for e in timed)
+    vps = steps * batch / best
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {vps:.2f} volumes/s (best of epochs {list(timed)}), step "
+        f"{best / steps * 1e3:.2f} ms; peak device memory {peak / 2**30:.2f} GiB; "
+        f"{flops_per_volume / 1e9:.1f} GFLOP per volume forward+backward → "
+        f"{flops_per_volume * vps / 1e12:.1f} TFLOP/s, "
+        f"{flops_per_volume * vps / PEAK_BF16_FLOPS:.4f} of the bf16 dense peak")
+    return best
+
+
+def phase_train_3d(torch, dev, kernels) -> None:
+    from bio_image_unet_tpu_torch import multi_output_unet3d, unet3d
+    from bio_image_unet_tpu_torch.data.augment_device import (augment_heads_volume_apply,
+                                                              augment_volume_apply)
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.stitch import blend_stitch_3d, sigmoid_stitch_3d
+    from bio_image_unet_tpu_torch.predict import Predict3D, PredictMultiOutput3D
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_3d
+
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    rows = {k["name"]: k for k in kernels}
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the main path: family_bench's Synth3D through the unet3d facade
+        t0 = time.perf_counter()
+        vols = [rng.random((1,) + T3_SHAPE).astype(np.float32) for _ in range(T3_VOLS)]
+        data = _Items([{"image": v, "mask": (v > 0.5).astype(np.float32)} for v in vols])
+        trainer = unet3d.Trainer(data, T3_EPOCHS, batch_size=T3_BATCH, n_filter=VOL_FILTER,
+                                 val_split=0.0, device_cache=True, half_precision=True,
+                                 device_augment=True, save_dir=str(tmp / "u3d"), seed=0)
+        steps = trainer._n_train // T3_BATCH
+        log(f"[train 3d] set-up {time.perf_counter() - t0:.2f} s: UNet3D(n_filter="
+            f"{VOL_FILTER}), {trainer._n_train} resident volumes of {T3_SHAPE}, {steps} steps "
+            f"of {T3_BATCH} per epoch, time_loss_weight {trainer.time_loss_weight}")
+        torch.cuda.reset_peak_memory_stats()
+        _, got = counted(torch, "train 3d", counters, f"{T3_EPOCHS} epochs", trainer.start,
+                         {augment_volume_apply: steps * T3_EPOCHS})
+        rows["k4v_augment_volume"]["launches"] = got[augment_volume_apply]
+        flops = 3 * unet3d_forward_flops(VOL_FILTER) * np.prod(T3_SHAPE)
+        best = _report_epochs(torch, "train 3d", trainer, steps, T3_BATCH, flops,
+                              range(1, T3_EPOCHS))
+        profile_train_epoch(torch, trainer, T3_EPOCHS, best, tag="train 3d")
+        u3d_ckpt = str(tmp / "u3d" / "model.pt")
+
+        # the coverage path: MultiOutputUnet3D with heads through its facade
+        t0 = time.perf_counter()
+        yy, xx = np.mgrid[:T3H_SHAPE[1], :T3H_SHAPE[2]]
+        items = []
+        for _ in range(T3H_VOLS):
+            theta = np.broadcast_to(np.arctan2(yy - rng.uniform(0, T3H_SHAPE[1]),
+                                               xx - rng.uniform(0, T3H_SHAPE[2])), T3H_SHAPE)
+            v = rng.random((1,) + T3H_SHAPE).astype(np.float32)
+            items.append({"image": v, "mask": (v > 0.5).astype(np.float32),
+                          "orientation": np.stack([np.cos(theta), np.sin(theta)])
+                          .astype(np.float32)})
+        heads = multi_output_unet3d.Trainer(
+            _Items(items), MO_TRAIN_HEADS, T3H_EPOCHS, batch_size=T3H_BATCH, n_filter=VOL_FILTER,
+            val_split=0.0, device_cache=True, half_precision=True, device_augment=True,
+            save_dir=str(tmp / "mo3d"), seed=0)
+        h_steps = heads._n_train // T3H_BATCH
+        log(f"[train 3d heads] set-up {time.perf_counter() - t0:.2f} s: MultiOutputUnet3D("
+            f"n_filter={VOL_FILTER}, use_interpolation={heads.model.use_interpolation}), heads "
+            f"{list(MO_TRAIN_HEADS)} "
+            f"({', '.join(type(v).__name__ for v in heads.head_losses.values())}), "
+            f"{heads._n_train} resident volumes of {T3H_SHAPE}, {h_steps} steps of {T3H_BATCH}")
+        torch.cuda.reset_peak_memory_stats()
+        _, got = counted(torch, "train 3d heads", counters, f"{T3H_EPOCHS} epochs", heads.start,
+                         {augment_heads_volume_apply: h_steps * T3H_EPOCHS})
+        rows["k4hv_augment_heads_volume"]["launches"] = got[augment_heads_volume_apply]
+        flops = 3 * unet3d_forward_flops(VOL_FILTER, out_channels=3) * np.prod(T3H_SHAPE)
+        best = _report_epochs(torch, "train 3d heads", heads, h_steps, T3H_BATCH, flops,
+                              range(T3H_EPOCHS))
+        profile_train_epoch(torch, heads, T3H_EPOCHS, best, tag="train 3d heads")
+        mo3d_ckpt = str(tmp / "mo3d" / "model.pt")
+        del trainer, heads, data, vols, items
+        torch.cuda.empty_cache()
+
+        # each trained .pt through the port's 3D Predict classes on the card
+        vol = rng.integers(0, 255, (32, 128, 128), dtype=np.uint8)
+        res, _ = counted(torch, "train 3d→predict", counters, "UNet3D .pt through Predict3D",
+                         lambda: Predict3D(vol, None, u3d_ckpt, resize_dim=T3_SHAPE,
+                                           show_progress=False, half_precision=True).result,
+                         {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1})
+        if res.shape != vol.shape or res.dtype != np.uint8:
+            raise AssertionError(f"Predict3D on the trained UNet3D: {res.shape} {res.dtype}")
+        log(f"[train 3d→predict] Predict3D: {res.shape} uint8, mean {res.mean():.2f}")
+        res, _ = counted(torch, "train 3d→predict", counters,
+                         "MultiOutputUnet3D .pt through PredictMultiOutput3D",
+                         lambda: PredictMultiOutput3D(vol, mo3d_ckpt, max_patch_size=T3H_SHAPE,
+                                                      show_progress=False,
+                                                      half_precision=True).result,
+                         {hist.int_clip_bounds: 2, normalize_tile_3d: 1,
+                          blend_stitch_3d: len(MO_TRAIN_HEADS)})
+        for head, cfg in MO_TRAIN_HEADS.items():
+            want = vol.shape if cfg["channels"] == 1 else (cfg["channels"],) + vol.shape
+            if res[head].shape != want or not np.isfinite(res[head]).all():
+                raise AssertionError(f"PredictMultiOutput3D on the trained model, {head}: "
+                                     f"{res[head].shape}")
+        log("[train 3d→predict] PredictMultiOutput3D: " + ", ".join(
+            f"{h} {v.shape} in [{v.min():.3f}, {v.max():.3f}]" for h, v in res.items()))
+    train_3d_card_vs_cpu(torch)
+
+
+def train_3d_card_vs_cpu(torch) -> None:
+    """``UNet3D(n_filter=4)`` with the facade's temporal loss on 10 volumes of
+    (8, 32, 32) (8 training: 2 steps of 4), float32 with TF32 off, resident
+    volumes, no augmentation, one epoch: the card's ``metrics.csv`` rows
+    against the CPU's, rtol 1e-3."""
+    from bio_image_unet_tpu_torch import unet3d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    items = _Items([{"volume": rng.random((1, 8, 32, 32)).astype(np.float32),
+                     "mask": (rng.random((1, 8, 32, 32)) > 0.6).astype(np.float32)}
+                    for _ in range(10)])
+    rows, weights = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            t = unet3d.Trainer(items, 1, n_filter=4, batch_size=4, lr=1e-4,
+                               save_dir=str(Path(tmp) / dev), seed=0, device=dev,
+                               device_cache=True)
+            if next(t.model.parameters()).device.type != dev:
+                raise AssertionError(f"the {dev} run's model is not on {dev}")
+            t.start()
+            weights[dev] = {k: v.float().cpu() for k, v in t.model.state_dict().items()}
+            with open(Path(tmp) / dev / "metrics.csv") as fh:
+                rows[dev] = np.array([[float(v) for v in r[1:4]]
+                                      for r in list(csv.reader(fh))[1:]])
+    rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
+    dw = max(float((weights["cuda"][k] - v).abs().max()) for k, v in weights["cpu"].items())
+    log(f"[train 3d] card vs CPU (UNet3D n_filter=4, (8, 32, 32), float32, TF32 off, 1 epoch): "
+        f"card {rows['cuda'].tolist()}, CPU {rows['cpu'].tolist()}, max relative difference "
+        f"{rel.max():.2e}; final weights max |card − CPU| {dw:.2e}")
+    if not rel.max() <= 1e-3:
+        raise AssertionError("the card's 3D training run disagrees with the CPU's")
+    torch.backends.cudnn.allow_tf32 = True
+
 
 if __name__ == "__main__":
     sys.exit(main())

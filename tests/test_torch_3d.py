@@ -424,13 +424,11 @@ def test_predict_3d_tif_io_facade_and_refusals(ckpts, rng, tmp_path):
                        device="cpu")
     assert isinstance(p, Predict3D) and p.result.shape == (8, 32, 32)
     np.testing.assert_array_equal(tiff.imread(out).astype(np.uint8), p.result)
-    for cls in (unet3d.DataProcess, unet3d.Trainer):
-        with pytest.raises(NotImplementedError, match="3D training is not ported"):
-            cls("images/", "labels/")
+    # 3D training is ported: the facade's DataProcess and Trainer are the real ones
+    from bio_image_unet_tpu_torch.data.pipelines import DataProcess3D
     from bio_image_unet_tpu_torch.train import Trainer
 
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer([], 1, network="UNet3D", device="cpu")
+    assert unet3d.DataProcess is DataProcess3D and issubclass(unet3d.Trainer, Trainer)
     kw = dict(resize_dim=(8, 32, 32), show_progress=False)
     if torch.cuda.is_available():
         assert Predict3D(vol, None, path, **kw).engine.device.type == "cuda"

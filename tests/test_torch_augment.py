@@ -162,9 +162,14 @@ def test_draw_distributions():
 
 
 def test_augment_rejects_3d_and_bad_shapes(rng):
+    """Volumes take the 3D form (K4v) now; a volume whose (X, Y) plane is not
+    square, ranks that differ, and a non-square tile are refused."""
     vol = torch.zeros((2, 1, 4, 8, 8))
-    with pytest.raises(NotImplementedError, match="3D"):
-        port_augment_batch(torch.Generator(), vol, vol)
+    assert port_augment_batch(torch.Generator(), vol, vol)[0].shape == vol.shape
+    with pytest.raises(ValueError, match="square"):
+        port_augment_batch(torch.Generator(), vol[..., :6], vol[..., :6])
+    with pytest.raises(ValueError, match="one rank"):
+        augment_apply_plain(vol, vol[:, :, 0], draw(torch.Generator(), 2, (2, 1, 4, 8, 8)))
     with pytest.raises(ValueError, match="square"):
         augment_apply_plain(torch.zeros((2, 1, 8, 6)), torch.zeros((2, 1, 8, 6)),
                             draw(torch.Generator(), 2, (2, 1, 8, 6)))

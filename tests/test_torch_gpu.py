@@ -1,7 +1,7 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
 card, and ``Predict``, ``PredictMultiOutput``, ``Predict3D``,
-``PredictMultiOutput3D`` and the ``Trainer`` on the card held against the
-same on the CPU.
+``PredictMultiOutput3D`` and the ``Trainer`` (2D and 3D) on the card held
+against the same on the CPU.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -22,7 +22,9 @@ import torch
 from bio_image_unet_tpu_torch.data.augment_device import (HeadLayout, augment_apply,
                                                           augment_apply_plain,
                                                           augment_heads_apply,
-                                                          augment_heads_apply_plain, draw)
+                                                          augment_heads_apply_plain,
+                                                          augment_heads_volume_apply,
+                                                          augment_volume_apply, draw)
 from bio_image_unet_tpu_torch.models import (MultiOutputNestedUNet, MultiOutputUnet,
                                              MultiOutputUnet3D, UNet3D, Unet)
 from bio_image_unet_tpu_torch.ops import histogram as hist
@@ -717,3 +719,182 @@ def test_predict_multi_output_3d_on_card_matches_cpu(cuda, gen, tmp_path, mode, 
         assert card[head].shape == cpu[head].shape == host[head].shape == want
         for other in (cpu[head], host[head]):
             np.testing.assert_allclose(card[head], other, atol=2e-3, rtol=1e-3, err_msg=head)
+
+
+# --- 3D training: K4v, K4hv -----------------------------------------------------------
+
+K4V_CASES = [
+    # (id, volumes in the set, batch, image channels, mask channels, z, width, gauss)
+    ("main-path", 40, 4, 1, 1, 16, 64, None),
+    ("odd-width-gauss", 7, 5, 2, 3, 5, 30, 0.04),
+]
+
+
+def _force_cases(d, b, device):
+    """Every (k, flip_h, flip_v) case the batch has room for, gate on, and the
+    last sample gated off."""
+    for i, (k, fh, fv) in enumerate(itertools.product(range(4), (0, 1), (0, 1))):
+        if i < b - 1:
+            d.flags[i, :4] = torch.tensor([1, k, fh, fv], dtype=torch.int32, device=device)
+    d.flags[b - 1, 0] = 0
+
+
+@pytest.mark.parametrize("case", K4V_CASES, ids=[c[0] for c in K4V_CASES])
+def test_augment_volume_kernel_equals_plain(cuda, case):
+    """K4v against its plain version on the same draws, gathering a
+    non-trivial index (repeats, out of order) from a resident volume set, one
+    sample gated off: masks bit-equal, images within one float32 ulp; without
+    an index the batch itself is augmented."""
+    _, n, b, ci, co, z, s, sigma = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    image = torch.rand((n, ci, z, s, s), generator=g, device=cuda)
+    mask = (torch.rand((n, co, z, s, s), generator=g, device=cuda) > 0.5).float()
+    index = torch.randint(0, n, (b,), generator=g, device=cuda)
+    index[-1] = index[0]
+    d = draw(g, b, (b, ci, z, s, s), gauss_sigma=sigma)
+    _force_cases(d, b, cuda)
+    before = augment_volume_apply.launches, augment_apply.launches
+    ours = augment_volume_apply(image, mask, d, index=index)
+    torch.cuda.synchronize()
+    assert (augment_volume_apply.launches, augment_apply.launches) == (before[0] + 1, before[1])
+    ref = augment_apply_plain(image, mask, d, index=index)
+    assert torch.equal(ours[1], ref[1])
+    assert _ulps(ours[0], ref[0]) <= 1
+    assert torch.equal(ours[0][b - 1], image[index[b - 1]])  # gated off: untouched
+    whole = augment_volume_apply(image[:b].contiguous(), mask[:b].contiguous(), d)
+    plain = augment_apply_plain(image[:b], mask[:b], d)
+    assert torch.equal(whole[1], plain[1]) and _ulps(whole[0], plain[0]) <= 1
+
+
+K4HV_CASES = [
+    # (id, volumes in the set, batch, z, width, head channels)
+    ("coverage-path", 16, 2, 32, 128, {"mask": 1, "orientation": 2}),
+    ("odd-width", 6, 5, 5, 18, {"orientation": 2, "mask": 1}),
+    ("two-orientation-heads", 5, 4, 3, 12, {"orientation": 2, "orientation_b": 2}),
+]
+
+
+@pytest.mark.parametrize("case", K4HV_CASES, ids=[c[0] for c in K4HV_CASES])
+def test_augment_heads_volume_kernel_equals_plain(cuda, case):
+    """K4hv against its plain version on the same draws, with an index, the
+    (k, flip) cases forced where the batch allows and one sample gated off:
+    targets equal (zeros by value), image within one float32 ulp; the
+    orientation pairs' partners are Z planes apart."""
+    _, n, b, z, s, channels = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    layout = HeadLayout.of(channels, [k for k in channels if "orientation" in k], cuda)
+    image = torch.rand((n, 1, z, s, s), generator=g, device=cuda)
+    parts = []
+    for name, c in channels.items():
+        if "orientation" in name:
+            theta = torch.rand((n, 1, z, s, s), generator=g, device=cuda) * 6.2832
+            parts.append(torch.cat([theta.cos(), theta.sin()], 1))
+        else:
+            parts.append((torch.rand((n, c, z, s, s), generator=g, device=cuda) > 0.5).float())
+    target = torch.cat(parts, 1).contiguous()
+    index = torch.randint(0, n, (b,), generator=g, device=cuda)
+    index[-1] = index[0]
+    d = draw(g, b, (b, 1, z, s, s), gauss_sigma=0.04)
+    _force_cases(d, b, cuda)
+    before = augment_heads_volume_apply.launches, augment_heads_apply.launches
+    ours = augment_heads_volume_apply(image, target, layout.codes, d, index=index)
+    torch.cuda.synchronize()
+    assert (augment_heads_volume_apply.launches, augment_heads_apply.launches) == (
+        before[0] + 1, before[1])
+    ref = augment_heads_apply_plain(image, target, layout.codes, d, index=index)
+    assert torch.equal(ours[1], ref[1])
+    assert _ulps(ours[0], ref[0]) <= 1
+    assert torch.equal(ours[1][b - 1], target[index[b - 1]])
+    whole = augment_heads_volume_apply(image[:b].contiguous(), target[:b].contiguous(),
+                                       layout.codes, d)
+    assert torch.equal(whole[1], augment_heads_apply_plain(image[:b], target[:b],
+                                                           layout.codes, d)[1])
+
+
+def test_volume_augment_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 1, 3, 16, 16), device=cuda)
+    t = torch.zeros((4, 3, 3, 16, 16), device=cuda)
+    layout = HeadLayout.of({"mask": 1, "orientation": 2}, ("orientation",), cuda)
+    d = draw(torch.Generator(device=cuda), 4, (4, 1, 3, 16, 16))
+    with pytest.raises(ValueError, match="float32"):
+        augment_volume_apply(x.double(), x, d)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        augment_volume_apply(x, x.cpu(), d)
+    with pytest.raises(ValueError, match="int64"):
+        augment_volume_apply(x, x, d, index=torch.zeros(4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="field"):
+        augment_volume_apply(x, x, d, index=torch.zeros(2, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="pair form"):
+        augment_apply(x, x, draw(torch.Generator(device=cuda), 4, (4, 1, 3, 16, 16), prev=True),
+                      prev=x)
+    with pytest.raises(ValueError, match="int32"):
+        augment_heads_volume_apply(x, t, layout.codes.long(), d)
+    with pytest.raises(ValueError, match="contiguous"):
+        augment_heads_volume_apply(x, t.to(memory_format=torch.channels_last_3d), layout.codes, d)
+
+
+class _Volumes:
+    def __init__(self, n=10, shape=(8, 16, 16), heads=False):
+        rng = np.random.default_rng(0)
+        xx, yy = np.meshgrid(np.arange(shape[1]), np.arange(shape[2]), indexing="ij")
+        self.items = []
+        for _ in range(n):
+            mask = (rng.random(shape) > 0.7).astype(np.float32)
+            item = {"volume": np.clip(0.5 * mask + 0.5 * rng.random(shape), 0, 1)
+                    .astype(np.float32)[None], "mask": mask[None]}
+            if heads:
+                theta = np.broadcast_to(np.arctan2(yy - rng.uniform(0, shape[1]),
+                                                   xx - rng.uniform(0, shape[2])), shape)
+                item["orientation"] = np.stack([np.cos(theta), np.sin(theta)]).astype(np.float32)
+            self.items.append(item)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+@pytest.mark.parametrize("network,cache", [("UNet3D", False), ("MultiOutputUnet3D", True)])
+def test_3d_trainer_on_card_matches_cpu(cuda, tmp_path, network, cache):
+    """2 steps and a validation pass of a 3D Trainer on the card against the
+    CPU, float32 with TF32 off: ``metrics.csv`` within rtol 1e-3."""
+    heads = HEAD_LOSSES if network == "MultiOutputUnet3D" else None
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        t = Trainer(_Volumes(heads=heads is not None), 1, network=network, n_filter=4,
+                    output_heads=heads, time_loss_weight=None if heads else 0.1, batch_size=4,
+                    lr=1e-4, save_dir=str(out), seed=0, device=dev, device_cache=cache)
+        t.start()
+        with open(os.path.join(out, "metrics.csv")) as fh:
+            rows[dev] = np.array([[float(v) for v in r[1:3]] for r in list(csv.reader(fh))[1:]])
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("network", ["UNet3D", "MultiOutputUnet3D"])
+def test_3d_trainer_on_card_with_augment_and_bf16(cuda, tmp_path, network):
+    """bf16, resident volumes, K4v (or K4hv with heads) once per step and no
+    2D augmentation kernel; the checkpoint it writes predicts on the card."""
+    heads = network == "MultiOutputUnet3D"
+    counters = (augment_volume_apply, augment_heads_volume_apply, augment_apply,
+                augment_heads_apply)
+    before = [c.launches for c in counters]
+    t = Trainer(_Volumes(n=20, heads=heads), 2, network=network, n_filter=8,
+                output_heads=HEAD_LOSSES if heads else None, batch_size=4, lr=1e-3,
+                save_dir=str(tmp_path), seed=0, device_cache=True, device_augment=True,
+                half_precision=True)
+    t.start()
+    steps = 2 * (16 // 4)
+    assert [c.launches - b for c, b in zip(counters, before)] == (
+        [0, steps, 0, 0] if heads else [steps, 0, 0, 0])
+    assert all(np.isfinite(h["train_loss"]) for h in t.history)
+    vol = np.random.default_rng(1).integers(0, 255, (12, 40, 36), dtype=np.uint8)
+    if heads:
+        res = PredictMultiOutput3D(vol, str(tmp_path / "model.pt"), max_patch_size=(8, 16, 16),
+                                   show_progress=False).result
+        assert res["mask"].shape == vol.shape and res["orientation"].shape == (2,) + vol.shape
+    else:
+        res = Predict3D(vol, None, str(tmp_path / "model.pt"), resize_dim=(8, 16, 16),
+                        show_progress=False).result
+        assert res.shape == vol.shape

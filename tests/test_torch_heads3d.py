@@ -291,9 +291,12 @@ def test_predict_multi_output_3d_saves_heads_and_squeezes(ckpts, rng, tmp_path):
     for head in HEADS:  # the codec writes a 4-D head as pages
         back = tiff.imread(str(tmp_path / "out" / f"{head}.tif"))
         np.testing.assert_array_equal(back.reshape(p.result[head].shape), p.result[head])
-    for cls in (multi_output_unet3d.DataProcess, multi_output_unet3d.Trainer):
-        with pytest.raises(NotImplementedError, match="3D training is not ported"):
-            cls("images/", ["masks/"], HEADS)
+    # 3D training is ported: the facade's DataProcess and Trainer are the real ones
+    from bio_image_unet_tpu_torch.data.pipelines import DataProcessMultiOutput3D
+    from bio_image_unet_tpu_torch.train import Trainer
+
+    assert multi_output_unet3d.DataProcess is DataProcessMultiOutput3D
+    assert issubclass(multi_output_unet3d.Trainer, Trainer)
 
 
 def test_predict_multi_output_3d_blockers_batch_policy_and_refusals(ckpts, rng, monkeypatch):

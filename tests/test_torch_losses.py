@@ -104,3 +104,27 @@ def test_unknown_loss_names_raise():
         tl.get_head_loss("NoSuchLoss")
     fn = tl.BCEDiceLoss(0.3, 0.7)
     assert tl.get_loss(fn) is fn and "alpha" in repr(fn)
+
+
+@pytest.mark.parametrize("name", ["bce_probs", "weighted_bce"])
+def test_gradient_on_a_clip_bound_matches_jax(name):
+    """Probabilities exactly on a clip bound (1 − 1e-7 or 1e-7 in float32)
+    get JAX's gradient: ``jnp.clip``'s max/min split a tie in half, where
+    ``torch.clamp`` would pass it whole.  A saturated sigmoid head lands on
+    1 − 1e-7 in a first training step (found by the 3D multi-output
+    gradient test)."""
+    hi = np.float32(1.0) - np.float32(1e-7)
+    if name == "bce_probs":
+        x = np.array([[1e-7, hi, 0.5, 1.0, 0.0, 0.3]], np.float32)
+        ours_fn = lambda a, t: tl.bce_loss(a, t, from_logits=False)  # noqa: E731
+        ref_fn = lambda a, t: jl.bce_loss(a, t, from_logits=False)  # noqa: E731
+    else:
+        x = np.array([[20.0, -20.0, 0.5, 16.5, -16.5, 1.0]], np.float32)  # sigmoid saturates
+        ours_fn, ref_fn = tl.weighted_bce_loss, jl.weighted_bce_loss
+    t = np.array([[0.0, 1.0, 1.0, 0.0, 1.0, 0.0]], np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    loss = ours_fn(xt, torch.from_numpy(t))
+    loss.backward()
+    ref_loss, ref_grad = jax.value_and_grad(lambda a: ref_fn(a, jnp.asarray(t)))(jnp.asarray(x))
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_grad), rtol=1e-6, atol=1e-9)

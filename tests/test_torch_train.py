@@ -239,11 +239,16 @@ def test_trainer_device_rule_and_unported_options(tmp_path):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="auto")
-    for kw in ({"network": "AttentionUnet"}, {"mode": "max"}, {"time_loss_weight": 0.1},
+    for kw in ({"network": "AttentionUnet"}, {"mode": "max"},
                {"mesh": object()}, {"device_cache": "sharded"}, {"remat": True},
                {"profile_dir": str(tmp_path / "prof")}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu", **kw)
+    # the 3D options are ported: the temporal loss applies to any single-output
+    # model, and a 2D model drops use_interpolation as JAX's get_model does
+    t = Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu",
+                time_loss_weight=0.1, use_interpolation=True)
+    assert t.time_loss_weight == 0.1 and t.params_meta["time_loss_weight"] == 0.1
 
 
 def test_half_precision_keeps_float32_params_and_batchnorm(tmp_path):

@@ -85,3 +85,18 @@ def write_3d_checkpoint(root, name: str, registry: str, seed: int, n_filter: int
     path = str(root / f"{name}.pt")
     export_torch_checkpoint(path, variables, hyper, final_sequential=registry != "UNet3D")
     return path, variables
+
+
+def jit_init():
+    """A context in which the JAX Trainer initializes its model with one
+    jitted ``model.init`` in place of an eager one (``trainer.py:52
+    _init_on_cpu``): the same initializers and keys, a few seconds of compile
+    in place of some 30 s of op-by-op dispatch on the CPU.  The parity tests
+    export those initial weights and start the port from them, so the values
+    need not match an eager init."""
+    from unittest import mock
+
+    from bio_image_unet_tpu.train import trainer
+
+    return mock.patch.object(trainer, "_init_on_cpu",
+                             lambda model, rng, *args: jax.jit(model.init)(rng, *args))
