@@ -4,28 +4,34 @@ The port sits beside the JAX package ``bio_image_unet_tpu`` (the reference it
 is held against) and imports nothing of it, nor JAX.  Its layout mirrors the
 JAX package's, so each module's counterpart is easy to find:
 
-- :mod:`~bio_image_unet_tpu_torch.models`     — ``Unet``, ``MultiOutputUnet``,
-  both UNet++ depths, ``UNet3D`` and ``MultiOutputUnet3D`` (``nn.Module``,
-  float32 or bf16 compute)
+- :mod:`~bio_image_unet_tpu_torch.models`     — ``Unet``, ``Siam_UNet`` (joins
+  ``max``, ``concat``, ``corr``, ``control``), ``MultiOutputUnet``, both UNet++
+  depths, ``UNet3D`` and ``MultiOutputUnet3D`` (``nn.Module``, float32 or bf16
+  compute)
 - :mod:`~bio_image_unet_tpu_torch.checkpoint` — reference ``.pt`` loading and saving
 - :mod:`~bio_image_unet_tpu_torch.interop`    — JAX variables → the port's state dict
 - :mod:`~bio_image_unet_tpu_torch.ops`        — blocks and the hand-written kernels
-  (K1 clip bounds, K3/K3v sigmoid + stitch, K5/K5s safe-margin stitch, K5v
-  3D blend stitch) with their plain PyTorch versions
-- :mod:`~bio_image_unet_tpu_torch.predict`    — BN fold, K2/K2h/K2v
-  normalize-and-tile, tiled ``Predict``, ``PredictMultiOutput``, ``Predict3D``
-  and ``PredictMultiOutput3D`` (fused device pipeline and host-staged path)
+  (K1 clip bounds with its Siam pair-row form, K3/K3v sigmoid + stitch, K5/K5s
+  safe-margin stitch, K5v 3D blend stitch, K6 depthwise cross-correlation)
+  with their plain PyTorch versions
+- :mod:`~bio_image_unet_tpu_torch.predict`    — BN fold, K2/K2h/K2v/K2p
+  normalize-and-tile, and the five predictors: tiled ``Predict``,
+  ``PredictMultiOutput``, the streaming ``PredictSiam``, ``Predict3D`` and
+  ``PredictMultiOutput3D`` (fused device pipeline and host-staged path)
 - :mod:`~bio_image_unet_tpu_torch.data`       — the TIFF codec, ``DataProcess2D``,
-  ``DataProcessMultiOutput`` and their loader, host augmentation, and the K4 /
-  K4h on-device augmentation
+  ``DataProcessMultiOutput``, ``DataProcess3D``, ``DataProcessMultiOutput3D``
+  and their loader, host augmentation, and the K4 / K4h / K4v / K4hv
+  on-device augmentation
 - :mod:`~bio_image_unet_tpu_torch.losses`     — the loss zoo
-- :mod:`~bio_image_unet_tpu_torch.train`      — the ``Trainer`` of the 2D ``Unet``
-  and the multi-output family
-- :mod:`~bio_image_unet_tpu_torch.unet`, :mod:`~bio_image_unet_tpu_torch.multi_output_unet`
-  — the facades (DataProcess, Trainer, Predict);
+- :mod:`~bio_image_unet_tpu_torch.train`      — the ``Trainer`` of the 2D ``Unet``,
+  the multi-output family (``MultiOutputUnet``, both UNet++ depths), ``UNet3D``
+  and ``MultiOutputUnet3D``; Siam training is not ported yet
+- :mod:`~bio_image_unet_tpu_torch.unet`, :mod:`~bio_image_unet_tpu_torch.multi_output_unet`,
   :mod:`~bio_image_unet_tpu_torch.unet3d`,
-  :mod:`~bio_image_unet_tpu_torch.multi_output_unet3d` — the 3D facades
-  (Predict; their DataProcess and Trainer raise until 3D training is ported)
+  :mod:`~bio_image_unet_tpu_torch.multi_output_unet3d` — the facades
+  (DataProcess, Trainer, Predict); :mod:`~bio_image_unet_tpu_torch.siam_unet` —
+  the Siam facade (Predict, ``Siam_UNet``, the losses; its DataProcess and
+  Trainer raise until Siam training is ported)
 - :mod:`~bio_image_unet_tpu_torch.utils`      — device rule, synthetic data,
   TIFF saving, the TensorBoard event writer
 

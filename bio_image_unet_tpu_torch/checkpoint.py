@@ -5,7 +5,9 @@ The port reads and writes the reference's ``.pt`` schema: one ``torch.save``'d
 dict ``{'state_dict', 'epoch', 'best_loss', **hyperparams}``, plus the
 Trainer's ``optimizer_state_dict`` and ``scheduler_state``.  The
 hyperparams (``model_name``, ``n_filter``, ``use_interpolation`` of the 3D
-models, ``output_heads``, …) are the top-level keys; ``models.get_model``
+models, ``output_heads``, the join ``mode`` of ``Siam_UNet`` — without it a
+Siam ``.pt`` takes the class default ``concat``, as in JAX — …) are the
+top-level keys; ``models.get_model``
 takes the ones a model's constructor names.  :func:`save`
 writes only plain Python values (dict, list, tuple, str, int, float, bool,
 None) and CPU tensors, so the file reads back both with

@@ -8,6 +8,12 @@
 // frame per bit, then blends them with numpy's 'linear' rule in float32 and
 // clamps the frame min/max into [lo, hi].
 //
+// The Siam pair form (predict/predictor.py:976-994, 'all' mode) takes the
+// bounds of each pair's two planes as one row of 2*h*w values: rows i and
+// i+1 of the (k+1, h, w) block are contiguous, so the kernel reads the pair
+// rows in place with a row stride of one frame (h*w) apart from the row
+// length (2*h*w); no (k, 2*h*w) copy is made.
+//
 // What bounds it on the card: bytes.  A (16, 1024*1024) uint8 chunk is 16 MB;
 // the least time is one read of it at 3.35 TB/s (~5 us).  The bitwise search
 // would read the chunk n_bits times (8, 16 or 32), so this kernel selects by
@@ -106,7 +112,7 @@ __device__ void select_prefix(const int* __restrict__ hist, int F, int f, int s,
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(HIST_THREADS)
-hist_pass(const T* __restrict__ x, long long P, int F, int d, int n_digits,
+hist_pass(const T* __restrict__ x, long long P, long long S, int F, int d, int n_digits,
           Ranks ranks, int* __restrict__ hist) {
   __shared__ int sh[NSTAT * NBIN];
   __shared__ uint32_t s_prefix[NSTAT];
@@ -143,11 +149,11 @@ hist_pass(const T* __restrict__ x, long long P, int F, int d, int n_digits,
     }
   };
 
-  const T* xf = x + (size_t)f * P;
+  const T* xf = x + (size_t)f * S;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (VEC > 1) {
-    // 16-byte loads: P is a multiple of VEC and the frame is 16-byte aligned
+    // 16-byte loads: P and S are multiples of VEC and the rows 16-byte aligned
     const uint4* xv = reinterpret_cast<const uint4*>(xf);
     const long long nv = P / VEC;
     for (long long i = tid; i < nv; i += stride) {
@@ -196,16 +202,16 @@ __global__ void finalize(const int* __restrict__ hist, int F, int n_digits,
 }
 
 template <typename T>
-static int launch_hist(const void* x, long long P, int F, int d, int n_digits,
+static int launch_hist(const void* x, long long P, long long S, int F, int d, int n_digits,
                        Ranks r, void* hist, int blocks_per_frame, int vec,
                        void* stream) {
   dim3 grid(blocks_per_frame, F);
   cudaStream_t s = (cudaStream_t)stream;
   constexpr int V = 16 / sizeof(T);
   if (vec)
-    hist_pass<T, V><<<grid, HIST_THREADS, 0, s>>>((const T*)x, P, F, d, n_digits, r, (int*)hist);
+    hist_pass<T, V><<<grid, HIST_THREADS, 0, s>>>((const T*)x, P, S, F, d, n_digits, r, (int*)hist);
   else
-    hist_pass<T, 1><<<grid, HIST_THREADS, 0, s>>>((const T*)x, P, F, d, n_digits, r, (int*)hist);
+    hist_pass<T, 1><<<grid, HIST_THREADS, 0, s>>>((const T*)x, P, S, F, d, n_digits, r, (int*)hist);
   return (int)cudaGetLastError();
 }
 
@@ -217,16 +223,18 @@ static Ranks make_ranks(int k0, int k1, int k2, int k3, int k4, int k5) {
 
 extern "C" {
 
-// dtype: 0 = uint8, 1 = uint16, 2 = float32.  x is (F, P) contiguous; hist is
-// (n_digits, F, NSTAT, NBIN) int32, zeroed by the caller.  One launch.
-int k1_hist_pass(const void* x, int dtype, long long P, int F, int d, int n_digits,
+// dtype: 0 = uint8, 1 = uint16, 2 = float32.  x holds F rows of P values,
+// row f starting at x + f*S (S = P: an (F, P) array; S < P: overlapping
+// rows, as the Siam pair rows); hist is (n_digits, F, NSTAT, NBIN) int32,
+// zeroed by the caller.  One launch.
+int k1_hist_pass(const void* x, int dtype, long long P, long long S, int F, int d, int n_digits,
                  int k0, int k1, int k2, int k3, int k4, int k5, void* hist,
                  int blocks_per_frame, int vec, void* stream) {
   Ranks r = make_ranks(k0, k1, k2, k3, k4, k5);
   switch (dtype) {
-    case 0: return launch_hist<uint8_t>(x, P, F, d, n_digits, r, hist, blocks_per_frame, vec, stream);
-    case 1: return launch_hist<uint16_t>(x, P, F, d, n_digits, r, hist, blocks_per_frame, vec, stream);
-    case 2: return launch_hist<float>(x, P, F, d, n_digits, r, hist, blocks_per_frame, vec, stream);
+    case 0: return launch_hist<uint8_t>(x, P, S, F, d, n_digits, r, hist, blocks_per_frame, vec, stream);
+    case 1: return launch_hist<uint16_t>(x, P, S, F, d, n_digits, r, hist, blocks_per_frame, vec, stream);
+    case 2: return launch_hist<float>(x, P, S, F, d, n_digits, r, hist, blocks_per_frame, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -44,6 +44,20 @@
 // (n_pad * tz * tx * ty * sizeof(out)); overlapping tiles re-read source
 // voxels from L2.
 
+//
+// K2p is the Siam pair mode.  It replaces the pair stage of
+// bio_image_unet_tpu/predict/predictor.py:995-1010 (fused_predict_pairs:
+// _normalize_clip of the prev planes block[:-1] and the cur planes block[1:]
+// with their per-pair bounds, jnp.pad with ZEROS -- not reflect -- after the
+// normalization, astype(uint8), :102 _extract_tiles of both, each set padded
+// by its last tile).  One launch reads the (k+1, H, W) block and writes both
+// tile sets, (2, n_total, th, tw) uint8: set 0 (prev) from frames 0..k-1,
+// set 1 (cur) from frames 1..k.  K2's index math and float32 steps; a pixel
+// past the frame is the normalized value 0 (so 0 under invert too).  The
+// bounds are per source frame ('single': (4, k+1)) or per pair ('first',
+// 'all': (4, k)).  Bound by bytes: the block read once, both tile sets
+// written once.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +65,64 @@
 __device__ __forceinline__ void store(uint8_t* o, float v) { *o = (uint8_t)__float2uint_rz(v); }
 __device__ __forceinline__ void store(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+// clip to [lo, hi], min-max to [0, scale], optionally invert: the float32
+// steps of _normalize_clip (predictor.py:203), each rounded once
+struct Norm {
+  float lo, hi, fmin, den, scale;
+  bool span;
+  int invert;
+  __device__ __forceinline__ Norm(const float* bounds, int Fb, int col, float scale_, int inv)
+      : scale(scale_), invert(inv) {
+    lo = bounds[0 * Fb + col];
+    hi = bounds[1 * Fb + col];
+    fmin = bounds[2 * Fb + col];
+    const float fmax = bounds[3 * Fb + col];
+    span = fmax > fmin;
+    den = __fsub_rn(fmax, fmin);
+  }
+  __device__ __forceinline__ float operator()(float v) const {
+    v = fminf(fmaxf(v, lo), hi);
+    v = span ? __fmul_rn(__fdiv_rn(__fsub_rn(v, fmin), den), scale) : 0.0f;
+    return invert ? __fsub_rn(scale, v) : v;
+  }
+};
+
+// The tile row segment of output group g of a (n_total, th, tw) tile set in
+// frame-major grid order, VEC pixels a group: tile t, row r, first column
+// c0, and the real tile it shows (batch padding repeats the last real tile):
+// frame f, grid cell (i, j).
+struct TileRow {
+  long long t, f;
+  int r, c0, i, j;
+  __device__ __forceinline__ TileRow(long long g, int th, int tw, int vec, int nx, int ny,
+                                     long long n_real) {
+    const int twv = tw / vec;
+    t = g / ((long long)th * twv);
+    const int rem = (int)(g - t * th * twv);
+    r = rem / twv;
+    c0 = (rem - r * twv) * vec;
+    const long long ts = t < n_real ? t : n_real - 1;
+    const int per = nx * ny;
+    f = ts / per;
+    const int ij = (int)(ts - f * per);
+    i = ij / ny;
+    j = ij - i * ny;
+  }
+};
+
+template <typename O, int VEC>
+__device__ __forceinline__ void store_row(O* o, const float* res) {
+  if constexpr (VEC == 4 && sizeof(O) == 1) {
+    // uint8: one 4-byte store of the four truncated levels
+    *reinterpret_cast<uchar4*>(o) =
+        make_uchar4((uint8_t)__float2uint_rz(res[0]), (uint8_t)__float2uint_rz(res[1]),
+                    (uint8_t)__float2uint_rz(res[2]), (uint8_t)__float2uint_rz(res[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) store(o + k, res[k]);
+  }
+}
 
 // O = uint8_t: K2 (scale 255, truncation); O = float or __nv_bfloat16: K2h
 // (scale 1).
@@ -61,53 +133,58 @@ __global__ void normalize_tile(const T* __restrict__ x, int H, int W,
                                int nx, int ny, int th, int tw, long long n_real,
                                long long n_total, int invert, float scale,
                                O* __restrict__ out) {
-  const int twv = tw / VEC;
-  const long long groups = n_total * th * twv;
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= groups) return;
-  const long long t = g / ((long long)th * twv);
-  const int rem = (int)(g - t * th * twv);
-  const int r = rem / twv;
-  const int c0 = (rem - r * twv) * VEC;
+  if (g >= n_total * th * (tw / VEC)) return;
+  const TileRow tr(g, th, tw, VEC, nx, ny, n_real);
 
-  // batch padding repeats the last real tile
-  const long long ts = t < n_real ? t : n_real - 1;
-  const int per = nx * ny;
-  const long long f = ts / per;
-  const int ij = (int)(ts - f * per);
-  const int i = ij / ny, j = ij - (ij / ny) * ny;
-
-  int pr = xs[i] + r;
+  int pr = xs[tr.i] + tr.r;
   if (pr >= H) pr = 2 * (H - 1) - pr;  // numpy/jnp 'reflect' (edge not repeated)
-  const T* row = x + ((size_t)f * H + pr) * W;
-
-  const int fb = Fb == 1 ? 0 : (int)f;
-  const float lo = bounds[0 * Fb + fb], hi = bounds[1 * Fb + fb];
-  const float fmin = bounds[2 * Fb + fb], fmax = bounds[3 * Fb + fb];
-  const bool span = fmax > fmin;
-  const float den = __fsub_rn(fmax, fmin);
+  const T* row = x + ((size_t)tr.f * H + pr) * W;
+  const Norm norm(bounds, Fb, Fb == 1 ? 0 : (int)tr.f, scale, invert);
 
   float res[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
-    int pc = ys[j] + c0 + k;
+    int pc = ys[tr.j] + tr.c0 + k;
     if (pc >= W) pc = 2 * (W - 1) - pc;
-    float v = (float)row[pc];
-    v = fminf(fmaxf(v, lo), hi);
-    v = span ? __fmul_rn(__fdiv_rn(__fsub_rn(v, fmin), den), scale) : 0.0f;
-    if (invert) v = __fsub_rn(scale, v);
-    res[k] = v;
+    res[k] = norm((float)row[pc]);
   }
-  O* o = out + (size_t)t * th * tw + (size_t)r * tw + c0;
-  if constexpr (VEC == 4 && sizeof(O) == 1) {
-    // K2: one 4-byte store of the four truncated levels
-    *reinterpret_cast<uchar4*>(o) =
-        make_uchar4((uint8_t)__float2uint_rz(res[0]), (uint8_t)__float2uint_rz(res[1]),
-                    (uint8_t)__float2uint_rz(res[2]), (uint8_t)__float2uint_rz(res[3]));
-  } else {
+  store_row<O, VEC>(out + (size_t)tr.t * th * tw + (size_t)tr.r * tw + tr.c0, res);
+}
+
+// K2p: both tile sets of k Siam pairs, (2, n_total, th, tw) uint8, from a
+// (k+1, H, W) block; zero pad; bounds (4, Fb): Fb = k+1 per source frame,
+// Fb = k per pair, Fb = 1 global.
+template <typename T, int VEC>
+__global__ void normalize_tile_pairs(const T* __restrict__ x, int H, int W,
+                                     const float* __restrict__ bounds, int Fb, int k,
+                                     const int* __restrict__ xs, const int* __restrict__ ys,
+                                     int nx, int ny, int th, int tw, long long n_real,
+                                     long long n_total, int invert, uint8_t* __restrict__ out) {
+  const long long per_set = n_total * th * (tw / VEC);
+  long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= 2 * per_set) return;
+  const int set = g >= per_set;  // 0: prev planes (frames f), 1: cur planes (frames f + 1)
+  g -= set * per_set;
+  const TileRow tr(g, th, tw, VEC, nx, ny, n_real);
+  const long long src = tr.f + set;
+
+  const int pr = xs[tr.i] + tr.r;
+  const T* row = x + ((size_t)src * H + (pr < H ? pr : 0)) * W;
+  const int col = Fb == k + 1 ? (int)src : (Fb == 1 ? 0 : (int)tr.f);
+  const Norm norm(bounds, Fb, col, 255.0f, invert);
+
+  float res[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) store(o + k, res[k]);
+  for (int c = 0; c < VEC; ++c) {
+    const int pc = ys[tr.j] + tr.c0 + c;
+    // the zero pad is applied to the normalized frame (jnp.pad after
+    // _normalize_clip): a pixel past the frame is 0, inverted or not
+    res[c] = (pr < H && pc < W) ? norm((float)row[pc]) : 0.0f;
   }
+  store_row<uint8_t, VEC>(
+      out + (size_t)set * n_total * th * tw + (size_t)tr.t * th * tw + (size_t)tr.r * tw + tr.c0,
+      res);
 }
 
 template <typename T, typename O>
@@ -169,21 +246,14 @@ __global__ void normalize_tile_3d(const T* __restrict__ x, int D, int H, int W,
   if (px >= H) px = 2 * (H - 1) - px;
   const T* row = x + (((size_t)v * D + pz) * H + px) * W;
 
-  const int fb = Fb == 1 ? 0 : (int)v;
-  const float lo = bounds[0 * Fb + fb], hi = bounds[1 * Fb + fb];
-  const float fmin = bounds[2 * Fb + fb], fmax = bounds[3 * Fb + fb];
-  const bool span = fmax > fmin;
-  const float den = __fsub_rn(fmax, fmin);
+  const Norm norm(bounds, Fb, Fb == 1 ? 0 : (int)v, scale, invert);
 
   O* o = out + (size_t)t * tz * tx * ty + ((size_t)rz * tx + rx) * ty + c0;
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
     int py = ys[iy] + c0 + k;
     if (py >= W) py = 2 * (W - 1) - py;
-    float f = fminf(fmaxf((float)row[py], lo), hi);
-    f = span ? __fmul_rn(__fdiv_rn(__fsub_rn(f, fmin), den), scale) : 0.0f;
-    if (invert) f = __fsub_rn(scale, f);
-    store(o + k, f);
+    store(o + k, norm((float)row[py]));
   }
 }
 
@@ -219,6 +289,27 @@ static int dispatch_3d(const void* x, int dtype, int D, int H, int W, const void
     case 2: return launch_3d<float, O>(x, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, scale, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+static int launch_pairs(const void* x, int H, int W, const void* bounds, int Fb, int k,
+                        const void* xs, const void* ys, int nx, int ny, int th, int tw,
+                        long long n_real, long long n_total, int invert, void* out,
+                        void* stream) {
+  const int threads = 256;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int vec = tw % 4 == 0 ? 4 : 1;
+  const long long groups = 2 * n_total * th * (tw / vec);
+  const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
+  if (vec == 4)
+    normalize_tile_pairs<T, 4><<<blocks, threads, 0, s>>>(
+        (const T*)x, H, W, (const float*)bounds, Fb, k, (const int*)xs, (const int*)ys, nx, ny,
+        th, tw, n_real, n_total, invert, (uint8_t*)out);
+  else
+    normalize_tile_pairs<T, 1><<<blocks, threads, 0, s>>>(
+        (const T*)x, H, W, (const float*)bounds, Fb, k, (const int*)xs, (const int*)ys, nx, ny,
+        th, tw, n_real, n_total, invert, (uint8_t*)out);
+  return (int)cudaGetLastError();
 }
 
 template <typename O>
@@ -274,6 +365,23 @@ int k2v_normalize_tile_3d(const void* x, int dtype, int D, int H, int W, const v
     case 0: return dispatch_3d<uint8_t>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 255.0f, out, stream);
     case 1: return dispatch_3d<float>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 1.0f, out, stream);
     case 2: return dispatch_3d<__nv_bfloat16>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 1.0f, out, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2p: x is the (k+1, H, W) block (dtype as above); bounds (4, Fb) float32
+// with Fb = k+1 (per source frame), k (per pair) or 1; xs, ys int32 tile
+// starts; out is (2, n_total, th, tw) uint8: the prev tiles of the k pairs,
+// then their cur tiles, each set frame-major with n_real = k*nx*ny real
+// tiles.  One launch.
+int k2p_normalize_tile_pairs(const void* x, int dtype, int H, int W, const void* bounds,
+                             int Fb, int k, const void* xs, const void* ys, int nx, int ny,
+                             int th, int tw, long long n_real, long long n_total, int invert,
+                             void* out, void* stream) {
+  switch (dtype) {
+    case 0: return launch_pairs<uint8_t>(x, H, W, bounds, Fb, k, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
+    case 1: return launch_pairs<uint16_t>(x, H, W, bounds, Fb, k, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
+    case 2: return launch_pairs<float>(x, H, W, bounds, Fb, k, xs, ys, nx, ny, th, tw, n_real, n_total, invert, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,15 +1,18 @@
-"""The 2D U-Net trunk with a single or a multi-head output (counterpart of
-``bio_image_unet_tpu/models/unet2d.py`` ``UNet2DBase`` without the attention
-and siamese options, which later slices port).
+"""The 2D U-Net trunk with a single or a multi-head output and the siamese
+join (counterpart of ``bio_image_unet_tpu/models/unet2d.py`` ``UNet2DBase``
+without the attention option, which a later slice ports).
 
 - ``Unet``            — plain 4-level U-Net, ``(sigmoid, logits)`` output
+- ``Siam_UNet``       — shared-weight twin encoder over (current, previous)
+                        frames, joined at the bottleneck by ``mode`` ∈
+                        {concat, corr, max, control} (``unet2d.py:225``)
 - ``MultiOutputUnet`` — per-head 1×1 conv outputs from ``output_heads``,
                         ``{head: activated float32}`` output
 
 NCHW at the boundary; submodule names follow the reference schema
 (``encode1..8``, ``middle_conv1/2``, ``up1..4``, ``decode1..8``, ``final.0``
-or ``output_layers.<head>``), so reference ``.pt`` state dicts load with
-``strict=True``.
+or ``output_layers.<head>``, ``conv_concat`` of the ``concat`` join), so
+reference ``.pt`` state dicts load with ``strict=True``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.blocks import ConvBlock, ConvTranspose
+from ..ops.functional import depthwise_xcorr
+
+SIAM_MODES = ("concat", "corr", "max", "control")
 
 
 def normalize_dilation(dilation) -> int:
@@ -50,13 +56,24 @@ class Unet(nn.Module):
     (``unet2d.py:60``): parameters stay float32, every conv, transposed conv,
     pool and concat runs in bf16, BatchNorm in float32 (``ConvBlock``), and
     the final 1×1 conv in float32 on the bf16 features cast up, as flax
-    promotes a bf16 input against float32 parameters."""
+    promotes a bf16 input against float32 parameters.
+
+    ``mode`` (None, or a join of ``SIAM_MODES``) makes the trunk siamese
+    (``unet2d.py:150-164``): ``forward(x, prev_x)`` encodes both frames with
+    the same weights and feeds the middle block the join of their pooled
+    bottlenecks — elementwise max, ``conv_concat`` (a 16·nf → 8·nf
+    ``ConvBlock``) over the channel concat, the depthwise cross-correlation
+    of cur with prev as its kernel, or cur's alone (``control``).  The
+    skips are cur's."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  n_filter: int = 32, dilation: int = 1, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, multi_output: bool = False,
-                 output_heads: Optional[Dict[str, dict]] = None):
+                 output_heads: Optional[Dict[str, dict]] = None,
+                 mode: Optional[str] = None):
         super().__init__()
+        if mode is not None and mode not in SIAM_MODES:
+            raise NotImplementedError(f"Unknown mode: {mode}")
         nf = n_filter
         d = normalize_dilation(dilation)
         self.in_channels = in_channels
@@ -71,6 +88,10 @@ class Unet(nn.Module):
         self.encode6 = ConvBlock(4 * nf, 4 * nf, d, dropout)
         self.encode7 = ConvBlock(4 * nf, 8 * nf, d, dropout)
         self.encode8 = ConvBlock(8 * nf, 8 * nf, d, dropout)
+        # the concat join's block keeps dilation 1 (unet2d.py:86-87)
+        self.mode = mode
+        if mode == "concat":
+            self.conv_concat = ConvBlock(16 * nf, 8 * nf, 1, dropout)
         self.middle_conv1 = ConvBlock(8 * nf, 16 * nf, d, dropout)
         self.middle_conv2 = ConvBlock(16 * nf, 16 * nf, d, dropout)
         # decode blocks keep dilation 1 (unet2d.py:91)
@@ -99,15 +120,34 @@ class Unet(nn.Module):
             if isinstance(m, (ConvBlock, ConvTranspose)):
                 m.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor):
-        if x.shape[1] != self.in_channels:
-            raise ValueError(f"expected {self.in_channels} input channels "
-                             f"(NCHW), got {x.shape[1]}")
+    def encode(self, x: torch.Tensor):
+        """The encoder's skips and pooled bottleneck ``(e2, e4, e6, e8, m4)``."""
         e2 = self.encode2(self.encode1(x))
         e4 = self.encode4(self.encode3(F.max_pool2d(e2, 2)))
         e6 = self.encode6(self.encode5(F.max_pool2d(e4, 2)))
         e8 = self.encode8(self.encode7(F.max_pool2d(e6, 2)))
-        h = self.middle_conv2(self.middle_conv1(F.max_pool2d(e8, 2)))
+        return e2, e4, e6, e8, F.max_pool2d(e8, 2)
+
+    def join(self, m4: torch.Tensor, mm4: torch.Tensor) -> torch.Tensor:
+        """The siamese bottleneck join of cur's ``m4`` and prev's ``mm4``."""
+        if self.mode == "max":
+            return torch.maximum(m4, mm4)
+        if self.mode == "concat":
+            return self.conv_concat(torch.cat([m4, mm4], dim=1))
+        if self.mode == "corr":
+            return depthwise_xcorr(m4, mm4)
+        return m4  # control
+
+    def forward(self, x: torch.Tensor, prev_x: Optional[torch.Tensor] = None):
+        if x.shape[1] != self.in_channels and self.mode is None:
+            raise ValueError(f"expected {self.in_channels} input channels "
+                             f"(NCHW), got {x.shape[1]}")
+        e2, e4, e6, e8, m4 = self.encode(x)
+        if self.mode is not None:
+            if prev_x is None:
+                raise ValueError("Siam mode requires prev_x")
+            m4 = self.join(m4, self.encode(prev_x)[-1])
+        h = self.middle_conv2(self.middle_conv1(m4))
         # concat order is (up, skip) (unet2d.py:176)
         for i, skip in zip(range(1, 5), (e8, e6, e4, e2)):
             u = getattr(self, f"up{i}")(h)
@@ -118,6 +158,18 @@ class Unet(nn.Module):
             return torch.sigmoid(logits), logits
         return {name: apply_activation(self.output_layers[name](h.float()), cfg.get("activation"))
                 for name, cfg in self.heads.items()}
+
+
+class Siam_UNet(Unet):
+    """Siamese U-Net (``unet2d.py:225``, reference siam_unet/siam_unet.py):
+    shared-weight twin encoder over (current, previous) frames with the
+    bottleneck join ``mode`` ∈ {concat, corr, max, control}, ``concat`` by
+    default as in the JAX class.  Fixed 1-in/1-out; ``forward(x, prev_x)``
+    returns ``(sigmoid(logits), logits)``."""
+
+    def __init__(self, n_filter: int = 32, mode: str = "concat", dilation: int = 1,
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+        super().__init__(1, 1, n_filter, dilation, dropout, dtype, mode=mode)
 
 
 class MultiOutputUnet(Unet):

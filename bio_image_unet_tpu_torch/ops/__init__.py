@@ -2,16 +2,19 @@
 
 - :mod:`.blocks`    — ``ConvBlock`` (2D and 3D) / ``ConvTranspose`` /
   ``ConvTranspose3D`` with the reference schema
-- :mod:`.histogram` — K1 / K1f per-frame clip bounds (``csrc/clip_bounds.cu``)
+- :mod:`.histogram` — K1 / K1f per-frame clip bounds and their Siam pair-row
+  form (``csrc/clip_bounds.cu``)
 - :mod:`.stitch`    — K3 / K3v sigmoid·255 → uint8 → mean stitch of frames /
   a volume (``csrc/sigmoid_stitch.cu``); K5 safe-margin weighted stitch, K5s
   tile sum and K5v 3D linear-blend stitch (``csrc/margin_stitch.cu``)
 - :mod:`.functional` — max pool, nearest and linear resampling at spatial
-  rank 2 and 3
+  rank 2 and 3; K6, the depthwise cross-correlation of the Siam ``corr`` join
+  (``csrc/depthwise_xcorr.cu``)
 - :mod:`._cuda`     — nvcc build and ctypes binding of ``csrc/*.cu``
 
-K2 (normalize → pad → uint8 → tiles), K2h (its float-tile mode) and K2v
-(their 3D form) live in :mod:`..predict.normalize`,
+K2 (normalize → pad → uint8 → tiles), K2h (its float-tile mode), K2v
+(their 3D form) and K2p (the Siam pair mode) live in
+:mod:`..predict.normalize`,
 K4 (gather + augmentation of a training batch) in
 :mod:`..data.augment_device`.
 """

@@ -34,6 +34,7 @@ SOURCES = {
     "sigmoid_stitch": "sigmoid_stitch.cu",
     "augment_batch": "augment_batch.cu",
     "margin_stitch": "margin_stitch.cu",
+    "depthwise_xcorr": "depthwise_xcorr.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

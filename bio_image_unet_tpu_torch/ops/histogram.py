@@ -5,7 +5,9 @@
 as a (4, N) float32 tensor: lo/hi are numpy-'linear' percentiles found from
 exact order statistics, fmin/fmax the frame min/max clamped into [lo, hi].
 uint8 and uint16 frames take K1 (``int_clip_bounds``), NaN-free float32 frames
-K1f (``float_clip_bounds``).
+K1f (``float_clip_bounds``).  ``pair_clip_bounds(block, q_lo, q_hi)`` is their
+Siam pair-row form (``predictor.py:987-992``, ``'all'`` mode): row i is frames
+i and i+1 of a (k+1, h, w) block as one row of 2·h·w values, read in place.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/clip_bounds.cu``: a byte-wise radix select) and raises if it cannot;
@@ -108,9 +110,16 @@ def _blocks_per_frame(n_frames: int, n_vec: int) -> int:
     return max(1, min(target, -(-n_vec // 256)))
 
 
-def _clip_bounds_cuda(flat: torch.Tensor, q_lo: float, q_hi: float, counter) -> torch.Tensor:
+def _clip_bounds_cuda(flat: torch.Tensor, q_lo: float, q_hi: float, counter,
+                      pairs: bool = False) -> torch.Tensor:
+    """The launches over the rows of ``flat`` (N, P); with ``pairs`` over
+    its N - 1 overlapping rows of 2·P values (row i starts at row i of
+    ``flat``)."""
     _cuda.require_cuda(flat, "clip_bounds")
-    n, p = flat.shape
+    n, stride = flat.shape
+    p = stride
+    if pairs:
+        n, p = n - 1, 2 * stride
     ks, fracs = _quantile_plan(p, q_lo, q_hi)
     ranks = [0, *ks, p - 1]
     n_digits = _KEY_BITS[flat.dtype] // 8
@@ -118,17 +127,17 @@ def _clip_bounds_cuda(flat: torch.Tensor, q_lo: float, q_hi: float, counter) -> 
     hist = torch.zeros((n_digits, n, _N_STAT, 256), dtype=torch.int32, device=dev)
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
     vec_len = 16 // flat.element_size()
-    vec = int(p % vec_len == 0 and flat.data_ptr() % 16 == 0)
+    vec = int(stride % vec_len == 0 and flat.data_ptr() % 16 == 0)
     bpf = _blocks_per_frame(n, p // vec_len if vec else p)
     A = _cuda
     hist_fn = A.function("clip_bounds", "k1_hist_pass",
-                         [A.P, A.I32, A.I64, A.I32, A.I32, A.I32] + [A.I32] * 6
+                         [A.P, A.I32, A.I64, A.I64, A.I32, A.I32, A.I32] + [A.I32] * 6
                          + [A.P, A.I32, A.I32, A.P])
     fin_fn = A.function("clip_bounds", "k1_finalize",
                         [A.P, A.I32, A.I32] + [A.I32] * 6
                         + [A.F32, A.F32, A.I32, A.I32, A.I32, A.P, A.P])
     for d in range(n_digits):
-        A.launch(hist_fn, dev, flat.data_ptr(), A.DTYPE_CODE[flat.dtype], p, n, d,
+        A.launch(hist_fn, dev, flat.data_ptr(), A.DTYPE_CODE[flat.dtype], p, stride, n, d,
                  n_digits, *ranks, hist.data_ptr(), bpf, vec)
         counter.launches += 1
     A.launch(fin_fn, dev, hist.data_ptr(), n, n_digits, *ranks, fracs[0], fracs[1],
@@ -160,8 +169,23 @@ def float_clip_bounds(frames: torch.Tensor, q_lo: float, q_hi: float) -> torch.T
     return _clip_bounds_cuda(flat, q_lo, q_hi, float_clip_bounds)
 
 
+def pair_clip_bounds(block: torch.Tensor, q_lo: float, q_hi: float) -> torch.Tensor:
+    """K1 / K1f over the Siam pair rows of a (k+1, h, w) uint8/uint16/float32
+    block: (4, k) float32 bounds of each pair's two planes taken as one row
+    (``predictor.py:987-992``).  On the card the kernel reads the rows in
+    place, one frame apart; the plain version concatenates them."""
+    if block.dtype not in _KEY_BITS or block.shape[0] < 2:
+        raise ValueError(f"pair_clip_bounds takes a (k+1, ...) uint8/uint16/float32 block with "
+                         f"k >= 1, got {tuple(block.shape)} {block.dtype}")
+    flat = block.reshape(block.shape[0], -1)
+    if flat.device.type == "cpu":
+        return clip_bounds_plain(torch.cat([flat[:-1], flat[1:]], dim=1), q_lo, q_hi)
+    return _clip_bounds_cuda(flat, q_lo, q_hi, pair_clip_bounds, pairs=True)
+
+
 int_clip_bounds.launches = 0
 float_clip_bounds.launches = 0
+pair_clip_bounds.launches = 0
 
 
 def clip_bounds(frames: torch.Tensor, q_lo: float, q_hi: float) -> torch.Tensor:

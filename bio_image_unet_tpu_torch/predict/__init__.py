@@ -4,14 +4,17 @@
   cuDNN forward → K3 per 16-frame chunk)
 - :class:`PredictMultiOutput` ≙ ``bio_image_unet_tpu.predict.PredictMultiOutput``
   (K1 → K2h → multi-head forward → K5, with the K5s fill)
+- :class:`PredictSiam`        ≙ ``bio_image_unet_tpu.predict.PredictSiam`` (a TIFF
+  streamed in chunks of Siam pairs: K1 → K2p → twin-input forward, K6 for the
+  ``corr`` join → K3, each chunk appended to the output TIFF)
 - :class:`Predict3D`          ≙ ``bio_image_unet_tpu.predict.Predict3D`` (K1 over the
   volume → K2v → 3D forward → K3v)
 - :class:`PredictMultiOutput3D` ≙ ``bio_image_unet_tpu.predict.PredictMultiOutput3D``
   (K1 → K2v float tiles → multi-head 3D forward → K5v blend stitch)
 """
 
-from .predictor import Predict, Predict3D, PredictMultiOutput, PredictMultiOutput3D
+from .predictor import Predict, Predict3D, PredictMultiOutput, PredictMultiOutput3D, PredictSiam
 from .tiling import grid_starts, overlap_starts, stitch_blend3d, stitch_margin, stitch_mean
 
-__all__ = ["Predict", "PredictMultiOutput", "Predict3D", "PredictMultiOutput3D", "grid_starts",
-           "overlap_starts", "stitch_mean", "stitch_margin", "stitch_blend3d"]
+__all__ = ["Predict", "PredictMultiOutput", "PredictSiam", "Predict3D", "PredictMultiOutput3D",
+           "grid_starts", "overlap_starts", "stitch_mean", "stitch_margin", "stitch_blend3d"]

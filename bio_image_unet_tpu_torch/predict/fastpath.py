@@ -17,7 +17,11 @@ tensor-core convolutions run in.  Logits and head convolutions run in
 the working dtype and return in float32, where a head's activation runs
 (``fastpath.py:224-231``, ``:323-327``).
 
-- ``FoldedUnet2D``     — ``Unet`` and ``MultiOutputUnet``
+- ``FoldedUnet2D``     — ``Unet``, ``Siam_UNet`` (the twin encoder runs as one
+                         batch of cur and prev tiles, then the join:
+                         max, the folded ``conv_concat``, K6 or cur's
+                         alone; ``fastpath.py:185-215``) and
+                         ``MultiOutputUnet``
 - ``FoldedNestedUNet`` — both UNet++ depths; a deep-supervision checkpoint
                          emits only each head's deepest level
 - ``FoldedUNet3D``     — ``UNet3D`` and ``MultiOutputUnet3D``, both decoder
@@ -32,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.unet2d import apply_activation
-from ..ops.functional import downsample_nearest, max_pool, upsample_linear, upsample_nearest
+from ..ops.functional import (depthwise_xcorr, downsample_nearest, max_pool, upsample_linear,
+                              upsample_nearest)
 
 _BN_EPS = 1e-5
 
@@ -115,28 +120,54 @@ class _Folded:
 
 
 class FoldedUnet2D(_Folded):
-    """The folded forward of a ``Unet`` or ``MultiOutputUnet``: ``__call__(x)``
-    takes (N, 1, H, W) input already scaled to [0, 1] in the working dtype
+    """The folded forward of a ``Unet``, ``Siam_UNet`` or ``MultiOutputUnet``:
+    ``__call__(x[, prev])`` takes (N, 1, H, W) input (and, for ``Siam_UNet``,
+    the previous frames' tiles) already scaled to [0, 1] in the working dtype
     and returns what the model returns in eval mode: ``(sigmoid(logits),
     logits)`` with float32 logits, or ``{head: activated float32}``.
-    ``logits(x)`` returns the final conv's output in the working dtype (the
-    device pipeline's K3 reads it directly); ``heads(x)`` the head dict."""
+    ``logits(x[, prev])`` returns the final conv's output in the working
+    dtype (the device pipeline's K3 reads it directly); ``heads(x)`` the head
+    dict."""
 
     def __init__(self, model, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__(model, dtype, device)
         self.dilation = int(getattr(model, "dilation", 1))
+        self.mode = getattr(model, "mode", None)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def _encode(self, x: torch.Tensor):
+        d, c, P = self.dilation, self._conv, self.params
+        e2 = c(c(x, P["encode1"], d), P["encode2"], d)
+        e4 = c(c(F.max_pool2d(e2, 2), P["encode3"], d), P["encode4"], d)
+        e6 = c(c(F.max_pool2d(e4, 2), P["encode5"], d), P["encode6"], d)
+        e8 = c(c(F.max_pool2d(e6, 2), P["encode7"], d), P["encode8"], d)
+        return e2, e4, e6, e8, F.max_pool2d(e8, 2)
+
+    def _join(self, m4: torch.Tensor, mm4: torch.Tensor) -> torch.Tensor:
+        if self.mode == "max":
+            return torch.maximum(m4, mm4)
+        if self.mode == "concat":
+            return self._conv(torch.cat([m4, mm4], dim=1), self.params["conv_concat"])
+        return depthwise_xcorr(m4, mm4)  # corr
+
+    def trunk(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The decoder's last features (``decode8``) in the working dtype."""
         x = self._input(x)
         d = self.dilation
         c = self._conv
         P = self.params
-        e2 = c(c(x, P["encode1"], d), P["encode2"], d)
-        e4 = c(c(F.max_pool2d(e2, 2), P["encode3"], d), P["encode4"], d)
-        e6 = c(c(F.max_pool2d(e4, 2), P["encode5"], d), P["encode6"], d)
-        e8 = c(c(F.max_pool2d(e6, 2), P["encode7"], d), P["encode8"], d)
-        h = c(c(F.max_pool2d(e8, 2), P["middle_conv1"], d), P["middle_conv2"], d)
+        if self.mode is not None and prev is None:
+            raise ValueError("Siam mode requires prev_x")
+        if self.mode in (None, "control"):
+            # the control join keeps cur's bottleneck: prev is not encoded
+            e2, e4, e6, e8, m4 = self._encode(x)
+        else:
+            # the twin encoder shares its weights: cur and prev as one batch,
+            # cur's skips and the join of the two bottlenecks go on
+            n = x.shape[0]
+            e2, e4, e6, e8, m4 = self._encode(torch.cat([x, self._input(prev)]))
+            e2, e4, e6, e8 = e2[:n], e4[:n], e6[:n], e8[:n]
+            m4 = self._join(m4[:n], m4[n:])
+        h = c(c(m4, P["middle_conv1"], d), P["middle_conv2"], d)
         for i, skip in zip(range(1, 5), (e8, e6, e4, e2)):
             up = P[f"up{i}"]
             u = F.conv_transpose2d(h, up["weight"], up["bias"], stride=2)
@@ -144,9 +175,9 @@ class FoldedUnet2D(_Folded):
             h = c(c(h, P[f"decode{2 * i - 1}"]), P[f"decode{2 * i}"])
         return h
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
+    def logits(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Final-conv output in the working dtype."""
-        return self._conv1x1(self.trunk(x), self.params["final"])
+        return self._conv1x1(self.trunk(x, prev), self.params["final"])
 
     def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``{head: activated float32}`` of a multi-head trunk."""
@@ -154,10 +185,10 @@ class FoldedUnet2D(_Folded):
         return {name: self._head(h, f"output_layers.{name}", cfg.get("activation"))
                 for name, cfg in self.heads.items()}
 
-    def __call__(self, x: torch.Tensor):
+    def __call__(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None):
         if self.heads is not None:
             return self.heads_out(x)
-        logits = self.logits(x).float()
+        logits = self.logits(x, prev).float()
         return torch.sigmoid(logits), logits
 
 
@@ -209,8 +240,8 @@ class FoldedUNet3D(FoldedUnet2D):
         super().__init__(model, dtype, device)
         self.interp = bool(model.use_interpolation)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
-        """``decode6``'s output in the working dtype."""
+    def trunk(self, x: torch.Tensor, prev: None = None) -> torch.Tensor:
+        """``decode6``'s output in the working dtype (no siamese form)."""
         c, P, interp, multi = self._conv, self.params, self.interp, self.heads is not None
         down = downsample_nearest if (multi and interp) else max_pool
         e2 = c(c(self._input(x), P["encode1"]), P["encode2"])

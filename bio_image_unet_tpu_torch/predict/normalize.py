@@ -34,6 +34,18 @@ truncation); float32 or bfloat16 is ``PredictMultiOutput3D``'s (scale 1, the
 tile cast to the working dtype).  The reflect pad acts only on an axis whose
 tile exceeds the volume, by less than the volume's extent.  Kernel in the
 same source, its own entry point and launch counter.
+
+K2p (counterpart of the pair stage of ``predictor.py:995-1010`` in
+``fused_predict_pairs``: ``_normalize_clip`` of the prev planes ``block[:-1]``
+and the cur planes ``block[1:]`` with their pair bounds, ``jnp.pad`` with
+zeros after the normalization, ``astype(uint8)``, ``_extract_tiles`` of both
+and each set padded by its last tile): ``normalize_tile_pairs(block, bounds,
+plan, n_total, invert)`` maps a (k+1, H, W) uint8/uint16/float32 block of
+Siam pairs (pair i = frames i, i+1) and (4, k+1) per-frame (``'single'``) or
+(4, k) per-pair (``'first'``, ``'all'``) float32 bounds to (2, n_total, th,
+tw) uint8 tiles: the prev set, then the cur set.  A pixel past the frame is
+0, inverted or not.  Kernel in the same source, its own entry point and
+launch counter.
 """
 
 from __future__ import annotations
@@ -109,36 +121,50 @@ def _check_bounds(bounds: torch.Tensor, n_frames: int) -> int:
     return bounds.shape[1]
 
 
+def _normalize_clip(frames: torch.Tensor, bounds: torch.Tensor, invert: bool,
+                    scale: float) -> torch.Tensor:
+    """Clip to [lo, hi] and min-max to [0, scale] in float32, per frame or
+    volume (``predictor.py:203``); ``bounds`` (4, F) or (4, 1)."""
+    lo, hi, fmin, fmax = (b.reshape((-1,) + (1,) * (frames.dim() - 1)) for b in bounds)
+    f = torch.minimum(torch.maximum(frames.float(), lo), hi)
+    f = torch.where(fmax > fmin, (f - fmin) / (fmax - fmin) * scale,
+                    torch.zeros((), dtype=torch.float32, device=f.device))
+    return scale - f if invert else f
+
+
+def _pad_frames_to_tile(f: torch.Tensor, plan, mode: str) -> torch.Tensor:
+    pad_h, pad_w = max(0, plan.th - plan.h), max(0, plan.tw - plan.w)
+    if pad_h or pad_w:
+        f = F.pad(f[:, None], (0, pad_w, 0, pad_h), mode=mode)[:, 0]
+    return f
+
+
+def _extract_tiles(f: torch.Tensor, plan, n_total: int) -> torch.Tensor:
+    """(F, H', W') padded frames → (n_total, th, tw) frame-major tiles, the
+    batch padded by the last tile (``predictor.py:102``)."""
+    th, tw = plan.th, plan.tw
+    dev = f.device
+    rows = torch.as_tensor((plan.xs[:, None] + np.arange(th)[None]).ravel(), device=dev)
+    cols = torch.as_tensor((plan.ys[:, None] + np.arange(tw)[None]).ravel(), device=dev)
+    tiles = (f.index_select(1, rows).index_select(2, cols)
+             .reshape(f.shape[0], plan.nx, th, plan.ny, tw)
+             .permute(0, 1, 3, 2, 4)
+             .reshape(f.shape[0] * plan.per_frame, th, tw))
+    n = tiles.shape[0]
+    if n_total > n:
+        tiles = torch.cat([tiles, tiles[-1:].expand(n_total - n, th, tw)])
+    return tiles.contiguous()
+
+
 def normalize_tile_plain(frames: torch.Tensor, bounds: torch.Tensor, plan,
                          n_total: int, invert: bool,
                          out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
     """Plain PyTorch K2 (``out_dtype`` uint8: scale 255, truncated) and K2h
     (float32 or bfloat16: scale 1)."""
-    n_frames = frames.shape[0]
-    _check_bounds(bounds, n_frames)
+    _check_bounds(bounds, frames.shape[0])
     scale = 255.0 if out_dtype == torch.uint8 else 1.0
-    lo, hi, fmin, fmax = (b[:, None, None] for b in bounds)
-    f = torch.minimum(torch.maximum(frames.float(), lo), hi)
-    f = torch.where(fmax > fmin, (f - fmin) / (fmax - fmin) * scale,
-                    torch.zeros((), dtype=torch.float32, device=f.device))
-    if invert:
-        f = scale - f
-    th, tw = plan.th, plan.tw
-    pad_h, pad_w = max(0, th - plan.h), max(0, tw - plan.w)
-    if pad_h or pad_w:
-        f = F.pad(f[:, None], (0, pad_w, 0, pad_h), mode="reflect")[:, 0]
-    f = f.to(out_dtype)
-    dev = f.device
-    rows = torch.as_tensor((plan.xs[:, None] + np.arange(th)[None]).ravel(), device=dev)
-    cols = torch.as_tensor((plan.ys[:, None] + np.arange(tw)[None]).ravel(), device=dev)
-    tiles = (f.index_select(1, rows).index_select(2, cols)
-             .reshape(n_frames, plan.nx, th, plan.ny, tw)
-             .permute(0, 1, 3, 2, 4)
-             .reshape(n_frames * plan.per_frame, th, tw))
-    n = tiles.shape[0]
-    if n_total > n:
-        tiles = torch.cat([tiles, tiles[-1:].expand(n_total - n, th, tw)])
-    return tiles.contiguous()
+    f = _normalize_clip(frames, bounds, invert, scale)
+    return _extract_tiles(_pad_frames_to_tile(f, plan, "reflect").to(out_dtype), plan, n_total)
 
 
 def _check_frames(frames: torch.Tensor, plan, n_total: int, what: str) -> None:
@@ -213,13 +239,7 @@ def normalize_tile_3d_plain(vols: torch.Tensor, bounds: torch.Tensor, plan, n_to
     """Plain PyTorch K2v."""
     n_vols = vols.shape[0]
     _check_bounds(bounds, n_vols)
-    scale = 255.0 if out_dtype == torch.uint8 else 1.0
-    lo, hi, fmin, fmax = (b[:, None, None, None] for b in bounds)
-    f = torch.minimum(torch.maximum(vols.float(), lo), hi)
-    f = torch.where(fmax > fmin, (f - fmin) / (fmax - fmin) * scale,
-                    torch.zeros((), dtype=torch.float32, device=f.device))
-    if invert:
-        f = scale - f
+    f = _normalize_clip(vols, bounds, invert, 255.0 if out_dtype == torch.uint8 else 1.0)
     pads = [max(0, t - e) for t, e in zip(plan.tile, (plan.d, plan.h, plan.w))]
     if any(pads):
         f = F.pad(f[:, None], (0, pads[2], 0, pads[1], 0, pads[0]), mode="reflect")[:, 0]
@@ -275,3 +295,60 @@ def normalize_tile_3d(vols: torch.Tensor, bounds: torch.Tensor, plan, n_total: i
 
 
 normalize_tile_3d.launches = 0
+
+
+# --- K2p ----------------------------------------------------------------------
+
+def _pair_bounds(bounds: torch.Tensor, k: int):
+    """The prev and cur planes' bounds of k pairs: per source frame from a
+    (4, k+1) table, per pair from (4, k), global from (4, 1)."""
+    if bounds.dtype != torch.float32 or bounds.dim() != 2 or bounds.shape[0] != 4 \
+            or bounds.shape[1] not in (1, k, k + 1):
+        raise ValueError(f"pair bounds must be (4, {k + 1}), (4, {k}) or (4, 1) float32, "
+                         f"got {tuple(bounds.shape)} {bounds.dtype}")
+    if bounds.shape[1] == k + 1:
+        return bounds[:, :-1], bounds[:, 1:]
+    return bounds, bounds
+
+
+def normalize_tile_pairs_plain(block: torch.Tensor, bounds: torch.Tensor, plan,
+                               n_total: int, invert: bool) -> torch.Tensor:
+    """Plain PyTorch K2p, the JAX pair program's steps in order."""
+    k = block.shape[0] - 1
+    pb, cb = _pair_bounds(bounds, k)
+    sets = []
+    for planes, b in ((block[:-1], pb), (block[1:], cb)):
+        f = _pad_frames_to_tile(_normalize_clip(planes, b, invert, 255.0), plan, "constant")
+        sets.append(_extract_tiles(f.to(torch.uint8), plan, n_total))
+    return torch.stack(sets)
+
+
+def normalize_tile_pairs(block: torch.Tensor, bounds: torch.Tensor, plan, n_total: int,
+                         invert: bool) -> torch.Tensor:
+    """K2p (see the module docstring)."""
+    if block.dim() != 3 or block.shape[0] < 2:
+        raise ValueError(f"normalize_tile_pairs takes a (k+1, H, W) block with k >= 1, "
+                         f"got {tuple(block.shape)}")
+    k = block.shape[0] - 1
+    _check_frames(block[1:], plan, n_total, "normalize_tile_pairs")
+    _pair_bounds(bounds, k)
+    if block.device.type == "cpu":
+        return normalize_tile_pairs_plain(block, bounds, plan, n_total, invert)
+    dev = block.device
+    _cuda.require_cuda(block, "normalize_tile_pairs")
+    _cuda.require_cuda(bounds, "normalize_tile_pairs bounds", dev)
+    _cuda.require_cuda(plan.xs_t, "normalize_tile_pairs plan", dev)
+    out = torch.empty((2, n_total, plan.th, plan.tw), dtype=torch.uint8, device=dev)
+    A = _cuda
+    fn = A.function("normalize_tile", "k2p_normalize_tile_pairs",
+                    [A.P, A.I32, A.I32, A.I32, A.P, A.I32, A.I32, A.P, A.P, A.I32, A.I32,
+                     A.I32, A.I32, A.I64, A.I64, A.I32, A.P, A.P])
+    A.launch(fn, dev, block.data_ptr(), A.DTYPE_CODE[block.dtype], plan.h, plan.w,
+             bounds.data_ptr(), bounds.shape[1], k, plan.xs_t.data_ptr(), plan.ys_t.data_ptr(),
+             plan.nx, plan.ny, plan.th, plan.tw, k * plan.per_frame, n_total, int(invert),
+             out.data_ptr())
+    normalize_tile_pairs.launches += 1
+    return out
+
+
+normalize_tile_pairs.launches = 0

@@ -1,6 +1,7 @@
 """Tiled prediction on the card (counterpart of
 ``bio_image_unet_tpu/predict/predictor.py``: ``_Engine``, ``Predict``,
-``PredictMultiOutput``, ``Predict3D`` and ``PredictMultiOutput3D``).
+``PredictMultiOutput``, ``PredictSiam``, ``Predict3D`` and
+``PredictMultiOutput3D``).
 
 The fused device pipeline runs per 16-frame chunk: K1 per-frame clip bounds
 (``ops/histogram.py``), K2 normalize → reflect pad → uint8 → tiles
@@ -21,6 +22,14 @@ and fills the pixels no tile weighs with the mean of every real head tile;
 here K5s adds each chunk's real tiles into a float64 total, and after the
 last chunk the mean is written into the grid's static uncovered mask.
 
+Streaming Siam prediction (``PredictSiam``) reads pages as it goes and
+writes each finished chunk to the output TIFF: per chunk of
+``frames_per_chunk`` pairs one upload of the (k+1)-frame block, the pair
+bounds (K1, its pair-row form for ``'all'``), K2p (both planes' normalize →
+zero pad → uint8 → tiles), the twin-input folded forward (the ``corr`` join
+through K6) and K3; ``_Engine._run_chunks`` hands each downloaded chunk to
+the writer in movie order.
+
 3D prediction runs a volume as one unit, as the JAX programs do: the raw
 volume goes up once; ``Predict3D`` (``UNet3D``) runs K1 over the whole
 volume → K2v (normalize → reflect pad → uint8 → 3-axis tiles) → the folded
@@ -35,6 +44,7 @@ stitch.
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from typing import Callable, Dict, Optional
 
@@ -44,7 +54,7 @@ import torch
 from .. import checkpoint
 from ..data import tiff
 from ..models import get_model
-from ..ops.histogram import clip_bounds
+from ..ops.histogram import clip_bounds, pair_clip_bounds
 from ..ops.stitch import (blend_stitch_3d, margin_stitch, sigmoid_stitch, sigmoid_stitch_3d,
                           tile_sum)
 from ..progress import ProgressNotifier
@@ -52,7 +62,7 @@ from ..utils.device import resolve_device
 from ..utils.utils import save_as_tif
 from .fastpath import folded_forward
 from .normalize import (_normalize_stack, _percentile, normalize_tile, normalize_tile_3d,
-                        normalize_tile_float)
+                        normalize_tile_float, normalize_tile_pairs)
 from .tiling import (TilePlan, TilePlan3D, _blend_factors, _margin_factors, grid_starts,
                      overlap_starts)
 
@@ -118,6 +128,24 @@ def _fused_blocker(imgs: np.ndarray, device_pipeline, n_px: int = 0, max_px: int
     return None
 
 
+def _cut_host_tiles(frames: np.ndarray, plan: TilePlan, out: np.ndarray, pad_mode: str) -> int:
+    """Pad (..., n, h, w) frames up to the tile (``np.pad`` mode ``'reflect'``
+    as ``_split`` does, ``'constant'`` zeros as ``_split_pair`` does,
+    ``predictor.py:1597``, ``:1880-1898``) and cut them in grid order into
+    ``out[..., i]``, frame-major; returns the tiles cut.  A uint8 ``out``
+    truncates, as the reference does."""
+    h, w = frames.shape[-2:]
+    pad = ((0, 0),) * (frames.ndim - 2) + ((0, max(plan.th - h, 0)), (0, max(plan.tw - w, 0)))
+    frames = np.pad(frames, pad, pad_mode)
+    i = 0
+    for f in range(frames.shape[-3]):
+        for x0 in plan.xs:
+            for y0 in plan.ys:
+                out[..., i, :, :] = frames[..., f, x0:x0 + plan.th, y0:y0 + plan.tw]
+                i += 1
+    return i
+
+
 def _pad_frames(block: np.ndarray, n: int) -> np.ndarray:
     """Pad a tail block to ``n`` frames by repeating its last frame."""
     k = block.shape[0]
@@ -155,19 +183,31 @@ class _Engine:
         # first, as JAX's weak typing does (predictor.py:454-455)
         self._scale = torch.tensor(1.0 / 255.0, dtype=self.dtype, device=self.device)
 
-    def batch_policy(self, per_chunk: int, th: int, tw: int) -> int:
-        """One forward step per ~16M tile pixels; the user's batch_size is
-        the floor (``predictor.py:716``)."""
-        return max(self.batch_size, min(per_chunk, (1 << 24) // (th * tw)))
+    # tile pixels of one forward step (``predictor.py:716``); a Siam step
+    # takes half (``:958-961``), as the twin encoder holds about twice the
+    # activations
+    STEP_PX = 1 << 24
+    PAIR_STEP_PX = 1 << 23
+
+    def batch_policy(self, per_chunk: int, th: int, tw: int, step_px: int = STEP_PX) -> int:
+        """One forward step per ``step_px`` tile pixels; the user's
+        batch_size is the floor."""
+        return max(self.batch_size, min(per_chunk, step_px // (th * tw)))
 
     @torch.inference_mode()
-    def forward_tiles(self, tiles_u8: torch.Tensor, bs: int) -> torch.Tensor:
-        """(n, th, tw) uint8 tiles, n a multiple of ``bs`` → (n, 1, th, tw)
-        logits in the working dtype."""
+    def forward_tiles(self, tiles_u8: torch.Tensor, bs: int, pairs: bool = False) -> torch.Tensor:
+        """(n, *tile) uint8 tiles, n a multiple of ``bs`` → (n, 1, *tile)
+        logits in the working dtype.  With ``pairs``, (2, n, th, tw) Siam
+        tiles — the prev set, then the cur set — through the twin-input
+        forward."""
         outs = []
-        for s in range(0, tiles_u8.shape[0], bs):
-            x = tiles_u8[s:s + bs, None].to(self.dtype) * self._scale
-            outs.append(self.forward.logits(x))
+        for s in range(0, tiles_u8.shape[int(pairs)], bs):
+            if pairs:
+                prev, cur = (t[s:s + bs, None].to(self.dtype) * self._scale for t in tiles_u8)
+                outs.append(self.forward.logits(cur, prev))
+            else:
+                outs.append(self.forward.logits(tiles_u8[s:s + bs, None].to(self.dtype)
+                                                * self._scale))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def fused_runner(self, h: int, w: int, xs, ys, resize_dim, clip_threshold,
@@ -225,19 +265,10 @@ class _Engine:
         n_pad = _round_up(n_chunk * plan.per_frame, bs)
 
         def produce(s):
-            block = _pad_frames(norm[s:s + n_chunk], n_chunk)
-            if th > h:
-                block = np.pad(block, ((0, 0), (0, th - h), (0, 0)), "reflect")
-            if tw > w:
-                block = np.pad(block, ((0, 0), (0, 0), (0, tw - w)), "reflect")
             # uint8 patch buffer: assignment truncates, as the reference does
             patches = np.empty((n_pad, th, tw), np.uint8)
-            n = 0
-            for img in block:
-                for x0 in plan.xs:
-                    for y0 in plan.ys:
-                        patches[n] = img[x0:x0 + th, y0:y0 + tw]
-                        n += 1
+            n = _cut_host_tiles(_pad_frames(norm[s:s + n_chunk], n_chunk), plan, patches,
+                                "reflect")
             patches[n:] = patches[n - 1]
             return patches
 
@@ -248,6 +279,39 @@ class _Engine:
 
         return self._run_chunks(n_frames, n_chunk, {"mask": ((h, w), np.uint8)},
                                 produce, step, progress)["mask"]
+
+    # --- Siam pairs ------------------------------------------------------------
+
+    def pairs_runner(self, h: int, w: int, xs, ys, resize_dim, clip_threshold,
+                     invert: bool, mode: str, k: int):
+        """The fused Siam chunk program (``predictor.py:934
+        fused_predict_pairs``): ``fn(block)`` maps a (k+1, h, w) raw block on
+        the engine's device — pair i is (prev = block[i], cur = block[i+1]) —
+        to the (k, h, w) uint8 masks of its cur frames: the pair bounds (K1
+        over the k+1 frames for ``'single'``, over the prev planes for
+        ``'first'``, over each pair's two planes as one row for ``'all'``),
+        K2p, the twin-input forward, K3.  Returns ``(fn, plan, bs)``; benches
+        time ``fn`` on a device-resident block."""
+        th, tw = resize_dim
+        plan = TilePlan(h, w, th, tw, xs, ys, self.device)
+        n = k * plan.per_frame
+        bs = self.batch_policy(n, th, tw, self.PAIR_STEP_PX)
+        n_pad = _round_up(n, bs)
+        q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
+
+        @torch.inference_mode()
+        def fn(block: torch.Tensor) -> torch.Tensor:
+            if mode == "single":
+                bounds = clip_bounds(block, q_lo, q_hi)  # per frame, (4, k+1)
+            elif mode == "first":
+                bounds = clip_bounds(block[:-1], q_lo, q_hi)  # the prev planes'
+            else:
+                bounds = pair_clip_bounds(block, q_lo, q_hi)
+            tiles = normalize_tile_pairs(block, bounds, plan, n_pad, invert)
+            return sigmoid_stitch(self.forward_tiles(tiles, bs, pairs=True).contiguous(), k,
+                                  plan)
+
+        return fn, plan, bs
 
     # --- multi-head prediction ------------------------------------------------
 
@@ -536,23 +600,48 @@ class _Engine:
         return retry(smaller)
 
     def _run_chunks(self, n_frames: int, n_chunk: int, outputs: Dict[str, tuple],
-                    produce: Callable, step: Callable, progress=None) -> Dict[str, np.ndarray]:
+                    produce: Callable, step: Callable, progress=None,
+                    sink: Optional[Callable] = None) -> Optional[Dict[str, np.ndarray]]:
         """Drive ``step`` over the movie chunk by chunk: ``produce(start)``
         gives chunk ``start``'s host array (fixed shape), ``step(x, k)`` maps
         its device copy, whose first ``k`` frames are real, to ``{name:
         (n_chunk, *shape) tensor}`` on the device, one for each ``outputs``
         entry ``name: (shape, numpy dtype)``.  Returns ``{name: (n_frames,
-        *shape) array}``; tail frames past ``n_frames`` are cropped."""
-        result = {name: np.empty((n_frames,) + tuple(shape), dt)
-                  for name, (shape, dt) in outputs.items()}
+        *shape) array}``; tail frames past ``n_frames`` are cropped.  With
+        ``sink``, nothing is kept: each finished chunk goes, in movie order,
+        to ``sink({name: (k, *shape) array}, start)`` (the arrays valid only
+        during the call), and the memory stays bounded by the chunks in
+        flight.  When
+        ``produce`` raises, the chunks already computed are finished first.
+        The seconds of each stage of the last run are in
+        ``self.chunk_seconds``: host time to produce, upload, dispatch, wait
+        for and sink the chunks, and on the card ``download``, from a
+        chunk's compute done to its result in host memory."""
+        clock = self.chunk_seconds = dict.fromkeys(
+            ("produce", "upload", "dispatch", "wait", "sink", "download"), 0.0)
+        result = None
+        if sink is None:
+            result = {name: np.empty((n_frames,) + tuple(shape), dt)
+                      for name, (shape, dt) in outputs.items()}
+
+            def sink(arrays, s):
+                for name, r in result.items():
+                    r[s:s + len(arrays[name])] = arrays[name]
+
+        def timed(key, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            clock[key] += time.perf_counter() - t0
+            return out
+
         starts = list(range(0, n_frames, n_chunk))
         it = progress.iterator(starts) if progress is not None else starts
         if self.device.type == "cpu":
             for s in it:
                 k = min(n_chunk, n_frames - s)
-                out = step(torch.from_numpy(np.ascontiguousarray(produce(s))), k)
-                for name, r in result.items():
-                    r[s:s + k] = out[name][:k].numpy()
+                x = torch.from_numpy(np.ascontiguousarray(timed("produce", produce, s)))
+                out = timed("dispatch", step, x, k)
+                timed("sink", sink, {name: t[:k].numpy() for name, t in out.items()}, s)
             return result
 
         dev = self.device
@@ -560,22 +649,34 @@ class _Engine:
         compute = torch.cuda.current_stream(dev)
         upload, download = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
         in_host, in_dev, out_host = [None] * ring, [None] * ring, [None] * ring
-        pending = [None] * ring  # (download-done event, start, frames)
+        pending = [None] * ring  # (computed and downloaded events, start, frames)
 
         def finish(slot):
-            ev, s, k = pending[slot]
-            ev.synchronize()
-            for name, r in result.items():
-                r[s:s + k] = out_host[slot][name][:k].numpy()
+            (computed, downloaded), s, k = pending[slot]
+            timed("wait", downloaded.synchronize)
+            clock["download"] += computed.elapsed_time(downloaded) / 1e3
+            timed("sink", sink, {name: t[:k].numpy() for name, t in out_host[slot].items()}, s)
             pending[slot] = None
 
+        def drain(first):
+            """Finish the chunks in flight, oldest (slot ``first``) first."""
+            for j in range(ring):
+                if pending[(first + j) % ring] is not None:
+                    finish((first + j) % ring)
+
+        i = 0
         for i, s in enumerate(it):
             slot = i % ring
             if pending[slot] is not None:
                 # the slot's previous chunk is downloaded, hence computed and
                 # uploaded: its three buffers are free again
                 finish(slot)
-            host = produce(s)
+            try:
+                host = timed("produce", produce, s)
+            except BaseException:
+                drain(slot + 1)
+                raise
+            t0 = time.perf_counter()
             k = min(n_chunk, n_frames - s)
             if in_host[slot] is None:
                 in_host[slot] = torch.empty(host.shape, dtype=_TORCH_DTYPE[host.dtype],
@@ -596,20 +697,19 @@ class _Engine:
                 uploaded = torch.cuda.Event()
                 uploaded.record(upload)
             compute.wait_event(uploaded)
-            out = step(in_dev[slot], k)
-            computed = torch.cuda.Event()
+            clock["upload"] += time.perf_counter() - t0
+            out = timed("dispatch", step, in_dev[slot], k)
+            computed = torch.cuda.Event(enable_timing=True)
             computed.record(compute)
             with torch.cuda.stream(download):
                 download.wait_event(computed)
                 for name, t in out.items():
                     out_host[slot][name].copy_(t, non_blocking=True)
                     t.record_stream(download)
-                downloaded = torch.cuda.Event()
+                downloaded = torch.cuda.Event(enable_timing=True)
                 downloaded.record(download)
-            pending[slot] = (downloaded, s, k)
-        for slot in range(ring):
-            if pending[slot] is not None:
-                finish(slot)
+            pending[slot] = ((computed, downloaded), s, k)
+        drain(i + 1)
         return result
 
 
@@ -766,6 +866,164 @@ class PredictMultiOutput:
                 os.makedirs(result_path, exist_ok=True)
                 tiff.imwrite(os.path.join(result_path, f"{key}.tif"), self.result[key],
                              compress=6 if compress_tif else None)
+
+
+# the most bytes a classic TIFF's 32-bit offsets address, less headroom for
+# the IFDs (predictor.py:1758-1764)
+_CLASSIC_TIFF_BYTES = 0xFFFFFFFF - (1 << 20)
+
+
+
+class PredictSiam:
+    """Streaming Siam movie predictor (``predictor.py:1619-1898``): pages are
+    read from ``tif_file`` as they are needed, each frame paired with the one
+    before it (frame 0 with frame 1; a 1-frame movie with itself), tiled,
+    predicted by a ``Siam_UNet`` checkpoint (any join), mean-stitched and
+    appended to the uint8 TIFF ``result_name`` chunk by chunk — memory stays
+    bounded by the chunks in flight, whatever the movie's length.  BigTIFF
+    is chosen when the output passes classic TIFF's 4 GiB.
+
+    The fused path (uint8/uint16 pages; NaN-free float32 pages only with
+    ``device_pipeline=True``) uploads each chunk's ``frames_per_chunk`` pages
+    plus the previous chunk's last page once and runs the pair bounds (K1),
+    K2p, the twin-input forward and K3 on the card.  The host-staged path
+    (``device_pipeline=False``, and other page types) normalizes each pair on
+    the host and zero-pads and cuts its tiles in numpy.  A NaN page met by the
+    fused float path flushes the finished chunks, closes the reader and
+    raises.  Runs on CUDA unless ``device='cpu'`` is passed; raises when no
+    card is present and the CPU was not asked for."""
+
+    def __init__(self, tif_file, result_name, model_params, resize_dim=(512, 512),
+                 invert=False, normalization_mode="single", clip_threshold=(0.0, 99.98),
+                 add_tile=0, normalize_result=False, show_progress=True,
+                 batch_size: int = 8, half_precision=False, mesh=None, device=None,
+                 frames_per_chunk: int = 8, device_pipeline: Optional[bool] = None,
+                 quantized: bool = False, progress_notifier: ProgressNotifier = None):
+        del normalize_result  # in the reference's signature; the masks are uint8
+        if mesh is not None:
+            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
+        if quantized:
+            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
+        if normalization_mode not in ("single", "first", "all"):
+            raise ValueError(f"normalization_mode {normalization_mode} not valid!")
+        device = resolve_device(device)
+        self.invert = invert
+        self.normalization_mode = normalization_mode
+        self.clip_threshold = clip_threshold
+        self.result_name = result_name
+        engine = _Engine(model_params, "Siam_UNet", batch_size, half_precision, device)
+        self.engine = engine
+        with tiff.TiffReader(tif_file) as reader:
+            self._stream(reader, engine, resize_dim, add_tile, int(frames_per_chunk),
+                         device_pipeline, _progress(show_progress, progress_notifier),
+                         show_progress)
+
+    def _stream(self, reader, engine: _Engine, resize_dim, add_tile, fpc, device_pipeline,
+                progress, show_progress) -> None:
+        n_frames = reader.n_pages
+        h, w = reader.page_shape(0)[:2]
+        self.imgs_shape = (n_frames, h, w)
+        # whole-frame tiles for resize_dim=None (siam_unet/predict.py:82-85)
+        self.resize_dim = tuple(int(v) for v in (resize_dim or (h, w)))
+        th, tw = self.resize_dim
+        plan = TilePlan(h, w, th, tw, grid_starts(h, th, add_tile), grid_starts(w, tw, add_tile),
+                        engine.device)
+        mode, clip, invert = self.normalization_mode, self.clip_threshold, self.invert
+
+        # page 0 decides the path and is reused as the first chunk's frame
+        page0 = np.asarray(reader.read_page(0))
+        blocker = None
+        if page0.dtype not in (np.uint8, np.uint16):
+            if np.issubdtype(page0.dtype, np.floating) and device_pipeline is True:
+                # float pages are fused only on request: a stream cannot screen
+                # later pages for NaNs beforehand, so one raises when met
+                if np.isnan(page0).any():
+                    blocker = "page 0 contains NaNs (handled by the host nanpercentile path)"
+            else:
+                blocker = (f"page dtype {page0.dtype} (the auto device pipeline streams "
+                           "uint8/uint16; NaN-free float movies opt in with "
+                           "device_pipeline=True)")
+        use_fused = _resolve_device_pipeline(device_pipeline, blocker)
+
+        page_cache = {0: page0}
+        last = [None]
+
+        def read_page(i):
+            return page_cache.pop(i) if i in page_cache else np.asarray(reader.read_page(i))
+
+        def prev_of_first():
+            # frame 0 pairs with frame 1 (a 1-frame movie with itself); page 1
+            # stays decoded for the frame that reads it next
+            if n_frames == 1:
+                return page0
+            page_cache[1] = read_page(1)
+            return page_cache[1]
+
+        n_chunk = min(fpc, n_frames)
+
+        def fused_block(start):
+            stop = min(start + n_chunk, n_frames)
+            frames = [read_page(i) for i in range(start, stop)]
+            if start:
+                prev0 = last[0]
+            else:
+                prev0 = frames[1] if len(frames) > 1 else prev_of_first()
+            last[0] = frames[-1]
+            block = np.stack([prev0] + frames)
+            if np.issubdtype(block.dtype, np.floating):
+                if np.isnan(block).any():
+                    bad = {i for i, f in enumerate(frames, start=start) if np.isnan(f).any()}
+                    if start == 0 and np.isnan(prev0).any():
+                        bad.add(1 if n_frames > 1 else 0)
+                    raise ValueError(
+                        f"NaN in page(s) {', '.join(map(str, sorted(bad)))}: the opt-in fused "
+                        "float pipeline requires NaN-free data — rerun with "
+                        f"device_pipeline=False (the first {start} result pages are already "
+                        f"in {self.result_name})")
+                block = block.astype(np.float32, copy=False)
+            return _pad_frames(block, n_chunk + 1)
+
+        n_tiles = _round_up(n_chunk * plan.per_frame, engine.batch_size)
+
+        def host_tiles(start):
+            stop = min(start + n_chunk, n_frames)
+            tiles = np.empty((2, n_tiles, th, tw), np.uint8)
+            for j, i in enumerate(range(start, stop)):
+                current = read_page(i)
+                prev = last[0] if i else prev_of_first()
+                last[0] = current
+                pair = _normalize_stack(np.stack([prev, current]), mode, clip, invert)
+                _cut_host_tiles(pair.astype(np.uint8)[:, None], plan,
+                                tiles[:, j * plan.per_frame:], "constant")
+            real = (stop - start) * plan.per_frame
+            tiles[:, real:] = tiles[:, real - 1:real]
+            return tiles
+
+        if use_fused:
+            fn, _, _ = engine.pairs_runner(h, w, plan.xs, plan.ys, self.resize_dim, clip,
+                                           invert, mode, n_chunk)
+            produce, step = fused_block, (lambda x, k: {"mask": fn(x)})
+        else:
+            # the tiles cut on the host: forward in batches of batch_size, K3
+            @torch.inference_mode()
+            def step(tiles: torch.Tensor, k: int) -> Dict[str, torch.Tensor]:
+                logits = engine.forward_tiles(tiles, engine.batch_size, pairs=True)
+                return {"mask": sigmoid_stitch(logits.contiguous(), n_chunk, plan)}
+
+            produce = host_tiles
+        if show_progress:
+            print("Predicting data ...")
+        out_bytes = n_frames * (h * w + 256)
+
+        def write_frames(masks):
+            # page by page: the writer takes a (k, h, w) stack with w <= 8
+            # for one (h, w, c) page
+            for mask in masks:
+                writer.write(mask)
+
+        with tiff.TiffWriter(self.result_name, bigtiff=out_bytes > _CLASSIC_TIFF_BYTES) as writer:
+            engine._run_chunks(n_frames, n_chunk, {"mask": ((h, w), np.uint8)}, produce, step,
+                               progress, sink=lambda arrays, s: write_frames(arrays["mask"]))
 
 
 class Predict3D:

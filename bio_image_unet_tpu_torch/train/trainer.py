@@ -59,7 +59,7 @@ resume and one more equal two epochs straight.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
 raises without a card.  Not ported yet, each raising NotImplementedError:
-networks other than the six above, ``mode`` (Siam), ``mesh`` and
+networks other than the six above (``Siam_UNet`` too) and ``mode`` (Siam), ``mesh`` and
 ``device_cache="sharded"`` (multi-GPU), ``remat``, ``profile_dir``.
 """
 
@@ -228,6 +228,8 @@ class Trainer:
                                use_interpolation=use_interpolation, output_heads=output_heads,
                                deep_supervision=deep_supervision,
                                dtype=torch.bfloat16 if half_precision else None)
+        if getattr(self.model, "mode", None) is not None:
+            _not_ported("the Siam_UNet network (the siamese trainer)", "Siam")
         init_weights_(self.model, torch.Generator().manual_seed(seed))
         self.multi_output = output_heads is not None or bool(getattr(self.model, "heads", None))
         # the deep-supervision weights follow the model's grid depth (:214)

@@ -145,7 +145,35 @@ non-zero without printing a result:
    K3v / K5v launched exactly as those paths launch them; and a small
    float32 ``UNet3D`` training run on the card against the CPU
    (``metrics.csv`` rows within rtol 1e-3);
-16. the kernels' JSON line, then the last line
+16. kernels (siam) — K1 per frame on the main path's uint8 (9, 1024²) chunk
+   block and its pair-row form (the block read in place as 8 rows of
+   2·1024²): bit-equal; K2p (the pair normalize and both tile sets: that
+   block in 256² tiles, and a zero-padded 200×300 block with invert: equal);
+   K3 on the main path's 128 bf16 logit tiles → 8 frames (within one level);
+   K6 (the depthwise cross-correlation of the ``corr`` join at (128, 256,
+   16, 16) bf16 channels_last and (16, 1024, 32, 32) float32: within 1e-5 of
+   Σ|a·b| in float32, one bf16 ulp in bf16).  Each against its plain
+   version, timed beside its bound (operations at the card's rate for the
+   operand type: bf16 on the tensor cores, float32 on the CUDA cores) and,
+   for K6, the grouped ``F.conv2d``;
+17. siam — the eighth main path, the ``siam_unet`` facade's streaming
+   ``Predict`` at ``benchmarks/family_bench.py``'s Siam configuration:
+   ``Siam_UNet(n_filter=32, mode="max")`` (seeded, with BatchNorm
+   statistics), 256² tiles, bf16, ``'single'``, a 32-frame uint8 1024² TIFF
+   in and a TIFF out.  Launch counts exact around each call (per 8-frame
+   chunk: K1 2, K2p 1, K3 1; K6 once a forward batch under ``corr``; K1's
+   pair form under ``'all'``).  Prints end-to-end MP/s (best of two after a
+   warm-up), device-resident MP/s (``_Engine.pairs_runner`` on a 17-frame
+   block on the card, equal to the call's first two chunks), peak memory,
+   the share of the bf16 dense peak, a profile by stage with the idle share,
+   and the host time by stage (page decode, upload, dispatch, wait, TIFF
+   write).  Holds fused against host-staged at the same forward batch on the
+   main movie and on each coverage case (the ``corr``, ``concat`` and
+   ``control`` joins, ``'first'``, ``'all'``, uint16 with ``add_tile=1``, a
+   37-frame 200×300 movie, a 1-frame movie, ``frames_per_chunk=1``, float32
+   with ``device_pipeline=True``), and a small float32 run on the card
+   against the CPU;
+18. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -225,6 +253,9 @@ def main() -> int:
     kernels.extend(k3d)
     kernels.extend(phase_kernels_3d_training(torch, dev))
     phase_train_3d(torch, dev, kernels)
+    ksiam = phase_kernels_siam(torch, dev)
+    phase_siam(torch, dev, kernels, ksiam)
+    kernels.extend(ksiam)
     for k in kernels:
         k.pop("_counter")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -306,9 +337,12 @@ def kernel_row(tag, name, source, replaces, counter, err, ms, plain_ms, bound,
             "bound_ms": b, "bound_by": by, "library_ms": library_ms, "_counter": counter}
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_SCALAR_OPS_PER_S):
+    """The least time of a kernel's work: its bytes at the memory rate or
+    its operations at ``peak_ops``, the card's rate for the operand type,
+    whichever is longer."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -430,7 +464,8 @@ def write_checkpoint(torch, path: str, name: str, n_filter: int, seed: int = 0,
     torch.save({"state_dict": net.state_dict(), "epoch": 0, "best_loss": None, **hyper}, path)
 
 
-def check_fused_vs_host(name: str, fused: np.ndarray, host: np.ndarray, shape) -> None:
+def check_fused_vs_host(name: str, fused: np.ndarray, host: np.ndarray, shape,
+                        tag: str = "main") -> None:
     """The contract the JAX package holds between its fused and host paths
     (``tests/test_predict.py``): host percentiles are float64, so a clip bound
     may move by a code point."""
@@ -438,7 +473,7 @@ def check_fused_vs_host(name: str, fused: np.ndarray, host: np.ndarray, shape) -
         raise AssertionError(f"{name}: result {fused.shape} {fused.dtype}, want {shape} uint8")
     diff = np.abs(fused.astype(np.int16) - host.astype(np.int16))
     frac = float(np.mean(diff > 1))
-    log(f"[main] {name}: fused vs host max {int(diff.max())} levels, "
+    log(f"[{tag}] {name}: fused vs host max {int(diff.max())} levels, "
         f"{frac:.6f} of pixels beyond 1 level; mask mean {fused.mean():.2f}, "
         f"std {fused.std():.2f}")
     if not (frac < 0.01 and diff.max() <= 16):
@@ -544,7 +579,10 @@ def phase_main_path(torch, dev, kernels) -> None:
 
 # kernel-name fragments of each stage of the chunk programs (first match wins)
 STAGES = (("k1 clip bounds", ("hist_pass", "finalize")),
-          ("k2/k2h/k2v normalize+tile", ("normalize_tile",)),
+          ("k2/k2h/k2v/k2p normalize+tile", ("normalize_tile",)),
+          ("k6 depthwise xcorr", ("xcorr",)),
+          ("copies host to device", ("memcpy htod",)),
+          ("copies device to host", ("memcpy dtoh",)),
           ("k3/k3v sigmoid+stitch", ("sigmoid_stitch",)),
           ("k5/k5v weighted stitch", ("margin_stitch", "blend_stitch")),
           ("k5s tile sum", ("tile_sum",)),
@@ -1722,7 +1760,7 @@ def check_u8_volume(tag: str, what: str, ours: np.ndarray, ref: np.ndarray, shap
         raise AssertionError(f"{what}: {ours.shape} {ours.dtype} vs {ref.shape}, want {shape}")
     diff = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
     frac = float(np.mean(diff > 0))
-    log(f"[{tag}] {what}: max {int(diff.max())} levels on {frac:.6f} of voxels; mean "
+    log(f"[{tag}] {what}: max {int(diff.max())} levels on {frac:.6f} of the values; mean "
         f"{ours.mean():.2f}, std {ours.std():.2f}")
     if diff.max() > 1 or frac > 1e-3:
         raise AssertionError(f"{what}: beyond the uint8 contract")
@@ -2242,6 +2280,428 @@ def train_3d_card_vs_cpu(torch) -> None:
     if not rel.max() <= 1e-3:
         raise AssertionError("the card's 3D training run disagrees with the CPU's")
     torch.backends.cudnn.allow_tf32 = True
+
+
+# --- 16. kernels of the Siam path --------------------------------------------------------
+
+# benchmarks/family_bench.py:210-258: Siam_UNet(n_filter=32, mode="max"), 256²
+# tiles, bf16, 'single', a 32-frame uint8 1024² movie; PredictSiam's default
+# chunk of 8 pairs and clip_threshold
+SIAM_FRAMES, SIAM_FILTER, SIAM_CHUNK = 32, 32, 8
+SIAM_CLIP = (0.0, 99.98)
+# K6's shapes: the main path's forward batch (128 pair tiles of 256²: (128,
+# 8·32, 16, 16) bf16 channels_last) and PredictSiam's default 512² tiles at 16
+# pairs and a width of 1024 (float32, NCHW)
+SIAM_XCORR = (((128, 8 * SIAM_FILTER, 16, 16), "bfloat16", True),
+              ((16, 1024, 32, 32), "float32", False))
+
+
+def xcorr_macs(h: int, w: int, kh: int, kw: int) -> int:
+    """Multiply-adds of K6 on one (h, w) plane with a (kh, kw) kernel, the
+    taps on the zero pad not counted."""
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    rows = sum(min(kh, h + ph - i) - max(0, ph - i) for i in range(h))
+    cols = sum(min(kw, w + pw - j) - max(0, pw - j) for j in range(w))
+    return rows * cols
+
+
+def phase_kernels_siam(torch, dev) -> list:
+    """K1 (per frame and its pair rows), K2p, K3 and K6 at the Siam path's
+    shapes."""
+    import torch.nn.functional as F
+
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr, depthwise_xcorr_plain
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch, sigmoid_stitch_plain
+    from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile_pairs,
+                                                            normalize_tile_pairs_plain)
+    from bio_image_unet_tpu_torch.predict.tiling import TilePlan, grid_starts
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    k = SIAM_CHUNK
+    rows = []
+
+    def row(*args):
+        rows.append(kernel_row("kernels siam", *args))
+
+    # K1 per frame, as 'single' runs it: the (9, 1024²) uint8 block of a chunk
+    block = torch.randint(0, 256, (k + 1, H, W), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    ours = hist.int_clip_bounds(block, *SIAM_CLIP)
+    torch.cuda.synchronize()
+    ref = hist.clip_bounds_plain(block, *SIAM_CLIP)
+    if not torch.equal(ours.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"K1 (9, 1024^2): kernel {ours.tolist()} != plain {ref.tolist()}")
+    row("k1_int_clip_bounds[uint8 (9, 1024^2) siam chunk]",
+        "bio_image_unet_tpu_torch/csrc/clip_bounds.cu", "bio_image_unet_tpu/ops/histogram.py:110",
+        hist.int_clip_bounds, (ours - ref).abs().max().item(),
+        timer(lambda: hist.int_clip_bounds(block, *SIAM_CLIP)),
+        timer(lambda: hist.clip_bounds_plain(block, *SIAM_CLIP), 3),
+        # read every pixel once, one compare each; write 4 bounds a frame
+        bound_ms(block.numel() + 16 * (k + 1), block.numel()),
+        timer(lambda: torch.sort(block.reshape(k + 1, -1), dim=1), 5))
+
+    # K1's pair-row form: 8 rows of 2·1024² uint8 values, read in place
+    flat = block.reshape(k + 1, -1)
+    pairs = torch.cat([flat[:-1], flat[1:]], dim=1)
+    ours = hist.pair_clip_bounds(block, *SIAM_CLIP)
+    torch.cuda.synchronize()
+    ref = hist.clip_bounds_plain(pairs, *SIAM_CLIP)
+    if not torch.equal(ours.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"K1 pair rows: kernel {ours.tolist()} != plain {ref.tolist()}")
+    row("k1_pair_clip_bounds[uint8 (9, 1024^2) -> 8 pair rows]",
+        "bio_image_unet_tpu_torch/csrc/clip_bounds.cu", "bio_image_unet_tpu/predict/predictor.py:987",
+        hist.pair_clip_bounds, (ours - ref).abs().max().item(),
+        timer(lambda: hist.pair_clip_bounds(block, *SIAM_CLIP)),
+        timer(lambda: hist.clip_bounds_plain(
+            torch.cat([flat[:-1], flat[1:]], dim=1), *SIAM_CLIP), 3),
+        # read the block once, one compare per row value; write 4 bounds a row
+        bound_ms(block.numel() + 16 * k, pairs.numel()),
+        timer(lambda: torch.sort(pairs, dim=1), 5))
+    del pairs
+
+    # K2p at the main path's shapes: per-frame bounds, the exact grid, the
+    # forward batch of 128 pair tiles
+    plan = TilePlan(H, W, TILE, TILE, grid_starts(H, TILE), grid_starts(W, TILE), dev)
+    n_pad = k * plan.per_frame
+    bounds = hist.clip_bounds(block, *SIAM_CLIP)
+    ours = normalize_tile_pairs(block, bounds, plan, n_pad, False)
+    torch.cuda.synchronize()
+    ref = normalize_tile_pairs_plain(block, bounds, plan, n_pad, False)
+    err = (ours.int() - ref.int()).abs().max().item()
+    if err != 0:
+        raise AssertionError(f"K2p exact: kernel differs from plain by {err} levels")
+    out_bytes = ours.numel()
+    row("k2p_normalize_tile_pairs[uint8 (9, 1024^2) -> 2x(128, 256^2)]",
+        "bio_image_unet_tpu_torch/csrc/normalize_tile.cu",
+        "bio_image_unet_tpu/predict/predictor.py:995", normalize_tile_pairs, err,
+        timer(lambda: normalize_tile_pairs(block, bounds, plan, n_pad, False)),
+        timer(lambda: normalize_tile_pairs_plain(block, bounds, plan, n_pad, False), 3),
+        # read each source pixel once, write each tile pixel of both sets once;
+        # about five float operations per tile pixel
+        bound_ms(block.numel() + bounds.numel() * 4 + out_bytes, 5 * out_bytes), None)
+    # the zero pad with invert: 200×300 frames in 256² tiles (2 a frame)
+    small = torch.randint(0, 256, (k + 1, 200, 300), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    splan = TilePlan(200, 300, TILE, TILE, grid_starts(200, TILE), grid_starts(300, TILE), dev)
+    sb = hist.clip_bounds(small, *SIAM_CLIP)
+    ours = normalize_tile_pairs(small, sb, splan, k * splan.per_frame, True)
+    torch.cuda.synchronize()
+    ref = normalize_tile_pairs_plain(small, sb, splan, k * splan.per_frame, True)
+    if not torch.equal(ours, ref) or ours[:, :, 200:].any():
+        raise AssertionError("K2p zero pad + invert: kernel differs from plain")
+    log(f"[kernels siam] k2p zero pad + invert, 9x200x300 in 256^2 tiles -> 2x{ours.shape[1]} "
+        f"tiles: equal to plain, the pad 0 | kernel "
+        f"{timer(lambda: normalize_tile_pairs(small, sb, splan, k * splan.per_frame, True)):.4f} ms")
+    del block, small, ours, ref
+
+    # K3 at the main path's forward batch: 128 bf16 logit tiles → 8 frames
+    logits = (torch.randn((n_pad, 1, TILE, TILE), generator=g, device=dev) * 4
+              ).to(torch.bfloat16)
+    ours = sigmoid_stitch(logits, k, plan)
+    torch.cuda.synchronize()
+    ref = sigmoid_stitch_plain(logits, k, plan)
+    err = (ours.int() - ref.int()).abs().max().item()
+    if err > 1:
+        raise AssertionError(f"K3 (128 tiles -> 8 frames): kernel differs from plain by {err} levels")
+    row("k3_sigmoid_stitch[bf16 (128, 1, 256^2) -> 8x1024^2 siam chunk]",
+        "bio_image_unet_tpu_torch/csrc/sigmoid_stitch.cu",
+        "bio_image_unet_tpu/predict/predictor.py:450", sigmoid_stitch, err,
+        timer(lambda: sigmoid_stitch(logits, k, plan)),
+        timer(lambda: sigmoid_stitch_plain(logits, k, plan), 3),
+        # read each logit once (bf16), write each pixel once; about five
+        # operations per logit (exp, add, divide, scale, the sum)
+        bound_ms(logits.numel() * 2 + k * H * W, 5 * logits.numel()), None)
+    del logits, ours, ref
+
+    # K6, the corr join
+    for shape, dtype_name, cl in SIAM_XCORR:
+        dtype = getattr(torch, dtype_name)
+        cur = torch.randn(shape, generator=g, device=dev).to(dtype)
+        prev = torch.randn(shape, generator=g, device=dev).to(dtype)
+        if cl:
+            cur = cur.contiguous(memory_format=torch.channels_last)
+            prev = prev.contiguous(memory_format=torch.channels_last)
+        ours = depthwise_xcorr(cur, prev)
+        torch.cuda.synchronize()
+        ref = depthwise_xcorr_plain(cur, prev)
+        diff = (ours.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            limit = 1e-5 * depthwise_xcorr_plain(cur.abs(), prev.abs())
+            what = "1e-5 of the sum of |a*b|"
+        else:
+            limit = torch.finfo(torch.bfloat16).eps * ref.float().abs()
+            what = "one bf16 ulp"
+        if not (diff <= limit).all():
+            raise AssertionError(f"K6 {tuple(shape)} {dtype}: beyond {what} of the plain version "
+                                 f"(max {diff.max().item()})")
+        b, c, h, w = shape
+        x_lib = cur.contiguous().reshape(1, b * c, h, w)
+        w_lib = prev.contiguous().reshape(b * c, 1, h, w)
+        try:
+            lib = timer(lambda: F.conv2d(x_lib, w_lib, groups=b * c, padding="same"), 5)
+        except RuntimeError as err:
+            log(f"[kernels siam] grouped F.conv2d refused {tuple(shape)} {dtype}: {err}")
+            lib = None
+        name = "bf16 channels_last" if cl else "float32"
+        n_flops = 2 * b * c * xcorr_macs(h, w, h, w)
+        n_bytes = 3 * cur.numel() * cur.element_size()
+        # the card's rate for the operand type: bf16 operands could run on the
+        # tensor cores (a Toeplitz product), float32 ones on the CUDA cores
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_SCALAR_OPS_PER_S
+        row(f"k6_depthwise_xcorr[{name} {b}x{c}x{h}x{w}]",
+            "bio_image_unet_tpu_torch/csrc/depthwise_xcorr.cu",
+            "bio_image_unet_tpu/ops/functional.py:95", depthwise_xcorr, diff.max().item(),
+            timer(lambda: depthwise_xcorr(cur, prev)),
+            timer(lambda: depthwise_xcorr_plain(cur, prev), 3),
+            # two inputs read once, the output written once; a multiply and an
+            # add per product on a real pixel (the zero pad's are not needed)
+            bound_ms(n_bytes, n_flops, peak), lib)
+        if dtype == torch.bfloat16:
+            ceiling, by = bound_ms(n_bytes, n_flops)
+            log(f"[kernels siam]   k6 {tuple(shape)}: this design's ceiling (float32 on the "
+                f"CUDA cores at 67 TFLOP/s) {ceiling:.4f} ms ({by})")
+        log(f"[kernels siam]   k6 {tuple(shape)}: {b * c * xcorr_macs(h, w, h, w) / 1e9:.3f} G "
+            f"multiply-adds on real pixels, {b * c * h * w * h * w / 1e9:.3f} G with the zero pad; "
+            f"within {what}")
+        del cur, prev, ours, ref, diff, limit
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- 17. the Siam path --------------------------------------------------------------------
+
+def siam_forward_flops(nf: int, s: int, join: str) -> float:
+    """Multiply-add FLOPs of one s² pair tile through ``Siam_UNet(n_filter=
+    nf)``: the ``Unet`` count, the prev frame's encoder (levels 1–4) and,
+    for ``concat``, the 3×3 join conv; the pools, the join's elementwise
+    work and K6 are not counted."""
+    def conv(ci, co, hw):
+        return 2 * ci * co * 9 * hw
+
+    hw = s * s
+    widths = [(1, nf), (nf, 2 * nf), (2 * nf, 4 * nf), (4 * nf, 8 * nf)]
+    f = unet_forward_flops(nf, s) + sum(conv(ci, co, hw / 4 ** lv) + conv(co, co, hw / 4 ** lv)
+                                        for lv, (ci, co) in enumerate(widths))
+    return f + (conv(16 * nf, 8 * nf, hw / 256) if join == "concat" else 0.0)
+
+
+def phase_siam(torch, dev, kernels, ksiam) -> None:
+    from bio_image_unet_tpu_torch import siam_unet
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_pairs
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+    from bio_image_unet_tpu_torch.predict.tiling import grid_starts
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + ksiam}.values())
+    rows = {k["name"]: k for k in ksiam}
+    k1_launches = {np.dtype(np.uint8): 2, np.dtype(np.uint16): 3, np.dtype(np.float32): 5}
+
+    def forward_batch(n_frames, fpc, tile, h, w, add=0, batch_size=8):
+        per = len(grid_starts(h, tile, add)) * len(grid_starts(w, tile, add))
+        n = min(fpc, n_frames) * per
+        return max(batch_size, min(n, _Engine.PAIR_STEP_PX // (tile * tile))), n
+
+    def expect(movie, fpc=SIAM_CHUNK, norm="single", join="max", add=0, tile=TILE):
+        """Per chunk: K1 (its pair form for 'all'; K1f for float32), K2p, K3,
+        and K6 once a forward batch under corr."""
+        n_frames, h, w = movie.shape
+        chunks = -(-n_frames // fpc)
+        k1 = (hist.pair_clip_bounds if norm == "all" else
+              hist.float_clip_bounds if movie.dtype == np.float32 else hist.int_clip_bounds)
+        e = {k1: k1_launches[movie.dtype] * chunks, normalize_tile_pairs: chunks,
+             sigmoid_stitch: chunks}
+        if join == "corr":
+            bs, n = forward_batch(n_frames, fpc, tile, h, w, add)
+            e[depthwise_xcorr] = chunks * (-(-n // bs))
+        return e
+
+    codec = {"decode": 0.0, "write": 0.0}
+    read_page, write_page = tiff.TiffReader.read_page, tiff.TiffWriter.write
+
+    def timed_read(self, index):
+        t0 = time.perf_counter()
+        page = read_page(self, index)
+        codec["decode"] += time.perf_counter() - t0
+        return page
+
+    def timed_write(self, page):
+        t0 = time.perf_counter()
+        write_page(self, page)
+        codec["write"] += time.perf_counter() - t0
+
+    rng = np.random.default_rng(11)
+    movie = rng.integers(0, 255, (SIAM_FRAMES, H, W), dtype=np.uint8)
+    kw = dict(resize_dim=(TILE, TILE), half_precision=True, show_progress=False)
+    main = "Siam_UNet max uint8 32x1024^2 (family_bench)"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpts = {}
+        for seed, join in enumerate(("max", "corr", "concat", "control")):
+            ckpts[join] = str(tmp / f"siam_{join}_nf32.pt")
+            write_checkpoint(torch, ckpts[join], "Siam_UNet", SIAM_FILTER, seed=20 + seed,
+                             mode=join)
+
+        def src_of(name, m):
+            path = str(tmp / f"{name}.tif")
+            tiff.imwrite(path, m)
+            return path
+
+        src = src_of("movie", movie)
+        out = str(tmp / "out_main.tif")
+        tiff.TiffReader.read_page, tiff.TiffWriter.write = timed_read, timed_write
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            best, split = float("inf"), None
+            for rep in ("warm-up", "timed 1", "timed 2"):
+                codec.update(decode=0.0, write=0.0)
+                t0 = time.perf_counter()
+                pred, got = counted(torch, "siam", counters, f"{main}, {rep}",
+                                    lambda: siam_unet.Predict(src, out, ckpts["max"], **kw),
+                                    expect(movie))
+                dt = time.perf_counter() - t0
+                if rep != "warm-up" and dt < best:
+                    best, split = dt, dict(pred.engine.chunk_seconds, **codec)
+        finally:
+            tiff.TiffReader.read_page, tiff.TiffWriter.write = read_page, write_page
+        peak = torch.cuda.max_memory_allocated()
+        fused = tiff.imread(out)
+        rows["k2p_normalize_tile_pairs[uint8 (9, 1024^2) -> 2x(128, 256^2)]"]["launches"] = \
+            got[normalize_tile_pairs]
+        rows["k1_int_clip_bounds[uint8 (9, 1024^2) siam chunk]"]["launches"] = \
+            got[hist.int_clip_bounds]
+        rows["k3_sigmoid_stitch[bf16 (128, 1, 256^2) -> 8x1024^2 siam chunk]"]["launches"] = \
+            got[sigmoid_stitch]
+
+        # host-staged at the fused path's forward batch
+        bs, _ = forward_batch(SIAM_FRAMES, SIAM_CHUNK, TILE, H, W)
+        host_out = str(tmp / "out_host.tif")
+        counted(torch, "siam", counters, f"{main}, host-staged at batch {bs}",
+                lambda: siam_unet.Predict(src, host_out, ckpts["max"], device_pipeline=False,
+                                          **dict(kw, batch_size=bs)),
+                {sigmoid_stitch: SIAM_FRAMES // SIAM_CHUNK})
+        check_fused_vs_host(main, fused, tiff.imread(host_out), movie.shape, "siam")
+
+        # device-resident: the chunk program on a 17-frame block on the card,
+        # the call's first two chunks (frame 0's prev is frame 1)
+        block = torch.from_numpy(np.concatenate([movie[1:2], movie[:2 * SIAM_CHUNK]])).to(dev)
+
+        def device_resident(engine):
+            """(run, best seconds of three, its masks, forward batch, plan) of
+            ``engine``'s chunk program over the block's two chunks."""
+            fn, plan, bs_dev = engine.pairs_runner(H, W, grid_starts(H, TILE),
+                                                   grid_starts(W, TILE), (TILE, TILE),
+                                                   SIAM_CLIP, False, "single", SIAM_CHUNK)
+
+            def run():
+                return [fn(block[i:i + SIAM_CHUNK + 1]) for i in (0, SIAM_CHUNK)]
+
+            run()
+            torch.cuda.synchronize()
+            best_dev = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                outs = run()
+                torch.cuda.synchronize()
+                best_dev = min(best_dev, time.perf_counter() - t0)
+            return run, best_dev, outs, bs_dev, plan
+
+        resident, best_dev, outs, bs_dev, plan = device_resident(pred.engine)
+        same = int(np.abs(torch.cat(outs).cpu().numpy().astype(np.int16)
+                          - fused[:2 * SIAM_CHUNK]).max())
+        log(f"[siam] device-resident run vs its Predict run: max {same} levels")
+        if same != 0:
+            raise AssertionError("the device-resident pair program disagrees with Predict")
+        profile_pass(torch, lambda: [resident() for _ in range(2)], "siam",
+                     "two passes over a 17-frame block")
+        del outs
+        e2e = SIAM_FRAMES * H * W / 1e6 / best
+        resident_mps = 2 * SIAM_CHUNK * H * W / 1e6 / best_dev
+        flops = siam_forward_flops(SIAM_FILTER, TILE, "max")
+        tiles_per_mp = plan.per_frame / (H * W / 1e6)
+        log(f"[siam] {main}: end-to-end {e2e:.2f} MP/s ({best:.3f} s); device-resident "
+            f"{resident_mps:.2f} MP/s ({best_dev * 1e3:.2f} ms for 16 pairs); forward batch "
+            f"{bs_dev}; peak device memory {peak / 2**30:.2f} GiB; {flops / 1e9:.2f} GFLOP per pair "
+            f"tile → {flops * tiles_per_mp * e2e / 1e12:.1f} TFLOP/s end to end "
+            f"({flops * tiles_per_mp * e2e / PEAK_BF16_FLOPS:.4f} of the bf16 dense peak), "
+            f"{flops * tiles_per_mp * resident_mps / 1e12:.1f} TFLOP/s device-resident "
+            f"({flops * tiles_per_mp * resident_mps / PEAK_BF16_FLOPS:.4f})")
+        log(f"[siam] host time of the best call ({best:.3f} s): "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+            + " (host clock, the download's excepted: produce includes the page decode, "
+              "sink the TIFF write; wait = blocked on the ring's oldest chunk; download = "
+              "a chunk's compute done to its mask in host memory, device clock, overlapped)")
+
+        # coverage: each case fused (launches exact) against host-staged at
+        # the same forward batch
+        small = rng.integers(0, 255, (37, 200, 300), dtype=np.uint8)
+        cases = [
+            ("corr join", "corr", movie[:16], {}, {"join": "corr"}),
+            ("concat join", "concat", movie[:16], {}, {}),
+            ("control join", "control", movie[:16], {}, {}),
+            ("'first'", "max", movie[:16], {"normalization_mode": "first"}, {}),
+            ("'all'", "max", movie[:16], {"normalization_mode": "all"}, {"norm": "all"}),
+            ("uint16 16x1000^2 add_tile=1", "max",
+             rng.integers(0, 65535, (16, 1000, 1000), dtype=np.uint16), {"add_tile": 1},
+             {"add": 1}),
+            ("37x200x300 zero pad + tail chunk", "max", small, {}, {}),
+            ("1 frame", "max", movie[:1], {}, {}),
+            ("frames_per_chunk=1", "max", movie[:4], {"frames_per_chunk": 1}, {"fpc": 1}),
+            ("float32 device_pipeline=True", "max",
+             (rng.standard_normal((16, H, W)) * 40 + 5).astype(np.float32),
+             {"device_pipeline": True}, {}),
+        ]
+        for name, join, m, extra, exp in cases:
+            path = src_of("case", m)
+            fused_out, host_out = str(tmp / "case_fused.tif"), str(tmp / "case_host.tif")
+            t0 = time.perf_counter()
+            case_pred, got = counted(torch, "siam", counters, name,
+                                     lambda: siam_unet.Predict(path, fused_out, ckpts[join],
+                                                               **kw, **extra),
+                                     expect(m, **exp))
+            dt = time.perf_counter() - t0
+            if join != "max":
+                # the join's device-resident time on the main movie's block
+                _, join_dev, _, _, _ = device_resident(case_pred.engine)
+                log(f"[siam] {name}: device-resident {2 * SIAM_CHUNK * H * W / 1e6 / join_dev:.2f} "
+                    f"MP/s ({join_dev * 1e3:.2f} ms for 16 pairs; max: {best_dev * 1e3:.2f} ms)")
+            if join == "corr":
+                for r in rows.values():
+                    if r["_counter"] is depthwise_xcorr:
+                        r["launches"] = got[depthwise_xcorr]
+            if exp.get("norm") == "all":
+                rows["k1_pair_clip_bounds[uint8 (9, 1024^2) -> 8 pair rows]"]["launches"] = \
+                    got[hist.pair_clip_bounds]
+            fpc = extra.get("frames_per_chunk", SIAM_CHUNK)
+            bs, _ = forward_batch(m.shape[0], fpc, TILE, m.shape[1], m.shape[2],
+                                  extra.get("add_tile", 0))
+            host_kw = dict(kw, batch_size=bs, **{k: v for k, v in extra.items()
+                                                 if k != "device_pipeline"})
+            siam_unet.Predict(path, host_out, ckpts[join], device_pipeline=False, **host_kw)
+            log(f"[siam] {name}: {dt:.3f} s end to end (one call, set-up included)")
+            want = m.shape if m.shape[0] > 1 else m.shape[1:]
+            check_fused_vs_host(name, tiff.imread(fused_out), tiff.imread(host_out), want, "siam")
+
+        del block
+        # a small float32 reference: the card against the CPU, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        small_src = src_of("small", rng.integers(0, 255, (5, 100, 90), dtype=np.uint8))
+        for join in ("max", "corr"):
+            ckpt = str(tmp / f"siam_{join}_nf8.pt")
+            write_checkpoint(torch, ckpt, "Siam_UNet", 8, seed=30, mode=join)
+            skw = dict(resize_dim=(64, 64), frames_per_chunk=2, show_progress=False)
+            card, cpu = str(tmp / "card.tif"), str(tmp / "cpu.tif")
+            siam_unet.Predict(small_src, card, ckpt, **skw)
+            siam_unet.Predict(small_src, cpu, ckpt, device="cpu", **skw)
+            check_u8_volume("siam", f"small float32 {join} 5x100x90: card vs CPU",
+                            tiff.imread(card), tiff.imread(cpu), (5, 100, 90))
+        torch.backends.cudnn.allow_tf32 = True
 
 
 if __name__ == "__main__":

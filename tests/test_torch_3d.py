@@ -41,7 +41,7 @@ from bio_image_unet_tpu_torch.predict import Predict3D, tiling
 from bio_image_unet_tpu_torch.predict.fastpath import FoldedUNet3D, folded_forward
 from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_3d
 from bio_image_unet_tpu_torch.predict.predictor import _Engine
-from torch_parity import assert_u8_contract, write_3d_checkpoint
+from torch_parity import assert_u8_contract, write_seeded_checkpoint
 
 REPO = Path(__file__).resolve().parent.parent
 # name: UNet3D hyperparams
@@ -55,7 +55,7 @@ def ckpts(tmp_path_factory):
     root = tmp_path_factory.mktemp("unet3d")
     out = {}
     for seed, (name, extra) in enumerate(MODELS.items()):
-        path, variables = write_3d_checkpoint(root, name, "UNet3D", seed, out_channels=1,
+        path, variables = write_seeded_checkpoint(root, name, "UNet3D", seed, out_channels=1,
                                               **extra)
         out[name] = (path, JUNet3D(n_filter=4, **extra), variables)
     return out
@@ -132,7 +132,8 @@ def test_conv_block_3d_bf16_mirrors_the_jax_casts(rng):
 def test_model_and_folded_forward_match_jax(ckpts, rng, name):
     path, model, variables = ckpts[name]
     x = rng.random((2, 8, 16, 16, 1)).astype(np.float32)
-    ref_probs, ref_logits = model.apply(variables, jnp.asarray(x), train=False)
+    apply = jax.jit(lambda v, a: model.apply(v, a, train=False))
+    ref_probs, ref_logits = apply(variables, jnp.asarray(x))
     apply_fn, packed = build_fast_apply(model, variables, None)
     fast_probs, fast_logits = apply_fn(packed, jnp.asarray(x))
     net = _port_model(path)

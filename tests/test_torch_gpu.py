@@ -1,5 +1,5 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
-card, and ``Predict``, ``PredictMultiOutput``, ``Predict3D``,
+card, and ``Predict``, ``PredictMultiOutput``, ``PredictSiam``, ``Predict3D``,
 ``PredictMultiOutput3D`` and the ``Trainer`` (2D and 3D) on the card held
 against the same on the CPU.
 
@@ -25,10 +25,13 @@ from bio_image_unet_tpu_torch.data.augment_device import (HeadLayout, augment_ap
                                                           augment_heads_apply_plain,
                                                           augment_heads_volume_apply,
                                                           augment_volume_apply, draw)
+from bio_image_unet_tpu_torch import siam_unet
+from bio_image_unet_tpu_torch.data import tiff
 from bio_image_unet_tpu_torch.models import (MultiOutputNestedUNet, MultiOutputUnet,
-                                             MultiOutputUnet3D, UNet3D, Unet)
+                                             MultiOutputUnet3D, Siam_UNet, UNet3D, Unet)
 from bio_image_unet_tpu_torch.ops import histogram as hist
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
+from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr, depthwise_xcorr_plain
 from bio_image_unet_tpu_torch.ops.stitch import (blend_stitch_3d, blend_stitch_3d_plain,
                                                   margin_stitch, margin_stitch_plain,
                                                   sigmoid_stitch, sigmoid_stitch_3d,
@@ -39,6 +42,8 @@ from bio_image_unet_tpu_torch.predict import (Predict, Predict3D, PredictMultiOu
 from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile, normalize_tile_3d,
                                                         normalize_tile_3d_plain,
                                                         normalize_tile_float,
+                                                        normalize_tile_pairs,
+                                                        normalize_tile_pairs_plain,
                                                         normalize_tile_plain)
 from bio_image_unet_tpu_torch.predict.tiling import (TilePlan, TilePlan3D, _blend_factors,
                                                      _margin_factors, grid_starts,
@@ -898,3 +903,95 @@ def test_3d_trainer_on_card_with_augment_and_bf16(cuda, tmp_path, network):
         res = Predict3D(vol, None, str(tmp_path / "model.pt"), resize_dim=(8, 16, 16),
                         show_progress=False).result
         assert res.shape == vol.shape
+
+
+# --- Siam: K1 pair rows, K2p, K6, PredictSiam ------------------------------------
+
+K2P_CASES = [
+    # name, dtype, block (k+1, h, w), tile, add_tile, bounds ('single' per frame,
+    # 'pair' per pair), invert
+    ("u8-exact-single", np.uint8, (9, 256, 256), 64, 0, "single", False),
+    ("u16-gather-pair", np.uint16, (4, 100, 90), 64, 1, "pair", False),
+    ("f32-zero-pad-invert", np.float32, (3, 40, 50), 64, 0, "pair", True),
+    ("u8-odd-width-zero-pad", np.uint8, (3, 30, 37), 38, 0, "single", True),
+]
+
+
+@pytest.mark.parametrize("case", K2P_CASES, ids=[c[0] for c in K2P_CASES])
+def test_pair_bounds_and_normalize_tile_pairs_kernels_equal_plain(cuda, gen, case):
+    name, dtype, shape, tile, add, kind, invert = case
+    block = torch.from_numpy(_frames(gen, dtype, shape))
+    k, h, w = shape[0] - 1, shape[1], shape[2]
+    dev = block.to(cuda)
+    pair = hist.pair_clip_bounds(dev, 0.5, 99.5)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(pair), _bits(hist.pair_clip_bounds(block, 0.5, 99.5)))
+    bounds = hist.clip_bounds(dev, 0.5, 99.5) if kind == "single" else pair
+    plan = TilePlan(h, w, tile, tile, grid_starts(h, tile, add), grid_starts(w, tile, add), cuda)
+    n_total = k * plan.per_frame + 5
+    ours = normalize_tile_pairs(dev, bounds, plan, n_total, invert)
+    torch.cuda.synchronize()
+    ref = normalize_tile_pairs_plain(dev, bounds, plan, n_total, invert)
+    assert ours.shape == (2, n_total, tile, tile)
+    assert torch.equal(ours, ref), name
+
+
+XCORR_CASES = [
+    # (B, C, H, W), kernel (kh, kw), dtype, channels_last
+    ((4, 64, 16, 16), (16, 16), torch.bfloat16, True),
+    ((2, 40, 32, 32), (32, 32), torch.float32, False),
+    ((3, 5, 7, 6), (3, 4), torch.float32, True),
+    ((1, 3, 100, 100), (100, 100), torch.float32, False),
+]
+
+
+@pytest.mark.parametrize("case", XCORR_CASES, ids=lambda c: f"{c[0]}-{c[2]}")
+def test_depthwise_xcorr_kernel_matches_plain(cuda, case):
+    shape, kernel, dtype, cl = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cur = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    prev = torch.randn(shape[:2] + kernel, generator=g, device=cuda).to(dtype)
+    if cl:
+        cur = cur.contiguous(memory_format=torch.channels_last)
+        prev = prev.contiguous(memory_format=torch.channels_last)
+    ours = depthwise_xcorr(cur, prev)
+    torch.cuda.synchronize()
+    ref = depthwise_xcorr_plain(cur, prev)
+    assert ours.dtype == dtype and ours.stride() == cur.stride()
+    if dtype == torch.float32:
+        # the same float32 order; any other within 1e-5 of the sum of |a·b|
+        bound = depthwise_xcorr_plain(cur.abs(), prev.abs())
+        assert ((ours - ref).abs() <= 1e-5 * bound).all()
+    else:  # one bf16 ulp
+        ulp = torch.finfo(torch.bfloat16).eps * ref.float().abs().clamp_min(1e-30)
+        assert ((ours.float() - ref.float()).abs() <= ulp).all()
+
+
+def test_depthwise_xcorr_refuses_what_the_kernel_does_not_take(cuda):
+    big = torch.zeros((1, 1, 200, 200), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        depthwise_xcorr(big, big)
+    x = torch.zeros((1, 2, 8, 8), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        depthwise_xcorr(x, x)
+
+
+@pytest.mark.parametrize("mode,dtype,norm,add", [
+    ("max", np.uint8, "single", 0), ("corr", np.uint16, "all", 1),
+    ("concat", np.float32, "first", 0), ("control", np.uint8, "single", 0)])
+def test_predict_siam_on_card_matches_cpu(cuda, gen, tmp_path, mode, dtype, norm, add):
+    net = init_weights_(Siam_UNet(n_filter=8, mode=mode), torch.Generator().manual_seed(3),
+                        random_bn_stats=True)
+    ckpt = str(tmp_path / "siam.pt")
+    torch.save({"state_dict": net.state_dict(), "model_name": "Siam_UNet", "n_filter": 8,
+                "mode": mode}, ckpt)
+    src = str(tmp_path / "movie.tif")
+    tiff.imwrite(src, _frames(gen, dtype, (5, 100, 90)))
+    kw = dict(resize_dim=(64, 64), add_tile=add, normalization_mode=norm, frames_per_chunk=2,
+              show_progress=False, device_pipeline=True if dtype == np.float32 else None)
+    for pipeline in (kw.pop("device_pipeline"), False):
+        card, cpu = str(tmp_path / "card.tif"), str(tmp_path / "cpu.tif")
+        siam_unet.Predict(src, card, ckpt, device_pipeline=pipeline, **kw)
+        siam_unet.Predict(src, cpu, ckpt, device_pipeline=pipeline, device="cpu", **kw)
+        diff = np.abs(tiff.imread(card).astype(int) - tiff.imread(cpu).astype(int))
+        assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3, (pipeline, diff.max())

@@ -99,7 +99,8 @@ def _nchw(x):
 def test_model_eval_forward_matches_jax(ckpts, rng, name):
     path, model, variables = ckpts[name]
     x = rng.random((2, 32, 32, 1)).astype(np.float32)
-    ref = model.apply(variables, jnp.asarray(x), train=False)
+    apply = jax.jit(lambda v, a: model.apply(v, a, train=False))
+    ref = apply(variables, jnp.asarray(x))
     net = _port_model(path)
     with torch.no_grad():
         ours = net(_nchw(x))

@@ -30,7 +30,7 @@ from bio_image_unet_tpu_torch.ops.stitch import blend_stitch_3d
 from bio_image_unet_tpu_torch.predict import PredictMultiOutput3D, tiling
 from bio_image_unet_tpu_torch.predict.fastpath import folded_forward
 from bio_image_unet_tpu_torch.predict.predictor import _Engine
-from torch_parity import write_3d_checkpoint
+from torch_parity import write_seeded_checkpoint
 
 # the heads of tests/test_quant_families.py:26-27
 HEADS = {"mask": {"channels": 1, "activation": "sigmoid"},
@@ -45,7 +45,7 @@ def ckpts(tmp_path_factory):
     root = tmp_path_factory.mktemp("heads3d")
     out = {}
     for seed, (name, extra) in enumerate(MODELS.items()):
-        path, variables = write_3d_checkpoint(root, name, "MultiOutputUnet3D", seed + 10,
+        path, variables = write_seeded_checkpoint(root, name, "MultiOutputUnet3D", seed + 10,
                                               output_heads=HEADS, **extra)
         out[name] = (path, JMultiOutputUnet3D(n_filter=4, output_heads=HEADS, **extra), variables)
     return out
@@ -66,7 +66,8 @@ def _port_model(path):
 def test_model_and_folded_forward_match_jax(ckpts, rng, name):
     path, model, variables = ckpts[name]
     x = rng.random((2, 8, 16, 16, 1)).astype(np.float32)
-    ref = model.apply(variables, jnp.asarray(x), train=False)
+    apply = jax.jit(lambda v, a: model.apply(v, a, train=False))
+    ref = apply(variables, jnp.asarray(x))
     apply_fn, packed = build_fast_apply(model, variables, None)
     fast = apply_fn(packed, jnp.asarray(x))
     net = _port_model(path)

@@ -6,6 +6,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,7 +47,8 @@ def _input(rng, n=2, size=32):
 def test_unet_eval_forward_matches_jax(unet_ckpt, port_unet, rng):
     _, model, variables = unet_ckpt
     x = _input(rng)
-    ref_p, ref_z = (np.asarray(v) for v in model.apply(variables, jnp.asarray(x), train=False))
+    apply = jax.jit(lambda v, a: model.apply(v, a, train=False))
+    ref_p, ref_z = (np.asarray(v) for v in apply(variables, jnp.asarray(x)))
     with torch.no_grad():
         p, z = port_unet(torch.from_numpy(np.moveaxis(x, -1, 1)))
     assert z.dtype == torch.float32
@@ -57,7 +59,8 @@ def test_unet_eval_forward_matches_jax(unet_ckpt, port_unet, rng):
 def test_folded_forward_matches_jax_fold_and_apply(unet_ckpt, port_unet, rng):
     _, model, variables = unet_ckpt
     x = _input(rng, n=3)
-    ref_z = np.asarray(model.apply(variables, jnp.asarray(x), train=False)[1])
+    apply = jax.jit(lambda v, a: model.apply(v, a, train=False))
+    ref_z = np.asarray(apply(variables, jnp.asarray(x))[1])
     apply_fn, packed = build_fast_apply(model, variables, None)
     ref_fast = np.asarray(apply_fn(packed, jnp.asarray(x))[1])
     folded = FoldedUnet2D(port_unet, torch.float32, "cpu")

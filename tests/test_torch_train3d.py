@@ -43,7 +43,7 @@ from bio_image_unet_tpu_torch.models import UNet3D
 from bio_image_unet_tpu_torch.predict import Predict3D
 from bio_image_unet_tpu_torch.train import Trainer
 from test_torch_augment import _draws, _jax_draws, _nchw, _nhwc
-from torch_parity import jit_init, write_3d_checkpoint
+from torch_parity import jit_init, write_seeded_checkpoint
 
 REPO = Path(__file__).resolve().parent.parent
 N_FILTER, SHAPE, BATCH, EPOCHS, LR = 4, (8, 16, 16), 4, 2, 1e-4
@@ -244,7 +244,7 @@ def test_first_step_gradients_with_time_loss_match_jax(tmp_path):
     from bio_image_unet_tpu.models import UNet3D as JaxUNet3D
     from bio_image_unet_tpu_torch.losses import BCEDiceLoss, smooth_l1_loss
 
-    path, variables = write_3d_checkpoint(tmp_path, "tri", "UNet3D", 3, n_filter=N_FILTER,
+    path, variables = write_seeded_checkpoint(tmp_path, "tri", "UNet3D", 3, n_filter=N_FILTER,
                                           use_interpolation=True)
     data = Volumes("zxyc")
     x = np.stack([data[i]["volume"] for i in range(BATCH)])

@@ -56,6 +56,7 @@ from bio_image_unet_tpu_torch.predict import PredictMultiOutput
 from bio_image_unet_tpu_torch.train import Trainer
 from bio_image_unet_tpu_torch.utils import tboard
 from bio_image_unet_tpu_torch.utils.synth import blob_sample
+from torch_parity import jit_init
 
 REPO = Path(__file__).resolve().parent.parent
 HEADS = {"mask": {"channels": 1, "activation": "sigmoid", "loss": "BCEDiceLoss"},
@@ -274,9 +275,10 @@ def jax_runs(tmp_path_factory):
     init_path, runs = str(root / "init.pt"), {}
     for cache in (False, True):
         out = str(root / f"cache{int(cache)}")
-        t = JaxTrainer(HeadTiles("hwc"), EPOCHS, network="MultiOutputUnet", batch_size=BATCH,
-                       lr=LR, n_filter=N_FILTER, output_heads=HEADS, save_dir=out, seed=0,
-                       mesh=get_mesh(n_data=1), device_cache=cache)
+        with jit_init():
+            t = JaxTrainer(HeadTiles("hwc"), EPOCHS, network="MultiOutputUnet",
+                           batch_size=BATCH, lr=LR, n_filter=N_FILTER, output_heads=HEADS,
+                           save_dir=out, seed=0, mesh=get_mesh(n_data=1), device_cache=cache)
         if not cache:
             export_torch_checkpoint(init_path, {"params": t.params, "batch_stats": t.batch_stats},
                                     {"model_name": "MultiOutputUnet", "n_filter": N_FILTER,

@@ -46,7 +46,7 @@ from bio_image_unet_tpu_torch.models import MultiOutputUnet3D
 from bio_image_unet_tpu_torch.predict import PredictMultiOutput3D
 from bio_image_unet_tpu_torch.train import Trainer
 from test_torch_augment_heads import _jax_draws, _ulps
-from torch_parity import jit_init, write_3d_checkpoint
+from torch_parity import jit_init, write_seeded_checkpoint
 
 HEADS = {"mask": {"channels": 1, "activation": "sigmoid", "loss": "BCEDiceLoss"},
          "orientation": {"channels": 2, "activation": None, "loss": "MSELoss", "weight": 0.5}}
@@ -314,7 +314,7 @@ def test_first_step_gradients_nearest_decoder_match_jax(tmp_path):
     from bio_image_unet_tpu.losses import get_head_loss as jget_head_loss
     from bio_image_unet_tpu.models import MultiOutputUnet3D as JaxMO3D
 
-    path, variables = write_3d_checkpoint(tmp_path, "near", "MultiOutputUnet3D", 5,
+    path, variables = write_seeded_checkpoint(tmp_path, "near", "MultiOutputUnet3D", 5,
                                           n_filter=N_FILTER, output_heads=HEADS,
                                           use_interpolation=True)
     params = {k: dict(v) for k, v in variables["params"].items()}

@@ -24,7 +24,8 @@ def warm_unet_variables(n_filter: int = N_FILTER, size: int = 32, steps: int = 3
     BatchNorm running statistics are not the trivial mean 0 / var 1 and a BN
     fold has something to fold (the pattern of ``tests/test_fastpath.py``)."""
     model = Unet(n_filter=n_filter)
-    variables = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 1)))
+    # one jitted init: a few seconds of compile, not ~30 s of op-by-op dispatch
+    variables = jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 1)))
 
     @jax.jit
     def step(variables, x, key):
@@ -62,14 +63,15 @@ def assert_u8_contract(ours, ref, max_levels: int = 1, max_fraction: float = 1e-
     assert frac <= max_fraction, f"{frac:.3%} of pixels diverge (allowed {max_fraction:.1%})"
 
 
-def write_3d_checkpoint(root, name: str, registry: str, seed: int, n_filter: int = 4,
+def write_seeded_checkpoint(root, name: str, registry: str, seed: int, n_filter: int = 4,
                         **extra):
-    """A reference-schema ``.pt`` of a seeded 3D model both packages load:
-    random weights and BatchNorm statistics (so the BN fold has something to
-    fold) drawn in the port's model, read by the JAX package's ``.pt``
-    reader and written back by its ``export_torch_checkpoint``
-    (``final_sequential=False``: ``UNet3D``'s ``final`` is a bare
-    ``Conv3d``).  Returns ``(path, JAX variables)``."""
+    """A reference-schema ``.pt`` of a seeded model both packages load (a
+    3D net, or ``Siam_UNet`` with its ``mode`` in ``extra``): random weights
+    and BatchNorm statistics (so the BN fold has something to fold) drawn in
+    the port's model, read by the JAX package's ``.pt`` reader and written
+    back by its ``export_torch_checkpoint`` (``final_sequential=False`` for
+    ``UNet3D``, whose ``final`` is a bare ``Conv3d``).  Returns ``(path, JAX
+    variables)``."""
     import torch
 
     from bio_image_unet_tpu import checkpoint as jcheckpoint
