@@ -12,12 +12,14 @@ JAX package's, so each module's counterpart is easy to find:
 - :mod:`~bio_image_unet_tpu_torch.interop`    — JAX variables → the port's state dict
 - :mod:`~bio_image_unet_tpu_torch.ops`        — blocks and the hand-written kernels
   (K1 clip bounds with its Siam pair-row form, K3/K3v sigmoid + stitch, K5/K5s
-  safe-margin stitch, K5v 3D blend stitch, K6 depthwise cross-correlation)
-  with their plain PyTorch versions
+  safe-margin stitch, K5v 3D blend stitch, K6 depthwise cross-correlation,
+  K7–K10 the int8 trunk's conv, up-conv, requant and max pool) with their
+  plain PyTorch versions
 - :mod:`~bio_image_unet_tpu_torch.predict`    — BN fold, K2/K2h/K2v/K2p
-  normalize-and-tile, and the five predictors: tiled ``Predict``,
-  ``PredictMultiOutput``, the streaming ``PredictSiam``, ``Predict3D`` and
-  ``PredictMultiOutput3D`` (fused device pipeline and host-staged path)
+  normalize-and-tile, the w8a8 int8 trunk (``quantized=True``), and the five
+  predictors: tiled ``Predict``, ``PredictMultiOutput``, the streaming
+  ``PredictSiam``, ``Predict3D`` and ``PredictMultiOutput3D`` (fused device
+  pipeline and host-staged path)
 - :mod:`~bio_image_unet_tpu_torch.data`       — the TIFF codec, ``DataProcess2D``,
   ``DataProcessMultiOutput``, ``DataProcess3D``, ``DataProcessMultiOutput3D``
   and their loader, host augmentation, and the K4 / K4h / K4v / K4hv

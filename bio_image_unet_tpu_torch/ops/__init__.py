@@ -10,6 +10,8 @@
 - :mod:`.functional` — max pool, nearest and linear resampling at spatial
   rank 2 and 3; K6, the depthwise cross-correlation of the Siam ``corr`` join
   (``csrc/depthwise_xcorr.cu``)
+- :mod:`.int8`      — K7–K10, the w8a8 int8 trunk's 3×3 conv, 2×2 up-conv,
+  requant and max pool (``csrc/int8_trunk.cu``)
 - :mod:`._cuda`     — nvcc build and ctypes binding of ``csrc/*.cu``
 
 K2 (normalize → pad → uint8 → tiles), K2h (its float-tile mode), K2v

@@ -35,6 +35,7 @@ SOURCES = {
     "augment_batch": "augment_batch.cu",
     "margin_stitch": "margin_stitch.cu",
     "depthwise_xcorr": "depthwise_xcorr.cu",
+    "int8_trunk": "int8_trunk.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,0 +1,268 @@
+"""K7–K10: the int8 kernels of the w8a8 2D trunk (``csrc/int8_trunk.cu``;
+counterparts of ``bio_image_unet_tpu/predict/quant.py:417 qconv``, ``:428
+qtconv``, ``:223 _requant`` and ``:278 _maxpool_i8``).
+
+Activations are NHWC int8 tensors.  Weights come packed by
+:class:`..predict.quant.Int8Weights`: a 3×3 conv's codes as (O, 3, 3, I_pad),
+a 2×2 transposed conv's as (2, 2, O, I_pad) (tap (a, b) makes output pixel
+(2i+a, 2j+b), as ``F.conv_transpose2d`` does), I_pad a multiple of 32 with
+zeros past I; the float32 per-output-channel weight scale ``sw`` (the
+transposed conv's one scale repeated) and bias beside them.
+
+- ``qconv3x3``  (K7): SAME 3×3 conv at dilation d → int32 → ``a =
+  fma(float(acc), s_in·sw[o], bias[o])`` → LeakyReLU 0.1 → ``rint(a / s_out)``
+  clipped to ±127;
+- ``qconvt2x2`` (K8): the 2×2 stride-2 transposed conv with the same
+  dequant and requant (no activation), written into channels [offset,
+  offset + O) of a concat buffer;
+- ``requant``   (K9): ``rint(x·s_a / s_b)`` clipped to ±127 from int8,
+  bfloat16 or float32 into int8 (channels [offset, offset + C) of ``out``),
+  or, with ``s_b=None``, the dequant ``bf16(x·s_a)``;
+- ``maxpool_i8`` (K10): 2×2 stride-2 max.
+
+Each has a plain PyTorch version beside it (the wrapper takes it for CPU
+tensors only; a CUDA tensor launches the kernel or raises).  The plain
+convolutions sum the int8 products in float64, where every partial sum is an
+integer below 127²·9·1024 < 2^53 and so exact; the epilogue is float32 in the
+kernel's order, its multiply-add fused and rounded once (``stitch._fma_f32``)
+as XLA's CPU backend contracts it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _cuda
+from .stitch import _fma_f32
+
+_F32 = torch.float32
+# output elements a plain version computes at once (its float64 temporaries
+# are some 8 bytes an element each)
+_PLAIN_STEP = 1 << 25
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(float(v), dtype=_F32, device=device)
+
+
+def _dequant_requant(y: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor, s_in: float,
+                     s_out: float, leaky: bool) -> torch.Tensor:
+    """The K7/K8 epilogue on float32 sums ``y`` (..., O)."""
+    dev = y.device
+    a = _fma_f32(y, _f32(s_in, dev) * sw, bias)
+    if leaky:
+        a = torch.where(a >= 0, a, a * _f32(0.1, dev))
+    return torch.clamp(torch.round(a / _f32(s_out, dev)), -127, 127).to(torch.int8)
+
+
+def _batched(fn, x: torch.Tensor, per_item: int) -> torch.Tensor:
+    step = max(1, _PLAIN_STEP // max(1, per_item))
+    outs = [fn(x[s:s + step]) for s in range(0, x.shape[0], step)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _check_conv(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+                taps: tuple, what: str) -> int:
+    if x.dim() != 4 or x.dtype != torch.int8:
+        raise ValueError(f"{what}: expected NHWC int8 activations, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if w.dtype != torch.int8 or w.dim() != 4:
+        raise ValueError(f"{what}: expected packed int8 weights, got {w.dtype} {tuple(w.shape)}")
+    cin, cin_pad = x.shape[-1], w.shape[-1]
+    if cin > cin_pad or cin_pad % 32:
+        raise ValueError(f"{what}: {cin} input channels for weights padded to {cin_pad} "
+                         "(a multiple of 32 at least the input's)")
+    cout = w.shape[0] if taps == (3, 3) else w.shape[2]
+    if tuple(w.shape[1:3] if taps == (3, 3) else w.shape[:2]) != taps:
+        raise ValueError(f"{what}: weights {tuple(w.shape)} do not hold {taps} taps")
+    if sw.shape != (cout,) or bias.shape != (cout,) or sw.dtype != _F32 or bias.dtype != _F32:
+        raise ValueError(f"{what}: sw and bias must be ({cout},) float32")
+    return cout
+
+
+def _on_card(what: str, *ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    for t in ts:
+        _cuda.require_cuda(t, what, dev)
+    return dev
+
+
+# --- K7 -----------------------------------------------------------------------
+
+def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+                   s_in: float, s_out: float, dilation: int = 1) -> torch.Tensor:
+    """Plain PyTorch K7: (n, h, w, I) int8 → (n, h, w, O) int8."""
+    _check_conv(x, w, sw, bias, (3, 3), "qconv3x3")
+    k = w[..., :x.shape[-1]].permute(0, 3, 1, 2).double()
+
+    def one(xs):
+        with torch.backends.cudnn.flags(enabled=False):  # the direct sum, exact in float64
+            y = F.conv2d(xs.permute(0, 3, 1, 2).double(), k, padding=dilation,
+                         dilation=dilation)
+        return _dequant_requant(y.permute(0, 2, 3, 1).float(), sw, bias, s_in, s_out, True)
+
+    return _batched(one, x, x.shape[1] * x.shape[2] * w.shape[0])
+
+
+def qconv3x3(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+             s_in: float, s_out: float, dilation: int = 1) -> torch.Tensor:
+    """K7 (see the module docstring)."""
+    cout = _check_conv(x, w, sw, bias, (3, 3), "qconv3x3")
+    if x.device.type == "cpu":
+        return qconv3x3_plain(x, w, sw, bias, s_in, s_out, dilation)
+    dev = _on_card("qconv3x3", x, w, sw, bias)
+    n, h, wd, cin = x.shape
+    out = torch.empty((n, h, wd, cout), dtype=torch.int8, device=dev)
+    A = _cuda
+    fn = A.function("int8_trunk", "k7_qconv3x3",
+                    [A.P] * 5 + [A.I32] * 8 + [A.F32, A.F32, A.P])
+    A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+             out.data_ptr(), n, h, wd, cin, w.shape[-1], cout, int(dilation),
+             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), float(s_in), float(s_out))
+    qconv3x3.launches += 1
+    return out
+
+
+qconv3x3.launches = 0
+
+
+# --- K8 -----------------------------------------------------------------------
+
+def _concat_target(out: Optional[torch.Tensor], shape: tuple, offset: int, c: int, dev,
+                   what: str) -> torch.Tensor:
+    if out is None:
+        if offset:
+            raise ValueError(f"{what}: a channel offset needs an output buffer")
+        return torch.empty(shape + (c,), dtype=torch.int8, device=dev)
+    if (out.dtype != torch.int8 or tuple(out.shape[:-1]) != shape
+            or offset < 0 or offset + c > out.shape[-1]):
+        raise ValueError(f"{what}: output buffer {out.dtype} {tuple(out.shape)} cannot take "
+                         f"{c} channels at offset {offset} of {shape}")
+    return out
+
+
+def qconvt2x2_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+                    s_in: float, s_out: float, out: Optional[torch.Tensor] = None,
+                    offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K8: (n, h, w, I) int8 → channels [offset, offset + O) of
+    ``out`` (n, 2h, 2w, C_out), or a new (n, 2h, 2w, O) tensor."""
+    cout = _check_conv(x, w, sw, bias, (2, 2), "qconvt2x2")
+    n, h, wd, cin = x.shape
+    target = _concat_target(out, (n, 2 * h, 2 * wd), offset, cout, x.device, "qconvt2x2")
+    k = w[..., :cin].double()
+
+    def one(xs):
+        y = torch.einsum("nijc,aboc->niajbo", xs.double(), k)
+        y = y.reshape(xs.shape[0], 2 * h, 2 * wd, cout).float()
+        return _dequant_requant(y, sw, bias, s_in, s_out, False)
+
+    target[..., offset:offset + cout] = _batched(one, x, 4 * h * wd * cout)
+    return target
+
+
+def qconvt2x2(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+              s_in: float, s_out: float, out: Optional[torch.Tensor] = None,
+              offset: int = 0) -> torch.Tensor:
+    """K8 (see the module docstring)."""
+    cout = _check_conv(x, w, sw, bias, (2, 2), "qconvt2x2")
+    if x.device.type == "cpu":
+        return qconvt2x2_plain(x, w, sw, bias, s_in, s_out, out, offset)
+    dev = _on_card("qconvt2x2", x, w, sw, bias)
+    n, h, wd, cin = x.shape
+    target = _concat_target(out, (n, 2 * h, 2 * wd), offset, cout, dev, "qconvt2x2")
+    _cuda.require_cuda(target, "qconvt2x2 out", dev)
+    A = _cuda
+    fn = A.function("int8_trunk", "k8_qconvt2x2",
+                    [A.P] * 5 + [A.I32] * 9 + [A.F32, A.F32, A.P])
+    A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+             target.data_ptr(), n, h, wd, cin, w.shape[-1], cout,
+             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), target.shape[-1], int(offset),
+             float(s_in), float(s_out))
+    qconvt2x2.launches += 1
+    return target
+
+
+qconvt2x2.launches = 0
+
+
+# --- K9 -----------------------------------------------------------------------
+
+_REQUANT_IN = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _requant_target(x: torch.Tensor, s_b: Optional[float], out: Optional[torch.Tensor],
+                    offset: int) -> torch.Tensor:
+    if x.dtype not in _REQUANT_IN:
+        raise ValueError(f"requant takes int8, bfloat16 or float32, got {x.dtype}")
+    if s_b is None:
+        if out is not None or offset:
+            raise ValueError("requant: the bf16 dequant writes a new tensor")
+        return torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    return _concat_target(out, tuple(x.shape[:-1]), offset, x.shape[-1], x.device, "requant")
+
+
+def requant_plain(x: torch.Tensor, s_a: float, s_b: Optional[float] = None,
+                  out: Optional[torch.Tensor] = None, offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K9: ``rint((x·s_a) / s_b)`` clipped to ±127 into
+    channels [offset, offset + C) of ``out`` (or a new int8 tensor); with
+    ``s_b=None`` the dequant ``bf16(x·s_a)``."""
+    target = _requant_target(x, s_b, out, offset)
+    v = x.float() * _f32(s_a, x.device)
+    if s_b is None:
+        target.copy_(v.to(torch.bfloat16))
+    else:
+        q = torch.clamp(torch.round(v / _f32(s_b, x.device)), -127, 127).to(torch.int8)
+        target[..., offset:offset + x.shape[-1]] = q
+    return target
+
+
+def requant(x: torch.Tensor, s_a: float, s_b: Optional[float] = None,
+            out: Optional[torch.Tensor] = None, offset: int = 0) -> torch.Tensor:
+    """K9 (see the module docstring); ``x`` is (..., C) with C innermost."""
+    target = _requant_target(x, s_b, out, offset)
+    if x.device.type == "cpu":
+        return requant_plain(x, s_a, s_b, out, offset)
+    dev = _on_card("requant", x, target)
+    A = _cuda
+    fn = A.function("int8_trunk", "k9_requant",
+                    [A.P, A.I32, A.P, A.I64, A.I32, A.I32, A.I32, A.I32, A.F32, A.F32, A.P])
+    A.launch(fn, dev, x.data_ptr(), _REQUANT_IN[x.dtype], target.data_ptr(), x.numel(),
+             x.shape[-1], int(s_b is None), target.shape[-1], int(offset), float(s_a),
+             float(1.0 if s_b is None else s_b))
+    requant.launches += 1
+    return target
+
+
+requant.launches = 0
+
+
+# --- K10 ----------------------------------------------------------------------
+
+def maxpool_i8_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K10 (``F.max_pool2d`` takes no int8): a reshape and
+    ``amax`` over each 2×2 window; odd extents are floored."""
+    n, h, w, c = x.shape
+    x = x[:, :2 * (h // 2), :2 * (w // 2)]
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
+    """K10: (n, h, w, C) int8 → (n, h//2, w//2, C)."""
+    if x.dim() != 4 or x.dtype != torch.int8:
+        raise ValueError(f"maxpool_i8 takes NHWC int8, got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return maxpool_i8_plain(x)
+    dev = _on_card("maxpool_i8", x)
+    n, h, w, c = x.shape
+    out = torch.empty((n, h // 2, w // 2, c), dtype=torch.int8, device=dev)
+    A = _cuda
+    fn = A.function("int8_trunk", "k10_maxpool_i8", [A.P, A.P] + [A.I32] * 4 + [A.P])
+    A.launch(fn, dev, x.data_ptr(), out.data_ptr(), n, h, w, c)
+    maxpool_i8.launches += 1
+    return out
+
+
+maxpool_i8.launches = 0

@@ -11,6 +11,10 @@
   volume → K2v → 3D forward → K3v)
 - :class:`PredictMultiOutput3D` ≙ ``bio_image_unet_tpu.predict.PredictMultiOutput3D``
   (K1 → K2v float tiles → multi-head 3D forward → K5v blend stitch)
+
+``quantized=True`` on ``Predict``, ``PredictMultiOutput`` (``MultiOutputUnet``)
+and ``PredictSiam`` (``max``/``control``/``concat``) runs the plain 2D trunk
+in w8a8 int8 (:mod:`.quant`, K7–K10) inside the fused pipeline.
 """
 
 from .predictor import Predict, Predict3D, PredictMultiOutput, PredictMultiOutput3D, PredictSiam

@@ -30,7 +30,7 @@ the working dtype and return in float32, where a head's activation runs
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -133,32 +133,43 @@ class FoldedUnet2D(_Folded):
         super().__init__(model, dtype, device)
         self.dilation = int(getattr(model, "dilation", 1))
         self.mode = getattr(model, "mode", None)
+        # ``recorder(site, activation)``, when set, sees every conv output
+        # under its int8 calibration site (``predict/quant.py``)
+        self.recorder: Optional[Callable] = None
+
+    def _block(self, x: torch.Tensor, block: str, site: str, dilation: int = 1) -> torch.Tensor:
+        a = self._conv(x, self.params[block], dilation)
+        if self.recorder is not None:
+            self.recorder(site, a)
+        return a
 
     def _encode(self, x: torch.Tensor):
-        d, c, P = self.dilation, self._conv, self.params
-        e2 = c(c(x, P["encode1"], d), P["encode2"], d)
-        e4 = c(c(F.max_pool2d(e2, 2), P["encode3"], d), P["encode4"], d)
-        e6 = c(c(F.max_pool2d(e4, 2), P["encode5"], d), P["encode6"], d)
-        e8 = c(c(F.max_pool2d(e6, 2), P["encode7"], d), P["encode8"], d)
+        d, b = self.dilation, self._block
+        e2 = b(b(x, "encode1", "e1", d), "encode2", "e2", d)
+        e4 = b(b(F.max_pool2d(e2, 2), "encode3", "e3", d), "encode4", "e4", d)
+        e6 = b(b(F.max_pool2d(e4, 2), "encode5", "e5", d), "encode6", "e6", d)
+        e8 = b(b(F.max_pool2d(e6, 2), "encode7", "e7", d), "encode8", "e8", d)
         return e2, e4, e6, e8, F.max_pool2d(e8, 2)
 
     def _join(self, m4: torch.Tensor, mm4: torch.Tensor) -> torch.Tensor:
         if self.mode == "max":
             return torch.maximum(m4, mm4)
         if self.mode == "concat":
-            return self._conv(torch.cat([m4, mm4], dim=1), self.params["conv_concat"])
+            return self._block(torch.cat([m4, mm4], dim=1), "conv_concat", "join")
+        if self.mode == "control":
+            return m4
         return depthwise_xcorr(m4, mm4)  # corr
 
     def trunk(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The decoder's last features (``decode8``) in the working dtype."""
         x = self._input(x)
-        d = self.dilation
-        c = self._conv
-        P = self.params
+        d, b, P = self.dilation, self._block, self.params
         if self.mode is not None and prev is None:
             raise ValueError("Siam mode requires prev_x")
-        if self.mode in (None, "control"):
-            # the control join keeps cur's bottleneck: prev is not encoded
+        # the control join keeps cur's bottleneck, so prev is not encoded,
+        # except under a recorder: the calibration's encoder sites take the
+        # max over both streams (quant.py:334-343)
+        if self.mode is None or (self.mode == "control" and self.recorder is None):
             e2, e4, e6, e8, m4 = self._encode(x)
         else:
             # the twin encoder shares its weights: cur and prev as one batch,
@@ -167,12 +178,14 @@ class FoldedUnet2D(_Folded):
             e2, e4, e6, e8, m4 = self._encode(torch.cat([x, self._input(prev)]))
             e2, e4, e6, e8 = e2[:n], e4[:n], e6[:n], e8[:n]
             m4 = self._join(m4[:n], m4[n:])
-        h = c(c(m4, P["middle_conv1"], d), P["middle_conv2"], d)
+        h = b(b(m4, "middle_conv1", "m1", d), "middle_conv2", "m2", d)
         for i, skip in zip(range(1, 5), (e8, e6, e4, e2)):
             up = P[f"up{i}"]
             u = F.conv_transpose2d(h, up["weight"], up["bias"], stride=2)
+            if self.recorder is not None:
+                self.recorder(f"up{i}", u)
             h = torch.cat([u, skip], dim=1)
-            h = c(c(h, P[f"decode{2 * i - 1}"]), P[f"decode{2 * i}"])
+            h = b(b(h, f"decode{2 * i - 1}", f"d{2 * i - 1}"), f"decode{2 * i}", f"d{2 * i}")
         return h
 
     def logits(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:

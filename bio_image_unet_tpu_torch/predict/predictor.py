@@ -39,6 +39,11 @@ volume (or stack-global bounds) → K2v in float mode → the multi-head forward
 → K5v (linear-blend stitch, float16) over all its volumes at once.  Their
 host-staged paths normalize and tile in numpy and share the forward and the
 stitch.
+
+``quantized=True`` (``predict/quant.py``) swaps the 2D trunk's float forward
+for the w8a8 int8 one once the engine has calibrated its activation scales
+on the movie, before the first chunk of the fused path; the gate, its
+warnings and the calibration follow ``predictor.py:373-414``, ``:472-582``.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from ..utils.utils import save_as_tif
 from .fastpath import folded_forward
 from .normalize import (_normalize_stack, _percentile, normalize_tile, normalize_tile_3d,
                         normalize_tile_float, normalize_tile_pairs)
+from .quant import _int8_family, int8_builders, int8_status
 from .tiling import (TilePlan, TilePlan3D, _blend_factors, _margin_factors, grid_starts,
                      overlap_starts)
 
@@ -164,7 +170,7 @@ class _Engine:
     FUSED_PENDING_CHUNKS = 4
 
     def __init__(self, model_params, network=None, batch_size: int = 8,
-                 half_precision: bool = False, device=None):
+                 half_precision: bool = False, device=None, quantized: bool = False):
         self.device = resolve_device(device)
         state = checkpoint.load(model_params)
         hp = dict(state["hyperparams"])
@@ -182,6 +188,126 @@ class _Engine:
         # uint8 tiles × 1/255 with the scalar rounded to the working dtype
         # first, as JAX's weak typing does (predictor.py:454-455)
         self._scale = torch.tensor(1.0 / 255.0, dtype=self.dtype, device=self.device)
+        self._int8_gate(quantized)
+
+    def _int8_gate(self, quantized: bool) -> None:
+        """Opt-in w8a8 int8 (``predict/quant.py``; the gate of
+        ``predictor.py:373-414``): ``_quant`` holds ``(cal_fn,
+        make_forward)`` when int8 will run; the scales are calibrated before
+        the first fused chunk (``_calibrate_int8``), which sets
+        ``_quant_ready``.  A family the JAX package runs int8 but whose graph
+        is not ported (UNet++ and the 3D trunks) is kept in
+        ``_int8_unported``: its fused path raises."""
+        self._quant = None
+        self._quant_ready = False
+        self._int8_unported = None
+        if not quantized:
+            return
+        status = int8_status(self.model)
+        if status == "enabled":
+            if _int8_family(self.model) == "unet2d":
+                self._quant = int8_builders(self.model, self.device, self.forward)
+            else:
+                self._int8_unported = _int8_family(self.model)
+        elif status == "experimental":
+            warnings.warn(
+                "quantized=True for this family has a full int8 implementation in the "
+                "JAX package but its end-to-end pipeline measured below the ship bar "
+                "there; set BIU_INT8_EXPERIMENTAL=1 to run int8 anyway — running the "
+                "bf16 path instead", stacklevel=4)
+        else:
+            reason = ("the 'corr' join has no int8 formulation (the correlation's kernel "
+                      "is a traced activation, not a weight)"
+                      if getattr(self.model, "mode", None) == "corr"
+                      else f"{type(self.model).__name__} has no int8 formulation")
+            warnings.warn(
+                f"quantized=True declined: {reason}. int8 covers Unet (incl. dilation), "
+                "AttentionUnet, Siam_UNet max/control/concat joins, MultiOutputUnet, and "
+                "— measurement-gated — UNet++ and the 3D trunks; running the bf16 path "
+                "instead", stacklevel=4)
+
+    # int8 calibration (``predictor.py:472-478``): tiles sampled from this
+    # many frames evenly spaced across the stack, this many strided tiles,
+    # and headroom on the calibrated max|activation|
+    _QUANT_CAL_FRAMES = 2
+    _QUANT_CAL_TILES = 32
+    _QUANT_CAL_MARGIN = 1.1
+
+    def _calibrate_int8(self, imgs, xs, ys, resize_dim, clip_threshold, invert, prev=None,
+                        fixed_bounds=None, pair_mode: str = "single") -> None:
+        """Calibrate the int8 forward on tiles of the movie
+        (``predictor.py:480-569``): the frames (and, for Siam, the prev
+        planes) are normalized on the host as the fused program normalizes
+        them — per frame, with the stack-global ``fixed_bounds`` of
+        ``'first'``/``'all'``, or with the pair bounds of the Siam
+        ``pair_mode`` — cut into [0, 1] tiles, and one instrumented bf16
+        forward records each site's max|a|; then the int8 forward takes the
+        engine's place."""
+        cal_fn = self._quant[0]
+        th, tw = resize_dim
+        frame_idx = np.unique(np.linspace(0, len(imgs) - 1,
+                                          self._QUANT_CAL_FRAMES).round().astype(int))
+
+        def tiles_from(norm: np.ndarray) -> torch.Tensor:
+            h, w = norm.shape[1:3]
+            if th > h or tw > w:
+                norm = np.pad(norm, ((0, 0), (0, max(0, th - h)), (0, max(0, tw - w))),
+                              mode="reflect")
+            tiles = [norm[i, x:x + th, y:y + tw]
+                     for i in range(norm.shape[0]) for x in xs for y in ys]
+            # strided across the whole field, reaching the last tile
+            step = -(-len(tiles) // self._QUANT_CAL_TILES)
+            sample = np.stack(tiles[::step][:self._QUANT_CAL_TILES]).astype(np.float32)
+            return torch.from_numpy(sample[:, None]).to(self.device)
+
+        def sample_tiles(frames) -> torch.Tensor:
+            frames = np.asarray(frames)[frame_idx]
+            if fixed_bounds is not None:
+                lo, hi, gmin, gmax = (float(v) for v in fixed_bounds)
+                f = np.clip(frames.astype(np.float32), lo, hi)
+                f = (f - gmin) / (gmax - gmin) * 255.0 if gmax > gmin else np.zeros_like(f)
+                norm = (255.0 - f if invert else f) / 255.0
+            else:
+                norm = _normalize_stack(frames, "single", clip_threshold, invert) / 255.0
+            return tiles_from(norm)
+
+        if prev is not None and pair_mode in ("first", "all"):
+            # the pair program's bounds: the prev plane's percentiles
+            # ('first') or the pair's ('all'), extremes clamped into them
+            prevs, curs = np.asarray(prev)[frame_idx], np.asarray(imgs)[frame_idx]
+            norm_p = np.empty(prevs.shape, np.float32)
+            norm_c = np.empty(curs.shape, np.float32)
+            for i in range(len(frame_idx)):
+                ref = prevs[i] if pair_mode == "first" else np.stack([prevs[i], curs[i]])
+                lo = _percentile(ref, clip_threshold[0])
+                hi = _percentile(ref, clip_threshold[1])
+                fmin, fmax = max(float(ref.min()), lo), min(float(ref.max()), hi)
+                for src, dst in ((prevs, norm_p), (curs, norm_c)):
+                    f = np.clip(src[i].astype(np.float32), lo, hi)
+                    f = (f - fmin) / (fmax - fmin) * 255.0 if fmax > fmin else np.zeros_like(f)
+                    dst[i] = (255.0 - f if invert else f) / 255.0
+            self._finish_int8_calibration(cal_fn(tiles_from(norm_c), tiles_from(norm_p)))
+            return
+        x = sample_tiles(imgs)
+        self._finish_int8_calibration(cal_fn(x) if prev is None else
+                                      cal_fn(x, sample_tiles(prev)))
+
+    def _finish_int8_calibration(self, raw_maxes) -> None:
+        """The margin, then the int8 forward in the float forward's place
+        (``predictor.py:571-582``)."""
+        make_forward = self._quant[1]
+        self.forward = make_forward(np.asarray(raw_maxes) * self._QUANT_CAL_MARGIN)
+        self._quant_ready = True
+
+    def _maybe_calibrate(self, sample, *args, **kw) -> None:
+        """Calibrate before the first chunk of a quantized engine, on the
+        movie's ``sample`` frames (a runner given no sample raises)."""
+        if self._quant is None or self._quant_ready:
+            return
+        if sample is None:
+            raise ValueError("a quantized engine calibrates on the movie's frames first: "
+                             "pass sample frames")
+        self._calibrate_int8(sample, *args, **kw)
 
     # tile pixels of one forward step (``predictor.py:716``); a Siam step
     # takes half (``:958-961``), as the twin encoder holds about twice the
@@ -211,12 +337,16 @@ class _Engine:
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def fused_runner(self, h: int, w: int, xs, ys, resize_dim, clip_threshold,
-                     invert: bool = False, fixed_bounds=None, n_frames: int = None):
+                     invert: bool = False, fixed_bounds=None, n_frames: int = None,
+                     sample: Optional[np.ndarray] = None):
         """The fused chunk program for this workload and its fixed frame
         count: ``fn(chunk)`` maps (n_chunk, h, w) raw frames on the engine's
         device to (n_chunk, h, w) uint8 masks on the device, all of it K1 →
         K2 → forward → K3 with no host round trip.  Benches time it on a
-        device-resident movie."""
+        device-resident movie.  A quantized engine calibrates on the host
+        frames ``sample`` first (``predictor.py:819``)."""
+        self._maybe_calibrate(sample, xs, ys, resize_dim, clip_threshold, invert,
+                              fixed_bounds=fixed_bounds)
         th, tw = resize_dim
         plan = TilePlan(h, w, th, tw, xs, ys, self.device)
         n_chunk = min(self.FUSED_CHUNK_FRAMES, n_frames or self.FUSED_CHUNK_FRAMES)
@@ -245,7 +375,7 @@ class _Engine:
         through the fused device pipeline (``predictor.py:841``)."""
         n_frames, h, w = imgs.shape
         fn, n_chunk = self.fused_runner(h, w, xs, ys, resize_dim, clip_threshold,
-                                        invert, fixed_bounds, n_frames)
+                                        invert, fixed_bounds, n_frames, sample=imgs)
         return self._run_chunks(
             n_frames, n_chunk, {"mask": ((h, w), np.uint8)},
             lambda s: _pad_frames(imgs[s:s + n_chunk], n_chunk),
@@ -283,7 +413,7 @@ class _Engine:
     # --- Siam pairs ------------------------------------------------------------
 
     def pairs_runner(self, h: int, w: int, xs, ys, resize_dim, clip_threshold,
-                     invert: bool, mode: str, k: int):
+                     invert: bool, mode: str, k: int, sample: Optional[tuple] = None):
         """The fused Siam chunk program (``predictor.py:934
         fused_predict_pairs``): ``fn(block)`` maps a (k+1, h, w) raw block on
         the engine's device — pair i is (prev = block[i], cur = block[i+1]) —
@@ -291,7 +421,12 @@ class _Engine:
         over the k+1 frames for ``'single'``, over the prev planes for
         ``'first'``, over each pair's two planes as one row for ``'all'``),
         K2p, the twin-input forward, K3.  Returns ``(fn, plan, bs)``; benches
-        time ``fn`` on a device-resident block."""
+        time ``fn`` on a device-resident block.  A quantized engine
+        calibrates first on ``sample`` = (cur frames, their prev frames) on
+        the host (``predictor.py:946``)."""
+        curs, prevs = sample if sample is not None else (None, None)
+        self._maybe_calibrate(curs, xs, ys, resize_dim, clip_threshold, invert, prev=prevs,
+                              pair_mode=mode)
         th, tw = resize_dim
         plan = TilePlan(h, w, th, tw, xs, ys, self.device)
         n = k * plan.per_frame
@@ -346,13 +481,17 @@ class _Engine:
                 for name, v in outs.items()}
 
     def heads_runner(self, h: int, w: int, xs, ys, patch_size, clip_threshold, factors,
-                     fixed_bounds=None, n_frames: int = None, bs: Optional[int] = None):
+                     fixed_bounds=None, n_frames: int = None, bs: Optional[int] = None,
+                     sample: Optional[np.ndarray] = None):
         """The fused multi-head chunk program: ``fn(chunk, k)`` maps
         (n_chunk, h, w) raw frames on the device, of which the first ``k`` are
         real, to ``({head: (n_chunk, C, h, w) float16}, {head: float64 sum of
         the real tiles})`` — K1 → K2h → forward → K5 (and K5s where the grid
         leaves pixels uncovered).  Returns ``(fn, n_chunk, plan)``; benches
-        time ``fn`` on a device-resident movie."""
+        time ``fn`` on a device-resident movie.  A quantized engine
+        calibrates on the host frames ``sample`` first (``predictor.py:1050``)."""
+        self._maybe_calibrate(sample, xs, ys, patch_size, clip_threshold, False,
+                              fixed_bounds=fixed_bounds)
         ph, pw = patch_size
         plan = TilePlan(h, w, ph, pw, xs, ys, self.device, factors)
         n_chunk = min(self.FUSED_CHUNK_FRAMES, n_frames or self.FUSED_CHUNK_FRAMES)
@@ -403,7 +542,7 @@ class _Engine:
         the OOM back-off's batch."""
         n_frames, h, w = imgs.shape
         fn, n_chunk, plan = self.heads_runner(h, w, xs, ys, patch_size, clip_threshold,
-                                              factors, fixed_bounds, n_frames, _bs)
+                                              factors, fixed_bounds, n_frames, _bs, imgs)
         totals = {}
 
         def step(x, k):
@@ -713,6 +852,25 @@ class _Engine:
         return result
 
 
+def _warn_quantized_host_path(quantized: bool, engine: _Engine, use_fused: bool,
+                              fused_blocker: Optional[str]) -> None:
+    """int8 runs only inside the fused device pipeline: warn when a
+    quantized request took the host-staged path, which runs bf16/float32
+    (``predictor.py:1451``); then raise where int8 would run on a family
+    whose int8 graph is not ported."""
+    if quantized and not use_fused and (engine._quant is not None
+                                        or engine._int8_unported is not None):
+        reason = fused_blocker or "device_pipeline=False was forced"
+        warnings.warn("quantized=True runs only inside the fused device pipeline; this "
+                      f"request took the host-staged path ({reason}) and runs bf16/f32",
+                      stacklevel=3)
+    if use_fused and engine._int8_unported is not None:
+        raise NotImplementedError(
+            f"quantized=True on {type(engine.model).__name__} (int8 family "
+            f"'{engine._int8_unported}'): the UNet++ and 3D int8 graphs are the B5 slice, "
+            "not ported yet")
+
+
 class Predict:
     """Tiled 2D prediction with mean-overlap stitching (``predictor.py:1465``).
 
@@ -732,8 +890,6 @@ class Predict:
                  progress_notifier: ProgressNotifier = None):
         if mesh is not None:
             raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
-        if quantized:
-            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
         device = resolve_device(device)
         if isinstance(imgs, (str, os.PathLike)):
             imgs = tiff.imread(imgs)
@@ -745,7 +901,7 @@ class Predict:
             imgs = imgs[None]
         self.imgs_shape = imgs.shape
 
-        engine = _Engine(model_params, network, batch_size, half_precision, device)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
         self.engine = engine
         if engine.hyperparams.get("in_channels", 1) != 1:
             raise ValueError("tiled 2D Predict supports single-channel input")
@@ -761,6 +917,7 @@ class Predict:
             fused_blocker = ("tile more than 2× the frame extent (reflect "
                              "pad cannot exceed the axis size)")
         use_fused = _resolve_device_pipeline(device_pipeline, fused_blocker)
+        _warn_quantized_host_path(quantized, engine, use_fused, fused_blocker)
 
         h, w = self.imgs_shape[1], self.imgs_shape[2]
         xs = grid_starts(h, self.resize_dim[0], add_tile)
@@ -806,8 +963,6 @@ class PredictMultiOutput:
                  progress_notifier: ProgressNotifier = None):
         if mesh is not None:
             raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
-        if quantized:
-            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
         device = resolve_device(device)
         if isinstance(imgs, (str, os.PathLike)):
             imgs = tiff.imread(imgs)
@@ -817,7 +972,7 @@ class PredictMultiOutput:
         self.imgs_shape = imgs.shape
         n_frames, h, w = imgs.shape
 
-        engine = _Engine(model_params, network, batch_size, half_precision, device)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
         self.engine = engine
         heads = engine.hyperparams["output_heads"]
         self.target_keys = list(heads)
@@ -839,6 +994,7 @@ class PredictMultiOutput:
             fused_blocker = ("patch more than 2× the frame extent (reflect "
                              "pad cannot exceed the axis size)")
         use_fused = _resolve_device_pipeline(device_pipeline, fused_blocker)
+        _warn_quantized_host_path(quantized, engine, use_fused, fused_blocker)
 
         progress = _progress(show_progress, progress_notifier)
         if show_progress:
@@ -902,8 +1058,6 @@ class PredictSiam:
         del normalize_result  # in the reference's signature; the masks are uint8
         if mesh is not None:
             raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
-        if quantized:
-            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
         if normalization_mode not in ("single", "first", "all"):
             raise ValueError(f"normalization_mode {normalization_mode} not valid!")
         device = resolve_device(device)
@@ -911,15 +1065,16 @@ class PredictSiam:
         self.normalization_mode = normalization_mode
         self.clip_threshold = clip_threshold
         self.result_name = result_name
-        engine = _Engine(model_params, "Siam_UNet", batch_size, half_precision, device)
+        engine = _Engine(model_params, "Siam_UNet", batch_size, half_precision, device,
+                         quantized)
         self.engine = engine
         with tiff.TiffReader(tif_file) as reader:
             self._stream(reader, engine, resize_dim, add_tile, int(frames_per_chunk),
                          device_pipeline, _progress(show_progress, progress_notifier),
-                         show_progress)
+                         show_progress, quantized)
 
     def _stream(self, reader, engine: _Engine, resize_dim, add_tile, fpc, device_pipeline,
-                progress, show_progress) -> None:
+                progress, show_progress, quantized: bool = False) -> None:
         n_frames = reader.n_pages
         h, w = reader.page_shape(0)[:2]
         self.imgs_shape = (n_frames, h, w)
@@ -944,12 +1099,36 @@ class PredictSiam:
                            "uint8/uint16; NaN-free float movies opt in with "
                            "device_pipeline=True)")
         use_fused = _resolve_device_pipeline(device_pipeline, blocker)
+        _warn_quantized_host_path(quantized, engine, use_fused, blocker)
 
         page_cache = {0: page0}
         last = [None]
 
         def read_page(i):
             return page_cache.pop(i) if i in page_cache else np.asarray(reader.read_page(i))
+
+        calibration = None
+        if use_fused and engine._quant is not None and not engine._quant_ready:
+            # the int8 scales come from pairs evenly spaced across the whole
+            # movie (``predictor.py:1714-1748``), decoded once here and kept
+            # in the page cache for the stream
+            def cal_page(i):
+                if i not in page_cache:
+                    page_cache[i] = np.asarray(reader.read_page(i))
+                return page_cache[i]
+
+            cur_idx = np.unique(np.linspace(0, n_frames - 1,
+                                            engine._QUANT_CAL_FRAMES).round().astype(int))
+            curs = np.stack([cal_page(int(i)) for i in cur_idx])
+            prevs = np.stack([cal_page(int(i) - 1 if i > 0 else min(1, n_frames - 1))
+                              for i in cur_idx])
+            for planes in (curs, prevs):
+                if np.issubdtype(planes.dtype, np.floating) and np.isnan(planes).any():
+                    # before anything is written: NaN scales would poison every chunk
+                    raise ValueError("NaN in a sampled calibration page: the opt-in fused "
+                                     "float pipeline requires NaN-free data — rerun with "
+                                     "device_pipeline=False")
+            calibration = (curs, prevs)
 
         def prev_of_first():
             # frame 0 pairs with frame 1 (a 1-frame movie with itself); page 1
@@ -1001,7 +1180,7 @@ class PredictSiam:
 
         if use_fused:
             fn, _, _ = engine.pairs_runner(h, w, plan.xs, plan.ys, self.resize_dim, clip,
-                                           invert, mode, n_chunk)
+                                           invert, mode, n_chunk, calibration)
             produce, step = fused_block, (lambda x, k: {"mask": fn(x)})
         else:
             # the tiles cut on the host: forward in batches of batch_size, K3
@@ -1048,8 +1227,6 @@ class Predict3D:
         del normalization_mode  # accepted and ignored, as in the reference
         if mesh is not None:
             raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
-        if quantized:
-            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
         device = resolve_device(device)
         if isinstance(vol, (str, os.PathLike)):
             vol = tiff.imread(vol)
@@ -1058,7 +1235,7 @@ class Predict3D:
             raise ValueError(f"Predict3D takes a (Z, X, Y) volume, got shape {vol.shape}")
         self.vol_shape = vol.shape
         self.resize_dim = tuple(int(v) for v in resize_dim)
-        engine = _Engine(model_params, network, batch_size, half_precision, device)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
         self.engine = engine
         if engine.heads is not None:
             raise ValueError(f"{type(engine.model).__name__} is a multi-head model: "
@@ -1071,6 +1248,7 @@ class Predict3D:
         if blocker is None and any(t - e >= e for t, e in zip(self.resize_dim, self.vol_shape)):
             blocker = "tile more than 2× the volume extent (reflect pad cannot exceed the axis size)"
         use_fused = _resolve_device_pipeline(device_pipeline, blocker)
+        _warn_quantized_host_path(quantized, engine, use_fused, blocker)
 
         if show_progress:
             print("Predicting data ...")
@@ -1134,8 +1312,6 @@ class PredictMultiOutput3D:
         del add_tile  # accepted in the reference's position; the grid is overlap_factor's
         if mesh is not None:
             raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
-        if quantized:
-            raise NotImplementedError("quantized=True (int8 inference) is not ported yet")
         device = resolve_device(device)
         if isinstance(imgs, (str, os.PathLike)):
             imgs = tiff.imread(imgs)
@@ -1143,7 +1319,7 @@ class PredictMultiOutput3D:
         if imgs.ndim == 3:
             imgs = imgs[None]  # (n_volumes, Z, X, Y)
         self.imgs_shape = imgs.shape
-        engine = _Engine(model_params, network, batch_size, half_precision, device)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
         self.engine = engine
         self.target_keys = list(engine.hyperparams["output_heads"])
         if normalization_mode not in ("single", "first", "all"):
@@ -1154,8 +1330,10 @@ class PredictMultiOutput3D:
         self.patch_size = tile
         starts = [overlap_starts(e, t, overlap_factor) for e, t in zip((d, h, w), tile)]
         n_vox = n_vols * int(np.prod([len(s) for s in starts])) * int(np.prod(tile))
-        use_fused = _resolve_device_pipeline(device_pipeline, _fused_blocker(
-            imgs, device_pipeline, n_vox, _Engine.FUSED_HEADS_MAX_PX, "voxels"))
+        blocker = _fused_blocker(imgs, device_pipeline, n_vox, _Engine.FUSED_HEADS_MAX_PX,
+                                 "voxels")
+        use_fused = _resolve_device_pipeline(device_pipeline, blocker)
+        _warn_quantized_host_path(quantized, engine, use_fused, blocker)
         factors = _blend_factors([len(s) for s in starts], tile, blend_margin)
 
         if show_progress:

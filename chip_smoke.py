@@ -173,7 +173,36 @@ non-zero without printing a result:
    37-frame 200×300 movie, a 1-frame movie, ``frames_per_chunk=1``, float32
    with ``device_pipeline=True``), and a small float32 run on the card
    against the CPU;
-18. the kernels' JSON line, then the last line
+18. kernels (int8) — K7 (the int8 3×3 conv with its dequant, bias,
+   LeakyReLU and requant epilogue) at the main path's first and widest
+   layers (``encode2`` (256, 256², 32) → 32 and ``middle_conv2`` (256, 16²,
+   512) → 512), K8 (the 2×2 stride-2 int8 transposed conv into the concat
+   buffer's first half) at every decoder level, K9 in its three forms (the
+   first conv's bf16 output → int8, a skip into the concat buffer's second
+   half, the dequant to bf16 before the head) and K10 (the int8 max pool) at
+   every encoder level, on a forward batch of 256 tiles: each bit-equal to
+   its plain version, timed beside its bound (int8 operations at the
+   tensor cores' 1979 TOP/s, or bytes) and, for K7 / K8, ``torch._int_mm``
+   on the same operands (an ``F.unfold`` im2col for K7; the bf16 cuDNN conv
+   of the layer logged beside it);
+19. int8 — ``Predict(quantized=True)`` on the main movie (``Unet(32)``,
+   64×1024² uint8, 256², bf16): launches exact around the call (per
+   16-frame chunk, one forward batch: K7 17, K8 4, K9 6, K10 4, beside K1's
+   two, K2 and K3); end-to-end and device-resident MP/s of int8 and bf16 back
+   to back and their ratio, the int8 trunk's TOP/s and share of the int8
+   dense peak, a profile by stage; a BN-warmed ``Unet(32)`` within the JAX
+   package's int8 contract of bf16 (at most 4 levels, a mean under 0.5,
+   under 1% of pixels beyond one level); the trained ``.pt`` of ``[train]``:
+   mask IoU within 0.01 of bf16's, and a calibration broken on purpose must
+   miss that gate; ``PredictMultiOutput(quantized=True)`` on a BN-warmed
+   ``MultiOutputUnet(32)`` (K5 and K5s once a head; heads within 6% of
+   their range, mean 1%) and
+   ``siam_unet.Predict(quantized=True)`` on BN-warmed ``Siam_UNet(32)`` in
+   the ``max``, ``control`` and ``concat`` joins over 8 frames of 1024²,
+   each with exact launches (one more K7 under ``concat``) and within the
+   int8 contract; a BN-warmed ``Unet(8)`` int8 on the card against the CPU
+   within the int8 contract;
+20. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -200,6 +229,8 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
+# the dense int8 tensor-core rate (operations: two a multiply-add)
+PEAK_INT8_OPS = 1979e12
 
 FRAMES, H, W, TILE, N_FILTER = 64, 1024, 1024, 256, 32
 CHUNK = 16
@@ -240,7 +271,7 @@ def main() -> int:
     k4 = phase_kernel_augment(torch, dev)
     phase_main_path(torch, dev, kernels)
     kernels.append(k4)
-    phase_train(torch, dev, kernels)
+    trained = phase_train(torch, dev, kernels)
     heads = phase_kernels_heads(torch, dev)
     phase_heads(torch, dev, kernels, heads)
     kernels.extend(heads)
@@ -256,6 +287,9 @@ def main() -> int:
     ksiam = phase_kernels_siam(torch, dev)
     phase_siam(torch, dev, kernels, ksiam)
     kernels.extend(ksiam)
+    kint8 = phase_kernels_int8(torch, dev)
+    phase_int8(torch, dev, kernels, kint8, trained)
+    kernels.extend(kint8)
     for k in kernels:
         k.pop("_counter")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -578,7 +612,10 @@ def phase_main_path(torch, dev, kernels) -> None:
 
 
 # kernel-name fragments of each stage of the chunk programs (first match wins)
-STAGES = (("k1 clip bounds", ("hist_pass", "finalize")),
+STAGES = (("k7/k8 int8 conv, up-conv", ("qconv",)),
+          ("k9 requant", ("requant",)),
+          ("k10 int8 max pool", ("maxpool_i8",)),
+          ("k1 clip bounds", ("hist_pass", "finalize")),
           ("k2/k2h/k2v/k2p normalize+tile", ("normalize_tile",)),
           ("k6 depthwise xcorr", ("xcorr",)),
           ("copies host to device", ("memcpy htod",)),
@@ -733,7 +770,8 @@ def write_blob_frames(root: Path, n: int, size: int, seed: int) -> tuple:
     return (str(root / "image") + "/", str(root / "label") + "/")
 
 
-def phase_train(torch, dev, kernels) -> None:
+def phase_train(torch, dev, kernels) -> bytes:
+    """... and returns the trained ``.pt`` (its bytes), for ``[int8]``."""
     from bio_image_unet_tpu_torch import unet
 
     counters = {id(k["_counter"]): k["_counter"] for k in kernels}
@@ -785,7 +823,9 @@ def phase_train(torch, dev, kernels) -> None:
 
         profile_train_epoch(torch, trainer, TRAIN_EPOCHS, best)
         predict_trained(torch, str(tmp / "run" / "model.pt"), counters)
+        trained = (tmp / "run" / "model.pt").read_bytes()
     train_card_vs_cpu(torch)
+    return trained
 
 
 def _stage(kernel: str, ancestors) -> str:
@@ -2702,6 +2742,401 @@ def phase_siam(torch, dev, kernels, ksiam) -> None:
             check_u8_volume("siam", f"small float32 {join} 5x100x90: card vs CPU",
                             tiff.imread(card), tiff.imread(cpu), (5, 100, 90))
         torch.backends.cudnn.allow_tf32 = True
+
+
+# --- 18. kernels (int8) --------------------------------------------------------
+
+INT8_SOURCE = "bio_image_unet_tpu_torch/csrc/int8_trunk.cu"
+INT8_BATCH = (1 << 24) // (TILE * TILE)  # the main path's forward batch: 256 tiles
+
+
+def int8_trunk_ops(nf: int, s: int) -> float:
+    """int8 operations (two a multiply-add) of one s² tile through the int8
+    trunk of ``Unet(n_filter=nf)``: every conv but ``encode1`` and the 1×1
+    head, which run in bf16."""
+    return unet_forward_flops(nf, s) - 2 * 9 * nf * s * s - 2 * nf * s * s
+
+
+def phase_kernels_int8(torch, dev) -> list:
+    import torch.nn.functional as F
+
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    n, nf = INT8_BATCH, N_FILTER
+    rows = []
+
+    def i8(shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    def packed(lead, cin):
+        w = torch.zeros(lead + (32 * -(-cin // 32),), dtype=torch.int8, device=dev)
+        w[..., :cin] = i8(lead + (cin,))
+        return w
+
+    def int_mm(a, b):
+        """``torch._int_mm`` (cuBLASLt int8 → int32) of (M, K) ``a`` and (K, N)
+        ``b``, the library yardstick of K7 / K8's products, with ``b`` row- or
+        else column-major; None where it refuses both."""
+        for mat in (b.contiguous(), b.t().contiguous().t()):
+            try:
+                torch._int_mm(a, mat)
+            except (RuntimeError, NotImplementedError) as err:
+                log(f"[kernels int8] torch._int_mm refused {tuple(a.shape)} x "
+                    f"{tuple(mat.shape)} strides {mat.stride()}: {str(err)[:120]}")
+                continue
+            return timer(lambda: torch._int_mm(a, mat), 5)
+        return None
+
+    def check(name, ours, ref):
+        """Bit-equal (bf16 compared as its bits), else raise."""
+        if ours.dtype == torch.bfloat16:
+            ours, ref = ours.view(torch.int16), ref.view(torch.int16)
+        if not torch.equal(ours, ref):
+            bad = (ours.float() - ref.float()).abs().max().item()
+            raise AssertionError(f"{name}: kernel differs from plain (max {bad})")
+        return 0.0
+
+    def scales(cin, taps):
+        # s_out spreads the outputs over the int8 range: random operands sum
+        # to about sqrt(taps·cin)·73² a channel
+        s_in, sw = 0.02, 1e-3
+        return s_in, sw, 3 * (taps * cin) ** 0.5 * 73 ** 2 * s_in * sw / 127
+
+    # K7 at the first and the widest layer of the main path's forward batch
+    for layer, hw, cin, cout in (("encode2", TILE, nf, nf), ("middle_conv2", TILE // 16,
+                                                             16 * nf, 16 * nf)):
+        x = i8((n, hw, hw, cin))
+        w = packed((cout, 3, 3), cin)
+        s_in, sw_v, s_out = scales(cin, 9)
+        sw = torch.full((cout,), sw_v, device=dev)
+        bias = torch.randn((cout,), generator=g, device=dev)
+        ours = k8.qconv3x3(x, w, sw, bias, s_in, s_out)
+        torch.cuda.synchronize()
+        err = check(f"K7 {layer}", ours, k8.qconv3x3_plain(x, w, sw, bias, s_in, s_out))
+        macs = n * hw * hw * cout * 9 * cin
+        # the yardsticks: cuBLASLt int8 on an im2col (F.unfold of the int8
+        # values carried in bf16, exact) and the bf16 cuDNN conv of the layer
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        cols = F.unfold(xb, 3, padding=1).transpose(1, 2).reshape(-1, 9 * cin)
+        a = cols.to(torch.int8).contiguous()
+        del cols
+        # unfold's columns are channel-major: (c, ky, kx)
+        lib = int_mm(a, w[..., :cin].permute(0, 3, 1, 2).reshape(cout, 9 * cin).t())
+        del a
+        xb = xb.contiguous(memory_format=torch.channels_last)
+        wb = w[..., :cin].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        conv_ms = timer(lambda: F.conv2d(xb, wb, padding=1), 5)
+        log(f"[kernels int8] k7 {layer} ({n}, {hw}^2, {cin}) -> {cout}: {2 * macs / 1e9:.1f} "
+            f"GOP; bf16 cuDNN conv of the layer {conv_ms:.4f} ms")
+        rows.append(kernel_row(
+            "kernels int8", f"k7_qconv3x3[{layer} ({n}, {hw}^2, {cin}) -> {cout}]", INT8_SOURCE,
+            "bio_image_unet_tpu/predict/quant.py:417", k8.qconv3x3, err,
+            timer(lambda: k8.qconv3x3(x, w, sw, bias, s_in, s_out)),
+            timer(lambda: k8.qconv3x3_plain(x, w, sw, bias, s_in, s_out), 1),
+            bound_ms(x.numel() + ours.numel() + w.numel() + 8 * cout, 2 * macs, PEAK_INT8_OPS),
+            lib))
+        del x, w, xb, wb, ours
+        torch.cuda.empty_cache()
+
+    # K8 at every decoder level, into the first half of the concat buffer
+    for level in range(1, 5):
+        hw = TILE >> (5 - level)
+        cin, cout = 16 * nf >> (level - 1), 8 * nf >> (level - 1)
+        x = i8((n, hw, hw, cin))
+        w = packed((2, 2, cout), cin)
+        s_in, sw_v, s_out = scales(cin, 1)
+        sw = torch.full((cout,), sw_v, device=dev)
+        bias = torch.randn((cout,), generator=g, device=dev)
+        bufs = [torch.zeros((n, 2 * hw, 2 * hw, 2 * cout), dtype=torch.int8, device=dev)
+                for _ in range(2)]
+        k8.qconvt2x2(x, w, sw, bias, s_in, s_out, out=bufs[0])
+        torch.cuda.synchronize()
+        k8.qconvt2x2_plain(x, w, sw, bias, s_in, s_out, out=bufs[1])
+        err = check(f"K8 up{level}", bufs[0], bufs[1])
+        del bufs[1]
+        macs = n * hw * hw * cin * 4 * cout
+        # the transposed 2x2 stride-2 conv is one product (n·h·w, I) x (I, 4·O)
+        b = w[..., :cin].permute(3, 0, 1, 2).reshape(cin, 4 * cout)
+        lib = int_mm(x.reshape(-1, cin), b)
+        rows.append(kernel_row(
+            "kernels int8", f"k8_qconvt2x2[up{level} ({n}, {hw}^2, {cin}) -> ({2 * hw}^2, {cout})"
+            f" of {2 * cout}]", INT8_SOURCE, "bio_image_unet_tpu/predict/quant.py:428",
+            k8.qconvt2x2, err,
+            timer(lambda: k8.qconvt2x2(x, w, sw, bias, s_in, s_out, out=bufs[0])),
+            timer(lambda: k8.qconvt2x2_plain(x, w, sw, bias, s_in, s_out, out=bufs[0]), 1),
+            bound_ms(x.numel() + n * 4 * hw * hw * cout + w.numel() + 8 * cout, 2 * macs,
+                     PEAK_INT8_OPS),
+            lib))
+        del x, w, bufs
+        torch.cuda.empty_cache()
+
+    # K9 in its three forms at full resolution (n, 256², 32)
+    shape = (n, TILE, TILE, nf)
+    e1 = (torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16)
+    skip = i8(shape)
+    buf = torch.zeros(shape[:-1] + (2 * nf,), dtype=torch.int8, device=dev)
+    forms = (
+        ("e1 bf16 -> int8", lambda f: f(e1, 1.0, 0.05), 3 * e1.numel()),
+        ("skip int8 -> concat channels [C, 2C)",
+         lambda f: f(skip, 0.031, 0.037, out=buf, offset=nf), 2 * skip.numel()),
+        ("dequant int8 -> bf16", lambda f: f(skip, 0.031), 3 * skip.numel()),
+    )
+    for form, call, n_bytes in forms:
+        ours = call(k8.requant).clone()
+        torch.cuda.synchronize()
+        err = check(f"K9 {form}", ours, call(k8.requant_plain))
+        rows.append(kernel_row(
+            "kernels int8", f"k9_requant[{form} ({n}, {TILE}^2, {nf})]", INT8_SOURCE,
+            "bio_image_unet_tpu/predict/quant.py:223", k8.requant, err,
+            timer(lambda: call(k8.requant)), timer(lambda: call(k8.requant_plain), 1),
+            # read and write each element once; a multiply, a divide, a
+            # rounding and a clip each
+            bound_ms(n_bytes, 4 * skip.numel()), None))
+        del ours
+    del e1, skip, buf
+    torch.cuda.empty_cache()
+
+    # K10 at every encoder level
+    for level in range(4):
+        x = i8((n, TILE >> level, TILE >> level, nf << level))
+        ours = k8.maxpool_i8(x)
+        torch.cuda.synchronize()
+        err = check(f"K10 level {level}", ours, k8.maxpool_i8_plain(x))
+        rows.append(kernel_row(
+            "kernels int8", f"k10_maxpool_i8[({n}, {TILE >> level}^2, {nf << level})]",
+            INT8_SOURCE, "bio_image_unet_tpu/predict/quant.py:278", k8.maxpool_i8, err,
+            timer(lambda: k8.maxpool_i8(x)), timer(lambda: k8.maxpool_i8_plain(x), 1),
+            bound_ms(x.numel() + ours.numel(), 3 * ours.numel()), None))
+        del x, ours
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- 19. int8 -------------------------------------------------------------------
+
+def write_warm_checkpoint(torch, path: str, name: str, n_filter: int, seed: int = 0,
+                          **hyper) -> None:
+    """A ``.pt`` of registry model ``name`` with torch's default
+    initialization and BatchNorm statistics from five train-mode forwards on
+    seeded 64² inputs on the CPU (the BN-warmed models of the JAX package's
+    int8 tests): activations a calibration scales as a trained model's."""
+    from bio_image_unet_tpu_torch.models import get_model
+
+    hyper = {"model_name": name, "n_filter": n_filter, "in_channels": 1, **hyper}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = get_model(name, **hyper).train()
+        with torch.no_grad():
+            for _ in range(5):
+                x = torch.rand((2, 1, 64, 64))
+                net(x, torch.rand((2, 1, 64, 64))) if hyper.get("mode") else net(x)
+    torch.save({"state_dict": net.state_dict(), "epoch": 0, "best_loss": None, **hyper}, path)
+
+
+def int8_contract(tag: str, what: str, q: np.ndarray, ref: np.ndarray) -> None:
+    """The JAX package's int8 contract against bf16 (``tests/test_quant.py``):
+    at most 4 uint8 levels, a mean under 0.5, more than one level on under
+    1% of pixels."""
+    if q.shape != ref.shape or q.dtype != np.uint8:
+        raise AssertionError(f"{what}: {q.shape} {q.dtype}, want {ref.shape} uint8")
+    d = np.abs(q.astype(np.int16) - ref.astype(np.int16))
+    log(f"[{tag}] {what}: max {int(d.max())} levels, mean {d.mean():.4f}, "
+        f"{np.mean(d > 1):.6f} of pixels beyond one level")
+    if not (d.max() <= 4 and d.mean() < 0.5 and np.mean(d > 1) < 0.01):
+        raise AssertionError(f"{what}: outside the int8 contract")
+
+
+def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
+    from bio_image_unet_tpu_torch import siam_unet
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+    from bio_image_unet_tpu_torch.ops.stitch import margin_stitch, sigmoid_stitch, tile_sum
+    from bio_image_unet_tpu_torch.predict import Predict, PredictMultiOutput
+    from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile, normalize_tile_float,
+                                                            normalize_tile_pairs)
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+    from bio_image_unet_tpu_torch.predict.tiling import grid_starts
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + kint8}.values())
+
+    def trunk(batches, concat=False):
+        """The int8 kernels' launches of ``batches`` forward batches."""
+        return {k8.qconv3x3: (17 + concat) * batches, k8.qconvt2x2: 4 * batches,
+                k8.requant: 6 * batches, k8.maxpool_i8: 4 * batches}
+
+    rng = np.random.default_rng(12)
+    movie = rng.integers(0, 255, (FRAMES, H, W), dtype=np.uint8)
+    kw = dict(resize_dim=(TILE, TILE), show_progress=False, batch_size=8, half_precision=True)
+    chunks = FRAMES // CHUNK  # one forward batch of 256 tiles a chunk
+    main = f"Unet(32) int8 uint8 {FRAMES}x1024^2 (bench.py)"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = str(tmp / "unet_nf32.pt")
+        write_checkpoint(torch, ckpt, "Unet", N_FILTER, out_channels=1)
+
+        # the main path of this phase: launches exact around the call
+        t0 = time.perf_counter()
+        pred, got = counted(torch, "int8", counters, main,
+                            lambda: Predict(movie, None, ckpt, quantized=True, **kw),
+                            {hist.int_clip_bounds: 2 * chunks, normalize_tile: chunks,
+                             sigmoid_stitch: chunks, **trunk(chunks)})
+        first = time.perf_counter() - t0
+        if not pred.engine._quant_ready:
+            raise AssertionError("the quantized Predict did not calibrate")
+        for k in kint8:
+            k["launches"] = got[k["_counter"]]
+        q_res = pred.result
+
+        # end to end, int8 and bf16 back to back (best of two after the call above)
+        times = {"int8": float("inf"), "bf16": float("inf")}
+        results = {}
+        for mode in ("bf16", "int8", "int8", "bf16", "bf16"):
+            t0 = time.perf_counter()
+            results[mode] = Predict(movie, None, ckpt, quantized=mode == "int8", **kw).result
+            times[mode] = min(times[mode], time.perf_counter() - t0)
+        if not np.array_equal(results["int8"], q_res):
+            raise AssertionError("two quantized calls on one movie disagree")
+        d = np.abs(q_res.astype(np.int16) - results["bf16"].astype(np.int16))
+        log(f"[int8] {main}: int8 vs bf16 on random weights (BatchNorm statistics drawn, "
+            f"not warmed): max {int(d.max())} levels, mean {d.mean():.4f} (not gated: see the "
+            f"trained model below)")
+        e2e = {m: FRAMES * H * W / 1e6 / t for m, t in times.items()}
+
+        # device-resident: both chunk programs on the movie on the card, in turns
+        xs, ys = grid_starts(H, TILE, 0), grid_starts(W, TILE, 0)
+        engines = {"int8": _Engine(ckpt, None, 8, True, dev, quantized=True),
+                   "bf16": _Engine(ckpt, None, 8, True, dev)}
+        fns = {m: e.fused_runner(H, W, xs, ys, (TILE, TILE), (0.0, 99.8), n_frames=FRAMES,
+                                 sample=movie)[0] for m, e in engines.items()}
+        movie_dev = torch.from_numpy(movie).to(dev)
+
+        def resident(mode):
+            return [fns[mode](movie_dev[i:i + CHUNK]) for i in range(0, FRAMES, CHUNK)]
+
+        device = {"int8": float("inf"), "bf16": float("inf")}
+        for mode in ("int8", "bf16", "bf16", "int8", "int8", "bf16"):
+            resident(mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = resident(mode)
+            torch.cuda.synchronize()
+            device[mode] = min(device[mode], time.perf_counter() - t0)
+            if mode == "int8":
+                same = int(np.abs(torch.cat(outs).cpu().numpy().astype(np.int16) - q_res).max())
+                if same:
+                    raise AssertionError(f"device-resident int8 run vs Predict: {same} levels")
+        del outs
+        resident_mps = {m: FRAMES * H * W / 1e6 / t for m, t in device.items()}
+        ops = int8_trunk_ops(N_FILTER, TILE) * FRAMES * (H // TILE) * (W // TILE)
+        log(f"[int8] {main}: end to end int8 {e2e['int8']:.2f} MP/s, bf16 {e2e['bf16']:.2f} MP/s "
+            f"(ratio {e2e['int8'] / e2e['bf16']:.3f}; first call {first:.3f} s with the "
+            f"calibration); device-resident int8 {resident_mps['int8']:.2f} MP/s, bf16 "
+            f"{resident_mps['bf16']:.2f} MP/s (ratio "
+            f"{resident_mps['int8'] / resident_mps['bf16']:.3f}); int8 trunk "
+            f"{ops / FRAMES / 16 / 1e9:.2f} GOP a tile → {ops / device['int8'] / 1e12:.1f} TOP/s "
+            f"device-resident, {ops / device['int8'] / PEAK_INT8_OPS:.4f} of the int8 dense peak; "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_pass(torch, lambda: resident("int8"), "int8", f"{FRAMES} frames, int8")
+        del movie_dev, engines, fns
+
+        # a BN-warmed Unet(32) (the JAX package's int8 test model): int8
+        # against bf16 within JAX's int8 contract
+        warm = str(tmp / "unet_warm_nf32.pt")
+        write_warm_checkpoint(torch, warm, "Unet", N_FILTER, seed=2)
+        int8_contract("int8", "BN-warmed Unet(32) int8 vs bf16, 16x1024^2",
+                      Predict(movie[:CHUNK], None, warm, quantized=True, **kw).result,
+                      Predict(movie[:CHUNK], None, warm, **kw).result)
+
+        # the trained model of [train]: the mask IoU against the blob truth
+        # within 0.01 of bf16's, and a calibration broken on purpose (scales
+        # 55x too small) must fail that gate
+        tr = tmp / "trained.pt"
+        tr.write_bytes(trained)
+        brng = np.random.default_rng(7)
+        frames = [blob_sample(brng, (512, 512), n_blobs=40, margin=16, radius=(8, 20))
+                  for _ in range(CHUNK)]
+        blobs = np.stack([f[0] for f in frames])
+        truth = np.stack([f[1] for f in frames]) > 0
+        tkw = dict(resize_dim=(TILE, TILE), show_progress=False, half_precision=True)
+        t_q, _ = counted(torch, "int8", counters, "trained Unet(32), 16x512^2 blobs",
+                         lambda: Predict(blobs, None, str(tr), quantized=True, **tkw).result,
+                         {hist.int_clip_bounds: 2, normalize_tile: 1, sigmoid_stitch: 1,
+                          **trunk(1)})
+        t_b = Predict(blobs, None, str(tr), **tkw).result
+        margin = _Engine._QUANT_CAL_MARGIN
+        _Engine._QUANT_CAL_MARGIN = 0.02
+        try:
+            t_broken = Predict(blobs, None, str(tr), quantized=True, **tkw).result
+        finally:
+            _Engine._QUANT_CAL_MARGIN = margin
+        ious = {m: float(((r > 127) & truth).sum() / max(((r > 127) | truth).sum(), 1))
+                for m, r in (("int8", t_q), ("bf16", t_b), ("broken", t_broken))}
+        d = np.abs(t_q.astype(np.int16) - t_b.astype(np.int16))
+        log(f"[int8] trained Unet(32), 16x512^2 blobs: mask IoU int8 {ious['int8']:.4f}, bf16 "
+            f"{ious['bf16']:.4f}, broken calibration {ious['broken']:.4f}; int8 vs bf16 max "
+            f"{int(d.max())} levels, mean {d.mean():.4f}, {np.mean(d > 1):.6f} of pixels beyond "
+            f"one level (not gated: a trained model's soft probabilities move with the int8 "
+            f"noise in the JAX package as here)")
+        if abs(ious["int8"] - ious["bf16"]) > 0.01:
+            raise AssertionError("the int8 mask IoU is more than 0.01 from bf16's")
+        if not ious["broken"] < ious["bf16"] - 0.01:
+            raise AssertionError("a broken calibration passed the IoU gate")
+
+        # PredictMultiOutput on MultiOutputUnet(32): a 16-frame chunk, 512² patches
+        mo = str(tmp / "mo_nf32.pt")
+        write_warm_checkpoint(torch, mo, "MultiOutputUnet", N_FILTER, seed=3,
+                              output_heads=MO_HEADS)
+        mkw = dict(max_patch_size=(512, 512), show_progress=False, half_precision=True)
+        m16 = movie[:CHUNK]
+        res, _ = counted(torch, "int8", counters, "MultiOutputUnet(32) int8, 16x1024^2",
+                         lambda: PredictMultiOutput(m16, mo, quantized=True, **mkw).result,
+                         {hist.int_clip_bounds: 2, normalize_tile_float: 1,
+                          margin_stitch: len(MO_HEADS), tile_sum: len(MO_HEADS),
+                          **trunk(1)})
+        ref = PredictMultiOutput(m16, mo, **mkw).result
+        check_heads("MultiOutputUnet(32) int8", res, m16.shape)
+        for head in MO_HEADS:
+            dd = np.abs(res[head] - ref[head])
+            rng_h = float(ref[head].max() - ref[head].min()) + 1e-9
+            log(f"[int8] MultiOutputUnet(32) {head}: int8 vs bf16 max {dd.max() / rng_h:.5f}, "
+                f"mean {dd.mean() / rng_h:.6f} of the head's range")
+            if not (dd.max() / rng_h < 0.06 and dd.mean() / rng_h < 0.01):
+                raise AssertionError(f"MultiOutputUnet {head}: int8 too far from bf16")
+
+        # PredictSiam in each int8 join, 8 frames of 1024² (one chunk)
+        src = str(tmp / "siam.tif")
+        tiff.imwrite(src, movie[:8])
+        skw = dict(resize_dim=(TILE, TILE), show_progress=False, half_precision=True)
+        for seed, join in enumerate(("max", "control", "concat")):
+            sp = str(tmp / f"siam_{join}.pt")
+            write_warm_checkpoint(torch, sp, "Siam_UNet", N_FILTER, seed=40 + seed, mode=join)
+            q_out, b_out = str(tmp / "sq.tif"), str(tmp / "sb.tif")
+            t0 = time.perf_counter()
+            counted(torch, "int8", counters, f"Siam_UNet(32, {join}) int8, 8x1024^2",
+                    lambda: siam_unet.Predict(src, q_out, sp, quantized=True, **skw),
+                    {hist.int_clip_bounds: 2, normalize_tile_pairs: 1, sigmoid_stitch: 1,
+                     **trunk(1, join == "concat")})
+            dt = time.perf_counter() - t0
+            siam_unet.Predict(src, b_out, sp, **skw)
+            log(f"[int8] Siam_UNet(32, {join}): {8 * H * W / 1e6 / dt:.2f} MP/s end to end "
+                f"(one call, calibration included)")
+            int8_contract("int8", f"Siam_UNet(32, {join}) int8 vs bf16",
+                          tiff.imread(q_out), tiff.imread(b_out))
+
+        # card vs CPU: a BN-warmed Unet(8), the CPU through the plain versions
+        small = str(tmp / "unet_nf8.pt")
+        write_warm_checkpoint(torch, small, "Unet", 8, seed=9)
+        m = rng.integers(0, 255, (3, 128, 128), dtype=np.uint8)
+        ckw = dict(resize_dim=(64, 64), show_progress=False, quantized=True)
+        int8_contract("int8", "Unet(8) int8: card vs CPU",
+                      Predict(m, None, small, **ckw).result,
+                      Predict(m, None, small, device="cpu", **ckw).result)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
 card, and ``Predict``, ``PredictMultiOutput``, ``PredictSiam``, ``Predict3D``,
 ``PredictMultiOutput3D`` and the ``Trainer`` (2D and 3D) on the card held
-against the same on the CPU.
+against the same on the CPU; the int8 kernels K7–K10 bit-equal to theirs and
+``quantized=True`` prediction on the card within the int8 contract of the
+CPU's.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -31,6 +33,7 @@ from bio_image_unet_tpu_torch.models import (MultiOutputNestedUNet, MultiOutputU
                                              MultiOutputUnet3D, Siam_UNet, UNet3D, Unet)
 from bio_image_unet_tpu_torch.ops import histogram as hist
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
+from bio_image_unet_tpu_torch.ops import int8 as k8
 from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr, depthwise_xcorr_plain
 from bio_image_unet_tpu_torch.ops.stitch import (blend_stitch_3d, blend_stitch_3d_plain,
                                                   margin_stitch, margin_stitch_plain,
@@ -995,3 +998,117 @@ def test_predict_siam_on_card_matches_cpu(cuda, gen, tmp_path, mode, dtype, norm
         siam_unet.Predict(src, cpu, ckpt, device_pipeline=pipeline, device="cpu", **kw)
         diff = np.abs(tiff.imread(card).astype(int) - tiff.imread(cpu).astype(int))
         assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3, (pipeline, diff.max())
+
+
+# --- K7–K10: the int8 trunk ---------------------------------------------------------
+
+def _i8(gen, shape, dev):
+    return torch.from_numpy(gen.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+
+def _packed(gen, lead, cin, dev):
+    w = np.zeros(lead + (32 * -(-cin // 32),), np.int8)
+    w[..., :cin] = gen.integers(-127, 128, lead + (cin,))
+    return torch.from_numpy(w).to(dev)
+
+
+QCONV_CASES = [(3, 17, 19, 32, 32, 1), (2, 9, 11, 6, 5, 2), (2, 12, 10, 33, 70, 1),
+               (4, 8, 8, 64, 128, 2), (1, 16, 16, 512, 512, 1), (2, 16, 16, 4, 4, 1)]
+
+
+@pytest.mark.parametrize("case", QCONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_qconv3x3_kernel_bit_equal_to_plain(cuda, gen, case):
+    n, h, w, cin, cout, dil = case
+    x = _i8(gen, (n, h, w, cin), cuda)
+    wt = _packed(gen, (cout, 3, 3), cin, cuda)
+    sw = torch.from_numpy((gen.random(cout) * 1e-3 + 1e-4).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(gen.standard_normal(cout).astype(np.float32)).to(cuda)
+    before = k8.qconv3x3.launches
+    got = k8.qconv3x3(x, wt, sw, bias, 0.0213, 0.0371, dil)
+    torch.cuda.synchronize()
+    assert k8.qconv3x3.launches == before + 1
+    want = k8.qconv3x3_plain(x, wt, sw, bias, 0.0213, 0.0371, dil)
+    assert torch.equal(got, want)
+    assert got.abs().max() > 0 and (got.abs() < 127).any()  # neither all zero nor all clipped
+
+
+@pytest.mark.parametrize("case", [(2, 5, 6, 16, 8, 4), (1, 7, 3, 5, 3, 6), (3, 8, 8, 40, 36, 36),
+                                  (2, 16, 16, 512, 256, 256)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_qconvt2x2_kernel_bit_equal_to_plain(cuda, gen, case):
+    n, h, w, cin, cout, cskip = case
+    x = _i8(gen, (n, h, w, cin), cuda)
+    wt = _packed(gen, (2, 2, cout), cin, cuda)
+    sw = torch.full((cout,), 0.0042, device=cuda)
+    bias = torch.from_numpy(gen.standard_normal(cout).astype(np.float32)).to(cuda)
+    bufs = [torch.full((n, 2 * h, 2 * w, cout + cskip), 99, dtype=torch.int8, device=cuda)
+            for _ in range(2)]
+    k8.qconvt2x2(x, wt, sw, bias, 0.031, 0.057, out=bufs[0], offset=0)
+    k8.qconvt2x2_plain(x, wt, sw, bias, 0.031, 0.057, out=bufs[1], offset=0)
+    torch.cuda.synchronize()
+    assert torch.equal(bufs[0], bufs[1]) and (bufs[0][..., cout:] == 99).all()
+
+
+def test_requant_kernel_bit_equal_to_plain_in_all_three_forms(cuda, gen):
+    e1 = torch.from_numpy((gen.standard_normal((3, 20, 22, 6)) * 4).astype(np.float32))
+    e1 = e1.to(cuda).bfloat16()
+    assert torch.equal(k8.requant(e1, 1.0, 0.0311), k8.requant_plain(e1, 1.0, 0.0311))
+    f = torch.from_numpy((gen.standard_normal((2, 9, 7, 5)) * 4).astype(np.float32)).to(cuda)
+    assert torch.equal(k8.requant(f, 1.0, 0.0311), k8.requant_plain(f, 1.0, 0.0311))
+    skip = _i8(gen, (3, 20, 22, 7), cuda)
+    bufs = [torch.full((3, 20, 22, 12), 5, dtype=torch.int8, device=cuda) for _ in range(2)]
+    k8.requant(skip, 0.0371, 0.0413, out=bufs[0], offset=5)
+    k8.requant_plain(skip, 0.0371, 0.0413, out=bufs[1], offset=5)
+    assert torch.equal(bufs[0], bufs[1]) and (bufs[0][..., :5] == 5).all()
+    got, want = k8.requant(skip, 0.0371), k8.requant_plain(skip, 0.0371)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 32, 32), (2, 9, 7, 3), (3, 16, 16, 256)])
+def test_maxpool_i8_kernel_equal_to_plain(cuda, gen, shape):
+    x = _i8(gen, shape, cuda)
+    assert torch.equal(k8.maxpool_i8(x), k8.maxpool_i8_plain(x))
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda, gen):
+    x = _i8(gen, (1, 8, 8, 8), cuda)
+    wt = _packed(gen, (4, 3, 3), 8, cuda)
+    sw, b = torch.ones(4, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        k8.qconv3x3(x, wt.cpu(), sw, b, 1.0, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.maxpool_i8(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="offset"):
+        k8.requant(x, 1.0, 1.0, out=torch.zeros((1, 8, 8, 12), dtype=torch.int8, device=cuda),
+                   offset=6)
+
+
+@pytest.mark.parametrize("network,extra", [("Unet", {}), ("Unet", {"dilation": 2}),
+                                           ("Siam_UNet", {"mode": "concat"})])
+def test_quantized_predict_on_card_matches_cpu(cuda, gen, tmp_path, network, extra):
+    cls = {"Unet": Unet, "Siam_UNet": Siam_UNet}[network]
+    with torch.random.fork_rng():
+        torch.manual_seed(5)
+        net = cls(n_filter=8, **extra).train()
+    with torch.no_grad():
+        for _ in range(5):
+            x = torch.rand((2, 1, 64, 64))
+            net(x, torch.rand((2, 1, 64, 64))) if network == "Siam_UNet" else net(x)
+    ckpt = str(tmp_path / "q.pt")
+    torch.save({"state_dict": net.state_dict(), "model_name": network, "n_filter": 8,
+                **extra}, ckpt)
+    movie = _frames(gen, np.uint8, (4, 100, 90))
+    kw = dict(resize_dim=(64, 64), show_progress=False, quantized=True)
+    if network == "Siam_UNet":
+        src = str(tmp_path / "m.tif")
+        tiff.imwrite(src, movie)
+        siam_unet.Predict(src, str(tmp_path / "card.tif"), ckpt, frames_per_chunk=2, **kw)
+        siam_unet.Predict(src, str(tmp_path / "cpu.tif"), ckpt, frames_per_chunk=2,
+                          device="cpu", **kw)
+        card, cpu = tiff.imread(str(tmp_path / "card.tif")), tiff.imread(str(tmp_path / "cpu.tif"))
+    else:
+        card = Predict(movie, None, ckpt, **kw).result
+        cpu = Predict(movie, None, ckpt, device="cpu", **kw).result
+    d = np.abs(card.astype(int) - cpu.astype(int))
+    assert d.max() <= 4 and d.mean() < 0.5 and (d > 1).mean() < 0.01, (d.max(), d.mean())

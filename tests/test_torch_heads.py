@@ -532,8 +532,8 @@ def test_predict_multi_output_device_rule_and_refusals(ckpts, rng):
             PredictMultiOutput(movie, path, **kw)
     with pytest.raises(NotImplementedError, match="mesh"):
         PredictMultiOutput(movie, path, mesh=object(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        PredictMultiOutput(movie, path, quantized=True, device="cpu", **kw)
+    # int8 prediction of MultiOutputUnet is ported
+    assert PredictMultiOutput(movie, path, quantized=True, device="cpu", **kw).engine._quant_ready
     with pytest.raises(ValueError, match="not valid"):
         PredictMultiOutput(movie, path, normalization_mode="median", device="cpu", **kw)
 

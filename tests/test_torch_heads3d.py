@@ -352,6 +352,12 @@ def test_predict_multi_output_3d_blockers_batch_policy_and_refusals(ckpts, rng, 
             PredictMultiOutput3D(vols, path, **{**kw, "device": None})
     with pytest.raises(NotImplementedError, match="mesh"):
         PredictMultiOutput3D(vols, path, mesh=object(), **kw)
+    # MultiOutputUnet3D's int8 graph is experimental in the JAX package: a warning and
+    # the float path, as there; opted in, the fused path raises until its slice lands
+    monkeypatch.delenv("BIU_INT8_EXPERIMENTAL", raising=False)
+    with pytest.warns(UserWarning, match="BIU_INT8_EXPERIMENTAL"):
+        PredictMultiOutput3D(vols, path, quantized=True, **kw)
+    monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
     with pytest.raises(NotImplementedError, match="quantized"):
         PredictMultiOutput3D(vols, path, quantized=True, **kw)
     with pytest.raises(ValueError, match="not valid"):

@@ -232,6 +232,9 @@ def test_port_imports_no_jax(tmp_path):
         res = Predict(movie, None, path, resize_dim=(32, 32), show_progress=False,
                       device="cpu").result
         assert res.shape == (2, 40, 40) and res.dtype == np.uint8
+        res = Predict(movie, None, path, resize_dim=(32, 32), show_progress=False,
+                      device="cpu", quantized=True).result
+        assert res.shape == (2, 40, 40) and res.dtype == np.uint8
         leaked = sorted(n for n in sys.modules if sys.modules[n] is not None and
                         any(n == b or n.startswith(b + ".") for b in BLOCKED))
         assert not leaked, leaked

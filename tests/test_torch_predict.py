@@ -124,7 +124,7 @@ def test_predict_later_slice_options_raise(ckpt, rng):
     kw = dict(resize_dim=(32, 32), show_progress=False, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         Predict(movie, None, ckpt, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        Predict(movie, None, ckpt, quantized=True, **kw)
+    # int8 prediction is ported: quantized=True calibrates and runs the int8 trunk
+    assert Predict(movie, None, ckpt, quantized=True, **kw).engine._quant_ready
     with pytest.raises(ValueError, match="not valid"):
         Predict(movie, None, ckpt, normalization_mode="median", **kw)

@@ -217,8 +217,9 @@ def test_device_rule_and_refusals(tmp_path, ckpts):
             siam_unet.Predict(src, out, ckpts["max"], **kw)
     with pytest.raises(NotImplementedError, match="mesh"):
         siam_unet.Predict(src, out, ckpts["max"], mesh=object(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        siam_unet.Predict(src, out, ckpts["max"], quantized=True, device="cpu", **kw)
+    # int8 prediction of the max join is ported
+    assert siam_unet.Predict(src, out, ckpts["max"], quantized=True, device="cpu",
+                             **kw).engine._quant_ready
     with pytest.raises(ValueError, match="not valid"):
         siam_unet.Predict(src, out, ckpts["max"], normalization_mode="median", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="Siam training"):

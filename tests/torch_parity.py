@@ -8,12 +8,35 @@ that same file.  Inputs are drawn with numpy from a seed and handed to both.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from bio_image_unet_tpu.interop.torch_export import export_torch_checkpoint
 from bio_image_unet_tpu.models import Unet
+
+# One intra-op thread a process: the Tier-1 command runs six pytest workers
+# on eight cores, and with torch's default of a thread per core their CPU
+# ops oversubscribe the machine; small ops (a BatchNorm warm-up, a fold)
+# then slow down by two orders of magnitude.  ``DEFAULT_THREADS`` is the
+# count torch started with (``default_threads`` restores it).
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
+
+
+@contextmanager
+def default_threads():
+    """torch's default intra-op thread count, for a test whose float32 sums
+    were measured with it."""
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(1)
+
 
 N_FILTER = 8
 
@@ -64,23 +87,34 @@ def assert_u8_contract(ours, ref, max_levels: int = 1, max_fraction: float = 1e-
 
 
 def write_seeded_checkpoint(root, name: str, registry: str, seed: int, n_filter: int = 4,
-                        **extra):
+                            warm: bool = False, **extra):
     """A reference-schema ``.pt`` of a seeded model both packages load (a
     3D net, or ``Siam_UNet`` with its ``mode`` in ``extra``): random weights
     and BatchNorm statistics (so the BN fold has something to fold) drawn in
     the port's model, read by the JAX package's ``.pt`` reader and written
     back by its ``export_torch_checkpoint`` (``final_sequential=False`` for
-    ``UNet3D``, whose ``final`` is a bare ``Conv3d``).  Returns ``(path, JAX
-    variables)``."""
-    import torch
-
+    ``UNet3D``, whose ``final`` is a bare ``Conv3d``).  With ``warm`` the
+    weights are instead torch's default initialization and the BatchNorm
+    statistics come from five train-mode forwards on seeded 64² inputs, the
+    BN-warmed models of the JAX package's int8 tests
+    (``tests/test_quant.py``).  Returns ``(path, JAX variables)``."""
     from bio_image_unet_tpu import checkpoint as jcheckpoint
     from bio_image_unet_tpu_torch.models import get_model
     from bio_image_unet_tpu_torch.ops.blocks import init_weights_
 
     hyper = {"model_name": registry, "n_filter": n_filter, "in_channels": 1, **extra}
-    net = init_weights_(get_model(registry, **hyper), torch.Generator().manual_seed(seed),
-                        random_bn_stats=True)
+    gen = torch.Generator().manual_seed(seed)
+    if warm:
+        with torch.random.fork_rng():
+            torch.manual_seed(seed)
+            net = get_model(registry, **hyper).train()
+        with torch.no_grad():
+            for _ in range(5):
+                x = torch.rand((2, 1, 64, 64), generator=gen)
+                net(x, torch.rand((2, 1, 64, 64), generator=gen)) if extra.get("mode") else net(x)
+        net.eval()
+    else:
+        net = init_weights_(get_model(registry, **hyper), gen, random_bn_stats=True)
     drawn = str(root / f"{name}_drawn.pt")
     torch.save({"state_dict": net.state_dict(), **hyper}, drawn)
     variables = jcheckpoint.load(drawn)["variables"]
