@@ -1,13 +1,16 @@
-"""K7–K10: the int8 kernels of the w8a8 2D trunk (``csrc/int8_trunk.cu``;
-counterparts of ``bio_image_unet_tpu/predict/quant.py:417 qconv``, ``:428
-qtconv``, ``:223 _requant`` and ``:278 _maxpool_i8``).
+"""K7–K10: the int8 kernels of the w8a8 2D trunk, and K7v, K8v, K10v: those
+of the 3D trunks (``csrc/int8_trunk.cu``; counterparts of
+``bio_image_unet_tpu/predict/quant.py:417 qconv``, ``:428 qtconv``, ``:223
+_requant``, ``:278 _maxpool_i8`` and ``predict/quant3d.py:269 qconv``, ``:277
+qtconv``, ``:75 _maxpool_i8_3d``).
 
-Activations are NHWC int8 tensors.  Weights come packed by
-:class:`..predict.quant.Int8Weights`: a 3×3 conv's codes as (O, 3, 3, I_pad),
-a 2×2 transposed conv's as (2, 2, O, I_pad) (tap (a, b) makes output pixel
-(2i+a, 2j+b), as ``F.conv_transpose2d`` does), I_pad a multiple of 32 with
-zeros past I; the float32 per-output-channel weight scale ``sw`` (the
-transposed conv's one scale repeated) and bias beside them.
+Activations are NHWC (NDHWC) int8 tensors.  Weights come packed by
+:class:`..predict.quant.Int8Weights`: a 3×3 (3×3×3) conv's codes as (O, 3, 3,
+I_pad) ((O, 3, 3, 3, I_pad)), a 2×2 (2×2×2) transposed conv's as (2, 2, O,
+I_pad) ((2, 2, 2, O, I_pad); tap (a, b) makes output pixel (2i+a, 2j+b), as
+``F.conv_transpose2d`` / ``3d`` do), I_pad a multiple of 32 with zeros past
+I; the float32 per-output-channel weight scale ``sw`` (the transposed conv's
+one scale repeated) and bias beside them.
 
 - ``qconv3x3``  (K7): SAME 3×3 conv at dilation d → int32 → ``a =
   fma(float(acc), s_in·sw[o], bias[o])`` → LeakyReLU 0.1 → ``rint(a / s_out)``
@@ -18,12 +21,17 @@ transposed conv's one scale repeated) and bias beside them.
 - ``requant``   (K9): ``rint(x·s_a / s_b)`` clipped to ±127 from int8,
   bfloat16 or float32 into int8 (channels [offset, offset + C) of ``out``),
   or, with ``s_b=None``, the dequant ``bf16(x·s_a)``;
-- ``maxpool_i8`` (K10): 2×2 stride-2 max.
+- ``maxpool_i8`` (K10): 2×2 stride-2 max;
+- ``qconv3x3x3``, ``qconvt2x2x2`` (K7v, K8v): K7 and K8 on volumes, the
+  activation scales folded into the weights (``s_in = 1``: the dequant is
+  ``fma(float(acc), sw[o], bias[o])``), each into channels [offset, offset
+  + O) of an output buffer when one is given;
+- ``maxpool_i8_3d`` (K10v): 2×2×2 stride-2 max.
 
 Each has a plain PyTorch version beside it (the wrapper takes it for CPU
 tensors only; a CUDA tensor launches the kernel or raises).  The plain
 convolutions sum the int8 products in float64, where every partial sum is an
-integer below 127²·9·1024 < 2^53 and so exact; the epilogue is float32 in the
+integer below 127²·27·1024 < 2^53 and so exact; the epilogue is float32 in the
 kernel's order, its multiply-add fused and rounded once (``stitch._fma_f32``)
 as XLA's CPU backend contracts it.
 """
@@ -65,18 +73,20 @@ def _batched(fn, x: torch.Tensor, per_item: int) -> torch.Tensor:
 
 
 def _check_conv(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
-                taps: tuple, what: str) -> int:
-    if x.dim() != 4 or x.dtype != torch.int8:
-        raise ValueError(f"{what}: expected NHWC int8 activations, got {x.dtype} "
+                taps: tuple, transposed: bool, what: str) -> int:
+    nd = len(taps)
+    layout = "NHWC" if nd == 2 else "NDHWC"
+    if x.dim() != nd + 2 or x.dtype != torch.int8:
+        raise ValueError(f"{what}: expected {layout} int8 activations, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if w.dtype != torch.int8 or w.dim() != 4:
+    if w.dtype != torch.int8 or w.dim() != nd + 2:
         raise ValueError(f"{what}: expected packed int8 weights, got {w.dtype} {tuple(w.shape)}")
     cin, cin_pad = x.shape[-1], w.shape[-1]
     if cin > cin_pad or cin_pad % 32:
         raise ValueError(f"{what}: {cin} input channels for weights padded to {cin_pad} "
                          "(a multiple of 32 at least the input's)")
-    cout = w.shape[0] if taps == (3, 3) else w.shape[2]
-    if tuple(w.shape[1:3] if taps == (3, 3) else w.shape[:2]) != taps:
+    cout = w.shape[nd] if transposed else w.shape[0]
+    if tuple(w.shape[:nd] if transposed else w.shape[1:nd + 1]) != taps:
         raise ValueError(f"{what}: weights {tuple(w.shape)} do not hold {taps} taps")
     if sw.shape != (cout,) or bias.shape != (cout,) or sw.dtype != _F32 or bias.dtype != _F32:
         raise ValueError(f"{what}: sw and bias must be ({cout},) float32")
@@ -95,7 +105,7 @@ def _on_card(what: str, *ts: torch.Tensor) -> torch.device:
 def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
                    s_in: float, s_out: float, dilation: int = 1) -> torch.Tensor:
     """Plain PyTorch K7: (n, h, w, I) int8 → (n, h, w, O) int8."""
-    _check_conv(x, w, sw, bias, (3, 3), "qconv3x3")
+    _check_conv(x, w, sw, bias, (3, 3), False, "qconv3x3")
     k = w[..., :x.shape[-1]].permute(0, 3, 1, 2).double()
 
     def one(xs):
@@ -110,7 +120,7 @@ def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: tor
 def qconv3x3(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
              s_in: float, s_out: float, dilation: int = 1) -> torch.Tensor:
     """K7 (see the module docstring)."""
-    cout = _check_conv(x, w, sw, bias, (3, 3), "qconv3x3")
+    cout = _check_conv(x, w, sw, bias, (3, 3), False, "qconv3x3")
     if x.device.type == "cpu":
         return qconv3x3_plain(x, w, sw, bias, s_in, s_out, dilation)
     dev = _on_card("qconv3x3", x, w, sw, bias)
@@ -149,7 +159,7 @@ def qconvt2x2_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: to
                     offset: int = 0) -> torch.Tensor:
     """Plain PyTorch K8: (n, h, w, I) int8 → channels [offset, offset + O) of
     ``out`` (n, 2h, 2w, C_out), or a new (n, 2h, 2w, O) tensor."""
-    cout = _check_conv(x, w, sw, bias, (2, 2), "qconvt2x2")
+    cout = _check_conv(x, w, sw, bias, (2, 2), True, "qconvt2x2")
     n, h, wd, cin = x.shape
     target = _concat_target(out, (n, 2 * h, 2 * wd), offset, cout, x.device, "qconvt2x2")
     k = w[..., :cin].double()
@@ -167,7 +177,7 @@ def qconvt2x2(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Te
               s_in: float, s_out: float, out: Optional[torch.Tensor] = None,
               offset: int = 0) -> torch.Tensor:
     """K8 (see the module docstring)."""
-    cout = _check_conv(x, w, sw, bias, (2, 2), "qconvt2x2")
+    cout = _check_conv(x, w, sw, bias, (2, 2), True, "qconvt2x2")
     if x.device.type == "cpu":
         return qconvt2x2_plain(x, w, sw, bias, s_in, s_out, out, offset)
     dev = _on_card("qconvt2x2", x, w, sw, bias)
@@ -221,7 +231,8 @@ def requant_plain(x: torch.Tensor, s_a: float, s_b: Optional[float] = None,
 
 def requant(x: torch.Tensor, s_a: float, s_b: Optional[float] = None,
             out: Optional[torch.Tensor] = None, offset: int = 0) -> torch.Tensor:
-    """K9 (see the module docstring); ``x`` is (..., C) with C innermost."""
+    """K9 (see the module docstring); ``x`` is (..., C) with C innermost: NHWC
+    or NDHWC, its ``numel`` elements in rows of C."""
     target = _requant_target(x, s_b, out, offset)
     if x.device.type == "cpu":
         return requant_plain(x, s_a, s_b, out, offset)
@@ -266,3 +277,124 @@ def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
 
 
 maxpool_i8.launches = 0
+
+
+# --- K7v ----------------------------------------------------------------------
+
+def qconv3x3x3_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+                     s_out: float, out: Optional[torch.Tensor] = None,
+                     offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K7v: (n, d, h, w, I) int8 → channels [offset, offset + O)
+    of ``out`` (n, d, h, w, C_out), or a new (n, d, h, w, O) tensor."""
+    cout = _check_conv(x, w, sw, bias, (3, 3, 3), False, "qconv3x3x3")
+    target = _concat_target(out, tuple(x.shape[:-1]), offset, cout, x.device, "qconv3x3x3")
+    k = w[..., :x.shape[-1]].permute(0, 4, 1, 2, 3).double()
+
+    def one(xs):
+        with torch.backends.cudnn.flags(enabled=False):  # the direct sum, exact in float64
+            y = F.conv3d(xs.permute(0, 4, 1, 2, 3).double(), k, padding=1)
+        return _dequant_requant(y.permute(0, 2, 3, 4, 1).float(), sw, bias, 1.0, s_out, True)
+
+    n, d, h, wd, _ = x.shape
+    target[..., offset:offset + cout] = _batched(one, x, d * h * wd * cout)
+    return target
+
+
+def qconv3x3x3(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+               s_out: float, out: Optional[torch.Tensor] = None, offset: int = 0) -> torch.Tensor:
+    """K7v (see the module docstring)."""
+    cout = _check_conv(x, w, sw, bias, (3, 3, 3), False, "qconv3x3x3")
+    if x.device.type == "cpu":
+        return qconv3x3x3_plain(x, w, sw, bias, s_out, out, offset)
+    dev = _on_card("qconv3x3x3", x, w, sw, bias)
+    target = _concat_target(out, tuple(x.shape[:-1]), offset, cout, dev, "qconv3x3x3")
+    _cuda.require_cuda(target, "qconv3x3x3 out", dev)
+    n, d, h, wd, cin = x.shape
+    A = _cuda
+    fn = A.function("int8_trunk", "k7v_qconv3x3x3", [A.P] * 5 + [A.I32] * 10 + [A.F32, A.P])
+    A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+             target.data_ptr(), n, d, h, wd, cin, w.shape[-1], cout,
+             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), target.shape[-1], int(offset),
+             float(s_out))
+    qconv3x3x3.launches += 1
+    return target
+
+
+qconv3x3x3.launches = 0
+
+
+# --- K8v ----------------------------------------------------------------------
+
+def qconvt2x2x2_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+                      s_out: float, out: Optional[torch.Tensor] = None,
+                      offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K8v: (n, d, h, w, I) int8 → channels [offset, offset + O)
+    of ``out`` (n, 2d, 2h, 2w, C_out), or a new (n, 2d, 2h, 2w, O) tensor."""
+    cout = _check_conv(x, w, sw, bias, (2, 2, 2), True, "qconvt2x2x2")
+    n, d, h, wd, cin = x.shape
+    target = _concat_target(out, (n, 2 * d, 2 * h, 2 * wd), offset, cout, x.device,
+                            "qconvt2x2x2")
+    k = w[..., :cin].double()
+
+    def one(xs):
+        y = torch.einsum("nzijc,abeoc->nzaibjeo", xs.double(), k)
+        y = y.reshape(xs.shape[0], 2 * d, 2 * h, 2 * wd, cout).float()
+        return _dequant_requant(y, sw, bias, 1.0, s_out, False)
+
+    target[..., offset:offset + cout] = _batched(one, x, 8 * d * h * wd * cout)
+    return target
+
+
+def qconvt2x2x2(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
+                s_out: float, out: Optional[torch.Tensor] = None,
+                offset: int = 0) -> torch.Tensor:
+    """K8v (see the module docstring)."""
+    cout = _check_conv(x, w, sw, bias, (2, 2, 2), True, "qconvt2x2x2")
+    if x.device.type == "cpu":
+        return qconvt2x2x2_plain(x, w, sw, bias, s_out, out, offset)
+    dev = _on_card("qconvt2x2x2", x, w, sw, bias)
+    n, d, h, wd, cin = x.shape
+    target = _concat_target(out, (n, 2 * d, 2 * h, 2 * wd), offset, cout, dev, "qconvt2x2x2")
+    _cuda.require_cuda(target, "qconvt2x2x2 out", dev)
+    A = _cuda
+    fn = A.function("int8_trunk", "k8v_qconvt2x2x2", [A.P] * 5 + [A.I32] * 10 + [A.F32, A.P])
+    A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+             target.data_ptr(), n, d, h, wd, cin, w.shape[-1], cout,
+             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), target.shape[-1], int(offset),
+             float(s_out))
+    qconvt2x2x2.launches += 1
+    return target
+
+
+qconvt2x2x2.launches = 0
+
+
+# --- K10v ---------------------------------------------------------------------
+
+def maxpool_i8_3d_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K10v: a reshape and ``amax`` over each 2×2×2 window;
+    odd extents are floored (VALID)."""
+    n, d, h, w, c = x.shape
+    x = x[:, :2 * (d // 2), :2 * (h // 2), :2 * (w // 2)]
+    return x.reshape(n, d // 2, 2, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4, 6))
+
+
+def maxpool_i8_3d(x: torch.Tensor) -> torch.Tensor:
+    """K10v: (n, d, h, w, C) int8 → (n, d//2, h//2, w//2, C)."""
+    if x.dim() != 5 or x.dtype != torch.int8:
+        raise ValueError(f"maxpool_i8_3d takes NDHWC int8, got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return maxpool_i8_3d_plain(x)
+    dev = _on_card("maxpool_i8_3d", x)
+    n, d, h, w, c = x.shape
+    out = torch.empty((n, d // 2, h // 2, w // 2, c), dtype=torch.int8, device=dev)
+    A = _cuda
+    fn = A.function("int8_trunk", "k10v_maxpool_i8_3d", [A.P, A.P] + [A.I32] * 6 + [A.P])
+    # 16-byte loads where every voxel's channels start on a 16-byte boundary
+    v16 = int(c % 16 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    A.launch(fn, dev, x.data_ptr(), out.data_ptr(), n, d, h, w, c, v16)
+    maxpool_i8_3d.launches += 1
+    return out
+
+
+maxpool_i8_3d.launches = 0

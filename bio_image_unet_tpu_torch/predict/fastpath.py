@@ -254,23 +254,27 @@ class FoldedUNet3D(FoldedUnet2D):
         self.interp = bool(model.use_interpolation)
 
     def trunk(self, x: torch.Tensor, prev: None = None) -> torch.Tensor:
-        """``decode6``'s output in the working dtype (no siamese form)."""
-        c, P, interp, multi = self._conv, self.params, self.interp, self.heads is not None
+        """``decode6``'s output in the working dtype (no siamese form).  Under
+        a recorder the conv outputs are seen at the int8 calibration sites of
+        ``quant3d._sites_3d``; the trilinear decoder has no up site."""
+        b, P, interp, multi = self._block, self.params, self.interp, self.heads is not None
         down = downsample_nearest if (multi and interp) else max_pool
-        e2 = c(c(self._input(x), P["encode1"]), P["encode2"])
-        e4 = c(c(down(e2), P["encode3"]), P["encode4"])
-        e6 = c(c(down(e4), P["encode5"]), P["encode6"])
-        h = c(c(down(e6), P["middle_conv1"]), P["middle_conv2"])
+        e2 = b(b(self._input(x), "encode1", "e1"), "encode2", "e2")
+        e4 = b(b(down(e2), "encode3", "e3"), "encode4", "e4")
+        e6 = b(b(down(e4), "encode5", "e5"), "encode6", "e6")
+        h = b(b(down(e6), "middle_conv1", "m1"), "middle_conv2", "m2")
         for i, skip in zip(range(1, 4), (e6, e4, e2)):
             if not interp:
                 up = P[f"up{i}"]
                 u = F.conv_transpose3d(h, up["weight"], up["bias"], stride=2)
+                if self.recorder is not None:
+                    self.recorder(f"up{i}", u)
             elif multi:
-                u = c(upsample_nearest(h), P[f"up{i}_conv"])
+                u = b(upsample_nearest(h), f"up{i}_conv", f"up{i}")
             else:
                 u = upsample_linear(h)
             h = torch.cat([u, skip], dim=1)
-            h = c(c(h, P[f"decode{2 * i - 1}"]), P[f"decode{2 * i}"])
+            h = b(b(h, f"decode{2 * i - 1}", f"d{2 * i - 1}"), f"decode{2 * i}", f"d{2 * i}")
         return h
 
 

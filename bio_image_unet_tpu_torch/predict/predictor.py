@@ -40,10 +40,11 @@ volume (or stack-global bounds) → K2v in float mode → the multi-head forward
 host-staged paths normalize and tile in numpy and share the forward and the
 stitch.
 
-``quantized=True`` (``predict/quant.py``) swaps the 2D trunk's float forward
-for the w8a8 int8 one once the engine has calibrated its activation scales
-on the movie, before the first chunk of the fused path; the gate, its
-warnings and the calibration follow ``predictor.py:373-414``, ``:472-582``.
+``quantized=True`` (``predict/quant.py``, ``predict/quant3d.py``) swaps the
+2D or 3D trunk's float forward for the w8a8 int8 one once the engine has
+calibrated its activation scales on the movie or the volumes, before the
+first chunk or volume of the fused path; the gate, its warnings and the
+calibration follow ``predictor.py:373-414``, ``:472-626``.
 """
 
 from __future__ import annotations
@@ -191,13 +192,13 @@ class _Engine:
         self._int8_gate(quantized)
 
     def _int8_gate(self, quantized: bool) -> None:
-        """Opt-in w8a8 int8 (``predict/quant.py``; the gate of
-        ``predictor.py:373-414``): ``_quant`` holds ``(cal_fn,
+        """Opt-in w8a8 int8 (``predict/quant.py``, ``predict/quant3d.py``; the
+        gate of ``predictor.py:373-414``): ``_quant`` holds ``(cal_fn,
         make_forward)`` when int8 will run; the scales are calibrated before
-        the first fused chunk (``_calibrate_int8``), which sets
-        ``_quant_ready``.  A family the JAX package runs int8 but whose graph
-        is not ported (UNet++ and the 3D trunks) is kept in
-        ``_int8_unported``: its fused path raises."""
+        the first fused chunk or volume (``_calibrate_int8``,
+        ``_calibrate_int8_3d``), which sets ``_quant_ready``.  A family the
+        JAX package runs int8 but whose graph is not ported (UNet++) is kept
+        in ``_int8_unported``: its fused path raises."""
         self._quant = None
         self._quant_ready = False
         self._int8_unported = None
@@ -205,10 +206,10 @@ class _Engine:
             return
         status = int8_status(self.model)
         if status == "enabled":
-            if _int8_family(self.model) == "unet2d":
-                self._quant = int8_builders(self.model, self.device, self.forward)
+            if _int8_family(self.model) == "nested":
+                self._int8_unported = "nested"
             else:
-                self._int8_unported = _int8_family(self.model)
+                self._quant = int8_builders(self.model, self.device, self.forward)
         elif status == "experimental":
             warnings.warn(
                 "quantized=True for this family has a full int8 implementation in the "
@@ -292,6 +293,42 @@ class _Engine:
         self._finish_int8_calibration(cal_fn(x) if prev is None else
                                       cal_fn(x, sample_tiles(prev)))
 
+    # calibration sub-volumes of the 3D families (``predictor.py:584-586``)
+    _QUANT_CAL_TILES_3D = 8
+
+    def _calibrate_int8_3d(self, vols, zs, xs, ys, tile, clip_threshold, invert: bool = False,
+                           fixed_bounds=None) -> None:
+        """Calibrate the 3D int8 forward (``predictor.py:588-626``): tiles
+        strided across the tile grid of up to two volumes spanning the stack,
+        normalized on the host as the fused 3D programs normalize them
+        (per-volume bounds, or the caller's stack-global ``fixed_bounds``),
+        as float tiles in [0, 1] (not truncated to uint8, as in JAX); one
+        instrumented bf16 forward; then the int8 forward takes the engine's
+        place."""
+        cal_fn = self._quant[0]
+        tz, tx, ty = tile
+        vols = np.asarray(vols)
+        if vols.ndim == 3:
+            vols = vols[None]
+        vidx = np.unique(np.linspace(0, len(vols) - 1, 2).round().astype(int))
+        if fixed_bounds is not None:
+            lo, hi, gmin, gmax = (float(v) for v in fixed_bounds)
+            f = np.clip(vols[vidx].astype(np.float32), lo, hi)
+            f = (f - gmin) / (gmax - gmin) if gmax > gmin else np.zeros_like(f)
+            norm = (1.0 - f) if invert else f
+        else:
+            norm = _normalize_stack(vols[vidx].reshape(len(vidx), -1), "single", clip_threshold,
+                                    invert).reshape((len(vidx),) + vols.shape[1:]) / 255.0
+        pads = [(0, max(0, t - e)) for t, e in zip(tile, norm.shape[1:])]
+        if any(p[1] for p in pads):
+            norm = np.pad(norm, [(0, 0)] + pads, mode="reflect")
+        tiles = [norm[v, z:z + tz, x:x + tx, y:y + ty]
+                 for v in range(len(vidx)) for z in zs for x in xs for y in ys]
+        # strided across the whole grid, reaching bright content anywhere
+        step = -(-len(tiles) // self._QUANT_CAL_TILES_3D)
+        batch = np.stack(tiles[::step][:self._QUANT_CAL_TILES_3D]).astype(np.float32)
+        self._finish_int8_calibration(cal_fn(torch.from_numpy(batch[:, None]).to(self.device)))
+
     def _finish_int8_calibration(self, raw_maxes) -> None:
         """The margin, then the int8 forward in the float forward's place
         (``predictor.py:571-582``)."""
@@ -299,15 +336,16 @@ class _Engine:
         self.forward = make_forward(np.asarray(raw_maxes) * self._QUANT_CAL_MARGIN)
         self._quant_ready = True
 
-    def _maybe_calibrate(self, sample, *args, **kw) -> None:
+    def _maybe_calibrate(self, sample, *args, volumes: bool = False, **kw) -> None:
         """Calibrate before the first chunk of a quantized engine, on the
-        movie's ``sample`` frames (a runner given no sample raises)."""
+        movie's ``sample`` frames (with ``volumes``, the stack's volumes); a
+        runner given no sample raises."""
         if self._quant is None or self._quant_ready:
             return
         if sample is None:
             raise ValueError("a quantized engine calibrates on the movie's frames first: "
                              "pass sample frames")
-        self._calibrate_int8(sample, *args, **kw)
+        (self._calibrate_int8_3d if volumes else self._calibrate_int8)(sample, *args, **kw)
 
     # tile pixels of one forward step (``predictor.py:716``); a Siam step
     # takes half (``:958-961``), as the twin encoder holds about twice the
@@ -624,13 +662,15 @@ class _Engine:
         return out.cpu().numpy()
 
     def volume_runner(self, d: int, h: int, w: int, zs, xs, ys, tile, clip_threshold,
-                      invert: bool = False):
+                      invert: bool = False, sample: Optional[np.ndarray] = None):
         """The fused ``Predict3D`` program (``predictor.py:1182
         fused_predict_volume``): ``fn(vol)`` maps a (d, h, w) raw volume on
         the engine's device to the (d, h, w) uint8 volume — K1 over the whole
         volume (one row of d·h·w voxels), K2v, the batched forward, K3v.
         Returns ``(fn, plan, bs)``; benches time ``fn`` on a resident
-        volume."""
+        volume.  A quantized engine calibrates on the host volume ``sample``
+        first (``predictor.py:1192``)."""
+        self._maybe_calibrate(sample, zs, xs, ys, tile, clip_threshold, invert, volumes=True)
         plan = TilePlan3D(d, h, w, tile, zs, xs, ys, self.device)
         n = plan.per_volume
         bs = max(self.batch_size, min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile))))
@@ -649,7 +689,8 @@ class _Engine:
                              invert: bool = False) -> np.ndarray:
         """(d, h, w) uint8/uint16/float32 volume → (d, h, w) uint8 through
         the fused program."""
-        fn, _, _ = self.volume_runner(*vol.shape, zs, xs, ys, tile, clip_threshold, invert)
+        fn, _, _ = self.volume_runner(*vol.shape, zs, xs, ys, tile, clip_threshold, invert,
+                                      sample=vol)
         return self._run_once(vol, fn)
 
     def host_predict_volume(self, patches: np.ndarray, plan: TilePlan3D) -> np.ndarray:
@@ -666,13 +707,17 @@ class _Engine:
         return self._run_once(_pad_frames(patches, _round_up(len(patches), bs)), fn)
 
     def heads_3d_runner(self, n_vols: int, d: int, h: int, w: int, zs, xs, ys, tile,
-                        clip_threshold, factors, fixed_bounds=None, bs: Optional[int] = None):
+                        clip_threshold, factors, fixed_bounds=None, bs: Optional[int] = None,
+                        sample: Optional[np.ndarray] = None):
         """The fused ``PredictMultiOutput3D`` program (``predictor.py:1262
         fused_predict_heads_3d``): ``fn(vols)`` maps (n_vols, d, h, w) raw
         volumes on the device to ``{head: (n_vols, C, d, h, w) float16}`` —
         K1 per volume (or the stack-global ``fixed_bounds``), K2v in the
         working dtype, the multi-head forward, K5v.  Returns ``(fn, plan,
-        bs)``."""
+        bs)``.  A quantized engine calibrates on the host volumes ``sample``
+        first (``predictor.py:1279``)."""
+        self._maybe_calibrate(sample, zs, xs, ys, tile, clip_threshold, volumes=True,
+                              fixed_bounds=fixed_bounds)
         plan = TilePlan3D(d, h, w, tile, zs, xs, ys, self.device, factors)
         n = n_vols * plan.per_volume
         bs = bs or max(1, min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile))))
@@ -699,7 +744,7 @@ class _Engine:
         float16}`` through the fused program; ``_bs`` is the OOM back-off's
         batch."""
         fn, _, bs = self.heads_3d_runner(*vols.shape, zs, xs, ys, tile, clip_threshold,
-                                         factors, fixed_bounds, _bs)
+                                         factors, fixed_bounds, _bs, sample=vols)
         return self._dispatch_with_oom_backoff(
             lambda: self._run_once(vols, fn), bs,
             lambda smaller: self.fused_predict_heads_3d(vols, zs, xs, ys, tile, clip_threshold,
@@ -856,8 +901,8 @@ def _warn_quantized_host_path(quantized: bool, engine: _Engine, use_fused: bool,
                               fused_blocker: Optional[str]) -> None:
     """int8 runs only inside the fused device pipeline: warn when a
     quantized request took the host-staged path, which runs bf16/float32
-    (``predictor.py:1451``); then raise where int8 would run on a family
-    whose int8 graph is not ported."""
+    (``predictor.py:1451``); then raise where int8 would run on UNet++, whose
+    int8 graph is not ported."""
     if quantized and not use_fused and (engine._quant is not None
                                         or engine._int8_unported is not None):
         reason = fused_blocker or "device_pipeline=False was forced"
@@ -867,8 +912,8 @@ def _warn_quantized_host_path(quantized: bool, engine: _Engine, use_fused: bool,
     if use_fused and engine._int8_unported is not None:
         raise NotImplementedError(
             f"quantized=True on {type(engine.model).__name__} (int8 family "
-            f"'{engine._int8_unported}'): the UNet++ and 3D int8 graphs are the B5 slice, "
-            "not ported yet")
+            f"'{engine._int8_unported}'): the UNet++ int8 graph (ROADMAP B5) is not "
+            "ported yet")
 
 
 class Predict:

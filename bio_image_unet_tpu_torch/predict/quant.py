@@ -1,11 +1,12 @@
 """w8a8 int8 prediction of the plain 2D trunk, opt-in with
-``quantized=True`` (counterpart of ``bio_image_unet_tpu/predict/quant.py``).
+``quantized=True`` (counterpart of ``bio_image_unet_tpu/predict/quant.py``);
+the 3D trunks' int8 graph is in :mod:`.quant3d`.
 
 The scheme is the JAX package's post-training quantization, unchanged:
 
 - **Weights**: BN-folded conv kernels (``fastpath.fold_unet2d``) quantized
   per output channel, symmetric, ``sw = max(|k|, 1e-12) / 127`` over the
-  kernel's other axes; the 2×2 transposed convs per tensor; codes
+  kernel's other axes; the transposed convs per tensor; codes
   ``clip(round(k / sw), ±127)`` (half to even) in float32 with numpy, as JAX
   computes them; biases stay float32 (:class:`Int8Weights`).
 - **Activations**: one per-tensor scale a site (:func:`_sites`), from the
@@ -20,11 +21,12 @@ The scheme is the JAX package's post-training quantization, unchanged:
   made; K9 also quantizes ``encode1``'s output and dequantizes before the
   head.  The kernels are in :mod:`..ops.int8` (``csrc/int8_trunk.cu``).
 
-Only the plain 2D trunk is ported: ``Unet`` at any integer dilation,
-``MultiOutputUnet`` (heads float) and ``Siam_UNet`` with the ``max``,
-``control`` and ``concat`` joins (``corr`` has no int8 formulation).
-:func:`int8_status` answers as the JAX function does for every model class
-the port builds; the UNet++ and 3D int8 graphs are a later slice.
+The 2D graph covers ``Unet`` at any integer dilation, ``MultiOutputUnet``
+(heads float) and ``Siam_UNet`` with the ``max``, ``control`` and ``concat``
+joins (``corr`` has no int8 formulation); :func:`int8_builders` hands the 3D
+families (``UNet3D`` with either decoder, ``MultiOutputUnet3D``) to
+:mod:`.quant3d`.  :func:`int8_status` answers as the JAX function does for
+every model class the port builds; the UNet++ int8 graph is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import torch.nn.functional as F
 
 from ..models.unet2d import apply_activation
 from ..ops.int8 import maxpool_i8, qconv3x3, qconvt2x2, requant
-from .fastpath import FoldedUnet2D, fold_unet2d
+from .fastpath import FoldedUnet2D, fold_unet2d, folded_forward
 
 # The JAX package's ship set (``quant.py:79 _MEASURED_INT8``): the families
 # that quantize on ``quantized=True``; the others are experimental there and
@@ -108,11 +110,11 @@ def supports_int8(model) -> bool:
 class Int8Weights:
     """Named int8 weight store (``quant.py:228 _WeightPack`` without its
     packing into one buffer, a TPU dispatch-cost measure).  ``conv[name]``
-    is ``(codes, sw, bias)`` on the device: codes (O, 3, 3, I_pad) for a 3×3
-    conv and (2, 2, O, I_pad) for a transposed conv, I_pad a multiple of 32;
-    ``sw`` (O,) float32 (a transposed conv's one scale, repeated); ``float``
-    holds the layers kept in bf16: ``{'weight', 'bias'}`` cast to bf16, as
-    ``fastpath._conv`` casts them."""
+    is ``(codes, sw, bias)`` on the device: codes (O, *taps, I_pad) for a conv
+    (3×3 or 3×3×3) and (*taps, O, I_pad) for a transposed conv (2×2 or
+    2×2×2), I_pad a multiple of 32; ``sw`` (O,) float32 (a transposed conv's
+    one scale, repeated); ``float`` holds the layers kept in bf16:
+    ``{'weight', 'bias'}`` cast to bf16, as ``fastpath._conv`` casts them."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -120,27 +122,35 @@ class Int8Weights:
         self.float: Dict[str, dict] = {}
 
     def float_layer(self, name: str, p: dict) -> None:
-        fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
+        fmt = torch.contiguous_format
+        if self.device.type == "cuda":
+            fmt = torch.channels_last if p["weight"].dim() == 4 else torch.channels_last_3d
         self.float[name] = {
             "weight": p["weight"].to(self.device, torch.bfloat16).contiguous(memory_format=fmt),
             "bias": p["bias"].to(self.device, torch.bfloat16)}
 
-    def quant_conv(self, name: str, p: dict, per_channel: bool = True) -> None:
-        """A 3×3 conv (OIHW, per output channel) or, with ``per_channel``
-        False, a transposed conv ((I, O, 2, 2), per tensor)."""
-        w = p["weight"].detach().cpu().numpy().astype(np.float32)
+    def quant_conv(self, name: str, p: dict, per_channel: bool = True, s_in=None) -> None:
+        """A conv (O, I, *taps: per output channel) or, with ``per_channel``
+        False, a transposed conv ((I, O, *taps), per tensor).  ``s_in``, the
+        input's activation scale (one a channel, or one for all), is
+        multiplied into the float32 kernel first (``quant3d.py:209-238``)."""
+        w = np.asarray(p["weight"].detach().cpu().numpy(), np.float32)
+        if s_in is not None:
+            shape = [1] * w.ndim
+            shape[1 if per_channel else 0] = -1
+            w = w * np.asarray(s_in, np.float32).reshape(shape)
         if per_channel:
-            k = np.ascontiguousarray(np.transpose(w, (0, 2, 3, 1)))  # (O, 3, 3, I)
-            sw = np.maximum(np.abs(k).max(axis=(1, 2, 3)), 1e-12) / 127.0
-            codes = np.clip(np.round(k / sw[:, None, None, None]), -127, 127).astype(np.int8)
+            k = np.ascontiguousarray(np.moveaxis(w, 1, -1))  # (O, *taps, I)
+            sw = np.maximum(np.abs(k).max(axis=tuple(range(1, k.ndim))), 1e-12) / 127.0
+            codes = np.clip(np.round(k / sw.reshape((-1,) + (1,) * (k.ndim - 1))), -127, 127)
         else:
-            k = np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))  # (2, 2, O, I)
-            sw = np.float32(max(float(np.abs(k).max()), 1e-12) / 127.0)
-            codes = np.clip(np.round(k / sw), -127, 127).astype(np.int8)
-            sw = np.full(k.shape[2], sw, np.float32)
+            k = np.ascontiguousarray(np.transpose(w, tuple(range(2, w.ndim)) + (1, 0)))
+            sw = np.float32(max(float(np.abs(k).max()), 1e-12) / 127.0)  # (*taps, O, I)
+            codes = np.clip(np.round(k / sw), -127, 127)
+            sw = np.full(k.shape[-2], sw, np.float32)
         cin = codes.shape[-1]
         pad = -(-cin // 32) * 32 - cin
-        codes = np.pad(codes, [(0, 0)] * 3 + [(0, pad)])
+        codes = np.pad(codes.astype(np.int8), [(0, 0)] * (codes.ndim - 1) + [(0, pad)])
         self.conv[name] = (torch.from_numpy(codes).to(self.device),
                            torch.from_numpy(np.asarray(sw, np.float32)).to(self.device),
                            p["bias"].detach().to(self.device, torch.float32).contiguous())
@@ -170,9 +180,14 @@ def build_calibrator(forward: FoldedUnet2D) -> Callable:
     (``quant.py:288``): ``forward`` is the bf16 folded trunk, run once with
     its recorder.  Siam encoder sites take the max over both streams, the
     ``control`` join's included (the JAX calibrator encodes prev there)."""
+    return recording_calibrator(forward, _sites(forward.mode))
+
+
+def recording_calibrator(forward: FoldedUnet2D, sites) -> Callable:
+    """``cal_fn(x[, prev])``: one pass of the bf16 folded ``forward``'s trunk
+    with its recorder on, the per-site ``max|a|`` in ``sites`` order."""
     if forward.dtype != torch.bfloat16:
         raise ValueError("the calibration forward runs in bf16")
-    sites = _sites(forward.mode)
 
     @torch.inference_mode()
     def cal_fn(x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> np.ndarray:
@@ -195,29 +210,33 @@ def build_calibrator(forward: FoldedUnet2D) -> Callable:
 
 # --- the int8 forward -------------------------------------------------------------
 
-class Int8Unet2D:
-    """The int8 forward (``quant.py:405 apply_fn``) with the folded
-    forward's interface: ``logits(x[, prev])`` (float32), ``heads_out(x)``
-    (``{head: activated float32}``) and ``__call__``, on (N, 1, h, w) tiles
-    in [0, 1] in any float dtype (cast to bf16 first, as JAX does)."""
+def act_scales(act_maxes) -> np.ndarray:
+    """Per-site float32 scales from the calibrated maxes (``quant.py:401-403``)."""
+    return np.maximum(np.asarray(act_maxes, np.float32), 1e-8) / 127.0
 
-    def __init__(self, weights: Int8Weights, act_maxes, mode=None, heads=None,
-                 dilation: int = 1):
+
+class Int8Forward:
+    """What the 2D and 3D int8 forwards share: the folded forward's
+    interface — ``logits(x[, prev])`` (float32), ``heads_out(x)`` (``{head:
+    activated float32}``) and ``__call__`` — on (N, 1, *tile) tiles in [0, 1]
+    in any float dtype (cast to bf16 first, as JAX does), around a
+    ``trunk(x[, prev])`` that returns the last decoder features dequantized
+    to bf16; ``s`` maps each site to its scale."""
+
+    def __init__(self, weights: Int8Weights, sites, act_maxes, heads=None, dilation: int = 1):
         self.w = weights
-        self.mode = mode
         self.heads = heads
         self.dilation = int(dilation)
-        # per-site scales from the calibrated maxes (quant.py:401-403)
-        scales = np.maximum(np.asarray(act_maxes, np.float32), 1e-8) / 127.0
-        self.s = dict(zip(_sites(mode), (float(v) for v in scales)))
-        dev = weights.device
-        self._slope = torch.tensor(0.1, dtype=torch.bfloat16, device=dev)
+        self.s = dict(zip(sites, (float(v) for v in act_scales(act_maxes))))
+        self._slope = torch.tensor(0.1, dtype=torch.bfloat16, device=weights.device)
 
     def _encode1(self, x: torch.Tensor) -> torch.Tensor:
         """``encode1`` in bf16 in JAX's rounding order: the conv, then the
         bias, then LeakyReLU with the slope rounded to bf16."""
         p, d = self.w.float["encode1"], self.dilation
-        y = F.conv2d(x, p["weight"], padding=d, dilation=d) + p["bias"].view(1, -1, 1, 1)
+        conv = F.conv2d if x.dim() == 4 else F.conv3d
+        y = conv(x, p["weight"], padding=d, dilation=d) + p["bias"].view(
+            (1, -1) + (1,) * (x.dim() - 2))
         return torch.where(y >= 0, y, y * self._slope)
 
     def _head(self, h: torch.Tensor, name: str) -> torch.Tensor:
@@ -226,7 +245,38 @@ class Int8Unet2D:
         consumer is float32 (excess precision), so JAX's logits are not
         bf16 values."""
         p = self.w.float[name]
-        return F.conv2d(h, p["weight"]).float() + p["bias"].float().view(1, -1, 1, 1)
+        conv = F.conv2d if h.dim() == 4 else F.conv3d
+        return conv(h, p["weight"]).float() + p["bias"].float().view(
+            (1, -1) + (1,) * (h.dim() - 2))
+
+    def trunk(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        raise NotImplementedError
+
+    def logits(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The final 1×1 conv's output, float32."""
+        return self._head(self.trunk(x, prev), "final")
+
+    def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        h = self.trunk(x)
+        return {name: apply_activation(self._head(h, f"output_layers.{name}"),
+                                       cfg.get("activation"))
+                for name, cfg in self.heads.items()}
+
+    def __call__(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None):
+        if self.heads is not None:
+            return self.heads_out(x)
+        logits = self.logits(x, prev)
+        return torch.sigmoid(logits), logits
+
+
+class Int8Unet2D(Int8Forward):
+    """The 2D int8 forward (``quant.py:405 apply_fn``), with the interface
+    of :class:`Int8Forward` on (N, 1, h, w) tiles."""
+
+    def __init__(self, weights: Int8Weights, act_maxes, mode=None, heads=None,
+                 dilation: int = 1):
+        super().__init__(weights, _sites(mode), act_maxes, heads, dilation)
+        self.mode = mode
 
     def _qconv(self, x, name: str, s_in: float, site: str, dilation: int = 1):
         return qconv3x3(x, *self.w.conv[name], s_in, self.s[site], dilation)
@@ -277,22 +327,6 @@ class Int8Unet2D:
             s_h = s[f"d{2 * i}"]
         return requant(h, s_h).permute(0, 3, 1, 2)
 
-    def logits(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The final 1×1 conv's output, float32."""
-        return self._head(self.trunk(x, prev), "final")
-
-    def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        h = self.trunk(x)
-        return {name: apply_activation(self._head(h, f"output_layers.{name}"),
-                                       cfg.get("activation"))
-                for name, cfg in self.heads.items()}
-
-    def __call__(self, x: torch.Tensor, prev: Optional[torch.Tensor] = None):
-        if self.heads is not None:
-            return self.heads_out(x)
-        logits = self.logits(x, prev)
-        return torch.sigmoid(logits), logits
-
 
 def build_int8_apply(model, device, folded: Optional[Dict[str, dict]] = None) -> Callable:
     """``make_forward(act_maxes) -> Int8Unet2D`` (``quant.py:362``): the
@@ -312,11 +346,18 @@ def build_int8_apply(model, device, folded: Optional[Dict[str, dict]] = None) ->
 
 
 def int8_builders(model, device, forward: Optional[FoldedUnet2D] = None) -> tuple:
-    """``(cal_fn, make_forward)`` of a model whose family is ``'unet2d'``
-    (``quant.py:187``); ``forward`` is a bf16 folded trunk to calibrate
-    with (one is built when it is None)."""
-    if _int8_family(model) != "unet2d":
-        raise ValueError(f"no ported int8 graph for {type(model).__name__}")
+    """``(cal_fn, make_forward)`` of a model whose family is ``'unet2d'`` or
+    one of the 3D families ``'unet3d'``, ``'unet3d_interp'``,
+    ``'multi_output_3d'`` (``quant.py:187``); ``forward`` is a bf16 folded
+    forward of the model to calibrate with (one is built when it is None)."""
+    family = _int8_family(model)
+    if family not in ("unet2d", "unet3d", "unet3d_interp", "multi_output_3d"):
+        raise ValueError(f"no ported int8 graph for {type(model).__name__} (int8 family "
+                         f"{family!r}: the UNet++ int8 graph is not ported yet)")
     if forward is None or forward.dtype != torch.bfloat16:
-        forward = FoldedUnet2D(model, torch.bfloat16, device)
-    return build_calibrator(forward), build_int8_apply(model, device)
+        forward = folded_forward(model, torch.bfloat16, device)
+    if family == "unet2d":
+        return build_calibrator(forward), build_int8_apply(model, device)
+    from .quant3d import build_calibrator_3d, build_int8_apply_3d
+
+    return build_calibrator_3d(forward), build_int8_apply_3d(model, device)

@@ -202,7 +202,34 @@ non-zero without printing a result:
    each with exact launches (one more K7 under ``concat``) and within the
    int8 contract; a BN-warmed ``Unet(8)`` int8 on the card against the CPU
    within the int8 contract;
-20. the kernels' JSON line, then the last line
+20. kernels (int8 3d) — K7v (the int8 3×3×3 conv with K7's epilogue, the
+   activation scales folded into the weights) at ``encode2`` (16, 32×128²,
+   16) → 32, ``decode1`` (16, 8×32², 384) → 128 and ``middle_conv2`` (16,
+   4×16², 128) → 256, K8v (the 2×2×2 stride-2 int8 transposed conv into the
+   concat buffer's first channels) at up1–up3, K10v (the 2×2×2 int8 max pool)
+   at its three levels and K9's three 3D uses (e1 → int8, the raw skip into
+   the concat buffer, the dequant of d6), at config 5's forward batch of 16
+   tiles of (32, 128, 128), ``UNet3D(32)``: each bit-equal to its plain
+   version on the whole batch, timed beside its bound (int8 operations at
+   1979 TOP/s, or bytes), ``torch._int_mm`` on an im2col (K7v) or on the
+   up-conv's product (K8v), and the bf16 cuDNN ``conv3d`` /
+   ``conv_transpose3d`` of the layer;
+21. int8 3d — ``Predict3D(quantized=True)`` at config 5 (a BN-warmed
+   ``UNet3D(32)``, a 64×512² uint8 blob volume, tiles (32, 128, 128), bf16
+   outside the int8 trunk, two forward batches of 16): launches exact
+   around the call (K7v 26, K8v 6, K10v 6, K9 10, beside K1's two, K2v and
+   K3v); end-to-end (best of two after a warm-up; the first call's
+   calibration timed apart) and device-resident Mvox/s of int8 and bf16 back
+   to back and their ratio, the int8 trunk's TOP/s and share of the int8
+   dense peak, peak memory, a profile by stage; int8 within the JAX
+   package's 3D bounds of bf16 (at most 35 levels, a mean under 3, beyond 10
+   levels on under 5% of voxels); under ``BIU_INT8_EXPERIMENTAL=1`` the
+   trilinear ``UNet3D(32)`` (same bounds) and ``MultiOutputUnet3D(32)`` over
+   the ``[3d heads]`` cell's two volumes (heads within 15% / 3% of their
+   range), each with exact launches; the trained ``.pt`` of ``[train 3d]``:
+   mask IoU within 0.01 of bf16's; a BN-warmed ``UNet3D(8)`` int8 on the card
+   against the CPU within the int8 contract;
+22. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -265,31 +292,44 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    card = phase_device()
-    phase_build(_cuda)
-    kernels = phase_kernels(torch, dev)
-    k4 = phase_kernel_augment(torch, dev)
-    phase_main_path(torch, dev, kernels)
+    seconds = {}
+
+    def run(name, fn, *args):
+        """``fn(*args)``, its wall time kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    card = run("device", phase_device)
+    run("build", phase_build, _cuda)
+    kernels = run("kernels", phase_kernels, torch, dev)
+    k4 = run("kernels training", phase_kernel_augment, torch, dev)
+    run("main", phase_main_path, torch, dev, kernels)
     kernels.append(k4)
-    trained = phase_train(torch, dev, kernels)
-    heads = phase_kernels_heads(torch, dev)
-    phase_heads(torch, dev, kernels, heads)
+    trained = run("train", phase_train, torch, dev, kernels)
+    heads = run("kernels heads", phase_kernels_heads, torch, dev)
+    run("heads", phase_heads, torch, dev, kernels, heads)
     kernels.extend(heads)
-    k4h = phase_kernel_augment_heads(torch, dev)
+    k4h = run("kernels heads training", phase_kernel_augment_heads, torch, dev)
     kernels.append(k4h)
-    phase_train_heads(torch, dev, kernels)
-    k3d = phase_kernels_3d(torch, dev)
-    phase_3d(torch, dev, kernels, k3d)
-    phase_3d_heads(torch, dev, kernels, k3d)
+    run("train heads", phase_train_heads, torch, dev, kernels)
+    k3d = run("kernels 3d", phase_kernels_3d, torch, dev)
+    run("3d", phase_3d, torch, dev, kernels, k3d)
+    run("3d heads", phase_3d_heads, torch, dev, kernels, k3d)
     kernels.extend(k3d)
-    kernels.extend(phase_kernels_3d_training(torch, dev))
-    phase_train_3d(torch, dev, kernels)
-    ksiam = phase_kernels_siam(torch, dev)
-    phase_siam(torch, dev, kernels, ksiam)
+    kernels.extend(run("kernels 3d training", phase_kernels_3d_training, torch, dev))
+    trained3d = run("train 3d", phase_train_3d, torch, dev, kernels)
+    ksiam = run("kernels siam", phase_kernels_siam, torch, dev)
+    run("siam", phase_siam, torch, dev, kernels, ksiam)
     kernels.extend(ksiam)
-    kint8 = phase_kernels_int8(torch, dev)
-    phase_int8(torch, dev, kernels, kint8, trained)
+    kint8 = run("kernels int8", phase_kernels_int8, torch, dev)
+    run("int8", phase_int8, torch, dev, kernels, kint8, trained)
     kernels.extend(kint8)
+    kint8_3d = run("kernels int8 3d", phase_kernels_int8_3d, torch, dev)
+    run("int8 3d", phase_int8_3d, torch, dev, kernels, kint8_3d, trained3d)
+    kernels.extend(kint8_3d)
+    log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for k in kernels:
         k.pop("_counter")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2190,7 +2230,7 @@ def _report_epochs(torch, tag: str, trainer, steps: int, batch: int, flops_per_v
     return best
 
 
-def phase_train_3d(torch, dev, kernels) -> None:
+def phase_train_3d(torch, dev, kernels) -> bytes:
     from bio_image_unet_tpu_torch import multi_output_unet3d, unet3d
     from bio_image_unet_tpu_torch.data.augment_device import (augment_heads_volume_apply,
                                                               augment_volume_apply)
@@ -2283,7 +2323,9 @@ def phase_train_3d(torch, dev, kernels) -> None:
                                      f"{res[head].shape}")
         log("[train 3d→predict] PredictMultiOutput3D: " + ", ".join(
             f"{h} {v.shape} in [{v.min():.3f}, {v.max():.3f}]" for h, v in res.items()))
+        trained = Path(u3d_ckpt).read_bytes()
     train_3d_card_vs_cpu(torch)
+    return trained
 
 
 def train_3d_card_vs_cpu(torch) -> None:
@@ -2757,40 +2799,44 @@ def int8_trunk_ops(nf: int, s: int) -> float:
     return unet_forward_flops(nf, s) - 2 * 9 * nf * s * s - 2 * nf * s * s
 
 
-def phase_kernels_int8(torch, dev) -> list:
-    import torch.nn.functional as F
+class Int8Yardsticks:
+    """What the int8 kernel phases share: seeded int8 operands on the card,
+    packed weights, the bit-equality check, output scales and the time of
+    ``torch._int_mm`` (the library yardstick of K7 / K8's products)."""
 
-    from bio_image_unet_tpu_torch.ops import int8 as k8
+    def __init__(self, torch, dev, seed: int, tag: str):
+        self.torch, self.dev, self.tag = torch, dev, tag
+        self.timer = Timer(torch, dev)
+        self.g = torch.Generator(device=dev).manual_seed(seed)
 
-    timer = Timer(torch, dev)
-    g = torch.Generator(device=dev).manual_seed(8)
-    n, nf = INT8_BATCH, N_FILTER
-    rows = []
+    def i8(self, shape):
+        return self.torch.randint(-127, 128, shape, generator=self.g, device=self.dev,
+                                  dtype=self.torch.int8)
 
-    def i8(shape):
-        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
-
-    def packed(lead, cin):
-        w = torch.zeros(lead + (32 * -(-cin // 32),), dtype=torch.int8, device=dev)
-        w[..., :cin] = i8(lead + (cin,))
+    def packed(self, lead, cin):
+        w = self.torch.zeros(lead + (32 * -(-cin // 32),), dtype=self.torch.int8,
+                             device=self.dev)
+        w[..., :cin] = self.i8(lead + (cin,))
         return w
 
-    def int_mm(a, b):
+    def int_mm(self, a, b):
         """``torch._int_mm`` (cuBLASLt int8 → int32) of (M, K) ``a`` and (K, N)
-        ``b``, the library yardstick of K7 / K8's products, with ``b`` row- or
-        else column-major; None where it refuses both."""
+        ``b``, with ``b`` row- or else column-major; None where it refuses
+        both."""
+        torch = self.torch
         for mat in (b.contiguous(), b.t().contiguous().t()):
             try:
                 torch._int_mm(a, mat)
             except (RuntimeError, NotImplementedError) as err:
-                log(f"[kernels int8] torch._int_mm refused {tuple(a.shape)} x "
+                log(f"[{self.tag}] torch._int_mm refused {tuple(a.shape)} x "
                     f"{tuple(mat.shape)} strides {mat.stride()}: {str(err)[:120]}")
                 continue
-            return timer(lambda: torch._int_mm(a, mat), 5)
+            return self.timer(lambda: torch._int_mm(a, mat), 5)
         return None
 
-    def check(name, ours, ref):
+    def check(self, name, ours, ref):
         """Bit-equal (bf16 compared as its bits), else raise."""
+        torch = self.torch
         if ours.dtype == torch.bfloat16:
             ours, ref = ours.view(torch.int16), ref.view(torch.int16)
         if not torch.equal(ours, ref):
@@ -2798,11 +2844,24 @@ def phase_kernels_int8(torch, dev) -> list:
             raise AssertionError(f"{name}: kernel differs from plain (max {bad})")
         return 0.0
 
+    @staticmethod
     def scales(cin, taps):
         # s_out spreads the outputs over the int8 range: random operands sum
         # to about sqrt(taps·cin)·73² a channel
         s_in, sw = 0.02, 1e-3
         return s_in, sw, 3 * (taps * cin) ** 0.5 * 73 ** 2 * s_in * sw / 127
+
+
+def phase_kernels_int8(torch, dev) -> list:
+    import torch.nn.functional as F
+
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+
+    y = Int8Yardsticks(torch, dev, 8, "kernels int8")
+    timer, i8, packed, int_mm, check, scales = (y.timer, y.i8, y.packed, y.int_mm, y.check,
+                                                y.scales)
+    n, nf = INT8_BATCH, N_FILTER
+    rows = []
 
     # K7 at the first and the widest layer of the main path's forward batch
     for layer, hw, cin, cout in (("encode2", TILE, nf, nf), ("middle_conv2", TILE // 16,
@@ -2811,7 +2870,7 @@ def phase_kernels_int8(torch, dev) -> list:
         w = packed((cout, 3, 3), cin)
         s_in, sw_v, s_out = scales(cin, 9)
         sw = torch.full((cout,), sw_v, device=dev)
-        bias = torch.randn((cout,), generator=g, device=dev)
+        bias = torch.randn((cout,), generator=y.g, device=dev)
         ours = k8.qconv3x3(x, w, sw, bias, s_in, s_out)
         torch.cuda.synchronize()
         err = check(f"K7 {layer}", ours, k8.qconv3x3_plain(x, w, sw, bias, s_in, s_out))
@@ -2849,7 +2908,7 @@ def phase_kernels_int8(torch, dev) -> list:
         w = packed((2, 2, cout), cin)
         s_in, sw_v, s_out = scales(cin, 1)
         sw = torch.full((cout,), sw_v, device=dev)
-        bias = torch.randn((cout,), generator=g, device=dev)
+        bias = torch.randn((cout,), generator=y.g, device=dev)
         bufs = [torch.zeros((n, 2 * hw, 2 * hw, 2 * cout), dtype=torch.int8, device=dev)
                 for _ in range(2)]
         k8.qconvt2x2(x, w, sw, bias, s_in, s_out, out=bufs[0])
@@ -2875,7 +2934,7 @@ def phase_kernels_int8(torch, dev) -> list:
 
     # K9 in its three forms at full resolution (n, 256², 32)
     shape = (n, TILE, TILE, nf)
-    e1 = (torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16)
+    e1 = (torch.randn(shape, generator=y.g, device=dev) * 2).to(torch.bfloat16)
     skip = i8(shape)
     buf = torch.zeros(shape[:-1] + (2 * nf,), dtype=torch.int8, device=dev)
     forms = (
@@ -2921,18 +2980,20 @@ def write_warm_checkpoint(torch, path: str, name: str, n_filter: int, seed: int 
                           **hyper) -> None:
     """A ``.pt`` of registry model ``name`` with torch's default
     initialization and BatchNorm statistics from five train-mode forwards on
-    seeded 64² inputs on the CPU (the BN-warmed models of the JAX package's
-    int8 tests): activations a calibration scales as a trained model's."""
+    seeded 64² inputs ((16, 64, 64) volumes for the 3D nets) on the CPU (the
+    BN-warmed models of the JAX package's int8 tests): activations a
+    calibration scales as a trained model's."""
     from bio_image_unet_tpu_torch.models import get_model
 
     hyper = {"model_name": name, "n_filter": n_filter, "in_channels": 1, **hyper}
+    shape = (2, 1, 16, 64, 64) if "3D" in name else (2, 1, 64, 64)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         net = get_model(name, **hyper).train()
         with torch.no_grad():
             for _ in range(5):
-                x = torch.rand((2, 1, 64, 64))
-                net(x, torch.rand((2, 1, 64, 64))) if hyper.get("mode") else net(x)
+                x = torch.rand(shape)
+                net(x, torch.rand(shape)) if hyper.get("mode") else net(x)
     torch.save({"state_dict": net.state_dict(), "epoch": 0, "best_loss": None, **hyper}, path)
 
 
@@ -3137,6 +3198,383 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
         int8_contract("int8", "Unet(8) int8: card vs CPU",
                       Predict(m, None, small, **ckw).result,
                       Predict(m, None, small, device="cpu", **ckw).result)
+
+
+# --- 20. kernels (int8 3d) -------------------------------------------------------
+
+# Predict3D's forward batch at config 5: 2^23 tile voxels of (32, 128, 128)
+INT8_3D_BATCH = (1 << 23) // int(np.prod(VOL_TILE))
+
+
+def int8_3d_trunk_ops(nf: int, nearest_decoder: bool = False, out_channels: int = 1) -> float:
+    """int8 operations (two a multiply-add) per tile voxel of the 3D int8
+    trunk: every conv but ``encode1`` and the 1×1×1 heads, which run in bf16."""
+    h = nf // 2
+    return (unet3d_forward_flops(nf, nearest_decoder, out_channels) - 2 * 27 * h
+            - 2 * h * out_channels)
+
+
+def phase_kernels_int8_3d(torch, dev) -> list:
+    """K7v at ``encode2``, ``decode1`` and ``middle_conv2``, K8v at up1–up3,
+    K10v at its three levels and K9's three 3D uses, at config 5's forward
+    batch of 16 tiles of (32, 128, 128), ``UNet3D(32)``: each bit-equal to
+    its plain version on the whole batch."""
+    import torch.nn.functional as F
+
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+
+    y = Int8Yardsticks(torch, dev, 9, "kernels int8 3d")
+    timer = y.timer
+    n, nf = INT8_3D_BATCH, VOL_FILTER
+    td, th, tw = VOL_TILE
+    cl3d = torch.channels_last_3d
+    rows = []
+
+    def row(*args):
+        rows.append(kernel_row("kernels int8 3d", *args))
+
+    def level(k):
+        return (td >> k, th >> k, tw >> k)
+
+    def im2col(x):
+        """(n, d, h, w, c) int8 → (n·d·h·w, 27·c): the SAME 3×3×3 windows,
+        taps (z, y, x) major and channels minor, as the packed weights."""
+        d, h, w = x.shape[1:4]
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+        return torch.cat([xp[:, a:a + d, b:b + h, c:c + w] for a in range(3) for b in range(3)
+                          for c in range(3)], dim=-1).reshape(-1, 27 * x.shape[-1])
+
+    # K7v at the first, the widest and the deepest layers (the scales folded
+    # into the weights: sw is s_in·sw)
+    for layer, k, cin, cout in (("encode2", 0, nf // 2, nf), ("decode1", 2, 12 * nf, 4 * nf),
+                                ("middle_conv2", 3, 4 * nf, 8 * nf)):
+        x = y.i8((n,) + level(k) + (cin,))
+        w = y.packed((cout, 3, 3, 3), cin)
+        s_in, sw_v, s_out = y.scales(cin, 27)
+        sw = torch.full((cout,), s_in * sw_v, device=dev)
+        bias = torch.randn((cout,), generator=y.g, device=dev)
+        ours = k8.qconv3x3x3(x, w, sw, bias, s_out)
+        torch.cuda.synchronize()
+        err = y.check(f"K7v {layer}", ours, k8.qconv3x3x3_plain(x, w, sw, bias, s_out))
+        macs = ours.numel() * 27 * cin
+        # the yardsticks: cuBLASLt int8 on an im2col and the bf16 cuDNN conv
+        a = im2col(x)
+        lib = y.int_mm(a, w[..., :cin].reshape(cout, 27 * cin).t())
+        del a
+        xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous(memory_format=cl3d)
+        wb = w[..., :cin].permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous(memory_format=cl3d)
+        conv_ms = timer(lambda: F.conv3d(xb, wb, padding=1), 5)
+        log(f"[kernels int8 3d] k7v {layer} ({n}, {'x'.join(map(str, level(k)))}, {cin}) -> "
+            f"{cout}: {2 * macs / 1e9:.1f} GOP; bf16 cuDNN conv3d of the layer {conv_ms:.4f} ms")
+        row(f"k7v_qconv3x3x3[{layer} ({n}, {'x'.join(map(str, level(k)))}, {cin}) -> {cout}]",
+            INT8_SOURCE, "bio_image_unet_tpu/predict/quant3d.py:269", k8.qconv3x3x3, err,
+            timer(lambda: k8.qconv3x3x3(x, w, sw, bias, s_out)),
+            timer(lambda: k8.qconv3x3x3_plain(x, w, sw, bias, s_out), 1),
+            bound_ms(x.numel() + ours.numel() + w.numel() + 8 * cout, 2 * macs, PEAK_INT8_OPS),
+            lib)
+        del x, w, xb, wb, ours
+        torch.cuda.empty_cache()
+
+    # K8v at every decoder level, into the first channels of the concat buffer
+    for i in (1, 2, 3):
+        cin = cout = (16 * nf) >> i
+        lv = level(4 - i)
+        x = y.i8((n,) + lv + (cin,))
+        w = y.packed((2, 2, 2, cout), cin)
+        s_in, sw_v, s_out = y.scales(cin, 1)
+        sw = torch.full((cout,), s_in * sw_v, device=dev)
+        bias = torch.randn((cout,), generator=y.g, device=dev)
+        out_shape = (n,) + tuple(2 * e for e in lv)
+        bufs = [torch.zeros(out_shape + (cout + cout // 2,), dtype=torch.int8, device=dev)
+                for _ in range(2)]
+        k8.qconvt2x2x2(x, w, sw, bias, s_out, out=bufs[0])
+        torch.cuda.synchronize()
+        k8.qconvt2x2x2_plain(x, w, sw, bias, s_out, out=bufs[1])
+        err = y.check(f"K8v up{i}", bufs[0], bufs[1])
+        del bufs[1]
+        macs = x[..., 0].numel() * cin * 8 * cout
+        lib = y.int_mm(x.reshape(-1, cin), w[..., :cin].permute(4, 0, 1, 2, 3).reshape(cin, -1))
+        xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous(memory_format=cl3d)
+        wb = w[..., :cin].permute(4, 3, 0, 1, 2).to(torch.bfloat16).contiguous()
+        convt_ms = timer(lambda: F.conv_transpose3d(xb, wb, stride=2), 5)
+        log(f"[kernels int8 3d] k8v up{i}: bf16 cuDNN conv_transpose3d {convt_ms:.4f} ms")
+        out_name = "x".join(map(str, out_shape[1:]))
+        row(f"k8v_qconvt2x2x2[up{i} ({n}, {'x'.join(map(str, lv))}, {cin}) -> ({out_name}, "
+            f"{cout}) of {cout + cout // 2}]", INT8_SOURCE,
+            "bio_image_unet_tpu/predict/quant3d.py:277", k8.qconvt2x2x2, err,
+            timer(lambda: k8.qconvt2x2x2(x, w, sw, bias, s_out, out=bufs[0])),
+            timer(lambda: k8.qconvt2x2x2_plain(x, w, sw, bias, s_out, out=bufs[0]), 1),
+            bound_ms(x.numel() + 8 * x[..., 0].numel() * cout + w.numel() + 8 * cout, 2 * macs,
+                     PEAK_INT8_OPS), lib)
+        del x, w, xb, wb, bufs
+        torch.cuda.empty_cache()
+
+    # K10v at every encoder level
+    for k, c in ((0, nf), (1, 2 * nf), (2, 4 * nf)):
+        x = y.i8((n,) + level(k) + (c,))
+        ours = k8.maxpool_i8_3d(x)
+        torch.cuda.synchronize()
+        err = y.check(f"K10v level {k}", ours, k8.maxpool_i8_3d_plain(x))
+        row(f"k10v_maxpool_i8_3d[({n}, {'x'.join(map(str, level(k)))}, {c})]", INT8_SOURCE,
+            "bio_image_unet_tpu/predict/quant3d.py:75", k8.maxpool_i8_3d, err,
+            timer(lambda: k8.maxpool_i8_3d(x)), timer(lambda: k8.maxpool_i8_3d_plain(x), 1),
+            bound_ms(x.numel() + ours.numel(), 7 * ours.numel()), None)
+        del x, ours
+    torch.cuda.empty_cache()
+
+    # K9's three uses in the 3D graph, at full resolution
+    full = (n,) + VOL_TILE
+    e1 = (torch.randn(full + (nf // 2,), generator=y.g, device=dev) * 2).to(torch.bfloat16)
+    skip = y.i8(full + (nf,))
+    buf = torch.zeros(full + (3 * nf,), dtype=torch.int8, device=dev)
+    d6 = y.i8(full + (nf // 2,))
+    forms = (
+        (f"e1 bf16 -> int8 ({n}, 32x128x128, {nf // 2})", lambda f: f(e1, 1.0, 0.05),
+         3 * e1.numel(), e1.numel()),
+        (f"raw skip -> concat channels [{2 * nf}, {3 * nf}) ({n}, 32x128x128, {nf})",
+         lambda f: f(skip, 1.0, 1.0, out=buf, offset=2 * nf), 2 * skip.numel(), skip.numel()),
+        (f"d6 dequant int8 -> bf16 ({n}, 32x128x128, {nf // 2})", lambda f: f(d6, 0.031),
+         3 * d6.numel(), d6.numel()),
+    )
+    for form, call, n_bytes, n_el in forms:
+        ours = call(k8.requant).clone()
+        torch.cuda.synchronize()
+        err = y.check(f"K9 3d {form}", ours, call(k8.requant_plain))
+        row(f"k9_requant[3d {form}]", INT8_SOURCE, "bio_image_unet_tpu/predict/quant3d.py:291",
+            k8.requant, err, timer(lambda: call(k8.requant)),
+            timer(lambda: call(k8.requant_plain), 1), bound_ms(n_bytes, 4 * n_el), None)
+        del ours
+    del e1, skip, buf, d6
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- 21. int8 3d ------------------------------------------------------------------
+
+def blob_volume(rng, shape, n_blobs: int = 12) -> np.ndarray:
+    """A uint8 volume of bright Gaussian blobs on a noisy background (the
+    test volume of ``tests/test_quant_families.py``, tiled): each blob an
+    outer product of three 1-D profiles."""
+    d, h, w = shape
+    vol = np.zeros(shape, np.float32)
+    for _ in range(n_blobs):
+        cz, cy, cx = rng.uniform(0, d), rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(6, 24)
+        pz = np.exp(-((np.arange(d) - cz) * 2) ** 2 / (2 * r * r)).astype(np.float32)
+        py = np.exp(-(np.arange(h) - cy) ** 2 / (2 * r * r)).astype(np.float32)
+        px = np.exp(-(np.arange(w) - cx) ** 2 / (2 * r * r)).astype(np.float32)
+        vol = np.maximum(vol, pz[:, None, None] * py[None, :, None] * px[None, None, :])
+    vol = 30 + 180 * vol + 10 * rng.random(shape, dtype=np.float32)
+    return np.clip(vol, 0, 255).astype(np.uint8)
+
+
+def int8_3d_bounds(tag: str, what: str, q: np.ndarray, ref: np.ndarray) -> None:
+    """The JAX package's 3D int8 bounds against bf16
+    (``tests/test_quant_families.py:193-198``): at most 35 uint8 levels, a
+    mean under 3, more than 10 levels on under 5% of voxels."""
+    if q.shape != ref.shape or q.dtype != np.uint8:
+        raise AssertionError(f"{what}: {q.shape} {q.dtype}, want {ref.shape} uint8")
+    d = np.abs(q.astype(np.int16) - ref.astype(np.int16))
+    log(f"[{tag}] {what}: max {int(d.max())} levels, mean {d.mean():.4f}, "
+        f"{np.mean(d > 10):.6f} of voxels beyond 10 levels, {np.mean(d > 1):.6f} beyond one")
+    if not (d.max() <= 35 and d.mean() < 3 and np.mean(d > 10) < 0.05):
+        raise AssertionError(f"{what}: outside the JAX package's 3D int8 bounds")
+
+
+def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
+    import os
+
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+    from bio_image_unet_tpu_torch.ops.stitch import blend_stitch_3d, sigmoid_stitch_3d
+    from bio_image_unet_tpu_torch.predict import Predict3D, PredictMultiOutput3D
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_3d
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + kint8_3d}.values())
+    shape = (VOL_D, VOL_H, VOL_W)
+    mvox = VOL_D * VOL_H * VOL_W / 1e6
+    grid = vol_grid(VOL_TILE)
+    n_tiles = int(np.prod([len(g) for g in grid]))
+    batches = -(-n_tiles // INT8_3D_BATCH)
+
+    def trunk(b, tconv=True, nearest=False):
+        """The int8 kernels' launches of ``b`` forward batches: K9 quantizes
+        e1, copies the three skips and dequantizes d6."""
+        return {k8.qconv3x3x3: (16 if nearest else 13) * b, k8.qconvt2x2x2: 3 * b * tconv,
+                k8.maxpool_i8_3d: 3 * b * (not nearest), k8.requant: 5 * b}
+
+    volume_expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1}
+    rng = np.random.default_rng(14)
+    t0 = time.perf_counter()
+    vol = blob_volume(rng, shape)
+    log(f"[int8 3d] blob volume {shape} uint8 made in {time.perf_counter() - t0:.2f} s "
+        f"(mean {vol.mean():.1f})")
+    kw = dict(resize_dim=VOL_TILE, show_progress=False, batch_size=VOL_BATCH,
+              half_precision=True)
+    main = f"UNet3D(32) BN-warmed int8 uint8 {VOL_D}x{VOL_H}^2 (config 5)"
+    calibration = []
+    calibrate = _Engine._calibrate_int8_3d
+
+    def timed_calibration(self, *args, **kwargs):
+        t = time.perf_counter()
+        calibrate(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        calibration.append(time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = str(tmp / "unet3d_warm_nf32.pt")
+        write_warm_checkpoint(torch, ckpt, "UNet3D", VOL_FILTER, seed=21)
+
+        # the main path of this phase: launches exact around the call
+        _Engine._calibrate_int8_3d = timed_calibration
+        try:
+            t0 = time.perf_counter()
+            pred, got = counted(torch, "int8 3d", counters, main,
+                                lambda: Predict3D(vol, None, ckpt, quantized=True, **kw),
+                                {**volume_expect, **trunk(batches)})
+            first = time.perf_counter() - t0
+        finally:
+            _Engine._calibrate_int8_3d = calibrate
+        if not pred.engine._quant_ready or len(calibration) != 1:
+            raise AssertionError("the quantized Predict3D did not calibrate once")
+        for k in kint8_3d:
+            k["launches"] = got[k["_counter"]]
+        q_res = pred.result
+
+        # end to end, int8 and bf16 back to back (best of two after the call above)
+        times = {"int8": float("inf"), "bf16": float("inf")}
+        results = {}
+        for mode in ("bf16", "int8", "int8", "bf16", "bf16"):
+            t0 = time.perf_counter()
+            results[mode] = Predict3D(vol, None, ckpt, quantized=mode == "int8", **kw).result
+            times[mode] = min(times[mode], time.perf_counter() - t0)
+        if not np.array_equal(results["int8"], q_res):
+            raise AssertionError("two quantized Predict3D calls on one volume disagree")
+        int8_3d_bounds("int8 3d", f"{main}: int8 vs bf16", q_res, results["bf16"])
+        e2e = {m: mvox / t for m, t in times.items()}
+
+        # device-resident: both volume programs on the volume on the card, in turns
+        engines = {"int8": _Engine(ckpt, "UNet3D", VOL_BATCH, True, dev, quantized=True),
+                   "bf16": _Engine(ckpt, "UNet3D", VOL_BATCH, True, dev)}
+        fns = {m: e.volume_runner(*shape, *grid, VOL_TILE, VOL_CLIP, sample=vol)[0]
+               for m, e in engines.items()}
+        vol_dev = torch.from_numpy(vol).to(dev)
+        device = {"int8": float("inf"), "bf16": float("inf")}
+        torch.cuda.reset_peak_memory_stats()
+        for mode in ("int8", "bf16", "bf16", "int8", "int8", "bf16"):
+            fns[mode](vol_dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fns[mode](vol_dev)
+            torch.cuda.synchronize()
+            device[mode] = min(device[mode], time.perf_counter() - t0)
+            if mode == "int8":
+                same = int(np.abs(out.cpu().numpy().astype(np.int16) - q_res).max())
+                if same:
+                    raise AssertionError(f"device-resident int8 run vs Predict3D: {same} levels")
+        peak = torch.cuda.max_memory_allocated()
+        resident = {m: mvox / t for m, t in device.items()}
+        ops = int8_3d_trunk_ops(VOL_FILTER) * n_tiles * np.prod(VOL_TILE)
+        log(f"[int8 3d] {main}: end to end int8 {e2e['int8']:.2f} Mvox/s, bf16 "
+            f"{e2e['bf16']:.2f} Mvox/s (ratio {e2e['int8'] / e2e['bf16']:.3f}; first call "
+            f"{first:.3f} s, its calibration {calibration[0]:.3f} s); device-resident int8 "
+            f"{resident['int8']:.2f} Mvox/s ({device['int8'] * 1e3:.2f} ms), bf16 "
+            f"{resident['bf16']:.2f} Mvox/s ({device['bf16'] * 1e3:.2f} ms) (ratio "
+            f"{resident['int8'] / resident['bf16']:.3f}); int8 trunk "
+            f"{int8_3d_trunk_ops(VOL_FILTER) / 1e6:.4f} MOP a tile voxel → "
+            f"{ops / device['int8'] / 1e12:.1f} TOP/s device-resident, "
+            f"{ops / device['int8'] / PEAK_INT8_OPS:.4f} of the int8 dense peak; peak device "
+            f"memory of the device-resident passes {peak / 2**30:.2f} GiB")
+        profile_pass(torch, lambda: [fns["int8"](vol_dev) for _ in range(2)], "int8 3d",
+                     "two passes over one volume, int8")
+        del vol_dev, engines, fns, out
+
+        # the experimental legs, BIU_INT8_EXPERIMENTAL=1
+        env = os.environ.get("BIU_INT8_EXPERIMENTAL")
+        os.environ["BIU_INT8_EXPERIMENTAL"] = "1"
+        try:
+            tri = str(tmp / "unet3d_trilinear_warm_nf32.pt")
+            write_warm_checkpoint(torch, tri, "UNet3D", VOL_FILTER, seed=22,
+                                  use_interpolation=True)
+            t0 = time.perf_counter()
+            q, _ = counted(torch, "int8 3d", counters, "trilinear UNet3D(32) int8",
+                           lambda: Predict3D(vol, None, tri, quantized=True, **kw).result,
+                           {**volume_expect, **trunk(batches, tconv=False)})
+            dt = time.perf_counter() - t0
+            log(f"[int8 3d] trilinear UNet3D(32): {mvox / dt:.2f} Mvox/s end to end (one call, "
+                "calibration included)")
+            int8_3d_bounds("int8 3d", "trilinear UNet3D(32) int8 vs bf16", q,
+                           Predict3D(vol, None, tri, **kw).result)
+
+            mo = str(tmp / "mo3d_warm_nf32.pt")
+            write_warm_checkpoint(torch, mo, "MultiOutputUnet3D", VOL_FILTER, seed=23,
+                                  output_heads=MO3_HEADS)
+            vols = np.stack([vol, blob_volume(rng, shape)])
+            starts, _ = heads3d_grid()
+            n_heads_tiles = MO3_VOLS * int(np.prod([len(g) for g in starts]))
+            bs = max(1, min(n_heads_tiles, (1 << 23) // int(np.prod(MO3_PATCH))))
+            mkw = dict(show_progress=False, half_precision=True)
+            t0 = time.perf_counter()
+            res, _ = counted(torch, "int8 3d", counters,
+                             f"MultiOutputUnet3D(32) int8, {MO3_VOLS} volumes ([3d heads])",
+                             lambda: PredictMultiOutput3D(vols, mo, quantized=True, **mkw).result,
+                             {hist.int_clip_bounds: 2, normalize_tile_3d: 1,
+                              blend_stitch_3d: len(MO3_HEADS),
+                              **trunk(-(-n_heads_tiles // bs), tconv=False, nearest=True)})
+            dt = time.perf_counter() - t0
+            ref = PredictMultiOutput3D(vols, mo, **mkw).result
+            check_heads3d("MultiOutputUnet3D(32) int8", res, (MO3_VOLS,) + shape)
+            log(f"[int8 3d] MultiOutputUnet3D(32): {MO3_VOLS * mvox / dt:.2f} Mvox/s end to end "
+                f"(one call, calibration included; forward batch {bs})")
+            for head in MO3_HEADS:
+                dd = np.abs(res[head] - ref[head])
+                rg = max(float(ref[head].max() - ref[head].min()), 0.5)
+                log(f"[int8 3d] MultiOutputUnet3D(32) {head}: int8 vs bf16 max "
+                    f"{dd.max() / rg:.5f}, mean {dd.mean() / rg:.6f} of the head's range")
+                # tests/test_quant_families.py:231-247
+                if not (dd.max() / rg < 0.15 and dd.mean() / rg < 0.03):
+                    raise AssertionError(f"MultiOutputUnet3D {head}: int8 too far from bf16")
+            del vols, res, ref
+        finally:
+            if env is None:
+                os.environ.pop("BIU_INT8_EXPERIMENTAL", None)
+            else:
+                os.environ["BIU_INT8_EXPERIMENTAL"] = env
+
+        # the trained .pt of [train 3d]: the mask IoU against the truth of
+        # its task (the volume above half its range) within 0.01 of bf16's
+        tr = tmp / "trained3d.pt"
+        tr.write_bytes(trained3d)
+        tvol = (rng.random((32, 128, 128)) * 255).astype(np.uint8)
+        truth = tvol > 127
+        tkw = dict(resize_dim=T3_SHAPE, show_progress=False, half_precision=True)
+        n_t = int(np.prod([32 // T3_SHAPE[0], 128 // T3_SHAPE[1], 128 // T3_SHAPE[2]]))
+        t_q, _ = counted(torch, "int8 3d", counters, "trained UNet3D(32), 32x128^2",
+                         lambda: Predict3D(tvol, None, str(tr), quantized=True, **tkw).result,
+                         {**volume_expect, **trunk(-(-n_t // max(
+                             VOL_BATCH, min(n_t, (1 << 23) // int(np.prod(T3_SHAPE))))))})
+        t_b = Predict3D(tvol, None, str(tr), **tkw).result
+        ious = {m: float(((r > 127) & truth).sum() / max(((r > 127) | truth).sum(), 1))
+                for m, r in (("int8", t_q), ("bf16", t_b))}
+        d = np.abs(t_q.astype(np.int16) - t_b.astype(np.int16))
+        log(f"[int8 3d] trained UNet3D(32), 32x128^2: mask IoU int8 {ious['int8']:.4f}, bf16 "
+            f"{ious['bf16']:.4f}; int8 vs bf16 max {int(d.max())} levels, mean {d.mean():.4f}")
+        if abs(ious["int8"] - ious["bf16"]) > 0.01:
+            raise AssertionError("the 3D int8 mask IoU is more than 0.01 from bf16's")
+
+        # card vs CPU: a BN-warmed UNet3D(8), the CPU through the plain versions
+        small = str(tmp / "unet3d_nf8.pt")
+        write_warm_checkpoint(torch, small, "UNet3D", 8, seed=24)
+        sv = blob_volume(rng, (24, 96, 80), n_blobs=4)
+        ckw = dict(resize_dim=(16, 64, 64), show_progress=False, quantized=True)
+        card, cpu = Predict3D(sv, None, small, **ckw), Predict3D(sv, None, small, device="cpu",
+                                                                  **ckw)
+        if not (card.engine._quant_ready and cpu.engine._quant_ready):
+            raise AssertionError("card vs CPU: a quantized Predict3D did not calibrate")
+        int8_contract("int8 3d", "UNet3D(8) int8: card vs CPU", card.result, cpu.result)
 
 
 if __name__ == "__main__":

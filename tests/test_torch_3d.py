@@ -438,8 +438,10 @@ def test_predict_3d_tif_io_facade_and_refusals(ckpts, rng, tmp_path):
             Predict3D(vol, None, path, **kw)
     with pytest.raises(NotImplementedError, match="mesh"):
         Predict3D(vol, None, path, mesh=object(), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        Predict3D(vol, None, path, quantized=True, device="cpu", **kw)
+    # the transposed-conv UNet3D quantizes on quantized=True, as in JAX: the
+    # engine calibrates on the volume and runs the int8 forward
+    q = Predict3D(vol, None, path, quantized=True, device="cpu", **kw)
+    assert q.engine._quant_ready and q.result.shape == vol.shape and q.result.dtype == np.uint8
     with pytest.raises(ValueError, match="volume"):
         Predict3D(vol[0], None, path, device="cpu", **kw)
 

@@ -1,9 +1,9 @@
 """The port's CUDA kernels held against their plain PyTorch versions on the
 card, and ``Predict``, ``PredictMultiOutput``, ``PredictSiam``, ``Predict3D``,
 ``PredictMultiOutput3D`` and the ``Trainer`` (2D and 3D) on the card held
-against the same on the CPU; the int8 kernels K7–K10 bit-equal to theirs and
-``quantized=True`` prediction on the card within the int8 contract of the
-CPU's.
+against the same on the CPU; the int8 kernels K7–K10 and K7v, K8v, K10v
+bit-equal to theirs and ``quantized=True`` prediction (2D and 3D) on the card
+within the int8 contract of the CPU's.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -1112,3 +1112,115 @@ def test_quantized_predict_on_card_matches_cpu(cuda, gen, tmp_path, network, ext
         cpu = Predict(movie, None, ckpt, device="cpu", **kw).result
     d = np.abs(card.astype(int) - cpu.astype(int))
     assert d.max() <= 4 and d.mean() < 0.5 and (d > 1).mean() < 0.01, (d.max(), d.mean())
+
+
+# --- K7v, K8v, K10v: the 3D int8 trunk ----------------------------------------------
+
+QCONV3D_CASES = [(2, 8, 16, 16, 16, 32), (2, 4, 8, 8, 384, 128), (1, 5, 7, 6, 6, 5),
+                 (2, 4, 8, 8, 128, 256), (1, 8, 16, 16, 32, 16)]
+
+
+@pytest.mark.parametrize("case", QCONV3D_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_qconv3x3x3_kernel_bit_equal_to_plain(cuda, gen, case):
+    n, d, h, w, cin, cout = case
+    x = _i8(gen, (n, d, h, w, cin), cuda)
+    wt = _packed(gen, (cout, 3, 3, 3), cin, cuda)
+    sw = torch.from_numpy((gen.random(cout) * 1e-4 + 1e-5).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(gen.standard_normal(cout).astype(np.float32)).to(cuda)
+    before = k8.qconv3x3x3.launches
+    got = k8.qconv3x3x3(x, wt, sw, bias, 0.0371)
+    torch.cuda.synchronize()
+    assert k8.qconv3x3x3.launches == before + 1
+    want = k8.qconv3x3x3_plain(x, wt, sw, bias, 0.0371)
+    assert torch.equal(got, want)
+    assert got.abs().max() > 0 and (got.abs() < 127).any()  # neither all zero nor all clipped
+    # into channels [2, 2 + O) of a wider buffer
+    bufs = [torch.full((n, d, h, w, cout + 5), 99, dtype=torch.int8, device=cuda)
+            for _ in range(2)]
+    k8.qconv3x3x3(x, wt, sw, bias, 0.0371, out=bufs[0], offset=2)
+    k8.qconv3x3x3_plain(x, wt, sw, bias, 0.0371, out=bufs[1], offset=2)
+    assert torch.equal(bufs[0], bufs[1]) and torch.equal(bufs[0][..., 2:2 + cout], got)
+
+
+@pytest.mark.parametrize("case", [(2, 2, 3, 4, 16, 8, 4), (1, 3, 5, 3, 5, 3, 6),
+                                  (2, 4, 16, 16, 256, 256, 128), (2, 8, 32, 32, 64, 64, 32)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_qconvt2x2x2_kernel_bit_equal_to_plain(cuda, gen, case):
+    n, d, h, w, cin, cout, cskip = case
+    x = _i8(gen, (n, d, h, w, cin), cuda)
+    wt = _packed(gen, (2, 2, 2, cout), cin, cuda)
+    sw = torch.full((cout,), 0.00042, device=cuda)
+    bias = torch.from_numpy(gen.standard_normal(cout).astype(np.float32)).to(cuda)
+    bufs = [torch.full((n, 2 * d, 2 * h, 2 * w, cout + cskip), 99, dtype=torch.int8,
+                       device=cuda) for _ in range(2)]
+    before = k8.qconvt2x2x2.launches
+    k8.qconvt2x2x2(x, wt, sw, bias, 0.057, out=bufs[0], offset=0)
+    k8.qconvt2x2x2_plain(x, wt, sw, bias, 0.057, out=bufs[1], offset=0)
+    torch.cuda.synchronize()
+    assert k8.qconvt2x2x2.launches == before + 1
+    assert torch.equal(bufs[0], bufs[1]) and (bufs[0][..., cout:] == 99).all()
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 32, 32, 32), (2, 9, 7, 5, 3), (3, 8, 16, 16, 128),
+                                   (1, 5, 6, 7, 48)])
+def test_maxpool_i8_3d_kernel_equal_to_plain(cuda, gen, shape):
+    x = _i8(gen, shape, cuda)
+    before = k8.maxpool_i8_3d.launches
+    assert torch.equal(k8.maxpool_i8_3d(x), k8.maxpool_i8_3d_plain(x))
+    assert k8.maxpool_i8_3d.launches == before + 1
+    # an offset view: the 16-byte loads give way to byte loads
+    flat = _i8(gen, (x.numel() + 1,), cuda)
+    odd = flat[1:].view(shape)
+    assert torch.equal(k8.maxpool_i8_3d(odd), k8.maxpool_i8_3d_plain(odd))
+
+
+def test_int8_3d_wrappers_refuse_what_the_kernels_do_not_take(cuda, gen):
+    x = _i8(gen, (1, 4, 8, 8, 8), cuda)
+    wt = _packed(gen, (4, 3, 3, 3), 8, cuda)
+    sw, b = torch.ones(4, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        k8.qconv3x3x3(x, wt.cpu(), sw, b, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.maxpool_i8_3d(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        k8.qconv3x3x3(x, wt, sw, b, 1.0, out=torch.zeros((1, 4, 8, 8, 4), dtype=torch.int8))
+
+
+@pytest.mark.parametrize("network,extra", [("UNet3D", {}),
+                                           ("UNet3D", {"use_interpolation": True}),
+                                           ("MultiOutputUnet3D", {})])
+def test_quantized_predict_3d_on_card_matches_cpu(cuda, gen, tmp_path, monkeypatch, network,
+                                                  extra):
+    monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
+    cls = {"UNet3D": UNet3D, "MultiOutputUnet3D": MultiOutputUnet3D}[network]
+    with torch.random.fork_rng():
+        torch.manual_seed(6)
+        net = cls(n_filter=8, **extra).train()
+    with torch.no_grad():
+        for _ in range(5):
+            net(torch.rand((2, 1, 16, 32, 32)))
+    ckpt = str(tmp_path / "q3d.pt")
+    heads = getattr(net, "heads", None)
+    torch.save({"state_dict": net.state_dict(), "model_name": network, "n_filter": 8,
+                "use_interpolation": net.use_interpolation,
+                **({"output_heads": heads} if network == "MultiOutputUnet3D" else {})}, ckpt)
+    zz, yy, xx = np.mgrid[0:24, 0:48, 0:48]
+    vol = np.clip(30 + 180 * np.exp(-((zz - 12) ** 2 * 4 + (yy - 24) ** 2 + (xx - 24) ** 2)
+                                    / 200.0) + 10 * gen.random((24, 48, 48)), 0, 255
+                  ).astype(np.uint8)
+    if network == "UNet3D":
+        kw = dict(resize_dim=(16, 32, 32), show_progress=False, quantized=True)
+        card = Predict3D(vol, None, ckpt, **kw)
+        cpu = Predict3D(vol, None, ckpt, device="cpu", **kw)
+        assert card.engine._quant_ready and cpu.engine._quant_ready
+        d = np.abs(card.result.astype(int) - cpu.result.astype(int))
+        assert d.max() <= 4 and d.mean() < 0.5 and (d > 1).mean() < 0.01, (d.max(), d.mean())
+    else:
+        kw = dict(max_patch_size=(16, 32, 32), show_progress=False, quantized=True)
+        card = PredictMultiOutput3D(vol, ckpt, **kw)
+        cpu = PredictMultiOutput3D(vol, ckpt, device="cpu", **kw)
+        assert card.engine._quant_ready
+        for head in cpu.result:
+            rg = max(float(cpu.result[head].max() - cpu.result[head].min()), 0.5)
+            d = np.abs(card.result[head] - cpu.result[head])
+            assert d.max() / rg < 0.06 and d.mean() / rg < 0.01, (head, d.max(), rg)

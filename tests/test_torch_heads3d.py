@@ -353,12 +353,12 @@ def test_predict_multi_output_3d_blockers_batch_policy_and_refusals(ckpts, rng, 
     with pytest.raises(NotImplementedError, match="mesh"):
         PredictMultiOutput3D(vols, path, mesh=object(), **kw)
     # MultiOutputUnet3D's int8 graph is experimental in the JAX package: a warning and
-    # the float path, as there; opted in, the fused path raises until its slice lands
+    # the float path, as there; opted in, the fused path calibrates and runs int8
     monkeypatch.delenv("BIU_INT8_EXPERIMENTAL", raising=False)
     with pytest.warns(UserWarning, match="BIU_INT8_EXPERIMENTAL"):
-        PredictMultiOutput3D(vols, path, quantized=True, **kw)
+        assert not PredictMultiOutput3D(vols, path, quantized=True, **kw).engine._quant_ready
     monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        PredictMultiOutput3D(vols, path, quantized=True, **kw)
+    q = PredictMultiOutput3D(vols, path, quantized=True, **kw)
+    assert q.engine._quant_ready and q.result["vec"].shape == (2, 2, 8, 32, 32)
     with pytest.raises(ValueError, match="not valid"):
         PredictMultiOutput3D(vols, path, normalization_mode="median", **kw)

@@ -171,9 +171,8 @@ def test_quantized_gate_warnings_match_jax(tmp_path, ckpts, monkeypatch):
 
 def test_quantized_unported_int8_graphs_raise(ckpts, monkeypatch):
     """Where the JAX package would run an int8 graph the port has not got
-    (UNet++ under BIU_INT8_EXPERIMENTAL, the 3D trunks) the fused path
-    raises, naming the slice; the host-staged path warns and runs float, as
-    in JAX."""
+    (UNet++ under BIU_INT8_EXPERIMENTAL) the fused path raises, naming the
+    roadmap item; the host-staged path warns and runs float, as in JAX."""
     monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
     movie = _movie(5, np.uint8, (1, 32, 32))
     kw = dict(max_patch_size=(32, 32), show_progress=False, quantized=True, device="cpu")

@@ -35,7 +35,7 @@ from bio_image_unet_tpu_torch import checkpoint
 from bio_image_unet_tpu_torch.models import get_model
 from bio_image_unet_tpu_torch.ops import int8 as k
 from bio_image_unet_tpu_torch.predict import quant
-from torch_parity import assert_u8_contract, write_seeded_checkpoint
+from torch_parity import assert_u8_contract, port_folded, write_seeded_checkpoint
 
 _DN = ("NHWC", "HWIO", "NHWC")
 HEADS = {"mask": {"channels": 1, "activation": "sigmoid"},
@@ -270,29 +270,12 @@ def jax_int8(ckpts):
         args = (x[..., None],) if prev is None else (x[..., None], prev[..., None])
         maxes = np.asarray(cal(*[jnp.asarray(a) for a in args]))
         out[name] = dict(net=net, cal=cal, apply=jax.jit(apply_fn), make=make, x=x, prev=prev,
-                         maxes=maxes, folded=_port_folded(variables))
+                         maxes=maxes, folded=port_folded(variables))
     return out
 
 
 def _t(a):
     return None if a is None else torch.from_numpy(a[:, None])
-
-
-def _port_folded(variables):
-    """JAX's folded float32 arrays in the port's layout (``(*k, A, B)`` →
-    ``(B, A, *k)``, block names as the port's state dict has them): the
-    two folds round differently in the last bit (XLA's rsqrt), which the
-    int8 requant can turn into a code, so the forward parity runs on the
-    same folded weights."""
-    out = {}
-    for name, p in jfold(variables).items():
-        kern = np.asarray(p["kernel"], np.float32)
-        nsp = kern.ndim - 2
-        kern = np.transpose(kern, (nsp + 1, nsp) + tuple(range(nsp)))
-        out[name.replace("output_layers_", "output_layers.")] = {
-            "weight": torch.from_numpy(np.ascontiguousarray(kern)),
-            "bias": torch.from_numpy(np.asarray(p["bias"], np.float32).copy())}
-    return out
 
 
 @pytest.mark.parametrize("name", list(MODELS))

@@ -95,9 +95,10 @@ def write_seeded_checkpoint(root, name: str, registry: str, seed: int, n_filter:
     back by its ``export_torch_checkpoint`` (``final_sequential=False`` for
     ``UNet3D``, whose ``final`` is a bare ``Conv3d``).  With ``warm`` the
     weights are instead torch's default initialization and the BatchNorm
-    statistics come from five train-mode forwards on seeded 64² inputs, the
-    BN-warmed models of the JAX package's int8 tests
-    (``tests/test_quant.py``).  Returns ``(path, JAX variables)``."""
+    statistics come from five train-mode forwards on seeded 64² inputs
+    ((16, 32, 32) volumes for the 3D nets), the BN-warmed models of the JAX
+    package's int8 tests (``tests/test_quant.py``,
+    ``tests/test_quant_families.py``).  Returns ``(path, JAX variables)``."""
     from bio_image_unet_tpu import checkpoint as jcheckpoint
     from bio_image_unet_tpu_torch.models import get_model
     from bio_image_unet_tpu_torch.ops.blocks import init_weights_
@@ -108,10 +109,11 @@ def write_seeded_checkpoint(root, name: str, registry: str, seed: int, n_filter:
         with torch.random.fork_rng():
             torch.manual_seed(seed)
             net = get_model(registry, **hyper).train()
+        shape = (2, 1, 16, 32, 32) if "3D" in registry else (2, 1, 64, 64)
         with torch.no_grad():
             for _ in range(5):
-                x = torch.rand((2, 1, 64, 64), generator=gen)
-                net(x, torch.rand((2, 1, 64, 64), generator=gen)) if extra.get("mode") else net(x)
+                x = torch.rand(shape, generator=gen)
+                net(x, torch.rand(shape, generator=gen)) if extra.get("mode") else net(x)
         net.eval()
     else:
         net = init_weights_(get_model(registry, **hyper), gen, random_bn_stats=True)
@@ -136,3 +138,23 @@ def jit_init():
 
     return mock.patch.object(trainer, "_init_on_cpu",
                              lambda model, rng, *args: jax.jit(model.init)(rng, *args))
+
+
+def port_folded(variables):
+    """JAX's folded float32 arrays (``bio_image_unet_tpu.predict.fastpath.
+    fold_unet2d``) in the port's layout (``(*k, A, B)`` → ``(B, A, *k)``,
+    block names as the port's state dict has them): the two folds round
+    differently in the last bit (XLA's rsqrt), which the int8 requant can
+    turn into a code, so the int8 forward parity runs on the same folded
+    weights."""
+    from bio_image_unet_tpu.predict.fastpath import fold_unet2d
+
+    out = {}
+    for name, p in fold_unet2d(variables).items():
+        kern = np.asarray(p["kernel"], np.float32)
+        nsp = kern.ndim - 2
+        kern = np.transpose(kern, (nsp + 1, nsp) + tuple(range(nsp)))
+        out[name.replace("output_layers_", "output_layers.")] = {
+            "weight": torch.from_numpy(np.ascontiguousarray(kern)),
+            "bias": torch.from_numpy(np.asarray(p["bias"], np.float32).copy())}
+    return out
