@@ -93,6 +93,21 @@ def _check_conv(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.
     return cout
 
 
+def _in_vec(x: torch.Tensor) -> int:
+    """Bytes one asynchronous copy of K7/K8's input may move: 16, 8 or 4
+    where every pixel's channels start on such a boundary, else 1 (byte
+    loads)."""
+    return next((v for v in (16, 8, 4) if x.shape[-1] % v == 0 and x.data_ptr() % v == 0), 1)
+
+
+def _out_vec(out: torch.Tensor, cout: int, offset: int) -> int:
+    """Bytes one store of K7/K8's output may write: the widest of 16, 8, 4, 2
+    and 1 that divides the channel count, the row stride, the channel offset
+    and the address."""
+    return next(v for v in (16, 8, 4, 2, 1) if cout % v == 0 and out.shape[-1] % v == 0
+                and offset % v == 0 and out.data_ptr() % v == 0)
+
+
 def _on_card(what: str, *ts: torch.Tensor) -> torch.device:
     dev = ts[0].device
     for t in ts:
@@ -128,10 +143,10 @@ def qconv3x3(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Ten
     out = torch.empty((n, h, wd, cout), dtype=torch.int8, device=dev)
     A = _cuda
     fn = A.function("int8_trunk", "k7_qconv3x3",
-                    [A.P] * 5 + [A.I32] * 8 + [A.F32, A.F32, A.P])
+                    [A.P] * 5 + [A.I32] * 9 + [A.F32, A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), n, h, wd, cin, w.shape[-1], cout, int(dilation),
-             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), float(s_in), float(s_out))
+             out.data_ptr(), n, h, wd, cin, w.shape[-1], cout, int(dilation), _in_vec(x),
+             _out_vec(out, cout, 0), float(s_in), float(s_out))
     qconv3x3.launches += 1
     return out
 
@@ -186,11 +201,11 @@ def qconvt2x2(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Te
     _cuda.require_cuda(target, "qconvt2x2 out", dev)
     A = _cuda
     fn = A.function("int8_trunk", "k8_qconvt2x2",
-                    [A.P] * 5 + [A.I32] * 9 + [A.F32, A.F32, A.P])
+                    [A.P] * 5 + [A.I32] * 10 + [A.F32, A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-             target.data_ptr(), n, h, wd, cin, w.shape[-1], cout,
-             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), target.shape[-1], int(offset),
-             float(s_in), float(s_out))
+             target.data_ptr(), n, h, wd, cin, w.shape[-1], cout, _in_vec(x),
+             _out_vec(target, cout, offset), target.shape[-1], int(offset), float(s_in),
+             float(s_out))
     qconvt2x2.launches += 1
     return target
 
@@ -311,11 +326,10 @@ def qconv3x3x3(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.T
     _cuda.require_cuda(target, "qconv3x3x3 out", dev)
     n, d, h, wd, cin = x.shape
     A = _cuda
-    fn = A.function("int8_trunk", "k7v_qconv3x3x3", [A.P] * 5 + [A.I32] * 10 + [A.F32, A.P])
+    fn = A.function("int8_trunk", "k7v_qconv3x3x3", [A.P] * 5 + [A.I32] * 11 + [A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-             target.data_ptr(), n, d, h, wd, cin, w.shape[-1], cout,
-             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), target.shape[-1], int(offset),
-             float(s_out))
+             target.data_ptr(), n, d, h, wd, cin, w.shape[-1], cout, _in_vec(x),
+             _out_vec(target, cout, offset), target.shape[-1], int(offset), float(s_out))
     qconv3x3x3.launches += 1
     return target
 
@@ -357,11 +371,10 @@ def qconvt2x2x2(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.
     target = _concat_target(out, (n, 2 * d, 2 * h, 2 * wd), offset, cout, dev, "qconvt2x2x2")
     _cuda.require_cuda(target, "qconvt2x2x2 out", dev)
     A = _cuda
-    fn = A.function("int8_trunk", "k8v_qconvt2x2x2", [A.P] * 5 + [A.I32] * 10 + [A.F32, A.P])
+    fn = A.function("int8_trunk", "k8v_qconvt2x2x2", [A.P] * 5 + [A.I32] * 11 + [A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-             target.data_ptr(), n, d, h, wd, cin, w.shape[-1], cout,
-             int(cin % 4 == 0 and x.data_ptr() % 4 == 0), target.shape[-1], int(offset),
-             float(s_out))
+             target.data_ptr(), n, d, h, wd, cin, w.shape[-1], cout, _in_vec(x),
+             _out_vec(target, cout, offset), target.shape[-1], int(offset), float(s_out))
     qconvt2x2x2.launches += 1
     return target
 

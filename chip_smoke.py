@@ -10,7 +10,12 @@ non-zero without printing a result:
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build  — every kernel of ``bio_image_unet_tpu_torch/csrc`` compiled by nvcc
    for sm_90a (one nvcc per source, all started together), with the ptxas
-   register / shared-memory summary;
+   register / shared-memory summary (a ``qconv`` instance that spills to
+   local memory fails the run); then ``[sass]``: ``cuobjdump -sass`` of the
+   int8 library, each ``qconv`` instance's tensor-core (IMMA / GMMA),
+   ``ldmatrix`` (LDSM), ``cp.async`` (LDGSTS) and store counts logged, and
+   the run failed where an instance has no tensor-core MMA or any ``__dp4a``
+   (IDP);
 3. kernels — each kernel held against its plain PyTorch version on the card
    at the shapes the main path gives it (K1 / K1f bit-equal, K2 equal, K3
    within one uint8 level), and timed with CUDA events (L2 flushed before
@@ -176,7 +181,8 @@ non-zero without printing a result:
 18. kernels (int8) — K7 (the int8 3×3 conv with its dequant, bias,
    LeakyReLU and requant epilogue) at the main path's first and widest
    layers (``encode2`` (256, 256², 32) → 32 and ``middle_conv2`` (256, 16²,
-   512) → 512), K8 (the 2×2 stride-2 int8 transposed conv into the concat
+   512) → 512) and at ``decode7`` (256, 256², 64) → 32, whose input is the
+   concat buffer, K8 (the 2×2 stride-2 int8 transposed conv into the concat
    buffer's first half) at every decoder level, K9 in its three forms (the
    first conv's bf16 output → int8, a skip into the concat buffer's second
    half, the dequant to bf16 before the head) and K10 (the int8 max pool) at
@@ -184,14 +190,16 @@ non-zero without printing a result:
    its plain version, timed beside its bound (int8 operations at the
    tensor cores' 1979 TOP/s, or bytes) and, for K7 / K8, ``torch._int_mm``
    on the same operands (an ``F.unfold`` im2col for K7; the bf16 cuDNN conv
-   of the layer logged beside it);
+   of the layer logged beside it), with each K7 / K8 row's TOP/s, its share
+   of the int8 dense peak and of its bound and its time over
+   ``torch._int_mm``'s;
 19. int8 — ``Predict(quantized=True)`` on the main movie (``Unet(32)``,
    64×1024² uint8, 256², bf16): launches exact around the call (per
    16-frame chunk, one forward batch: K7 17, K8 4, K9 6, K10 4, beside K1's
    two, K2 and K3); end-to-end and device-resident MP/s of int8 and bf16 back
    to back and their ratio, the int8 trunk's TOP/s and share of the int8
-   dense peak, a profile by stage; a BN-warmed ``Unet(32)`` within the JAX
-   package's int8 contract of bf16 (at most 4 levels, a mean under 0.5,
+   dense peak, a profile by stage and by ``qconv`` instance; a BN-warmed
+   ``Unet(32)`` within the JAX package's int8 contract of bf16 (at most 4 levels, a mean under 0.5,
    under 1% of pixels beyond one level); the trained ``.pt`` of ``[train]``:
    mask IoU within 0.01 of bf16's, and a calibration broken on purpose must
    miss that gate; ``PredictMultiOutput(quantized=True)`` on a BN-warmed
@@ -204,16 +212,18 @@ non-zero without printing a result:
    within the int8 contract;
 20. kernels (int8 3d) — K7v (the int8 3×3×3 conv with K7's epilogue, the
    activation scales folded into the weights) at ``encode2`` (16, 32×128²,
-   16) → 32, ``decode1`` (16, 8×32², 384) → 128 and ``middle_conv2`` (16,
-   4×16², 128) → 256, K8v (the 2×2×2 stride-2 int8 transposed conv into the
-   concat buffer's first channels) at up1–up3, K10v (the 2×2×2 int8 max pool)
+   16) → 32, ``decode1`` (16, 8×32², 384) → 128, ``middle_conv2`` (16,
+   4×16², 128) → 256 and ``decode6`` (16, 32×128², 32) → 16, K8v (the
+   2×2×2 stride-2 int8 transposed conv into the concat buffer's first
+   channels) at up1–up3, K10v (the 2×2×2 int8 max pool)
    at its three levels and K9's three 3D uses (e1 → int8, the raw skip into
    the concat buffer, the dequant of d6), at config 5's forward batch of 16
    tiles of (32, 128, 128), ``UNet3D(32)``: each bit-equal to its plain
    version on the whole batch, timed beside its bound (int8 operations at
    1979 TOP/s, or bytes), ``torch._int_mm`` on an im2col (K7v) or on the
    up-conv's product (K8v), and the bf16 cuDNN ``conv3d`` /
-   ``conv_transpose3d`` of the layer;
+   ``conv_transpose3d`` of the layer; K7v / K8v rows with their rates as
+   in 18;
 21. int8 3d — ``Predict3D(quantized=True)`` at config 5 (a BN-warmed
    ``UNet3D(32)``, a 64×512² uint8 blob volume, tiles (32, 128, 128), bf16
    outside the int8 trunk, two forward batches of 16): launches exact
@@ -221,7 +231,8 @@ non-zero without printing a result:
    K3v); end-to-end (best of two after a warm-up; the first call's
    calibration timed apart) and device-resident Mvox/s of int8 and bf16 back
    to back and their ratio, the int8 trunk's TOP/s and share of the int8
-   dense peak, peak memory, a profile by stage; int8 within the JAX
+   dense peak, peak memory, a profile by stage and by ``qconv`` instance;
+   int8 within the JAX
    package's 3D bounds of bf16 (at most 35 levels, a mean under 3, beyond 10
    levels on under 5% of voxels); under ``BIU_INT8_EXPERIMENTAL=1`` the
    trilinear ``UNet3D(32)`` (same bounds) and ``MultiOutputUnet3D(32)`` over
@@ -239,6 +250,7 @@ from __future__ import annotations
 
 import csv
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -303,6 +315,7 @@ def main() -> int:
 
     card = run("device", phase_device)
     run("build", phase_build, _cuda)
+    run("sass", phase_sass, _cuda)
     kernels = run("kernels", phase_kernels, torch, dev)
     k4 = run("kernels training", phase_kernel_augment, torch, dev)
     run("main", phase_main_path, torch, dev, kernels)
@@ -360,14 +373,72 @@ def phase_build(_cuda) -> None:
     t0 = time.perf_counter()
     logs = _cuda.build()
     dt = time.perf_counter() - t0
+    spilled = []
     for name in _cuda.SOURCES:
         if name not in logs:
             raise RuntimeError(f"kernel {name} was not built")
+        entry = ""
         for line in logs[name].splitlines():
             line = line.strip()
+            if "Compiling entry" in line:
+                entry = line
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line}")
+            stores = re.search(r"(\d+) bytes spill stores", line)
+            if stores and int(stores.group(1)) and "qconv" in entry:
+                spilled.append(f"{entry}: {line}")
     log(f"[build] {len(logs)} sources built by nvcc for sm_90a in {dt:.1f} s")
+    if spilled:
+        raise RuntimeError("qconv spills to local memory:\n" + "\n".join(spilled))
+
+
+def qconv_instance(name: str) -> str:
+    """``qconv<TCONV, VOL, BM, BN, ...>`` (the template's arguments) from a
+    mangled or a demangled kernel name (the name itself where it is
+    neither)."""
+    m = re.search(r"qconvI((?:L[bi]\d+E)+)E", name)
+    if m:
+        args = re.findall(r"L([bi])(\d+)E", m.group(1))
+        return "qconv<" + ", ".join(("false", "true")[int(v)] if t == "b" else v
+                                    for t, v in args) + ">"
+    m = re.search(r"qconv<[^>]*>", name)
+    return m.group(0) if m else name
+
+
+def phase_sass(_cuda) -> None:
+    """The machine code of the int8 library: every ``qconv`` instance must
+    run its products on the tensor cores (an IMMA or GMMA instruction) and
+    hold no ``__dp4a`` (IDP)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_cuda._lib_path("int8_trunk"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    funcs, current = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            current = funcs.setdefault(head.group(1), {})
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if op and current is not None:
+            current[op.group(1)] = current.get(op.group(1), 0) + 1
+    qconvs = {k: v for k, v in funcs.items() if "qconv" in k}
+    if not qconvs:
+        raise RuntimeError("cuobjdump found no qconv function in the int8 library")
+    bad = []
+    for name, ops in sorted(qconvs.items(), key=lambda kv: qconv_instance(kv[0])):
+        mma = {k: v for k, v in ops.items() if k.startswith(("IMMA", "IGMMA", "GMMA"))}
+        idp = {k: v for k, v in ops.items() if k.startswith("IDP")}
+        shown = {k: v for k, v in ops.items() if k.startswith(("IMMA", "IGMMA", "GMMA", "IDP",
+                                                               "LDSM", "LDGSTS", "LDGDEPBAR",
+                                                               "DEPBAR", "STG", "STS"))}
+        log(f"[sass] {qconv_instance(name)}: {sum(ops.values())} instructions; "
+            + ", ".join(f"{k} {v}" for k, v in sorted(shown.items())))
+        if not mma or idp:
+            bad.append(qconv_instance(name))
+    log(f"[sass] {len(qconvs)} qconv instances, each with tensor-core MMAs and no IDP: "
+        f"{'no' if bad else 'yes'}")
+    if bad:
+        raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
 
 # --- 3. kernels -----------------------------------------------------------------
@@ -712,6 +783,16 @@ def profile_pass(torch, run, tag: str, what: str) -> None:
     log(f"[{tag}] device-resident profile ({what}, profiler on): wall {wall_us / 1e3:.2f} ms, "
         f"device busy {busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.4f}; "
         + ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in by_stage.items() if v))
+    qconvs = {}
+    for name, (total, count) in by_name.items():
+        if "qconv" in name:
+            inst = qconv_instance(name)
+            t, c = qconvs.get(inst, (0.0, 0))
+            qconvs[inst] = (t + total, c + count)
+    if qconvs:
+        log(f"[{tag}] qconv by instance: " + ", ".join(
+            f"{k} {t / 1e3:.2f} ms {c}x ({t / busy:.1%})"
+            for k, (t, c) in sorted(qconvs.items(), key=lambda kv: -kv[1][0])))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (total, count) in top:
         log(f"[{tag}]   {total / 1e3:8.2f} ms {count:5d}x  {name[:110]}")
@@ -2844,6 +2925,15 @@ class Int8Yardsticks:
             raise AssertionError(f"{name}: kernel differs from plain (max {bad})")
         return 0.0
 
+    def rate(self, row: dict, n_ops: float) -> None:
+        """Log a K7 / K8 row's int8 rate, its share of the dense peak and of
+        its bound, and its time against ``torch._int_mm``'s."""
+        lib = row["library_ms"]
+        log(f"[{self.tag}] {row['name']}: {n_ops / row['ms'] / 1e9:.1f} TOP/s "
+            f"({n_ops / row['ms'] / 1e9 / (PEAK_INT8_OPS / 1e12):.4f} of the int8 dense peak), "
+            f"bound share {row['bound_ms'] / row['ms']:.4f}, time / torch._int_mm's "
+            + ("none" if lib is None else f"{row['ms'] / lib:.3f}"))
+
     @staticmethod
     def scales(cin, taps):
         # s_out spreads the outputs over the int8 range: random operands sum
@@ -2863,9 +2953,12 @@ def phase_kernels_int8(torch, dev) -> list:
     n, nf = INT8_BATCH, N_FILTER
     rows = []
 
-    # K7 at the first and the widest layer of the main path's forward batch
-    for layer, hw, cin, cout in (("encode2", TILE, nf, nf), ("middle_conv2", TILE // 16,
-                                                             16 * nf, 16 * nf)):
+    # K7 at the first and the widest layer of the main path's forward batch,
+    # and at the last full-resolution decoder conv but one, whose input is the
+    # concat buffer (2C -> C)
+    for layer, hw, cin, cout in (("encode2", TILE, nf, nf),
+                                 ("middle_conv2", TILE // 16, 16 * nf, 16 * nf),
+                                 ("decode7", TILE, 2 * nf, nf)):
         x = i8((n, hw, hw, cin))
         w = packed((cout, 3, 3), cin)
         s_in, sw_v, s_out = scales(cin, 9)
@@ -2897,6 +2990,7 @@ def phase_kernels_int8(torch, dev) -> list:
             timer(lambda: k8.qconv3x3_plain(x, w, sw, bias, s_in, s_out), 1),
             bound_ms(x.numel() + ours.numel() + w.numel() + 8 * cout, 2 * macs, PEAK_INT8_OPS),
             lib))
+        y.rate(rows[-1], 2 * macs)
         del x, w, xb, wb, ours
         torch.cuda.empty_cache()
 
@@ -2929,6 +3023,7 @@ def phase_kernels_int8(torch, dev) -> list:
             bound_ms(x.numel() + n * 4 * hw * hw * cout + w.numel() + 8 * cout, 2 * macs,
                      PEAK_INT8_OPS),
             lib))
+        y.rate(rows[-1], 2 * macs)
         del x, w, bufs
         torch.cuda.empty_cache()
 
@@ -3247,7 +3342,7 @@ def phase_kernels_int8_3d(torch, dev) -> list:
     # K7v at the first, the widest and the deepest layers (the scales folded
     # into the weights: sw is s_in·sw)
     for layer, k, cin, cout in (("encode2", 0, nf // 2, nf), ("decode1", 2, 12 * nf, 4 * nf),
-                                ("middle_conv2", 3, 4 * nf, 8 * nf)):
+                                ("middle_conv2", 3, 4 * nf, 8 * nf), ("decode6", 0, nf, nf // 2)):
         x = y.i8((n,) + level(k) + (cin,))
         w = y.packed((cout, 3, 3, 3), cin)
         s_in, sw_v, s_out = y.scales(cin, 27)
@@ -3272,6 +3367,7 @@ def phase_kernels_int8_3d(torch, dev) -> list:
             timer(lambda: k8.qconv3x3x3_plain(x, w, sw, bias, s_out), 1),
             bound_ms(x.numel() + ours.numel() + w.numel() + 8 * cout, 2 * macs, PEAK_INT8_OPS),
             lib)
+        y.rate(rows[-1], 2 * macs)
         del x, w, xb, wb, ours
         torch.cuda.empty_cache()
 
@@ -3306,6 +3402,7 @@ def phase_kernels_int8_3d(torch, dev) -> list:
             timer(lambda: k8.qconvt2x2x2_plain(x, w, sw, bias, s_out, out=bufs[0]), 1),
             bound_ms(x.numel() + 8 * x[..., 0].numel() * cout + w.numel() + 8 * cout, 2 * macs,
                      PEAK_INT8_OPS), lib)
+        y.rate(rows[-1], 2 * macs)
         del x, w, xb, wb, bufs
         torch.cuda.empty_cache()
 

@@ -1012,8 +1012,14 @@ def _packed(gen, lead, cin, dev):
     return torch.from_numpy(w).to(dev)
 
 
+# (n, h, w, cin, cout, dilation); the later cases reach the tensor-core
+# kernel's edges: M not a multiple of the 128-row tile, cin 48 (16-byte chunks,
+# not whole k32 steps), dilation 4, cin 512 (72 stages: the 4-stage ring
+# wraps 18 times), 16- and 8-wide output tiles, 8-byte input copies (cin 40)
 QCONV_CASES = [(3, 17, 19, 32, 32, 1), (2, 9, 11, 6, 5, 2), (2, 12, 10, 33, 70, 1),
-               (4, 8, 8, 64, 128, 2), (1, 16, 16, 512, 512, 1), (2, 16, 16, 4, 4, 1)]
+               (4, 8, 8, 64, 128, 2), (1, 16, 16, 512, 512, 1), (2, 16, 16, 4, 4, 1),
+               (1, 9, 13, 48, 40, 1), (2, 12, 12, 64, 64, 4), (3, 16, 16, 512, 128, 1),
+               (1, 10, 7, 16, 8, 1), (2, 11, 9, 40, 16, 1), (1, 5, 27, 64, 256, 1)]
 
 
 @pytest.mark.parametrize("case", QCONV_CASES, ids=lambda c: "x".join(map(str, c)))
@@ -1032,8 +1038,29 @@ def test_qconv3x3_kernel_bit_equal_to_plain(cuda, gen, case):
     assert got.abs().max() > 0 and (got.abs() < 127).any()  # neither all zero nor all clipped
 
 
+def _unaligned_i8(gen, shape, shift, dev):
+    """An int8 tensor ``shift`` bytes past a 256-byte-aligned allocation."""
+    flat = _i8(gen, (int(np.prod(shape)) + shift,), dev)
+    return flat[shift:].view(shape)
+
+
+@pytest.mark.parametrize("cin,shift", [(32, 4), (40, 8), (32, 1), (64, 2)])
+def test_qconv3x3_kernel_bit_equal_to_plain_on_unaligned_input(cuda, gen, cin, shift):
+    # the input's copies narrow to 8 or 4 bytes, or byte loads, with the address
+    x = _unaligned_i8(gen, (2, 7, 9, cin), shift, cuda)
+    wt = _packed(gen, (24, 3, 3), cin, cuda)
+    sw = torch.from_numpy((gen.random(24) * 1e-3 + 1e-4).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(gen.standard_normal(24).astype(np.float32)).to(cuda)
+    before = k8.qconv3x3.launches
+    got = k8.qconv3x3(x, wt, sw, bias, 0.0213, 0.0371)
+    torch.cuda.synchronize()
+    assert k8.qconv3x3.launches == before + 1
+    assert torch.equal(got, k8.qconv3x3_plain(x, wt, sw, bias, 0.0213, 0.0371))
+
+
 @pytest.mark.parametrize("case", [(2, 5, 6, 16, 8, 4), (1, 7, 3, 5, 3, 6), (3, 8, 8, 40, 36, 36),
-                                  (2, 16, 16, 512, 256, 256)],
+                                  (2, 16, 16, 512, 256, 256), (1, 5, 7, 64, 32, 32),
+                                  (3, 9, 11, 128, 64, 64)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_qconvt2x2_kernel_bit_equal_to_plain(cuda, gen, case):
     n, h, w, cin, cout, cskip = case
@@ -1043,10 +1070,43 @@ def test_qconvt2x2_kernel_bit_equal_to_plain(cuda, gen, case):
     bias = torch.from_numpy(gen.standard_normal(cout).astype(np.float32)).to(cuda)
     bufs = [torch.full((n, 2 * h, 2 * w, cout + cskip), 99, dtype=torch.int8, device=cuda)
             for _ in range(2)]
+    before = k8.qconvt2x2.launches
     k8.qconvt2x2(x, wt, sw, bias, 0.031, 0.057, out=bufs[0], offset=0)
     k8.qconvt2x2_plain(x, wt, sw, bias, 0.031, 0.057, out=bufs[1], offset=0)
     torch.cuda.synchronize()
+    assert k8.qconvt2x2.launches == before + 1
     assert torch.equal(bufs[0], bufs[1]) and (bufs[0][..., cout:] == 99).all()
+
+
+# (rank, n, spatial, cin, cout, buffer channels, offset): odd row strides and
+# offsets, so the staged output is written a byte at a time
+TCONV_OFFSET_CASES = [(2, 2, (5, 6), 32, 16, 23, 7), (2, 1, (6, 5), 64, 32, 65, 33),
+                      (3, 1, (2, 3, 5), 32, 16, 25, 9), (3, 2, (3, 4, 4), 16, 8, 13, 5)]
+
+
+@pytest.mark.parametrize("case", TCONV_OFFSET_CASES, ids=lambda c: "x".join(map(str, c[:2] + c[2]
+                                                                                   + c[3:])))
+def test_qconvt_kernels_into_a_concat_buffer_at_an_offset(cuda, gen, case):
+    rank, n, spatial, cin, cout, width, offset = case
+    x = _i8(gen, (n,) + spatial + (cin,), cuda)
+    wt = _packed(gen, (2,) * rank + (cout,), cin, cuda)
+    sw = torch.full((cout,), 0.0042 if rank == 2 else 0.00042, device=cuda)
+    bias = torch.from_numpy(gen.standard_normal(cout).astype(np.float32)).to(cuda)
+    bufs = [torch.full((n,) + tuple(2 * e for e in spatial) + (width,), 99, dtype=torch.int8,
+                       device=cuda) for _ in range(2)]
+    if rank == 2:
+        kern, args = k8.qconvt2x2, (0.031, 0.057)
+        plain = k8.qconvt2x2_plain
+    else:
+        kern, args = k8.qconvt2x2x2, (0.057,)
+        plain = k8.qconvt2x2x2_plain
+    before = kern.launches
+    kern(x, wt, sw, bias, *args, out=bufs[0], offset=offset)
+    plain(x, wt, sw, bias, *args, out=bufs[1], offset=offset)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert torch.equal(bufs[0], bufs[1])
+    assert (bufs[0][..., :offset] == 99).all() and (bufs[0][..., offset + cout:] == 99).all()
 
 
 def test_requant_kernel_bit_equal_to_plain_in_all_three_forms(cuda, gen):
@@ -1116,8 +1176,12 @@ def test_quantized_predict_on_card_matches_cpu(cuda, gen, tmp_path, network, ext
 
 # --- K7v, K8v, K10v: the 3D int8 trunk ----------------------------------------------
 
+# (n, d, h, w, cin, cout); the later cases: 16 -> 32 (four 16-channel taps
+# a stage) and 32 -> 16 (the 16-wide tile) with M not a multiple of the
+# 128-row tile, cin 48, and cin 384 -> 16
 QCONV3D_CASES = [(2, 8, 16, 16, 16, 32), (2, 4, 8, 8, 384, 128), (1, 5, 7, 6, 6, 5),
-                 (2, 4, 8, 8, 128, 256), (1, 8, 16, 16, 32, 16)]
+                 (2, 4, 8, 8, 128, 256), (1, 8, 16, 16, 32, 16), (1, 3, 7, 9, 16, 32),
+                 (2, 5, 6, 10, 32, 16), (1, 4, 5, 7, 48, 64), (1, 3, 8, 8, 384, 16)]
 
 
 @pytest.mark.parametrize("case", QCONV3D_CASES, ids=lambda c: "x".join(map(str, c)))

@@ -190,6 +190,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         k.maxpool_i8(x.float())
 
 
+# (channels, byte shift of the view, expected input copy width)
+@pytest.mark.parametrize("cin,shift,want", [(32, 0, 16), (48, 0, 16), (16, 0, 16), (40, 0, 8),
+                                            (12, 0, 4), (33, 0, 1), (32, 4, 4), (32, 8, 8),
+                                            (64, 2, 1)])
+def test_qconv_input_copy_width(cin, shift, want):
+    # K7/K8's cp.async width: the widest of 16, 8, 4 bytes that every pixel's
+    # channel run starts on, else byte loads
+    flat = torch.zeros(3 * cin + 64, dtype=torch.int8)
+    base = (-flat.data_ptr()) % 64  # a 64-byte-aligned start
+    x = flat[base + shift:base + shift + 3 * cin].view(1, 1, 3, cin)
+    assert k._in_vec(x) == want
+
+
+# (cout, row stride, channel offset, expected store width)
+@pytest.mark.parametrize("cout,stride,offset,want", [(32, 32, 0, 16), (32, 64, 0, 16),
+                                                     (64, 96, 0, 16), (16, 23, 7, 1),
+                                                     (24, 24, 0, 8), (36, 72, 0, 4),
+                                                     (5, 5, 0, 1), (32, 65, 33, 1),
+                                                     (6, 10, 2, 2), (32, 48, 16, 16)])
+def test_qconv_output_store_width(cout, stride, offset, want):
+    # the widest of 16, 8, 4, 2, 1 bytes dividing cout, the row stride, the
+    # offset and the address: one store never straddles a pixel or a tap
+    out = torch.zeros((2, 3, stride), dtype=torch.int8)
+    assert out.data_ptr() % 16 == 0
+    assert k._out_vec(out, cout, offset) == want
+
+
 # --- weight store, status ------------------------------------------------------------
 
 def test_weight_store_equals_weightpack(ckpts):
