@@ -66,6 +66,8 @@
 // - The epilogue converts the int32 sums in registers, stages the int8 tile in
 //   shared memory and writes it 16 bytes a thread where the output row allows
 //   (else 8, 4, 2 or 1), into any channel range of a wider concat buffer.
+//   The input may be a channel range of a wider buffer too (in_stride bytes
+//   between pixels): the UNet++ grid's cells read and write one buffer a row.
 // What holds them now: the deep layers run at ~23-24% of the dense int8
 // peak (the mma.sync rate and the ldmatrix traffic a 64x32 warp tile needs);
 // the narrow full-resolution layers (cout 16 or 32, K = 9 or 27 x cin) at
@@ -105,12 +107,13 @@ constexpr int KCH = BK / 16;   // 16-byte chunks of a row a stage
 constexpr int STAGES = 4;      // the cp.async ring
 
 struct QConvArgs {
-  const int8_t* x;    // (n, dd, h, wd, cin); 2D: dd = 1
+  const int8_t* x;    // (n, dd, h, wd, cin) in rows of in_stride bytes; 2D: dd = 1
   const int8_t* w;    // conv (cout, taps, cin_pad); transposed (taps, cout, cin_pad)
   const float* sw;    // (cout,)
   const float* bias;  // (cout,)
   int8_t* out;        // rows of out_stride, channels [out_off, out_off + cout)
   int n, dd, h, wd, cin, cin_pad, cout, dil;
+  int in_stride;  // bytes between two pixels of x: cin, or more for a channel range
   int in_vec;   // bytes one copy of the input may move: 16, 8, 4, else 1 (byte loads)
   int out_vec;  // bytes one store of the output may write: 16, 8, 4, 2 or 1
   int out_stride, out_off;
@@ -217,7 +220,7 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, MIN_BLOCKS) qconv(cons
       a_y[i] = r / p.wd;
       a_x[i] = r - a_y[i] * p.wd;
       a_z[i] = VOL ? pl % p.dd : 0;
-      a_off[i] = (long long)m * p.cin;
+      a_off[i] = (long long)m * p.in_stride;
     }
   }
 
@@ -237,7 +240,7 @@ __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, MIN_BLOCKS) qconv(cons
       dx = (tr % 3 - 1) * p.dil;
     }
     const bool k_in = tap < TAPS;
-    const long long shift = (((long long)dz * p.h + dy) * p.wd + dx) * p.cin + c;
+    const long long shift = (((long long)dz * p.h + dy) * p.wd + dx) * p.in_stride + c;
 #pragma unroll
     for (int i = 0; i < A_ROWS; ++i) {
       const int y = a_y[i] + dy, xx = a_x[i] + dx;
@@ -434,7 +437,7 @@ cudaError_t launch_qconv(const QConvArgs& a, cudaStream_t st) {
 QConvArgs qconv_args(const void* x, const void* w, const void* sw, const void* bias, void* out,
                      int n, int d, int h, int wd, int cin, int cin_pad, int cout, int dil,
                      int in_vec, int out_vec, int out_stride, int out_off, float s_in,
-                     float s_out) {
+                     float s_out, int in_stride) {
   QConvArgs a;
   a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
@@ -446,6 +449,7 @@ QConvArgs qconv_args(const void* x, const void* w, const void* sw, const void* b
   a.h = h;
   a.wd = wd;
   a.cin = cin;
+  a.in_stride = in_stride;
   a.cin_pad = cin_pad;
   a.cout = cout;
   a.dil = dil;
@@ -458,9 +462,9 @@ QConvArgs qconv_args(const void* x, const void* w, const void* sw, const void* b
   return a;
 }
 
-// K9: x (rows, C) of int8 / bf16 / float32 -> out rows of `out_stride`
-// elements starting at `out_off`: int8 rint((x * s_a) / s_b) clipped, or (with
-// to_bf16) the dequant bf16(x * s_a).
+// K9: x (rows of `in_stride` elements, C of them read) of int8 / bf16 /
+// float32 -> out rows of `out_stride` elements starting at `out_off`: int8
+// rint((x * s_a) / s_b) clipped, or (with to_bf16) the dequant bf16(x * s_a).
 template <typename T>
 __device__ __forceinline__ float as_float(const T* p, long long i);
 template <>
@@ -478,14 +482,14 @@ __device__ __forceinline__ float as_float<float>(const float* p, long long i) {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-requant(const T* __restrict__ x, void* __restrict__ out, long long total, int C, int to_bf16,
-        int out_stride, int out_off, float s_a, float s_b) {
+requant(const T* __restrict__ x, void* __restrict__ out, long long total, int C, int in_stride,
+        int to_bf16, int out_stride, int out_off, float s_a, float s_b) {
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (e >= total) return;
   const long long r = e / C;
   const int c = (int)(e - r * C);
   const long long dst = r * out_stride + out_off + c;
-  const float v = __fmul_rn(as_float<T>(x, e), s_a);
+  const float v = __fmul_rn(as_float<T>(x, r * in_stride + c), s_a);
   if (to_bf16) {
     static_cast<__nv_bfloat16*>(out)[dst] = __float2bfloat16_rn(v);
   } else {
@@ -494,10 +498,11 @@ requant(const T* __restrict__ x, void* __restrict__ out, long long total, int C,
   }
 }
 
-// K10: (n, h, w, C) int8 -> (n, h/2, w/2, C), a thread per output byte
+// K10: (n, h, w, C) int8 in rows of in_stride bytes -> (n, h/2, w/2, C), a
+// thread per output byte
 __global__ void __launch_bounds__(THREADS)
 maxpool_i8(const int8_t* __restrict__ x, int8_t* __restrict__ out, int n, int h, int wd,
-           int C) {
+           int C, int in_stride) {
   const int ho = h / 2, wo = wd / 2;
   const long long total = (long long)n * ho * wo * C;
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -508,12 +513,13 @@ maxpool_i8(const int8_t* __restrict__ x, int8_t* __restrict__ out, int n, int h,
   p /= wo;
   const int yo = (int)(p % ho);
   const long long ni = p / ho;
-  const int8_t* src = x + ((ni * h + 2 * yo) * wd + 2 * xo) * C + c;
+  const long long S = in_stride;
+  const int8_t* src = x + ((ni * h + 2 * yo) * wd + 2 * xo) * S + c;
   int m = -128;
   m = max(m, (int)src[0]);
-  m = max(m, (int)src[C]);
-  m = max(m, (int)src[(long long)wd * C]);
-  m = max(m, (int)src[(long long)wd * C + C]);
+  m = max(m, (int)src[S]);
+  m = max(m, (int)src[wd * S]);
+  m = max(m, (int)src[wd * S + S]);
   out[e] = (int8_t)m;
 }
 
@@ -571,16 +577,19 @@ maxpool_i8_3d(const int8_t* __restrict__ x, int8_t* __restrict__ out, int n, int
 
 extern "C" {
 
-// in_vec: bytes one copy of the input may move (16, 8 or 4 where cin and the
-// tensor's address allow it, else 1); out_vec: bytes one store of the output
-// may write (16, 8, 4, 2 or 1 dividing cout, the row stride, the channel
-// offset and the address)
+// in_vec: bytes one copy of the input may move (16, 8 or 4 where cin, the
+// input's row stride and its address allow it, else 1); out_vec: bytes one
+// store of the output may write (16, 8, 4, 2 or 1 dividing cout, the row
+// stride, the channel offset and the address).  K7 reads channels [0, cin) of
+// rows of in_stride bytes and writes channels [out_off, out_off + cout) of
+// rows of out_stride (the UNet++ grid's row buffers).
 int k7_qconv3x3(const void* x, const void* w, const void* sw, const void* bias, void* out, int n,
                 int h, int wd, int cin, int cin_pad, int cout, int dil, int in_vec, int out_vec,
-                float s_in, float s_out, void* stream) {
+                int in_stride, int out_stride, int out_off, float s_in, float s_out,
+                void* stream) {
   return (int)launch_qconv<false, false>(
-      qconv_args(x, w, sw, bias, out, n, 1, h, wd, cin, cin_pad, cout, dil, in_vec, out_vec, cout,
-                 0, s_in, s_out),
+      qconv_args(x, w, sw, bias, out, n, 1, h, wd, cin, cin_pad, cout, dil, in_vec, out_vec,
+                 out_stride, out_off, s_in, s_out, in_stride),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -589,35 +598,39 @@ int k8_qconvt2x2(const void* x, const void* w, const void* sw, const void* bias,
                  int out_stride, int out_off, float s_in, float s_out, void* stream) {
   return (int)launch_qconv<true, false>(
       qconv_args(x, w, sw, bias, out, n, 1, h, wd, cin, cin_pad, cout, 1, in_vec, out_vec,
-                 out_stride, out_off, s_in, s_out),
+                 out_stride, out_off, s_in, s_out, cin),
       static_cast<cudaStream_t>(stream));
 }
 
-// in_code: 0 int8, 1 bfloat16, 2 float32
-int k9_requant(const void* x, int in_code, void* out, long long total, int C, int to_bf16,
-               int out_stride, int out_off, float s_a, float s_b, void* stream) {
+// in_code: 0 int8, 1 bfloat16, 2 float32; in_stride: elements between two
+// rows of x (C for a contiguous tensor, more for a channel range of a wider one)
+int k9_requant(const void* x, int in_code, void* out, long long total, int C, int in_stride,
+               int to_bf16, int out_stride, int out_off, float s_a, float s_b, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   if (total == 0) return 0;
   if (in_code == 0)
     requant<int8_t><<<blocks, THREADS, 0, st>>>(static_cast<const int8_t*>(x), out, total, C,
-                                                 to_bf16, out_stride, out_off, s_a, s_b);
+                                                 in_stride, to_bf16, out_stride, out_off, s_a,
+                                                 s_b);
   else if (in_code == 1)
     requant<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                                        out, total, C, to_bf16, out_stride,
-                                                        out_off, s_a, s_b);
+                                                        out, total, C, in_stride, to_bf16,
+                                                        out_stride, out_off, s_a, s_b);
   else
     requant<float><<<blocks, THREADS, 0, st>>>(static_cast<const float*>(x), out, total, C,
-                                                to_bf16, out_stride, out_off, s_a, s_b);
+                                                in_stride, to_bf16, out_stride, out_off, s_a,
+                                                s_b);
   return (int)cudaGetLastError();
 }
 
-int k10_maxpool_i8(const void* x, void* out, int n, int h, int wd, int C, void* stream) {
+int k10_maxpool_i8(const void* x, void* out, int n, int h, int wd, int C, int in_stride,
+                   void* stream) {
   const long long total = (long long)n * (h / 2) * (wd / 2) * C;
   if (total == 0) return 0;
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   maxpool_i8<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), n, h, wd, C);
+      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), n, h, wd, C, in_stride);
   return (int)cudaGetLastError();
 }
 
@@ -628,7 +641,7 @@ int k7v_qconv3x3x3(const void* x, const void* w, const void* sw, const void* bia
                    int out_vec, int out_stride, int out_off, float s_out, void* stream) {
   return (int)launch_qconv<false, true>(
       qconv_args(x, w, sw, bias, out, n, d, h, wd, cin, cin_pad, cout, 1, in_vec, out_vec,
-                 out_stride, out_off, 1.0f, s_out),
+                 out_stride, out_off, 1.0f, s_out, cin),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -638,7 +651,7 @@ int k8v_qconvt2x2x2(const void* x, const void* w, const void* sw, const void* bi
                     int out_vec, int out_stride, int out_off, float s_out, void* stream) {
   return (int)launch_qconv<true, true>(
       qconv_args(x, w, sw, bias, out, n, d, h, wd, cin, cin_pad, cout, 1, in_vec, out_vec,
-                 out_stride, out_off, 1.0f, s_out),
+                 out_stride, out_off, 1.0f, s_out, cin),
       static_cast<cudaStream_t>(stream));
 }
 

@@ -15,6 +15,8 @@ array-like) leaves; output is the port's state dict of torch tensors:
 - the 1×1 head convs ``output_layers_<head>`` → ``output_layers.<head>.*``
 - UNet++ grid blocks ``grid_conv<i>_<j>/conv{1,2}|bn{1,2}`` →
   ``conv<i>_<j>.conv{1,2}.*`` / ``conv<i>_<j>.bn{1,2}.*``
+- attention gates ``attention<k>/{W_gate,W_x,psi}_{conv,bn}`` (with their
+  batch statistics) → ``attention<k>.{W_gate,W_x,psi}.{0,1}.*``
 
 Any other block raises.
 """
@@ -25,6 +27,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from ..ops.blocks import GATES
 
 
 def _t(arr) -> torch.Tensor:
@@ -50,8 +54,8 @@ def _conv_bn(sd, prefix_conv: str, prefix_bn: str, conv: dict, bn: dict, stats: 
 
 
 def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet``, ``Siam_UNet``,
-    ``MultiOutputUnet``, UNet++, ``UNet3D`` or ``MultiOutputUnet3D`` → the
+    """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet``, ``AttentionUnet``,
+    ``Siam_UNet``, ``MultiOutputUnet``, UNet++, ``UNet3D`` or ``MultiOutputUnet3D`` → the
     port's state dict
     (loadable with ``load_state_dict(strict=True)``)."""
     params = variables.get("params", {})
@@ -65,6 +69,11 @@ def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
             for k in ("1", "2"):
                 _conv_bn(sd, f"{base}.conv{k}", f"{base}.bn{k}", p[f"conv{k}"], p[f"bn{k}"],
                          stats[block][f"bn{k}"])
+        elif block.startswith("attention") and set(p) == {
+                f"{sub}_{kind}" for sub in GATES for kind in ("conv", "bn")}:
+            for sub in GATES:
+                _conv_bn(sd, f"{block}.{sub}.0", f"{block}.{sub}.1", p[f"{sub}_conv"],
+                         p[f"{sub}_bn"], stats[block][f"{sub}_bn"])
         elif block.startswith("up") and set(p) == {"kernel", "bias"}:
             sd[f"{block}.weight"] = _kernel(p["kernel"])
             sd[f"{block}.bias"] = _t(p["bias"])

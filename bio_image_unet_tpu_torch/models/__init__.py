@@ -1,17 +1,18 @@
 """Model registry (counterpart of ``bio_image_unet_tpu/models/__init__.py``).
-Ported so far: the plain 2D ``Unet``, ``Siam_UNet`` (all four joins),
-``MultiOutputUnet``, both UNet++ depths, ``UNet3D`` and ``MultiOutputUnet3D``;
-the other registry names of the JAX package raise a clear "not ported yet"
-error."""
+Ported so far: the plain 2D ``Unet``, ``AttentionUnet``, ``Siam_UNet`` (all
+four joins), ``MultiOutputUnet``, both UNet++ depths, ``UNet3D`` and
+``MultiOutputUnet3D``; the other registry names of the JAX package
+(``Unet_v0``, ``BabyUnet``) raise a clear "not ported yet" error."""
 
 import inspect
 
 from .nested_unet import MultiOutputNestedUNet, MultiOutputNestedUNet_3Levels
-from .unet2d import MultiOutputUnet, Siam_UNet, Unet
+from .unet2d import AttentionUnet, MultiOutputUnet, Siam_UNet, Unet
 from .unet3d import MultiOutputUnet3D, UNet3D
 
 MODEL_REGISTRY = {
     "Unet": Unet,
+    "AttentionUnet": AttentionUnet,
     "Siam_UNet": Siam_UNet,
     "MultiOutputUnet": MultiOutputUnet,
     "MultiOutputNestedUNet": MultiOutputNestedUNet,
@@ -21,7 +22,7 @@ MODEL_REGISTRY = {
 }
 
 # registry names of the JAX package that later slices port
-_NOT_PORTED = ("AttentionUnet", "Unet_v0", "BabyUnet")
+_NOT_PORTED = ("Unet_v0", "BabyUnet")
 
 
 def get_model(name, **kwargs):
@@ -42,6 +43,6 @@ def get_model(name, **kwargs):
     return cls(**{k: v for k, v in kwargs.items() if k in fields})
 
 
-__all__ = ["Unet", "Siam_UNet", "MultiOutputUnet", "MultiOutputNestedUNet",
+__all__ = ["Unet", "AttentionUnet", "Siam_UNet", "MultiOutputUnet", "MultiOutputNestedUNet",
            "MultiOutputNestedUNet_3Levels", "UNet3D", "MultiOutputUnet3D", "MODEL_REGISTRY",
            "get_model"]

@@ -1,8 +1,10 @@
-"""The 2D U-Net trunk with a single or a multi-head output and the siamese
-join (counterpart of ``bio_image_unet_tpu/models/unet2d.py`` ``UNet2DBase``
-without the attention option, which a later slice ports).
+"""The 2D U-Net trunk with a single or a multi-head output, the attention
+gates and the siamese join (counterpart of
+``bio_image_unet_tpu/models/unet2d.py`` ``UNet2DBase``).
 
 - ``Unet``            — plain 4-level U-Net, ``(sigmoid, logits)`` output
+- ``AttentionUnet``   — + an additive attention gate on every skip
+                        (``unet2d.py:218``)
 - ``Siam_UNet``       — shared-weight twin encoder over (current, previous)
                         frames, joined at the bottleneck by ``mode`` ∈
                         {concat, corr, max, control} (``unet2d.py:225``)
@@ -11,7 +13,8 @@ without the attention option, which a later slice ports).
 
 NCHW at the boundary; submodule names follow the reference schema
 (``encode1..8``, ``middle_conv1/2``, ``up1..4``, ``decode1..8``, ``final.0``
-or ``output_layers.<head>``, ``conv_concat`` of the ``concat`` join), so
+or ``output_layers.<head>``, ``conv_concat`` of the ``concat`` join,
+``attention1..4`` of the gates), so
 reference ``.pt`` state dicts load with ``strict=True``.
 """
 
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.blocks import ConvBlock, ConvTranspose
+from ..ops.blocks import AttentionBlock, ConvBlock, ConvTranspose
 from ..ops.functional import depthwise_xcorr
 
 SIAM_MODES = ("concat", "corr", "max", "control")
@@ -64,13 +67,19 @@ class Unet(nn.Module):
     bottlenecks — elementwise max, ``conv_concat`` (a 16·nf → 8·nf
     ``ConvBlock``) over the channel concat, the depthwise cross-correlation
     of cur with prev as its kernel, or cur's alone (``control``).  The
-    skips are cur's."""
+    skips are cur's.
+
+    ``attention`` (``AttentionUnet``) gates every skip with an
+    ``AttentionBlock`` of ``4nf, 2nf, nf, max(nf // 2, 1)`` coefficients
+    (``unet2d.py:104-109``), the up path as its gate; the decoder then
+    concatenates (attended skip, up) (``unet2d.py:170-201``).  Its bf16
+    compute mode (half-precision training) is not ported."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  n_filter: int = 32, dilation: int = 1, dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, multi_output: bool = False,
                  output_heads: Optional[Dict[str, dict]] = None,
-                 mode: Optional[str] = None):
+                 mode: Optional[str] = None, attention: bool = False):
         super().__init__()
         if mode is not None and mode not in SIAM_MODES:
             raise NotImplementedError(f"Unknown mode: {mode}")
@@ -107,6 +116,11 @@ class Unet(nn.Module):
         self.up4 = ConvTranspose(2 * nf, nf)
         self.decode7 = ConvBlock(2 * nf, nf, 1, dropout)
         self.decode8 = ConvBlock(nf, nf, 1, dropout)
+        self.attention = bool(attention)
+        if self.attention:
+            for i, k in enumerate((4 * nf, 2 * nf, nf, max(nf // 2, 1)), start=1):
+                ch = 8 * nf >> (i - 1)
+                setattr(self, f"attention{i}", AttentionBlock(ch, ch, k))
         self.heads = (output_heads if output_heads is not None else
                       {"default": {"channels": 1, "activation": "sigmoid"}}
                       if multi_output else None)
@@ -147,17 +161,37 @@ class Unet(nn.Module):
             if prev_x is None:
                 raise ValueError("Siam mode requires prev_x")
             m4 = self.join(m4, self.encode(prev_x)[-1])
+        if self.attention and self.dtype is not None:
+            raise NotImplementedError("AttentionUnet's bf16 compute mode (half-precision "
+                                      "training) is not ported to PyTorch yet")
         h = self.middle_conv2(self.middle_conv1(m4))
-        # concat order is (up, skip) (unet2d.py:176)
+        # concat order is (up, skip), (attended skip, up) with the gates
+        # (unet2d.py:170-201)
         for i, skip in zip(range(1, 5), (e8, e6, e4, e2)):
             u = getattr(self, f"up{i}")(h)
-            h = torch.cat([u, skip], dim=1)
+            if self.attention:
+                h = torch.cat([getattr(self, f"attention{i}")(u, skip), u], dim=1)
+            else:
+                h = torch.cat([u, skip], dim=1)
             h = getattr(self, f"decode{2 * i}")(getattr(self, f"decode{2 * i - 1}")(h))
         if self.heads is None:
             logits = self.final(h.float())
             return torch.sigmoid(logits), logits
         return {name: apply_activation(self.output_layers[name](h.float()), cfg.get("activation"))
                 for name, cfg in self.heads.items()}
+
+
+class AttentionUnet(Unet):
+    """U-Net with additive attention gates on each skip (``unet2d.py:218``,
+    reference unet/attention_unet.py:5-181); ``forward(x)`` returns
+    ``(sigmoid(logits), logits)``, or the head dict with ``output_heads``."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 n_filter: int = 32, dilation: int = 1, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, multi_output: bool = False,
+                 output_heads: Optional[Dict[str, dict]] = None):
+        super().__init__(in_channels, out_channels, n_filter, dilation, dropout, dtype,
+                         multi_output, output_heads, attention=True)
 
 
 class Siam_UNet(Unet):

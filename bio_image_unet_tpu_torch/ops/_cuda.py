@@ -36,6 +36,7 @@ SOURCES = {
     "margin_stitch": "margin_stitch.cu",
     "depthwise_xcorr": "depthwise_xcorr.cu",
     "int8_trunk": "int8_trunk.cu",
+    "int8_resample": "int8_resample.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

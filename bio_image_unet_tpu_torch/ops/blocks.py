@@ -8,7 +8,7 @@ BatchNorm2d, LeakyReLU, Dropout2d)`` in NCHW, or with ``ndim=3`` the
 ``.pt`` state dict (keys ``<block>.0.*`` for the conv, ``<block>.1.*`` for the
 BatchNorm) loads with ``load_state_dict(strict=True)``; the UNet++
 grid's ``VGGBlock`` keeps the reference's ``conv1``/``bn1``/``conv2``/``bn2``
-names.  In train mode
+names and the ``AttentionBlock`` gate its ``W_gate``/``W_x``/``psi``.  In train mode
 ``BatchNorm2d/3d(momentum=0.1, eps=1e-5)`` has the JAX ``TorchBatchNorm``
 semantics: biased batch variance to normalize, unbiased ``n/(n-1)`` for the
 running variance.
@@ -102,6 +102,32 @@ class ConvTranspose3D(_CastTranspose, nn.ConvTranspose3d):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 2, stride=2)
+
+
+# AttentionBlock's three 1×1 conv + BatchNorm pairs, by attribute name
+GATES = ("W_gate", "W_x", "psi")
+
+
+class AttentionBlock(nn.Module):
+    """Additive attention gate (``ops/blocks.py:212 AttentionBlock``,
+    reference unet/attention_unet.py:112-181): ``psi = σ(BN(1×1(relu(BN(1×1(
+    gate)) + BN(1×1(skip))))))``, returns ``skip·psi``.  ``W_gate``, ``W_x``
+    and ``psi`` are ``Sequential(Conv2d 1×1, BatchNorm2d[, Sigmoid])`` with
+    the reference's keys (``W_gate.0.weight``, ``psi.1.running_var``, …), so
+    a reference ``.pt`` loads with ``strict=True``."""
+
+    def __init__(self, gate_ch: int, skip_ch: int, n_coefficients: int):
+        super().__init__()
+        self.W_gate = nn.Sequential(nn.Conv2d(gate_ch, n_coefficients, 1),
+                                    nn.BatchNorm2d(n_coefficients, eps=_BN_EPS, momentum=0.1))
+        self.W_x = nn.Sequential(nn.Conv2d(skip_ch, n_coefficients, 1),
+                                 nn.BatchNorm2d(n_coefficients, eps=_BN_EPS, momentum=0.1))
+        self.psi = nn.Sequential(nn.Conv2d(n_coefficients, 1, 1),
+                                 nn.BatchNorm2d(1, eps=_BN_EPS, momentum=0.1), nn.Sigmoid())
+
+    def forward(self, gate: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        psi = self.psi(torch.relu(self.W_gate(gate) + self.W_x(skip)))
+        return skip * psi
 
 
 class VGGBlock(nn.Module):

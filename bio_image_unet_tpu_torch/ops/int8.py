@@ -1,8 +1,10 @@
-"""K7–K10: the int8 kernels of the w8a8 2D trunk, and K7v, K8v, K10v: those
-of the 3D trunks (``csrc/int8_trunk.cu``; counterparts of
+"""K7–K10: the int8 kernels of the w8a8 2D trunk, K7v, K8v, K10v: those of
+the 3D trunks (``csrc/int8_trunk.cu``; counterparts of
 ``bio_image_unet_tpu/predict/quant.py:417 qconv``, ``:428 qtconv``, ``:223
 _requant``, ``:278 _maxpool_i8`` and ``predict/quant3d.py:269 qconv``, ``:277
-qtconv``, ``:75 _maxpool_i8_3d``).
+qtconv``, ``:75 _maxpool_i8_3d``), and K11, K11v: the ×2 linear upsample of
+int8 values into a concat buffer (``csrc/int8_resample.cu``; counterparts of
+``predict/quant_nested.py:249-253`` and ``predict/quant3d.py:305-310``).
 
 Activations are NHWC (NDHWC) int8 tensors.  Weights come packed by
 :class:`..predict.quant.Int8Weights`: a 3×3 (3×3×3) conv's codes as (O, 3, 3,
@@ -14,19 +16,26 @@ one scale repeated) and bias beside them.
 
 - ``qconv3x3``  (K7): SAME 3×3 conv at dilation d → int32 → ``a =
   fma(float(acc), s_in·sw[o], bias[o])`` → LeakyReLU 0.1 → ``rint(a / s_out)``
-  clipped to ±127;
+  clipped to ±127, from a channel range of a wider tensor if need be, into
+  channels [offset, offset + O) of ``out`` when one is given;
 - ``qconvt2x2`` (K8): the 2×2 stride-2 transposed conv with the same
   dequant and requant (no activation), written into channels [offset,
   offset + O) of a concat buffer;
 - ``requant``   (K9): ``rint(x·s_a / s_b)`` clipped to ±127 from int8,
   bfloat16 or float32 into int8 (channels [offset, offset + C) of ``out``),
-  or, with ``s_b=None``, the dequant ``bf16(x·s_a)``;
-- ``maxpool_i8`` (K10): 2×2 stride-2 max;
+  or, with ``s_b=None``, the dequant ``bf16(x·s_a)``; ``x`` may be a channel
+  range of a wider tensor (``buf[..., a:b]``);
+- ``maxpool_i8`` (K10): 2×2 stride-2 max (of a channel range, too);
 - ``qconv3x3x3``, ``qconvt2x2x2`` (K7v, K8v): K7 and K8 on volumes, the
   activation scales folded into the weights (``s_in = 1``: the dequant is
   ``fma(float(acc), sw[o], bias[o])``), each into channels [offset, offset
   + O) of an output buffer when one is given;
-- ``maxpool_i8_3d`` (K10v): 2×2×2 stride-2 max.
+- ``maxpool_i8_3d`` (K10v): 2×2×2 stride-2 max;
+- ``upsample2x_i8`` (K11): the UNet++ grid's ×2 bilinear, ``align_corners=
+  True``, of int8 values in float32 in JAX's arithmetic, rounded half to even
+  and clipped to ±127 at the same scale, into channels [offset, offset + C)
+  of a concat buffer; ``upsample2x_i8_3d`` (K11v): the same ×2 trilinear with
+  half-pixel centres (the trilinear 3D decoder).
 
 Each has a plain PyTorch version beside it (the wrapper takes it for CPU
 tensors only; a CUDA tensor launches the kernel or raises).  The plain
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -93,11 +103,13 @@ def _check_conv(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.
     return cout
 
 
-def _in_vec(x: torch.Tensor) -> int:
+def _in_vec(x: torch.Tensor, stride: Optional[int] = None) -> int:
     """Bytes one asynchronous copy of K7/K8's input may move: 16, 8 or 4
-    where every pixel's channels start on such a boundary, else 1 (byte
-    loads)."""
-    return next((v for v in (16, 8, 4) if x.shape[-1] % v == 0 and x.data_ptr() % v == 0), 1)
+    where every pixel's channels start on such a boundary (pixels ``stride``
+    bytes apart, the channel count by default), else 1 (byte loads)."""
+    stride = x.shape[-1] if stride is None else stride
+    return next((v for v in (16, 8, 4) if x.shape[-1] % v == 0 and stride % v == 0
+                 and x.data_ptr() % v == 0), 1)
 
 
 def _out_vec(out: torch.Tensor, cout: int, offset: int) -> int:
@@ -115,12 +127,25 @@ def _on_card(what: str, *ts: torch.Tensor) -> torch.device:
     return dev
 
 
+def _rows_on_card(what: str, x: torch.Tensor, device=None) -> int:
+    """The row stride of ``x``, a CUDA tensor (on ``device`` if given) of
+    rows of channels, contiguous or a channel range of a wider one
+    (:func:`_row_stride`)."""
+    if not x.is_cuda or (device is not None and x.device != device):
+        raise ValueError(f"{what}: expected a CUDA tensor on {device or 'the card'}, got "
+                         f"{x.device}")
+    return _row_stride(x, what)
+
+
 # --- K7 -----------------------------------------------------------------------
 
 def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
-                   s_in: float, s_out: float, dilation: int = 1) -> torch.Tensor:
-    """Plain PyTorch K7: (n, h, w, I) int8 → (n, h, w, O) int8."""
-    _check_conv(x, w, sw, bias, (3, 3), False, "qconv3x3")
+                   s_in: float, s_out: float, dilation: int = 1,
+                   out: Optional[torch.Tensor] = None, offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K7: (n, h, w, I) int8 → channels [offset, offset + O) of
+    ``out`` (n, h, w, C_out), or a new (n, h, w, O) int8 tensor."""
+    cout = _check_conv(x, w, sw, bias, (3, 3), False, "qconv3x3")
+    target = _concat_target(out, tuple(x.shape[:-1]), offset, cout, x.device, "qconv3x3")
     k = w[..., :x.shape[-1]].permute(0, 3, 1, 2).double()
 
     def one(xs):
@@ -129,26 +154,33 @@ def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: tor
                          dilation=dilation)
         return _dequant_requant(y.permute(0, 2, 3, 1).float(), sw, bias, s_in, s_out, True)
 
-    return _batched(one, x, x.shape[1] * x.shape[2] * w.shape[0])
+    target[..., offset:offset + cout] = _batched(one, x, x.shape[1] * x.shape[2] * cout)
+    return target
 
 
 def qconv3x3(x: torch.Tensor, w: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
-             s_in: float, s_out: float, dilation: int = 1) -> torch.Tensor:
-    """K7 (see the module docstring)."""
+             s_in: float, s_out: float, dilation: int = 1, out: Optional[torch.Tensor] = None,
+             offset: int = 0) -> torch.Tensor:
+    """K7 (see the module docstring); ``x`` may be a channel range of a wider
+    NHWC tensor, and the output goes to channels [offset, offset + O) of
+    ``out`` when one is given."""
     cout = _check_conv(x, w, sw, bias, (3, 3), False, "qconv3x3")
     if x.device.type == "cpu":
-        return qconv3x3_plain(x, w, sw, bias, s_in, s_out, dilation)
-    dev = _on_card("qconv3x3", x, w, sw, bias)
+        return qconv3x3_plain(x, w, sw, bias, s_in, s_out, dilation, out, offset)
+    dev = _on_card("qconv3x3", w, sw, bias)
+    in_stride = _rows_on_card("qconv3x3", x, dev)
     n, h, wd, cin = x.shape
-    out = torch.empty((n, h, wd, cout), dtype=torch.int8, device=dev)
+    target = _concat_target(out, (n, h, wd), offset, cout, dev, "qconv3x3")
+    _cuda.require_cuda(target, "qconv3x3 out", dev)
     A = _cuda
     fn = A.function("int8_trunk", "k7_qconv3x3",
-                    [A.P] * 5 + [A.I32] * 9 + [A.F32, A.F32, A.P])
+                    [A.P] * 5 + [A.I32] * 12 + [A.F32, A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), w.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), n, h, wd, cin, w.shape[-1], cout, int(dilation), _in_vec(x),
-             _out_vec(out, cout, 0), float(s_in), float(s_out))
+             target.data_ptr(), n, h, wd, cin, w.shape[-1], cout, int(dilation),
+             _in_vec(x, in_stride), _out_vec(target, cout, offset), in_stride,
+             target.shape[-1], int(offset), float(s_in), float(s_out))
     qconv3x3.launches += 1
-    return out
+    return target
 
 
 qconv3x3.launches = 0
@@ -244,20 +276,39 @@ def requant_plain(x: torch.Tensor, s_a: float, s_b: Optional[float] = None,
     return target
 
 
+def _row_stride(x: torch.Tensor, what: str) -> int:
+    """Elements between two rows of ``x`` (..., C): C for a contiguous tensor,
+    more for a channel range of a wider one (``buf[..., a:b]``); raises for
+    any other layout."""
+    lead = [d for d in range(x.dim() - 1) if x.shape[d] > 1]  # size-1 dims: any stride
+    stride = x.stride(lead[-1]) if lead else x.shape[-1]
+    rows = 1
+    ok = x.shape[-1] <= 1 or x.stride(-1) == 1
+    for d in range(x.dim() - 2, -1, -1):
+        ok = ok and (x.shape[d] == 1 or x.stride(d) == stride * rows)
+        rows *= x.shape[d]
+    if not ok or stride < x.shape[-1]:
+        raise ValueError(f"{what}: expected a contiguous tensor or a channel range of one "
+                         f"(rows of channels, one row stride), got strides {x.stride()} for "
+                         f"{tuple(x.shape)}")
+    return stride
+
+
 def requant(x: torch.Tensor, s_a: float, s_b: Optional[float] = None,
             out: Optional[torch.Tensor] = None, offset: int = 0) -> torch.Tensor:
     """K9 (see the module docstring); ``x`` is (..., C) with C innermost: NHWC
-    or NDHWC, its ``numel`` elements in rows of C."""
+    or NDHWC, contiguous or a channel range of a wider such tensor."""
     target = _requant_target(x, s_b, out, offset)
     if x.device.type == "cpu":
         return requant_plain(x, s_a, s_b, out, offset)
-    dev = _on_card("requant", x, target)
+    dev = _on_card("requant", target)
+    in_stride = _rows_on_card("requant", x, dev)
     A = _cuda
     fn = A.function("int8_trunk", "k9_requant",
-                    [A.P, A.I32, A.P, A.I64, A.I32, A.I32, A.I32, A.I32, A.F32, A.F32, A.P])
+                    [A.P, A.I32, A.P, A.I64] + [A.I32] * 5 + [A.F32, A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), _REQUANT_IN[x.dtype], target.data_ptr(), x.numel(),
-             x.shape[-1], int(s_b is None), target.shape[-1], int(offset), float(s_a),
-             float(1.0 if s_b is None else s_b))
+             x.shape[-1], in_stride, int(s_b is None), target.shape[-1], int(offset),
+             float(s_a), float(1.0 if s_b is None else s_b))
     requant.launches += 1
     return target
 
@@ -276,17 +327,19 @@ def maxpool_i8_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
-    """K10: (n, h, w, C) int8 → (n, h//2, w//2, C)."""
+    """K10: (n, h, w, C) int8 → (n, h//2, w//2, C); ``x`` may be a channel
+    range of a wider NHWC tensor."""
     if x.dim() != 4 or x.dtype != torch.int8:
         raise ValueError(f"maxpool_i8 takes NHWC int8, got {x.dtype} {tuple(x.shape)}")
     if x.device.type == "cpu":
         return maxpool_i8_plain(x)
-    dev = _on_card("maxpool_i8", x)
+    in_stride = _rows_on_card("maxpool_i8", x)
+    dev = x.device
     n, h, w, c = x.shape
     out = torch.empty((n, h // 2, w // 2, c), dtype=torch.int8, device=dev)
     A = _cuda
-    fn = A.function("int8_trunk", "k10_maxpool_i8", [A.P, A.P] + [A.I32] * 4 + [A.P])
-    A.launch(fn, dev, x.data_ptr(), out.data_ptr(), n, h, w, c)
+    fn = A.function("int8_trunk", "k10_maxpool_i8", [A.P, A.P] + [A.I32] * 5 + [A.P])
+    A.launch(fn, dev, x.data_ptr(), out.data_ptr(), n, h, w, c, in_stride)
     maxpool_i8.launches += 1
     return out
 
@@ -411,3 +464,134 @@ def maxpool_i8_3d(x: torch.Tensor) -> torch.Tensor:
 
 
 maxpool_i8_3d.launches = 0
+
+
+# --- K11, K11v ----------------------------------------------------------------------
+
+def _aligned_axis(n: int):
+    """JAX's ``align_corners=True`` ×2 gather indices and weights of an axis
+    of n (``functional.py:74-84``), float32 as XLA computes them: ``(lo, hi,
+    t, 1 - t)``, and the float32 ratio the kernel takes."""
+    ratio = np.float32((n - 1) / (2 * n - 1)) if n > 1 else np.float32(0.0)
+    coords = np.arange(2 * n, dtype=np.float32) * ratio
+    lo = np.clip(np.floor(coords).astype(np.int64), 0, n - 1)
+    hi = np.clip(lo + 1, 0, n - 1)
+    t = coords - lo.astype(np.float32)
+    return (torch.from_numpy(lo), torch.from_numpy(hi), torch.from_numpy(t),
+            torch.from_numpy(np.float32(1.0) - t), float(ratio))
+
+
+def _blend_axis(v: torch.Tensor, axis: int) -> torch.Tensor:
+    """One axis of K11: ``fma(v_lo, 1 - t, v_hi·t)`` in float32, the form
+    XLA's CPU backend contracts ``v_lo·(1-t) + v_hi·t`` to."""
+    lo, hi, t, omt, _ = _aligned_axis(v.shape[axis])
+    shape = [1] * v.dim()
+    shape[axis] = -1
+    dev = v.device
+    b = v.index_select(axis, hi.to(dev)) * t.to(dev).view(shape)
+    return _fma_f32(v.index_select(axis, lo.to(dev)), omt.to(dev).view(shape), b)
+
+
+def _vec_bytes(x: torch.Tensor, in_stride: int, out: torch.Tensor, offset: int) -> int:
+    """Bytes one K11 thread moves: the widest of 16, 8, 4, 2, 1 that divides
+    the channel count, both row strides, the offset and both addresses."""
+    c = x.shape[-1]
+    return next(v for v in (16, 8, 4, 2, 1) if c % v == 0 and in_stride % v == 0
+                and out.shape[-1] % v == 0 and offset % v == 0 and x.data_ptr() % v == 0
+                and out.data_ptr() % v == 0)
+
+
+def _check_upsample(x: torch.Tensor, rank: int, what: str) -> None:
+    if x.dim() != rank + 2 or x.dtype != torch.int8:
+        layout = "NHWC" if rank == 2 else "NDHWC"
+        raise ValueError(f"{what}: expected {layout} int8, got {x.dtype} {tuple(x.shape)}")
+
+
+def upsample2x_i8_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                        offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K11: (n, h, w, C) int8 → ×2 ``align_corners=True``
+    bilinear of the int8 values in float32 (axis H, then W), rounded half to
+    even and clipped to ±127, into channels [offset, offset + C) of ``out``
+    (n, 2h, 2w, C_out), or a new (n, 2h, 2w, C) tensor."""
+    _check_upsample(x, 2, "upsample2x_i8")
+    n, h, w, c = x.shape
+    target = _concat_target(out, (n, 2 * h, 2 * w), offset, c, x.device, "upsample2x_i8")
+
+    def one(xs):
+        v = _blend_axis(_blend_axis(xs.float(), 1), 2)
+        return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+
+    target[..., offset:offset + c] = _batched(one, x, 4 * h * w * c)
+    return target
+
+
+def upsample2x_i8(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                  offset: int = 0) -> torch.Tensor:
+    """K11: the UNet++ grid's ×2 bilinear (``align_corners=True``) of int8
+    values, into a channel range of the consumer's concat buffer (see
+    :func:`upsample2x_i8_plain`); ``x`` may be a channel range of a wider
+    NHWC tensor."""
+    _check_upsample(x, 2, "upsample2x_i8")
+    if x.device.type == "cpu":
+        return upsample2x_i8_plain(x, out, offset)
+    in_stride = _rows_on_card("upsample2x_i8", x)
+    dev = x.device
+    n, h, w, c = x.shape
+    target = _concat_target(out, (n, 2 * h, 2 * w), offset, c, dev, "upsample2x_i8")
+    _cuda.require_cuda(target, "upsample2x_i8 out", dev)
+    A = _cuda
+    fn = A.function("int8_resample", "k11_upsample2x_i8",
+                    [A.P, A.P] + [A.I32] * 9 + [A.F32, A.F32, A.P])
+    A.launch(fn, dev, x.data_ptr(), target.data_ptr(), n, 0, h, w, c, in_stride,
+             target.shape[-1], int(offset), _vec_bytes(x, in_stride, target, offset),
+             _aligned_axis(h)[4], _aligned_axis(w)[4])
+    upsample2x_i8.launches += 1
+    return target
+
+
+upsample2x_i8.launches = 0
+
+
+def upsample2x_i8_3d_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                           offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch K11v: (n, d, h, w, C) int8 → ×2 trilinear with
+    half-pixel centres (``F.interpolate``, ``align_corners=False``) of the
+    int8 values in float32, rounded half to even and clipped to ±127, into
+    channels [offset, offset + C) of ``out`` (n, 2d, 2h, 2w, C_out), or a new
+    tensor.  Every weight is 0, 1/4, 3/4 or 1, so the float32 result is exact
+    in any order of the sums."""
+    _check_upsample(x, 3, "upsample2x_i8_3d")
+    n, d, h, w, c = x.shape
+    target = _concat_target(out, (n, 2 * d, 2 * h, 2 * w), offset, c, x.device,
+                            "upsample2x_i8_3d")
+
+    def one(xs):
+        u = F.interpolate(xs.permute(0, 4, 1, 2, 3).float(), scale_factor=2, mode="trilinear",
+                          align_corners=False)
+        return torch.clamp(torch.round(u), -127, 127).to(torch.int8).permute(0, 2, 3, 4, 1)
+
+    target[..., offset:offset + c] = _batched(one, x, 8 * d * h * w * c)
+    return target
+
+
+def upsample2x_i8_3d(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                     offset: int = 0) -> torch.Tensor:
+    """K11v: the trilinear 3D decoder's ×2 of int8 values, into a channel
+    range of the decoder's concat buffer (see :func:`upsample2x_i8_3d_plain`)."""
+    _check_upsample(x, 3, "upsample2x_i8_3d")
+    if x.device.type == "cpu":
+        return upsample2x_i8_3d_plain(x, out, offset)
+    dev = _on_card("upsample2x_i8_3d", x)
+    n, d, h, w, c = x.shape
+    target = _concat_target(out, (n, 2 * d, 2 * h, 2 * w), offset, c, dev, "upsample2x_i8_3d")
+    _cuda.require_cuda(target, "upsample2x_i8_3d out", dev)
+    A = _cuda
+    fn = A.function("int8_resample", "k11_upsample2x_i8",
+                    [A.P, A.P] + [A.I32] * 9 + [A.F32, A.F32, A.P])
+    A.launch(fn, dev, x.data_ptr(), target.data_ptr(), n, d, h, w, c, c, target.shape[-1],
+             int(offset), _vec_bytes(x, c, target, offset), 0.0, 0.0)
+    upsample2x_i8_3d.launches += 1
+    return target
+
+
+upsample2x_i8_3d.launches = 0

@@ -1,7 +1,7 @@
 """BN-folded inference forwards of the U-Net family (counterpart of the
-plain and multi-head branches of ``bio_image_unet_tpu/predict/fastpath.py``
-``build_fast_apply``, of ``:236 _build_fast_3d`` and of ``:291
-_build_fast_nested``).
+plain, attention and multi-head branches of
+``bio_image_unet_tpu/predict/fastpath.py`` ``build_fast_apply``, of ``:236
+_build_fast_3d`` and of ``:291 _build_fast_nested``).
 
 Eval-mode BatchNorm is an affine map, so it folds exactly into the preceding
 convolution (``fastpath.py:35 _fold``), in float32::
@@ -17,7 +17,9 @@ tensor-core convolutions run in.  Logits and head convolutions run in
 the working dtype and return in float32, where a head's activation runs
 (``fastpath.py:224-231``, ``:323-327``).
 
-- ``FoldedUnet2D``     — ``Unet``, ``Siam_UNet`` (the twin encoder runs as one
+- ``FoldedUnet2D``     — ``Unet``, ``AttentionUnet`` (each gate's three 1×1
+                         convs folded with their BatchNorms, :func:`attend`),
+                         ``Siam_UNet`` (the twin encoder runs as one
                          batch of cur and prev tiles, then the join:
                          max, the folded ``conv_concat``, K6 or cur's
                          alone; ``fastpath.py:185-215``) and
@@ -36,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.unet2d import apply_activation
+from ..ops.blocks import GATES
 from ..ops.functional import (depthwise_xcorr, downsample_nearest, max_pool, upsample_linear,
                               upsample_nearest)
 
@@ -60,13 +63,17 @@ def fold_unet2d(state_dict: Dict[str, torch.Tensor]) -> Dict[str, dict]:
     'bias'}}``; UNet++ ``VGGBlock`` ``<b>.conv{1,2}``/``<b>.bn{1,2}`` → ``{b:
     {'stage1': …, 'stage2': …}}``; transposed convs, ``final`` (``final.0``
     in 2D, a bare ``final`` in ``UNet3D``) and ``output_layers.<head>`` are
-    kept as they are.  All folding happens in float32."""
+    kept as they are; an ``AttentionBlock`` ``attention<k>`` → ``{'W_gate',
+    'W_x', 'psi': {'weight', 'bias'}}`` (``fastpath.py:105-115``).  All
+    folding happens in float32."""
     sd = {k: v.detach().to("cpu", torch.float32) for k, v in state_dict.items()
           if not k.endswith("num_batches_tracked")}
     folded = {}
     for b in sorted({_block_of(k) for k in sd}):
         if f"{b}.1.running_var" in sd:  # conv + BatchNorm
             folded[b] = _fold(sd, f"{b}.0", f"{b}.1")
+        elif f"{b}.W_gate.1.running_var" in sd:  # attention gate: three 1×1 + BatchNorm
+            folded[b] = {g: _fold(sd, f"{b}.{g}.0", f"{b}.{g}.1") for g in GATES}
         elif f"{b}.bn1.running_var" in sd:  # VGG block: two conv + BatchNorm stages
             folded[b] = {"stage1": _fold(sd, f"{b}.conv1", f"{b}.bn1"),
                          "stage2": _fold(sd, f"{b}.conv2", f"{b}.bn2")}
@@ -76,6 +83,23 @@ def fold_unet2d(state_dict: Dict[str, torch.Tensor]) -> Dict[str, dict]:
         else:  # up<i> (ConvTranspose2d) and the 1×1 heads: nothing to fold
             folded[b] = {"weight": sd[f"{b}.weight"], "bias": sd[f"{b}.bias"]}
     return folded
+
+
+def attend(p: Dict[str, dict], gate: torch.Tensor, skip: torch.Tensor,
+           exact_product: bool = False) -> torch.Tensor:
+    """The additive attention gate on its folded 1×1 convs (``fastpath.py:60
+    attend``): ``skip·σ(psi(relu(W_gate(gate) + W_x(skip))))``, every step
+    rounded to the tensors' dtype as XLA's CPU backend rounds JAX's graph:
+    each conv, then its bias added, and σ expanded as ``1 / (1 + exp(-z))``
+    (``lax.logistic``).  With ``exact_product`` the last product is returned
+    in float32, unrounded, as XLA hands it to the int8 graph's float32
+    requant (``quant.py:481``): a product of two bf16 values is exact."""
+    def conv1x1(x, q):
+        return F.conv2d(x, q["weight"]) + q["bias"].view(1, -1, 1, 1)
+
+    r = torch.relu(conv1x1(gate, p["W_gate"]) + conv1x1(skip, p["W_x"]))
+    psi = torch.reciprocal(torch.exp(-conv1x1(r, p["psi"])) + 1)
+    return skip.float() * psi.float() if exact_product else skip * psi
 
 
 class _Folded:
@@ -133,6 +157,7 @@ class FoldedUnet2D(_Folded):
         super().__init__(model, dtype, device)
         self.dilation = int(getattr(model, "dilation", 1))
         self.mode = getattr(model, "mode", None)
+        self.attention = bool(getattr(model, "attention", False))
         # ``recorder(site, activation)``, when set, sees every conv output
         # under its int8 calibration site (``predict/quant.py``)
         self.recorder: Optional[Callable] = None
@@ -184,7 +209,10 @@ class FoldedUnet2D(_Folded):
             u = F.conv_transpose2d(h, up["weight"], up["bias"], stride=2)
             if self.recorder is not None:
                 self.recorder(f"up{i}", u)
-            h = torch.cat([u, skip], dim=1)
+            if self.attention:  # (attended skip, up) (fastpath.py:215-218)
+                h = torch.cat([attend(P[f"attention{i}"], u, skip), u], dim=1)
+            else:
+                h = torch.cat([u, skip], dim=1)
             h = b(b(h, f"decode{2 * i - 1}", f"d{2 * i - 1}"), f"decode{2 * i}", f"d{2 * i}")
         return h
 
@@ -211,29 +239,44 @@ class FoldedNestedUNet(_Folded):
     VGG blocks with bilinear ``align_corners=True`` upsampling;
     ``heads_out(x)`` (and ``__call__``) return ``{head: activated float32}``
     from the deepest level (``output_layers.<head>_<L>`` for a
-    deep-supervision checkpoint)."""
+    deep-supervision checkpoint).  ``recorder(site, activation)``, when set,
+    sees each VGG stage's output under its int8 calibration site
+    (``g<i>_<j>a``, ``g<i>_<j>b``: ``predict/quant_nested.py``)."""
 
     def __init__(self, model, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__(model, dtype, device)
         self.levels = model.levels
         self.dilations = model.dilations
         self.deep_supervision = model.deep_supervision
+        self.recorder: Optional[Callable] = None
 
-    def _vgg(self, x, p, d=1):
-        return self._conv(self._conv(x, p["stage1"], d), p["stage2"], d)
+    def _vgg(self, x, i: int, j: int, d=1):
+        p = self.params[f"conv{i}_{j}"]
+        a = self._conv(x, p["stage1"], d)
+        if self.recorder is not None:
+            self.recorder(f"g{i}_{j}a", a)
+        a = self._conv(a, p["stage2"], d)
+        if self.recorder is not None:
+            self.recorder(f"g{i}_{j}b", a)
+        return a
 
-    def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        L, P, dil = self.levels, self.params, self.dilations
-        col = {0: {0: self._vgg(self._input(x), P["conv0_0"], dil[0])}}
+    def trunk(self, x: torch.Tensor, prev: None = None) -> torch.Tensor:
+        """The dense grid's last cell ``x_{0,L}`` in the working dtype."""
+        L, dil = self.levels, self.dilations
+        col = {0: {0: self._vgg(self._input(x), 0, 0, dil[0])}}
         for i in range(1, L + 1):
-            col[i] = {0: self._vgg(max_pool(col[i - 1][0]), P[f"conv{i}_0"], dil[i])}
+            col[i] = {0: self._vgg(max_pool(col[i - 1][0]), i, 0, dil[i])}
             for k in range(i - 1, -1, -1):
                 j = i - k
                 inputs = [col[k][jj] for jj in range(j)] + [
                     upsample_linear(col[k + 1][j - 1], 2, align_corners=True)]
-                col[k][j] = self._vgg(torch.cat(inputs, dim=1), P[f"conv{k}_{j}"])
-        suffix = f"_{L}" if self.deep_supervision else ""
-        return {name: self._head(col[0][L], f"output_layers.{name}{suffix}", cfg.get("activation"))
+                col[k][j] = self._vgg(torch.cat(inputs, dim=1), k, j)
+        return col[0][L]
+
+    def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        h = self.trunk(x)
+        suffix = f"_{self.levels}" if self.deep_supervision else ""
+        return {name: self._head(h, f"output_layers.{name}{suffix}", cfg.get("activation"))
                 for name, cfg in self.heads.items()}
 
     __call__ = heads_out

@@ -40,8 +40,9 @@ volume (or stack-global bounds) → K2v in float mode → the multi-head forward
 host-staged paths normalize and tile in numpy and share the forward and the
 stitch.
 
-``quantized=True`` (``predict/quant.py``, ``predict/quant3d.py``) swaps the
-2D or 3D trunk's float forward for the w8a8 int8 one once the engine has
+``quantized=True`` (``predict/quant.py``, ``predict/quant_nested.py``,
+``predict/quant3d.py``) swaps the 2D, UNet++ or 3D trunk's float forward for
+the w8a8 int8 one once the engine has
 calibrated its activation scales on the movie or the volumes, before the
 first chunk or volume of the fused path; the gate, its warnings and the
 calibration follow ``predictor.py:373-414``, ``:472-626``.
@@ -69,7 +70,7 @@ from ..utils.utils import save_as_tif
 from .fastpath import folded_forward
 from .normalize import (_normalize_stack, _percentile, normalize_tile, normalize_tile_3d,
                         normalize_tile_float, normalize_tile_pairs)
-from .quant import _int8_family, int8_builders, int8_status
+from .quant import int8_builders, int8_status
 from .tiling import (TilePlan, TilePlan3D, _blend_factors, _margin_factors, grid_starts,
                      overlap_starts)
 
@@ -196,20 +197,14 @@ class _Engine:
         gate of ``predictor.py:373-414``): ``_quant`` holds ``(cal_fn,
         make_forward)`` when int8 will run; the scales are calibrated before
         the first fused chunk or volume (``_calibrate_int8``,
-        ``_calibrate_int8_3d``), which sets ``_quant_ready``.  A family the
-        JAX package runs int8 but whose graph is not ported (UNet++) is kept
-        in ``_int8_unported``: its fused path raises."""
+        ``_calibrate_int8_3d``), which sets ``_quant_ready``."""
         self._quant = None
         self._quant_ready = False
-        self._int8_unported = None
         if not quantized:
             return
         status = int8_status(self.model)
         if status == "enabled":
-            if _int8_family(self.model) == "nested":
-                self._int8_unported = "nested"
-            else:
-                self._quant = int8_builders(self.model, self.device, self.forward)
+            self._quant = int8_builders(self.model, self.device, self.forward)
         elif status == "experimental":
             warnings.warn(
                 "quantized=True for this family has a full int8 implementation in the "
@@ -901,19 +896,12 @@ def _warn_quantized_host_path(quantized: bool, engine: _Engine, use_fused: bool,
                               fused_blocker: Optional[str]) -> None:
     """int8 runs only inside the fused device pipeline: warn when a
     quantized request took the host-staged path, which runs bf16/float32
-    (``predictor.py:1451``); then raise where int8 would run on UNet++, whose
-    int8 graph is not ported."""
-    if quantized and not use_fused and (engine._quant is not None
-                                        or engine._int8_unported is not None):
+    (``predictor.py:1451``)."""
+    if quantized and not use_fused and engine._quant is not None:
         reason = fused_blocker or "device_pipeline=False was forced"
         warnings.warn("quantized=True runs only inside the fused device pipeline; this "
                       f"request took the host-staged path ({reason}) and runs bf16/f32",
                       stacklevel=3)
-    if use_fused and engine._int8_unported is not None:
-        raise NotImplementedError(
-            f"quantized=True on {type(engine.model).__name__} (int8 family "
-            f"'{engine._int8_unported}'): the UNet++ int8 graph (ROADMAP B5) is not "
-            "ported yet")
 
 
 class Predict:

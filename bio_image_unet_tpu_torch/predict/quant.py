@@ -19,14 +19,21 @@ The scheme is the JAX package's post-training quantization, unchanged:
   (K8) writes the first half of a decoder level's concat buffer and the skip,
   rescaled to ``max(s_up, s_skip)`` (K9), the second, so no concat copy is
   made; K9 also quantizes ``encode1``'s output and dequantizes before the
-  head.  The kernels are in :mod:`..ops.int8` (``csrc/int8_trunk.cu``).
+  head.  With attention gates (``AttentionUnet``, ``quant.py:472-485``) K8
+  writes the up path after the skip's channels; K9 dequantizes the up path
+  and the skip to bf16, the gate runs in bf16 on cuDNN 1×1 convs
+  (``fastpath.attend``) and K9 requantizes the attended skip (float32: the
+  product of two bf16 values, unrounded as XLA leaves it) to the level's
+  concat scale into the buffer's first channels.  The kernels are in
+  :mod:`..ops.int8` (``csrc/int8_trunk.cu``).
 
-The 2D graph covers ``Unet`` at any integer dilation, ``MultiOutputUnet``
-(heads float) and ``Siam_UNet`` with the ``max``, ``control`` and ``concat``
-joins (``corr`` has no int8 formulation); :func:`int8_builders` hands the 3D
+The 2D graph covers ``Unet`` at any integer dilation, ``AttentionUnet``,
+``MultiOutputUnet`` (heads float) and ``Siam_UNet`` with the ``max``,
+``control`` and ``concat`` joins (``corr`` has no int8 formulation);
+:func:`int8_builders` hands UNet++ to :mod:`.quant_nested` and the 3D
 families (``UNet3D`` with either decoder, ``MultiOutputUnet3D``) to
 :mod:`.quant3d`.  :func:`int8_status` answers as the JAX function does for
-every model class the port builds; the UNet++ int8 graph is not ported yet.
+every model class the port builds.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ import torch
 import torch.nn.functional as F
 
 from ..models.unet2d import apply_activation
+from ..ops.blocks import GATES
 from ..ops.int8 import maxpool_i8, qconv3x3, qconvt2x2, requant
-from .fastpath import FoldedUnet2D, fold_unet2d, folded_forward
+from .fastpath import FoldedUnet2D, attend, fold_unet2d, folded_forward
 
 # The JAX package's ship set (``quant.py:79 _MEASURED_INT8``): the families
 # that quantize on ``quantized=True``; the others are experimental there and
@@ -68,15 +76,17 @@ def _sites(mode):
 
 def _int8_family(model) -> Optional[str]:
     """The family key of ``model`` (``quant.py:119``): ``'unet2d'`` for the
-    2D trunk with an int8 join, ``'nested'`` for UNet++, ``'unet3d'`` /
-    ``'unet3d_interp'`` / ``'multi_output_3d'`` by 3D decoder style, or
-    None."""
+    2D trunk with an int8 join, ``'attention2d'`` for it with attention gates,
+    ``'nested'`` for UNet++, ``'unet3d'`` / ``'unet3d_interp'`` /
+    ``'multi_output_3d'`` by 3D decoder style, or None."""
     from ..models.nested_unet import MultiOutputNestedUNet
     from ..models.unet2d import Unet
     from ..models.unet3d import MultiOutputUnet3D, UNet3D
 
     if isinstance(model, Unet):
-        return "unet2d" if getattr(model, "mode", None) in _INT8_MODES else None
+        if getattr(model, "mode", None) not in _INT8_MODES:
+            return None
+        return "attention2d" if getattr(model, "attention", False) else "unet2d"
     if isinstance(model, MultiOutputNestedUNet):
         return "nested"
     if isinstance(model, MultiOutputUnet3D):
@@ -157,11 +167,17 @@ class Int8Weights:
 
     @classmethod
     def from_folded(cls, folded: Dict[str, dict], mode, heads, device) -> "Int8Weights":
-        """The store of a folded 2D trunk (``quant.py:378-399``)."""
+        """The store of a folded 2D trunk (``quant.py:378-399``); attention
+        gates' folded 1×1 convs stay float, as ``attention<i>.<W_gate|W_x|
+        psi>``."""
         store = cls(device)
         head_layers = (["final"] if heads is None else [f"output_layers.{n}" for n in heads])
         for name in ["encode1"] + head_layers:
             store.float_layer(name, folded[name])
+        for i in range(1, 5):
+            if f"attention{i}" in folded:
+                for g in GATES:
+                    store.float_layer(f"attention{i}.{g}", folded[f"attention{i}"][g])
         convs = ([f"encode{i}" for i in range(2, 9)]
                  + (["conv_concat"] if mode == "concat" else [])
                  + ["middle_conv1", "middle_conv2"] + [f"decode{i}" for i in range(1, 9)])
@@ -223,6 +239,11 @@ class Int8Forward:
     ``trunk(x[, prev])`` that returns the last decoder features dequantized
     to bf16; ``s`` maps each site to its scale."""
 
+    # the float first conv's name in the weight store, and the suffix of the
+    # head layers' (``_<L>`` for a deep-supervision UNet++)
+    first = "encode1"
+    head_suffix = ""
+
     def __init__(self, weights: Int8Weights, sites, act_maxes, heads=None, dilation: int = 1):
         self.w = weights
         self.heads = heads
@@ -231,9 +252,9 @@ class Int8Forward:
         self._slope = torch.tensor(0.1, dtype=torch.bfloat16, device=weights.device)
 
     def _encode1(self, x: torch.Tensor) -> torch.Tensor:
-        """``encode1`` in bf16 in JAX's rounding order: the conv, then the
+        """The first conv in bf16 in JAX's rounding order: the conv, then the
         bias, then LeakyReLU with the slope rounded to bf16."""
-        p, d = self.w.float["encode1"], self.dilation
+        p, d = self.w.float[self.first], self.dilation
         conv = F.conv2d if x.dim() == 4 else F.conv3d
         y = conv(x, p["weight"], padding=d, dilation=d) + p["bias"].view(
             (1, -1) + (1,) * (x.dim() - 2))
@@ -258,7 +279,7 @@ class Int8Forward:
 
     def heads_out(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         h = self.trunk(x)
-        return {name: apply_activation(self._head(h, f"output_layers.{name}"),
+        return {name: apply_activation(self._head(h, f"output_layers.{name}{self.head_suffix}"),
                                        cfg.get("activation"))
                 for name, cfg in self.heads.items()}
 
@@ -277,6 +298,7 @@ class Int8Unet2D(Int8Forward):
                  dilation: int = 1):
         super().__init__(weights, _sites(mode), act_maxes, heads, dilation)
         self.mode = mode
+        self.attention = "attention1.W_gate" in weights.float
 
     def _qconv(self, x, name: str, s_in: float, site: str, dilation: int = 1):
         return qconv3x3(x, *self.w.conv[name], s_in, self.s[site], dilation)
@@ -317,11 +339,22 @@ class Int8Unet2D(Int8Forward):
         for i, (skip, site) in enumerate(zip((q8, q6, q4, q2), _SKIPS), start=1):
             s_cat = max(s[f"up{i}"], s[site])
             up = self.w.conv[f"up{i}"]
-            c_up = up[0].shape[2]
-            buf = torch.empty(skip.shape[:-1] + (c_up + skip.shape[-1],), dtype=torch.int8,
+            c_up, c_skip = up[0].shape[2], skip.shape[-1]
+            buf = torch.empty(skip.shape[:-1] + (c_up + c_skip,), dtype=torch.int8,
                               device=skip.device)
-            qconvt2x2(h, *up, s_h, s_cat, out=buf, offset=0)
-            requant(skip, s[site], s_cat, out=buf, offset=c_up)
+            if self.attention:
+                # (attended skip, up): the gate in bf16 between two K9
+                # dequants and a K9 requant; |skip·psi| ≤ |skip|, so the
+                # attended skip takes s_cat as the raw skip would
+                qconvt2x2(h, *up, s_h, s_cat, out=buf, offset=c_skip)
+                u_f = requant(buf[..., c_skip:], s_cat).permute(0, 3, 1, 2)
+                skip_f = requant(skip, s[site]).permute(0, 3, 1, 2)
+                gate = {g: self.w.float[f"attention{i}.{g}"] for g in GATES}
+                a = attend(gate, u_f, skip_f, exact_product=True).permute(0, 2, 3, 1)
+                requant(a.contiguous(), 1.0, s_cat, out=buf)
+            else:
+                qconvt2x2(h, *up, s_h, s_cat, out=buf, offset=0)
+                requant(skip, s[site], s_cat, out=buf, offset=c_up)
             h = c(buf, f"decode{2 * i - 1}", s_cat, f"d{2 * i - 1}")
             h = c(h, f"decode{2 * i}", s[f"d{2 * i - 1}"], f"d{2 * i}")
             s_h = s[f"d{2 * i}"]
@@ -345,19 +378,23 @@ def build_int8_apply(model, device, folded: Optional[Dict[str, dict]] = None) ->
     return make_forward
 
 
-def int8_builders(model, device, forward: Optional[FoldedUnet2D] = None) -> tuple:
-    """``(cal_fn, make_forward)`` of a model whose family is ``'unet2d'`` or
-    one of the 3D families ``'unet3d'``, ``'unet3d_interp'``,
-    ``'multi_output_3d'`` (``quant.py:187``); ``forward`` is a bf16 folded
-    forward of the model to calibrate with (one is built when it is None)."""
+def int8_builders(model, device, forward=None) -> tuple:
+    """``(cal_fn, make_forward)`` of a model with an int8 family
+    (``quant.py:187``): ``'unet2d'``, ``'attention2d'``, ``'nested'`` or one
+    of the 3D families ``'unet3d'``, ``'unet3d_interp'``,
+    ``'multi_output_3d'``; ``forward`` is a bf16 folded forward of the model
+    to calibrate with (one is built when it is None)."""
     family = _int8_family(model)
-    if family not in ("unet2d", "unet3d", "unet3d_interp", "multi_output_3d"):
-        raise ValueError(f"no ported int8 graph for {type(model).__name__} (int8 family "
-                         f"{family!r}: the UNet++ int8 graph is not ported yet)")
+    if family is None:
+        raise ValueError(f"no int8 formulation for {type(model).__name__}")
     if forward is None or forward.dtype != torch.bfloat16:
         forward = folded_forward(model, torch.bfloat16, device)
-    if family == "unet2d":
+    if family in ("unet2d", "attention2d"):
         return build_calibrator(forward), build_int8_apply(model, device)
+    if family == "nested":
+        from .quant_nested import build_calibrator_nested, build_int8_apply_nested
+
+        return build_calibrator_nested(forward), build_int8_apply_nested(model, device)
     from .quant3d import build_calibrator_3d, build_int8_apply_3d
 
     return build_calibrator_3d(forward), build_int8_apply_3d(model, device)

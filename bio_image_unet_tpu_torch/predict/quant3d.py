@@ -22,9 +22,10 @@ The JAX package's scale-folded formulation (``quant3d.py:145-256``):
 - **Graph** (:class:`Int8UNet3D`, NDHWC int8): ``encode1`` in bf16 and K9 to
   int8; K7v convs; K10v max pools, or the nearest ×0.5 stride slice of
   ``MultiOutputUnet3D``'s nearest decoder (exact on int8); the up path by
-  K8v, by the nearest ×2 repeat and a K7v conv, or trilinear on the int8
-  values in float32 rounded back at the same scale (half to even, clipped:
-  a convex combination stays in range); ``d6`` dequantized to bf16 by K9;
+  K8v, by the nearest ×2 repeat and a K7v conv, or by K11v: trilinear on
+  the int8 values in float32 rounded back at the same scale (half to even,
+  clipped: a convex combination stays in range); ``d6`` dequantized to bf16
+  by K9;
   the 1×1×1 head(s) as in 2D.
 """
 
@@ -35,8 +36,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.functional import upsample_linear
-from ..ops.int8 import maxpool_i8_3d, qconv3x3x3, qconvt2x2x2, requant
+from ..ops.int8 import maxpool_i8_3d, qconv3x3x3, qconvt2x2x2, requant, upsample2x_i8_3d
 from .fastpath import FoldedUNet3D, fold_unet2d
 from .quant import Int8Forward, Int8Weights, act_scales, recording_calibrator
 
@@ -156,11 +156,9 @@ class Int8UNet3D(Int8Forward):
             elif multi:
                 c(_up_nearest(h), f"up{i}_conv", f"up{i}", out=buf)
             else:
-                # linearity: up(q)·s = up(q·s); the int8 values are
-                # interpolated in float32 and rounded back at h's scale
-                u = upsample_linear(h.permute(0, 4, 1, 2, 3).float())
-                buf[..., :c_up] = torch.clamp(torch.round(u), -127, 127).to(
-                    torch.int8).permute(0, 2, 3, 4, 1)
+                # linearity: up(q)·s = up(q·s); K11v interpolates the int8
+                # values in float32 and rounds them back at h's scale
+                upsample2x_i8_3d(h, out=buf)
             requant(skip, 1.0, 1.0, out=buf, offset=c_up)
             h = c(c(buf, f"decode{2 * i - 1}", f"d{2 * i - 1}"), f"decode{2 * i}", f"d{2 * i}")
         return requant(h, s["d6"]).permute(0, 4, 1, 2, 3)

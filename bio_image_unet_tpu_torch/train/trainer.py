@@ -59,8 +59,9 @@ resume and one more equal two epochs straight.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
 raises without a card.  Not ported yet, each raising NotImplementedError:
-networks other than the six above (``Siam_UNet`` too) and ``mode`` (Siam), ``mesh`` and
-``device_cache="sharded"`` (multi-GPU), ``remat``, ``profile_dir``.
+networks other than the six above (``AttentionUnet`` and ``Siam_UNet`` too)
+and ``mode`` (Siam), ``mesh`` and ``device_cache="sharded"`` (multi-GPU),
+``remat``, ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -230,6 +231,8 @@ class Trainer:
                                dtype=torch.bfloat16 if half_precision else None)
         if getattr(self.model, "mode", None) is not None:
             _not_ported("the Siam_UNet network (the siamese trainer)", "Siam")
+        if getattr(self.model, "attention", False):
+            _not_ported("AttentionUnet training", "AttentionUnet training")
         init_weights_(self.model, torch.Generator().manual_seed(seed))
         self.multi_output = output_heads is not None or bool(getattr(self.model, "heads", None))
         # the deep-supervision weights follow the model's grid depth (:214)

@@ -28,8 +28,9 @@ non-zero without printing a result:
    to 0 just before and read just after; every kernel must have launched.
    Each result is held against the port's host-staged path
    (``device_pipeline=False``), and a small float32 ``Predict`` on the card
-   against the same on the CPU.  Prints the end-to-end and device-resident
-   MP/s (the definitions of ``bench.py``);
+   against the same on the CPU (``Unet(8)``, and ``Unet(8, dilation=2)``).
+   Prints the end-to-end and device-resident MP/s (the definitions of
+   ``bench.py``);
 5. kernels (training) — K4, the gather and augmentation of a training batch,
    held against its plain version at the training shapes (12 tiles of 256²
    gathered from a 120-tile resident set: mask bit-equal, image within one
@@ -185,7 +186,10 @@ non-zero without printing a result:
    concat buffer, K8 (the 2×2 stride-2 int8 transposed conv into the concat
    buffer's first half) at every decoder level, K9 in its three forms (the
    first conv's bf16 output → int8, a skip into the concat buffer's second
-   half, the dequant to bf16 before the head) and K10 (the int8 max pool) at
+   half, the dequant to bf16 before the head) and in the two that
+   ``AttentionUnet``'s gated decoder adds (the dequant of the up path from
+   channels [32, 64) of the concat buffer, a strided read, and the float32
+   attended skip → int8 into channels [0, 32)) and K10 (the int8 max pool) at
    every encoder level, on a forward batch of 256 tiles: each bit-equal to
    its plain version, timed beside its bound (int8 operations at the
    tensor cores' 1979 TOP/s, or bytes) and, for K7 / K8, ``torch._int_mm``
@@ -198,7 +202,9 @@ non-zero without printing a result:
    16-frame chunk, one forward batch: K7 17, K8 4, K9 6, K10 4, beside K1's
    two, K2 and K3); end-to-end and device-resident MP/s of int8 and bf16 back
    to back and their ratio, the int8 trunk's TOP/s and share of the int8
-   dense peak, a profile by stage and by ``qconv`` instance; a BN-warmed
+   dense peak, the peak device memory of the device-resident passes (the
+   counter reset first) and of one int8 and one bf16 ``Predict`` call, a
+   profile by stage and by ``qconv`` instance; a BN-warmed
    ``Unet(32)`` within the JAX package's int8 contract of bf16 (at most 4 levels, a mean under 0.5,
    under 1% of pixels beyond one level); the trained ``.pt`` of ``[train]``:
    mask IoU within 0.01 of bf16's, and a calibration broken on purpose must
@@ -223,7 +229,10 @@ non-zero without printing a result:
    1979 TOP/s, or bytes), ``torch._int_mm`` on an im2col (K7v) or on the
    up-conv's product (K8v), and the bf16 cuDNN ``conv3d`` /
    ``conv_transpose3d`` of the layer; K7v / K8v rows with their rates as
-   in 18;
+   in 18; and K11v (the trilinear decoder's int8 ×2 into its concat buffer)
+   at its largest level, up3 (16, 16×64², 64) into channels [0, 64) of a
+   96-channel buffer, bit-equal to its plain version (the torch calls it
+   replaced), timed beside its byte bound and those calls;
 21. int8 3d — ``Predict3D(quantized=True)`` at config 5 (a BN-warmed
    ``UNet3D(32)``, a 64×512² uint8 blob volume, tiles (32, 128, 128), bf16
    outside the int8 trunk, two forward batches of 16): launches exact
@@ -239,8 +248,39 @@ non-zero without printing a result:
    the ``[3d heads]`` cell's two volumes (heads within 15% / 3% of their
    range), each with exact launches; the trained ``.pt`` of ``[train 3d]``:
    mask IoU within 0.01 of bf16's; a BN-warmed ``UNet3D(8)`` int8 on the card
-   against the CPU within the int8 contract;
-22. the kernels' JSON line, then the last line
+   against the CPU within the int8 contract; K11v launches 3 a forward batch
+   of the trilinear decoder (its JSON entry counts that call);
+22. kernels (nested int8) — on the UNet++ int8 grid's row buffers at config
+   4's forward batch (16 tiles of 512²): K7 reading ``x_{0,1}``'s input in
+   place (channels [0, 96) of row 0) and writing its slot, K10 pooling slot
+   0, K9 quantizing ``g0_0``'s bf16 output and dequantizing the last cell
+   from slot 4 of row 0 (16, 512², 32 of 192; a strided read), and K11 (the int8 ×2 ``align_corners=True`` bilinear) from slot 0 of
+   row 1 (16, 256², 64) into channels [32, 96) of row 0, and at two odd
+   shapes: bit-equal to their plain versions, timed beside their bounds and,
+   for K11, the torch calls it replaces (``F.interpolate``, round, clip,
+   int8, the slice copy);
+23. nested int8 — ``PredictMultiOutput(quantized=True)`` under
+   ``BIU_INT8_EXPERIMENTAL=1`` at config 4 (a BN-warmed
+   ``MultiOutputNestedUNet(32)``, 40 uint8 1024² frames, 512² patches,
+   ``safe_margin=20``, bf16 outside the grid): launches exact around the call
+   (per forward batch of 16 tiles K7 29, K11 10, K10 4, K9 2: e1 and the
+   last cell's dequant, the partners read in place from the grid's row
+   buffers; beside K1, K2h, K5 and K5s); end-to-end and device-resident MP/s of int8
+   and bf16 back to back and their ratio, the grid's int8 TOP/s, peak
+   memory (reset first), a profile by stage; every head within JAX's UNet++
+   int8 bounds of bf16 (max under 25%, mean under 3% of its range floored at
+   0.5); BN-warmed UNet++(8) at both depths (deep supervision on the 3-level
+   one) on the card against the CPU within the same bounds;
+24. attention — ``Predict`` on a BN-warmed ``AttentionUnet(32)`` at config 1
+   (64×1024² uint8, 256², bf16), float and then ``quantized=True`` (int8 by
+   default): launches exact (float: K1 2, K2 1, K3 1 a chunk; int8 adds per
+   forward batch K7 17, K8 4, K10 4, K9 14: the gated decoder's dequants and
+   requant); fused vs host-staged within JAX's contract; int8 vs bf16 within
+   the 2D int8 contract; end-to-end and device-resident MP/s and their
+   ratio, peak memory, profiles; ``AttentionUnet(8)`` on the card against
+   the CPU, float32 (one level on ≤ 0.1% of pixels) and int8 (the int8
+   contract);
+25. the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -342,6 +382,13 @@ def main() -> int:
     kint8_3d = run("kernels int8 3d", phase_kernels_int8_3d, torch, dev)
     run("int8 3d", phase_int8_3d, torch, dev, kernels, kint8_3d, trained3d)
     kernels.extend(kint8_3d)
+    knested = run("kernels nested int8", phase_kernels_nested_int8, torch, dev)
+    run("nested int8", phase_nested_int8, torch, dev, kernels, knested)
+    kernels.extend(knested)
+    run("attention", phase_attention, torch, dev, kernels)
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: never launched on its main path")
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for k in kernels:
         k.pop("_counter")
@@ -710,13 +757,17 @@ def phase_main_path(torch, dev, kernels) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         small = str(Path(tmp) / "unet_nf8.pt")
         write_checkpoint(torch, small, "Unet", 8, seed=1, out_channels=1)
-        for add, m in ((0, rng.integers(0, 255, (3, 128, 128), dtype=np.uint8)),
-                       (1, rng.integers(0, 65535, (3, 100, 90), dtype=np.uint16))):
+        dilated = str(Path(tmp) / "unet_d2_nf8.pt")
+        write_checkpoint(torch, dilated, "Unet", 8, seed=2, out_channels=1, dilation=2)
+        for ck, add, m in ((small, 0, rng.integers(0, 255, (3, 128, 128), dtype=np.uint8)),
+                           (small, 1, rng.integers(0, 65535, (3, 100, 90), dtype=np.uint16)),
+                           (dilated, 0, rng.integers(0, 255, (3, 128, 128), dtype=np.uint8))):
             skw = dict(resize_dim=(64, 64), add_tile=add, show_progress=False, batch_size=4)
-            on_card = Predict(m, None, small, **skw).result
-            on_cpu = Predict(m, None, small, device="cpu", **skw).result
+            on_card = Predict(m, None, ck, **skw).result
+            on_cpu = Predict(m, None, ck, device="cpu", **skw).result
             diff = np.abs(on_card.astype(int) - on_cpu.astype(int))
-            log(f"[main] small float32 {m.dtype} add_tile={add}: card vs CPU max {diff.max()} "
+            log(f"[main] small float32 {'Unet(8, dilation=2)' if ck == dilated else 'Unet(8)'} "
+                f"{m.dtype} add_tile={add}: card vs CPU max {diff.max()} "
                 f"levels on {np.mean(diff > 0):.6f} of pixels")
             if diff.max() > 1 or np.mean(diff > 0) > 1e-3:
                 raise AssertionError("the card's Predict disagrees with the CPU's")
@@ -726,6 +777,7 @@ def phase_main_path(torch, dev, kernels) -> None:
 STAGES = (("k7/k8 int8 conv, up-conv", ("qconv",)),
           ("k9 requant", ("requant",)),
           ("k10 int8 max pool", ("maxpool_i8",)),
+          ("k11/k11v int8 upsample", ("upsample2x_i8",)),
           ("k1 clip bounds", ("hist_pass", "finalize")),
           ("k2/k2h/k2v/k2p normalize+tile", ("normalize_tile",)),
           ("k6 depthwise xcorr", ("xcorr",)),
@@ -2870,6 +2922,7 @@ def phase_siam(torch, dev, kernels, ksiam) -> None:
 # --- 18. kernels (int8) --------------------------------------------------------
 
 INT8_SOURCE = "bio_image_unet_tpu_torch/csrc/int8_trunk.cu"
+RESAMPLE_SOURCE = "bio_image_unet_tpu_torch/csrc/int8_resample.cu"
 INT8_BATCH = (1 << 24) // (TILE * TILE)  # the main path's forward batch: 256 tiles
 
 
@@ -3027,30 +3080,39 @@ def phase_kernels_int8(torch, dev) -> list:
         del x, w, bufs
         torch.cuda.empty_cache()
 
-    # K9 in its three forms at full resolution (n, 256², 32)
+    # K9 in its three forms at full resolution (n, 256², 32), and in the two
+    # that AttentionUnet's gated decoder adds at its last level: the dequant of
+    # the up path from channels [C, 2C) of the concat buffer (a strided read)
+    # and the requant of the float32 attended skip into channels [0, C)
     shape = (n, TILE, TILE, nf)
     e1 = (torch.randn(shape, generator=y.g, device=dev) * 2).to(torch.bfloat16)
     skip = i8(shape)
     buf = torch.zeros(shape[:-1] + (2 * nf,), dtype=torch.int8, device=dev)
+    cat = i8(shape[:-1] + (2 * nf,))
+    attended = torch.randn(shape, generator=y.g, device=dev) * 2
     forms = (
-        ("e1 bf16 -> int8", lambda f: f(e1, 1.0, 0.05), 3 * e1.numel()),
-        ("skip int8 -> concat channels [C, 2C)",
+        ("e1 bf16 -> int8", "quant.py:223", lambda f: f(e1, 1.0, 0.05), 3 * e1.numel()),
+        ("skip int8 -> concat channels [C, 2C)", "quant.py:223",
          lambda f: f(skip, 0.031, 0.037, out=buf, offset=nf), 2 * skip.numel()),
-        ("dequant int8 -> bf16", lambda f: f(skip, 0.031), 3 * skip.numel()),
+        ("dequant int8 -> bf16", "quant.py:223", lambda f: f(skip, 0.031), 3 * skip.numel()),
+        ("attention: dequant concat channels [C, 2C) -> bf16", "quant.py:477",
+         lambda f: f(cat[..., nf:], 0.031), 3 * skip.numel()),
+        ("attention: attended f32 -> concat channels [0, C)", "quant.py:483",
+         lambda f: f(attended, 1.0, 0.037, out=buf, offset=0), 5 * skip.numel()),
     )
-    for form, call, n_bytes in forms:
+    for form, site, call, n_bytes in forms:
         ours = call(k8.requant).clone()
         torch.cuda.synchronize()
         err = check(f"K9 {form}", ours, call(k8.requant_plain))
         rows.append(kernel_row(
             "kernels int8", f"k9_requant[{form} ({n}, {TILE}^2, {nf})]", INT8_SOURCE,
-            "bio_image_unet_tpu/predict/quant.py:223", k8.requant, err,
+            f"bio_image_unet_tpu/predict/{site}", k8.requant, err,
             timer(lambda: call(k8.requant)), timer(lambda: call(k8.requant_plain), 1),
             # read and write each element once; a multiply, a divide, a
             # rounding and a clip each
             bound_ms(n_bytes, 4 * skip.numel()), None))
         del ours
-    del e1, skip, buf
+    del e1, skip, buf, cat, attended
     torch.cuda.empty_cache()
 
     # K10 at every encoder level
@@ -3149,13 +3211,17 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
             k["launches"] = got[k["_counter"]]
         q_res = pred.result
 
-        # end to end, int8 and bf16 back to back (best of two after the call above)
+        # end to end, int8 and bf16 back to back (best of two after the call
+        # above); each call's own peak device memory, the counter reset first
         times = {"int8": float("inf"), "bf16": float("inf")}
+        call_peak = {"int8": 0, "bf16": 0}
         results = {}
         for mode in ("bf16", "int8", "int8", "bf16", "bf16"):
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             results[mode] = Predict(movie, None, ckpt, quantized=mode == "int8", **kw).result
             times[mode] = min(times[mode], time.perf_counter() - t0)
+            call_peak[mode] = max(call_peak[mode], torch.cuda.max_memory_allocated())
         if not np.array_equal(results["int8"], q_res):
             raise AssertionError("two quantized calls on one movie disagree")
         d = np.abs(q_res.astype(np.int16) - results["bf16"].astype(np.int16))
@@ -3176,6 +3242,7 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
             return [fns[mode](movie_dev[i:i + CHUNK]) for i in range(0, FRAMES, CHUNK)]
 
         device = {"int8": float("inf"), "bf16": float("inf")}
+        torch.cuda.reset_peak_memory_stats()
         for mode in ("int8", "bf16", "bf16", "int8", "int8", "bf16"):
             resident(mode)
             torch.cuda.synchronize()
@@ -3188,6 +3255,7 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
                 if same:
                     raise AssertionError(f"device-resident int8 run vs Predict: {same} levels")
         del outs
+        resident_peak = torch.cuda.max_memory_allocated()
         resident_mps = {m: FRAMES * H * W / 1e6 / t for m, t in device.items()}
         ops = int8_trunk_ops(N_FILTER, TILE) * FRAMES * (H // TILE) * (W // TILE)
         log(f"[int8] {main}: end to end int8 {e2e['int8']:.2f} MP/s, bf16 {e2e['bf16']:.2f} MP/s "
@@ -3197,7 +3265,9 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
             f"{resident_mps['int8'] / resident_mps['bf16']:.3f}); int8 trunk "
             f"{ops / FRAMES / 16 / 1e9:.2f} GOP a tile → {ops / device['int8'] / 1e12:.1f} TOP/s "
             f"device-resident, {ops / device['int8'] / PEAK_INT8_OPS:.4f} of the int8 dense peak; "
-            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"peak device memory of the device-resident passes (both engines, the movie on "
+            f"the card) {resident_peak / 2**30:.2f} GiB; of one Predict call int8 "
+            f"{call_peak['int8'] / 2**30:.2f} GiB, bf16 {call_peak['bf16'] / 2**30:.2f} GiB")
         profile_pass(torch, lambda: resident("int8"), "int8", f"{FRAMES} frames, int8")
         del movie_dev, engines, fns
 
@@ -3443,6 +3513,37 @@ def phase_kernels_int8_3d(torch, dev) -> list:
         del ours
     del e1, skip, buf, d6
     torch.cuda.empty_cache()
+
+    # K11v at the trilinear decoder's largest level: up3 of UNet3D(32), h
+    # (16, 16x64^2, 64) -> the first 64 channels of the 96-channel buffer
+    x = y.i8((n,) + level(1) + (2 * nf,))
+    out_shape = (n,) + VOL_TILE
+    bufs = [torch.zeros(out_shape + (3 * nf,), dtype=torch.int8, device=dev) for _ in range(2)]
+    k8.upsample2x_i8_3d(x, out=bufs[0])
+    torch.cuda.synchronize()
+    k8.upsample2x_i8_3d_plain(x, out=bufs[1])
+    err = y.check("K11v up3", bufs[0], bufs[1])
+    del bufs[1]
+    n_out = x.numel() * 8
+
+    def library():
+        # F.interpolate's trilinear on the values in float32, round, clip,
+        # int8 and the copy into the buffer's channel range
+        u = F.interpolate(x.permute(0, 4, 1, 2, 3).float(), scale_factor=2, mode="trilinear",
+                          align_corners=False)
+        bufs[0][..., :2 * nf] = torch.clamp(torch.round(u), -127, 127).to(
+            torch.int8).permute(0, 2, 3, 4, 1)
+
+    row(f"k11v_upsample2x_i8_3d[up3 ({n}, {'x'.join(map(str, level(1)))}, {2 * nf}) -> "
+        f"({'x'.join(map(str, VOL_TILE))}, {2 * nf}) of {3 * nf}]", RESAMPLE_SOURCE,
+        "bio_image_unet_tpu/predict/quant3d.py:305", k8.upsample2x_i8_3d, err,
+        timer(lambda: k8.upsample2x_i8_3d(x, out=bufs[0])),
+        timer(lambda: k8.upsample2x_i8_3d_plain(x, out=bufs[0]), 1),
+        # each input byte read once, each output byte written once; some 20
+        # float operations an output (8 gathers' blends, round, clip)
+        bound_ms(x.numel() + n_out, 20 * n_out), timer(library, 5))
+    del x, bufs
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3498,9 +3599,11 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
 
     def trunk(b, tconv=True, nearest=False):
         """The int8 kernels' launches of ``b`` forward batches: K9 quantizes
-        e1, copies the three skips and dequantizes d6."""
+        e1, copies the three skips and dequantizes d6; the trilinear decoder
+        (no transposed conv, not nearest) upsamples by K11v."""
         return {k8.qconv3x3x3: (16 if nearest else 13) * b, k8.qconvt2x2x2: 3 * b * tconv,
-                k8.maxpool_i8_3d: 3 * b * (not nearest), k8.requant: 5 * b}
+                k8.maxpool_i8_3d: 3 * b * (not nearest), k8.requant: 5 * b,
+                k8.upsample2x_i8_3d: 3 * b * (not tconv and not nearest)}
 
     volume_expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1}
     rng = np.random.default_rng(14)
@@ -3597,10 +3700,14 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
             write_warm_checkpoint(torch, tri, "UNet3D", VOL_FILTER, seed=22,
                                   use_interpolation=True)
             t0 = time.perf_counter()
-            q, _ = counted(torch, "int8 3d", counters, "trilinear UNet3D(32) int8",
-                           lambda: Predict3D(vol, None, tri, quantized=True, **kw).result,
-                           {**volume_expect, **trunk(batches, tconv=False)})
+            q, got_tri = counted(torch, "int8 3d", counters, "trilinear UNet3D(32) int8",
+                                 lambda: Predict3D(vol, None, tri, quantized=True, **kw).result,
+                                 {**volume_expect, **trunk(batches, tconv=False)})
             dt = time.perf_counter() - t0
+            # K11v's path is this decoder's: its JSON entry counts this call
+            for k in kint8_3d:
+                if k["_counter"] is k8.upsample2x_i8_3d:
+                    k["launches"] = got_tri[k8.upsample2x_i8_3d]
             log(f"[int8 3d] trilinear UNet3D(32): {mvox / dt:.2f} Mvox/s end to end (one call, "
                 "calibration included)")
             int8_3d_bounds("int8 3d", "trilinear UNet3D(32) int8 vs bf16", q,
@@ -3672,6 +3779,426 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
         if not (card.engine._quant_ready and cpu.engine._quant_ready):
             raise AssertionError("card vs CPU: a quantized Predict3D did not calibrate")
         int8_contract("int8 3d", "UNet3D(8) int8: card vs CPU", card.result, cpu.result)
+
+
+# --- 22. kernels (nested int8) -------------------------------------------------------
+
+def phase_kernels_nested_int8(torch, dev) -> list:
+    """The UNet++ int8 grid's kernels on its row buffers, at config 4's
+    forward batch of 16 tiles of 512² (4 levels, n_filter 32: row 0 holds 6
+    slots of 32 channels, row 1 5 of 64): K7 reading a cell's input in place
+    (``x_{0,1}``'s stage 1, channels [0, 96) of row 0) and writing a slot
+    (its stage 2 into channels [32, 64)), K10 pooling slot 0 of row 0, and
+    K11, the int8 ×2 bilinear (``align_corners=True``), from slot 0 of row 1
+    into slots 1–2 of row 0, and at two odd shapes (1- and 8-byte vectors,
+    strided input); each bit-equal to its plain version, timed beside its
+    bound and, for K11, the torch calls it replaces."""
+    import torch.nn.functional as F
+
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+
+    y = Int8Yardsticks(torch, dev, 10, "kernels nested int8")
+    timer = y.timer
+    n = (1 << 22) // (HEADS_PATCH * HEADS_PATCH)  # config 4's forward batch: 16 tiles
+    nf, P = HEADS_FILTER, HEADS_PATCH
+    rows = []
+
+    # K7 on row 0 (16, 512², 6·32): stage 1 of x_{0,1} reads channels [0, 96)
+    # in place, stage 2 writes slot 1
+    row0 = y.i8((n, P, P, 6 * nf))
+    for layer, x, cout, off in (
+            (f"g0_1s1 from row 0 channels [0, {3 * nf})", row0[..., :3 * nf], nf, None),
+            ("g0_1s2 into row 0 slot 1", y.i8((n, P, P, nf)), nf, nf)):
+        cin = x.shape[-1]
+        w = y.packed((cout, 3, 3), cin)
+        sw = torch.full((cout,), 1e-3, device=dev)
+        bias = torch.randn((cout,), generator=y.g, device=dev)
+        s_out = y.scales(cin, 9)[2] / 0.02  # s_in = 1: the scales are in the weights
+        if off is None:
+            outs = [None, None]
+        else:
+            outs = [torch.zeros((n, P, P, 6 * nf), dtype=torch.int8, device=dev)
+                    for _ in range(2)]
+        got = k8.qconv3x3(x, w, sw, bias, 1.0, s_out, out=outs[0], offset=off or 0)
+        torch.cuda.synchronize()
+        want = k8.qconv3x3_plain(x, w, sw, bias, 1.0, s_out, out=outs[1], offset=off or 0)
+        err = y.check(f"K7 {layer}", got, want)
+        macs = n * P * P * cout * 9 * cin
+        rows.append(kernel_row(
+            "kernels nested int8", f"k7_qconv3x3[{layer} ({n}, {P}^2, {cin}) -> {cout}]",
+            INT8_SOURCE, "bio_image_unet_tpu/predict/quant_nested.py:222", k8.qconv3x3, err,
+            timer(lambda: k8.qconv3x3(x, w, sw, bias, 1.0, s_out, out=outs[0],
+                                      offset=off or 0)),
+            timer(lambda: k8.qconv3x3_plain(x, w, sw, bias, 1.0, s_out, out=outs[1],
+                                            offset=off or 0), 1),
+            bound_ms(x.numel() + n * P * P * cout + w.numel() + 8 * cout, 2 * macs,
+                     PEAK_INT8_OPS), None))
+        y.rate(rows[-1], 2 * macs)
+        del x, w, outs, got, want
+    # K10 on slot 0 of row 0
+    x = row0[..., :nf]
+    got = k8.maxpool_i8(x)
+    torch.cuda.synchronize()
+    err = y.check("K10 row0 slot 0", got, k8.maxpool_i8_plain(x))
+    rows.append(kernel_row(
+        "kernels nested int8", f"k10_maxpool_i8[row0 slot 0 ({n}, {P}^2, {nf} of {6 * nf})]",
+        INT8_SOURCE, "bio_image_unet_tpu/predict/quant_nested.py:242", k8.maxpool_i8, err,
+        timer(lambda: k8.maxpool_i8(x)), timer(lambda: k8.maxpool_i8_plain(x), 1),
+        bound_ms(x.numel() + got.numel(), 3 * got.numel()), None))
+    del x, got
+    # K9: g0_0's bf16 output quantized into a new tensor, and the dequant of
+    # the last cell x_{0,4} from slot 4 of row 0 (a strided read)
+    e = (torch.randn((n, P, P, nf), generator=y.g, device=dev) * 2).to(torch.bfloat16)
+    for form, site, call, n_bytes in (
+            (f"g0_0 bf16 -> int8 ({n}, {P}^2, {nf})", "quant_nested.py:238",
+             lambda f: f(e, 1.0, 0.05), 3 * e.numel()),
+            (f"dequant row0 slot 4 ({n}, {P}^2, {nf} of {6 * nf}) -> bf16", "quant_nested.py:257",
+             lambda f: f(row0[..., 4 * nf:5 * nf], 0.031), 3 * e.numel())):
+        got = call(k8.requant).clone()
+        torch.cuda.synchronize()
+        err = y.check(f"K9 {form}", got, call(k8.requant_plain))
+        rows.append(kernel_row(
+            "kernels nested int8", f"k9_requant[{form}]", INT8_SOURCE,
+            f"bio_image_unet_tpu/predict/{site}", k8.requant, err,
+            timer(lambda: call(k8.requant)), timer(lambda: call(k8.requant_plain), 1),
+            bound_ms(n_bytes, 4 * e.numel()), None))
+        del got
+    del row0, e
+    torch.cuda.empty_cache()
+
+    # K11 from slot j-1 of row 1 (5 slots of 64) into slots j, j+1 of row 0
+    row1 = y.i8((n, P // 2, P // 2, 5 * 2 * nf))
+    for name, x, ctot, off in (
+            (f"row1 slot 0 ({n}, {P // 2}^2, {2 * nf} of {10 * nf}) -> row0 [{nf}, {3 * nf})",
+             row1[..., :2 * nf], 6 * nf, nf),
+            ("odd (3, 37, 29, 24 of 30) -> of 40 at 8", y.i8((3, 37, 29, 30))[..., 3:27], 40, 8),
+            ("odd (2, 33, 65, 7) -> of 12 at 5", y.i8((2, 33, 65, 7)), 12, 5)):
+        b, h, w, c = x.shape
+        bufs = [torch.zeros((b, 2 * h, 2 * w, ctot), dtype=torch.int8, device=dev)
+                for _ in range(2)]
+        k8.upsample2x_i8(x, out=bufs[0], offset=off)
+        torch.cuda.synchronize()
+        k8.upsample2x_i8_plain(x, out=bufs[1], offset=off)
+        err = y.check(f"K11 {name}", bufs[0], bufs[1])
+        del bufs[1]
+        n_out = 4 * x.numel()
+
+        def library():
+            # F.interpolate's bilinear (align_corners=True) on the values in
+            # float32, round, clip, int8 and the copy into the channel range
+            u = F.interpolate(x.permute(0, 3, 1, 2).float(), scale_factor=2, mode="bilinear",
+                              align_corners=True)
+            bufs[0][..., off:off + c] = torch.clamp(torch.round(u), -127, 127).to(
+                torch.int8).permute(0, 2, 3, 1)
+
+        rows.append(kernel_row(
+            "kernels nested int8", f"k11_upsample2x_i8[{name}]", RESAMPLE_SOURCE,
+            "bio_image_unet_tpu/predict/quant_nested.py:249", k8.upsample2x_i8, err,
+            timer(lambda: k8.upsample2x_i8(x, out=bufs[0], offset=off)),
+            timer(lambda: k8.upsample2x_i8_plain(x, out=bufs[0], offset=off), 1),
+            # each input byte read once, each output byte written once; some
+            # 10 float operations an output (4 gathers' blends, round, clip)
+            bound_ms(x.numel() + n_out, 10 * n_out), timer(library, 5)))
+        del x, bufs
+        torch.cuda.empty_cache()
+    del row1
+    return rows
+
+
+# --- 23. nested int8 ----------------------------------------------------------------
+
+def nested_int8_ops(nf: int, s: int) -> float:
+    """int8 operations of one s² tile through the UNet++ int8 grid: every
+    conv but ``g0_0``'s first and the three 1×1 head channels, which run in
+    bf16."""
+    return nested_unet_forward_flops(nf, s) - 2 * 9 * nf * s * s - 2 * nf * 3 * s * s
+
+
+def nested_int8_bounds(tag: str, what: str, q: dict, ref: dict) -> None:
+    """The JAX package's UNet++ int8 bounds against bf16
+    (``tests/test_quant_families.py:203-227``): on every head, max under 25%
+    and mean under 3% of its output range (floored at 0.5)."""
+    for head in MO_HEADS:
+        rg = max(float(ref[head].max() - ref[head].min()), 0.5)
+        d = np.abs(q[head].astype(np.float32) - ref[head].astype(np.float32))
+        log(f"[{tag}] {what} {head}: max {d.max() / rg:.5f}, mean {d.mean() / rg:.6f} of the "
+            f"head's range ({rg:.4f})")
+        if not (d.max() / rg < 0.25 and d.mean() / rg < 0.03):
+            raise AssertionError(f"{what} {head}: outside JAX's UNet++ int8 bounds")
+
+
+def phase_nested_int8(torch, dev, kernels, knested) -> None:
+    """``PredictMultiOutput(quantized=True)`` under ``BIU_INT8_EXPERIMENTAL=1``
+    at config 4 (``family_bench.py:293-333``): a BN-warmed
+    ``MultiOutputNestedUNet(32)``, 40 uint8 1024² frames, 512² patches,
+    ``safe_margin=20``, bf16 outside the int8 grid."""
+    import os
+
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+    from bio_image_unet_tpu_torch.ops.stitch import margin_stitch, tile_sum
+    from bio_image_unet_tpu_torch.predict import PredictMultiOutput
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_float
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+    from bio_image_unet_tpu_torch.predict.quant_nested import Int8NestedUNet
+    from bio_image_unet_tpu_torch.predict.tiling import _margin_factors, grid_starts
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + knested}.values())
+    P = HEADS_PATCH
+    n_chunks, n_heads = -(-HEADS_FRAMES // CHUNK), len(MO_HEADS)
+    per_chunk = CHUNK * (H // P) * (W // P)
+    bs = min(per_chunk, (1 << 22) // (P * P))  # _Engine.heads_batch: 16 tiles
+    batches = n_chunks * -(-per_chunk // bs)
+
+    def grid(b, levels=4):
+        """The int8 kernels' launches of ``b`` forward batches of an L-level
+        grid: every conv but the first by K7, K11 for every cell x_{k,j>0},
+        K10 down column 0, K9 for the first conv's output and the last
+        cell's dequant (the partners are read in place: no copy)."""
+        cells = levels * (levels + 1) // 2
+        return {k8.qconv3x3: ((levels + 1) * (levels + 2) - 1) * b, k8.upsample2x_i8: cells * b,
+                k8.maxpool_i8: levels * b, k8.requant: 2 * b}
+
+    expect = {hist.int_clip_bounds: 2 * n_chunks, normalize_tile_float: n_chunks,
+              margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads, **grid(batches)}
+    rng = np.random.default_rng(16)
+    movie = rng.integers(0, 255, (HEADS_FRAMES, H, W), dtype=np.uint8)
+    kw = dict(max_patch_size=(P, P), half_precision=True, safe_margin=HEADS_MARGIN,
+              show_progress=False)
+    main = f"UNet++(32) BN-warmed int8 uint8 {HEADS_FRAMES}x1024^2 (config 4)"
+    env = os.environ.get("BIU_INT8_EXPERIMENTAL")
+    os.environ["BIU_INT8_EXPERIMENTAL"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            ckpt = str(tmp / "nested_warm_nf32.pt")
+            write_warm_checkpoint(torch, ckpt, "MultiOutputNestedUNet", HEADS_FILTER, seed=31,
+                                  output_heads=MO_HEADS)
+
+            # the main path of this phase: launches exact around the call
+            t0 = time.perf_counter()
+            pred, got = counted(torch, "nested int8", counters, main,
+                                lambda: PredictMultiOutput(movie, ckpt, quantized=True, **kw),
+                                expect)
+            first = time.perf_counter() - t0
+            if not (pred.engine._quant_ready
+                    and isinstance(pred.engine.forward, Int8NestedUNet)):
+                raise AssertionError("the quantized PredictMultiOutput did not run the int8 grid")
+            for k in knested:
+                k["launches"] = got[k["_counter"]]
+            q_res = pred.result
+            check_heads(main, q_res, movie.shape)
+
+            # end to end, int8 and bf16 back to back (best of two after the
+            # call above), each call's peak device memory
+            times = {"int8": float("inf"), "bf16": float("inf")}
+            call_peak = {"int8": 0, "bf16": 0}
+            results = {}
+            for mode in ("bf16", "int8", "int8", "bf16", "bf16"):
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                results[mode] = PredictMultiOutput(movie, ckpt, quantized=mode == "int8",
+                                                   **kw).result
+                times[mode] = min(times[mode], time.perf_counter() - t0)
+                call_peak[mode] = max(call_peak[mode], torch.cuda.max_memory_allocated())
+            if any(not np.array_equal(results["int8"][h], q_res[h]) for h in MO_HEADS):
+                raise AssertionError("two quantized calls on one movie disagree")
+            nested_int8_bounds("nested int8", f"{main}: int8 vs bf16", q_res, results["bf16"])
+            mp = HEADS_FRAMES * H * W / 1e6
+            e2e = {m: mp / t for m, t in times.items()}
+
+            # device-resident: both chunk programs on the movie on the card, in turns
+            xs, ys = grid_starts(H, P), grid_starts(W, P)
+            factors = _margin_factors((len(xs), len(ys)), (P, P), HEADS_MARGIN)
+            engines = {"int8": _Engine(ckpt, None, 8, True, dev, quantized=True),
+                       "bf16": _Engine(ckpt, None, 8, True, dev)}
+            fns = {m: e.heads_runner(H, W, xs, ys, (P, P), HEADS_CLIP, factors,
+                                     n_frames=HEADS_FRAMES, sample=movie)[0]
+                   for m, e in engines.items()}
+            movie_dev = torch.from_numpy(movie).to(dev)
+            real = [min(CHUNK, HEADS_FRAMES - i) for i in range(0, HEADS_FRAMES, CHUNK)]
+
+            def resident(mode):
+                outs = []
+                for i, k in zip(range(0, HEADS_FRAMES, CHUNK), real):
+                    chunk = movie_dev[i:i + CHUNK]
+                    if k < CHUNK:  # the tail chunk repeats its last frame
+                        chunk = torch.cat([chunk, chunk[-1:].expand(CHUNK - k, H, W)])
+                    outs.append(fns[mode](chunk, k))
+                return outs
+
+            device = {"int8": float("inf"), "bf16": float("inf")}
+            torch.cuda.reset_peak_memory_stats()
+            for mode in ("int8", "bf16", "bf16", "int8", "int8", "bf16"):
+                resident(mode)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = resident(mode)
+                torch.cuda.synchronize()
+                device[mode] = min(device[mode], time.perf_counter() - t0)
+            resident_peak = torch.cuda.max_memory_allocated()
+            del outs
+            resident_mps = {m: mp / t for m, t in device.items()}
+            ops = nested_int8_ops(HEADS_FILTER, P) * batches * bs
+            log(f"[nested int8] {main}: end to end int8 {e2e['int8']:.2f} MP/s, bf16 "
+                f"{e2e['bf16']:.2f} MP/s (ratio {e2e['int8'] / e2e['bf16']:.3f}; first call "
+                f"{first:.3f} s with the calibration); device-resident int8 "
+                f"{resident_mps['int8']:.2f} MP/s ({device['int8'] * 1e3:.2f} ms), bf16 "
+                f"{resident_mps['bf16']:.2f} MP/s ({device['bf16'] * 1e3:.2f} ms) (ratio "
+                f"{resident_mps['int8'] / resident_mps['bf16']:.3f}); int8 grid "
+                f"{nested_int8_ops(HEADS_FILTER, P) / 1e9:.1f} GOP a {P}² tile, {batches * bs} "
+                f"tiles a pass (the tail chunk padded) → {ops / device['int8'] / 1e12:.1f} "
+                f"TOP/s device-resident, {ops / device['int8'] / PEAK_INT8_OPS:.4f} of the int8 "
+                f"dense peak; peak device memory of the device-resident passes (both engines, "
+                f"the movie on the card) {resident_peak / 2**30:.2f} GiB; of one call int8 "
+                f"{call_peak['int8'] / 2**30:.2f} GiB, bf16 {call_peak['bf16'] / 2**30:.2f} GiB")
+            profile_pass(torch, lambda: resident("int8"), "nested int8",
+                         f"{HEADS_FRAMES} frames, int8")
+            del movie_dev, engines, fns
+
+            # card vs CPU: a BN-warmed UNet++(8) at both depths, the CPU
+            # through the plain versions
+            for name, deep in (("MultiOutputNestedUNet", False),
+                               ("MultiOutputNestedUNet_3Levels", True)):
+                small = str(tmp / f"{name}_nf8.pt")
+                write_warm_checkpoint(torch, small, name, 8, seed=32, output_heads=MO_HEADS,
+                                      deep_supervision=deep)
+                m = rng.integers(0, 255, (3, 96, 96), dtype=np.uint8)
+                ckw = dict(max_patch_size=(48, 48), safe_margin=4, show_progress=False,
+                           quantized=True)
+                card = PredictMultiOutput(m, small, **ckw)
+                cpu = PredictMultiOutput(m, small, device="cpu", **ckw)
+                if not (card.engine._quant_ready and cpu.engine._quant_ready):
+                    raise AssertionError("card vs CPU: a quantized UNet++ did not calibrate")
+                nested_int8_bounds("nested int8", f"{name}(8) deep_supervision={deep} int8: "
+                                   "card vs CPU", card.result, cpu.result)
+    finally:
+        if env is None:
+            os.environ.pop("BIU_INT8_EXPERIMENTAL", None)
+        else:
+            os.environ["BIU_INT8_EXPERIMENTAL"] = env
+
+
+# --- 24. attention --------------------------------------------------------------------
+
+def phase_attention(torch, dev, kernels) -> None:
+    """``Predict`` on a BN-warmed ``AttentionUnet(32)`` at config 1
+    (``benchmarks/probe_trunk_int8.py``: the 64×1024² uint8 movie, 256²
+    tiles, bf16, fused): float, then ``quantized=True`` (int8 by default:
+    ``attention2d`` is in the ship set)."""
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops import int8 as k8
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
+    from bio_image_unet_tpu_torch.predict import Predict
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+    from bio_image_unet_tpu_torch.predict.quant import Int8Unet2D
+    from bio_image_unet_tpu_torch.predict.tiling import grid_starts
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    chunks = FRAMES // CHUNK  # one forward batch of 256 tiles a chunk
+    frame = {hist.int_clip_bounds: 2 * chunks, normalize_tile: chunks, sigmoid_stitch: chunks}
+    # the gated decoder: K9 dequantizes the up path and the skip and requantizes
+    # the attended skip at each of the 4 levels, beside e1's quantize and the
+    # last dequant
+    gated = {k8.qconv3x3: 17 * chunks, k8.qconvt2x2: 4 * chunks, k8.requant: 14 * chunks,
+             k8.maxpool_i8: 4 * chunks}
+    rng = np.random.default_rng(17)
+    movie = rng.integers(0, 255, (FRAMES, H, W), dtype=np.uint8)
+    kw = dict(resize_dim=(TILE, TILE), show_progress=False, batch_size=8, half_precision=True)
+    main = f"AttentionUnet(32) BN-warmed uint8 {FRAMES}x1024^2 (config 1)"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = str(tmp / "attention_warm_nf32.pt")
+        write_warm_checkpoint(torch, ckpt, "AttentionUnet", N_FILTER, seed=33)
+
+        # the main path of this phase, float then int8: launches exact
+        res = {}
+        for mode, expect in (("bf16", frame), ("int8", {**frame, **gated})):
+            pred, _ = counted(torch, "attention", counters, f"{main}, {mode}",
+                              lambda: Predict(movie, None, ckpt, quantized=mode == "int8",
+                                              **kw), expect)
+            if pred.engine._quant_ready != (mode == "int8") or (
+                    mode == "int8" and not isinstance(pred.engine.forward, Int8Unet2D)):
+                raise AssertionError(f"{main}: quantized=True did not run int8 by default")
+            res[mode] = pred.result
+        host = Predict(movie, None, ckpt, device_pipeline=False, **kw).result
+        check_fused_vs_host(f"{main}, bf16", res["bf16"], host, movie.shape, tag="attention")
+        int8_contract("attention", f"{main}: int8 vs bf16", res["int8"], res["bf16"])
+
+        # end to end, back to back (best of two), each call's peak memory
+        times = {"int8": float("inf"), "bf16": float("inf")}
+        call_peak = {"int8": 0, "bf16": 0}
+        for mode in ("bf16", "int8", "int8", "bf16", "bf16", "int8"):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = Predict(movie, None, ckpt, quantized=mode == "int8", **kw).result
+            times[mode] = min(times[mode], time.perf_counter() - t0)
+            call_peak[mode] = max(call_peak[mode], torch.cuda.max_memory_allocated())
+            if not np.array_equal(out, res[mode]):
+                raise AssertionError(f"two {mode} calls on one movie disagree")
+        e2e = {m: FRAMES * H * W / 1e6 / t for m, t in times.items()}
+
+        # device-resident: both chunk programs on the movie on the card, in turns
+        xs, ys = grid_starts(H, TILE, 0), grid_starts(W, TILE, 0)
+        engines = {"int8": _Engine(ckpt, None, 8, True, dev, quantized=True),
+                   "bf16": _Engine(ckpt, None, 8, True, dev)}
+        fns = {m: e.fused_runner(H, W, xs, ys, (TILE, TILE), (0.0, 99.8), n_frames=FRAMES,
+                                 sample=movie)[0] for m, e in engines.items()}
+        movie_dev = torch.from_numpy(movie).to(dev)
+
+        def resident(mode):
+            return [fns[mode](movie_dev[i:i + CHUNK]) for i in range(0, FRAMES, CHUNK)]
+
+        device = {"int8": float("inf"), "bf16": float("inf")}
+        torch.cuda.reset_peak_memory_stats()
+        for mode in ("int8", "bf16", "bf16", "int8", "int8", "bf16"):
+            resident(mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = resident(mode)
+            torch.cuda.synchronize()
+            device[mode] = min(device[mode], time.perf_counter() - t0)
+            same = int(np.abs(torch.cat(outs).cpu().numpy().astype(np.int16) - res[mode]).max())
+            if same:
+                raise AssertionError(f"device-resident {mode} run vs Predict: {same} levels")
+        resident_peak = torch.cuda.max_memory_allocated()
+        del outs
+        resident_mps = {m: FRAMES * H * W / 1e6 / t for m, t in device.items()}
+        ops = int8_trunk_ops(N_FILTER, TILE) * FRAMES * (H // TILE) * (W // TILE)
+        log(f"[attention] {main}: end to end int8 {e2e['int8']:.2f} MP/s, bf16 "
+            f"{e2e['bf16']:.2f} MP/s (ratio {e2e['int8'] / e2e['bf16']:.3f}); device-resident "
+            f"int8 {resident_mps['int8']:.2f} MP/s ({device['int8'] * 1e3:.2f} ms), bf16 "
+            f"{resident_mps['bf16']:.2f} MP/s ({device['bf16'] * 1e3:.2f} ms) (ratio "
+            f"{resident_mps['int8'] / resident_mps['bf16']:.3f}); int8 trunk (the gates in "
+            f"bf16, not counted) {ops / device['int8'] / 1e12:.1f} TOP/s device-resident; peak "
+            f"device memory of the device-resident passes {resident_peak / 2**30:.2f} GiB; of "
+            f"one call int8 {call_peak['int8'] / 2**30:.2f} GiB, bf16 "
+            f"{call_peak['bf16'] / 2**30:.2f} GiB")
+        profile_pass(torch, lambda: resident("int8"), "attention", f"{FRAMES} frames, int8")
+        profile_pass(torch, lambda: resident("bf16"), "attention", f"{FRAMES} frames, bf16")
+        del movie_dev, engines, fns
+
+        # card vs CPU: AttentionUnet(8) in float32 (TF32 off) and BN-warmed in int8
+        small = str(tmp / "attention_nf8.pt")
+        write_warm_checkpoint(torch, small, "AttentionUnet", 8, seed=34)
+        m = rng.integers(0, 255, (3, 128, 128), dtype=np.uint8)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        skw = dict(resize_dim=(64, 64), show_progress=False, batch_size=4)
+        on_card = Predict(m, None, small, **skw).result
+        on_cpu = Predict(m, None, small, device="cpu", **skw).result
+        diff = np.abs(on_card.astype(int) - on_cpu.astype(int))
+        log(f"[attention] small float32 AttentionUnet(8): card vs CPU max {diff.max()} levels "
+            f"on {np.mean(diff > 0):.6f} of pixels")
+        if diff.max() > 1 or np.mean(diff > 0) > 1e-3:
+            raise AssertionError("the card's AttentionUnet Predict disagrees with the CPU's")
+        torch.backends.cudnn.allow_tf32 = True
+        int8_contract("attention", "AttentionUnet(8) int8: card vs CPU",
+                      Predict(m, None, small, quantized=True, **skw).result,
+                      Predict(m, None, small, quantized=True, device="cpu", **skw).result)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 card, and ``Predict``, ``PredictMultiOutput``, ``PredictSiam``, ``Predict3D``,
 ``PredictMultiOutput3D`` and the ``Trainer`` (2D and 3D) on the card held
 against the same on the CPU; the int8 kernels K7–K10 and K7v, K8v, K10v
-bit-equal to theirs and ``quantized=True`` prediction (2D and 3D) on the card
-within the int8 contract of the CPU's.
+bit-equal to theirs (K7, K9, K10 and K11 on channel ranges of the UNet++
+grid's row buffers too), K11 and K11v likewise, and ``quantized=True``
+prediction (2D, UNet++, AttentionUnet and 3D) on the card within the int8
+contract of the CPU's.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -53,6 +55,7 @@ from bio_image_unet_tpu_torch.predict.tiling import (TilePlan, TilePlan3D, _blen
                                                      overlap_starts)
 from bio_image_unet_tpu_torch.train import Trainer
 from bio_image_unet_tpu_torch.utils.synth import blob_sample
+from chip_smoke import write_warm_checkpoint
 
 pytestmark = pytest.mark.gpu
 
@@ -1288,3 +1291,134 @@ def test_quantized_predict_3d_on_card_matches_cpu(cuda, gen, tmp_path, monkeypat
             rg = max(float(cpu.result[head].max() - cpu.result[head].min()), 0.5)
             d = np.abs(card.result[head] - cpu.result[head])
             assert d.max() / rg < 0.06 and d.mean() / rg < 0.01, (head, d.max(), rg)
+
+
+# --- K11, K11v: the int8 x2 upsample into a concat buffer; K9 from a channel range ---
+
+# (n, h, w, c, buffer channels, offset, input channels before and after the
+# range read): 16-byte vectors, then 8, 4, 2 and 1 byte ones (the channel
+# count, a row or the offset), odd extents; the last cases read a channel
+# range of a wider tensor (a slot of the UNet++ grid's row buffer)
+K11_CASES = [(4, 32, 32, 64, 128, 64, 0, 0), (2, 5, 7, 32, 48, 16, 0, 0),
+             (3, 9, 4, 24, 40, 8, 0, 0), (2, 6, 6, 12, 16, 4, 0, 0), (1, 3, 5, 6, 10, 2, 0, 0),
+             (2, 1, 2, 17, 17, 0, 0, 0), (2, 16, 16, 32, 33, 1, 0, 0),
+             (2, 16, 16, 64, 192, 32, 64, 192), (1, 5, 7, 24, 40, 8, 3, 3),
+             (2, 4, 3, 5, 7, 2, 1, 3)]
+
+
+@pytest.mark.parametrize("case", K11_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_upsample2x_i8_kernel_bit_equal_to_plain(cuda, gen, case):
+    n, h, w, c, ctot, off, pre, post = case
+    x = _i8(gen, (n, h, w, pre + c + post), cuda)[..., pre:pre + c]
+    bufs = [torch.full((n, 2 * h, 2 * w, ctot), 99, dtype=torch.int8, device=cuda)
+            for _ in range(2)]
+    before = k8.upsample2x_i8.launches
+    k8.upsample2x_i8(x, out=bufs[0], offset=off)
+    torch.cuda.synchronize()
+    assert k8.upsample2x_i8.launches == before + 1
+    k8.upsample2x_i8_plain(x, out=bufs[1], offset=off)
+    assert torch.equal(bufs[0], bufs[1])
+    assert torch.equal(k8.upsample2x_i8(x), k8.upsample2x_i8_plain(x))
+
+
+# (n, d, h, w, c, buffer channels, offset)
+K11V_CASES = [(2, 8, 16, 16, 64, 96, 0), (1, 3, 5, 7, 32, 48, 0), (2, 2, 3, 2, 6, 9, 3),
+              (1, 1, 1, 4, 16, 16, 0)]
+
+
+@pytest.mark.parametrize("case", K11V_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_upsample2x_i8_3d_kernel_bit_equal_to_plain(cuda, gen, case):
+    n, d, h, w, c, ctot, off = case
+    x = _i8(gen, (n, d, h, w, c), cuda)
+    bufs = [torch.full((n, 2 * d, 2 * h, 2 * w, ctot), 99, dtype=torch.int8, device=cuda)
+            for _ in range(2)]
+    before = k8.upsample2x_i8_3d.launches
+    k8.upsample2x_i8_3d(x, out=bufs[0], offset=off)
+    torch.cuda.synchronize()
+    assert k8.upsample2x_i8_3d.launches == before + 1
+    k8.upsample2x_i8_3d_plain(x, out=bufs[1], offset=off)
+    assert torch.equal(bufs[0], bufs[1])
+
+
+# (n, h, w, buffer channels, input channel range, cout, output buffer
+# channels, offset): the UNet++ grid's row buffers — a cell's stage 1 reads
+# channels [0, (j+2)·c) of its row in place, its stage 2 writes slot j
+K7_ROW_CASES = [(2, 16, 16, 192, (0, 96), 32, None, 0), (2, 16, 16, 32, (0, 32), 32, 192, 32),
+                (1, 9, 7, 40, (8, 24), 16, 48, 16), (1, 5, 6, 12, (3, 10), 5, 9, 2)]
+
+
+@pytest.mark.parametrize("case", K7_ROW_CASES, ids=lambda c: "x".join(map(str, c[:5])))
+def test_qconv3x3_kernel_on_row_buffers_bit_equal_to_plain(cuda, gen, case):
+    n, h, w, cbuf, (lo, hi), cout, ctot, off = case
+    x = _i8(gen, (n, h, w, cbuf), cuda)[..., lo:hi]
+    wt = _packed(gen, (cout, 3, 3), hi - lo, cuda)
+    sw = torch.from_numpy((gen.random(cout) * 1e-3 + 1e-4).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(gen.standard_normal(cout).astype(np.float32)).to(cuda)
+    outs = [None if ctot is None else
+            torch.full((n, h, w, ctot), 99, dtype=torch.int8, device=cuda) for _ in range(2)]
+    got = k8.qconv3x3(x, wt, sw, bias, 1.0, 0.05, out=outs[0], offset=off)
+    torch.cuda.synchronize()
+    want = k8.qconv3x3_plain(x, wt, sw, bias, 1.0, 0.05, out=outs[1], offset=off)
+    assert torch.equal(got, want)
+    if ctot is not None:
+        assert got is outs[0] and (got[..., :off] == 99).all()
+    # K10 on the same channel range
+    assert torch.equal(k8.maxpool_i8(x), k8.maxpool_i8_plain(x))
+
+
+def test_requant_kernel_reads_a_channel_range(cuda, gen):
+    buf = _i8(gen, (2, 12, 10, 24), cuda)
+    for view in (buf[..., 8:], buf[..., 3:11], buf[:1, 2:7, :, 5:6]):
+        got, want = k8.requant(view, 0.0371), k8.requant_plain(view, 0.0371)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        assert torch.equal(k8.requant(view, 0.0371, 0.05), k8.requant_plain(view, 0.0371, 0.05))
+    with pytest.raises(ValueError, match="one row stride"):
+        k8.requant(buf[:, ::2], 1.0)
+
+
+def test_upsample2x_i8_wrappers_refuse_what_the_kernel_does_not_take(cuda, gen):
+    x = _i8(gen, (1, 4, 4, 8), cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        k8.upsample2x_i8(x, out=torch.zeros((1, 8, 8, 8), dtype=torch.int8))
+    with pytest.raises(ValueError, match="contiguous"):
+        k8.upsample2x_i8(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="NDHWC int8"):
+        k8.upsample2x_i8_3d(x)
+
+
+@pytest.mark.parametrize("registry,deep", [("MultiOutputNestedUNet", False),
+                                           ("MultiOutputNestedUNet_3Levels", True)])
+def test_quantized_nested_predict_on_card_matches_cpu(cuda, gen, tmp_path, monkeypatch,
+                                                      registry, deep):
+    monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
+    heads = {"mask": {"channels": 1, "activation": "sigmoid"},
+             "orientation": {"channels": 2, "activation": None}}
+    ckpt = str(tmp_path / "nested.pt")
+    write_warm_checkpoint(torch, ckpt, registry, 8, seed=7, output_heads=heads,
+                          deep_supervision=deep)
+    movie = _frames(gen, np.uint8, (3, 100, 90))
+    kw = dict(max_patch_size=(48, 48), safe_margin=4, show_progress=False, quantized=True)
+    before = k8.upsample2x_i8.launches
+    card = PredictMultiOutput(movie, ckpt, **kw)
+    assert card.engine._quant_ready and k8.upsample2x_i8.launches > before
+    cpu = PredictMultiOutput(movie, ckpt, device="cpu", **kw)
+    for head in cpu.result:
+        rg = max(float(cpu.result[head].max() - cpu.result[head].min()), 0.5)
+        d = np.abs(card.result[head] - cpu.result[head])
+        assert d.max() / rg < 0.25 and d.mean() / rg < 0.03, (head, d.max(), rg)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_attention_predict_on_card_matches_cpu(cuda, gen, tmp_path, quantized):
+    ckpt = str(tmp_path / "att.pt")
+    write_warm_checkpoint(torch, ckpt, "AttentionUnet", 8, seed=7)
+    movie = _frames(gen, np.uint8, (4, 100, 90))
+    kw = dict(resize_dim=(64, 64), show_progress=False, quantized=quantized)
+    card = Predict(movie, None, ckpt, **kw)
+    cpu = Predict(movie, None, ckpt, device="cpu", **kw)
+    assert card.engine._quant_ready == cpu.engine._quant_ready == quantized
+    d = np.abs(card.result.astype(int) - cpu.result.astype(int))
+    if quantized:
+        assert d.max() <= 4 and d.mean() < 0.5 and (d > 1).mean() < 0.01, (d.max(), d.mean())
+    else:
+        assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())

@@ -145,7 +145,8 @@ def test_get_model_rules():
     net = get_model("Unet", n_filter=4, epoch=3, model_name="Unet", lr=0.1)
     assert isinstance(net, Unet) and net.n_filter == 4
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("AttentionUnet", n_filter=4)
+        get_model("Unet_v0", n_filter=4)
+    assert get_model("AttentionUnet", n_filter=4, model_name="AttentionUnet").attention
     with pytest.raises(ValueError, match="unknown model"):
         get_model("NoSuchNet")
     with pytest.raises(ValueError, match="NCHW"):

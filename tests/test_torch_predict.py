@@ -19,7 +19,7 @@ from bio_image_unet_tpu.predict import Predict as JPredict
 from bio_image_unet_tpu_torch.predict import Predict
 from bio_image_unet_tpu_torch.predict.predictor import _Engine
 from bio_image_unet_tpu_torch.utils import save_as_tif
-from torch_parity import assert_u8_contract, write_unet_checkpoint
+from torch_parity import assert_u8_contract, write_seeded_checkpoint, write_unet_checkpoint
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +70,18 @@ def test_predict_matches_jax(ckpt, rng, case):
     # the port's two paths, as the JAX package holds its own two
     diff = np.abs(t_fused.astype(int) - t_host.astype(int))
     assert np.mean(diff > 1) < 0.01 and diff.max() <= 16, (name, diff.max())
+
+
+def test_predict_dilated_trunk_matches_jax(tmp_path, rng):
+    """A ``Unet(dilation=2)`` ``.pt`` (the encoder and middle convs dilated,
+    the decoder not: ``unet2d.py:91``) through both packages' float
+    ``Predict``, fused and host-staged."""
+    path, _ = write_seeded_checkpoint(tmp_path, "unet_d2", "Unet", 33, n_filter=4, warm=True,
+                                      dilation=2)
+    movie = _movie(rng, np.uint8, (3, 96, 96))
+    for pipeline in (None, False):
+        ref, ours = _both(path, movie, resize_dim=(64, 64), device_pipeline=pipeline)
+        assert_u8_contract(ours, ref)
 
 
 def test_predict_tail_chunk_matches_jax(ckpt, rng):

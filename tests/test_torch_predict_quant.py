@@ -170,17 +170,30 @@ def test_quantized_gate_warnings_match_jax(tmp_path, ckpts, monkeypatch):
 
 
 def test_quantized_unported_int8_graphs_raise(ckpts, monkeypatch):
-    """Where the JAX package would run an int8 graph the port has not got
-    (UNet++ under BIU_INT8_EXPERIMENTAL) the fused path raises, naming the
-    roadmap item; the host-staged path warns and runs float, as in JAX."""
-    monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
+    """UNet++'s int8 graph is ported: under BIU_INT8_EXPERIMENTAL the fused
+    path runs it (no warning; the engine's forward is the int8 grid), without
+    the variable the request warns and runs bf16, equal to a bf16 call, and
+    the host-staged path warns and runs float, as in JAX.  (The name is
+    kept from when this path raised.)"""
+    from bio_image_unet_tpu_torch.predict.quant_nested import Int8NestedUNet
+
     movie = _movie(5, np.uint8, (1, 32, 32))
     kw = dict(max_patch_size=(32, 32), show_progress=False, quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="B5"):
-        PredictMultiOutput(movie, ckpts["nested"], **kw)
+    monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
+    p, warned = _warned(lambda: PredictMultiOutput(movie, ckpts["nested"], **kw))
+    assert not warned and p.engine._quant_ready
+    assert isinstance(p.engine.forward, Int8NestedUNet)
+    assert p.result["mask"].shape == (32, 32)
     with pytest.warns(UserWarning, match="host-staged path"):
         p = PredictMultiOutput(movie, ckpts["nested"], device_pipeline=False, **kw)
-    assert p.result["mask"].shape == (32, 32)
+    assert p.result["mask"].shape == (32, 32) and not p.engine._quant_ready
+    monkeypatch.delenv("BIU_INT8_EXPERIMENTAL")
+    with pytest.warns(UserWarning, match="BIU_INT8_EXPERIMENTAL"):
+        p = PredictMultiOutput(movie, ckpts["nested"], **kw)
+    assert not p.engine._quant_ready
+    ref = PredictMultiOutput(movie, ckpts["nested"], **{**kw, "quantized": False}).result
+    for head in ref:
+        np.testing.assert_array_equal(p.result[head], ref[head])
 
 
 def test_siam_calibration_prepass_refuses_nan_pages_before_writing(tmp_path, ckpts):

@@ -253,7 +253,8 @@ def test_weight_store_equals_weightpack(ckpts):
 
 
 _STATUS_MODELS = [
-    ("Unet", {}), ("Unet", {"dilation": 2}), ("MultiOutputUnet", {"output_heads": HEADS}),
+    ("Unet", {}), ("Unet", {"dilation": 2}), ("AttentionUnet", {}),
+    ("MultiOutputUnet", {"output_heads": HEADS}),
     ("Siam_UNet", {"mode": "max"}), ("Siam_UNet", {"mode": "control"}),
     ("Siam_UNet", {"mode": "concat"}), ("Siam_UNet", {"mode": "corr"}),
     ("MultiOutputNestedUNet", {"output_heads": HEADS}),

@@ -6,7 +6,9 @@ held against the JAX package's ``predict/quant3d.py`` on the CPU.
   conv with the epilogue of ``quant3d.py:269-283``, the transposed conv of
   ``:277``, ``_maxpool_i8_3d``), with 16 input channels zero-padded to 32,
   decode1's width and channel counts that are not multiples of 4, and odd
-  extents for the pool; K9 on NDHWC tensors;
+  extents for the pool; K9 on NDHWC tensors; K11v's (the trilinear
+  decoder's ×2 of int8 values, ``:305-310``) equals the torch calls it
+  replaced and JAX's;
 - the weight store, quantized at the same maxes from JAX's folded float32
   arrays with the activation scales folded in, equals ``_build_pack``'s
   codes, scales and biases for the three decoder variants;
@@ -150,6 +152,30 @@ def test_requant_on_ndhwc_matches_jax():
     want = np.asarray(jax.jit(lambda h: (h.astype(jnp.float32) * sa).astype(jnp.bfloat16))(skip))
     got = k.requant(torch.from_numpy(skip), float(sa))
     np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 8, 8, 32), (1, 3, 5, 2, 7), (2, 1, 1, 3, 16)])
+def test_upsample2x_i8_3d_plain_matches_jax(shape):
+    """K11v's plain version is the trilinear decoder's torch-call path
+    (``F.interpolate``, round half to even, clip) bit for bit, and both equal
+    JAX's ``upsample_linear`` + round + clip (``quant3d.py:305-310``), into
+    the first channels of a concat buffer."""
+    from bio_image_unet_tpu.ops.functional import upsample_linear as jup
+
+    x = _q(np.random.default_rng(sum(shape) + 5), shape)
+    want = np.asarray(jax.jit(lambda q: jnp.clip(jnp.round(jup(q.astype(jnp.float32), 2)),
+                                                 -127, 127).astype(jnp.int8))(x))
+    t = torch.from_numpy(x)
+    calls = torch.clamp(torch.round(torch.nn.functional.interpolate(
+        t.permute(0, 4, 1, 2, 3).float(), scale_factor=2, mode="trilinear",
+        align_corners=False)), -127, 127).to(torch.int8).permute(0, 2, 3, 4, 1)
+    np.testing.assert_array_equal(calls.numpy(), want)
+    c = shape[-1]
+    buf = torch.full(calls.shape[:-1] + (c + 5,), 99, dtype=torch.int8)
+    assert k.upsample2x_i8_3d(t, out=buf) is buf
+    np.testing.assert_array_equal(buf[..., :c].numpy(), want)
+    assert (buf[..., c:] == 99).all()
+    np.testing.assert_array_equal(k.upsample2x_i8_3d(t).numpy(), want)
 
 
 def test_3d_wrappers_refuse_what_the_kernels_do_not_take():

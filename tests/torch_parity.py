@@ -42,11 +42,12 @@ N_FILTER = 8
 
 
 def warm_unet_variables(n_filter: int = N_FILTER, size: int = 32, steps: int = 3,
-                        seed: int = 0):
-    """A JAX ``Unet`` and its variables after a few train-mode applies, so the
-    BatchNorm running statistics are not the trivial mean 0 / var 1 and a BN
-    fold has something to fold (the pattern of ``tests/test_fastpath.py``)."""
-    model = Unet(n_filter=n_filter)
+                        seed: int = 0, cls=Unet):
+    """A JAX ``Unet`` (or another 2D trunk ``cls``) and its variables after a
+    few train-mode applies, so the BatchNorm running statistics are not the
+    trivial mean 0 / var 1 and a BN fold has something to fold (the pattern
+    of ``tests/test_fastpath.py``)."""
+    model = cls(n_filter=n_filter)
     # one jitted init: a few seconds of compile, not ~30 s of op-by-op dispatch
     variables = jax.jit(model.init)(jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 1)))
 
@@ -146,15 +147,19 @@ def port_folded(variables):
     block names as the port's state dict has them): the two folds round
     differently in the last bit (XLA's rsqrt), which the int8 requant can
     turn into a code, so the int8 forward parity runs on the same folded
-    weights."""
+    weights.  Nested blocks keep their nesting: a UNet++ cell ``grid_conv<i>_<j>``
+    becomes ``conv<i>_<j>: {'stage1', 'stage2'}``, an attention gate
+    ``attention<k>: {'W_gate', 'W_x', 'psi'}``."""
     from bio_image_unet_tpu.predict.fastpath import fold_unet2d
 
-    out = {}
-    for name, p in fold_unet2d(variables).items():
+    def layer(p):
+        if "kernel" not in p:
+            return {k: layer(v) for k, v in p.items()}
         kern = np.asarray(p["kernel"], np.float32)
         nsp = kern.ndim - 2
         kern = np.transpose(kern, (nsp + 1, nsp) + tuple(range(nsp)))
-        out[name.replace("output_layers_", "output_layers.")] = {
-            "weight": torch.from_numpy(np.ascontiguousarray(kern)),
-            "bias": torch.from_numpy(np.asarray(p["bias"], np.float32).copy())}
-    return out
+        return {"weight": torch.from_numpy(np.ascontiguousarray(kern)),
+                "bias": torch.from_numpy(np.asarray(p["bias"], np.float32).copy())}
+
+    return {name.replace("output_layers_", "output_layers.").replace("grid_conv", "conv"):
+            layer(p) for name, p in fold_unet2d(variables).items()}
