@@ -74,8 +74,9 @@
 // 8-18% of their byte bound, held by instruction issue: each output costs
 // ~20 CUDA-core instructions of epilogue (the IEEE divide among them) beside
 // the gather's address work, against only 9 x cin MACs on the tensor cores.
-// K9 and K10 are bound by bytes: one pass, a thread per output byte (K10v:
-// per 16 bytes where the channels allow 16-byte loads).
+// K9 and K10 are bound by bytes.  K10 is one pass, a thread per output byte
+// (K10v: per 16 bytes where the channels allow 16-byte loads); K9 moves 16
+// elements a thread with a lookup table for int8 input (its own section below).
 //
 // Numbers, kept exactly as XLA computes them on the CPU, so a kernel equals
 // its plain version (and the JAX graph) bit for bit:
@@ -90,15 +91,19 @@
 // - the requant divides (IEEE __fdiv_rn, never __fdividef; no fast math) and
 //   rounds half to even (rintf, never roundf: jnp.round is half-even), then
 //   clips to [-127, 127];
-// - K9's rescale is (x * s_a) / s_b, two roundings, as XLA leaves it.
+// - K9's rescale is (x * s_a) / s_b, two roundings, as XLA leaves it; from
+//   float input it rounds by an add of 1.5*2^23 (rintf's result below 2^22,
+//   and the same clip beyond).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int THREADS = 256;  // K9, K10
+constexpr int THREADS = 256;  // K10, K10v
 
 // --- K7, K8, K7v, K8v: qconv ---------------------------------------------------
 
@@ -462,40 +467,280 @@ QConvArgs qconv_args(const void* x, const void* w, const void* sw, const void* b
   return a;
 }
 
-// K9: x (rows of `in_stride` elements, C of them read) of int8 / bf16 /
-// float32 -> out rows of `out_stride` elements starting at `out_off`: int8
-// rint((x * s_a) / s_b) clipped, or (with to_bf16) the dequant bf16(x * s_a).
-template <typename T>
-__device__ __forceinline__ float as_float(const T* p, long long i);
-template <>
-__device__ __forceinline__ float as_float<int8_t>(const int8_t* p, long long i) {
-  return (float)p[i];
+// --- K9: requant -------------------------------------------------------------
+//
+// x: rows of `in_stride` elements (C of them read) of int8, bf16 or float32 ->
+// rows of `out_stride` elements from `out_off` on: int8 rint((x * s_a) / s_b)
+// clipped to +-127, or (TO_BF16) the dequant bf16(x * s_a).  Held by bytes
+// (one read and one write an element), so the design keeps instruction issue
+// under the byte rate:
+// - a thread moves VE elements at once (16 where C, both row strides, the
+//   offset and both addresses allow it, else 8, 4, 2 or 1: ops/int8.py
+//   _vec_width): a 16-byte int8 vector, read as one, two or four 16-byte loads
+//   of int8, bf16 or float32;
+// - the rows x vectors-per-row space is walked in 32-bit indices (the host
+//   launches at most 2^30 vectors at a time), row and column by a
+//   multiply-high divide once a vector; only a row's base offset is 64-bit;
+// - one wave of blocks over the SMs, each thread keeping U vectors' loads in
+//   flight before their stores;
+// - int8 input (the skip rescale and every dequant) has 256 possible values:
+//   each block first computes all 256 results with the arithmetic below into
+//   shared memory, and the body is byte lookups (bit-equal by construction).
+//   Every lane reads its own copy of the table (entry u of lane l at word
+//   u * 32 + l: one bank a lane), so the lookups never conflict;
+// - bf16 and float32 input keep the per-element arithmetic: __fmul_rn, then
+//   the IEEE __fdiv_rn (a reciprocal multiply would differ in the last bit),
+//   and the rounding and clip as one add and two min/max (rint_clip_bits).
+
+constexpr int K9_THREADS = 256;
+constexpr unsigned K9_MAX_VECS = 1u << 30;  // vectors of one launch (32-bit indices)
+constexpr float ROUND_MAGIC = 12582912.0f;  // 1.5 * 2^23
+
+// n / d for 0 <= n < 2^31: umulhi(n, m) >> s, m = ceil(2^(31 + ceil(log2 d)) / d)
+// (d = 1: m = 0, the quotient is n)
+struct FastDiv {
+  unsigned d, m, s;
+};
+
+FastDiv fast_div(unsigned d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    unsigned l = 0;
+    while ((1u << l) < d) ++l;
+    f.m = (unsigned)(((1ull << (31 + l)) + d - 1) / d);
+    f.s = l - 1;
+  }
+  return f;
 }
-template <>
-__device__ __forceinline__ float as_float<__nv_bfloat16>(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
+
+__device__ __forceinline__ unsigned div_of(unsigned n, const FastDiv& f) {
+  return f.m ? __umulhi(n, f.m) >> f.s : n;
 }
-template <>
-__device__ __forceinline__ float as_float<float>(const float* p, long long i) {
-  return p[i];
+
+// rint(v) clipped to [-127, 127] in the low byte of the result: v + 1.5*2^23
+// is the integer nearest v (half to even: the ulp there is 1) for |v| < 2^22,
+// and an integer k of [-127, 127] is the float 1.5*2^23 + k, bits 0x4B400000 +
+// k.  Clipping in that domain also sends every larger |v| and NaN (fmaxf(NaN,
+// lo) = lo) where rintf and the clip to +-127 do.
+__device__ __forceinline__ uint32_t rint_clip_bits(float v) {
+  const float f = fminf(fmaxf(__fadd_rn(v, ROUND_MAGIC), ROUND_MAGIC - 127.0f),
+                        ROUND_MAGIC + 127.0f);
+  return __float_as_uint(f);
+}
+
+// NB bytes at p (NB a power of two; p aligned to min(NB, 16)) as words
+template <int NB>
+__device__ __forceinline__ void load_words(const void* p, uint32_t* w) {
+  if constexpr (NB >= 16) {
+#pragma unroll
+    for (int i = 0; i < NB / 16; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (NB == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else if constexpr (NB == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (NB == 2) {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint8_t*>(p);
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void store_words(void* p, const uint32_t* w) {
+  if constexpr (NB >= 16) {
+#pragma unroll
+    for (int i = 0; i < NB / 16; ++i)
+      reinterpret_cast<uint4*>(p)[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2],
+                                                  w[4 * i + 3]);
+  } else if constexpr (NB == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if constexpr (NB == 4) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  } else if constexpr (NB == 2) {
+    *reinterpret_cast<uint16_t*>(p) = (uint16_t)w[0];
+  } else {
+    *reinterpret_cast<uint8_t*>(p) = (uint8_t)w[0];
+  }
+}
+
+struct K9Args {
+  const void* x;
+  void* out;
+  unsigned nv;              // vectors of this launch
+  FastDiv vpr;              // vectors a row
+  long long in_stride;      // elements between two rows of x
+  long long out_stride;     // elements between two rows of out
+  int out_off;              // out's first element of a row
+  float s_a, s_b;
+};
+
+// vectors a thread keeps in flight: 64 bytes of input or more
+template <typename T, int VE>
+__host__ __device__ constexpr int k9_unroll() {
+  return VE * (int)sizeof(T) >= 64 ? 2 : 4;
+}
+
+// the result of one element (the table's entries for int8 input): int8 in the
+// low byte, or the bf16 bits in the low half
+template <bool TO_BF16>
+__device__ __forceinline__ uint32_t requant_one(float x, float s_a, float s_b) {
+  const float v = __fmul_rn(x, s_a);
+  if (TO_BF16) return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+  return rint_clip_bits(__fdiv_rn(v, s_b)) & 0xFFu;
+}
+
+template <typename T, bool TO_BF16, int VE>
+__global__ void __launch_bounds__(K9_THREADS) requant(const K9Args p) {
+  constexpr int U = k9_unroll<T, VE>();
+  constexpr int NB_IN = VE * (int)sizeof(T), NB_OUT = VE * (TO_BF16 ? 2 : 1);
+  constexpr int W_IN = NB_IN >= 4 ? NB_IN / 4 : 1, W_OUT = NB_OUT >= 4 ? NB_OUT / 4 : 1;
+  constexpr bool TABLE = sizeof(T) == 1;
+  __shared__ uint32_t table[TABLE ? 256 * 32 : 1];
+  const int lane = threadIdx.x & 31;
+  if constexpr (TABLE) {
+    // entry u (the int8 value (int8_t)u), written to the 32 lanes' copies
+    // in a rotated order so that a warp's stores hit 32 banks
+    const int u = threadIdx.x;
+    const uint32_t e = TO_BF16 ? requant_one<true>((float)(int8_t)u, p.s_a, p.s_b)
+                               : (uint32_t)(uint8_t)(int8_t)fminf(
+                                     fmaxf(rintf(__fdiv_rn(__fmul_rn((float)(int8_t)u, p.s_a),
+                                                           p.s_b)),
+                                           -127.0f),
+                                     127.0f);
+#pragma unroll 8
+    for (int l = 0; l < 32; ++l) table[u * 32 + ((l + lane) & 31)] = e;
+    __syncthreads();
+  }
+  const unsigned step = gridDim.x * K9_THREADS;
+  for (unsigned v0 = blockIdx.x * K9_THREADS + threadIdx.x; v0 < p.nv; v0 += U * step) {
+    uint32_t in[U][W_IN];
+    long long dst[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const unsigned v = v0 + i * step;
+      if (v < p.nv) {
+        const unsigned r = div_of(v, p.vpr);
+        const unsigned c = (v - r * p.vpr.d) * VE;
+        load_words<NB_IN>(static_cast<const T*>(p.x) + (r * p.in_stride + c), in[i]);
+        dst[i] = r * p.out_stride + p.out_off + c;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (v0 + i * step >= p.nv) break;
+      uint32_t o[W_OUT];
+#pragma unroll
+      for (int j = 0; j < W_OUT; ++j) o[j] = 0u;
+#pragma unroll
+      for (int k = 0; k < VE; ++k) {
+        uint32_t e;
+        if constexpr (TABLE) {
+          e = table[((in[i][k >> 2] >> (8 * (k & 3))) & 0xFFu) * 32 + lane];
+        } else if constexpr (sizeof(T) == 2) {  // bf16: the high half of a float
+          e = requant_one<TO_BF16>(__uint_as_float((in[i][k >> 1] >> (16 * (k & 1))) << 16),
+                                   p.s_a, p.s_b);
+        } else {
+          e = requant_one<TO_BF16>(__uint_as_float(in[i][k]), p.s_a, p.s_b);
+        }
+        if (TO_BF16)
+          o[k >> 1] |= e << (16 * (k & 1));
+        else
+          o[k >> 2] |= e << (8 * (k & 3));
+      }
+      store_words<NB_OUT>(static_cast<uint8_t*>(p.out) + dst[i] * (TO_BF16 ? 2 : 1), o);
+    }
+  }
+}
+
+constexpr int K9_MAX_DEVICES = 64;
+
+// one launch per 2^30 vectors, each a wave of blocks over the SMs (or fewer);
+// the wave (SMs x resident blocks) is asked of the runtime once per device
+template <typename T, bool TO_BF16, int VE>
+cudaError_t launch_requant(const void* x, void* out, long long rows, int C, long long in_stride,
+                           long long out_stride, int out_off, float s_a, float s_b,
+                           cudaStream_t st) {
+  auto kernel = requant<T, TO_BF16, VE>;
+  constexpr int U = k9_unroll<T, VE>();
+  static std::atomic<int> waves[K9_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= K9_MAX_DEVICES) return cudaErrorInvalidDevice;
+  int wave = waves[dev].load(std::memory_order_relaxed);
+  if (wave == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K9_THREADS, 0);
+    if (err != cudaSuccess) return err;
+    wave = sms * (per_sm > 0 ? per_sm : 1);
+    waves[dev].store(wave, std::memory_order_relaxed);
+  }
+  const unsigned vpr = (unsigned)(C / VE);
+  const long long rows_per_launch = K9_MAX_VECS / vpr;
+  if (rows_per_launch == 0) return cudaErrorInvalidValue;
+  const size_t out_bytes = TO_BF16 ? 2 : 1;
+  for (long long r0 = 0; r0 < rows; r0 += rows_per_launch) {
+    K9Args a;
+    a.x = static_cast<const T*>(x) + r0 * in_stride;
+    a.out = static_cast<uint8_t*>(out) + r0 * out_stride * out_bytes;
+    a.nv = (unsigned)(rows - r0 < rows_per_launch ? rows - r0 : rows_per_launch) * vpr;
+    a.vpr = fast_div(vpr);
+    a.in_stride = in_stride;
+    a.out_stride = out_stride;
+    a.out_off = out_off;
+    a.s_a = s_a;
+    a.s_b = s_b;
+    const long long need = ((long long)a.nv + K9_THREADS * U - 1) / (K9_THREADS * U);
+    kernel<<<(unsigned)(need < wave ? need : wave), K9_THREADS, 0, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool TO_BF16>
+cudaError_t launch_requant_vec(int vec, const void* x, void* out, long long rows, int C,
+                               long long in_stride, long long out_stride, int out_off,
+                               float s_a, float s_b, cudaStream_t st) {
+  switch (vec) {
+    case 16:
+      return launch_requant<T, TO_BF16, 16>(x, out, rows, C, in_stride, out_stride, out_off,
+                                            s_a, s_b, st);
+    case 8:
+      return launch_requant<T, TO_BF16, 8>(x, out, rows, C, in_stride, out_stride, out_off,
+                                           s_a, s_b, st);
+    case 4:
+      return launch_requant<T, TO_BF16, 4>(x, out, rows, C, in_stride, out_stride, out_off,
+                                           s_a, s_b, st);
+    case 2:
+      return launch_requant<T, TO_BF16, 2>(x, out, rows, C, in_stride, out_stride, out_off,
+                                           s_a, s_b, st);
+    case 1:
+      return launch_requant<T, TO_BF16, 1>(x, out, rows, C, in_stride, out_stride, out_off,
+                                           s_a, s_b, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-requant(const T* __restrict__ x, void* __restrict__ out, long long total, int C, int in_stride,
-        int to_bf16, int out_stride, int out_off, float s_a, float s_b) {
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= total) return;
-  const long long r = e / C;
-  const int c = (int)(e - r * C);
-  const long long dst = r * out_stride + out_off + c;
-  const float v = __fmul_rn(as_float<T>(x, r * in_stride + c), s_a);
-  if (to_bf16) {
-    static_cast<__nv_bfloat16*>(out)[dst] = __float2bfloat16_rn(v);
-  } else {
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s_b)), -127.0f), 127.0f);
-    static_cast<int8_t*>(out)[dst] = (int8_t)q;
-  }
+cudaError_t launch_requant_out(int to_bf16, int vec, const void* x, void* out, long long rows,
+                               int C, long long in_stride, long long out_stride, int out_off,
+                               float s_a, float s_b, cudaStream_t st) {
+  return to_bf16 ? launch_requant_vec<T, true>(vec, x, out, rows, C, in_stride, out_stride,
+                                               out_off, s_a, s_b, st)
+                 : launch_requant_vec<T, false>(vec, x, out, rows, C, in_stride, out_stride,
+                                                out_off, s_a, s_b, st);
 }
 
 // K10: (n, h, w, C) int8 in rows of in_stride bytes -> (n, h/2, w/2, C), a
@@ -603,25 +848,25 @@ int k8_qconvt2x2(const void* x, const void* w, const void* sw, const void* bias,
 }
 
 // in_code: 0 int8, 1 bfloat16, 2 float32; in_stride: elements between two
-// rows of x (C for a contiguous tensor, more for a channel range of a wider one)
+// rows of x (C for a contiguous tensor, more for a channel range of a wider
+// one); vec: elements a thread moves at once (16, 8, 4, 2 or 1, dividing C,
+// both row strides and the offset, the addresses aligned to min(16, its
+// bytes))
 int k9_requant(const void* x, int in_code, void* out, long long total, int C, int in_stride,
-               int to_bf16, int out_stride, int out_off, float s_a, float s_b, void* stream) {
+               int to_bf16, int out_stride, int out_off, int vec, float s_a, float s_b,
+               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   if (total == 0) return 0;
+  if (C <= 0 || vec <= 0 || C % vec) return (int)cudaErrorInvalidValue;
+  const long long rows = total / C;
   if (in_code == 0)
-    requant<int8_t><<<blocks, THREADS, 0, st>>>(static_cast<const int8_t*>(x), out, total, C,
-                                                 in_stride, to_bf16, out_stride, out_off, s_a,
-                                                 s_b);
-  else if (in_code == 1)
-    requant<__nv_bfloat16><<<blocks, THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                                        out, total, C, in_stride, to_bf16,
-                                                        out_stride, out_off, s_a, s_b);
-  else
-    requant<float><<<blocks, THREADS, 0, st>>>(static_cast<const float*>(x), out, total, C,
-                                                in_stride, to_bf16, out_stride, out_off, s_a,
-                                                s_b);
-  return (int)cudaGetLastError();
+    return (int)launch_requant_out<int8_t>(to_bf16, vec, x, out, rows, C, in_stride, out_stride,
+                                           out_off, s_a, s_b, st);
+  if (in_code == 1)
+    return (int)launch_requant_out<__nv_bfloat16>(to_bf16, vec, x, out, rows, C, in_stride,
+                                                  out_stride, out_off, s_a, s_b, st);
+  return (int)launch_requant_out<float>(to_bf16, vec, x, out, rows, C, in_stride, out_stride,
+                                        out_off, s_a, s_b, st);
 }
 
 int k10_maxpool_i8(const void* x, void* out, int n, int h, int wd, int C, int in_stride,

@@ -305,15 +305,32 @@ def requant(x: torch.Tensor, s_a: float, s_b: Optional[float] = None,
     in_stride = _rows_on_card("requant", x, dev)
     A = _cuda
     fn = A.function("int8_trunk", "k9_requant",
-                    [A.P, A.I32, A.P, A.I64] + [A.I32] * 5 + [A.F32, A.F32, A.P])
+                    [A.P, A.I32, A.P, A.I64] + [A.I32] * 6 + [A.F32, A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), _REQUANT_IN[x.dtype], target.data_ptr(), x.numel(),
              x.shape[-1], in_stride, int(s_b is None), target.shape[-1], int(offset),
-             float(s_a), float(1.0 if s_b is None else s_b))
+             _vec_width(x, in_stride, target, offset), float(s_a),
+             float(1.0 if s_b is None else s_b))
     requant.launches += 1
     return target
 
 
 requant.launches = 0
+
+
+def _vec_width(x: torch.Tensor, in_stride: int, out: torch.Tensor, offset: int) -> int:
+    """Elements one thread of K9 or K11 moves as a vector: the widest of 16,
+    8, 4, 2 and 1 that divides the channel count, both row strides (``x``'s
+    ``in_stride``, ``out``'s last extent) and the output offset, with both
+    addresses on a boundary of that many elements' bytes (16 at most: wider
+    vectors are moved as several 16-byte ones)."""
+    c = x.shape[-1]
+
+    def aligned(t: torch.Tensor, v: int) -> bool:
+        return t.data_ptr() % min(16, v * t.element_size()) == 0
+
+    return next(v for v in (16, 8, 4, 2, 1) if c % v == 0 and in_stride % v == 0
+                and out.shape[-1] % v == 0 and offset % v == 0 and aligned(x, v)
+                and aligned(out, v))
 
 
 # --- K10 ----------------------------------------------------------------------
@@ -468,37 +485,34 @@ maxpool_i8_3d.launches = 0
 
 # --- K11, K11v ----------------------------------------------------------------------
 
+def _aligned_ratio(n: int) -> np.float32:
+    """The float32 of (n-1)/(2n-1), the coordinate step of JAX's
+    ``align_corners=True`` ×2 along an axis of n (0 for n = 1)."""
+    return np.float32((n - 1) / (2 * n - 1)) if n > 1 else np.float32(0.0)
+
+
 def _aligned_axis(n: int):
     """JAX's ``align_corners=True`` ×2 gather indices and weights of an axis
     of n (``functional.py:74-84``), float32 as XLA computes them: ``(lo, hi,
-    t, 1 - t)``, and the float32 ratio the kernel takes."""
-    ratio = np.float32((n - 1) / (2 * n - 1)) if n > 1 else np.float32(0.0)
+    t, 1 - t)``."""
+    ratio = _aligned_ratio(n)
     coords = np.arange(2 * n, dtype=np.float32) * ratio
     lo = np.clip(np.floor(coords).astype(np.int64), 0, n - 1)
     hi = np.clip(lo + 1, 0, n - 1)
     t = coords - lo.astype(np.float32)
     return (torch.from_numpy(lo), torch.from_numpy(hi), torch.from_numpy(t),
-            torch.from_numpy(np.float32(1.0) - t), float(ratio))
+            torch.from_numpy(np.float32(1.0) - t))
 
 
 def _blend_axis(v: torch.Tensor, axis: int) -> torch.Tensor:
     """One axis of K11: ``fma(v_lo, 1 - t, v_hi·t)`` in float32, the form
     XLA's CPU backend contracts ``v_lo·(1-t) + v_hi·t`` to."""
-    lo, hi, t, omt, _ = _aligned_axis(v.shape[axis])
+    lo, hi, t, omt = _aligned_axis(v.shape[axis])
     shape = [1] * v.dim()
     shape[axis] = -1
     dev = v.device
     b = v.index_select(axis, hi.to(dev)) * t.to(dev).view(shape)
     return _fma_f32(v.index_select(axis, lo.to(dev)), omt.to(dev).view(shape), b)
-
-
-def _vec_bytes(x: torch.Tensor, in_stride: int, out: torch.Tensor, offset: int) -> int:
-    """Bytes one K11 thread moves: the widest of 16, 8, 4, 2, 1 that divides
-    the channel count, both row strides, the offset and both addresses."""
-    c = x.shape[-1]
-    return next(v for v in (16, 8, 4, 2, 1) if c % v == 0 and in_stride % v == 0
-                and out.shape[-1] % v == 0 and offset % v == 0 and x.data_ptr() % v == 0
-                and out.data_ptr() % v == 0)
 
 
 def _check_upsample(x: torch.Tensor, rank: int, what: str) -> None:
@@ -543,8 +557,8 @@ def upsample2x_i8(x: torch.Tensor, out: Optional[torch.Tensor] = None,
     fn = A.function("int8_resample", "k11_upsample2x_i8",
                     [A.P, A.P] + [A.I32] * 9 + [A.F32, A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), target.data_ptr(), n, 0, h, w, c, in_stride,
-             target.shape[-1], int(offset), _vec_bytes(x, in_stride, target, offset),
-             _aligned_axis(h)[4], _aligned_axis(w)[4])
+             target.shape[-1], int(offset), _vec_width(x, in_stride, target, offset),
+             float(_aligned_ratio(h)), float(_aligned_ratio(w)))
     upsample2x_i8.launches += 1
     return target
 
@@ -589,7 +603,7 @@ def upsample2x_i8_3d(x: torch.Tensor, out: Optional[torch.Tensor] = None,
     fn = A.function("int8_resample", "k11_upsample2x_i8",
                     [A.P, A.P] + [A.I32] * 9 + [A.F32, A.F32, A.P])
     A.launch(fn, dev, x.data_ptr(), target.data_ptr(), n, d, h, w, c, c, target.shape[-1],
-             int(offset), _vec_bytes(x, c, target, offset), 0.0, 0.0)
+             int(offset), _vec_width(x, c, target, offset), 0.0, 0.0)
     upsample2x_i8_3d.launches += 1
     return target
 

@@ -15,7 +15,10 @@ non-zero without printing a result:
    int8 library, each ``qconv`` instance's tensor-core (IMMA / GMMA),
    ``ldmatrix`` (LDSM), ``cp.async`` (LDGSTS) and store counts logged, and
    the run failed where an instance has no tensor-core MMA or any ``__dp4a``
-   (IDP);
+   (IDP); and of K9 (``requant``) and K11 (``upsample2x_i8``, the resample
+   library), each instance's int↔float conversions (I2F, F2I, FRND), MUFU
+   and 128-bit global loads and stores logged, the run failed where one uses
+   local memory (LDL / STL);
 3. kernels — each kernel held against its plain PyTorch version on the card
    at the shapes the main path gives it (K1 / K1f bit-equal, K2 equal, K3
    within one uint8 level), and timed with CUDA events (L2 flushed before
@@ -186,7 +189,8 @@ non-zero without printing a result:
    concat buffer, K8 (the 2×2 stride-2 int8 transposed conv into the concat
    buffer's first half) at every decoder level, K9 in its three forms (the
    first conv's bf16 output → int8, a skip into the concat buffer's second
-   half, the dequant to bf16 before the head) and in the two that
+   half, the same on a skip holding all 256 int8 values at scales that make
+   exact .5 ties, the dequant to bf16 before the head) and in the two that
    ``AttentionUnet``'s gated decoder adds (the dequant of the up path from
    channels [32, 64) of the concat buffer, a strided read, and the float32
    attended skip → int8 into channels [0, 32)) and K10 (the int8 max pool) at
@@ -257,6 +261,7 @@ non-zero without printing a result:
    from slot 4 of row 0 (16, 512², 32 of 192; a strided read), and K11 (the int8 ×2 ``align_corners=True`` bilinear) from slot 0 of
    row 1 (16, 256², 64) into channels [32, 96) of row 0, and at two odd
    shapes: bit-equal to their plain versions, timed beside their bounds and,
+   for K7, ``torch._int_mm`` on an ``F.unfold`` im2col of the same channels,
    for K11, the torch calls it replaces (``F.interpolate``, round, clip,
    int8, the slice copy);
 23. nested int8 — ``PredictMultiOutput(quantized=True)`` under
@@ -314,6 +319,7 @@ PEAK_INT8_OPS = 1979e12
 FRAMES, H, W, TILE, N_FILTER = 64, 1024, 1024, 256, 32
 CHUNK = 16
 L2_FLUSH_BYTES = 128 << 20
+HOST_LEAD_CYCLES = 1_000_000  # ~0.5 ms of device spin at the H100's clocks
 # the training path: train_bench.py's width and batch, 150 frames → 120
 # training tiles (10 steps of 12) + 30 validation tiles
 TRAIN_FRAMES, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_LR = 150, 12, 3, 1e-4
@@ -452,13 +458,12 @@ def qconv_instance(name: str) -> str:
     return m.group(0) if m else name
 
 
-def phase_sass(_cuda) -> None:
-    """The machine code of the int8 library: every ``qconv`` instance must
-    run its products on the tensor cores (an IMMA or GMMA instruction) and
-    hold no ``__dp4a`` (IDP)."""
+def sass_functions(lib: Path) -> dict:
+    """``cuobjdump -sass`` of a built library: each function's opcode counts
+    (opcodes with their modifiers, e.g. ``LDG.E.128``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(_cuda._lib_path("int8_trunk"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
     funcs, current = {}, None
     for line in text.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
@@ -468,6 +473,39 @@ def phase_sass(_cuda) -> None:
         op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if op and current is not None:
             current[op.group(1)] = current.get(op.group(1), 0) + 1
+    return funcs
+
+
+MANGLED_TYPES = {"a": "int8", "13__nv_bfloat16": "bf16", "f": "float32"}
+
+
+def template_instance(kernel: str, name: str) -> str:
+    """``kernel<arguments>`` from a mangled name of one of its instances
+    (type, bool and int arguments), the name itself where it is not one."""
+    m = re.search(rf"{len(kernel)}{kernel}I", name)
+    if not m:
+        return name
+    shown, rest = [], name[m.end():]
+    while rest and not rest.startswith("E"):
+        arg = re.match(r"L([bi])(\d+)E|13__nv_bfloat16|[af]", rest)
+        if not arg:
+            return name
+        if arg.group(1) == "b":
+            shown.append(("false", "true")[int(arg.group(2))])
+        elif arg.group(1) == "i":
+            shown.append(arg.group(2))
+        else:
+            shown.append(MANGLED_TYPES[arg.group(0)])
+        rest = rest[arg.end():]
+    return f"{kernel}<{', '.join(shown)}>"
+
+
+def phase_sass(_cuda) -> None:
+    """The machine code of the int8 libraries: every ``qconv`` instance must
+    run its products on the tensor cores (an IMMA or GMMA instruction) and
+    hold no ``__dp4a`` (IDP); K9's and K11's instances must not touch local
+    memory, and their conversions and wide accesses are logged."""
+    funcs = sass_functions(_cuda._lib_path("int8_trunk"))
     qconvs = {k: v for k, v in funcs.items() if "qconv" in k}
     if not qconvs:
         raise RuntimeError("cuobjdump found no qconv function in the int8 library")
@@ -487,13 +525,41 @@ def phase_sass(_cuda) -> None:
     if bad:
         raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
+    # K9 and K11: what the redesign removed (int<->float conversions at a
+    # quarter of the FMA rate) and what it relies on (16-byte accesses)
+    local = []
+    for lib, kernel, want in (("int8_trunk", "requant", 30), ("int8_resample", "upsample2x_i8", 5)):
+        found = funcs if lib == "int8_trunk" else sass_functions(_cuda._lib_path(lib))
+        found = {template_instance(kernel, k): v for k, v in found.items()
+                 if re.search(rf"{len(kernel)}{kernel}I", k)}
+        if len(found) != want:
+            raise RuntimeError(f"cuobjdump found {len(found)} {kernel} instances in {lib}, "
+                               f"expected {want}")
+        for inst, ops in sorted(found.items()):
+            def count(*prefixes, wide=False):
+                return sum(v for k, v in ops.items()
+                           if k.startswith(prefixes) and (not wide or ".128" in k))
+            n_local = count("LDL", "STL")
+            log(f"[sass] {inst}: {sum(ops.values())} instructions; I2F {count('I2F')}, "
+                f"F2I {count('F2I')}, FRND {count('FRND')}, MUFU {count('MUFU')}; 128-bit "
+                f"global loads {count('LDG', 'LDGSTS', wide=True)}, stores "
+                f"{count('STG', wide=True)}; local memory {n_local}")
+            if n_local:
+                local.append(inst)
+    if local:
+        raise RuntimeError(f"K9 / K11 instances use local memory: {local}")
+    log("[sass] K9 and K11 instances without local memory: yes")
+
 
 # --- 3. kernels -----------------------------------------------------------------
 
 class Timer:
     """Mean device time of ``fn`` over ``iters`` launches, each after a write
     of 128 MB that evicts the 50 MB L2 (the main path finds its inputs cold:
-    they were just uploaded or written by the previous stage)."""
+    they were just uploaded or written by the previous stage).  A spin of
+    ``HOST_LEAD_CYCLES`` on the device between the flush and the start event
+    lets the host enqueue ``fn``'s launches before the device reaches them, so
+    the time is the device's alone, not the wrapper's host work."""
 
     def __init__(self, torch, dev):
         self.torch = torch
@@ -506,6 +572,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.fill_(1)
+            torch.cuda._sleep(HOST_LEAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -3087,6 +3154,9 @@ def phase_kernels_int8(torch, dev) -> list:
     shape = (n, TILE, TILE, nf)
     e1 = (torch.randn(shape, generator=y.g, device=dev) * 2).to(torch.bfloat16)
     skip = i8(shape)
+    # every int8 value, -128 included (the lookup table K9 builds for int8 input)
+    every = torch.randint(-128, 128, shape, generator=y.g, device=dev, dtype=torch.int8)
+    every.view(-1)[:256] = torch.arange(-128, 128, device=dev).to(torch.int8)
     buf = torch.zeros(shape[:-1] + (2 * nf,), dtype=torch.int8, device=dev)
     cat = i8(shape[:-1] + (2 * nf,))
     attended = torch.randn(shape, generator=y.g, device=dev) * 2
@@ -3094,6 +3164,8 @@ def phase_kernels_int8(torch, dev) -> list:
         ("e1 bf16 -> int8", "quant.py:223", lambda f: f(e1, 1.0, 0.05), 3 * e1.numel()),
         ("skip int8 -> concat channels [C, 2C)", "quant.py:223",
          lambda f: f(skip, 0.031, 0.037, out=buf, offset=nf), 2 * skip.numel()),
+        ("skip of all 256 int8 values, .5 ties -> concat channels [C, 2C)", "quant.py:223",
+         lambda f: f(every, 0.5, 1.0, out=buf, offset=nf), 2 * skip.numel()),
         ("dequant int8 -> bf16", "quant.py:223", lambda f: f(skip, 0.031), 3 * skip.numel()),
         ("attention: dequant concat channels [C, 2C) -> bf16", "quant.py:477",
          lambda f: f(cat[..., nf:], 0.031), 3 * skip.numel()),
@@ -3112,7 +3184,7 @@ def phase_kernels_int8(torch, dev) -> list:
             # rounding and a clip each
             bound_ms(n_bytes, 4 * skip.numel()), None))
         del ours
-    del e1, skip, buf, cat, attended
+    del e1, skip, every, buf, cat, attended
     torch.cuda.empty_cache()
 
     # K10 at every encoder level
@@ -3792,7 +3864,8 @@ def phase_kernels_nested_int8(torch, dev) -> list:
     K11, the int8 ×2 bilinear (``align_corners=True``), from slot 0 of row 1
     into slots 1–2 of row 0, and at two odd shapes (1- and 8-byte vectors,
     strided input); each bit-equal to its plain version, timed beside its
-    bound and, for K11, the torch calls it replaces."""
+    bound and, for K7, ``torch._int_mm`` on an im2col, for K11, the torch
+    calls it replaces."""
     import torch.nn.functional as F
 
     from bio_image_unet_tpu_torch.ops import int8 as k8
@@ -3823,7 +3896,16 @@ def phase_kernels_nested_int8(torch, dev) -> list:
         torch.cuda.synchronize()
         want = k8.qconv3x3_plain(x, w, sw, bias, 1.0, s_out, out=outs[1], offset=off or 0)
         err = y.check(f"K7 {layer}", got, want)
+        del want
         macs = n * P * P * cout * 9 * cin
+        # the library yardstick: cuBLASLt int8 on an im2col of the same
+        # channels (F.unfold of the int8 values carried in bf16, exact)
+        cols = F.unfold(x.permute(0, 3, 1, 2).to(torch.bfloat16), 3, padding=1)
+        a = cols.transpose(1, 2).reshape(-1, 9 * cin).to(torch.int8)
+        del cols
+        lib = y.int_mm(a, w[..., :cin].permute(0, 3, 1, 2).reshape(cout, 9 * cin).t())
+        del a
+        torch.cuda.empty_cache()
         rows.append(kernel_row(
             "kernels nested int8", f"k7_qconv3x3[{layer} ({n}, {P}^2, {cin}) -> {cout}]",
             INT8_SOURCE, "bio_image_unet_tpu/predict/quant_nested.py:222", k8.qconv3x3, err,
@@ -3832,9 +3914,9 @@ def phase_kernels_nested_int8(torch, dev) -> list:
             timer(lambda: k8.qconv3x3_plain(x, w, sw, bias, 1.0, s_out, out=outs[1],
                                             offset=off or 0), 1),
             bound_ms(x.numel() + n * P * P * cout + w.numel() + 8 * cout, 2 * macs,
-                     PEAK_INT8_OPS), None))
+                     PEAK_INT8_OPS), lib))
         y.rate(rows[-1], 2 * macs)
-        del x, w, outs, got, want
+        del x, w, outs, got
     # K10 on slot 0 of row 0
     x = row0[..., :nf]
     got = k8.maxpool_i8(x)

@@ -1376,6 +1376,134 @@ def test_requant_kernel_reads_a_channel_range(cuda, gen):
         k8.requant(buf[:, ::2], 1.0)
 
 
+# --- K9 (vectors of 16 elements, a lookup table for int8 input) and K11 (staged) ---
+
+def _every_i8(gen, shape, dev):
+    """int8 values over the whole range, the first (up to 256) elements
+    -128, -127, ..."""
+    x = torch.from_numpy(gen.integers(-128, 128, shape).astype(np.int8))
+    k = min(256, x.numel())
+    x.view(-1)[:k] = torch.arange(-128, 128)[:k].to(torch.int8)
+    return x.to(dev)
+
+
+def _floats_with_ties(gen, shape, dev, dtype, step):
+    """Values spread past +-127 steps, with exact .5 ties, +-0 and huge ones."""
+    f = (gen.standard_normal(shape) * 60 * step).astype(np.float32)
+    special = np.array([0.5, 1.5, -2.5, -0.5, 126.5, -127.5, 0.0, -0.0, 1e30, -1e30, 3.5,
+                        -4.5], np.float32)
+    f.reshape(-1)[:special.size] = special * step
+    return torch.from_numpy(f).to(dev).to(dtype)
+
+
+# K9's forms on the int8 paths (2D trunk, AttentionUnet, 3D trunk, UNet++):
+# (name, input kind, pixel dims, output: "new" tensor, "buffer" at the
+# offset, or "range": the input read from a channel range at the offset)
+K9_FORMS = [("2d e1", "bf16", 2, "new"), ("2d skip", "int8", 2, "buffer"),
+            ("2d dequant", "int8", 2, "dequant"), ("attention dequant", "int8", 2, "range"),
+            ("attention f32", "f32", 2, "buffer"), ("3d e1", "bf16", 3, "new"),
+            ("3d raw skip", "raw", 3, "buffer"), ("3d d6 dequant", "int8", 3, "dequant"),
+            ("nested g0_0", "bf16", 2, "new"), ("nested slot dequant", "int8", 2, "range")]
+# (C, buffer channels, offset): vectors of 1, 2, 4, 8, 16 elements (where the
+# form has a buffer; contiguous forms get the width of C alone)
+K9_WIDTHS = [(12, 17, 5), (6, 8, 2), (12, 16, 4), (24, 48, 24), (32, 64, 32), (32, 192, 64)]
+
+
+@pytest.mark.parametrize("form", K9_FORMS, ids=[f[0] for f in K9_FORMS])
+@pytest.mark.parametrize("case", K9_WIDTHS, ids=lambda c: "C{}of{}at{}".format(*c))
+def test_requant_kernel_bit_equal_to_plain_in_every_form(cuda, gen, form, case):
+    _, kind, dims, where = form
+    c, cbuf, off = case
+    pix = (3, 7, 5) if dims == 2 else (2, 3, 7, 5)  # 105 / 210 rows: ragged against a block
+    if kind in ("int8", "raw"):
+        x = _every_i8(gen, pix + (c,), cuda)
+    else:
+        x = _floats_with_ties(gen, pix + (c,), cuda,
+                              torch.bfloat16 if kind == "bf16" else torch.float32, 0.0625)
+    s_a, s_b = {"int8": (0.5, 1.0), "raw": (1.0, 1.0)}.get(kind, (1.0, 0.0625))
+    before = k8.requant.launches
+    if where == "buffer":
+        bufs = [torch.full(pix + (cbuf,), 99, dtype=torch.int8, device=cuda) for _ in range(2)]
+        k8.requant(x, s_a, s_b, out=bufs[0], offset=off)
+        torch.cuda.synchronize()
+        k8.requant_plain(x, s_a, s_b, out=bufs[1], offset=off)
+        assert torch.equal(bufs[0], bufs[1])
+        assert (bufs[0][..., :off] == 99).all() and (bufs[0][..., off + c:] == 99).all()
+    elif where == "range":
+        buf = _every_i8(gen, pix + (cbuf,), cuda)
+        x = buf[..., off:off + c]
+        got, want = k8.requant(x, 0.0371), k8.requant_plain(x, 0.0371)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    elif where == "dequant":
+        got, want = k8.requant(x, 0.0371), k8.requant_plain(x, 0.0371)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    else:
+        got = k8.requant(x, s_a, s_b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k8.requant_plain(x, s_a, s_b))
+        assert got.min() == -127 and got.max() == 127  # the clip was reached both ways
+    assert k8.requant.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+def test_requant_kernel_over_several_waves(cuda, gen, kind):
+    # 2^21 vectors of 16: each thread of the one wave of blocks walks several
+    shape = (16, 256, 256, 32)
+    if kind == "int8":
+        x = _every_i8(gen, shape, cuda)
+        bufs = [torch.zeros(shape[:-1] + (64,), dtype=torch.int8, device=cuda) for _ in range(2)]
+        k8.requant(x, 0.031, 0.037, out=bufs[0], offset=32)
+        k8.requant_plain(x, 0.031, 0.037, out=bufs[1], offset=32)
+        assert torch.equal(bufs[0], bufs[1])
+        got, want = k8.requant(x, 0.031), k8.requant_plain(x, 0.031)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    else:
+        x = _floats_with_ties(gen, shape, cuda,
+                              torch.bfloat16 if kind == "bf16" else torch.float32, 0.05)
+        assert torch.equal(k8.requant(x, 1.0, 0.05), k8.requant_plain(x, 1.0, 0.05))
+
+
+# (h, w) over 1, 2, 3, 5 and 64, the channel count and batch taking turns
+K11_SIZES = [(h, w, (16, 24, 64)[i % 3], (1, 16)[i % 2])
+             for i, (h, w) in enumerate(itertools.product((1, 2, 3, 5, 64), repeat=2))]
+
+
+@pytest.mark.parametrize("case", K11_SIZES, ids=lambda c: "x".join(map(str, c)))
+def test_upsample2x_i8_kernel_bit_equal_to_plain_at_every_size(cuda, gen, case):
+    h, w, c, n = case
+    x = _every_i8(gen, (n, h, w, c), cuda)
+    bufs = [torch.full((n, 2 * h, 2 * w, c), 99, dtype=torch.int8, device=cuda) for _ in range(2)]
+    k8.upsample2x_i8(x, out=bufs[0])
+    torch.cuda.synchronize()
+    k8.upsample2x_i8_plain(x, out=bufs[1])
+    assert torch.equal(bufs[0], bufs[1])
+
+
+# (n, C, the input row buffer's stride and channel start, output channels,
+# offset, expected vector width): a slot of a UNet++ row buffer (192 or 320
+# bytes a pixel) into a concat buffer at offsets that force each width
+K11_ROW_CASES = [(16, 64, 320, 0, 192, 32, 16), (1, 64, 192, 128, 192, 96, 16),
+                 (16, 24, 192, 64, 192, 8, 8), (1, 16, 320, 64, 40, 4, 4),
+                 (16, 16, 192, 32, 34, 2, 2), (1, 64, 320, 0, 65, 1, 1),
+                 (1, 24, 320, 8, 48, 24, 8)]
+
+
+@pytest.mark.parametrize("case", K11_ROW_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_upsample2x_i8_kernel_from_row_buffers_bit_equal_to_plain(cuda, gen, case):
+    n, c, stride, lo, ctot, off, width = case
+    h, w = 9, 13
+    x = _every_i8(gen, (n, h, w, stride), cuda)[..., lo:lo + c]
+    bufs = [torch.full((n, 2 * h, 2 * w, ctot), 99, dtype=torch.int8, device=cuda)
+            for _ in range(2)]
+    assert k8._vec_width(x, stride, bufs[0], off) == width
+    k8.upsample2x_i8(x, out=bufs[0], offset=off)
+    torch.cuda.synchronize()
+    k8.upsample2x_i8_plain(x, out=bufs[1], offset=off)
+    assert torch.equal(bufs[0], bufs[1])
+    assert (bufs[0][..., :off] == 99).all() and (bufs[0][..., off + c:] == 99).all()
+
+
 def test_upsample2x_i8_wrappers_refuse_what_the_kernel_does_not_take(cuda, gen):
     x = _i8(gen, (1, 4, 4, 8), cuda)
     with pytest.raises(ValueError, match="CUDA"):

@@ -169,6 +169,88 @@ def test_requant_plain_matches_jax():
     np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
 
 
+# (s_a, s_b): exact .5 ties (every odd value), a skip rescale, the raw 3D
+# skip (only -128 moves), and scales that saturate
+@pytest.mark.parametrize("sa,sb", [(0.5, 1.0), (0.0371, 0.0413), (1.0, 1.0), (0.9, 0.004)])
+def test_requant_plain_matches_jax_on_every_int8_value(sa, sb):
+    # the table K9 builds for int8 input: every value -128..127, requant and dequant
+    x8 = np.arange(-128, 128, dtype=np.int8).reshape(1, 1, 16, 16)
+    sa, sb = np.float32(sa), np.float32(sb)
+    want = np.asarray(jax.jit(lambda x: jquant._requant(x.astype(jnp.float32) * sa, sb))(x8))
+    np.testing.assert_array_equal(k.requant_plain(torch.from_numpy(x8), float(sa), float(sb)).numpy(),
+                                  want)
+    want = np.asarray(jax.jit(lambda h: (h.astype(jnp.float32) * sa).astype(jnp.bfloat16))(x8))
+    got = k.requant_plain(torch.from_numpy(x8), float(sa))
+    np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+    if sa == np.float32(0.5) and sb == np.float32(1.0):  # the ties round half to even
+        assert list(k.requant(torch.tensor([[-3, -1, 1, 3, 5]], dtype=torch.int8), 0.5, 1.0)
+                    .flatten().tolist()) == [-2, 0, 0, 2, 2]
+
+
+_MAGIC = np.float32(12582912.0)  # 1.5 * 2^23
+
+
+def _magic_rint_clip(v: torch.Tensor) -> torch.Tensor:
+    """K9's float rounding: v + 1.5*2^23, clipped to [M - 127, M + 127] in
+    that domain by C's fmaxf and fminf (a NaN gives the other operand), the
+    low byte of the bits as the int8 result."""
+    m = torch.tensor(_MAGIC)
+    f = torch.fmin(torch.fmax(v.float() + m, m - 127), m + 127)
+    low = f.view(torch.int32) & 0xFF
+    return ((low ^ 0x80) - 0x80).to(torch.int8)
+
+
+def test_round_by_magic_add_equals_torch_round():
+    ks = np.arange(-200, 201, dtype=np.float32)
+    special = np.array([0.0, -0.0, 127.0, -127.0, 127.49, -127.51, 128.0, -128.0, 1e6, -1e6,
+                        2.0 ** 22, -2.0 ** 22, 2.0 ** 23 + 1, 3e38, -3e38, np.inf, -np.inf],
+                       np.float32)
+    rng = np.random.default_rng(12)
+    seeded = (rng.standard_normal(10 ** 6) * rng.choice([1.0, 50.0, 1e4], 10 ** 6)).astype(
+        np.float32)
+    v = torch.from_numpy(np.concatenate([ks + np.float32(0.5), ks, special, seeded]))
+    # the add alone is rint below 2^22, ties to even
+    small = v[v.abs() < 2 ** 22]
+    m = torch.tensor(_MAGIC)
+    assert torch.equal((small + m) - m, torch.round(small))
+    # with the clip in that domain, every value (past +-127 and +-2^22 too)
+    want = torch.clamp(torch.round(v), -127, 127).to(torch.int8)
+    assert torch.equal(_magic_rint_clip(v), want)
+    assert _magic_rint_clip(torch.tensor([np.nan], dtype=torch.float32)).item() == -127
+
+
+# (dtype, channels, buffer channels the input is a range of, its first
+# channel, output channels, offset, expected width)
+VEC_CASES = [(torch.int8, 32, 32, 0, 64, 32, 16), (torch.int8, 24, 24, 0, 48, 24, 8),
+             (torch.int8, 12, 12, 0, 24, 12, 4), (torch.int8, 6, 6, 0, 12, 6, 2),
+             (torch.int8, 12, 12, 0, 17, 5, 1), (torch.int8, 32, 64, 32, None, 0, 16),
+             (torch.int8, 32, 192, 128, None, 0, 16), (torch.int8, 16, 24, 8, None, 0, 8),
+             (torch.int8, 8, 24, 4, None, 0, 4), (torch.int8, 2, 24, 2, None, 0, 2),
+             (torch.int8, 8, 24, 3, None, 0, 1), (torch.bfloat16, 32, 32, 0, None, 0, 16),
+             (torch.bfloat16, 32, 40, 0, 32, 0, 8), (torch.bfloat16, 32, 40, 4, 32, 0, 4),
+             (torch.bfloat16, 32, 40, 2, 32, 0, 2), (torch.bfloat16, 32, 40, 1, 32, 0, 1),
+             (torch.float32, 32, 64, 0, 64, 32, 16), (torch.float32, 32, 40, 0, 32, 0, 8),
+             (torch.float32, 32, 36, 0, 32, 0, 4), (torch.float32, 30, 30, 0, 30, 0, 2),
+             (torch.float32, 32, 33, 1, 32, 0, 1)]
+
+
+@pytest.mark.parametrize("case", VEC_CASES, ids=lambda c: "-".join(map(str, c[1:])) + str(c[0])[6:])
+def test_requant_vector_width(case):
+    # K9's vector: the widest of 16, 8, 4, 2, 1 elements dividing C, both row
+    # strides and the offset, both addresses on that many elements' bytes (16
+    # at most); a channel range of a wider buffer too
+    dtype, c, cbuf, lo, cout, off, want = case
+    flat = torch.zeros(5 * cbuf + 64, dtype=dtype)
+    base = (-flat.data_ptr() // flat.element_size()) % (64 // flat.element_size())
+    x = flat[base:base + 5 * cbuf].view(1, 5, cbuf)[..., lo:lo + c]
+    if cout is None:  # the dequant: a new bf16 tensor
+        out = torch.empty((1, 5, c), dtype=torch.bfloat16)
+    else:
+        out = torch.zeros((1, 5, cout), dtype=torch.int8)
+    assert out.data_ptr() % 16 == 0
+    assert k._vec_width(x, k._row_stride(x, "requant"), out, off) == want
+
+
 @pytest.mark.parametrize("shape", [(2, 8, 6, 3), (1, 7, 5, 4)])
 def test_maxpool_i8_plain_matches_jax(shape):
     x = _q(np.random.default_rng(sum(shape)), shape)

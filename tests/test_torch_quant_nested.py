@@ -86,6 +86,28 @@ def test_upsample2x_i8_plain_matches_jax(jax_upsample_i8, h, w):
         assert (buf[..., :5] == 99).all() and (buf[..., 5 + c:] == 99).all()
 
 
+def test_int8_to_float_by_magic_number_is_exact():
+    # K11 converts a staged byte as the float with bits 0x4B000000 | (v + 128),
+    # minus 2^23 + 128; v + 128 is the byte XOR 0x80, four at a time
+    v = torch.arange(-128, 128, dtype=torch.int32)
+    biased = (v.to(torch.int8).view(torch.uint8).to(torch.int32) ^ 0x80)
+    assert torch.equal(biased, v + 128)
+    f = (biased | 0x4B000000).view(torch.float32) - torch.tensor(8388736.0)
+    assert torch.equal(f, v.float())
+    words = v.to(torch.int8).view(torch.int32) ^ np.int32(-0x7F7F7F80)  # 0x80808080
+    assert torch.equal(words.view(torch.uint8).to(torch.int32), v + 128)
+
+
+def test_upsample2x_i8_blends_round_within_int8():
+    # the blend of values in [-128, 127] rounds into [-128, 127] at every
+    # size (the weights sum to at most 1 + 2^-23), so K11 clips at -127 alone
+    for n in range(1, 70):
+        for fill in (127.0, -128.0):
+            x = torch.full((1, n, n + 3, 1), fill)
+            v = torch.round(k._blend_axis(k._blend_axis(x, 1), 2))
+            assert v.min() >= -128 and v.max() <= 127, (n, fill)
+
+
 def test_upsample2x_i8_refuses_what_the_kernel_does_not_take():
     x = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
     with pytest.raises(ValueError, match="NHWC int8"):
