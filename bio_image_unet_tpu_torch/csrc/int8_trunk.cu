@@ -74,9 +74,11 @@
 // 8-18% of their byte bound, held by instruction issue: each output costs
 // ~20 CUDA-core instructions of epilogue (the IEEE divide among them) beside
 // the gather's address work, against only 9 x cin MACs on the tensor cores.
-// K9 and K10 are bound by bytes.  K10 is one pass, a thread per output byte
-// (K10v: per 16 bytes where the channels allow 16-byte loads); K9 moves 16
-// elements a thread with a lookup table for int8 input (its own section below).
+// K9 and K10 are bound by bytes.  Both move 16 bytes a thread where the
+// channels allow (K9 with a lookup table for int8 input; K10 a 2x2 window of
+// 16-byte loads and a bytewise max), one wave of blocks, 32-bit indices: their
+// own sections below.  K10v is one pass, a thread per 16 bytes where the
+// channels allow 16-byte loads (else per byte).
 //
 // Numbers, kept exactly as XLA computes them on the CPU, so a kernel equals
 // its plain version (and the JAX graph) bit for bit:
@@ -662,8 +664,28 @@ __global__ void __launch_bounds__(K9_THREADS) requant(const K9Args p) {
 
 constexpr int K9_MAX_DEVICES = 64;
 
-// one launch per 2^30 vectors, each a wave of blocks over the SMs (or fewer);
-// the wave (SMs x resident blocks) is asked of the runtime once per device
+// the blocks of `kernel` the card holds at once (SMs x resident blocks), asked
+// of the runtime once per device and kept in `waves` (one array per kernel)
+template <typename Kernel>
+cudaError_t wave_of(Kernel kernel, int threads, std::atomic<int>* waves, int* wave) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= K9_MAX_DEVICES) return cudaErrorInvalidDevice;
+  *wave = waves[dev].load(std::memory_order_relaxed);
+  if (*wave == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (err != cudaSuccess) return err;
+    *wave = sms * (per_sm > 0 ? per_sm : 1);
+    waves[dev].store(*wave, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// one launch per 2^30 vectors, each a wave of blocks over the SMs (or fewer)
 template <typename T, bool TO_BF16, int VE>
 cudaError_t launch_requant(const void* x, void* out, long long rows, int C, long long in_stride,
                            long long out_stride, int out_off, float s_a, float s_b,
@@ -671,20 +693,9 @@ cudaError_t launch_requant(const void* x, void* out, long long rows, int C, long
   auto kernel = requant<T, TO_BF16, VE>;
   constexpr int U = k9_unroll<T, VE>();
   static std::atomic<int> waves[K9_MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int wave = 0;
+  cudaError_t err = wave_of(kernel, K9_THREADS, waves, &wave);
   if (err != cudaSuccess) return err;
-  if (dev >= K9_MAX_DEVICES) return cudaErrorInvalidDevice;
-  int wave = waves[dev].load(std::memory_order_relaxed);
-  if (wave == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K9_THREADS, 0);
-    if (err != cudaSuccess) return err;
-    wave = sms * (per_sm > 0 ? per_sm : 1);
-    waves[dev].store(wave, std::memory_order_relaxed);
-  }
   const unsigned vpr = (unsigned)(C / VE);
   const long long rows_per_launch = K9_MAX_VECS / vpr;
   if (rows_per_launch == 0) return cudaErrorInvalidValue;
@@ -743,29 +754,113 @@ cudaError_t launch_requant_out(int to_bf16, int vec, const void* x, void* out, l
                                                 out_off, s_a, s_b, st);
 }
 
-// K10: (n, h, w, C) int8 in rows of in_stride bytes -> (n, h/2, w/2, C), a
-// thread per output byte
-__global__ void __launch_bounds__(THREADS)
-maxpool_i8(const int8_t* __restrict__ x, int8_t* __restrict__ out, int n, int h, int wd,
-           int C, int in_stride) {
-  const int ho = h / 2, wo = wd / 2;
-  const long long total = (long long)n * ho * wo * C;
-  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= total) return;
-  const int c = (int)(e % C);
-  long long p = e / C;
-  const int xo = (int)(p % wo);
-  p /= wo;
-  const int yo = (int)(p % ho);
-  const long long ni = p / ho;
-  const long long S = in_stride;
-  const int8_t* src = x + ((ni * h + 2 * yo) * wd + 2 * xo) * S + c;
-  int m = -128;
-  m = max(m, (int)src[0]);
-  m = max(m, (int)src[S]);
-  m = max(m, (int)src[wd * S]);
-  m = max(m, (int)src[wd * S + S]);
-  out[e] = (int8_t)m;
+// --- K10: maxpool_i8 -------------------------------------------------------
+//
+// (n, h, w, C) int8 in pixels of in_stride bytes (a channel range of a wider
+// buffer too) -> (n, h/2, w/2, C), odd extents floored.  Held by bytes (each
+// input byte read once, each output byte written once), so, as K9:
+// - a thread takes VE channels of one output pixel (16 where C, the input's
+//   pixel stride and both addresses allow it, else 8, 4, 2 or 1: ops/int8.py
+//   _vec_width): the 2x2 window is four VE-byte loads and a bytewise signed
+//   max (__vmaxs4), then one VE-byte store;
+// - the output-pixels x vectors space is walked in 32-bit indices (at most
+//   2^30 vectors a launch), pixel, column and row by multiply-high divides;
+//   only the input pixel's byte offset is 64-bit;
+// - one wave of blocks over the SMs, each thread keeping U vectors' loads in
+//   flight before their maxima and stores.
+
+struct K10Args {
+  const int8_t* x;     // the input's first pixel, channel 0 of the range
+  int8_t* out;         // this launch's first output pixel
+  unsigned nv;         // vectors of this launch
+  unsigned r0;         // this launch's first output row (of n * ho rows)
+  FastDiv vpp;         // vectors an output pixel (C / VE)
+  FastDiv wo;          // output pixels a row
+  FastDiv ho;          // output rows an image
+  int h, wd;           // input extents
+  long long in_stride; // bytes between two input pixels
+};
+
+// vectors a thread keeps in flight: two of 8 or 16 bytes (four loads each),
+// else four (one, two or four 16-byte vectors in flight time alike on an H100)
+template <int VE>
+__host__ __device__ constexpr int k10_unroll() {
+  return VE >= 8 ? 2 : 4;
+}
+
+template <int VE>
+__global__ void __launch_bounds__(THREADS) maxpool_i8(const K10Args p) {
+  constexpr int U = k10_unroll<VE>();
+  constexpr int W = VE >= 4 ? VE / 4 : 1;  // words a vector
+  const unsigned step = gridDim.x * THREADS;
+  const long long S = p.in_stride, row = (long long)p.wd * S;
+  for (unsigned v0 = blockIdx.x * THREADS + threadIdx.x; v0 < p.nv; v0 += U * step) {
+    uint32_t in[U][4][W];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const unsigned v = v0 + i * step;
+      if (v < p.nv) {
+        const unsigned px = div_of(v, p.vpp);  // output pixel within the launch
+        const unsigned c = (v - px * p.vpp.d) * VE;
+        const unsigned rr = div_of(px, p.wo);
+        const unsigned xo = px - rr * p.wo.d;
+        const unsigned r = p.r0 + rr;  // output row of n * ho
+        const unsigned ni = div_of(r, p.ho);
+        const unsigned yo = r - ni * p.ho.d;
+        const int8_t* src =
+            p.x + (((long long)ni * p.h + 2 * yo) * p.wd + 2 * xo) * S + c;
+        load_words<VE>(src, in[i][0]);
+        load_words<VE>(src + S, in[i][1]);
+        load_words<VE>(src + row, in[i][2]);
+        load_words<VE>(src + row + S, in[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const unsigned v = v0 + i * step;
+      if (v >= p.nv) break;
+      uint32_t m[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        m[j] = __vmaxs4(__vmaxs4(in[i][0][j], in[i][1][j]), __vmaxs4(in[i][2][j], in[i][3][j]));
+      store_words<VE>(p.out + (long long)v * VE, m);
+    }
+  }
+}
+
+// one launch per 2^30 vectors (whole output rows), each a wave of blocks
+template <int VE>
+cudaError_t launch_maxpool(const void* x, void* out, int n, int h, int wd, int C,
+                           long long in_stride, cudaStream_t st) {
+  auto kernel = maxpool_i8<VE>;
+  static std::atomic<int> waves[K9_MAX_DEVICES];
+  int wave = 0;
+  cudaError_t err = wave_of(kernel, THREADS, waves, &wave);
+  if (err != cudaSuccess) return err;
+  const unsigned ho = (unsigned)(h / 2), wo = (unsigned)(wd / 2), vpp = (unsigned)(C / VE);
+  const long long rows = (long long)n * ho;
+  const long long vpr = (long long)wo * vpp;  // vectors an output row
+  const long long rows_per_launch = K9_MAX_VECS / vpr;
+  if (rows_per_launch == 0 || rows >= (1ll << 32)) return cudaErrorInvalidValue;
+  for (long long r0 = 0; r0 < rows; r0 += rows_per_launch) {
+    K10Args a;
+    a.x = static_cast<const int8_t*>(x);
+    a.out = static_cast<int8_t*>(out) + r0 * wo * C;
+    a.nv = (unsigned)((rows - r0 < rows_per_launch ? rows - r0 : rows_per_launch) * vpr);
+    a.r0 = (unsigned)r0;
+    a.vpp = fast_div(vpp);
+    a.wo = fast_div(wo);
+    a.ho = fast_div(ho);
+    a.h = h;
+    a.wd = wd;
+    a.in_stride = in_stride;
+    constexpr int U = k10_unroll<VE>();
+    const long long need = ((long long)a.nv + THREADS * U - 1) / (THREADS * U);
+    kernel<<<(unsigned)(need < wave ? need : wave), THREADS, 0, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // K10v: (n, d, h, w, C) int8 -> (n, d/2, h/2, w/2, C).  With C a multiple of
@@ -869,14 +964,28 @@ int k9_requant(const void* x, int in_code, void* out, long long total, int C, in
                                         out_off, s_a, s_b, st);
 }
 
-int k10_maxpool_i8(const void* x, void* out, int n, int h, int wd, int C, int in_stride,
+// in_stride: bytes between two input pixels (C for a contiguous tensor, more
+// for a channel range of a wider one); vec: bytes a thread moves at once (16,
+// 8, 4, 2 or 1, dividing C and in_stride, both addresses aligned to it)
+int k10_maxpool_i8(const void* x, void* out, int n, int h, int wd, int C, int in_stride, int vec,
                    void* stream) {
-  const long long total = (long long)n * (h / 2) * (wd / 2) * C;
-  if (total == 0) return 0;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  maxpool_i8<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), n, h, wd, C, in_stride);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((long long)n * (h / 2) * (wd / 2) * C == 0) return 0;
+  if (C <= 0 || vec <= 0 || C % vec || in_stride % vec) return (int)cudaErrorInvalidValue;
+  switch (vec) {
+    case 16:
+      return (int)launch_maxpool<16>(x, out, n, h, wd, C, in_stride, st);
+    case 8:
+      return (int)launch_maxpool<8>(x, out, n, h, wd, C, in_stride, st);
+    case 4:
+      return (int)launch_maxpool<4>(x, out, n, h, wd, C, in_stride, st);
+    case 2:
+      return (int)launch_maxpool<2>(x, out, n, h, wd, C, in_stride, st);
+    case 1:
+      return (int)launch_maxpool<1>(x, out, n, h, wd, C, in_stride, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K7v: weights (O, 3, 3, 3, I_pad), the activation scales folded in (s_in = 1);

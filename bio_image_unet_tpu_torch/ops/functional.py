@@ -24,6 +24,8 @@ renormalised, which at ×2 is the same interpolation as torch's.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -57,11 +59,102 @@ def upsample_linear(x: torch.Tensor, factor: int = 2,
 
 # --- K6 -------------------------------------------------------------------------
 
-# shared memory a block may take (the card's 227 KB opt-in limit) and the most
-# channels a block stages
-_SMEM_BYTES = 232448
-_MAX_GROUP = 32
+# shared memory a block may take (the card's 227 KB opt-in limit), and what
+# of it the tiled kernel's staging may take (less its static arrays)
+_SMEM_OPTIN = 232448
+_SMEM_BYTES = _SMEM_OPTIN - 1024
 _XCORR_DTYPES = (torch.float32, torch.bfloat16)
+# a K6 thread's outputs (rows × columns of one plane) and a block's threads:
+# the constants of csrc/depthwise_xcorr.cu
+XCORR_R, XCORR_S, XCORR_THREADS = 4, 4, 512
+
+
+class XcorrGeometry(NamedTuple):
+    """How K6 stages and walks a (h, w) plane with a (kh, kw) kernel: every
+    length in float32 elements, ``smem`` in bytes (see the kernel's notes)."""
+    cg: int      # planes a block stages (a power of two)
+    n: int       # tiles a warp takes side by side in one tile row: 32 // cg
+    tpr: int     # tile columns of a plane, a multiple of n (the last may be past w)
+    tiles: int   # tiles of a plane: tile rows × tpr
+    pad_t: int   # zero rows staged above the plane (as many below)
+    pad_l: int   # zero columns staged left of it (pad_l ≡ (kw - 1) // 2 mod 4)
+    xp: int      # a staged plane's row pitch, a multiple of 4
+    xplane: int  # between two staged planes: 4 mod 32 (no bank conflicts)
+    kwp: int     # a staged kernel's row pitch: kw rounded up to 4, zeros past kw
+    kplane: int  # between two staged kernels (in the input type): 4 mod 128 bytes' worth
+    threads: int
+    smem: int
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _bank_stride(v: int, per_128: int = 32) -> int:
+    """The least stride ≥ v that is 4 mod ``per_128`` elements (those of 128
+    bytes): the lanes of a 16-byte (8-byte) shared-memory access that read
+    the same offset of consecutive planes then hit different banks."""
+    return v + (4 - v) % per_128
+
+
+def xcorr_geometry(h: int, w: int, kh: int, kw: int,
+                   kbytes: int = 4) -> Optional[XcorrGeometry]:
+    """K6's staging for (h, w) planes and (kh, kw) kernels of ``kbytes``
+    bytes an element (4: float32, 2: bf16, staged as such): the most planes
+    a block (32, 16, ..., 1) whose zero-haloed float32 planes and kernels fit
+    its shared memory; None when not even one does (planes above ~112² with
+    kernels as large: the wrapper then takes the plane form,
+    ``xcorr_plane_fits``).
+
+    A warp takes ``cg`` planes × ``n`` tiles of one tile row (its region, R
+    rows × n·S columns); the tap range it walks is the region's (rows
+    exact, columns rounded out to 4), so every tap it skips lies on the zero
+    pad for all the region's outputs, and the halo holds what the region
+    reads past the plane: R - 1 rows above and below, n·S + 2..5 columns
+    left and n·S + 3 right."""
+    r, s = XCORR_R, XCORR_S
+    pw = (kw - 1) // 2
+    for cg in (32, 16, 8, 4, 2, 1):
+        n = 32 // cg
+        tpr = _round_up(-(-w // s), n)
+        sw = n * s
+        pad_l = sw + 2 + (pw - sw - 2) % 4
+        xp = _round_up(pad_l + w + sw - s + 7, 4)
+        xplane = _bank_stride((h + 2 * (r - 1)) * xp)
+        kwp = _round_up(kw, 4)
+        kplane = _bank_stride(kh * kwp, 128 // kbytes)
+        smem = _round_up(cg * (4 * xplane + kbytes * kplane), 16)
+        if smem <= _SMEM_BYTES:
+            tiles = -(-h // r) * tpr
+            return XcorrGeometry(cg, n, tpr, tiles, r - 1, pad_l, xp, xplane, kwp, kplane,
+                                 min(XCORR_THREADS, cg * tiles), smem)
+    return None
+
+
+def xcorr_plane_fits(h: int, w: int, kh: int, kw: int) -> bool:
+    """Whether K6's plane form (one block a plane, for planes whose haloed
+    staging ``xcorr_geometry`` refuses) takes (h, w) planes with (kh, kw)
+    kernels: the plane and its kernel in float32, without a halo, within a
+    block's shared memory."""
+    return 4 * (h * w + kh * kw) <= _SMEM_OPTIN
+
+
+def xcorr_stage_vector(t: torch.Tensor, cg: int) -> int:
+    """Elements one staging load of K6 moves from ``t`` (B, C, h, w): a
+    16-byte vector where the fastest axis (channels of a channels_last
+    tensor, else the row) is contiguous, a block's run of ``cg`` channels or
+    a row fills whole vectors, and every vector is 16-byte aligned; else 1."""
+    v = 16 // t.element_size()
+    sb, sc, sh, sw = t.stride()
+    if t.data_ptr() % 16:
+        return 1
+    if sc < sw:  # the kernel stages a pixel's channels together
+        ok = sc == 1 and t.shape[1] % cg == 0 and cg % v == 0
+        strides = (sb, sh, sw)
+    else:  # a row's columns
+        ok = sw == 1 and t.shape[3] % v == 0
+        strides = (sb, sc, sh)
+    return v if ok and all(x % v == 0 for x in strides) else 1
 
 
 def _check_xcorr(cur: torch.Tensor, prev: torch.Tensor) -> None:
@@ -89,16 +182,6 @@ def depthwise_xcorr_plain(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor
     return acc.to(cur.dtype)
 
 
-def xcorr_group(hw: int, khw: int) -> int:
-    """Channels a K6 block stages: the most (a power of two, up to 32) whose
-    two float32 planes fit half the block's shared memory; 0 when not even
-    one channel fits the whole of it."""
-    for cg in (32, 16, 8, 4, 2):
-        if cg * (hw + khw) * 4 <= _SMEM_BYTES // 2:
-            return cg
-    return 1 if (hw + khw) * 4 <= _SMEM_BYTES else 0
-
-
 def depthwise_xcorr(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     """K6: correlate each (batch, channel) plane of ``cur`` (B, C, H, W) with
     the same plane of ``prev`` (B, C, kh, kw) as the kernel, torch ``'same'``
@@ -118,17 +201,24 @@ def depthwise_xcorr(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
                          f"{cur.device} and {prev.device}")
     b, c, h, w = cur.shape
     kh, kw = prev.shape[2:]
-    cg = xcorr_group(h * w, kh * kw)
-    if cg == 0:
+    geo = xcorr_geometry(h, w, kh, kw, cur.element_size())
+    if geo is None and not xcorr_plane_fits(h, w, kh, kw):
         raise ValueError(f"depthwise_xcorr: planes of {h}x{w} and {kh}x{kw} do not fit one "
-                         f"block's shared memory ({_SMEM_BYTES} bytes)")
+                         f"block's shared memory ({_SMEM_OPTIN} bytes)")
     out = torch.empty_like(cur)
     A = _cuda
-    fn = A.function("depthwise_xcorr", "k6_depthwise_xcorr",
-                    [A.P, A.P, A.P] + [A.I32] * 8 + [A.I64] * 12 + [A.P])
-    A.launch(fn, cur.device, cur.data_ptr(), prev.data_ptr(), out.data_ptr(),
-             int(cur.dtype == torch.bfloat16), b, c, h, w, kh, kw, cg,
-             *cur.stride(), *prev.stride(), *out.stride())
+    args = (cur.data_ptr(), prev.data_ptr(), out.data_ptr(), int(cur.dtype == torch.bfloat16),
+            b, c, h, w, kh, kw)
+    strides = (*cur.stride(), *prev.stride(), *out.stride())
+    if geo is None:  # large planes: the plane form
+        fn = A.function("depthwise_xcorr", "k6_depthwise_xcorr_plane",
+                        [A.P, A.P, A.P] + [A.I32] * 7 + [A.I64] * 12 + [A.P])
+        A.launch(fn, cur.device, *args, *strides)
+    else:
+        fn = A.function("depthwise_xcorr", "k6_depthwise_xcorr",
+                        [A.P, A.P, A.P] + [A.I32] * 21 + [A.I64] * 12 + [A.P])
+        A.launch(fn, cur.device, *args, *geo, xcorr_stage_vector(cur, geo.cg),
+                 xcorr_stage_vector(prev, geo.cg), *strides)
     depthwise_xcorr.launches += 1
     return out
 

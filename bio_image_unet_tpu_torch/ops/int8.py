@@ -318,11 +318,11 @@ requant.launches = 0
 
 
 def _vec_width(x: torch.Tensor, in_stride: int, out: torch.Tensor, offset: int) -> int:
-    """Elements one thread of K9 or K11 moves as a vector: the widest of 16,
-    8, 4, 2 and 1 that divides the channel count, both row strides (``x``'s
-    ``in_stride``, ``out``'s last extent) and the output offset, with both
-    addresses on a boundary of that many elements' bytes (16 at most: wider
-    vectors are moved as several 16-byte ones)."""
+    """Elements one thread of K9, K10 or K11 moves as a vector: the widest of
+    16, 8, 4, 2 and 1 that divides the channel count, both row strides
+    (``x``'s ``in_stride``, ``out``'s last extent) and the output offset,
+    with both addresses on a boundary of that many elements' bytes (16 at
+    most: wider vectors are moved as several 16-byte ones)."""
     c = x.shape[-1]
 
     def aligned(t: torch.Tensor, v: int) -> bool:
@@ -345,7 +345,9 @@ def maxpool_i8_plain(x: torch.Tensor) -> torch.Tensor:
 
 def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
     """K10: (n, h, w, C) int8 → (n, h//2, w//2, C); ``x`` may be a channel
-    range of a wider NHWC tensor."""
+    range of a wider NHWC tensor.  A thread of the kernel takes a vector of
+    channels of one output pixel, as wide as :func:`_vec_width` allows (16
+    bytes where C, the input's pixel stride and both addresses do)."""
     if x.dim() != 4 or x.dtype != torch.int8:
         raise ValueError(f"maxpool_i8 takes NHWC int8, got {x.dtype} {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -355,8 +357,9 @@ def maxpool_i8(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     out = torch.empty((n, h // 2, w // 2, c), dtype=torch.int8, device=dev)
     A = _cuda
-    fn = A.function("int8_trunk", "k10_maxpool_i8", [A.P, A.P] + [A.I32] * 5 + [A.P])
-    A.launch(fn, dev, x.data_ptr(), out.data_ptr(), n, h, w, c, in_stride)
+    fn = A.function("int8_trunk", "k10_maxpool_i8", [A.P, A.P] + [A.I32] * 6 + [A.P])
+    A.launch(fn, dev, x.data_ptr(), out.data_ptr(), n, h, w, c, in_stride,
+             _vec_width(x, in_stride, out, 0))
     maxpool_i8.launches += 1
     return out
 

@@ -1,8 +1,9 @@
-"""Time K9 (``requant``) and K11 (``upsample2x_i8``) on the card at the
-shapes ``chip_smoke.py`` gives them, under two timers, and the store floor of
-K11's output layout.
+"""Time the kernels redesigned for Hopper -- K9 (``requant``), K10
+(``maxpool_i8``), K11 (``upsample2x_i8``) and K6 (``depthwise_xcorr``) -- on
+the card at the shapes ``chip_smoke.py`` gives them, under two timers, and the
+store floor of K11's output layout.
 
-    python3 <checkout>/bio_image_unet_tpu_torch/utils/k9_k11_times.py [--package DIR]
+    python3 <checkout>/bio_image_unet_tpu_torch/utils/kernel_ab_times.py [--package DIR]
 
 Each form's mean time over 10 launches (CUDA events, the 50 MB L2 flushed
 before each) is taken twice: ``lead`` spins the device ~0.5 ms after the
@@ -12,10 +13,13 @@ records the start event right after the flush, so a form also holds the
 wrapper's host work where that outlasts the flush.  ``--package`` imports
 ``bio_image_unet_tpu_torch`` from another checkout (by default the one this
 file lies in): two versions of the kernels are compared under the same
-timers by running this file in turns (A, B, B, A) in one call on one card.
-The store floor is the time of 16-byte stores alone into 64 of every 192
-bytes of the UNet++ row buffer, against the same bytes contiguous: a
-yardstick compiled here, not a kernel of the port.  Prints one JSON line;
+timers by running this file in turns (A, B, B, A) in one call on one card;
+``--forms k6,k10`` times only the forms whose names start so (and builds only
+their libraries).  The store floor is the time of 16-byte stores alone into 64 of every 192
+bytes of the UNet++ row buffer (K11's output), the load floor that of
+16-byte loads alone of 32 of every 192 bytes (K10's UNet++ input), each
+against the same bytes contiguous: yardsticks compiled here, not kernels of
+the port.  Prints one JSON line;
 without a card it exits with code 2.
 """
 
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -35,7 +40,7 @@ N2D, TILE, NF = 256, 256, 32  # config 1's forward batch, Unet(32)
 NNEST, P = 16, 512  # config 4's forward batch of UNet++ tiles
 N3D, VOL_TILE = 16, (32, 128, 128)  # config 5's forward batch, UNet3D(32)
 
-STORE_PROBE_CU = r"""
+PROBE_CU = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
 // 16 bytes a thread into bytes [off, off + 16 * cv) of rows of `stride` bytes
@@ -51,19 +56,44 @@ extern "C" int store16_rows(void* out, long long rows, int cv, int stride, int o
   store16<<<132 * 32, 256, 0, (cudaStream_t)st>>>((int8_t*)out, rows, cv, stride, off);
   return (int)cudaGetLastError();
 }
+// 16-byte loads of the same bytes, folded into one word a thread (kept)
+__global__ void load16(const int8_t* x, long long rows, int cv, int stride, int off,
+                       unsigned* sink) {
+  const long long total = rows * cv;
+  unsigned acc = 0;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long r = e / cv;
+    const uint4 v = *reinterpret_cast<const uint4*>(x + r * stride + off + (e - r * cv) * 16);
+    acc ^= v.x ^ v.y ^ v.z ^ v.w;
+  }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+extern "C" int load16_rows(const void* x, long long rows, int cv, int stride, int off, void* sink,
+                           void* st) {
+  load16<<<132 * 32, 256, 0, (cudaStream_t)st>>>((const int8_t*)x, rows, cv, stride, off,
+                                                 (unsigned*)sink);
+  return (int)cudaGetLastError();
+}
 """
+
+
+@functools.lru_cache(maxsize=None)
+def _probe(_cuda):
+    """The probes' library, compiled here: yardsticks, not kernels of the port."""
+    _cuda.BUILD.mkdir(parents=True, exist_ok=True)
+    src, lib = _cuda.BUILD / "probes.cu", _cuda.BUILD / "libprobes.so"
+    src.write_text(PROBE_CU)
+    subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(lib), str(src)], check=True,
+                   capture_output=True, timeout=300)
+    return ctypes.CDLL(str(lib))
 
 
 def store_floor(torch, _cuda, timed) -> dict:
     """The store floor of K11's main-shape output: channels [32, 96) of the
     (16, 512², 192) row buffer, and the same bytes contiguous."""
-    _cuda.BUILD.mkdir(parents=True, exist_ok=True)
-    src, lib = _cuda.BUILD / "store_probe.cu", _cuda.BUILD / "libstore_probe.so"
-    src.write_text(STORE_PROBE_CU)
-    subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-o", str(lib), str(src)], check=True,
-                   capture_output=True, timeout=300)
-    fn = ctypes.CDLL(str(lib)).store16_rows
+    fn = _probe(_cuda).store16_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     rows, width, stride, off = NNEST * P * P, 2 * NF, 6 * NF, NF
     out = torch.empty((rows, stride), dtype=torch.int8, device="cuda")
@@ -77,21 +107,47 @@ def store_floor(torch, _cuda, timed) -> dict:
             "dense": timed(lambda: run(width, 0), True)}
 
 
+def load_floor(torch, _cuda, timed) -> dict:
+    """The load floor of K10's UNet++ input: 16-byte loads alone of channels
+    [0, 32) of every pixel of the (16, 512², 192) row buffer, and of the
+    same bytes contiguous."""
+    fn = _probe(_cuda).load16_rows
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_void_p])
+    rows, width, stride = NNEST * P * P, NF, 6 * NF
+    x = torch.ones((rows, stride), dtype=torch.int8, device="cuda")
+    sink = torch.empty(132 * 32 * 256, dtype=torch.int32, device="cuda")
+
+    def run(st):
+        err = fn(x.data_ptr(), rows, width // 16, st, 0, sink.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"load probe: CUDA error {err}")
+
+    return {"slot": timed(lambda: run(stride), True), "dense": timed(lambda: run(width), True)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", type=Path, default=ROOT,
                     help="checkout whose bio_image_unet_tpu_torch is timed")
+    ap.add_argument("--forms", default="k9,k10,k11,k6",
+                    help="comma-separated prefixes of the forms to time (default: all)")
     args = ap.parse_args()
+    prefixes = tuple(f"{p.strip()} " for p in args.forms.split(",") if p.strip())
     import torch
 
     if not torch.cuda.is_available():
-        print("k9_k11_times: no CUDA device", file=sys.stderr)
+        print("kernel_ab_times: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(args.package.resolve()))
     from bio_image_unet_tpu_torch.ops import _cuda
     from bio_image_unet_tpu_torch.ops import int8 as k8
+    from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr
 
-    _cuda.build(["int8_trunk", "int8_resample"])
+    libs = {"k9 ": "int8_trunk", "k10 ": "int8_trunk", "k11 ": "int8_resample",
+            "k6 ": "depthwise_xcorr"}
+    _cuda.build(sorted({lib for form, lib in libs.items() if form in prefixes}))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -122,7 +178,8 @@ def main() -> int:
     ms = {}
 
     def both(name, fn):
-        ms[name] = {"lead": timed(fn, True), "no_lead": timed(fn, False)}
+        if name.startswith(prefixes):
+            ms[name] = {"lead": timed(fn, True), "no_lead": timed(fn, False)}
 
     # K9, 2D: chip_smoke.py's [kernels int8] forms
     shape = (N2D, TILE, TILE, NF)
@@ -158,11 +215,39 @@ def main() -> int:
     del e1, skip, d6, buf
     torch.cuda.empty_cache()
 
-    floor = store_floor(torch, _cuda, timed)
+    # K10, 2D: every encoder level of config 1's forward batch
+    for level in range(4):
+        x = i8((N2D, TILE >> level, TILE >> level, NF << level))
+        both(f"k10 level {level} ({N2D}, {TILE >> level}^2, {NF << level})",
+             lambda: k8.maxpool_i8(x))
+        del x
+    # K10, UNet++: slot 0 of row 0 (32 of 192 channels)
+    row0 = i8((NNEST, P, P, 6 * NF))
+    both("k10 UNet++ row0 slot 0", lambda: k8.maxpool_i8(row0[..., :NF]))
+    del row0
+    torch.cuda.empty_cache()
+    # K6: the bf16 Siam forward batch at 256^2 tiles, PredictSiam's float32
+    # default (512^2 tiles, 32 pairs a forward batch, Siam_UNet(32)) and the
+    # wider float32 timing shape
+    for name, shape, dtype, cl in (
+            ("k6 bf16 channels_last (128, 256, 16, 16)", (128, 256, 16, 16), torch.bfloat16, True),
+            ("k6 float32 (32, 256, 32, 32)", (32, 256, 32, 32), torch.float32, False),
+            ("k6 float32 (16, 1024, 32, 32)", (16, 1024, 32, 32), torch.float32, False)):
+        cur = torch.randn(shape, generator=g, device=dev).to(dtype)
+        prev = torch.randn(shape, generator=g, device=dev).to(dtype)
+        if cl:
+            cur = cur.contiguous(memory_format=torch.channels_last)
+            prev = prev.contiguous(memory_format=torch.channels_last)
+        both(name, lambda: depthwise_xcorr(cur, prev))
+        del cur, prev
+    torch.cuda.empty_cache()
+
+    floor = store_floor(torch, _cuda, timed) if "k11 " in prefixes else None
+    k10_floor = load_floor(torch, _cuda, timed) if "k10 " in prefixes else None
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"package": str(args.package.resolve()), "card": card, "ms": ms,
-                      "k11_store_floor_ms": floor}))
+                      "k11_store_floor_ms": floor, "k10_load_floor_ms": k10_floor}))
     return 0
 
 

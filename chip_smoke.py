@@ -15,10 +15,12 @@ non-zero without printing a result:
    int8 library, each ``qconv`` instance's tensor-core (IMMA / GMMA),
    ``ldmatrix`` (LDSM), ``cp.async`` (LDGSTS) and store counts logged, and
    the run failed where an instance has no tensor-core MMA or any ``__dp4a``
-   (IDP); and of K9 (``requant``) and K11 (``upsample2x_i8``, the resample
-   library), each instance's int↔float conversions (I2F, F2I, FRND), MUFU
-   and 128-bit global loads and stores logged, the run failed where one uses
-   local memory (LDL / STL);
+   (IDP); and of K9 (``requant``), K10 (``maxpool_i8``), K11
+   (``upsample2x_i8``, the resample library) and K6 (``xcorr``, the
+   depthwise_xcorr library), each instance's int↔float conversions (I2F,
+   F2I, FRND), MUFU, FFMA / FMUL / FADD and 128-bit global loads and stores
+   and shared loads logged, the run failed where one uses local memory (LDL /
+   STL) or a K6 instance holds an FFMA;
 3. kernels — each kernel held against its plain PyTorch version on the card
    at the shapes the main path gives it (K1 / K1f bit-equal, K2 equal, K3
    within one uint8 level), and timed with CUDA events (L2 flushed before
@@ -160,11 +162,14 @@ non-zero without printing a result:
    block in 256² tiles, and a zero-padded 200×300 block with invert: equal);
    K3 on the main path's 128 bf16 logit tiles → 8 frames (within one level);
    K6 (the depthwise cross-correlation of the ``corr`` join at (128, 256,
-   16, 16) bf16 channels_last and (16, 1024, 32, 32) float32: within 1e-5 of
-   Σ|a·b| in float32, one bf16 ulp in bf16).  Each against its plain
-   version, timed beside its bound (operations at the card's rate for the
-   operand type: bf16 on the tensor cores, float32 on the CUDA cores) and,
-   for K6, the grouped ``F.conv2d``;
+   16, 16) bf16 channels_last, at ``PredictSiam``'s float32 defaults (32,
+   256, 32, 32) and at (16, 1024, 32, 32) float32, a timing shape no path
+   runs (its row reports 0 launches): bit-equal, and within 1e-5 of Σ|a·b|
+   in float32, one bf16 ulp in bf16; its plane form, for planes above 112²,
+   bit-equal at (2, 4, 128, 128)).  Each against its plain version, timed
+   beside its bound (operations at the card's rate for the operand type:
+   bf16 on the tensor cores, float32 on the CUDA cores) and, for K6, the
+   grouped ``F.conv2d``;
 17. siam — the eighth main path, the ``siam_unet`` facade's streaming
    ``Predict`` at ``benchmarks/family_bench.py``'s Siam configuration:
    ``Siam_UNet(n_filter=32, mode="max")`` (seeded, with BatchNorm
@@ -178,10 +183,12 @@ non-zero without printing a result:
    and the host time by stage (page decode, upload, dispatch, wait, TIFF
    write).  Holds fused against host-staged at the same forward batch on the
    main movie and on each coverage case (the ``corr``, ``concat`` and
-   ``control`` joins, ``'first'``, ``'all'``, uint16 with ``add_tile=1``, a
-   37-frame 200×300 movie, a 1-frame movie, ``frames_per_chunk=1``, float32
-   with ``device_pipeline=True``), and a small float32 run on the card
-   against the CPU;
+   ``control`` joins, ``corr`` in float32 at ``PredictSiam``'s default 512²
+   tiles (``Siam_UNet(32, "corr")``, 16 frames: K6 on (32, 256, 32, 32)
+   float32 NCHW, its launches exact), ``'first'``, ``'all'``, uint16 with
+   ``add_tile=1``, a 37-frame 200×300 movie, a 1-frame movie,
+   ``frames_per_chunk=1``, float32 with ``device_pipeline=True``), and a
+   small float32 run on the card against the CPU;
 18. kernels (int8) — K7 (the int8 3×3 conv with its dequant, bias,
    LeakyReLU and requant epilogue) at the main path's first and widest
    layers (``encode2`` (256, 256², 32) → 32 and ``middle_conv2`` (256, 16²,
@@ -196,7 +203,8 @@ non-zero without printing a result:
    attended skip → int8 into channels [0, 32)) and K10 (the int8 max pool) at
    every encoder level, on a forward batch of 256 tiles: each bit-equal to
    its plain version, timed beside its bound (int8 operations at the
-   tensor cores' 1979 TOP/s, or bytes) and, for K7 / K8, ``torch._int_mm``
+   tensor cores' 1979 TOP/s, or bytes) and, for K10, ``amax`` over each 2×2
+   window of a view (held equal to the kernel's output), for K7 / K8, ``torch._int_mm``
    on the same operands (an ``F.unfold`` im2col for K7; the bf16 cuDNN conv
    of the layer logged beside it), with each K7 / K8 row's TOP/s, its share
    of the int8 dense peak and of its bound and its time over
@@ -230,8 +238,9 @@ non-zero without printing a result:
    the concat buffer, the dequant of d6), at config 5's forward batch of 16
    tiles of (32, 128, 128), ``UNet3D(32)``: each bit-equal to its plain
    version on the whole batch, timed beside its bound (int8 operations at
-   1979 TOP/s, or bytes), ``torch._int_mm`` on an im2col (K7v) or on the
-   up-conv's product (K8v), and the bf16 cuDNN ``conv3d`` /
+   1979 TOP/s, or bytes), ``amax`` over each 2×2×2 window (K10v),
+   ``torch._int_mm`` on an im2col (K7v) or on the up-conv's product (K8v),
+   and the bf16 cuDNN ``conv3d`` /
    ``conv_transpose3d`` of the layer; K7v / K8v rows with their rates as
    in 18; and K11v (the trilinear decoder's int8 ×2 into its concat buffer)
    at its largest level, up3 (16, 16×64², 64) into channels [0, 64) of a
@@ -261,7 +270,8 @@ non-zero without printing a result:
    from slot 4 of row 0 (16, 512², 32 of 192; a strided read), and K11 (the int8 ×2 ``align_corners=True`` bilinear) from slot 0 of
    row 1 (16, 256², 64) into channels [32, 96) of row 0, and at two odd
    shapes: bit-equal to their plain versions, timed beside their bounds and,
-   for K7, ``torch._int_mm`` on an ``F.unfold`` im2col of the same channels,
+   for K10, ``amax`` over the 2×2 windows of the channel range, for K7,
+   ``torch._int_mm`` on an ``F.unfold`` im2col of the same channels,
    for K11, the torch calls it replaces (``F.interpolate``, round, clip,
    int8, the slice copy);
 23. nested int8 — ``PredictMultiOutput(quantized=True)`` under
@@ -393,11 +403,16 @@ def main() -> int:
     kernels.extend(knested)
     run("attention", phase_attention, torch, dev, kernels)
     for k in kernels:
-        if k["launches"] <= 0:
+        # a timing-only row (a shape no path runs) reports 0 launches; its
+        # kernel must be launched on a path all the same
+        launched = k["launches"] > 0 or (k.get("_timing_only") and any(
+            o["_counter"] is k["_counter"] and o["launches"] > 0 for o in kernels))
+        if not launched:
             raise AssertionError(f"{k['name']}: never launched on its main path")
     log("[time] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     for k in kernels:
         k.pop("_counter")
+        k.pop("_timing_only", None)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -503,8 +518,10 @@ def template_instance(kernel: str, name: str) -> str:
 def phase_sass(_cuda) -> None:
     """The machine code of the int8 libraries: every ``qconv`` instance must
     run its products on the tensor cores (an IMMA or GMMA instruction) and
-    hold no ``__dp4a`` (IDP); K9's and K11's instances must not touch local
-    memory, and their conversions and wide accesses are logged."""
+    hold no ``__dp4a`` (IDP); K9's, K10's, K11's and K6's instances must not
+    touch local memory, K6's must hold no fused multiply-add (FFMA: the plain
+    version rounds each product), and their conversions and wide accesses are
+    logged."""
     funcs = sass_functions(_cuda._lib_path("int8_trunk"))
     qconvs = {k: v for k, v in funcs.items() if "qconv" in k}
     if not qconvs:
@@ -525,10 +542,14 @@ def phase_sass(_cuda) -> None:
     if bad:
         raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
-    # K9 and K11: what the redesign removed (int<->float conversions at a
-    # quarter of the FMA rate) and what it relies on (16-byte accesses)
-    local = []
-    for lib, kernel, want in (("int8_trunk", "requant", 30), ("int8_resample", "upsample2x_i8", 5)):
+    # K9, K10, K11 and K6: what the redesigns removed (int<->float
+    # conversions at a quarter of the FMA rate, per-byte work) and what they
+    # rely on (16-byte accesses, no FMA in K6)
+    local, fused = [], []
+    for lib, kernel, want in (("int8_trunk", "requant", 30), ("int8_trunk", "maxpool_i8", 5),
+                              ("int8_resample", "upsample2x_i8", 5),
+                              ("depthwise_xcorr", "xcorr", 2),
+                              ("depthwise_xcorr", "xcorr_plane", 2)):
         found = funcs if lib == "int8_trunk" else sass_functions(_cuda._lib_path(lib))
         found = {template_instance(kernel, k): v for k, v in found.items()
                  if re.search(rf"{len(kernel)}{kernel}I", k)}
@@ -541,14 +562,20 @@ def phase_sass(_cuda) -> None:
                            if k.startswith(prefixes) and (not wide or ".128" in k))
             n_local = count("LDL", "STL")
             log(f"[sass] {inst}: {sum(ops.values())} instructions; I2F {count('I2F')}, "
-                f"F2I {count('F2I')}, FRND {count('FRND')}, MUFU {count('MUFU')}; 128-bit "
+                f"F2I {count('F2I')}, FRND {count('FRND')}, MUFU {count('MUFU')}, FFMA "
+                f"{count('FFMA')}, FMUL {count('FMUL')}, FADD {count('FADD')}; 128-bit "
                 f"global loads {count('LDG', 'LDGSTS', wide=True)}, stores "
-                f"{count('STG', wide=True)}; local memory {n_local}")
+                f"{count('STG', wide=True)}, shared loads {count('LDS', wide=True)}; local "
+                f"memory {n_local}")
             if n_local:
                 local.append(inst)
+            if kernel.startswith("xcorr") and count("FFMA"):
+                fused.append(inst)
     if local:
-        raise RuntimeError(f"K9 / K11 instances use local memory: {local}")
-    log("[sass] K9 and K11 instances without local memory: yes")
+        raise RuntimeError(f"K9 / K10 / K11 / K6 instances use local memory: {local}")
+    if fused:
+        raise RuntimeError(f"K6 instances fuse a multiply and an add (FFMA): {fused}")
+    log("[sass] K9, K10, K11 and K6 instances without local memory, K6 without FFMA: yes")
 
 
 # --- 3. kernels -----------------------------------------------------------------
@@ -603,6 +630,22 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_SCALAR_OPS_PER
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def amax_pool_ms(torch, timer, x, want) -> float:
+    """K10's / K10v's library yardstick: one ``amax`` over each 2×2 (2×2×2)
+    window of a view of ``x`` (even extents; a channel range too), held equal
+    to the kernel's output ``want``, then timed."""
+    def pool():
+        v = x
+        for axis in range(1, x.dim() - 1):
+            v = v.unflatten(2 * axis - 1, (v.shape[2 * axis - 1] // 2, 2))
+        return v.amax(tuple(range(2, v.dim() - 1, 2)))
+
+    if not torch.equal(pool(), want):
+        raise AssertionError(f"amax over the 2x2 windows of {tuple(x.shape)} differs from the "
+                             "kernel's max pool")
+    return timer(pool, 5)
 
 
 def phase_kernels(torch, dev) -> list:
@@ -2572,10 +2615,19 @@ def train_3d_card_vs_cpu(torch) -> None:
 SIAM_FRAMES, SIAM_FILTER, SIAM_CHUNK = 32, 32, 8
 SIAM_CLIP = (0.0, 99.98)
 # K6's shapes: the main path's forward batch (128 pair tiles of 256²: (128,
-# 8·32, 16, 16) bf16 channels_last) and PredictSiam's default 512² tiles at 16
-# pairs and a width of 1024 (float32, NCHW)
-SIAM_XCORR = (((128, 8 * SIAM_FILTER, 16, 16), "bfloat16", True),
-              ((16, 1024, 32, 32), "float32", False))
+# 8·32, 16, 16) bf16 channels_last), PredictSiam's defaults (float32 NCHW,
+# 512² tiles, 32 pairs a forward batch: the [siam] float32 corr case) and a
+# wider float32 timing shape that no path runs (16 pairs of 512² tiles at a
+# width of 1024; its row reports 0 launches); the last field: whether a path
+# runs the shape
+SIAM_XCORR = (((128, 8 * SIAM_FILTER, 16, 16), "bfloat16", True, True),
+              ((32, 8 * SIAM_FILTER, 32, 32), "float32", False, True),
+              ((16, 1024, 32, 32), "float32", False, False))
+# K6's plane form (planes above the tiled staging's 112²: a corr call at tiles
+# of ~1800-2720 pixels), held bit-equal to the plain version once
+SIAM_XCORR_PLANE = (2, 4, 128, 128)
+# the float32 corr case: PredictSiam's default tiles and precision
+SIAM_DEFAULTS = {"resize_dim": (512, 512), "half_precision": False}
 
 
 def xcorr_macs(h: int, w: int, kh: int, kw: int) -> int:
@@ -2698,7 +2750,7 @@ def phase_kernels_siam(torch, dev) -> list:
     del logits, ours, ref
 
     # K6, the corr join
-    for shape, dtype_name, cl in SIAM_XCORR:
+    for shape, dtype_name, cl, on_path in SIAM_XCORR:
         dtype = getattr(torch, dtype_name)
         cur = torch.randn(shape, generator=g, device=dev).to(dtype)
         prev = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -2718,6 +2770,8 @@ def phase_kernels_siam(torch, dev) -> list:
         if not (diff <= limit).all():
             raise AssertionError(f"K6 {tuple(shape)} {dtype}: beyond {what} of the plain version "
                                  f"(max {diff.max().item()})")
+        if not torch.equal(ours, ref):  # the plain version's order and rounding
+            raise AssertionError(f"K6 {tuple(shape)} {dtype}: not bit-equal to the plain version")
         b, c, h, w = shape
         x_lib = cur.contiguous().reshape(1, b * c, h, w)
         w_lib = prev.contiguous().reshape(b * c, 1, h, w)
@@ -2726,7 +2780,7 @@ def phase_kernels_siam(torch, dev) -> list:
         except RuntimeError as err:
             log(f"[kernels siam] grouped F.conv2d refused {tuple(shape)} {dtype}: {err}")
             lib = None
-        name = "bf16 channels_last" if cl else "float32"
+        name = ("bf16 channels_last" if cl else "float32") + ("" if on_path else " timing only")
         n_flops = 2 * b * c * xcorr_macs(h, w, h, w)
         n_bytes = 3 * cur.numel() * cur.element_size()
         # the card's rate for the operand type: bf16 operands could run on the
@@ -2740,6 +2794,7 @@ def phase_kernels_siam(torch, dev) -> list:
             # two inputs read once, the output written once; a multiply and an
             # add per product on a real pixel (the zero pad's are not needed)
             bound_ms(n_bytes, n_flops, peak), lib)
+        rows[-1]["_timing_only"] = not on_path
         if dtype == torch.bfloat16:
             ceiling, by = bound_ms(n_bytes, n_flops)
             log(f"[kernels siam]   k6 {tuple(shape)}: this design's ceiling (float32 on the "
@@ -2748,6 +2803,19 @@ def phase_kernels_siam(torch, dev) -> list:
             f"multiply-adds on real pixels, {b * c * h * w * h * w / 1e9:.3f} G with the zero pad; "
             f"within {what}")
         del cur, prev, ours, ref, diff, limit
+    # the plane form, once, NCHW and channels_last
+    cur = torch.randn(SIAM_XCORR_PLANE, generator=g, device=dev)
+    prev = torch.randn(SIAM_XCORR_PLANE, generator=g, device=dev)
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        cur, prev = cur.contiguous(memory_format=fmt), prev.contiguous(memory_format=fmt)
+        ours = depthwise_xcorr(cur, prev)
+        torch.cuda.synchronize()
+        if not torch.equal(ours, depthwise_xcorr_plain(cur, prev)):
+            raise AssertionError(f"K6's plane form {SIAM_XCORR_PLANE} {fmt}: not bit-equal to "
+                                 "the plain version")
+    log(f"[kernels siam] k6 plane form {SIAM_XCORR_PLANE} float32, NCHW and channels_last: "
+        f"bit-equal to plain | kernel {timer(lambda: depthwise_xcorr(cur, prev)):.4f} ms")
+    del cur, prev, ours
     torch.cuda.empty_cache()
     return rows
 
@@ -2924,6 +2992,8 @@ def phase_siam(torch, dev, kernels, ksiam) -> None:
         small = rng.integers(0, 255, (37, 200, 300), dtype=np.uint8)
         cases = [
             ("corr join", "corr", movie[:16], {}, {"join": "corr"}),
+            ("corr join float32 at PredictSiam's defaults (512^2 tiles)", "corr", movie[:16],
+             SIAM_DEFAULTS, {"join": "corr", "tile": SIAM_DEFAULTS["resize_dim"][0]}),
             ("concat join", "concat", movie[:16], {}, {}),
             ("control join", "control", movie[:16], {}, {}),
             ("'first'", "max", movie[:16], {"normalization_mode": "first"}, {}),
@@ -2944,24 +3014,30 @@ def phase_siam(torch, dev, kernels, ksiam) -> None:
             t0 = time.perf_counter()
             case_pred, got = counted(torch, "siam", counters, name,
                                      lambda: siam_unet.Predict(path, fused_out, ckpts[join],
-                                                               **kw, **extra),
+                                                               **dict(kw, **extra)),
                                      expect(m, **exp))
             dt = time.perf_counter() - t0
-            if join != "max":
+            tile = extra.get("resize_dim", (TILE,))[0]
+            if join != "max" and tile == TILE:
                 # the join's device-resident time on the main movie's block
                 _, join_dev, _, _, _ = device_resident(case_pred.engine)
                 log(f"[siam] {name}: device-resident {2 * SIAM_CHUNK * H * W / 1e6 / join_dev:.2f} "
                     f"MP/s ({join_dev * 1e3:.2f} ms for 16 pairs; max: {best_dev * 1e3:.2f} ms)")
+            fpc = extra.get("frames_per_chunk", SIAM_CHUNK)
+            bs, _ = forward_batch(m.shape[0], fpc, tile, m.shape[1], m.shape[2],
+                                  extra.get("add_tile", 0))
             if join == "corr":
-                for r in rows.values():
-                    if r["_counter"] is depthwise_xcorr:
-                        r["launches"] = got[depthwise_xcorr]
+                # the K6 row at this call's forward batch and dtype takes its launches
+                dtype_name = "float32" if extra.get("half_precision") is False else "bf16"
+                shape = f" {bs}x{8 * SIAM_FILTER}x{tile // 16}x{tile // 16}]"
+                hit = [r for r in rows.values() if r["_counter"] is depthwise_xcorr
+                       and r["name"].endswith(shape) and dtype_name in r["name"]]
+                if len(hit) != 1:
+                    raise AssertionError(f"[siam] {name}: {len(hit)} K6 rows at{shape[:-1]}")
+                hit[0]["launches"] = got[depthwise_xcorr]
             if exp.get("norm") == "all":
                 rows["k1_pair_clip_bounds[uint8 (9, 1024^2) -> 8 pair rows]"]["launches"] = \
                     got[hist.pair_clip_bounds]
-            fpc = extra.get("frames_per_chunk", SIAM_CHUNK)
-            bs, _ = forward_batch(m.shape[0], fpc, TILE, m.shape[1], m.shape[2],
-                                  extra.get("add_tile", 0))
             host_kw = dict(kw, batch_size=bs, **{k: v for k, v in extra.items()
                                                  if k != "device_pipeline"})
             siam_unet.Predict(path, host_out, ckpts[join], device_pipeline=False, **host_kw)
@@ -3197,7 +3273,8 @@ def phase_kernels_int8(torch, dev) -> list:
             "kernels int8", f"k10_maxpool_i8[({n}, {TILE >> level}^2, {nf << level})]",
             INT8_SOURCE, "bio_image_unet_tpu/predict/quant.py:278", k8.maxpool_i8, err,
             timer(lambda: k8.maxpool_i8(x)), timer(lambda: k8.maxpool_i8_plain(x), 1),
-            bound_ms(x.numel() + ours.numel(), 3 * ours.numel()), None))
+            bound_ms(x.numel() + ours.numel(), 3 * ours.numel()),
+            amax_pool_ms(torch, timer, x, ours)))
         del x, ours
     torch.cuda.empty_cache()
     return rows
@@ -3557,7 +3634,8 @@ def phase_kernels_int8_3d(torch, dev) -> list:
         row(f"k10v_maxpool_i8_3d[({n}, {'x'.join(map(str, level(k)))}, {c})]", INT8_SOURCE,
             "bio_image_unet_tpu/predict/quant3d.py:75", k8.maxpool_i8_3d, err,
             timer(lambda: k8.maxpool_i8_3d(x)), timer(lambda: k8.maxpool_i8_3d_plain(x), 1),
-            bound_ms(x.numel() + ours.numel(), 7 * ours.numel()), None)
+            bound_ms(x.numel() + ours.numel(), 7 * ours.numel()),
+            amax_pool_ms(torch, timer, x, ours))
         del x, ours
     torch.cuda.empty_cache()
 
@@ -3926,7 +4004,7 @@ def phase_kernels_nested_int8(torch, dev) -> list:
         "kernels nested int8", f"k10_maxpool_i8[row0 slot 0 ({n}, {P}^2, {nf} of {6 * nf})]",
         INT8_SOURCE, "bio_image_unet_tpu/predict/quant_nested.py:242", k8.maxpool_i8, err,
         timer(lambda: k8.maxpool_i8(x)), timer(lambda: k8.maxpool_i8_plain(x), 1),
-        bound_ms(x.numel() + got.numel(), 3 * got.numel()), None))
+        bound_ms(x.numel() + got.numel(), 3 * got.numel()), amax_pool_ms(torch, timer, x, got)))
     del x, got
     # K9: g0_0's bf16 output quantized into a new tensor, and the dequant of
     # the last cell x_{0,4} from slot 4 of row 0 (a strided read)

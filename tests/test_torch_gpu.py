@@ -5,7 +5,9 @@ against the same on the CPU; the int8 kernels K7–K10 and K7v, K8v, K10v
 bit-equal to theirs (K7, K9, K10 and K11 on channel ranges of the UNet++
 grid's row buffers too), K11 and K11v likewise, and ``quantized=True``
 prediction (2D, UNet++, AttentionUnet and 3D) on the card within the int8
-contract of the CPU's.
+contract of the CPU's.  K6 and K10 (redesigned with register tiles and
+16-byte vectors) are bit-equal to their plain versions at every shape and
+vector width tested.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -948,6 +950,11 @@ XCORR_CASES = [
     ((2, 40, 32, 32), (32, 32), torch.float32, False),
     ((3, 5, 7, 6), (3, 4), torch.float32, True),
     ((1, 3, 100, 100), (100, 100), torch.float32, False),
+    # the plane form: above the tiled staging's 112², up to the largest plane
+    # and kernel whose float32 values fit a block
+    ((1, 2, 128, 128), (128, 128), torch.float32, False),
+    ((1, 2, 120, 113), (120, 113), torch.bfloat16, True),
+    ((1, 1, 170, 170), (170, 170), torch.float32, False),
 ]
 
 
@@ -971,12 +978,44 @@ def test_depthwise_xcorr_kernel_matches_plain(cuda, case):
     else:  # one bf16 ulp
         ulp = torch.finfo(torch.bfloat16).eps * ref.float().abs().clamp_min(1e-30)
         assert ((ours.float() - ref.float()).abs() <= ulp).all()
+    assert torch.equal(ours, ref)  # the plain version's order and rounding
+
+
+# every XCORR_CASES shape and the Siam paths' (the bf16 forward batch at 256²
+# tiles, PredictSiam's float32 default at 512² tiles, the wider float32 timing
+# shape), each in both memory formats, with even and odd kernels
+XCORR_FORMAT_CASES = [(c[0], c[1], c[2]) for c in XCORR_CASES] + [
+    ((128, 256, 16, 16), (16, 16), torch.bfloat16), ((32, 256, 32, 32), (32, 32), torch.float32),
+    ((16, 1024, 32, 32), (32, 32), torch.float32), ((2, 7, 9, 11), (4, 6), torch.bfloat16),
+    ((3, 33, 12, 20), (12, 20), torch.float32), ((1, 2, 1, 5), (1, 5), torch.float32)]
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("case", XCORR_FORMAT_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_depthwise_xcorr_kernel_bit_equal_to_plain_in_both_formats(cuda, case, channels_last):
+    shape, kernel, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cur = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    prev = torch.randn(shape[:2] + kernel, generator=g, device=cuda).to(dtype)
+    if channels_last:
+        cur = cur.contiguous(memory_format=torch.channels_last)
+        prev = prev.contiguous(memory_format=torch.channels_last)
+    before = depthwise_xcorr.launches
+    ours = depthwise_xcorr(cur, prev)
+    torch.cuda.synchronize()
+    assert depthwise_xcorr.launches == before + 1
+    assert ours.dtype == dtype and ours.stride() == cur.stride()
+    assert torch.equal(ours, depthwise_xcorr_plain(cur, prev))
 
 
 def test_depthwise_xcorr_refuses_what_the_kernel_does_not_take(cuda):
     big = torch.zeros((1, 1, 200, 200), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         depthwise_xcorr(big, big)
+    # one row past the plane form's largest plane with a 170² kernel
+    with pytest.raises(ValueError, match="shared memory"):
+        depthwise_xcorr(torch.zeros((1, 1, 171, 171), device=cuda),
+                        torch.zeros((1, 1, 170, 170), device=cuda))
     x = torch.zeros((1, 2, 8, 8), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="backward"):
         depthwise_xcorr(x, x)
@@ -1132,6 +1171,40 @@ def test_requant_kernel_bit_equal_to_plain_in_all_three_forms(cuda, gen):
 def test_maxpool_i8_kernel_equal_to_plain(cuda, gen, shape):
     x = _i8(gen, shape, cuda)
     assert torch.equal(k8.maxpool_i8(x), k8.maxpool_i8_plain(x))
+
+
+# (n, h, w, buffer channels, channel range, K10's vector width): every width
+# from a contiguous tensor and from channel ranges at offsets that force it;
+# odd h and w floored
+K10_WIDTHS = [(2, 8, 6, 32, (0, 32), 16), (2, 16, 16, 192, (0, 32), 16),
+              (2, 16, 16, 192, (32, 64), 16), (2, 11, 13, 48, (16, 48), 16),
+              (2, 5, 6, 24, (8, 16), 8), (3, 9, 7, 40, (0, 40), 8), (2, 6, 6, 24, (4, 8), 4),
+              (1, 7, 5, 4, (0, 4), 4), (1, 6, 5, 24, (2, 4), 2), (2, 40, 30, 20, (2, 18), 2),
+              (3, 9, 7, 3, (0, 3), 1), (2, 7, 9, 35, (3, 20), 1), (1, 1, 5, 16, (0, 16), 16)]
+
+
+@pytest.mark.parametrize("case", K10_WIDTHS,
+                         ids=lambda c: "x".join(map(str, c[:4])) + "-{}:{}".format(*c[4]))
+def test_maxpool_i8_kernel_bit_equal_to_plain_at_every_width(cuda, gen, case):
+    n, h, w, cbuf, (lo, hi), want = case
+    flat = _i8(gen, (n * h * w * cbuf + 64,), cuda)
+    base = (-flat.data_ptr()) % 64  # a 64-byte-aligned buffer
+    x = flat[base:base + n * h * w * cbuf].view(n, h, w, cbuf)[..., lo:hi]
+    out = torch.empty((n, h // 2, w // 2, hi - lo), dtype=torch.int8, device=cuda)
+    assert k8._vec_width(x, cbuf, out, 0) == want
+    before = k8.maxpool_i8.launches
+    got = k8.maxpool_i8(x)
+    torch.cuda.synchronize()
+    assert k8.maxpool_i8.launches == before + 1
+    assert torch.equal(got, k8.maxpool_i8_plain(x))
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 256, 32), (16, 511, 513, 8)])
+def test_maxpool_i8_kernel_over_several_waves(cuda, gen, shape):
+    # each thread of the one wave of blocks walks several vectors
+    x = torch.randint(-128, 128, shape, dtype=torch.int8, device=cuda)
+    assert torch.equal(k8.maxpool_i8(x), k8.maxpool_i8_plain(x))
+    assert torch.equal(k8.maxpool_i8(x[..., 1:]), k8.maxpool_i8_plain(x[..., 1:]))
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda, gen):

@@ -3,7 +3,9 @@
 
 - K7–K10's plain versions equal the matching JAX pieces bit for bit (int8
   out; bf16 for the dequant), at dilation 1 and 2 and with channel counts
-  that are not multiples of 4;
+  that are not multiples of 4 (K10 also on channel ranges of a wider
+  buffer and at odd sizes), and K9's and K10's vector widths are chosen as
+  their kernels need;
 - the port's int8 weight store, built from JAX's folded float32 arrays,
   equals ``_WeightPack``'s codes and scales bit for bit;
 - ``int8_status`` answers as JAX's for every model class the port builds,
@@ -256,6 +258,39 @@ def test_maxpool_i8_plain_matches_jax(shape):
     x = _q(np.random.default_rng(sum(shape)), shape)
     want = np.asarray(jax.jit(jquant._maxpool_i8)(x))
     np.testing.assert_array_equal(k.maxpool_i8(torch.from_numpy(x)).numpy(), want)
+
+
+# (n, h, w, buffer channels, channel range): the UNet++ grid's row form (32 of
+# 192 channels at offsets 0 and 32) and odd h and w, floored
+@pytest.mark.parametrize("case", [(2, 16, 16, 192, (0, 32)), (2, 16, 16, 192, (32, 64)),
+                                  (1, 9, 7, 192, (32, 64)), (3, 11, 5, 20, (3, 17)),
+                                  (2, 1, 6, 8, (0, 8))],
+                         ids=lambda c: "x".join(map(str, c[:4])) + "-{}:{}".format(*c[4]))
+def test_maxpool_i8_plain_matches_jax_on_a_channel_range(case):
+    n, h, w, cbuf, (lo, hi) = case
+    buf = np.random.default_rng(h * w + lo).integers(-128, 128, (n, h, w, cbuf)).astype(np.int8)
+    want = np.asarray(jax.jit(jquant._maxpool_i8)(buf[..., lo:hi]))
+    got = k.maxpool_i8(torch.from_numpy(buf)[..., lo:hi])
+    assert got.shape == (n, h // 2, w // 2, hi - lo)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (channels, buffer channels, offset of the range, expected vector width)
+@pytest.mark.parametrize("c,cbuf,lo,want", [(32, 32, 0, 16), (64, 64, 0, 16), (256, 256, 0, 16),
+                                            (32, 192, 0, 16), (32, 192, 32, 16), (24, 24, 0, 8),
+                                            (16, 24, 8, 8), (12, 12, 0, 4), (8, 24, 4, 4),
+                                            (6, 6, 0, 2), (2, 24, 2, 2), (3, 3, 0, 1),
+                                            (32, 33, 1, 1), (16, 192, 35, 1)])
+def test_maxpool_i8_vector_width(c, cbuf, lo, want):
+    # K10's vector: the widest of 16, 8, 4, 2, 1 bytes dividing C and the
+    # input's pixel stride, both addresses on that boundary; its output is a
+    # new contiguous tensor
+    flat = torch.zeros(4 * cbuf + 64, dtype=torch.int8)
+    base = (-flat.data_ptr()) % 64
+    x = flat[base:base + 4 * cbuf].view(1, 2, 2, cbuf)[..., lo:lo + c]
+    out = torch.empty((1, 1, 1, c), dtype=torch.int8)
+    assert out.data_ptr() % 16 == 0
+    assert k._vec_width(x, k._row_stride(x, "maxpool_i8"), out, 0) == want
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -5,7 +5,9 @@ against the JAX package on the CPU.
   its weights carried across by ``state_dict_from_jax`` with ``strict=True``,
   unfolded and BN-folded, against ``model.apply`` in float32: atol 2e-4.
 - K6's plain version against JAX's ``depthwise_xcorr`` at odd and even plane
-  sizes: rtol 2e-5, atol 2e-4 (the bound of ``tests/test_ops_parity.py``).
+  sizes: rtol 2e-5, atol 2e-4 (the bound of ``tests/test_ops_parity.py``);
+  K6's register tiling and staging, emulated on the CPU, bit-equal to the
+  plain version (the kernel's order-and-rounding claim).
 - K2p's plain version and the pair bounds (K1 per frame, per prev plane and
   over the pair rows) against the pieces of JAX's pair program
   (``_device_frame_bounds``, ``_normalize_clip``, ``jnp.pad``,
@@ -29,6 +31,7 @@ from bio_image_unet_tpu_torch import checkpoint
 from bio_image_unet_tpu_torch.interop import state_dict_from_jax
 from bio_image_unet_tpu_torch.models import Siam_UNet, get_model
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
+from bio_image_unet_tpu_torch.ops import functional
 from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr, depthwise_xcorr_plain
 from bio_image_unet_tpu_torch.ops.histogram import clip_bounds, pair_clip_bounds
 from bio_image_unet_tpu_torch.predict.fastpath import folded_forward
@@ -125,6 +128,140 @@ def test_depthwise_xcorr_plain_matches_jax(shape, kernel):
     assert half.dtype == torch.bfloat16
     want = depthwise_xcorr_plain(cl.float(), torch.from_numpy(prev).to(torch.bfloat16).float())
     assert torch.equal(half, want.to(torch.bfloat16))
+
+
+def _xcorr_tiled(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """K6's tiling (``csrc/depthwise_xcorr.cu``) emulated in float32 on the
+    CPU, with the kernel's own staging (``xcorr_geometry``): zero-haloed
+    planes and kernels, R×S output tiles, each warp region's tap range (rows
+    exact, columns rounded out to 4) walked u outer, v inner, a product and
+    a sum rounded apiece; every read is checked to lie in the staged plane
+    and every 4-column window start to be 16-byte aligned."""
+    b, c, h, w = cur.shape
+    kh, kw = prev.shape[2:]
+    g = functional.xcorr_geometry(h, w, kh, kw, cur.element_size())
+    r_, s_ = functional.XCORR_R, functional.XCORR_S
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    rows = h + 2 * g.pad_t
+    x = torch.zeros((b * c, rows, g.xp))
+    x[:, g.pad_t:g.pad_t + h, g.pad_l:g.pad_l + w] = cur.float().reshape(b * c, h, w)
+    k = torch.zeros((b * c, kh, g.kwp))
+    k[:, :, :kw] = prev.float().reshape(b * c, kh, kw)
+    out = torch.empty((b * c, h, w))
+    assert g.xp % 4 == 0 and g.xplane % 32 == 4 and g.cg * g.n == 32 and g.tpr % g.n == 0
+    for tr in range(-(-h // r_)):
+        for tc in range(g.tpr):
+            i0, j0, jr = tr * r_, tc * s_, (tc - tc % g.n) * s_
+            u_lo, u_hi = max(0, ph - (i0 + r_ - 1)), min(kh, h + ph - i0)
+            v_lo = max(0, pw - (jr + g.n * s_ - 1)) // 4 * 4
+            v_end = -(-min(kw, w + pw - jr) // 4) * 4
+            y0, x0 = g.pad_t + i0 - ph, g.pad_l + j0 - pw
+            assert y0 + u_lo >= 0 and y0 + r_ - 1 + u_hi - 1 < rows
+            assert x0 + v_lo >= 0 and x0 + v_end + 3 < g.xp and v_end <= g.kwp
+            assert (x0 + v_lo) % 4 == 0
+            acc = torch.zeros((b * c, r_, s_))
+            for u in range(u_lo, u_hi):
+                for v in range(v_lo, v_end):
+                    win = x[:, y0 + u:y0 + u + r_, x0 + v:x0 + v + s_]
+                    acc = acc + win * k[:, u, v][:, None, None]
+            out[:, i0:i0 + r_, j0:j0 + s_] = acc[:, :min(r_, h - i0), :max(0, min(s_, w - j0))]
+    return out.reshape(b, c, h, w).to(cur.dtype)
+
+
+# the Siam paths' K6 shapes scaled down in B and C (bf16 16² planes at 256²
+# tiles, float32 32² at 512²), odd planes and even kernels
+XCORR_TILED = [((2, 40, 16, 16), (16, 16), torch.bfloat16), ((1, 20, 32, 32), (32, 32), torch.float32),
+               ((3, 5, 7, 6), (3, 4), torch.float32), ((2, 3, 4, 6), (4, 6), torch.float32),
+               ((1, 2, 9, 13), (2, 8), torch.bfloat16), ((2, 3, 5, 5), (5, 5), torch.float32),
+               ((1, 3, 1, 1), (1, 1), torch.float32), ((1, 2, 12, 20), (12, 20), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,kernel,dtype", XCORR_TILED,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v)[6:])
+def test_depthwise_xcorr_tiling_bit_equal_to_plain(shape, kernel, dtype):
+    rng = np.random.default_rng(sum(shape) + sum(kernel))
+    cur = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    prev = torch.from_numpy(rng.standard_normal(shape[:2] + kernel).astype(np.float32)).to(dtype)
+    assert torch.equal(_xcorr_tiled(cur, prev), depthwise_xcorr_plain(cur, prev))
+
+
+def test_depthwise_xcorr_staging_limit():
+    # the haloed planes of a block fit its shared memory up to 112² planes
+    # with kernels as large; above, the plane form takes a plane and its
+    # kernel whose float32 values fit a block (hw + khw ≤ 58112: up to 170²
+    # with a 170² kernel); the wrapper refuses larger ones
+    assert functional.xcorr_geometry(100, 100, 100, 100).cg == 1
+    assert functional.xcorr_geometry(112, 112, 112, 112).cg == 1
+    assert functional.xcorr_geometry(16, 16, 16, 16, 2).cg == 32
+    assert functional.xcorr_geometry(32, 32, 32, 32).cg == 16
+    for n in (113, 128, 170):
+        assert functional.xcorr_geometry(n, n, n, n) is None
+        assert functional.xcorr_plane_fits(n, n, n, n)
+    assert functional.xcorr_plane_fits(170, 171, 170, 170)
+    assert not functional.xcorr_plane_fits(171, 171, 170, 170)
+    assert functional.xcorr_geometry(200, 200, 200, 200) is None
+    assert not functional.xcorr_plane_fits(200, 200, 200, 200)
+    for g in (functional.xcorr_geometry(16, 16, 16, 16, 2), functional.xcorr_geometry(32, 32, 32, 32)):
+        assert g.smem <= functional._SMEM_BYTES and g.threads == 512
+
+
+def _xcorr_per_output(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """K6's plane form (``xcorr_plane``) emulated in float32 on the CPU: an
+    unpadded plane, each output's taps clipped to the plane exactly, u
+    outer, v inner, a product and a sum rounded apiece."""
+    b, c, h, w = cur.shape
+    kh, kw = prev.shape[2:]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    x, k = cur.float(), prev.float()
+    out = torch.empty((b, c, h, w))
+    for i in range(h):
+        for j in range(w):
+            acc = torch.zeros((b, c))
+            for u in range(max(0, ph - i), min(kh, h + ph - i)):
+                for v in range(max(0, pw - j), min(kw, w + pw - j)):
+                    acc = acc + x[:, :, i + u - ph, j + v - pw] * k[:, :, u, v]
+            out[:, :, i, j] = acc
+    return out.to(cur.dtype)
+
+
+@pytest.mark.parametrize("shape,kernel,dtype", [
+    ((2, 3, 7, 6), (7, 6), torch.float32), ((1, 2, 9, 13), (2, 8), torch.bfloat16),
+    ((1, 2, 8, 8), (5, 4), torch.float32)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v)[6:])
+def test_depthwise_xcorr_plane_form_bit_equal_to_plain(shape, kernel, dtype):
+    rng = np.random.default_rng(7 * sum(shape) + sum(kernel))
+    cur = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    prev = torch.from_numpy(rng.standard_normal(shape[:2] + kernel).astype(np.float32)).to(dtype)
+    assert torch.equal(_xcorr_per_output(cur, prev), depthwise_xcorr_plain(cur, prev))
+
+
+# (shape, dtype, channels_last, the block's planes, expected elements a load)
+XCORR_VECTORS = [((128, 256, 16, 16), torch.bfloat16, True, 32, 8),
+                 ((128, 256, 16, 16), torch.bfloat16, False, 32, 8),
+                 ((32, 256, 32, 32), torch.float32, False, 16, 4),
+                 ((32, 256, 32, 32), torch.float32, True, 16, 4),
+                 ((2, 40, 16, 16), torch.bfloat16, True, 32, 1),  # 40 channels: no whole block
+                 ((3, 5, 7, 6), torch.float32, False, 32, 1),  # rows of 6
+                 ((2, 3, 12, 20), torch.float32, False, 32, 4),
+                 ((2, 64, 4, 6), torch.bfloat16, False, 32, 1),
+                 ((2, 16, 8, 8), torch.float32, True, 16, 4),
+                 ((2, 8, 8, 8), torch.float32, True, 16, 1)]  # 8 channels < a block
+
+
+@pytest.mark.parametrize("shape,dtype,cl,cg,want", XCORR_VECTORS,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_depthwise_xcorr_staging_vector(shape, dtype, cl, cg, want):
+    # K6 stages 16 bytes a load along the fastest axis where a block's run
+    # fills whole aligned vectors, else one element
+    t = torch.zeros(shape, dtype=dtype)
+    if cl:
+        t = t.contiguous(memory_format=torch.channels_last)
+    assert t.data_ptr() % 16 == 0
+    assert functional.xcorr_stage_vector(t, cg) == want
+    # one element off a 16-byte boundary: element loads
+    n = t.numel()
+    shifted = torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+    assert functional.xcorr_stage_vector(shifted, cg) == 1
 
 
 def test_depthwise_xcorr_refuses_bad_arguments():
