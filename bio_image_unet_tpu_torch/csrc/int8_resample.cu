@@ -43,8 +43,33 @@
 // every 320 bytes and writes 64 of every 192; a kernel that only stores 16
 // bytes a thread into that layout needs 0.167 ms against 0.088 for the same
 // bytes contiguous (H100, chip_smoke.py [kernels nested int8]).
-// K11v (3D) keeps the first design: a thread per (output voxel, vector of V
-// channels), 8 vector loads of its corners, the blends in registers.
+// K11v (3D) works in integers, so it converts nothing:
+// - along each axis output 2j blends inputs (j-1, j) and 2j+1 blends (j, j+1)
+//   with weights 1/4 and 3/4 (the neighbour clamped at the borders), so the
+//   trilinear value is S/64 with S = sum w_z w_y w_x v, w in quarters: an
+//   exact integer, |S| <= 64 * 128;
+// - a block owns an output brick of K11V_T^3 voxels and up to K11V_VECS
+//   channel vectors of V bytes; it copies the input brick those need
+//   (K11V_T/2 + 2 voxels an axis, clamped at the borders) into shared memory
+//   with cp.async, from rows of in_stride bytes;
+// - each staged byte is biased by 128 (a byte XOR) and spread into a 16-bit
+//   lane, two channels a 32-bit word (even channels in one word, odd in the
+//   next); the biased sums stay non-negative and below 2^14, so one integer
+//   multiply-add blends two channels without carries between lanes;
+// - the W pass blends the staged columns of every staged row into shared
+//   memory (3 a + b); then a thread per (output row, column, channel vector)
+//   blends H from there and walks z with the last three planes' H blends in
+//   registers, making two output planes a staged plane;
+// - each lane's S + 64 * 128 is rounded half to even by a shift and the
+//   remainder, (s + 31 + ((s >> 6) & 1)) >> 6, clipped at -127 beforehand by
+//   a max of the biased sum with 64 (max.u16x2), packed into bytes by one
+//   byte permutation per four channels and unbiased by an XOR; a 16-byte
+//   store covers consecutive channels of one voxel and a warp covers eight
+//   consecutive voxels of one row.
+// What holds it: bytes and their layout, as K11: at up3 (16, 16x64^2, 64)
+// into 64 of the 96 bytes of each voxel of the concat buffer it takes 0.281
+// ms against 0.180 for its bytes and 0.187 for 16-byte stores alone into that
+// layout (H100 80GB HBM3, 700 W, utils/kernel_ab_times.py).
 //
 // Numbers, kept exactly as the reference computes them, so a kernel equals
 // its plain version bit for bit:
@@ -58,12 +83,13 @@
 //   the reference does;
 // - K11v (ATen's trilinear, align_corners=False, scale 1/2): source index
 //   max(0.5 * (i + 0.5) - 0.5, 0), lo its floor, hi = lo + (lo < n-1),
-//   weights l1 = index - lo and 1 - l1, blended W innermost, then H, then D.
-//   Every weight is 0, 1/4, 3/4 or 1 and the values are integers below 128,
-//   so every product and sum is a multiple of 1/64 under 128 and exact in
-//   float32: any order gives the same bits;
-// - then round half to even (as jnp.round and torch.round: K11v rintf, K11
-//   the add of 1.5*2^23, exact for |v| < 2^22) and the clip.  K11's blends
+//   weights l1 = index - lo and 1 - l1: output 2j takes 1/4 of input j-1 and
+//   3/4 of j (all of input 0 at j = 0), 2j+1 takes 3/4 of j and 1/4 of j+1
+//   (all of input n-1 at j = n-1).  Every product and sum of the reference
+//   is a multiple of 1/64 under 128 and exact in float32, so it computes
+//   S/64 exactly, and rintf(S/64) is the integer rounding above;
+// - then round half to even (as jnp.round and torch.round: K11 the add of
+//   1.5*2^23, exact for |v| < 2^22) and the clip.  K11's blends
 //   of values in [-128, 127] stay within [-128, 127] once rounded (weights
 //   summing to at most 1 + 2^-23), so its clip is the lower bound alone.
 
@@ -73,8 +99,6 @@
 #include <atomic>
 
 namespace {
-
-constexpr int THREADS = 256;
 
 template <int V>
 struct VecOf;
@@ -113,10 +137,6 @@ __device__ __forceinline__ Pack<V> load(const int8_t* p) {
   return r;
 }
 
-__device__ __forceinline__ int8_t to_i8(float v) {
-  return (int8_t)fminf(fmaxf(rintf(v), -127.0f), 127.0f);
-}
-
 // align_corners=True, JAX's float32 arithmetic (ops/functional.py:74-84)
 __device__ __forceinline__ void aligned_axis(int i, int n, float ratio, int& lo, int& hi,
                                              float& t, float& omt) {
@@ -125,20 +145,6 @@ __device__ __forceinline__ void aligned_axis(int i, int n, float ratio, int& lo,
   hi = min(lo + 1, n - 1);
   t = __fsub_rn(c, (float)lo);
   omt = __fsub_rn(1.0f, t);
-}
-
-// half-pixel centres at scale 1/2, ATen's compute_source_index_and_lambda
-__device__ __forceinline__ void half_pixel_axis(int i, int n, int& lo, int& hi, float& l0,
-                                                float& l1) {
-  const float real = fmaxf(__fsub_rn(__fmul_rn(0.5f, __fadd_rn((float)i, 0.5f)), 0.5f), 0.0f);
-  lo = min((int)floorf(real), n - 1);
-  hi = lo + (lo < n - 1 ? 1 : 0);
-  l1 = fminf(fmaxf(__fsub_rn(real, (float)lo), 0.0f), 1.0f);
-  l0 = __fsub_rn(1.0f, l1);
-}
-
-__device__ __forceinline__ float lerp_exact(float a, float wa, float b, float wb) {
-  return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb));
 }
 
 // --- K11 -----------------------------------------------------------------------
@@ -414,52 +420,254 @@ __global__ void __launch_bounds__(K11_THREADS) upsample2x_i8(const K11Args p) {
   }
 }
 
-// K11v: (n, d, h, w, C) int8 in rows of in_stride bytes -> channels
-// [out_off, out_off + C) of (n, 2d, 2h, 2w, out_stride)
+// --- K11v ----------------------------------------------------------------------
+
+constexpr int K11V_THREADS = 256;
+constexpr int K11V_T = 8;                 // output voxels a block along each axis
+constexpr int K11V_S = K11V_T / 2 + 2;    // staged input voxels a block along each axis
+constexpr int K11V_VECS = 4;              // channel vectors a block
+constexpr uint32_t LANE_BIAS = 0x80808080u;
+
+struct K11vArgs {
+  const int8_t* x;  // (n, d, h, wd) voxels of in_stride bytes, C channels read
+  int8_t* out;      // (n, 2d, 2h, 2wd) voxels of out_stride bytes, from out_off
+  int n, d, h, wd, C, in_stride, out_stride, out_off;
+  int tiles_z, chunks;  // tiles of planes, groups of at most K11V_VECS channel vectors
+  int log_z, log_c;     // blockIdx.z = (image << (log_c + log_z)) | (group << log_z) | tile,
+                        // 2^log_z >= tiles_z, 2^log_c >= chunks: no division
+};
+
+// 32-bit words of 16-bit lanes a vector of V channels spreads into
 template <int V>
-__global__ void __launch_bounds__(THREADS)
-upsample2x_i8_3d(const int8_t* __restrict__ x, int8_t* __restrict__ out, int n, int dd, int h,
-                 int wd, int C, int in_stride, int out_stride, int out_off) {
-  const int cv = C / V, dout = 2 * dd, ho = 2 * h, wo = 2 * wd;
-  const unsigned total = (unsigned)n * dout * ho * wo * cv;
-  const unsigned e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= total) return;
-  const int c = (int)(e % cv) * V;
-  unsigned p = e / cv;
-  const int xo = (int)(p % wo);
-  p /= wo;
-  const int yo = (int)(p % ho);
-  p /= ho;
-  const int zo = (int)(p % dout);
-  const int ni = (int)(p / dout);
-  int z[2], y[2], xx[2];
-  float lz[2], ly[2], lx[2];
-  half_pixel_axis(zo, dd, z[0], z[1], lz[0], lz[1]);
-  half_pixel_axis(yo, h, y[0], y[1], ly[0], ly[1]);
-  half_pixel_axis(xo, wd, xx[0], xx[1], lx[0], lx[1]);
-  const int8_t* base = x + (long long)ni * dd * h * wd * in_stride + c;
-  Pack<V> a[2][2][2];
+__host__ __device__ constexpr int k11v_words() {
+  return V >= 2 ? V / 2 : 1;
+}
+
+// the staged input (K11V_S^3 voxels x K11V_VECS vectors of V bytes), then the
+// W blends (K11V_S^2 staged rows x K11V_T output columns x K11V_VECS vectors
+// of k11v_words<V>() words)
+template <int V>
+__host__ __device__ constexpr int k11v_in_bytes() {
+  return (K11V_S * K11V_S * K11V_S * K11V_VECS * V + 15) / 16 * 16;
+}
+
+template <int V>
+__host__ __device__ constexpr int k11v_smem() {
+  return k11v_in_bytes<V>() + K11V_S * K11V_S * K11V_T * K11V_VECS * k11v_words<V>() * 4;
+}
+
+// output index o of an axis of n inputs: the input it takes 3/4 of (near)
+// and the one it takes 1/4 of (far: below for even o, above for odd, clamped
+// at the borders), relative to the first staged input lo
+__device__ __forceinline__ void k11v_axis(int o, int n, int lo, int& near, int& far) {
+  const int j = o >> 1;
+  near = j - lo;
+  far = ((o & 1) ? min(j + 1, n - 1) : max(j - 1, 0)) - lo;
+}
+
+// B staged bytes -> (B + 1) / 2 words of biased 16-bit lanes (v + 128): for
+// each 4 bytes, channels 0 and 2 in one word, 1 and 3 in the next
+template <int B>
+__device__ __forceinline__ void k11v_spread(const int8_t* p, uint32_t* w) {
+  if constexpr (B >= 4) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-        a[i][j][k] = load<V>(base + (((long long)z[i] * h + y[j]) * wd + xx[k]) * in_stride);
-  Pack<V> r;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    float hz[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float w0 = lerp_exact((float)a[i][0][0].b[k], lx[0], (float)a[i][0][1].b[k], lx[1]);
-      const float w1 = lerp_exact((float)a[i][1][0].b[k], lx[0], (float)a[i][1][1].b[k], lx[1]);
-      hz[i] = lerp_exact(w0, ly[0], w1, ly[1]);
+    for (int k = 0; k < B / 4; ++k) {
+      const uint32_t u = reinterpret_cast<const uint32_t*>(p)[k] ^ LANE_BIAS;
+      w[2 * k] = __byte_perm(u, 0, 0x4240);
+      w[2 * k + 1] = __byte_perm(u, 0, 0x4341);
     }
-    r.b[k] = to_i8(lerp_exact(hz[0], lz[0], hz[1], lz[1]));
+  } else if constexpr (B == 2) {
+    w[0] = __byte_perm(*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u, 0, 0x4140);
+  } else {
+    w[0] = (uint8_t)*p ^ 0x80u;
   }
-  *reinterpret_cast<typename VecOf<V>::T*>(
-      out + ((((long long)ni * dout + zo) * ho + yo) * wo + xo) * out_stride + out_off + c) = r.v;
+}
+
+__device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("max.u16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// each lane of s holds S + 64 * 128, S the blend in 64ths (|S| <= 64 * 128):
+// round(S / 64) half to even, clipped at -127, plus 128, in the lane's low
+// byte (the lanes' other bits are not used)
+__device__ __forceinline__ uint32_t k11v_round(uint32_t s) {
+  s = max_u16x2(s, 0x00400040u);
+  return (s + 0x001F001Fu + ((s >> 6) & 0x00010001u)) >> 6;
+}
+
+// the rounded words of a vector -> its V int8 values
+template <int V>
+__device__ __forceinline__ typename VecOf<V>::T k11v_pack(const uint32_t* u) {
+  Pack<V> r;
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int k = 0; k < V / 4; ++k) r.w[k] = __byte_perm(u[2 * k], u[2 * k + 1], 0x6240) ^ LANE_BIAS;
+  } else if constexpr (V == 2) {
+    r.v = (uint16_t)(__byte_perm(u[0], 0, 0x0020) ^ 0x8080u);
+  } else {
+    r.v = (uint8_t)(u[0] ^ 0x80u);
+  }
+  return r.v;
+}
+
+template <int N>
+__device__ __forceinline__ void load_words(const uint32_t* p, uint32_t* w) {
+  if constexpr (N == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (N == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *p;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_words(uint32_t* p, const uint32_t* w) {
+  if constexpr (N == 4)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (N == 2)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *p = w[0];
+}
+
+// K11v: (n, d, h, w, C) int8 in voxels of in_stride bytes -> channels
+// [out_off, out_off + C) of (n, 2d, 2h, 2w, out_stride).  Block (tile of
+// columns, tile of rows, (image, channel group, tile of planes)) makes
+// K11V_T^3 output voxels of up to K11V_VECS channel vectors; the blocks past
+// the last tile of planes or channel group return at once.
+template <int V>
+__global__ void __launch_bounds__(K11V_THREADS) upsample2x_i8_3d(const K11vArgs p) {
+  constexpr int NW = k11v_words<V>();  // words a vector
+  constexpr int QW = NW < 4 ? NW : 4;  // words a chunk (16 bytes at most)
+  constexpr int NQ = NW / QW;          // chunks a vector
+  constexpr int CB = V / NQ;           // input bytes a chunk
+  constexpr int S = K11V_S, T = K11V_T, VECS = K11V_VECS;
+  extern __shared__ __align__(16) uint8_t k11v_smem_buf[];
+  int8_t* s_in = reinterpret_cast<int8_t*>(k11v_smem_buf);
+  uint32_t* s_w = reinterpret_cast<uint32_t*>(k11v_smem_buf + k11v_in_bytes<V>());
+
+  // the tile: output voxels [za, za + nzo) x [ya, ya + nyo) x [xa, xa + nxo),
+  // vectors [g0, g0 + gb) of image ni, from staged inputs [zlo, zlo + nz) x
+  // [ylo, ylo + ny) x [xlo, xlo + nx)
+  const int tile_z = blockIdx.z & ((1 << p.log_z) - 1);
+  const int chunk = (blockIdx.z >> p.log_z) & ((1 << p.log_c) - 1);
+  if (tile_z >= p.tiles_z || chunk >= p.chunks) return;  // the whole block
+  const int ni = blockIdx.z >> (p.log_z + p.log_c), g0 = chunk * VECS;
+  const int gb = min(p.C / V - g0, VECS);
+  const int xa = blockIdx.x * T, ya = blockIdx.y * T, za = tile_z * T;
+  const int nzo = min(T, 2 * p.d - za), nyo = min(T, 2 * p.h - ya), nxo = min(T, 2 * p.wd - xa);
+  const int zlo = max(za / 2 - 1, 0), nz = min(za / 2 + T / 2, p.d - 1) - zlo + 1;
+  const int ylo = max(ya / 2 - 1, 0), ny = min(ya / 2 + T / 2, p.h - 1) - ylo + 1;
+  const int xlo = max(xa / 2 - 1, 0), nx = min(xa / 2 + T / 2, p.wd - 1) - xlo + 1;
+
+  // 1. the input brick (cp.async; byte loads below 4 bytes), voxel (iz, iy,
+  // ix) vector g at ((iz * S + iy) * S + ix) * VECS + g
+  const int8_t* img = p.x + (long long)ni * p.d * p.h * p.wd * p.in_stride + g0 * V;
+  for (int i = threadIdx.x; i < S * S * S * VECS; i += K11V_THREADS) {
+    const int g = i % VECS, vox = i / VECS;
+    const int ix = vox % S, iy = vox / S % S, iz = vox / (S * S);
+    if (g >= gb || ix >= nx || iy >= ny || iz >= nz) continue;
+    const int8_t* src =
+        img + (((long long)(zlo + iz) * p.h + ylo + iy) * p.wd + xlo + ix) * p.in_stride + g * V;
+    if constexpr (V >= 4)
+      cp_async_4_8_16(s_in + i * V, src, V);
+    else
+      *reinterpret_cast<typename VecOf<V>::T*>(s_in + i * V) =
+          *reinterpret_cast<const typename VecOf<V>::T*>(src);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. the W pass: chunk q of vector g, staged plane iz, row iy, output column
+  // ox -> 3 a + b at word (((q * S + iz) * S + iy) * T + ox) * VECS + g of QW
+  for (int i = threadIdx.x; i < NQ * S * S * T * VECS; i += K11V_THREADS) {
+    const int g = i % VECS, ox = i / VECS % T, row = i / (VECS * T);
+    const int iy = row % S, iz = row / S % S, q = row / (S * S);
+    if (g >= gb || ox >= nxo || iy >= ny || iz >= nz) continue;
+    int near, far;
+    k11v_axis(xa + ox, p.wd, xlo, near, far);
+    const int8_t* staged = s_in + ((iz * S + iy) * S * VECS + g) * V + q * CB;
+    uint32_t a[QW], b[QW];
+    k11v_spread<CB>(staged + near * VECS * V, a);
+    k11v_spread<CB>(staged + far * VECS * V, b);
+#pragma unroll
+    for (int k = 0; k < QW; ++k) a[k] = a[k] * 3u + b[k];
+    store_words<QW>(s_w + i * QW, a);
+  }
+  __syncthreads();
+
+  // 3. output row oy, column ox, vector g: the H blend of each staged plane,
+  // then the D blend walking z, two output planes a staged plane; a warp
+  // takes the vectors of eight consecutive voxels of one row
+  const int g = threadIdx.x % VECS, ox = threadIdx.x / VECS % T, oy = threadIdx.x / (VECS * T);
+  if (g >= gb || ox >= nxo || oy >= nyo) return;
+  int yn, yf;
+  k11v_axis(ya + oy, p.h, ylo, yn, yf);
+  const uint32_t* wn = s_w + ((yn * T + ox) * VECS + g) * QW;  // + (q * S + iz) * S * T * VECS * QW
+  const uint32_t* wf = s_w + ((yf * T + ox) * VECS + g) * QW;
+  auto hblend = [&](int iz, uint32_t* h) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int plane = (q * S + iz) * S * T * VECS * QW;
+      uint32_t a[QW], b[QW];
+      load_words<QW>(wn + plane, a);
+      load_words<QW>(wf + plane, b);
+#pragma unroll
+      for (int k = 0; k < QW; ++k) h[q * QW + k] = a[k] * 3u + b[k];
+    }
+  };
+  const int j0 = za >> 1;
+  uint32_t prev[NW], cur[NW], next[NW];
+  hblend(max(j0 - 1, 0) - zlo, prev);
+  hblend(j0 - zlo, cur);
+  const long long plane = (long long)2 * p.h * 2 * p.wd * p.out_stride;
+  int8_t* dst = p.out +
+                ((((long long)ni * 2 * p.d + za) * 2 * p.h + ya + oy) * 2 * p.wd + xa + ox) *
+                    p.out_stride +
+                p.out_off + (g0 + g) * V;
+#pragma unroll
+  for (int k = 0; k < T; k += 2) {
+    if (k >= nzo) break;
+    hblend(min(j0 + k / 2 + 1, p.d - 1) - zlo, next);
+    uint32_t lo[NW], hi[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const uint32_t c3 = cur[w] * 3u;
+      lo[w] = k11v_round(prev[w] + c3);
+      hi[w] = k11v_round(c3 + next[w]);
+      prev[w] = cur[w];
+      cur[w] = next[w];
+    }
+    *reinterpret_cast<typename VecOf<V>::T*>(dst) = k11v_pack<V>(lo);
+    *reinterpret_cast<typename VecOf<V>::T*>(dst + plane) = k11v_pack<V>(hi);
+    dst += 2 * plane;
+  }
+}
+
+// raise kernel's dynamic shared-memory limit to smem bytes, once per device
+// for the most a launch has asked (set: one slot a device)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, long long smem, std::atomic<int>* set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= K11_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem > set[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    set[dev].store((int)smem, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
 }
 
 // K11: the block tile from the channel vectors (K11_THREADS items of the W
@@ -480,17 +688,9 @@ cudaError_t launch_2d(const void* x, void* out, int n, int h, int wd, int C, int
   if (bands > 65535 || (long long)n * chunks > 65535) return cudaErrorInvalidValue;
   const long long smem = k11_layout(tile_w, gb, V).total;
   auto kernel = upsample2x_i8<V>;
-  // the shared-memory limit is raised once per device to the most a launch has asked
   static std::atomic<int> smem_set[K11_MAX_DEVICES];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  if (dev >= K11_MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (smem > smem_set[dev].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev].store((int)smem, std::memory_order_relaxed);
-  }
   K11Args a;
   a.x = static_cast<const int8_t*>(x);
   a.out = static_cast<int8_t*>(out);
@@ -511,16 +711,42 @@ cudaError_t launch_2d(const void* x, void* out, int n, int h, int wd, int C, int
   return cudaGetLastError();
 }
 
+// K11v: one block a K11V_T^3 output tile and group of K11V_VECS vectors (the grid's
+// z extent padded to powers of two of tiles of planes and of groups)
 template <int V>
 cudaError_t launch_3d(const void* x, void* out, int n, int d, int h, int wd, int C,
                       int in_stride, int out_stride, int out_off, cudaStream_t st) {
-  const long long total = (long long)n * 8 * d * h * wd * (C / V);
-  if (total == 0) return cudaSuccess;
-  if (total + THREADS > INT32_MAX) return cudaErrorInvalidValue;  // 32-bit thread indices
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  upsample2x_i8_3d<V><<<blocks, THREADS, 0, st>>>(static_cast<const int8_t*>(x),
-                                                  static_cast<int8_t*>(out), n, d, h, wd, C,
-                                                  in_stride, out_stride, out_off);
+  if ((long long)n * d * h * wd * C == 0) return cudaSuccess;
+  const int chunks = (C / V + K11V_VECS - 1) / K11V_VECS;
+  const long long tiles_x = (2LL * wd + K11V_T - 1) / K11V_T;
+  const long long tiles_y = (2LL * h + K11V_T - 1) / K11V_T;
+  const int tiles_z = (2 * d + K11V_T - 1) / K11V_T;
+  int log_z = 0, log_c = 0;
+  while ((1 << log_z) < tiles_z) ++log_z;
+  while ((1 << log_c) < chunks) ++log_c;
+  if (tiles_x > INT32_MAX || tiles_y > 65535 || ((long long)n << (log_z + log_c)) > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = upsample2x_i8_3d<V>;
+  static std::atomic<int> smem_set[K11_MAX_DEVICES];
+  const cudaError_t err = allow_smem(kernel, k11v_smem<V>(), smem_set);
+  if (err != cudaSuccess) return err;
+  K11vArgs a;
+  a.x = static_cast<const int8_t*>(x);
+  a.out = static_cast<int8_t*>(out);
+  a.n = n;
+  a.d = d;
+  a.h = h;
+  a.wd = wd;
+  a.C = C;
+  a.in_stride = in_stride;
+  a.out_stride = out_stride;
+  a.out_off = out_off;
+  a.tiles_z = tiles_z;
+  a.chunks = chunks;
+  a.log_z = log_z;
+  a.log_c = log_c;
+  const dim3 grid((unsigned)tiles_x, (unsigned)tiles_y, (unsigned)(n << (log_z + log_c)));
+  kernel<<<grid, K11V_THREADS, (size_t)k11v_smem<V>(), st>>>(a);
   return cudaGetLastError();
 }
 

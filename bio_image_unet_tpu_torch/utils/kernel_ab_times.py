@@ -1,7 +1,9 @@
 """Time the kernels redesigned for Hopper -- K9 (``requant``), K10
-(``maxpool_i8``), K11 (``upsample2x_i8``) and K6 (``depthwise_xcorr``) -- on
-the card at the shapes ``chip_smoke.py`` gives them, under two timers, and the
-store floor of K11's output layout.
+(``maxpool_i8``), K11 (``upsample2x_i8``), K6 (``depthwise_xcorr``), K11v
+(``upsample2x_i8_3d``) and K3 (``sigmoid_stitch``) -- and the earlier
+stitch and normalize kernels K1, K2, K5, K5v and K3v on the card at the shapes
+``chip_smoke.py`` gives them, under two timers, with the store floors of
+K11's and K11v's output layouts.
 
     python3 <checkout>/bio_image_unet_tpu_torch/utils/kernel_ab_times.py [--package DIR]
 
@@ -15,11 +17,14 @@ wrapper's host work where that outlasts the flush.  ``--package`` imports
 file lies in): two versions of the kernels are compared under the same
 timers by running this file in turns (A, B, B, A) in one call on one card;
 ``--forms k6,k10`` times only the forms whose names start so (and builds only
-their libraries).  The store floor is the time of 16-byte stores alone into 64 of every 192
-bytes of the UNet++ row buffer (K11's output), the load floor that of
-16-byte loads alone of 32 of every 192 bytes (K10's UNet++ input), each
-against the same bytes contiguous: yardsticks compiled here, not kernels of
-the port.  Prints one JSON line;
+their libraries).  The forms from K11v on draw their inputs from a generator
+seeded per form and print the sha256 of their output (``sha256``), so two
+versions' outputs on the same inputs can be compared.  The store floor is
+the time of 16-byte stores alone into 64 of every 192 bytes of the UNet++ row
+buffer (K11's output) and into 64 of every 96 bytes of the 3D concat buffer
+(K11v's at up3), the load floor that of 16-byte loads alone of 32 of every
+192 bytes (K10's UNet++ input), each against the same bytes contiguous:
+yardsticks compiled here, not kernels of the port.  Prints one JSON line;
 without a card it exits with code 2.
 """
 
@@ -28,7 +33,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import hashlib
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +46,8 @@ ITERS = 10
 N2D, TILE, NF = 256, 256, 32  # config 1's forward batch, Unet(32)
 NNEST, P = 16, 512  # config 4's forward batch of UNet++ tiles
 N3D, VOL_TILE = 16, (32, 128, 128)  # config 5's forward batch, UNet3D(32)
+CHUNK, FRAME = 16, 1024  # a Predict chunk of 1024^2 frames
+VOL = (64, 512, 512)  # config 5's volume
 
 PROBE_CU = r"""
 #include <cuda_runtime.h>
@@ -90,12 +99,13 @@ def _probe(_cuda):
     return ctypes.CDLL(str(lib))
 
 
-def store_floor(torch, _cuda, timed) -> dict:
-    """The store floor of K11's main-shape output: channels [32, 96) of the
-    (16, 512², 192) row buffer, and the same bytes contiguous."""
+def store_floor(torch, _cuda, timed, rows=NNEST * P * P, width=2 * NF, stride=6 * NF,
+                off=NF) -> dict:
+    """The store floor of ``width`` bytes at ``off`` of each of ``rows`` rows
+    of ``stride`` bytes (by default K11's main-shape output: channels [32, 96)
+    of the (16, 512², 192) row buffer), and of the same bytes contiguous."""
     fn = _probe(_cuda).store16_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    rows, width, stride, off = NNEST * P * P, 2 * NF, 6 * NF, NF
     out = torch.empty((rows, stride), dtype=torch.int8, device="cuda")
 
     def run(st, o):
@@ -127,11 +137,115 @@ def load_floor(torch, _cuda, timed) -> dict:
     return {"slot": timed(lambda: run(stride), True), "dense": timed(lambda: run(width), True)}
 
 
+def sha(torch, t) -> str:
+    """The sha256 of a tensor's bytes (first 16 hex digits)."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def stitch_forms(torch, dev, both, pkg) -> None:
+    """K11v at up1–up3, K3's four forms, and K1, K2, K5, K5v, K3v at
+    ``chip_smoke.py``'s row shapes; each form's inputs from its own seeded
+    generator, its output hashed."""
+    k8, hist, stitch, normalize, tiling = pkg
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # K11v: the trilinear UNet3D(32) decoder's x2 into its concat buffer
+    for seed, (name, shift, c) in enumerate((("up1", 3, 8 * NF), ("up2", 2, 4 * NF),
+                                             ("up3", 1, 2 * NF))):
+        d, h, w = (t >> shift for t in VOL_TILE)
+        g = gen(100 + seed)
+        x = torch.randint(-128, 128, (N3D, d, h, w, c), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        buf = torch.zeros((N3D, 2 * d, 2 * h, 2 * w, 3 * c // 2), dtype=torch.int8, device=dev)
+        both(f"k11v {name} ({N3D}, {d}x{h}x{w}, {c}) -> {c} of {3 * c // 2}",
+             lambda: k8.upsample2x_i8_3d(x, out=buf), buf)
+        del x, buf
+    torch.cuda.empty_cache()
+
+    # K3: exact bf16, overlapping bf16 (uint16 1000^2, add_tile=1), a Siam
+    # chunk and the float32 exact grid at Predict's defaults (512^2 tiles)
+    for seed, (name, n_frames, side, tile, add, dtype) in enumerate((
+            ("exact bf16 (256, 256^2) -> (16, 1024^2)", CHUNK, FRAME, 256, 0, torch.bfloat16),
+            ("overlap bf16 (400, 256^2) -> (16, 1000^2)", CHUNK, 1000, 256, 1, torch.bfloat16),
+            ("siam chunk bf16 (128, 256^2) -> (8, 1024^2)", 8, FRAME, 256, 0, torch.bfloat16),
+            ("exact float32 (64, 512^2) -> (16, 1024^2)", CHUNK, FRAME, 512, 0, torch.float32))):
+        starts = tiling.grid_starts(side, tile, add)
+        plan = tiling.TilePlan(side, side, tile, tile, starts, starts, dev)
+        g = gen(200 + seed)
+        logits = (torch.randn((n_frames * plan.per_frame, 1, tile, tile), generator=g, device=dev)
+                  * 4).to(dtype)
+        both(f"k3 {name}", lambda: stitch.sigmoid_stitch(logits, n_frames, plan), True)
+        del logits
+    torch.cuda.empty_cache()
+
+    # K1 / K1f: a 16-frame chunk of 1024^2 frames
+    qs = (0.0, 99.8)
+    g = gen(300)
+    for dt, x in (("uint8", torch.randint(0, 256, (CHUNK, FRAME, FRAME), generator=g, device=dev,
+                                          dtype=torch.int32).to(torch.uint8)),
+                  ("uint16", torch.randint(0, 65536, (CHUNK, FRAME, FRAME), generator=g,
+                                           device=dev, dtype=torch.int32).to(torch.uint16)),
+                  ("float32", torch.randn((CHUNK, FRAME, FRAME), generator=g, device=dev) * 40
+                   + 5)):
+        fn = hist.float_clip_bounds if dt == "float32" else hist.int_clip_bounds
+        both(f"k1 {dt} (16, 1024^2)", lambda: fn(x, *qs), True)
+        if dt != "float32":
+            # K2 on the exact grid (uint8) and the gather grid (uint16 1000^2, add_tile=1)
+            frames, side, add = (x, FRAME, 0) if dt == "uint8" else (
+                x[:, :1000, :1000].contiguous(), 1000, 1)
+            starts = tiling.grid_starts(side, 256, add)
+            plan = tiling.TilePlan(side, side, 256, 256, starts, starts, dev)
+            n = CHUNK * plan.per_frame
+            n_pad = -(-n // max(8, min(n, (1 << 24) // (256 * 256)))) * max(
+                8, min(n, (1 << 24) // (256 * 256)))
+            bounds = hist.clip_bounds(frames, *qs)
+            both(f"k2 {'exact' if add == 0 else 'gather'} {dt} -> ({n_pad}, 256^2)",
+                 lambda: normalize.normalize_tile(frames, bounds, plan, n_pad, False), True)
+        del x
+    torch.cuda.empty_cache()
+
+    # K5: one head's float16 tiles of a 16-frame chunk in 512^2 tiles, margin 20
+    starts = tiling.grid_starts(FRAME, 512)
+    plan = tiling.TilePlan(FRAME, FRAME, 512, 512, starts, starts, dev,
+                           tiling._margin_factors((len(starts), len(starts)), (512, 512), 20))
+    g = gen(400)
+    for c in (1, 2):
+        tiles = (torch.rand((CHUNK * plan.per_frame, c, 512, 512), generator=g, device=dev) * 4
+                 - 2).half()
+        both(f"k5 c={c} (64, {c}, 512^2) -> (16, {c}, 1024^2)",
+             lambda: stitch.margin_stitch(tiles, CHUNK, plan, torch.float16), True)
+        del tiles
+
+    # K3v on Predict3D's grid (32 tiles of (32, 128, 128)) and K5v on
+    # PredictMultiOutput3D's (2 volumes, 18 tiles of (64, 256, 256))
+    plan = tiling.TilePlan3D(*VOL, VOL_TILE,
+                             *[tiling.grid_starts(e, t) for e, t in zip(VOL, VOL_TILE)], dev)
+    g = gen(500)
+    logits = (torch.randn((plan.per_volume, 1) + VOL_TILE, generator=g, device=dev) * 4
+              ).to(torch.bfloat16)
+    both("k3v bf16 (32, 32x128^2) -> (64, 512^2)",
+         lambda: stitch.sigmoid_stitch_3d(logits, plan), True)
+    del logits
+    patch = (64, 256, 256)
+    starts = [tiling.overlap_starts(e, t, 0.1) for e, t in zip(VOL, patch)]
+    hplan = tiling.TilePlan3D(*VOL, patch, *starts, dev,
+                              tiling._blend_factors([len(s) for s in starts], patch, 16))
+    for c in (1, 2):
+        tiles = (torch.rand((2 * hplan.per_volume, c) + patch, generator=g, device=dev) * 4
+                 - 2).half()
+        both(f"k5v c={c} (18, {c}, 64x256^2) -> (2, {c}, 64, 512^2)",
+             lambda: stitch.blend_stitch_3d(tiles, 2, hplan, torch.float16), True)
+        del tiles
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", type=Path, default=ROOT,
                     help="checkout whose bio_image_unet_tpu_torch is timed")
-    ap.add_argument("--forms", default="k9,k10,k11,k6",
+    ap.add_argument("--forms", default="k9,k10,k11,k6,k11v,k3,k1,k2,k5,k5v,k3v",
                     help="comma-separated prefixes of the forms to time (default: all)")
     args = ap.parse_args()
     prefixes = tuple(f"{p.strip()} " for p in args.forms.split(",") if p.strip())
@@ -142,11 +256,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(args.package.resolve()))
     from bio_image_unet_tpu_torch.ops import _cuda
+    from bio_image_unet_tpu_torch.ops import histogram as hist
     from bio_image_unet_tpu_torch.ops import int8 as k8
+    from bio_image_unet_tpu_torch.ops import stitch
     from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr
+    from bio_image_unet_tpu_torch.predict import normalize, tiling
 
     libs = {"k9 ": "int8_trunk", "k10 ": "int8_trunk", "k11 ": "int8_resample",
-            "k6 ": "depthwise_xcorr"}
+            "k6 ": "depthwise_xcorr", "k11v ": "int8_resample", "k3 ": "sigmoid_stitch",
+            "k1 ": "clip_bounds", "k2 ": "normalize_tile", "k5 ": "margin_stitch",
+            "k5v ": "margin_stitch", "k3v ": "sigmoid_stitch"}
     _cuda.build(sorted({lib for form, lib in libs.items() if form in prefixes}))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -177,9 +296,16 @@ def main() -> int:
 
     ms = {}
 
-    def both(name, fn):
-        if name.startswith(prefixes):
-            ms[name] = {"lead": timed(fn, True), "no_lead": timed(fn, False)}
+    def both(name, fn, hashed=None):
+        """Time form ``name``; ``hashed``: the tensor to hash after one call
+        (True: the call's result), None: no hash."""
+        if not name.startswith(prefixes):
+            return
+        ms[name] = {"lead": timed(fn, True), "no_lead": timed(fn, False)}
+        if hashed is not None:
+            result = fn()
+            torch.cuda.synchronize()
+            ms[name]["sha256"] = sha(torch, result if hashed is True else hashed)
 
     # K9, 2D: chip_smoke.py's [kernels int8] forms
     shape = (N2D, TILE, TILE, NF)
@@ -242,12 +368,17 @@ def main() -> int:
         del cur, prev
     torch.cuda.empty_cache()
 
+    stitch_forms(torch, dev, both, (k8, hist, stitch, normalize, tiling))
+
     floor = store_floor(torch, _cuda, timed) if "k11 " in prefixes else None
+    k11v_floor = (store_floor(torch, _cuda, timed, N3D * math.prod(VOL_TILE), 2 * NF, 3 * NF, 0)
+                  if "k11v " in prefixes else None)
     k10_floor = load_floor(torch, _cuda, timed) if "k10 " in prefixes else None
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"package": str(args.package.resolve()), "card": card, "ms": ms,
-                      "k11_store_floor_ms": floor, "k10_load_floor_ms": k10_floor}))
+                      "k11_store_floor_ms": floor, "k11v_store_floor_ms": k11v_floor,
+                      "k10_load_floor_ms": k10_floor}))
     return 0
 
 

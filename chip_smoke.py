@@ -16,14 +16,17 @@ non-zero without printing a result:
    ``ldmatrix`` (LDSM), ``cp.async`` (LDGSTS) and store counts logged, and
    the run failed where an instance has no tensor-core MMA or any ``__dp4a``
    (IDP); and of K9 (``requant``), K10 (``maxpool_i8``), K11
-   (``upsample2x_i8``, the resample library) and K6 (``xcorr``, the
-   depthwise_xcorr library), each instance's int↔float conversions (I2F,
-   F2I, FRND), MUFU, FFMA / FMUL / FADD and 128-bit global loads and stores
-   and shared loads logged, the run failed where one uses local memory (LDL /
-   STL) or a K6 instance holds an FFMA;
+   (``upsample2x_i8``) and K11v (``upsample2x_i8_3d``, the resample
+   library), K6 (``xcorr``, the depthwise_xcorr library) and K3
+   (``sigmoid_stitch``), each instance's int↔float conversions (I2F, F2I,
+   FRND), MUFU, FFMA / FMUL / FADD and 128-bit global loads and stores and
+   shared loads logged, the run failed where one uses local memory (LDL /
+   STL), a K6 instance holds an FFMA or a K11v instance converts between int
+   and float;
 3. kernels — each kernel held against its plain PyTorch version on the card
    at the shapes the main path gives it (K1 / K1f bit-equal, K2 equal, K3
-   within one uint8 level), and timed with CUDA events (L2 flushed before
+   within one uint8 level; K3 also on the float32 logits of 512² tiles that
+   ``Predict`` makes at its defaults), and timed with CUDA events (L2 flushed before
    every launch) beside its least possible time and, where one PyTorch call
    computes the same function, that call's time;
 4. main path — ``Predict`` on a random-weight ``Unet(n_filter=32)`` checkpoint
@@ -243,9 +246,11 @@ non-zero without printing a result:
    and the bf16 cuDNN ``conv3d`` /
    ``conv_transpose3d`` of the layer; K7v / K8v rows with their rates as
    in 18; and K11v (the trilinear decoder's int8 ×2 into its concat buffer)
-   at its largest level, up3 (16, 16×64², 64) into channels [0, 64) of a
-   96-channel buffer, bit-equal to its plain version (the torch calls it
-   replaced), timed beside its byte bound and those calls;
+   at its three levels, up1 (16, 4×16², 256) into channels [0, 256) of a
+   384-channel buffer, up2 128 of 192 and up3 (16, 16×64², 64) into [0, 64)
+   of 96, the extremes -128 and 127 on the first and last voxels, bit-equal to
+   its plain version (the torch calls it replaced), timed beside its byte
+   bound and those calls;
 21. int8 3d — ``Predict3D(quantized=True)`` at config 5 (a BN-warmed
    ``UNet3D(32)``, a 64×512² uint8 blob volume, tiles (32, 128, 128), bf16
    outside the int8 trunk, two forward batches of 16): launches exact
@@ -257,7 +262,9 @@ non-zero without printing a result:
    int8 within the JAX
    package's 3D bounds of bf16 (at most 35 levels, a mean under 3, beyond 10
    levels on under 5% of voxels); under ``BIU_INT8_EXPERIMENTAL=1`` the
-   trilinear ``UNet3D(32)`` (same bounds) and ``MultiOutputUnet3D(32)`` over
+   trilinear ``UNet3D(32)`` (same bounds; its device-resident Mvox/s in int8
+   and bf16 and a profile by stage of its int8 pass, K11v's share among them)
+   and ``MultiOutputUnet3D(32)`` over
    the ``[3d heads]`` cell's two volumes (heads within 15% / 3% of their
    range), each with exact launches; the trained ``.pt`` of ``[train 3d]``:
    mask IoU within 0.01 of bf16's; a BN-warmed ``UNet3D(8)`` int8 on the card
@@ -518,10 +525,11 @@ def template_instance(kernel: str, name: str) -> str:
 def phase_sass(_cuda) -> None:
     """The machine code of the int8 libraries: every ``qconv`` instance must
     run its products on the tensor cores (an IMMA or GMMA instruction) and
-    hold no ``__dp4a`` (IDP); K9's, K10's, K11's and K6's instances must not
-    touch local memory, K6's must hold no fused multiply-add (FFMA: the plain
-    version rounds each product), and their conversions and wide accesses are
-    logged."""
+    hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's and K3's
+    instances must not touch local memory, K6's must hold no fused
+    multiply-add (FFMA: the plain version rounds each product), K11v's no
+    int<->float conversion (I2F, F2I, FRND: its blends are integer), and
+    their conversions and wide accesses are logged."""
     funcs = sass_functions(_cuda._lib_path("int8_trunk"))
     qconvs = {k: v for k, v in funcs.items() if "qconv" in k}
     if not qconvs:
@@ -542,15 +550,20 @@ def phase_sass(_cuda) -> None:
     if bad:
         raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
-    # K9, K10, K11 and K6: what the redesigns removed (int<->float
+    # K9, K10, K11, K11v, K6 and K3: what the redesigns removed (int<->float
     # conversions at a quarter of the FMA rate, per-byte work) and what they
-    # rely on (16-byte accesses, no FMA in K6)
-    local, fused = [], []
+    # rely on (16-byte accesses, no FMA in K6, integer blends in K11v)
+    local, fused, converted = [], [], []
+    libs = {"int8_trunk": funcs}
     for lib, kernel, want in (("int8_trunk", "requant", 30), ("int8_trunk", "maxpool_i8", 5),
                               ("int8_resample", "upsample2x_i8", 5),
+                              ("int8_resample", "upsample2x_i8_3d", 5),
                               ("depthwise_xcorr", "xcorr", 2),
-                              ("depthwise_xcorr", "xcorr_plane", 2)):
-        found = funcs if lib == "int8_trunk" else sass_functions(_cuda._lib_path(lib))
+                              ("depthwise_xcorr", "xcorr_plane", 2),
+                              ("sigmoid_stitch", "sigmoid_stitch", 2)):
+        if lib not in libs:
+            libs[lib] = sass_functions(_cuda._lib_path(lib))
+        found = libs[lib]
         found = {template_instance(kernel, k): v for k, v in found.items()
                  if re.search(rf"{len(kernel)}{kernel}I", k)}
         if len(found) != want:
@@ -571,11 +584,16 @@ def phase_sass(_cuda) -> None:
                 local.append(inst)
             if kernel.startswith("xcorr") and count("FFMA"):
                 fused.append(inst)
+            if kernel == "upsample2x_i8_3d" and count("I2F", "F2I", "FRND"):
+                converted.append(inst)
     if local:
-        raise RuntimeError(f"K9 / K10 / K11 / K6 instances use local memory: {local}")
+        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 instances use local memory: {local}")
     if fused:
         raise RuntimeError(f"K6 instances fuse a multiply and an add (FFMA): {fused}")
-    log("[sass] K9, K10, K11 and K6 instances without local memory, K6 without FFMA: yes")
+    if converted:
+        raise RuntimeError(f"K11v instances convert between int and float: {converted}")
+    log("[sass] K9, K10, K11, K11v, K6 and K3 instances without local memory, K6 without FFMA, "
+        "K11v without I2F / F2I / FRND: yes")
 
 
 # --- 3. kernels -----------------------------------------------------------------
@@ -746,6 +764,27 @@ def phase_kernels(torch, dev) -> list:
             None)
         del logits, ours, ref
     del movies
+
+    # K3 at Predict's defaults (half_precision=False, resize_dim=(512, 512)):
+    # float32 logits of 64 tiles of 512^2 -> 16 frames of 1024^2, exact grid
+    big = 2 * TILE
+    plan = TilePlan(H, W, big, big, grid_starts(H, big), grid_starts(W, big), dev)
+    n = CHUNK * plan.per_frame
+    logits = torch.randn((n, 1, big, big), generator=g, device=dev) * 4
+    ours = sigmoid_stitch(logits, CHUNK, plan)
+    torch.cuda.synchronize()
+    ref = sigmoid_stitch_plain(logits, CHUNK, plan)
+    err = (ours.int() - ref.int()).abs().max().item()
+    if err > 1:
+        raise AssertionError(f"K3 float32 512^2 tiles: kernel differs from plain by {err} levels")
+    row(f"k3_sigmoid_stitch[exact float32 ({n}, {big}^2) -> {CHUNK}x{H}^2, Predict's defaults]",
+        "bio_image_unet_tpu_torch/csrc/sigmoid_stitch.cu",
+        "bio_image_unet_tpu/predict/predictor.py:450", sigmoid_stitch, err,
+        timer(lambda: sigmoid_stitch(logits, CHUNK, plan)),
+        timer(lambda: sigmoid_stitch_plain(logits, CHUNK, plan), 3),
+        # read each logit once (float32), write each pixel once
+        bound_ms(n * big * big * 4 + CHUNK * H * W, 5 * n * big * big), None)
+    del logits, ours, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -3664,36 +3703,40 @@ def phase_kernels_int8_3d(torch, dev) -> list:
     del e1, skip, buf, d6
     torch.cuda.empty_cache()
 
-    # K11v at the trilinear decoder's largest level: up3 of UNet3D(32), h
-    # (16, 16x64^2, 64) -> the first 64 channels of the 96-channel buffer
-    x = y.i8((n,) + level(1) + (2 * nf,))
-    out_shape = (n,) + VOL_TILE
-    bufs = [torch.zeros(out_shape + (3 * nf,), dtype=torch.int8, device=dev) for _ in range(2)]
-    k8.upsample2x_i8_3d(x, out=bufs[0])
-    torch.cuda.synchronize()
-    k8.upsample2x_i8_3d_plain(x, out=bufs[1])
-    err = y.check("K11v up3", bufs[0], bufs[1])
-    del bufs[1]
-    n_out = x.numel() * 8
+    # K11v at the trilinear decoder's three levels, up1 (16, 4x16^2, 256) -> the
+    # first 256 of 384 channels, up2 128 -> 128 of 192, up3 (16, 16x64^2, 64)
+    # -> 64 of 96; the extremes -128 and 127 on the first and last voxels
+    for name, k, c in (("up1", 3, 8 * nf), ("up2", 2, 4 * nf), ("up3", 1, 2 * nf)):
+        x = y.i8((n,) + level(k) + (c,))
+        x[:, 0, 0, 0], x[:, -1, -1, -1] = -128, 127
+        out_shape = (n,) + level(k - 1)
+        bufs = [torch.zeros(out_shape + (3 * c // 2,), dtype=torch.int8, device=dev)
+                for _ in range(2)]
+        k8.upsample2x_i8_3d(x, out=bufs[0])
+        torch.cuda.synchronize()
+        k8.upsample2x_i8_3d_plain(x, out=bufs[1])
+        err = y.check(f"K11v {name}", bufs[0], bufs[1])
+        del bufs[1]
+        n_out = x.numel() * 8
 
-    def library():
-        # F.interpolate's trilinear on the values in float32, round, clip,
-        # int8 and the copy into the buffer's channel range
-        u = F.interpolate(x.permute(0, 4, 1, 2, 3).float(), scale_factor=2, mode="trilinear",
-                          align_corners=False)
-        bufs[0][..., :2 * nf] = torch.clamp(torch.round(u), -127, 127).to(
-            torch.int8).permute(0, 2, 3, 4, 1)
+        def library():
+            # F.interpolate's trilinear on the values in float32, round, clip,
+            # int8 and the copy into the buffer's channel range
+            u = F.interpolate(x.permute(0, 4, 1, 2, 3).float(), scale_factor=2,
+                              mode="trilinear", align_corners=False)
+            bufs[0][..., :c] = torch.clamp(torch.round(u), -127, 127).to(
+                torch.int8).permute(0, 2, 3, 4, 1)
 
-    row(f"k11v_upsample2x_i8_3d[up3 ({n}, {'x'.join(map(str, level(1)))}, {2 * nf}) -> "
-        f"({'x'.join(map(str, VOL_TILE))}, {2 * nf}) of {3 * nf}]", RESAMPLE_SOURCE,
-        "bio_image_unet_tpu/predict/quant3d.py:305", k8.upsample2x_i8_3d, err,
-        timer(lambda: k8.upsample2x_i8_3d(x, out=bufs[0])),
-        timer(lambda: k8.upsample2x_i8_3d_plain(x, out=bufs[0]), 1),
-        # each input byte read once, each output byte written once; some 20
-        # float operations an output (8 gathers' blends, round, clip)
-        bound_ms(x.numel() + n_out, 20 * n_out), timer(library, 5))
-    del x, bufs
-    torch.cuda.empty_cache()
+        row(f"k11v_upsample2x_i8_3d[{name} ({n}, {'x'.join(map(str, level(k)))}, {c}) -> "
+            f"({'x'.join(map(str, out_shape[1:]))}, {c}) of {3 * c // 2}]", RESAMPLE_SOURCE,
+            "bio_image_unet_tpu/predict/quant3d.py:305", k8.upsample2x_i8_3d, err,
+            timer(lambda: k8.upsample2x_i8_3d(x, out=bufs[0])),
+            timer(lambda: k8.upsample2x_i8_3d_plain(x, out=bufs[0]), 1),
+            # each input byte read once, each output byte written once; some 20
+            # operations an output (7 blends, the rounding, the clip)
+            bound_ms(x.numel() + n_out, 20 * n_out), timer(library, 5))
+        del x, bufs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3727,6 +3770,33 @@ def int8_3d_bounds(tag: str, what: str, q: np.ndarray, ref: np.ndarray) -> None:
         f"{np.mean(d > 10):.6f} of voxels beyond 10 levels, {np.mean(d > 1):.6f} beyond one")
     if not (d.max() <= 35 and d.mean() < 3 and np.mean(d > 10) < 0.05):
         raise AssertionError(f"{what}: outside the JAX package's 3D int8 bounds")
+
+
+def resident_volume_passes(torch, dev, ckpt: str, vol: np.ndarray, vol_dev, q_res):
+    """The int8 and bf16 volume programs of ``ckpt`` (config 5's tiles and
+    batch) on ``vol_dev``, in turns after a warm-up each: the programs and
+    each one's best pass in seconds; every int8 pass must equal ``q_res``,
+    the quantized ``Predict3D`` call's result."""
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+
+    grid = vol_grid(VOL_TILE)
+    engines = {"int8": _Engine(ckpt, "UNet3D", VOL_BATCH, True, dev, quantized=True),
+               "bf16": _Engine(ckpt, "UNet3D", VOL_BATCH, True, dev)}
+    fns = {m: e.volume_runner(*vol.shape, *grid, VOL_TILE, VOL_CLIP, sample=vol)[0]
+           for m, e in engines.items()}
+    device = {"int8": float("inf"), "bf16": float("inf")}
+    for mode in ("int8", "bf16", "bf16", "int8", "int8", "bf16"):
+        fns[mode](vol_dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fns[mode](vol_dev)
+        torch.cuda.synchronize()
+        device[mode] = min(device[mode], time.perf_counter() - t0)
+        if mode == "int8":
+            same = int(np.abs(out.cpu().numpy().astype(np.int16) - q_res).max())
+            if same:
+                raise AssertionError(f"device-resident int8 run vs Predict3D: {same} levels")
+    return fns, device
 
 
 def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
@@ -3807,24 +3877,9 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
         e2e = {m: mvox / t for m, t in times.items()}
 
         # device-resident: both volume programs on the volume on the card, in turns
-        engines = {"int8": _Engine(ckpt, "UNet3D", VOL_BATCH, True, dev, quantized=True),
-                   "bf16": _Engine(ckpt, "UNet3D", VOL_BATCH, True, dev)}
-        fns = {m: e.volume_runner(*shape, *grid, VOL_TILE, VOL_CLIP, sample=vol)[0]
-               for m, e in engines.items()}
         vol_dev = torch.from_numpy(vol).to(dev)
-        device = {"int8": float("inf"), "bf16": float("inf")}
         torch.cuda.reset_peak_memory_stats()
-        for mode in ("int8", "bf16", "bf16", "int8", "int8", "bf16"):
-            fns[mode](vol_dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fns[mode](vol_dev)
-            torch.cuda.synchronize()
-            device[mode] = min(device[mode], time.perf_counter() - t0)
-            if mode == "int8":
-                same = int(np.abs(out.cpu().numpy().astype(np.int16) - q_res).max())
-                if same:
-                    raise AssertionError(f"device-resident int8 run vs Predict3D: {same} levels")
+        fns, device = resident_volume_passes(torch, dev, ckpt, vol, vol_dev, q_res)
         peak = torch.cuda.max_memory_allocated()
         resident = {m: mvox / t for m, t in device.items()}
         ops = int8_3d_trunk_ops(VOL_FILTER) * n_tiles * np.prod(VOL_TILE)
@@ -3840,7 +3895,7 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
             f"memory of the device-resident passes {peak / 2**30:.2f} GiB")
         profile_pass(torch, lambda: [fns["int8"](vol_dev) for _ in range(2)], "int8 3d",
                      "two passes over one volume, int8")
-        del vol_dev, engines, fns, out
+        del fns
 
         # the experimental legs, BIU_INT8_EXPERIMENTAL=1
         env = os.environ.get("BIU_INT8_EXPERIMENTAL")
@@ -3862,6 +3917,16 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
                 "calibration included)")
             int8_3d_bounds("int8 3d", "trilinear UNet3D(32) int8 vs bf16", q,
                            Predict3D(vol, None, tri, **kw).result)
+            # its device-resident passes, int8 and its bf16 twin, and where the
+            # int8 pass spends its time (K11v's share: the k11v stage)
+            fns, device = resident_volume_passes(torch, dev, tri, vol, vol_dev, q)
+            log(f"[int8 3d] trilinear UNet3D(32): device-resident int8 "
+                f"{mvox / device['int8']:.2f} Mvox/s ({device['int8'] * 1e3:.2f} ms), bf16 "
+                f"{mvox / device['bf16']:.2f} Mvox/s ({device['bf16'] * 1e3:.2f} ms) (ratio "
+                f"{device['bf16'] / device['int8']:.3f})")
+            profile_pass(torch, lambda: [fns["int8"](vol_dev) for _ in range(2)], "int8 3d",
+                         "trilinear UNet3D(32), two passes over one volume, int8")
+            del fns
 
             mo = str(tmp / "mo3d_warm_nf32.pt")
             write_warm_checkpoint(torch, mo, "MultiOutputUnet3D", VOL_FILTER, seed=23,
@@ -3897,6 +3962,9 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
                 os.environ.pop("BIU_INT8_EXPERIMENTAL", None)
             else:
                 os.environ["BIU_INT8_EXPERIMENTAL"] = env
+
+        del vol_dev
+        torch.cuda.empty_cache()
 
         # the trained .pt of [train 3d]: the mask IoU against the truth of
         # its task (the volume above half its range) within 0.01 of bf16's

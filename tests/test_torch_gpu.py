@@ -140,6 +140,22 @@ K3_CASES = [
     ("exact", (2, 128, 128), 64, 0, torch.float32),
     ("overlap", (2, 100, 90), 32, 1, torch.bfloat16),
     ("reflect-pad", (2, 48, 80), 64, 0, torch.float32),
+    # the other dtype of each grid, tile widths 24 and 40 (runs across tile
+    # edges, pixel by pixel), a frame narrower than one run, a 1000-pixel row
+    # (8-byte aligned rows) and two 1024^2 frames of the main path's grid
+    ("exact-bf16", (2, 128, 128), 64, 0, torch.bfloat16),
+    ("overlap-f32", (2, 100, 90), 32, 1, torch.float32),
+    ("reflect-pad-bf16", (2, 48, 80), 64, 0, torch.bfloat16),
+    ("tile-24", (2, 48, 72), 24, 0, torch.float32),
+    ("tile-40-bf16", (2, 80, 120), 40, 0, torch.bfloat16),
+    ("tile-40-overlap", (2, 70, 100), 40, 1, torch.float32),
+    ("narrow-bf16", (3, 9, 7), 16, 0, torch.bfloat16),
+    ("narrow-f32", (3, 9, 7), 16, 0, torch.float32),
+    ("rows-1000", (2, 1000, 1000), 256, 1, torch.bfloat16),
+    ("exact-1024", (2, 1024, 1024), 256, 0, torch.bfloat16),
+    ("exact-1024-f32", (2, 1024, 1024), 512, 0, torch.float32),
+    # up to four covers an axis (the loops, a mean by a count of 3)
+    ("heavy-overlap", (2, 64, 70), 32, 4, torch.float32),
 ]
 
 
@@ -1395,14 +1411,22 @@ def test_upsample2x_i8_kernel_bit_equal_to_plain(cuda, gen, case):
 
 
 # (n, d, h, w, c, buffer channels, offset)
+# (n, d, h, w, C, output channels, offset): UNet3D(32)'s up3, up1 and up2
+# widths, extents of 1 on each axis, and C, offsets and strides that 16 does
+# not divide (vectors of 8, 4, 2 and 1 bytes)
 K11V_CASES = [(2, 8, 16, 16, 64, 96, 0), (1, 3, 5, 7, 32, 48, 0), (2, 2, 3, 2, 6, 9, 3),
-              (1, 1, 1, 4, 16, 16, 0)]
+              (1, 1, 1, 4, 16, 16, 0), (2, 2, 4, 4, 256, 384, 0), (2, 4, 8, 8, 128, 192, 0),
+              (2, 1, 5, 6, 64, 96, 0), (2, 5, 1, 6, 64, 96, 0), (2, 5, 6, 1, 64, 96, 0),
+              (1, 3, 5, 7, 24, 40, 8), (1, 3, 4, 5, 12, 20, 4), (1, 2, 3, 4, 6, 10, 2),
+              (2, 9, 10, 11, 48, 80, 32)]
 
 
 @pytest.mark.parametrize("case", K11V_CASES, ids=lambda c: "x".join(map(str, c)))
 def test_upsample2x_i8_3d_kernel_bit_equal_to_plain(cuda, gen, case):
     n, d, h, w, c, ctot, off = case
     x = _i8(gen, (n, d, h, w, c), cuda)
+    # the extremes at the borders: -128 on the first plane, 127 on the last column
+    x[:, 0], x[:, :, :, -1] = -128, 127
     bufs = [torch.full((n, 2 * d, 2 * h, 2 * w, ctot), 99, dtype=torch.int8, device=cuda)
             for _ in range(2)]
     before = k8.upsample2x_i8_3d.launches

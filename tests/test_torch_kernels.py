@@ -220,6 +220,12 @@ K3_CASES = [
     ("overlap-add-tile", (2, 96, 80), 64, 1, 0, False),
     ("reflect-pad", (2, 48, 80), 64, 0, 1, False),
     ("overlap-bf16", (3, 100, 90), 32, 1, 0, True),
+    # tile widths that are not multiples of 16 (K3's per-pixel runs) and the
+    # float32 512^2 tiles of Predict's defaults
+    ("tile-24", (2, 48, 72), 24, 0, 0, False),
+    ("tile-40-bf16", (1, 80, 120), 40, 0, 1, True),
+    ("tile-40-overlap", (1, 70, 100), 40, 1, 0, False),
+    ("float32-512", (1, 1024, 1024), 512, 0, 0, False),
 ]
 
 
@@ -243,6 +249,45 @@ def test_sigmoid_stitch_within_one_level_of_jax(rng, case):
     diff = np.abs(ours.astype(int) - ref.astype(int))
     assert diff.max() <= 1, (name, diff.max())
     assert diff.mean() < 1e-3, (name, diff.mean())
+
+
+def test_mean_of_levels_integer_quotient_equals_truncated_float_division():
+    """K3 averages cnt covering levels as the integer quotient sum // cnt; the
+    JAX program (and K3's plain version) truncates the float32 division.
+    Both agree for every sum of cnt levels, cnt 1..16: a quotient that is not
+    an integer lies at least 1/cnt below the next one, more than the
+    division's rounding error."""
+    for cnt in range(1, 17):
+        total = np.arange(0, 255 * cnt + 1)
+        want = np.trunc(total.astype(np.float32) / np.float32(cnt))
+        assert want.dtype == np.float32
+        np.testing.assert_array_equal(total // cnt, want.astype(np.int64))
+
+
+def test_k3_reciprocal_rounds_as_ieee_division():
+    """K3's reciprocal (``csrc/sigmoid_stitch.cu`` ``rcp_rn``): two float64
+    Newton steps from a hardware estimate off by up to 2^-21, rounded to
+    float32, give the correctly rounded 1/x (what ``__frcp_rn`` and
+    ``np.float32(1) / x`` give) for every float x in [1, 2), with the estimate
+    off by +2^-21 and by -2^-21; the steps scale exactly by powers of two, so
+    this covers [1, 2^64).  The first step's products are exact in float64;
+    the second step's are rounded once more here than in the kernel's fused
+    multiply-adds, a float64 ulp that the rounding to float32 does not see
+    (1/x lies at least 2^-49 from every midpoint between two floats).  Above
+    2^64 the kernel takes the level 0: 255 / x < 1 there."""
+    x = (np.arange(1 << 23, dtype=np.uint32) | np.uint32(0x3F800000)).view(np.float32)
+    want = np.float32(1) / x
+    xd = x.astype(np.float64)
+    for err in (2.0 ** -21, -(2.0 ** -21)):
+        y = ((1.0 / xd) * (1.0 + err)).astype(np.float32).astype(np.float64)
+        y = y + y * (1.0 - xd * y)  # exact products: a fused step
+        # fma(-x, y, 1) with y split so that each product is exact
+        hi = y.astype(np.float32).astype(np.float64)
+        e = (1.0 - xd * hi) - xd * (y - hi)
+        y = y + y * e
+        np.testing.assert_array_equal(y.astype(np.float32), want)
+    top = np.float32(2.0 ** 64)
+    assert np.float32(np.float32(1) / top) * np.float32(255) < 1
 
 
 def test_sigmoid_stitch_averages_uint8_values_not_probabilities():

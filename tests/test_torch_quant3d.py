@@ -8,7 +8,12 @@ held against the JAX package's ``predict/quant3d.py`` on the CPU.
   decode1's width and channel counts that are not multiples of 4, and odd
   extents for the pool; K9 on NDHWC tensors; K11v's (the trilinear
   decoder's ×2 of int8 values, ``:305-310``) equals the torch calls it
-  replaced and JAX's;
+  replaced and JAX's, at up1's and up2's channel counts and d = 1 too;
+- a numpy model of K11v's integer arithmetic (biased 16-bit lanes, two
+  channels a word, one multiply-add an axis, the shift-and-remainder
+  rounding) equals the plain version on bricks with the extremes and on every
+  pair of int8 values at each weight, and its rounding equals rint(S / 64)
+  for every blend S;
 - the weight store, quantized at the same maxes from JAX's folded float32
   arrays with the activation scales folded in, equals ``_build_pack``'s
   codes, scales and biases for the three decoder variants;
@@ -154,7 +159,8 @@ def test_requant_on_ndhwc_matches_jax():
     np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 8, 8, 32), (1, 3, 5, 2, 7), (2, 1, 1, 3, 16)])
+@pytest.mark.parametrize("shape", [(2, 4, 8, 8, 32), (1, 3, 5, 2, 7), (2, 1, 1, 3, 16),
+                                   (2, 2, 3, 3, 256), (2, 2, 4, 4, 128), (1, 1, 4, 6, 64)])
 def test_upsample2x_i8_3d_plain_matches_jax(shape):
     """K11v's plain version is the trilinear decoder's torch-call path
     (``F.interpolate``, round half to even, clip) bit for bit, and both equal
@@ -176,6 +182,95 @@ def test_upsample2x_i8_3d_plain_matches_jax(shape):
     np.testing.assert_array_equal(buf[..., :c].numpy(), want)
     assert (buf[..., c:] == 99).all()
     np.testing.assert_array_equal(k.upsample2x_i8_3d(t).numpy(), want)
+
+
+# --- K11v's integer arithmetic, modelled in numpy ---------------------------------
+# ``csrc/int8_resample.cu``'s K11v blends biased values (v + 128) in 16-bit
+# lanes, two channels a uint32 word, with one integer multiply-add an axis
+# (3·near + far), and rounds each lane's S + 64·128 by a max with 64, an add
+# of 31 and of bit 6, and a shift.  The model below does the same word
+# arithmetic (uint32, wrapping as the card does) so that a carry between
+# lanes or a wrong rounding would show against the plain version.
+
+_M32 = np.uint32
+
+
+def _k11v_axis(n):
+    """For each of the 2n outputs of an axis of n inputs: the input it takes
+    3/4 of and the one it takes 1/4 of (clamped at the borders)."""
+    o = np.arange(2 * n)
+    j = o >> 1
+    return j, np.where(o & 1, np.minimum(j + 1, n - 1), np.maximum(j - 1, 0))
+
+
+def _k11v_round(s):
+    """The kernel's rounding of packed biased lane sums (``k11v_round``)."""
+    s = np.maximum(s & _M32(0xFFFF), _M32(0x40)) | (np.maximum(s >> _M32(16), _M32(0x40))
+                                                    << _M32(16))
+    return (s + _M32(0x001F001F) + ((s >> _M32(6)) & _M32(0x00010001))) >> _M32(6)
+
+
+def _k11v_model(x):
+    """(n, d, h, w, c) int8 -> the kernel's (n, 2d, 2h, 2w, c) int8: bias,
+    spread channels (0, 2) and (1, 3) of each four into two words, blend W,
+    then H, then D, round, pack and unbias."""
+    n, d, h, w, c = x.shape
+    c4 = -(-c // 4) * 4
+    u = np.zeros((n, d, h, w, c4), np.uint8)
+    u[..., :c] = x.view(np.uint8) ^ 0x80
+    u = u.reshape(n, d, h, w, c4 // 4, 4).astype(np.uint32)
+    words = np.stack([u[..., 0] | (u[..., 2] << _M32(16)), u[..., 1] | (u[..., 3] << _M32(16))],
+                     axis=-1)
+    for axis in (3, 2, 1):  # W, H, D as the kernel walks them
+        near, far = _k11v_axis(words.shape[axis])
+        words = (np.take(words, near, axis) * _M32(3) + np.take(words, far, axis)).astype(np.uint32)
+    r = _k11v_round(words)
+    even, odd = r[..., 0], r[..., 1]
+    out = np.stack([even & 0xFF, odd & 0xFF, (even >> 16) & 0xFF, (odd >> 16) & 0xFF], axis=-1)
+    out = (out.astype(np.uint8) ^ 0x80).view(np.int8)
+    return out.reshape(n, 2 * d, 2 * h, 2 * w, c4)[..., :c]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 4, 8), (1, 1, 1, 1, 4), (1, 4, 1, 7, 6),
+                                   (2, 2, 3, 2, 64), (1, 1, 6, 1, 3)])
+def test_k11v_integer_model_equals_plain(shape):
+    """The kernel's integer arithmetic equals K11v's plain version on random
+    bricks holding -128 and 127 at the borders, and on bricks all -128 (the
+    clip) and all 127."""
+    rng = np.random.default_rng(sum(shape))
+    x = rng.integers(-128, 128, shape).astype(np.int8)
+    x[:, 0], x[:, :, -1], x[..., 0, :] = -128, 127, -128
+    for brick in (x, np.full(shape, -128, np.int8), np.full(shape, 127, np.int8)):
+        want = k.upsample2x_i8_3d_plain(torch.from_numpy(brick)).numpy()
+        np.testing.assert_array_equal(_k11v_model(brick), want)
+
+
+@pytest.mark.parametrize("axis", [1, 2, 3], ids=["d", "h", "w"])
+def test_k11v_integer_model_on_every_pair_at_each_weight(axis):
+    """Along one axis of two inputs (a, b) the four outputs take the weights
+    1 (4a), 3/4 + 1/4 (3a + b), 1/4 + 3/4 (a + 3b) and 1 (4b): every pair of
+    int8 values, one a channel, through the model equals the plain version."""
+    a, b = np.meshgrid(np.arange(-128, 128), np.arange(-128, 128), indexing="ij")
+    shape = [1, 1, 1, 1, a.size]
+    shape[axis] = 2
+    x = np.stack([a.ravel(), b.ravel()]).astype(np.int8).reshape(shape)
+    want = k.upsample2x_i8_3d_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_k11v_model(x), want)
+
+
+def test_k11v_rounding_is_rint_of_the_sum_over_64_for_every_sum():
+    """Every blend S in [-8192, 8128] (64ths of values in [-128, 127]): the
+    kernel's lane rounding of S + 64·128 is rint(S / 64) clipped at -127
+    (np.rint of the exact float32 quotient, half to even), plus 128, in both
+    lanes of a word with any neighbour."""
+    s_all = np.arange(-8192, 8129)
+    want = np.clip(np.rint(s_all.astype(np.float32) / np.float32(64)), -127, 127) + 128
+    other = np.random.default_rng(0).permutation(s_all)
+    for lo, hi in ((s_all, other), (other, s_all)):
+        words = ((lo + 8192).astype(np.uint32) | ((hi + 8192).astype(np.uint32) << _M32(16)))
+        r = _k11v_round(words)
+        got = r & 0xFF if lo is s_all else (r >> 16) & 0xFF
+        np.testing.assert_array_equal(got, want)
 
 
 def test_3d_wrappers_refuse_what_the_kernels_do_not_take():
