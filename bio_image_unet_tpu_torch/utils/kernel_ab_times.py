@@ -1,9 +1,10 @@
 """Time the kernels redesigned for Hopper -- K9 (``requant``), K10
 (``maxpool_i8``), K11 (``upsample2x_i8``), K6 (``depthwise_xcorr``), K11v
-(``upsample2x_i8_3d``) and K3 (``sigmoid_stitch``) -- and the earlier
-stitch and normalize kernels K1, K2, K5, K5v and K3v on the card at the shapes
-``chip_smoke.py`` gives them, under two timers, with the store floors of
-K11's and K11v's output layouts.
+(``upsample2x_i8_3d``), K3 (``sigmoid_stitch``), K5 (``margin_stitch``) and
+K5v (``blend_stitch_3d``) -- and the other stitch and normalize kernels K1
+(its Siam chunk and pair rows too), K2, K2h, K2v, K2p, K5s and K3v on the card
+at the shapes ``chip_smoke.py`` gives them, under two timers, with the store
+floors of K11's and K11v's output layouts.
 
     python3 <checkout>/bio_image_unet_tpu_torch/utils/kernel_ab_times.py [--package DIR]
 
@@ -139,7 +140,8 @@ def load_floor(torch, _cuda, timed) -> dict:
 
 def sha(torch, t) -> str:
     """The sha256 of a tensor's bytes (first 16 hex digits)."""
-    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+    return hashlib.sha256(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
 
 
 def stitch_forms(torch, dev, both, pkg) -> None:
@@ -206,7 +208,10 @@ def stitch_forms(torch, dev, both, pkg) -> None:
         del x
     torch.cuda.empty_cache()
 
-    # K5: one head's float16 tiles of a 16-frame chunk in 512^2 tiles, margin 20
+    # K5 and K5s: one head's float16 tiles of a 16-frame chunk in 512^2
+    # tiles, margin 20, float16 out (the fused path) and float32 (the
+    # host-staged path); K5 also on 1000x1003 frames (column starts 0 and
+    # 491) and on a view at an odd float16 offset
     starts = tiling.grid_starts(FRAME, 512)
     plan = tiling.TilePlan(FRAME, FRAME, 512, 512, starts, starts, dev,
                            tiling._margin_factors((len(starts), len(starts)), (512, 512), 20))
@@ -214,9 +219,25 @@ def stitch_forms(torch, dev, both, pkg) -> None:
     for c in (1, 2):
         tiles = (torch.rand((CHUNK * plan.per_frame, c, 512, 512), generator=g, device=dev) * 4
                  - 2).half()
-        both(f"k5 c={c} (64, {c}, 512^2) -> (16, {c}, 1024^2)",
-             lambda: stitch.margin_stitch(tiles, CHUNK, plan, torch.float16), True)
+        for out_dtype, out_name in ((torch.float16, "f16"), (torch.float32, "f32")):
+            both(f"k5 c={c} {out_name} (64, {c}, 512^2) -> (16, {c}, 1024^2)",
+                 lambda: stitch.margin_stitch(tiles, CHUNK, plan, out_dtype), True)
+        both(f"k5s c={c} (64, {c}, 512^2) -> f64",
+             lambda: stitch.tile_sum(tiles, CHUNK * plan.per_frame), True)
+        if c == 1:
+            view = offset_view(torch, tiles, 1)
+            both("k5 c=1 f16 odd-offset view (64, 1, 512^2) -> (16, 1, 1024^2)",
+                 lambda: stitch.margin_stitch(view, CHUNK, plan, torch.float16), True)
+            del view
         del tiles
+    xs, ys = tiling.grid_starts(1000, 512), tiling.grid_starts(1003, 512)
+    oplan = tiling.TilePlan(1000, 1003, 512, 512, xs, ys, dev,
+                            tiling._margin_factors((len(xs), len(ys)), (512, 512), 20))
+    tiles = (torch.rand((CHUNK * oplan.per_frame, 1, 512, 512), generator=g, device=dev) * 4
+             - 2).half()
+    both("k5 c=1 f16 starts 0, 491 (64, 1, 512^2) -> (16, 1, 1000x1003)",
+         lambda: stitch.margin_stitch(tiles, CHUNK, oplan, torch.float16), True)
+    del tiles
 
     # K3v on Predict3D's grid (32 tiles of (32, 128, 128)) and K5v on
     # PredictMultiOutput3D's (2 volumes, 18 tiles of (64, 256, 256))
@@ -235,17 +256,95 @@ def stitch_forms(torch, dev, both, pkg) -> None:
     for c in (1, 2):
         tiles = (torch.rand((2 * hplan.per_volume, c) + patch, generator=g, device=dev) * 4
                  - 2).half()
-        both(f"k5v c={c} (18, {c}, 64x256^2) -> (2, {c}, 64, 512^2)",
-             lambda: stitch.blend_stitch_3d(tiles, 2, hplan, torch.float16), True)
+        for out_dtype, out_name in ((torch.float16, "f16"), (torch.float32, "f32")):
+            both(f"k5v c={c} {out_name} (18, {c}, 64x256^2) -> (2, {c}, 64, 512^2)",
+                 lambda: stitch.blend_stitch_3d(tiles, 2, hplan, out_dtype), True)
+        if c == 1:
+            view = offset_view(torch, tiles, 1)
+            both("k5v c=1 f16 odd-offset view (18, 1, 64x256^2) -> (2, 1, 64, 512^2)",
+                 lambda: stitch.blend_stitch_3d(view, 2, hplan, torch.float16), True)
+            del view
         del tiles
     torch.cuda.empty_cache()
+
+
+def normalize_forms(torch, dev, both, pkg, prefixes) -> None:
+    """K1 on a Siam chunk and its pair rows, K2h, K2v (both rows) and K2p at
+    ``chip_smoke.py``'s row shapes, on device time (their PERF.md rows from
+    PR 3-7 held host work); each form's inputs from its own seeded
+    generator, its output hashed."""
+    _, hist, _, normalize, tiling = pkg
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def u8(shape, g):
+        return torch.randint(0, 256, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint8)
+
+    # a Siam chunk: the (9, 1024^2) block of 8 frames and the next one
+    block = u8((9, FRAME, FRAME), gen(600))
+    clip = (0.0, 99.98)
+    both("k1 siam chunk uint8 (9, 1024^2)", lambda: hist.int_clip_bounds(block, *clip), True)
+    both("k1 pair rows uint8 (9, 1024^2) -> 8 rows",
+         lambda: hist.pair_clip_bounds(block, *clip), True)
+    if "k2p " in prefixes:
+        plan = tiling.TilePlan(FRAME, FRAME, 256, 256, tiling.grid_starts(FRAME, 256),
+                               tiling.grid_starts(FRAME, 256), dev)
+        bounds = hist.clip_bounds(block, *clip)
+        both("k2p uint8 (9, 1024^2) -> 2x(128, 256^2)",
+             lambda: normalize.normalize_tile_pairs(block, bounds, plan, 8 * plan.per_frame,
+                                                    False), True)
+    del block
+
+    if not {"k2h ", "k2v "} & set(prefixes):
+        return
+    # K2h: the multi-head chunk, 16 frames of 1024^2 in 512^2 tiles, bf16
+    x = u8((CHUNK, FRAME, FRAME), gen(601))
+    starts = tiling.grid_starts(FRAME, 512)
+    plan = tiling.TilePlan(FRAME, FRAME, 512, 512, starts, starts, dev,
+                           tiling._margin_factors((len(starts), len(starts)), (512, 512), 20))
+    bounds = hist.clip_bounds(x, *clip)
+    both("k2h uint8 (16, 1024^2) -> (64, 512^2) bf16",
+         lambda: normalize.normalize_tile_float(x, bounds, plan, CHUNK * plan.per_frame,
+                                                torch.bfloat16), True)
+    del x
+
+    # K2v: Predict3D's volume in (32, 128, 128) tiles, and the two volumes of
+    # PredictMultiOutput3D in (64, 256, 256) tiles, bf16
+    vol = u8((1,) + VOL, gen(602))
+    plan = tiling.TilePlan3D(*VOL, VOL_TILE,
+                             *[tiling.grid_starts(e, t) for e, t in zip(VOL, VOL_TILE)], dev)
+    bounds = hist.clip_bounds(vol, 0.0, 99.8)
+    both("k2v uint8 (1, 64, 512^2) -> (32, 32x128^2)",
+         lambda: normalize.normalize_tile_3d(vol, bounds, plan, plan.per_volume), True)
+    vols = u8((2,) + VOL, gen(603))
+    patch = (64, 256, 256)
+    starts = [tiling.overlap_starts(e, t, 0.1) for e, t in zip(VOL, patch)]
+    hplan = tiling.TilePlan3D(*VOL, patch, *starts, dev,
+                              tiling._blend_factors([len(s) for s in starts], patch, 16))
+    bounds = hist.clip_bounds(vols, *clip)
+    both("k2v heads uint8 (2, 64, 512^2) -> (18, 64x256^2) bf16",
+         lambda: normalize.normalize_tile_3d(vols, bounds, hplan, 2 * hplan.per_volume, False,
+                                             torch.bfloat16), True)
+    del vol, vols
+    torch.cuda.empty_cache()
+
+
+def offset_view(torch, t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    buffer (1: an odd float16 offset, 2 bytes past a 4-byte boundary)."""
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", type=Path, default=ROOT,
                     help="checkout whose bio_image_unet_tpu_torch is timed")
-    ap.add_argument("--forms", default="k9,k10,k11,k6,k11v,k3,k1,k2,k5,k5v,k3v",
+    ap.add_argument("--forms", default="k9,k10,k11,k6,k11v,k3,k1,k2,k5,k5v,k3v,k5s,k2h,k2v,k2p",
                     help="comma-separated prefixes of the forms to time (default: all)")
     args = ap.parse_args()
     prefixes = tuple(f"{p.strip()} " for p in args.forms.split(",") if p.strip())
@@ -265,7 +364,8 @@ def main() -> int:
     libs = {"k9 ": "int8_trunk", "k10 ": "int8_trunk", "k11 ": "int8_resample",
             "k6 ": "depthwise_xcorr", "k11v ": "int8_resample", "k3 ": "sigmoid_stitch",
             "k1 ": "clip_bounds", "k2 ": "normalize_tile", "k5 ": "margin_stitch",
-            "k5v ": "margin_stitch", "k3v ": "sigmoid_stitch"}
+            "k5v ": "margin_stitch", "k3v ": "sigmoid_stitch", "k5s ": "margin_stitch",
+            "k2h ": "normalize_tile", "k2v ": "normalize_tile", "k2p ": "normalize_tile"}
     _cuda.build(sorted({lib for form, lib in libs.items() if form in prefixes}))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -369,6 +469,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     stitch_forms(torch, dev, both, (k8, hist, stitch, normalize, tiling))
+    normalize_forms(torch, dev, both, (k8, hist, stitch, normalize, tiling), prefixes)
 
     floor = store_floor(torch, _cuda, timed) if "k11 " in prefixes else None
     k11v_floor = (store_floor(torch, _cuda, timed, N3D * math.prod(VOL_TILE), 2 * NF, 3 * NF, 0)

@@ -498,7 +498,7 @@ def sass_functions(lib: Path) -> dict:
     return funcs
 
 
-MANGLED_TYPES = {"a": "int8", "13__nv_bfloat16": "bf16", "f": "float32"}
+MANGLED_TYPES = {"a": "int8", "13__nv_bfloat16": "bf16", "6__half": "float16", "f": "float32"}
 
 
 def template_instance(kernel: str, name: str) -> str:
@@ -509,7 +509,7 @@ def template_instance(kernel: str, name: str) -> str:
         return name
     shown, rest = [], name[m.end():]
     while rest and not rest.startswith("E"):
-        arg = re.match(r"L([bi])(\d+)E|13__nv_bfloat16|[af]", rest)
+        arg = re.match(r"L([bi])(\d+)E|13__nv_bfloat16|6__half|[af]", rest)
         if not arg:
             return name
         if arg.group(1) == "b":
@@ -525,8 +525,8 @@ def template_instance(kernel: str, name: str) -> str:
 def phase_sass(_cuda) -> None:
     """The machine code of the int8 libraries: every ``qconv`` instance must
     run its products on the tensor cores (an IMMA or GMMA instruction) and
-    hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's and K3's
-    instances must not touch local memory, K6's must hold no fused
+    hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's, K3's, K5's
+    and K5v's instances must not touch local memory, K6's must hold no fused
     multiply-add (FFMA: the plain version rounds each product), K11v's no
     int<->float conversion (I2F, F2I, FRND: its blends are integer), and
     their conversions and wide accesses are logged."""
@@ -550,9 +550,10 @@ def phase_sass(_cuda) -> None:
     if bad:
         raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
-    # K9, K10, K11, K11v, K6 and K3: what the redesigns removed (int<->float
-    # conversions at a quarter of the FMA rate, per-byte work) and what they
-    # rely on (16-byte accesses, no FMA in K6, integer blends in K11v)
+    # K9, K10, K11, K11v, K6, K3, K5 and K5v: what the redesigns removed
+    # (int<->float conversions at a quarter of the FMA rate, per-byte work,
+    # the division's slow-path call) and what they rely on (16-byte accesses,
+    # no FMA in K6, integer blends in K11v)
     local, fused, converted = [], [], []
     libs = {"int8_trunk": funcs}
     for lib, kernel, want in (("int8_trunk", "requant", 30), ("int8_trunk", "maxpool_i8", 5),
@@ -560,7 +561,9 @@ def phase_sass(_cuda) -> None:
                               ("int8_resample", "upsample2x_i8_3d", 5),
                               ("depthwise_xcorr", "xcorr", 2),
                               ("depthwise_xcorr", "xcorr_plane", 2),
-                              ("sigmoid_stitch", "sigmoid_stitch", 2)):
+                              ("sigmoid_stitch", "sigmoid_stitch", 2),
+                              ("margin_stitch", "margin_stitch", 2),
+                              ("margin_stitch", "blend_stitch_3d", 2)):
         if lib not in libs:
             libs[lib] = sass_functions(_cuda._lib_path(lib))
         found = libs[lib]
@@ -587,13 +590,14 @@ def phase_sass(_cuda) -> None:
             if kernel == "upsample2x_i8_3d" and count("I2F", "F2I", "FRND"):
                 converted.append(inst)
     if local:
-        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 instances use local memory: {local}")
+        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 / K5 / K5v instances use local "
+                           f"memory: {local}")
     if fused:
         raise RuntimeError(f"K6 instances fuse a multiply and an add (FFMA): {fused}")
     if converted:
         raise RuntimeError(f"K11v instances convert between int and float: {converted}")
-    log("[sass] K9, K10, K11, K11v, K6 and K3 instances without local memory, K6 without FFMA, "
-        "K11v without I2F / F2I / FRND: yes")
+    log("[sass] K9, K10, K11, K11v, K6, K3, K5 and K5v instances without local memory, K6 "
+        "without FFMA, K11v without I2F / F2I / FRND: yes")
 
 
 # --- 3. kernels -----------------------------------------------------------------
@@ -952,10 +956,11 @@ def profile_device_resident(torch, fn, movie_dev, n_chunk) -> None:
     profile_pass(torch, run, "main", f"{FRAMES} frames")
 
 
-def profile_pass(torch, run, tag: str, what: str) -> None:
+def profile_pass(torch, run, tag: str, what: str, shares=()) -> None:
     """Profile ``run()``: device time by stage (kernel names) and the
-    device's idle share of the pass's wall time.  The profiler's own
-    overhead lengthens the wall time."""
+    device's idle share of the pass's wall time; ``shares``: (label, kernel
+    name) pairs whose launches and share of the device time are logged.  The
+    profiler's own overhead lengthens the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -994,6 +999,12 @@ def profile_pass(torch, run, tag: str, what: str) -> None:
         log(f"[{tag}] qconv by instance: " + ", ".join(
             f"{k} {t / 1e3:.2f} ms {c}x ({t / busy:.1%})"
             for k, (t, c) in sorted(qconvs.items(), key=lambda kv: -kv[1][0])))
+    for label, kernel in shares:
+        hit = [(t, c) for name, (t, c) in by_name.items()
+               if re.search(rf"\b(?:{kernel})\b", name)]
+        total, count = sum(t for t, _ in hit), sum(c for _, c in hit)
+        log(f"[{tag}] {label} ({kernel}): {count} launches, {total / 1e3:.4f} ms, "
+            f"{total / busy:.2%} of the device-resident pass's device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (total, count) in top:
         log(f"[{tag}]   {total / 1e3:8.2f} ms {count:5d}x  {name[:110]}")
@@ -1339,6 +1350,7 @@ def phase_kernels_heads(torch, dev) -> list:
     from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile_float,
                                                             normalize_tile_plain)
     from bio_image_unet_tpu_torch.predict.tiling import TilePlan, _margin_factors, grid_starts
+    from bio_image_unet_tpu_torch.utils.kernel_ab_times import offset_view
 
     timer = Timer(torch, dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1415,6 +1427,29 @@ def phase_kernels_heads(torch, dev) -> list:
             # read each real tile value once, one add each
             bound_ms(count * 2, count),
             timer(lambda: torch.sum(tiles, dtype=torch.float64), 5))
+        del tiles, ours, ref
+
+    # K5 where its 16-byte reads and stores cannot all be aligned: 1000x1003
+    # frames (column starts 0 and 491, rows of 1003 values) and the main
+    # grid's tiles viewed at an odd float16 offset, in both out types
+    xs2, ys2 = grid_starts(1000, P), grid_starts(1003, P)
+    oplan = TilePlan(1000, 1003, P, P, xs2, ys2, dev,
+                     _margin_factors((len(xs2), len(ys2)), (P, P), HEADS_MARGIN))
+    for what, tiles, pl in (
+            ("starts 0, 491 on 1000x1003 frames",
+             (torch.rand((CHUNK * oplan.per_frame, 2, P, P), generator=g, device=dev) * 4 - 2
+              ).half(), oplan),
+            ("tiles at an odd float16 offset",
+             offset_view(torch, (torch.rand((n, 2, P, P), generator=g, device=dev) * 4 - 2
+                                 ).half(), 1), plan)):
+        for out_dtype, view in ((torch.float16, torch.int16), (torch.float32, torch.int32)):
+            ours = margin_stitch(tiles, CHUNK, pl, out_dtype)
+            torch.cuda.synchronize()
+            ref = margin_stitch_plain(tiles, CHUNK, pl, out_dtype)
+            if not torch.equal(ours.view(view), ref.view(view)):
+                raise AssertionError(f"K5 {what} {out_dtype}: kernel differs from plain")
+        log(f"[kernels heads] k5_margin_stitch, c=2, {what}: bit-equal to plain in float16 and "
+            f"float32 | kernel {timer(lambda: margin_stitch(tiles, CHUNK, pl)):.4f} ms")
         del tiles, ours, ref
     torch.cuda.empty_cache()
     return rows
@@ -1626,7 +1661,8 @@ def phase_heads(torch, dev, kernels, heads) -> None:
                 raise AssertionError(f"{h}: the device-resident chunk program disagrees with "
                                      "PredictMultiOutput")
             del ours, ref
-        profile_pass(torch, run, "heads", f"{HEADS_FRAMES} frames")
+        profile_pass(torch, run, "heads", f"{HEADS_FRAMES} frames",
+                     (("K5", "margin_stitch"), ("K5s", "tile_sum_partial|tile_sum_final")))
         del movie_dev, outs
 
         mp = HEADS_FRAMES * H * W / 1e6
@@ -1974,6 +2010,7 @@ def phase_kernels_3d(torch, dev) -> list:
     from bio_image_unet_tpu_torch.predict.normalize import (normalize_tile_3d,
                                                             normalize_tile_3d_plain)
     from bio_image_unet_tpu_torch.predict.tiling import TilePlan3D
+    from bio_image_unet_tpu_torch.utils.kernel_ab_times import offset_view
 
     timer = Timer(torch, dev)
     g = torch.Generator(device=dev).manual_seed(4)
@@ -2088,6 +2125,28 @@ def phase_kernels_3d(torch, dev) -> list:
             # per voxel a divide
             bound_ms(nh * c * hvox * 2 + out_vox * 2, 4 * nh * c * hvox + out_vox), None)
         del tiles
+
+    # K5v on the main grid's tiles viewed at an odd float16 offset, and on 150
+    # one-tile volumes of (880, 8, 8) x 2 channels: 66000 groups of 4 planes
+    # of one z, more than one launch's 65535; both out types
+    stack = TilePlan3D(880, 8, 8, (880, 8, 8), [0], [0], [0], dev,
+                       [np.ones((1, t), np.float32) for t in (880, 8, 8)])
+    for what, tiles, pl, nv in (
+            ("tiles at an odd float16 offset",
+             offset_view(torch, (torch.rand((nh, 1) + MO3_PATCH, generator=g, device=dev) * 4
+                                 - 2).half(), 1), hplan, MO3_VOLS),
+            ("150 one-tile volumes, 66000 plane groups",
+             (torch.rand((150, 2, 880, 8, 8), generator=g, device=dev) * 4 - 2).half(), stack,
+             150)):
+        for out_dtype, view in ((torch.float16, torch.int16), (torch.float32, torch.int32)):
+            ours = blend_stitch_3d(tiles, nv, pl, out_dtype)
+            torch.cuda.synchronize()
+            ref = blend_stitch_3d_plain(tiles, nv, pl, out_dtype)
+            if not torch.equal(ours.view(view), ref.view(view)):
+                raise AssertionError(f"K5v {what} {out_dtype}: kernel differs from plain")
+        log(f"[kernels 3d] k5v_blend_stitch_3d, {what}: bit-equal to plain in float16 and "
+            f"float32 | kernel {timer(lambda: blend_stitch_3d(tiles, nv, pl)):.4f} ms")
+        del tiles, ours, ref
     torch.cuda.empty_cache()
     return rows
 
@@ -2321,7 +2380,7 @@ def phase_3d_heads(torch, dev, kernels, k3d) -> None:
             if same != 0.0:
                 raise AssertionError(f"{h}: the device-resident program disagrees")
         profile_pass(torch, lambda: [fn(vols_dev) for _ in range(2)], "3d heads",
-                     f"two passes over {MO3_VOLS} volumes")
+                     f"two passes over {MO3_VOLS} volumes", (("K5v", "blend_stitch_3d"),))
         del vols_dev, out
         mvox = MO3_VOLS * VOL_D * VOL_H * VOL_W / 1e6
         e2e, resident = mvox / best, mvox / best_dev

@@ -7,7 +7,10 @@ grid's row buffers too), K11 and K11v likewise, and ``quantized=True``
 prediction (2D, UNet++, AttentionUnet and 3D) on the card within the int8
 contract of the CPU's.  K6 and K10 (redesigned with register tiles and
 16-byte vectors) are bit-equal to their plain versions at every shape and
-vector width tested.
+vector width tested, and so are K5 and K5v (runs of 8 outputs from aligned
+16-byte loads) on tiles at an odd float16 offset, on column starts off 8,
+past K5_STAGED column tiles and K5_ITEMS row covers, and past 65535 plane
+groups.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -56,6 +59,7 @@ from bio_image_unet_tpu_torch.predict.tiling import (TilePlan, TilePlan3D, _blen
                                                      _margin_factors, grid_starts,
                                                      overlap_starts)
 from bio_image_unet_tpu_torch.train import Trainer
+from bio_image_unet_tpu_torch.utils.kernel_ab_times import offset_view
 from bio_image_unet_tpu_torch.utils.synth import blob_sample
 from chip_smoke import write_warm_checkpoint
 
@@ -337,12 +341,29 @@ def test_normalize_tile_float_kernel_equals_plain(cuda, gen, case):
 
 
 K5_CASES = [
-    # id, (frames, h, w), tile, add_tile, margin, channels, batch padding
-    ("exact", (3, 128, 128), 64, 0, 8, 1, 0),
-    ("overlap-2ch", (2, 100, 90), 32, 1, 4, 2, 3),
-    ("reflect-pad", (2, 48, 80), 64, 0, 5, 2, 0),
-    ("margin0-odd-tile", (2, 70, 70), 30, 1, 0, 1, 1),
+    # id, (frames, h, w), tile, add_tile, margin, channels, batch padding,
+    # float16 offset of the tiles' view
+    ("exact", (3, 128, 128), 64, 0, 8, 1, 0, 0),
+    ("overlap-2ch", (2, 100, 90), 32, 1, 4, 2, 3, 0),
+    ("reflect-pad", (2, 48, 80), 64, 0, 5, 2, 0, 0),
+    ("margin0-odd-tile", (2, 70, 70), 30, 1, 0, 1, 1, 0),
+    # column starts 0 and 491 (3 mod 8) and rows of 1003 values: unaligned
+    # tile reads and output rows
+    ("starts-off-8-1000x1003", (2, 1000, 1003), 512, 0, 20, 1, 0, 0),
+    ("odd-offset-view", (2, 100, 90), 32, 1, 4, 2, 1, 1),
+    # 8 column tiles over one 256-column strip: fy read from device memory
+    ("eight-column-tiles", (2, 40, 200), 32, 1, 4, 1, 0, 0),
+    # seven tiles cover each row: the rows' covers read from device memory
+    ("seven-row-covers", (2, 40, 70), 32, 5, 4, 1, 0, 0),
+    # 131100 frames x 2 channels: 65550 groups of 4 planes, two launches
+    ("plane-groups-over-65535", (131100, 8, 8), 8, 0, 2, 2, 0, 0),
 ]
+
+
+def _offset_view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    view = offset_view(torch, t, offset)
+    assert view.is_contiguous() and view.data_ptr() % 16 == (offset * t.element_size()) % 16
+    return view
 
 
 @pytest.mark.parametrize("case", K5_CASES, ids=[c[0] for c in K5_CASES])
@@ -350,12 +371,12 @@ def test_margin_stitch_and_tile_sum_kernels_equal_plain(cuda, gen, case):
     """K5 bit-equal to its plain version in float16 and float32 (the same
     additions in the same order); K5s's float64 sum of float16 values is
     exact, so it equals the plain sum, and so does the fill."""
-    _, (n_frames, h, w), t, add, margin, c, extra = case
+    _, (n_frames, h, w), t, add, margin, c, extra, offset = case
     xs, ys = grid_starts(max(h, t), t, add), grid_starts(max(w, t), t, add)
     plan = TilePlan(h, w, t, t, xs, ys, cuda, _margin_factors((len(xs), len(ys)), (t, t), margin))
     n = n_frames * plan.per_frame
-    tiles = torch.from_numpy((gen.standard_normal((n + extra, c, t, t)) * 2)
-                             .astype(np.float16)).to(cuda)
+    tiles = _offset_view(torch.from_numpy((gen.standard_normal((n + extra, c, t, t)) * 2)
+                                          .astype(np.float16)).to(cuda), offset)
     for out_dtype in (torch.float16, torch.float32):
         before = margin_stitch.launches
         ours = margin_stitch(tiles, n_frames, plan, out_dtype)
@@ -642,11 +663,20 @@ def test_sigmoid_stitch_3d_kernel_equals_plain(cuda, gen, case):
 
 
 K5V_CASES = [
-    # name, (V, d, h, w), max tile, overlap, margin, channels, batch pad
-    ("two-volumes-2ch", (2, 12, 40, 36), (8, 32, 32), 0.1, 4, 2, 0),
-    ("margin-over-tile", (1, 10, 24, 40), (6, 16, 16), 0.25, 8, 1, 3),
-    ("uncovered-seams", (1, 8, 33, 33), (8, 16, 16), 0.0, 5, 1, 0),
-    ("main-path", (2, 64, 512, 512), (64, 256, 256), 0.1, 16, 2, 0),
+    # name, (V, d, h, w), max tile, overlap, margin, channels, batch pad,
+    # float16 offset of the tiles' view
+    ("two-volumes-2ch", (2, 12, 40, 36), (8, 32, 32), 0.1, 4, 2, 0, 0),
+    ("margin-over-tile", (1, 10, 24, 40), (6, 16, 16), 0.25, 8, 1, 3, 0),
+    ("uncovered-seams", (1, 8, 33, 33), (8, 16, 16), 0.0, 5, 1, 0, 0),
+    ("main-path", (2, 64, 512, 512), (64, 256, 256), 0.1, 16, 2, 0, 0),
+    ("main-path-odd-offset-view", (1, 16, 512, 512), (16, 256, 256), 0.1, 16, 1, 0, 1),
+    # 13 column tiles over one 256-column strip: fy read from device memory
+    ("thirteen-column-tiles", (1, 4, 24, 150), (4, 16, 16), 0.25, 4, 1, 0, 0),
+    # 2 z covers x 4 row covers: the rows' covers read from device memory
+    ("eight-covers-a-row", (1, 12, 40, 36), (8, 16, 16), 0.75, 4, 1, 0, 0),
+    # 150 one-tile volumes x 2 channels x 880 planes: 66000 groups of 4 planes
+    # of one z, two launches
+    ("plane-groups-over-65535", (150, 880, 8, 8), (880, 8, 8), 0.1, 16, 2, 0, 0),
 ]
 
 
@@ -654,13 +684,13 @@ K5V_CASES = [
 def test_blend_stitch_3d_kernel_equals_plain(cuda, gen, case):
     """K5v bit-equal to its plain version in float16 and float32: the same
     fused multiply-adds in the same order, the same division."""
-    _, (n_vols, d, h, w), max_tile, overlap, margin, c, extra = case
+    _, (n_vols, d, h, w), max_tile, overlap, margin, c, extra, offset = case
     tile = tuple(min(e, m) for e, m in zip((d, h, w), max_tile))
     starts = [overlap_starts(e, t, overlap) for e, t in zip((d, h, w), tile)]
     plan = TilePlan3D(d, h, w, tile, *starts, cuda,
                       _blend_factors([len(s) for s in starts], tile, margin))
     n = n_vols * plan.per_volume
-    tiles = (torch.randn((n + extra, c) + tile, device=cuda) * 2).half()
+    tiles = _offset_view((torch.randn((n + extra, c) + tile, device=cuda) * 2).half(), offset)
     for out_dtype in (torch.float16, torch.float32):
         before = blend_stitch_3d.launches
         ours = blend_stitch_3d(tiles, n_vols, plan, out_dtype)

@@ -38,7 +38,8 @@ from bio_image_unet_tpu_torch.interop import state_dict_from_jax
 from bio_image_unet_tpu_torch.models import get_model
 from bio_image_unet_tpu_torch.ops.blocks import VGGBlock, init_weights_
 from bio_image_unet_tpu_torch.ops.functional import upsample_linear
-from bio_image_unet_tpu_torch.ops.stitch import margin_stitch, tile_sum
+from bio_image_unet_tpu_torch.ops.stitch import (_fma_f32, blend_stitch_3d_plain, margin_stitch,
+                                                  margin_stitch_plain, tile_sum)
 from bio_image_unet_tpu_torch.predict import PredictMultiOutput
 from bio_image_unet_tpu_torch.predict import tiling
 from bio_image_unet_tpu_torch.predict.fastpath import folded_forward
@@ -382,6 +383,161 @@ def test_margin_stitch_and_fill_bit_equal_to_jax(rng, case):
             else:
                 err = np.abs(filled - want[~covered]).max()
                 assert err <= 1e-6 * np.abs(tiles.astype(np.float64)).mean(), (name, err)
+
+
+def _div_rn(a, b, err: float) -> np.ndarray:
+    """``csrc/margin_stitch.cu`` ``div_rn`` on float32 arrays (b > 0), with
+    the hardware estimate of 1/b off by the relative error ``err``.  Its
+    float64 steps are separate IEEE operations (``-fmad=false``), so numpy
+    repeats them bit for bit."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    m, bd = np.abs(a.astype(np.float64)), b.astype(np.float64)
+    y = (1.0 / bd * (1.0 + err)).astype(np.float32).astype(np.float64)
+    y = y * (2.0 - bd * y)
+    q = (m * y).astype(np.float32)
+    r = m - bd * q.astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        up = (q.view(np.uint32) + np.uint32(1)).view(np.float32)
+        dn = (q.view(np.uint32) - np.uint32(1)).view(np.float32)
+        q = np.where(r > bd * (0.5 * (up.astype(np.float64) - q)), up,
+                     np.where(-r > bd * (0.5 * (q.astype(np.float64) - dn)), dn, q))
+    return np.copysign(q, a)
+
+
+def _quotient(acc, wsum, err: float) -> np.ndarray:
+    """``quotient``: a power-of-two weight sum divides as a multiply by its
+    exact reciprocal, any other through ``div_rn``."""
+    acc, wsum = np.asarray(acc, np.float32), np.asarray(wsum, np.float32)
+    bits = wsum.view(np.uint32)
+    pow2 = (bits & np.uint32(0x7FFFFF)) == 0
+    recip = (np.uint32(0x7F000000) - np.where(pow2, bits, np.uint32(0x3F800000))).view(np.float32)
+    return np.where(pow2, acc * recip, _div_rn(acc, np.where(pow2, np.float32(1), wsum), err))
+
+
+@pytest.mark.parametrize("err", [0.0, 2.0 ** -21, -(2.0 ** -21)])
+def test_k5_division_rounds_as_ieee_division(rng, err):
+    """K5's and K5v's quotient (``div_rn``: one float64 Newton step from a
+    hardware estimate off by up to 2^-21, the float nearest the product, then
+    an exact residual that moves it to the neighbour across the midpoint)
+    equals IEEE float32 division, and so ``__fdiv_rn`` and the plain
+    versions' ``acc / wsum``: weight sums of the blend ramps and of binary
+    margins, random and edge numerators (quotients at binade edges, 0,
+    negatives, float16 extremes)."""
+    ramp = np.arange(16, dtype=np.float32) / np.float32(16)
+    ramp5 = np.arange(5, dtype=np.float32) / np.float32(5)
+    sums = np.concatenate([
+        np.float32(1) + ramp, ramp[1:] + ramp[::-1][:-1], ramp5[1:], ramp5[1:] + ramp5[::-1][:-1],
+        np.arange(1, 9, dtype=np.float32),
+        rng.uniform(0.05, 8.0, 4000).astype(np.float32)]).astype(np.float32)
+    b = np.repeat(sums, 64)
+    scale = rng.choice([1e-3, 1.0, 300.0, 6e4], b.size)
+    a = (rng.standard_normal(b.size) * scale).astype(np.float32)
+    # numerators whose quotient lies next to a power of two
+    edge = (np.float32(2) ** rng.integers(-10, 10, b.size)).astype(np.float32)
+    for k in (-2, -1, 0, 1, 2):
+        a_edge = (edge.view(np.int32) + k).view(np.float32) * b
+        a = np.concatenate([a, a_edge.astype(np.float32), -a_edge.astype(np.float32)])
+    a = np.concatenate([a, np.zeros(16, np.float32), np.float32([2 ** -24, 65504, -65504] * 8)])
+    b = np.resize(b, a.size)
+    np.testing.assert_array_equal(_div_rn(a, b, err).view(np.uint32), (a / b).view(np.uint32))
+    pow2 = np.float32([0.25, 0.5, 1, 2, 4, 8])
+    np.testing.assert_array_equal(_quotient(a[:pow2.size * 100], np.resize(pow2, 600), err).view(
+        np.uint32), (a[:600] / np.resize(pow2, 600)).view(np.uint32))
+
+
+def _stitch_rows_emulated(tiles: np.ndarray, n_units: int, plan, vol: bool, err: float):
+    """``csrc/margin_stitch.cu`` ``stitch_rows`` on the CPU, float32 out:
+    each row in runs of 8 outputs; for every z and row cover, every column
+    tile of the run's range, with the outputs it does not cover masked out;
+    K5's multiply and add (``vol`` False) or K5v's fused multiply-add; the
+    quotient as above."""
+    if vol:
+        (tz, tx, ty), d = plan.tile, plan.d
+        zs, fz, fx, fy = plan.zs, *plan.factors
+    else:
+        (tz, tx, ty), d = (1, plan.th, plan.tw), 1
+        zs, fz, (fx, fy) = np.zeros(1, np.int64), np.ones((1, 1), np.float32), plan.factors
+    h, w, xs, ys = plan.h, plan.w, plan.xs, plan.ys
+    nz, nx, ny, c = len(zs), len(xs), len(ys), tiles.shape[1]
+    z_lo, z_hi = tiling.cover_ranges(zs, tz, d)
+    row_lo, row_hi = tiling.cover_ranges(xs, tx, h)
+    col_lo, col_hi = tiling.cover_ranges(ys, ty, w)
+    t = tiles.astype(np.float32).reshape(n_units, nz, nx, ny, c, tz, tx, ty)
+    q0 = np.arange(0, w, 8)
+    n = np.minimum(8, w - q0)
+    e = np.arange(8)
+    jlo, jhi = col_lo[q0], col_hi[q0 + n - 1]
+    out = np.empty((n_units, c, d, h, w), np.float32)
+    for z in range(d):
+        for r in range(h):
+            acc = np.zeros((n_units, c, q0.size, 8), np.float32)
+            wsum = np.zeros((q0.size, 8), np.float32)
+            for k in range(z_lo[z], z_hi[z]):
+                tzo = z - zs[k]
+                for i in range(row_lo[r], row_hi[r]):
+                    txo = r - xs[i]
+                    wzx = np.minimum(fz[k, tzo], fx[i, txo]) if vol else fx[i, txo]
+                    row = t[:, k, i, :, :, tzo, txo, :]  # (units, ny, c, ty)
+                    for s in range(int((jhi - jlo).max(initial=0))):
+                        j = np.minimum(jlo + s, ny - 1)
+                        o = q0 - ys[j]
+                        valid = ((jlo + s < jhi)[:, None] & (e >= np.maximum(0, -o)[:, None])
+                                 & (e < np.minimum(n, ty - o)[:, None]))
+                        col = np.clip(o[:, None] + e, 0, ty - 1)
+                        v = np.moveaxis(row[:, j[:, None], :, col], (0, 1), (2, 3))
+                        wt = np.minimum(wzx, fy[j[:, None], col]).astype(np.float32)
+                        if vol:
+                            step = _fma_f32(torch.from_numpy(np.ascontiguousarray(v)),
+                                            torch.from_numpy(np.broadcast_to(wt, v.shape).copy()),
+                                            torch.from_numpy(acc)).numpy()
+                        else:
+                            step = acc + v * wt
+                        acc = np.where(valid, step, acc)
+                        wsum = np.where(valid, wsum + wt, wsum)
+            res = np.where(wsum > 0, _quotient(acc, np.where(wsum > 0, wsum, 1), err), 0)
+            out[:, :, z, r] = res.reshape(n_units, c, -1)[..., :w]
+    return out if vol else out[:, :, 0]
+
+
+RUN_LOOP_CASES = [
+    # name, 3D, (units, d, h, w), tile, starts (None: grid_starts), margin, channels, err
+    ("config4-exact-1024", False, (1, 1, 1024, 1024), 512, None, 20, 1, 0.0),
+    ("starts-0-491-1000x1003", False, (1, 1, 1000, 1003), 512, None, 20, 2, 2.0 ** -21),
+    ("three-covers-add-tile", False, (1, 1, 1000, 1000), 512, (0, 244, 488), 20, 1, -(2.0 ** -21)),
+    ("eight-column-tiles", False, (2, 1, 40, 200), 32, "add1", 4, 1, 2.0 ** -21),
+    ("3d-main-inplane", True, (1, 2, 512, 512), (2, 256, 256), "overlap", 16, 1, -(2.0 ** -21)),
+    ("3d-z-seams", True, (2, 12, 40, 36), (8, 32, 32), "overlap", 4, 2, 2.0 ** -21),
+]
+
+
+@pytest.mark.parametrize("case", RUN_LOOP_CASES, ids=[c[0] for c in RUN_LOOP_CASES])
+def test_k5_run_loop_bit_equal_to_plain(rng, case):
+    """The kernels' loop (runs of 8 outputs over the union of their column
+    tiles, uncovered outputs masked, the quotient by ``div_rn`` or an exact
+    reciprocal) gives every output the plain versions' sum in the scan's
+    order, bit for bit, on the paths' geometry: config 4's exact 1024² grid
+    in 512² tiles, column starts off 8, an overlapping grid with three covers
+    an axis, a strip of eight column tiles, and PredictMultiOutput3D's
+    in-plane grid (starts 0, 230, 256) at a small depth."""
+    name, vol, (n_units, d, h, w), tile, starts, margin, c, err = case
+    if vol:
+        tile = tuple(min(e, t) for e, t in zip((d, h, w), tile))
+        grid = [tiling.overlap_starts(e, t, 0.1) for e, t in zip((d, h, w), tile)]
+        plan = tiling.TilePlan3D(d, h, w, tile, *grid, "cpu",
+                                 tiling._blend_factors([len(g) for g in grid], tile, margin))
+        tiles = (rng.standard_normal((n_units * plan.per_volume, c) + tile) * 2).astype(np.float16)
+        ref = blend_stitch_3d_plain(torch.from_numpy(tiles), n_units, plan, torch.float32)
+    else:
+        add = 1 if starts == "add1" else 0
+        xs = tiling.grid_starts(h, tile, add) if not isinstance(starts, tuple) else starts
+        ys = tiling.grid_starts(w, tile, add) if not isinstance(starts, tuple) else starts
+        plan = tiling.TilePlan(h, w, tile, tile, xs, ys, "cpu",
+                               tiling._margin_factors((len(xs), len(ys)), (tile, tile), margin))
+        tiles = (rng.standard_normal((n_units * plan.per_frame, c, tile, tile)) * 2
+                 ).astype(np.float16)
+        ref = margin_stitch_plain(torch.from_numpy(tiles), n_units, plan, torch.float32)
+    ours = _stitch_rows_emulated(tiles, n_units, plan, vol, err)
+    np.testing.assert_array_equal(ours.view(np.uint32), ref.numpy().view(np.uint32), err_msg=name)
 
 
 def test_stitch_wrappers_refuse_bad_arguments():

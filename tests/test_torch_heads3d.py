@@ -150,6 +150,9 @@ K5V_CASES = [
     ("margin-over-tile", (1, 10, 24, 40), (6, 16, 16), 0.25, 8, 1),
     ("uncovered-seams", (1, 8, 33, 33), (8, 16, 16), 0.0, 5, 1),
     ("one-tile", (2, 6, 16, 16), (8, 32, 32), 0.1, 4, 2),
+    # PredictMultiOutput3D's in-plane grid on the card: 512^2 planes in 256^2
+    # tiles, overlap 0.1 (starts 0, 230, 256), margin 16; depth cut to 4
+    ("main-path-inplane", (1, 4, 512, 512), (4, 256, 256), 0.1, 16, 2),
 ]
 
 
