@@ -12,7 +12,8 @@ JAX package's, so each module's counterpart is easy to find:
 - :mod:`~bio_image_unet_tpu_torch.interop`    — JAX variables → the port's state dict
 - :mod:`~bio_image_unet_tpu_torch.ops`        — blocks and the hand-written kernels
   (K1 clip bounds with its Siam pair-row form, K3/K3v sigmoid + stitch, K5/K5s
-  safe-margin stitch, K5v 3D blend stitch, K6 depthwise cross-correlation,
+  safe-margin stitch, K5v 3D blend stitch, K6 depthwise cross-correlation and
+  K6b its backward,
   K7–K10 the int8 trunk's conv, up-conv, requant and max pool) with their
   plain PyTorch versions
 - :mod:`~bio_image_unet_tpu_torch.predict`    — BN fold, K2/K2h/K2v/K2p
@@ -21,19 +22,20 @@ JAX package's, so each module's counterpart is easy to find:
   ``PredictSiam``, ``Predict3D`` and ``PredictMultiOutput3D`` (fused device
   pipeline and host-staged path)
 - :mod:`~bio_image_unet_tpu_torch.data`       — the TIFF codec, ``DataProcess2D``,
-  ``DataProcessMultiOutput``, ``DataProcess3D``, ``DataProcessMultiOutput3D``
+  ``DataProcessSiam``, ``DataProcessMultiOutput``, ``DataProcess3D``, ``DataProcessMultiOutput3D``
   and their loader, host augmentation, and the K4 / K4h / K4v / K4hv
   on-device augmentation
 - :mod:`~bio_image_unet_tpu_torch.losses`     — the loss zoo
 - :mod:`~bio_image_unet_tpu_torch.train`      — the ``Trainer`` of the 2D ``Unet``,
-  the multi-output family (``MultiOutputUnet``, both UNet++ depths), ``UNet3D``
-  and ``MultiOutputUnet3D``; Siam training is not ported yet
+  ``Siam_UNet`` (``mode=``), the multi-output family (``MultiOutputUnet``, both
+  UNet++ depths), ``UNet3D`` and ``MultiOutputUnet3D``
 - :mod:`~bio_image_unet_tpu_torch.unet`, :mod:`~bio_image_unet_tpu_torch.multi_output_unet`,
   :mod:`~bio_image_unet_tpu_torch.unet3d`,
   :mod:`~bio_image_unet_tpu_torch.multi_output_unet3d` — the facades
   (DataProcess, Trainer, Predict); :mod:`~bio_image_unet_tpu_torch.siam_unet` —
-  the Siam facade (Predict, ``Siam_UNet``, the losses; its DataProcess and
-  Trainer raise until Siam training is ported)
+  the Siam facade (DataProcess, Trainer, Predict, ``Siam_UNet``, the losses)
+- :mod:`~bio_image_unet_tpu_torch.tools`      — host helpers: the Siam
+  training-input generators
 - :mod:`~bio_image_unet_tpu_torch.utils`      — device rule, synthetic data,
   TIFF saving, the TensorBoard event writer
 

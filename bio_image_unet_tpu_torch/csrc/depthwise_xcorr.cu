@@ -53,6 +53,25 @@
 // time, its tap range clipped to the plane exactly and walked in the same
 // order.  No Siam path at its tiles' sizes runs it (their planes are the
 // tile / 16); the wrapper raises above it.
+//
+// K6b: the two gradients of K6, which the Siam trainer's corr join needs
+// (JAX differentiates the grouped conv with jax.grad).  Given g = dL/dout
+// (B, C, H, W) and the forward's padding (ph = (KH-1)/2 before):
+// - grad input (xcorr_grad_input): dcur[y,x] = sum_{u,v} g[y+ph-u, x+pw-v]
+//   prev[u,v], g correlated with the flipped kernel, the padding swapped
+//   (KH/2 before, (KH-1)/2 after: for even kernels the two differ);
+// - grad kernel (xcorr_grad_kernel): dprev[u,v] = sum_{y,x} g[y,x]
+//   cur[y+u-ph, x+v-pw], a reduction over the whole plane for each tap.
+// Both are the plane form's design: one block a (batch, channel) plane, g
+// and the other operand staged as float32 in shared memory without a halo,
+// one output a thread at a time, its range clipped to the plane exactly
+// and walked in the plain versions' order (u then v; y then x), products
+// and sums separately rounded: equal bit for bit to
+// ops/functional.py depthwise_xcorr_grad_input_plain / _kernel_plain on
+// finite inputs (a skipped tap adds a zero product to a sum that started
+// at +0, which never changes it).  Bound on the card by operations: at the
+// Siam trainer's (12, 256, 16, 16) a form makes 113 M products on real
+// pixels; the launch and the staging dominate there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -330,6 +349,91 @@ xcorr_plane(const T* __restrict__ cur, const T* __restrict__ ker, T* __restrict_
   }
 }
 
+// rows x cols of the (b, c) plane of src (element strides st) into dst as
+// float32, row-major
+template <typename T>
+__device__ void stage_plane(const T* __restrict__ src, const Strides& st, int b, int c,
+                            float* dst, int rows, int cols) {
+  const T* x = src + (b * st.b + c * st.c);
+  for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+    const int y = e / cols;
+    dst[e] = stage_value(x + (y * st.h + (e - y * cols) * st.w), float());
+  }
+}
+
+// K6b grad input: g (B, C, H, W), ker (B, C, KH, KW) -> out (B, C, H, W)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+xcorr_grad_input(const T* __restrict__ g, const T* __restrict__ ker, T* __restrict__ out,
+                 Shape sh, Strides sg, Strides sk, Strides so) {
+  extern __shared__ __align__(16) float sm[];
+  const int hw = sh.H * sh.W;
+  float* sgr = sm;       // [H][W]
+  float* skr = sm + hw;  // [KH][KW]
+  const int p = blockIdx.x, b = p / sh.C, c = p - b * sh.C;
+  stage_plane(g, sg, b, c, sgr, sh.H, sh.W);
+  stage_plane(ker, sk, b, c, skr, sh.KH, sh.KW);
+  __syncthreads();
+
+  const int ph = (sh.KH - 1) / 2, pw = (sh.KW - 1) / 2;
+  T* o = out + (b * so.b + c * so.c);
+  for (int e = threadIdx.x; e < hw; e += blockDim.x) {
+    const int i = e / sh.W, j = e - i * sh.W;
+    // the taps whose g[i + ph - u, j + pw - v] lies inside the plane
+    const int u0 = max(0, i + ph - sh.H + 1), u1 = min(sh.KH, i + ph + 1);
+    const int v0 = max(0, j + pw - sh.W + 1), v1 = min(sh.KW, j + pw + 1);
+    float acc = 0.0f;
+    for (int u = u0; u < u1; ++u) {
+      const int gr = (i + ph - u) * sh.W + j + pw, kr = u * sh.KW;
+      for (int v = v0; v < v1; ++v) acc = __fadd_rn(acc, __fmul_rn(sgr[gr - v], skr[kr + v]));
+    }
+    store(o + (i * so.h + j * so.w), acc);
+  }
+}
+
+// K6b grad kernel: g (B, C, H, W), cur (B, C, H, W) -> out (B, C, KH, KW)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+xcorr_grad_kernel(const T* __restrict__ g, const T* __restrict__ cur, T* __restrict__ out,
+                  Shape sh, Strides sg, Strides sc, Strides so) {
+  extern __shared__ __align__(16) float sm[];
+  const int hw = sh.H * sh.W;
+  float* sgr = sm;       // [H][W]
+  float* scr = sm + hw;  // [H][W]
+  const int p = blockIdx.x, b = p / sh.C, c = p - b * sh.C;
+  stage_plane(g, sg, b, c, sgr, sh.H, sh.W);
+  stage_plane(cur, sc, b, c, scr, sh.H, sh.W);
+  __syncthreads();
+
+  const int ph = (sh.KH - 1) / 2, pw = (sh.KW - 1) / 2;
+  T* o = out + (b * so.b + c * so.c);
+  for (int e = threadIdx.x; e < sh.KH * sh.KW; e += blockDim.x) {
+    const int u = e / sh.KW, v = e - u * sh.KW;
+    // the outputs whose cur[y + u - ph, x + v - pw] lies inside the plane
+    const int y0 = max(0, ph - u), y1 = min(sh.H, sh.H + ph - u);
+    const int x0 = max(0, pw - v), x1 = min(sh.W, sh.W + pw - v);
+    float acc = 0.0f;
+    for (int y = y0; y < y1; ++y) {
+      const int gr = y * sh.W, cr = (y + u - ph) * sh.W + v - pw;
+      for (int x = x0; x < x1; ++x) acc = __fadd_rn(acc, __fmul_rn(sgr[gr + x], scr[cr + x]));
+    }
+    store(o + (u * so.h + v * so.w), acc);
+  }
+}
+
+template <typename T>
+int launch_grad(int kernel_grad, const void* g, const void* other, void* out, const Shape& sh,
+                const Strides& sg, const Strides& sx, const Strides& so, void* stream) {
+  const int smem = (sh.H * sh.W + (kernel_grad ? sh.H * sh.W : sh.KH * sh.KW)) *
+                   (int)sizeof(float);
+  auto fn = kernel_grad ? xcorr_grad_kernel<T> : xcorr_grad_input<T>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<(unsigned)sh.planes, THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)g, (const T*)other, (T*)out, sh, sg, sx, so);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_plane(const void* cur, const void* ker, void* out, const Shape& sh,
                  const Strides& sc, const Strides& sk, const Strides& so, void* stream) {
@@ -406,6 +510,25 @@ int k6_depthwise_xcorr_plane(const void* cur, const void* ker, void* out, int is
   if (is_bf16)
     return launch_plane<__nv_bfloat16>(cur, ker, out, sh, sc, sk, so, stream);
   return launch_plane<float>(cur, ker, out, sh, sc, sk, so, stream);
+}
+
+// K6b: kernel_grad 0 = the input's gradient (other = the kernel (B, C, KH,
+// KW), out (B, C, H, W)), 1 = the kernel's (other = cur (B, C, H, W), out
+// (B, C, KH, KW)); g (B, C, H, W); element strides (b, c, h, w) each, any
+// layout; the staged planes, (H W + KH KW) or 2 H W float32, within the
+// block's shared memory (cudaFuncSetAttribute refuses more).  One launch.
+int k6b_depthwise_xcorr_grad(int kernel_grad, const void* g, const void* other, void* out,
+                             int is_bf16, int B, int C, int H, int W, int KH, int KW,
+                             long long gb, long long gc, long long gh, long long gw,
+                             long long xb, long long xc, long long xh, long long xw,
+                             long long ob, long long oc, long long oh, long long ow,
+                             void* stream) {
+  if (B * C == 0) return 0;
+  const Shape sh{B * C, C, H, W, KH, KW};
+  const Strides sg{gb, gc, gh, gw}, sx{xb, xc, xh, xw}, so{ob, oc, oh, ow};
+  if (is_bf16)
+    return launch_grad<__nv_bfloat16>(kernel_grad, g, other, out, sh, sg, sx, so, stream);
+  return launch_grad<float>(kernel_grad, g, other, out, sh, sg, sx, so, stream);
 }
 
 }  // extern "C"

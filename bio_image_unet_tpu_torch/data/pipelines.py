@@ -1,6 +1,6 @@
 """The training-data pipelines and their loader (the port's copy of
-``bio_image_unet_tpu/data/pipelines.py`` but its Siam pipeline: helpers
-:54-183, ``DataProcess2D`` :191-352, ``DataProcess3D`` :538-683,
+``bio_image_unet_tpu/data/pipelines.py``: helpers :54-183, ``DataProcess2D``
+:191-352, ``DataProcessSiam`` :360-535, ``DataProcess3D`` :538-683,
 ``DataProcessMultiOutput`` :686-843, ``DataProcessMultiOutput3D`` :851-968,
 ``Subset`` :971, ``random_split`` :983, ``DataLoader`` :993).
 
@@ -8,7 +8,8 @@ The on-disk layout, the tiling rule and the augmentation stream are the JAX
 package's, so the same source TIFFs and seed give bit-equal tiles.  One
 difference, the torch idiom: items are channels-first float32 numpy arrays,
 ``{'image': (C, H, W), 'mask': (C, H, W)}`` in [0, 1] (JAX: HWC), or for
-volumes ``{'volume': (1, Z, X, Y), 'mask': (1, Z, X, Y)}`` (JAX: ZXYC), and
+volumes ``{'volume': (1, Z, X, Y), 'mask': (1, Z, X, Y)}`` (JAX: ZXYC), the
+Siam pairs ``{'image', 'mask', 'prev_image'}`` each (1, H, W), and
 the loader stacks them to (B, C, ...).  Shuffles keep
 ``np.random.default_rng``, so a seed gives the JAX Trainer's split and batch
 order.
@@ -31,7 +32,8 @@ from .augment import (Blur, Compose, GaussNoise, MultiplicativeNoise, PadIfNeede
                       RandomScale, ShiftScaleRotate, ShiftScaleRotate3D, ShotNoise,
                       rotate_array, rotate_array_90)
 
-__all__ = ["clip_and_normalize", "edit_mask", "tile_starts", "DataProcess2D", "DataProcess3D",
+__all__ = ["clip_and_normalize", "edit_mask", "tile_starts", "DataProcess2D",
+           "DataProcessSiam", "DataProcess3D",
            "DataProcessMultiOutput", "DataProcessMultiOutput3D", "Subset", "random_split",
            "DataLoader"]
 
@@ -274,6 +276,167 @@ class DataProcess2D(_TileDataset):
             image = _read_split_chw(os.path.join(self.split_image_path, f"{idx}.tif"))
             mask = _read_split_chw(os.path.join(self.split_mask_path, f"{idx}.tif"))
         return {"image": image, "mask": mask}
+
+
+class DataProcessSiam(_TileDataset):
+    """Frame-pair pipeline (``pipelines.py:360``; reference siam_unet/data.py:
+    15-289): inputs are W-doubled images (the left half is the previous
+    frame) or 2-layer stacks (the first layer is); masks are thresholded,
+    inverted, skeletonized and dilated; merge stores (mask, image, prev) and
+    the augmentation moves image and prev together.  Items are
+    ``{'image', 'mask', 'prev_image'}``, each (1, H, W) float32 in [0, 1]."""
+
+    def __init__(self, source_dir, dim_out=(256, 256), aug_factor=10,
+                 data_path="../data/", file_ext=".tif", threshold_masks=50,
+                 dilate_mask=0, dilate_kernel="disk", val_split=0.2,
+                 invert_masks=False, skeletonize=False, create=True,
+                 clip_threshold=(0.2, 99.8), shiftscalerotate=(0, 0, 0),
+                 noise_amp=10, brightness_contrast=(0.25, 0.25), rescale=None,
+                 cache=True, seed: Optional[int] = None):
+        super().__init__(cache)
+        self.source_dir = source_dir
+        self.data_path = data_path
+        self.file_ext = file_ext
+        self.dim_out = tuple(dim_out)
+        self.aug_factor = aug_factor
+        self.threshold_masks = threshold_masks
+        self.skeletonize = skeletonize
+        self.invert_masks = invert_masks
+        self.clip_threshold = clip_threshold
+        self.shiftscalerotate = shiftscalerotate
+        self.brightness_contrast = brightness_contrast
+        self.noise_amp = noise_amp
+        self.rescale = rescale
+        self.dilate_mask = dilate_mask
+        self.dilate_kernel = dilate_kernel
+        self.val_split = val_split
+        self.mode = "train"
+        d = _fresh_dirs(data_path, [
+            "image", "prev_image", "mask", "merge", "split/merge", "split/image",
+            "split/prev_image", "split/mask", "augmentation/aug_image",
+            "augmentation/aug_mask", "augmentation/aug_prev_image",
+        ], wipe=create)
+        self.image_path, self.prev_image_path = d["image"], d["prev_image"]
+        self.mask_path, self.merge_path = d["mask"], d["merge"]
+        self.split_merge_path = d["split/merge"]
+        self.split_image_path = d["split/image"]
+        self.split_prev_image_path = d["split/prev_image"]
+        self.split_mask_path = d["split/mask"]
+        self.aug_image_path = d["augmentation/aug_image"]
+        self.aug_mask_path = d["augmentation/aug_mask"]
+        self.aug_prev_image_path = d["augmentation/aug_prev_image"]
+        if create:
+            rng = np.random.default_rng(seed)
+            self._move_and_edit()
+            self._merge_images()
+            self._split()
+            if self.aug_factor is not None:
+                self._augment(rng)
+
+    @staticmethod
+    def _rescale(img: np.ndarray, factor: float) -> np.ndarray:
+        """A linear zoom by ``factor`` (``pipelines.py:418``)."""
+        from scipy import ndimage as ndi
+
+        return ndi.zoom(img.astype(np.float32), factor, order=1)
+
+    def _move_and_edit(self):
+        for file_i in _tif_files(self.source_dir[0], (self.file_ext,)):
+            img = clip_and_normalize(tiff.imread(file_i), self.clip_threshold)
+            if self.rescale is not None:
+                img = self._rescale(img, self.rescale)
+            img = img.astype(np.uint8)
+            name = os.path.splitext(os.path.basename(file_i))[0].replace(" ", "_")
+            if img.ndim == 2:  # W-doubled: the left half is the previous frame
+                w = img.shape[1] // 2
+                prev_img, infer_img = img[:, :w], img[:, w:]
+            elif img.ndim == 3:  # stacked layers
+                prev_img, infer_img = img[0], img[1]
+            else:
+                raise ValueError("Unknown data structure of input images.")
+            tiff.imwrite(os.path.join(self.prev_image_path, name + ".tif"), prev_img)
+            tiff.imwrite(os.path.join(self.image_path, name + ".tif"), infer_img)
+        files_mask = _tif_files(self.source_dir[1], (self.file_ext,))
+        print(f"{len(files_mask)} files found")
+        for file_i in files_mask:
+            mask = tiff.imread(file_i).astype(np.float32)
+            if self.rescale is not None:
+                mask = self._rescale(mask, self.rescale)
+            if self.invert_masks:
+                mask = 255 - mask
+            if self.threshold_masks is not None:
+                mask = np.where(mask >= self.threshold_masks, 255.0, 0.0)
+            mask = edit_mask(mask, self.skeletonize, self.dilate_mask, self.dilate_kernel,
+                             invert=False)
+            name = os.path.splitext(os.path.basename(file_i))[0].replace(" ", "_")
+            tiff.imwrite(os.path.join(self.mask_path, name + ".tif"), mask)
+
+    def _merge_images(self):
+        mask_files = _tif_files(self.mask_path)
+        image_files = _tif_files(self.image_path)
+        if len(mask_files) != len(image_files):
+            raise ValueError("Number of ground truth does not match number of image stacks")
+        for i, file_i in enumerate(mask_files):
+            base = os.path.basename(file_i)
+            planes = [tiff.imread(os.path.join(path, base))
+                      for path in (self.mask_path, self.image_path, self.prev_image_path)]
+            tiff.imwrite(os.path.join(self.merge_path, f"{i}.tif"),
+                         np.stack(planes, axis=2).astype(np.uint8))
+
+    def _split(self):
+        n = 0
+        for i in range(len(_tif_files(self.merge_path))):
+            merge = tiff.imread(os.path.join(self.merge_path, f"{i}.tif"))
+            x_gap = max(0, self.dim_out[0] - merge.shape[0])
+            y_gap = max(0, self.dim_out[1] - merge.shape[1])
+            merge = np.pad(merge, ((0, x_gap), (0, y_gap), (0, 0)), "reflect")
+            for x0 in tile_starts(merge.shape[0], self.dim_out[0]):
+                for y0 in tile_starts(merge.shape[1], self.dim_out[1]):
+                    patch = merge[x0:x0 + self.dim_out[0], y0:y0 + self.dim_out[1]]
+                    tiff.imwrite(os.path.join(self.split_merge_path, f"{n}.tif"), patch)
+                    for ch, path in enumerate((self.split_mask_path, self.split_image_path,
+                                               self.split_prev_image_path)):
+                        tiff.imwrite(os.path.join(path, f"{n}.tif"), patch[:, :, ch])
+                    n += 1
+
+    def _augment(self, rng, p=0.8):
+        pipeline = Compose([
+            RandomRotate90(p=1.0),
+            ShiftScaleRotate(*self.shiftscalerotate),
+            GaussNoise(var_limit=(self.noise_amp, self.noise_amp), p=0.3),
+            RandomBrightnessContrast(self.brightness_contrast[0],
+                                     self.brightness_contrast[1], p=0.5),
+        ], p=p)
+        k = 0
+        for i in range(len(_tif_files(self.split_image_path))):
+            image = tiff.imread(os.path.join(self.split_image_path, f"{i}.tif"))
+            prev = tiff.imread(os.path.join(self.split_prev_image_path, f"{i}.tif"))
+            mask = tiff.imread(os.path.join(self.split_mask_path, f"{i}.tif"))
+            for _ in range(self.aug_factor):
+                # (image, prev) stacked, so that both take the same transform
+                # (siam_unet/data.py:254-258)
+                out = pipeline(rng, image=np.dstack([image, prev]), mask=mask)
+                tiff.imwrite(os.path.join(self.aug_image_path, f"{k}.tif"),
+                             out["image"][:, :, 0])
+                tiff.imwrite(os.path.join(self.aug_prev_image_path, f"{k}.tif"),
+                             out["image"][:, :, 1])
+                tiff.imwrite(os.path.join(self.aug_mask_path, f"{k}.tif"), out["mask"])
+                k += 1
+        print(f"Number of training images: {k}")
+
+    def __len__(self):
+        path = self.aug_image_path if self.aug_factor is not None else self.split_image_path
+        return len(_tif_files(path))
+
+    def _load_item(self, idx):
+        if self.aug_factor is not None:
+            paths = (self.aug_image_path, self.aug_mask_path, self.aug_prev_image_path)
+            read = _read_chw
+        else:
+            paths = (self.split_image_path, self.split_mask_path, self.split_prev_image_path)
+            read = _read_split_chw
+        image, mask, prev = (read(os.path.join(path, f"{idx}.tif")) for path in paths)
+        return {"image": image, "mask": mask, "prev_image": prev}
 
 
 class DataProcess3D(_TileDataset):

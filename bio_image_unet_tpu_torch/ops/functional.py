@@ -11,7 +11,10 @@ spatial rank: (N, C, H, W) or (N, C, D, H, W) (counterpart of
                            (multi_output_nested_unet.py:73) takes ``True``, its
                            UNet3D (unet3d.py:78-92) ``False``
 - ``depthwise_xcorr``    ≙ ``functional.py:95``: K6, the ``corr`` join of
-                           ``Siam_UNet`` (``csrc/depthwise_xcorr.cu``)
+                           ``Siam_UNet`` (``csrc/depthwise_xcorr.cu``), with
+                           its backward: K6b, ``depthwise_xcorr_grad_input``
+                           and ``depthwise_xcorr_grad_kernel`` (what
+                           ``jax.grad`` takes of the grouped conv)
 
 Rounding: JAX builds the ``align_corners=True`` weights ``t`` in the
 activation dtype (``functional.py:81``) and blends axis by axis, so in bf16
@@ -182,20 +185,10 @@ def depthwise_xcorr_plain(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor
     return acc.to(cur.dtype)
 
 
-def depthwise_xcorr(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
-    """K6: correlate each (batch, channel) plane of ``cur`` (B, C, H, W) with
-    the same plane of ``prev`` (B, C, kh, kw) as the kernel, torch ``'same'``
-    padding ((k-1)//2 before, k//2 after) → (B, C, H, W) in ``cur``'s dtype
-    and memory format (NCHW or channels_last).  On a CUDA tensor it launches
-    ``csrc/depthwise_xcorr.cu`` or raises; on a CPU tensor it takes the plain
-    version.  The kernel has no backward: on the card it refuses tensors
-    that require a gradient (Siam training is not ported yet)."""
-    _check_xcorr(cur, prev)
+def _xcorr_forward(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """K6 on checked tensors: the plain version on the CPU, else a launch."""
     if cur.device.type == "cpu" and prev.device.type == "cpu":
         return depthwise_xcorr_plain(cur, prev)
-    if torch.is_grad_enabled() and (cur.requires_grad or prev.requires_grad):
-        raise NotImplementedError("depthwise_xcorr has no backward on the card yet (the Siam "
-                                  "training slice ports it)")
     if not (cur.is_cuda and prev.is_cuda and cur.device == prev.device):
         raise ValueError(f"depthwise_xcorr: expected two CUDA tensors on one device, got "
                          f"{cur.device} and {prev.device}")
@@ -223,4 +216,154 @@ def depthwise_xcorr(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _DepthwiseXcorr(torch.autograd.Function):
+    """K6 with its backward: the forward as ``depthwise_xcorr`` runs it, the
+    backward K6b's two forms (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, cur, prev):
+        ctx.save_for_backward(cur, prev)
+        return _xcorr_forward(cur, prev)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        cur, prev = ctx.saved_tensors
+        d_cur = depthwise_xcorr_grad_input(g, prev) if ctx.needs_input_grad[0] else None
+        d_prev = (depthwise_xcorr_grad_kernel(g, cur, prev.shape[2:])
+                  if ctx.needs_input_grad[1] else None)
+        return d_cur, d_prev
+
+
+def depthwise_xcorr(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """K6: correlate each (batch, channel) plane of ``cur`` (B, C, H, W) with
+    the same plane of ``prev`` (B, C, kh, kw) as the kernel, torch ``'same'``
+    padding ((k-1)//2 before, k//2 after) → (B, C, H, W) in ``cur``'s dtype
+    and memory format (NCHW or channels_last).  On a CUDA tensor it launches
+    ``csrc/depthwise_xcorr.cu`` or raises; on a CPU tensor it takes the plain
+    version.  Where a gradient is needed the call goes through an autograd
+    Function whose backward is K6b (``depthwise_xcorr_grad_input``,
+    ``depthwise_xcorr_grad_kernel``)."""
+    _check_xcorr(cur, prev)
+    if torch.is_grad_enabled() and (cur.requires_grad or prev.requires_grad):
+        return _DepthwiseXcorr.apply(cur, prev)
+    return _xcorr_forward(cur, prev)
+
+
 depthwise_xcorr.launches = 0
+
+
+# --- K6b --------------------------------------------------------------------------
+
+
+def depthwise_xcorr_grad_input_plain(g: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K6b (grad input): ``dcur[y, x] = Σ_{u,v} g[y+ph-u,
+    x+pw-v] · prev[u, v]``, ``g`` (B, C, H, W) correlated with the flipped
+    kernel, its zero padding swapped (kh//2 before, (kh-1)//2 after); float32
+    products summed over the kernel rows, then columns; the result in the
+    input dtype."""
+    _check_xcorr(g, prev)
+    h, w = g.shape[2:]
+    kh, kw = prev.shape[2:]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    x = F.pad(g.float(), (kw - 1 - pw, pw, kh - 1 - ph, ph))
+    k = prev.float()
+    acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    for u in range(kh):
+        for v in range(kw):
+            acc = acc + x[:, :, kh - 1 - u:kh - 1 - u + h, kw - 1 - v:kw - 1 - v + w] \
+                * k[:, :, u:u + 1, v:v + 1]
+    return acc.to(g.dtype)
+
+
+def depthwise_xcorr_grad_kernel_plain(g: torch.Tensor, cur: torch.Tensor,
+                                      kernel_size) -> torch.Tensor:
+    """Plain PyTorch K6b (grad kernel): ``dprev[u, v] = Σ_{y,x} g[y, x] ·
+    cur[y+u-ph, x+v-pw]`` → (B, C, kh, kw), float32 products summed over the
+    plane's rows, then columns; the result in the input dtype."""
+    _check_xcorr(g, cur)
+    if g.shape != cur.shape:
+        raise ValueError(f"depthwise_xcorr_grad_kernel: g {tuple(g.shape)} and cur "
+                         f"{tuple(cur.shape)} differ")
+    h, w = g.shape[2:]
+    kh, kw = (int(v) for v in kernel_size)
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    x = F.pad(cur.float(), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    gf = g.float()
+    acc = torch.zeros(g.shape[:2] + (kh, kw), dtype=torch.float32, device=g.device)
+    for y in range(h):
+        for xx in range(w):
+            acc = acc + x[:, :, y:y + kh, xx:xx + kw] * gf[:, :, y:y + 1, xx:xx + 1]
+    return acc.to(g.dtype)
+
+
+def xcorr_grad_fits(h: int, w: int, kh: int, kw: int) -> bool:
+    """Whether K6b takes (h, w) planes with (kh, kw) kernels: g and the other
+    operand (the kernel, or cur) staged in float32 within a block's shared
+    memory."""
+    return 4 * (h * w + max(h * w, kh * kw)) <= _SMEM_OPTIN
+
+
+def _channels_last(t: torch.Tensor) -> bool:
+    return t.is_contiguous(memory_format=torch.channels_last) and not t.is_contiguous()
+
+
+def _xcorr_grad_launch(kernel_grad: int, g: torch.Tensor, other: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    if not (g.is_cuda and other.is_cuda and g.device == other.device):
+        raise ValueError(f"depthwise_xcorr's backward: expected two CUDA tensors on one "
+                         f"device, got {g.device} and {other.device}")
+    b, c, h, w = g.shape
+    kh, kw = (out if kernel_grad else other).shape[2:]
+    if not xcorr_grad_fits(h, w, kh, kw):
+        raise ValueError(f"depthwise_xcorr's backward: planes of {h}x{w} and {kh}x{kw} do not "
+                         f"fit one block's shared memory ({_SMEM_OPTIN} bytes)")
+    A = _cuda
+    fn = A.function("depthwise_xcorr", "k6b_depthwise_xcorr_grad",
+                    [A.I32, A.P, A.P, A.P] + [A.I32] * 7 + [A.I64] * 12 + [A.P])
+    A.launch(fn, g.device, kernel_grad, g.data_ptr(), other.data_ptr(), out.data_ptr(),
+             int(g.dtype == torch.bfloat16), b, c, h, w, kh, kw, *g.stride(), *other.stride(),
+             *out.stride())
+
+
+def depthwise_xcorr_grad_input(g: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """K6b (grad input): ∂L/∂cur (B, C, H, W) of K6 from ``g`` = ∂L/∂out
+    and the kernel ``prev``, in ``g``'s dtype and memory format.  On a CUDA
+    tensor it launches ``csrc/depthwise_xcorr.cu`` or raises; on a CPU
+    tensor it takes the plain version."""
+    _check_xcorr(g, prev)
+    if g.device.type == "cpu" and prev.device.type == "cpu":
+        return depthwise_xcorr_grad_input_plain(g, prev)
+    out = torch.empty(g.shape, dtype=g.dtype, device=g.device,
+                      memory_format=torch.channels_last if _channels_last(g)
+                      else torch.contiguous_format)
+    _xcorr_grad_launch(0, g, prev, out)
+    depthwise_xcorr_grad_input.launches += 1
+    return out
+
+
+depthwise_xcorr_grad_input.launches = 0
+
+
+def depthwise_xcorr_grad_kernel(g: torch.Tensor, cur: torch.Tensor,
+                                kernel_size) -> torch.Tensor:
+    """K6b (grad kernel): ∂L/∂prev (B, C, kh, kw) of K6 from ``g`` = ∂L/∂out
+    and ``cur``, in ``g``'s dtype and ``cur``'s memory format.  On a CUDA
+    tensor it launches ``csrc/depthwise_xcorr.cu`` or raises; on a CPU
+    tensor it takes the plain version."""
+    _check_xcorr(g, cur)
+    if g.shape != cur.shape:
+        raise ValueError(f"depthwise_xcorr_grad_kernel: g {tuple(g.shape)} and cur "
+                         f"{tuple(cur.shape)} differ")
+    if g.device.type == "cpu" and cur.device.type == "cpu":
+        return depthwise_xcorr_grad_kernel_plain(g, cur, kernel_size)
+    kh, kw = (int(v) for v in kernel_size)
+    out = torch.empty(g.shape[:2] + (kh, kw), dtype=g.dtype, device=g.device,
+                      memory_format=torch.channels_last if _channels_last(cur)
+                      else torch.contiguous_format)
+    _xcorr_grad_launch(1, g, cur, out)
+    depthwise_xcorr_grad_kernel.launches += 1
+    return out
+
+
+depthwise_xcorr_grad_kernel.launches = 0

@@ -210,16 +210,17 @@ normalize_tile.launches = 0
 
 
 def normalize_tile_float(frames: torch.Tensor, bounds: torch.Tensor, plan,
-                         n_total: int, dtype: torch.dtype) -> torch.Tensor:
+                         n_total: int, dtype: torch.dtype, invert: bool = False) -> torch.Tensor:
     """K2h (see the module docstring): (n_total, th, tw) tiles in ``dtype``
-    (float32 or bfloat16) of the frames normalized to [0, 1]."""
+    (float32 or bfloat16) of the frames normalized to [0, 1] (``1 - v``
+    under ``invert``: the int8 calibration of an inverted movie)."""
     _check_frames(frames, plan, n_total, "normalize_tile_float")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"normalize_tile_float writes float32/bfloat16 tiles, got {dtype}")
     if frames.device.type == "cpu":
-        return normalize_tile_plain(frames, bounds, plan, n_total, False, dtype)
+        return normalize_tile_plain(frames, bounds, plan, n_total, invert, dtype)
     out = torch.empty((n_total, plan.th, plan.tw), dtype=dtype, device=frames.device)
-    _launch("k2h_normalize_tile_float", [_cuda.I32], frames, bounds, plan, n_total, False,
+    _launch("k2h_normalize_tile_float", [_cuda.I32], frames, bounds, plan, n_total, invert,
             (int(dtype == torch.bfloat16),), out)
     normalize_tile_float.launches += 1
     return out

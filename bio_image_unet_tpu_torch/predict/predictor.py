@@ -200,6 +200,7 @@ class _Engine:
         ``_calibrate_int8_3d``), which sets ``_quant_ready``."""
         self._quant = None
         self._quant_ready = False
+        self.calibration_seconds = 0.0
         if not quantized:
             return
         status = int8_status(self.model)
@@ -229,100 +230,103 @@ class _Engine:
     _QUANT_CAL_TILES = 32
     _QUANT_CAL_MARGIN = 1.1
 
+    def _upload(self, frames) -> torch.Tensor:
+        """Host frames (or volumes) on the engine's device, as the kernels
+        take them (uint8, uint16 or float32); a device tensor as it is."""
+        if isinstance(frames, torch.Tensor):
+            return frames.to(self.device)
+        frames = np.asarray(frames)
+        if np.issubdtype(frames.dtype, np.floating):
+            frames = frames.astype(np.float32, copy=False)
+        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+
+    def _fixed_bounds_on_device(self, fixed_bounds) -> Optional[torch.Tensor]:
+        """The stack-global ``(lo, hi, lo, hi)`` of ``'first'``/``'all'`` as
+        the (4, 1) float32 table the kernels read; None stays None."""
+        if fixed_bounds is None:
+            return None
+        return torch.as_tensor(np.asarray(fixed_bounds, np.float32).reshape(4, 1),
+                               device=self.device)
+
+    def _strided(self, n: int, count: int) -> torch.Tensor:
+        """``count`` indices strided across ``n`` tiles, the ceil step
+        reaching the last tile (``predictor.py:515-518``)."""
+        return torch.arange(0, n, -(-n // count), device=self.device)[:count]
+
     def _calibrate_int8(self, imgs, xs, ys, resize_dim, clip_threshold, invert, prev=None,
                         fixed_bounds=None, pair_mode: str = "single") -> None:
         """Calibrate the int8 forward on tiles of the movie
-        (``predictor.py:480-569``): the frames (and, for Siam, the prev
-        planes) are normalized on the host as the fused program normalizes
-        them — per frame, with the stack-global ``fixed_bounds`` of
-        ``'first'``/``'all'``, or with the pair bounds of the Siam
-        ``pair_mode`` — cut into [0, 1] tiles, and one instrumented bf16
+        (``predictor.py:480-569``), cut on the card by the fused paths'
+        kernels: the sampled frames go up, K1 takes their bounds per frame
+        (or the stack-global ``fixed_bounds`` of ``'first'``/``'all'`` stand
+        in), K2h cuts them into float32 tiles in [0, 1] at the movie's grid
+        (reflect-padded and not truncated to uint8, as JAX calibrates), an
+        ``index_select`` keeps the strided 32, and one instrumented bf16
         forward records each site's max|a|; then the int8 forward takes the
-        engine's place."""
+        engine's place.  Siam pairs (``prev``) take the pair program's
+        bounds, both planes of a pair alike: K1 per frame (``'single'``),
+        per prev plane (``'first'``) or K1's pair rows over one uploaded
+        block (prev, cur, prev, cur, ...), whose odd rows (cur i, prev i+1)
+        are dropped (``'all'``)."""
         cal_fn = self._quant[0]
         th, tw = resize_dim
+        q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
         frame_idx = np.unique(np.linspace(0, len(imgs) - 1,
                                           self._QUANT_CAL_FRAMES).round().astype(int))
+        cur = self._upload(np.asarray(imgs)[frame_idx])
+        n = len(frame_idx)
+        plan = TilePlan(cur.shape[1], cur.shape[2], th, tw, xs, ys, self.device)
+        pick = self._strided(n * plan.per_frame, self._QUANT_CAL_TILES)
 
-        def tiles_from(norm: np.ndarray) -> torch.Tensor:
-            h, w = norm.shape[1:3]
-            if th > h or tw > w:
-                norm = np.pad(norm, ((0, 0), (0, max(0, th - h)), (0, max(0, tw - w))),
-                              mode="reflect")
-            tiles = [norm[i, x:x + th, y:y + tw]
-                     for i in range(norm.shape[0]) for x in xs for y in ys]
-            # strided across the whole field, reaching the last tile
-            step = -(-len(tiles) // self._QUANT_CAL_TILES)
-            sample = np.stack(tiles[::step][:self._QUANT_CAL_TILES]).astype(np.float32)
-            return torch.from_numpy(sample[:, None]).to(self.device)
+        def tiles(frames, bounds):
+            t = normalize_tile_float(frames, bounds.contiguous(), plan, n * plan.per_frame,
+                                     torch.float32, invert)
+            return t.index_select(0, pick)[:, None]
 
-        def sample_tiles(frames) -> torch.Tensor:
-            frames = np.asarray(frames)[frame_idx]
-            if fixed_bounds is not None:
-                lo, hi, gmin, gmax = (float(v) for v in fixed_bounds)
-                f = np.clip(frames.astype(np.float32), lo, hi)
-                f = (f - gmin) / (gmax - gmin) * 255.0 if gmax > gmin else np.zeros_like(f)
-                norm = (255.0 - f if invert else f) / 255.0
-            else:
-                norm = _normalize_stack(frames, "single", clip_threshold, invert) / 255.0
-            return tiles_from(norm)
-
-        if prev is not None and pair_mode in ("first", "all"):
-            # the pair program's bounds: the prev plane's percentiles
-            # ('first') or the pair's ('all'), extremes clamped into them
-            prevs, curs = np.asarray(prev)[frame_idx], np.asarray(imgs)[frame_idx]
-            norm_p = np.empty(prevs.shape, np.float32)
-            norm_c = np.empty(curs.shape, np.float32)
-            for i in range(len(frame_idx)):
-                ref = prevs[i] if pair_mode == "first" else np.stack([prevs[i], curs[i]])
-                lo = _percentile(ref, clip_threshold[0])
-                hi = _percentile(ref, clip_threshold[1])
-                fmin, fmax = max(float(ref.min()), lo), min(float(ref.max()), hi)
-                for src, dst in ((prevs, norm_p), (curs, norm_c)):
-                    f = np.clip(src[i].astype(np.float32), lo, hi)
-                    f = (f - fmin) / (fmax - fmin) * 255.0 if fmax > fmin else np.zeros_like(f)
-                    dst[i] = (255.0 - f if invert else f) / 255.0
-            self._finish_int8_calibration(cal_fn(tiles_from(norm_c), tiles_from(norm_p)))
+        if prev is None:
+            bounds = (clip_bounds(cur, q_lo, q_hi) if fixed_bounds is None else
+                      self._fixed_bounds_on_device(fixed_bounds))
+            self._finish_int8_calibration(cal_fn(tiles(cur, bounds)))
             return
-        x = sample_tiles(imgs)
-        self._finish_int8_calibration(cal_fn(x) if prev is None else
-                                      cal_fn(x, sample_tiles(prev)))
+        prv = self._upload(np.asarray(prev)[frame_idx])
+        if pair_mode == "single":
+            both = clip_bounds(torch.cat([prv, cur]), q_lo, q_hi)
+            b_prev, b_cur = both[:, :n], both[:, n:]
+        elif pair_mode == "first":
+            b_prev = b_cur = clip_bounds(prv, q_lo, q_hi)
+        else:
+            block = torch.stack([prv, cur], 1).flatten(0, 1)
+            b_prev = b_cur = pair_clip_bounds(block, q_lo, q_hi)[:, ::2]
+        self._finish_int8_calibration(cal_fn(tiles(cur, b_cur), tiles(prv, b_prev)))
 
     # calibration sub-volumes of the 3D families (``predictor.py:584-586``)
     _QUANT_CAL_TILES_3D = 8
 
     def _calibrate_int8_3d(self, vols, zs, xs, ys, tile, clip_threshold, invert: bool = False,
                            fixed_bounds=None) -> None:
-        """Calibrate the 3D int8 forward (``predictor.py:588-626``): tiles
-        strided across the tile grid of up to two volumes spanning the stack,
-        normalized on the host as the fused 3D programs normalize them
-        (per-volume bounds, or the caller's stack-global ``fixed_bounds``),
-        as float tiles in [0, 1] (not truncated to uint8, as in JAX); one
-        instrumented bf16 forward; then the int8 forward takes the engine's
-        place."""
+        """Calibrate the 3D int8 forward (``predictor.py:588-626``) on the
+        card: up to two volumes spanning the stack (taken from ``vols`` where
+        it is the call's upload already, else uploaded alone), their bounds
+        by K1 per volume or the caller's stack-global ``fixed_bounds``, K2v
+        in float mode (float32 tiles in [0, 1], not truncated to uint8, as in
+        JAX) over their whole grid, the 8 tiles strided across it kept by an
+        ``index_select``; one instrumented bf16 forward; then the int8
+        forward takes the engine's place."""
         cal_fn = self._quant[0]
-        tz, tx, ty = tile
-        vols = np.asarray(vols)
         if vols.ndim == 3:
             vols = vols[None]
         vidx = np.unique(np.linspace(0, len(vols) - 1, 2).round().astype(int))
-        if fixed_bounds is not None:
-            lo, hi, gmin, gmax = (float(v) for v in fixed_bounds)
-            f = np.clip(vols[vidx].astype(np.float32), lo, hi)
-            f = (f - gmin) / (gmax - gmin) if gmax > gmin else np.zeros_like(f)
-            norm = (1.0 - f) if invert else f
+        if isinstance(vols, torch.Tensor):
+            sel = vols.index_select(0, torch.as_tensor(vidx, device=vols.device))
         else:
-            norm = _normalize_stack(vols[vidx].reshape(len(vidx), -1), "single", clip_threshold,
-                                    invert).reshape((len(vidx),) + vols.shape[1:]) / 255.0
-        pads = [(0, max(0, t - e)) for t, e in zip(tile, norm.shape[1:])]
-        if any(p[1] for p in pads):
-            norm = np.pad(norm, [(0, 0)] + pads, mode="reflect")
-        tiles = [norm[v, z:z + tz, x:x + tx, y:y + ty]
-                 for v in range(len(vidx)) for z in zs for x in xs for y in ys]
-        # strided across the whole grid, reaching bright content anywhere
-        step = -(-len(tiles) // self._QUANT_CAL_TILES_3D)
-        batch = np.stack(tiles[::step][:self._QUANT_CAL_TILES_3D]).astype(np.float32)
-        self._finish_int8_calibration(cal_fn(torch.from_numpy(batch[:, None]).to(self.device)))
+            sel = self._upload(np.asarray(vols)[vidx])
+        plan = TilePlan3D(*sel.shape[1:], tile, zs, xs, ys, self.device)
+        bounds = (clip_bounds(sel, float(clip_threshold[0]), float(clip_threshold[1]))
+                  if fixed_bounds is None else self._fixed_bounds_on_device(fixed_bounds))
+        n = len(vidx) * plan.per_volume
+        tiles = normalize_tile_3d(sel, bounds, plan, n, invert, torch.float32)
+        pick = self._strided(n, self._QUANT_CAL_TILES_3D)
+        self._finish_int8_calibration(cal_fn(tiles.index_select(0, pick)[:, None]))
 
     def _finish_int8_calibration(self, raw_maxes) -> None:
         """The margin, then the int8 forward in the float forward's place
@@ -333,14 +337,18 @@ class _Engine:
 
     def _maybe_calibrate(self, sample, *args, volumes: bool = False, **kw) -> None:
         """Calibrate before the first chunk of a quantized engine, on the
-        movie's ``sample`` frames (with ``volumes``, the stack's volumes); a
-        runner given no sample raises."""
+        movie's ``sample`` frames (with ``volumes``, the stack's volumes, on
+        the host or already on the device); a runner given no sample raises.
+        The calibration's wall time, the device's work included, is kept in
+        ``calibration_seconds``."""
         if self._quant is None or self._quant_ready:
             return
         if sample is None:
             raise ValueError("a quantized engine calibrates on the movie's frames first: "
                              "pass sample frames")
+        t0 = time.perf_counter()
         (self._calibrate_int8_3d if volumes else self._calibrate_int8)(sample, *args, **kw)
+        self.calibration_seconds = time.perf_counter() - t0
 
     # tile pixels of one forward step (``predictor.py:716``); a Siam step
     # takes half (``:958-961``), as the twin encoder holds about twice the
@@ -386,10 +394,7 @@ class _Engine:
         n = n_chunk * plan.per_frame
         bs = self.batch_policy(n, th, tw)
         n_pad = _round_up(n, bs)
-        bounds_dev = None
-        if fixed_bounds is not None:
-            bounds_dev = torch.as_tensor(np.asarray(fixed_bounds, np.float32).reshape(4, 1),
-                                         device=self.device)
+        bounds_dev = self._fixed_bounds_on_device(fixed_bounds)
         q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
 
         @torch.inference_mode()
@@ -531,10 +536,7 @@ class _Engine:
         n = n_chunk * plan.per_frame
         bs = bs or self.heads_batch(n, ph, pw)
         n_pad = _round_up(n, bs)
-        bounds_dev = None
-        if fixed_bounds is not None:
-            bounds_dev = torch.as_tensor(np.asarray(fixed_bounds, np.float32).reshape(4, 1),
-                                         device=self.device)
+        bounds_dev = self._fixed_bounds_on_device(fixed_bounds)
         q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
         need_fill = bool(plan.uncovered.any())
 
@@ -647,11 +649,12 @@ class _Engine:
     # activations are deep
     VOLUME_STEP_VOXELS = 1 << 23
 
-    def _run_once(self, host: np.ndarray, fn: Callable):
-        """Upload ``host`` once, map it with ``fn`` on the device and bring
-        the result (a tensor or a dict of them) back as numpy: the volume
-        paths' single unit, with no chunking."""
-        out = fn(torch.from_numpy(np.ascontiguousarray(host)).to(self.device))
+    def _run_once(self, host, fn: Callable):
+        """Upload ``host`` once (unless it is on the device already), map it
+        with ``fn`` on the device and bring the result (a tensor or a dict of
+        them) back as numpy: the volume paths' single unit, with no
+        chunking."""
+        out = fn(self._upload(host))
         if isinstance(out, dict):
             return {k: v.cpu().numpy() for k, v in out.items()}
         return out.cpu().numpy()
@@ -684,9 +687,10 @@ class _Engine:
                              invert: bool = False) -> np.ndarray:
         """(d, h, w) uint8/uint16/float32 volume → (d, h, w) uint8 through
         the fused program."""
+        vol_dev = self._upload(vol)  # calibration and the pass share the upload
         fn, _, _ = self.volume_runner(*vol.shape, zs, xs, ys, tile, clip_threshold, invert,
-                                      sample=vol)
-        return self._run_once(vol, fn)
+                                      sample=vol_dev)
+        return self._run_once(vol_dev, fn)
 
     def host_predict_volume(self, patches: np.ndarray, plan: TilePlan3D) -> np.ndarray:
         """Host-staged ``Predict3D`` (``predictor.py:1981-2013``): (n, tz, tx,
@@ -717,10 +721,7 @@ class _Engine:
         n = n_vols * plan.per_volume
         bs = bs or max(1, min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile))))
         n_pad = _round_up(n, bs)
-        bounds_dev = None
-        if fixed_bounds is not None:
-            bounds_dev = torch.as_tensor(np.asarray(fixed_bounds, np.float32).reshape(4, 1),
-                                         device=self.device)
+        bounds_dev = self._fixed_bounds_on_device(fixed_bounds)
         q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
 
         @torch.inference_mode()
@@ -738,10 +739,11 @@ class _Engine:
         """(n_vols, d, h, w) raw volumes → ``{head: (n_vols, C, d, h, w)
         float16}`` through the fused program; ``_bs`` is the OOM back-off's
         batch."""
+        vols_dev = self._upload(vols)  # calibration and the pass share the upload
         fn, _, bs = self.heads_3d_runner(*vols.shape, zs, xs, ys, tile, clip_threshold,
-                                         factors, fixed_bounds, _bs, sample=vols)
+                                         factors, fixed_bounds, _bs, sample=vols_dev)
         return self._dispatch_with_oom_backoff(
-            lambda: self._run_once(vols, fn), bs,
+            lambda: self._run_once(vols_dev, fn), bs,
             lambda smaller: self.fused_predict_heads_3d(vols, zs, xs, ys, tile, clip_threshold,
                                                         factors, fixed_bounds, smaller))
 

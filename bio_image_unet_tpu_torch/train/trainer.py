@@ -1,7 +1,8 @@
 """The generic Trainer (counterpart of ``bio_image_unet_tpu/train/trainer.py:114
-Trainer``) for the 2D ``Unet``, the multi-output family (``MultiOutputUnet``,
-``MultiOutputNestedUNet``, ``MultiOutputNestedUNet_3Levels``) and the 3D
-networks (``UNet3D``, ``MultiOutputUnet3D``).
+Trainer``) for the 2D ``Unet``, the siamese ``Siam_UNet`` (``mode=``), the
+multi-output family (``MultiOutputUnet``, ``MultiOutputNestedUNet``,
+``MultiOutputNestedUNet_3Levels``) and the 3D networks (``UNet3D``,
+``MultiOutputUnet3D``).
 
 What it keeps of the JAX Trainer, so that one seed and one set of initial
 weights give the same ``metrics.csv`` rows:
@@ -22,6 +23,12 @@ weights give the same ``metrics.csv`` rows:
 - the 3D input: a sample's ``volume`` if it has one, else its ``image``
   (``:288``); ``use_interpolation`` goes to the model (``:204``) and, with
   ``time_loss_weight``, into the checkpoint (``:341-348``);
+- the siamese pairs (``mode``, ``:290-291, 341-342, 431-433, 496-502``): the
+  model takes ``(image, prev_image)`` in training and validation, the
+  device cache holds the prev tiles too, K4's pair form augments image and
+  prev with one draw, and the checkpoint records ``mode``; the twin encoder
+  runs cur first, then prev, so the BatchNorm running statistics update in
+  flax's order;
 - Adam (``torch.optim.Adam``, the optax Adam of ``:275-280``; ``grad_clip``
   through ``clip_grad_norm_``) and the torch-semantics ``ReduceLROnPlateau``
   (``:76``) stepped on the validation loss after every epoch, the train loss
@@ -45,7 +52,8 @@ gathers and augments each batch in one launch: K4 for a single target, K4h
 for heads, orientation heads (names containing ``"orientation"``) rotated
 with the tile, and K4v / K4hv for volumes (``data/augment_device.py``).  On
 the card, weights and activations are channels-last (``channels_last_3d``
-for the 3D networks).
+for the 3D networks).  The ``corr`` join's forward and backward are K6 and
+K6b (``ops/functional.py``).
 
 Checkpoints are reference-schema ``.pt`` files (``checkpoint.save``) that
 both packages' ``Predict``/``PredictMultiOutput`` read (with heads they carry
@@ -59,9 +67,8 @@ resume and one more equal two epochs straight.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
 raises without a card.  Not ported yet, each raising NotImplementedError:
-networks other than the six above (``AttentionUnet`` and ``Siam_UNet`` too)
-and ``mode`` (Siam), ``mesh`` and ``device_cache="sharded"`` (multi-GPU),
-``remat``, ``profile_dir``.
+``AttentionUnet`` training, ``mesh`` and ``device_cache="sharded"``
+(multi-GPU), ``remat``, ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -140,18 +147,19 @@ class ReduceLROnPlateau:
 
 def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported to PyTorch yet (the {slice_name} "
-                              "slice of the port); the 2D Unet, multi-output and 3D "
+                              "slice of the port); the 2D Unet, Siam, multi-output and 3D "
                               "trainers are")
 
 
 class Trainer:
     """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet``, the
-    multi-output family and the 3D networks; the dataset yields
-    ``{'image': (C, H, W), 'mask': (C', H, W)}`` float32 numpy items
-    (``DataProcess2D``) or, with heads, ``{'image': ..., <head>: (C_head, H,
-    W), ...}`` (``DataProcessMultiOutput``); for the 3D networks the same
-    with (C, Z, X, Y) arrays, the input under ``volume`` or ``image``
-    (``DataProcess3D``, ``DataProcessMultiOutput3D``)."""
+    siamese ``Siam_UNet``, the multi-output family and the 3D networks; the
+    dataset yields ``{'image': (C, H, W), 'mask': (C', H, W)}`` float32
+    numpy items (``DataProcess2D``), with ``mode`` also ``'prev_image': (C,
+    H, W)`` (``DataProcessSiam``), or, with heads, ``{'image': ..., <head>:
+    (C_head, H, W), ...}`` (``DataProcessMultiOutput``); for the 3D networks
+    the same with (C, Z, X, Y) arrays, the input under ``volume`` or
+    ``image`` (``DataProcess3D``, ``DataProcessMultiOutput3D``)."""
 
     def __init__(
         self,
@@ -192,8 +200,6 @@ class Trainer:
         profile_dir: Optional[str] = None,
         device=None,
     ):
-        if mode is not None:
-            _not_ported("mode= (the siamese trainer)", "Siam")
         if mesh is not None or device_cache == "sharded":
             _not_ported("mesh=/device_cache='sharded' (multi-GPU training)", "multi-GPU")
         if remat:
@@ -216,6 +222,7 @@ class Trainer:
         self.time_loss_weight = time_loss_weight
         self.log_images = log_images
         self.seed = seed
+        self.mode = mode
         self.best_loss = float("inf")
         self.epoch_start = 0
         # one dict per epoch run: the metrics.csv row plus the training
@@ -225,14 +232,15 @@ class Trainer:
 
         # --- model: seeded init, float32 parameters ---
         self.model = get_model(network, n_filter=n_filter, in_channels=in_channels,
-                               out_channels=out_channels, dilation=dilation,
+                               out_channels=out_channels, dilation=dilation, mode=mode,
                                use_interpolation=use_interpolation, output_heads=output_heads,
                                deep_supervision=deep_supervision,
                                dtype=torch.bfloat16 if half_precision else None)
-        if getattr(self.model, "mode", None) is not None:
-            _not_ported("the Siam_UNet network (the siamese trainer)", "Siam")
         if getattr(self.model, "attention", False):
             _not_ported("AttentionUnet training", "AttentionUnet training")
+        if mode is not None and getattr(self.model, "mode", None) != mode:
+            raise ValueError(f"mode={mode!r} needs a network with a siamese join (Siam_UNet, "
+                             f"Unet), got {network!r}")
         init_weights_(self.model, torch.Generator().manual_seed(seed))
         self.multi_output = output_heads is not None or bool(getattr(self.model, "heads", None))
         # the deep-supervision weights follow the model's grid depth (:214)
@@ -262,6 +270,11 @@ class Trainer:
         # channel-concatenated tensor ---
         sample = dataset[0]
         self.input_key = "volume" if "volume" in sample else "image"
+        # the model's inputs: the frame, and with a join its previous frame
+        self.input_keys = [self.input_key] + (["prev_image"] if mode is not None else [])
+        if any(k not in sample for k in self.input_keys):
+            raise ValueError(f"mode={mode!r} trains on (image, prev_image) pairs: the dataset's "
+                             f"items hold {sorted(sample)} (DataProcessSiam makes pairs)")
         keys = list(self.output_heads) if self.multi_output else ["mask"]
         self.layout = HeadLayout.of({k: sample[k].shape[0] for k in keys},
                                     orientation_keys(keys), self.device)
@@ -308,6 +321,8 @@ class Trainer:
             if hasattr(dataset, attr):
                 key = "augmentation" if attr == "aug_factor" else attr
                 self.params_meta[key] = getattr(dataset, attr)
+        if mode is not None:
+            self.params_meta["mode"] = mode
         if time_loss_weight is not None:
             self.params_meta["time_loss_weight"] = time_loss_weight
         self.params_meta["use_interpolation"] = use_interpolation
@@ -338,10 +353,12 @@ class Trainer:
             self._n_train = len(samples)
             for _ in range(self.epoch_start):
                 self._train_rng.permutation(self._n_train)
+            # (input, targets[, prev])
+            groups = [[self.input_key], self.layout.names] + [[k] for k in self.input_keys[1:]]
             self._device_data = tuple(
                 torch.from_numpy(np.concatenate([np.stack([s_[k] for s_ in samples])
                                                  for k in ks], 1)).to(self.device)
-                for ks in ([self.input_key], self.layout.names))
+                for ks in groups)
 
     def _loss_kwargs(self):
         if self.loss_function in ("BCEDice", "Tversky", "logcoshTversky", "weightedBCE"):
@@ -391,8 +408,14 @@ class Trainer:
             return x.contiguous(memory_format=self._memory_format())
         return x
 
-    def _train_step(self, image: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        outputs = self.model(self._input(image))
+    def _forward(self, inputs: Sequence[torch.Tensor]):
+        """The model on a batch's inputs: (image,), or (image, prev) with a
+        join."""
+        return self.model(*(self._input(x) for x in inputs))
+
+    def _train_step(self, inputs: Sequence[torch.Tensor],
+                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        outputs = self._forward(inputs)
         with torch.profiler.record_function("loss"):
             loss = self._compute_loss(outputs, batch, train=True)
         self.optimizer.zero_grad(set_to_none=True)
@@ -410,44 +433,50 @@ class Trainer:
         return gen
 
     def _upload(self, batch: dict):
-        """A loader batch on the device: the image and the targets
-        concatenated along channels."""
+        """A loader batch on the device: the image, the targets concatenated
+        along channels and, with a join, the prev image."""
         target = np.concatenate([batch[k] for k in self.layout.names], 1)
-        return (torch.from_numpy(batch[self.input_key]).to(self.device),
-                torch.from_numpy(target).to(self.device))
+        return tuple(torch.from_numpy(a).to(self.device) for a in
+                     [batch[self.input_key], target] + [batch[k] for k in self.input_keys[1:]])
 
     def _batches(self, epoch: int):
-        """(image, {target: tensor}) training batches of one epoch, on the
-        device."""
+        """((image[, prev]), {target: tensor}) training batches of one epoch,
+        on the device."""
         gen = self._augment_generator(epoch) if self.device_augment else None
 
-        def augment(image, target, index=None):
+        def augment(image, target, *prev, index=None):
             with torch.profiler.record_function("augment"):
                 if self.multi_output:
-                    return augment_batch_heads(gen, image, target, index=index,
-                                               layout=self.layout)
+                    image, targets = augment_batch_heads(gen, image, target, index=index,
+                                                         layout=self.layout)
+                    return (image,), targets
+                if prev:  # K4's pair form: image and prev take one draw
+                    image, mask, p = augment_batch(gen, image, target, index=index,
+                                                   prev=prev[0])
+                    return (image, p), {"mask": mask}
                 image, mask = augment_batch(gen, image, target, index=index)
-                return image, {"mask": mask}
+                return (image,), {"mask": mask}
 
+        def plain(image, target, *prev, index=None):
+            if index is not None:
+                image, target, *prev = (t.index_select(0, index) for t in (image, target, *prev))
+            return (image, *prev), self.layout.split(target)
+
+        step = augment if gen is not None else plain
         if self._device_data is not None:
             n_steps = self._n_train // self.batch_size
             perm = self._train_rng.permutation(self._n_train)[: n_steps * self.batch_size]
             rows = torch.from_numpy(perm.reshape(n_steps, self.batch_size)).to(self.device)
-            image, target = self._device_data
             for idx in rows:
-                if gen is not None:
-                    yield augment(image, target, idx)
-                else:
-                    yield image.index_select(0, idx), self.layout.split(target.index_select(0, idx))
+                yield step(*self._device_data, index=idx)
             return
         for batch in self.train_loader:
-            image, target = self._upload(batch)
-            yield augment(image, target) if gen is not None else (image, self.layout.split(target))
+            yield step(*self._upload(batch))
 
     def _iterate_train(self, epoch: int) -> float:
         print(f"\nStarting training epoch {epoch} ...")
         self.model.train()
-        losses = [self._train_step(image, batch) for image, batch in self._batches(epoch)]
+        losses = [self._train_step(inputs, batch) for inputs, batch in self._batches(epoch)]
         if not losses:
             return float("nan")
         return float(torch.stack(losses).mean())
@@ -458,9 +487,9 @@ class Trainer:
         self.model.eval()
         losses, last = [], None
         for batch in self.val_loader:
-            image, target = self._upload(batch)
+            image, target, *prev = self._upload(batch)
             targets = self.layout.split(target)
-            outputs = self.model(self._input(image))
+            outputs = self._forward((image, *prev))
             losses.append(self._compute_loss(outputs, targets, train=False))
             last = (image, targets, outputs)
         if self.log_images and last is not None:

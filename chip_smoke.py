@@ -192,7 +192,30 @@ non-zero without printing a result:
    ``add_tile=1``, a 37-frame 200×300 movie, a 1-frame movie,
    ``frames_per_chunk=1``, float32 with ``device_pipeline=True``), and a
    small float32 run on the card against the CPU;
-18. kernels (int8) — K7 (the int8 3×3 conv with its dequant, bias,
+18. kernels (siam training) — K6 at the Siam trainer's forward shape and
+   K6b, K6's backward (grad input: g correlated with the flipped kernel, the
+   padding swapped; grad kernel: a reduction over the plane for each tap),
+   at config 3's training batch ((12, 256, 16, 16) bf16 channels_last), the
+   ``siam_unet`` facade's float32 batch 4, an odd kernel (15²) and a plane
+   larger than its kernel (32² with 16²): each bit-equal to its plain
+   version (so within 1e-5 of the sum of |a·b| in float32, one ulp in bf16),
+   timed beside its bound and beside the autograd backward of one grouped
+   ``F.conv2d`` on the same operands;
+19. train siam — the ninth main path, config 3's training leg
+   (``benchmarks/family_bench.py:262-290``) through the ``siam_unet``
+   facade: ``DataProcess`` on 120 W-doubled blob pairs of 256², then
+   ``Trainer`` (``Siam_UNet(32)``, batch 12, lr 1e-4, ``val_split=0``, bf16,
+   ``device_cache=True``, ``device_augment=True``) for 3 epochs of 10 steps,
+   in the ``max`` join (the config's own) and in ``corr``.  Launch counts
+   exact around each run: K4's pair form once a step, and under ``corr`` K6,
+   K6b grad input and K6b grad kernel once a step each (``max``: none).
+   Prints the losses (the last epoch's below the first's), patches/s (best
+   epoch after the first), step time, peak memory, a profiled epoch (device
+   busy, idle share, K6/K6b's device time); the trained ``model.ckpt``
+   through ``PredictSiam`` on the card (mask IoU on blob frames), and a
+   small float32 ``corr`` run on the card against the CPU (``metrics.csv``
+   rows within rtol 1e-3);
+20. kernels (int8) — K7 (the int8 3×3 conv with its dequant, bias,
    LeakyReLU and requant epilogue) at the main path's first and widest
    layers (``encode2`` (256, 256², 32) → 32 and ``middle_conv2`` (256, 16²,
    512) → 512) and at ``decode7`` (256, 256², 64) → 32, whose input is the
@@ -212,10 +235,13 @@ non-zero without printing a result:
    of the layer logged beside it), with each K7 / K8 row's TOP/s, its share
    of the int8 dense peak and of its bound and its time over
    ``torch._int_mm``'s;
-19. int8 — ``Predict(quantized=True)`` on the main movie (``Unet(32)``,
+21. int8 — ``Predict(quantized=True)`` on the main movie (``Unet(32)``,
    64×1024² uint8, 256², bf16): launches exact around the call (per
    16-frame chunk, one forward batch: K7 17, K8 4, K9 6, K10 4, beside K1's
-   two, K2 and K3); end-to-end and device-resident MP/s of int8 and bf16 back
+   two, K2 and K3, and the calibration's K1 and K2h on its two sampled
+   frames: the calibration cuts its tiles on the card); the host split of
+   the best int8 and bf16 calls (calibration seconds against the rest, by
+   stage); end-to-end and device-resident MP/s of int8 and bf16 back
    to back and their ratio, the int8 trunk's TOP/s and share of the int8
    dense peak, the peak device memory of the device-resident passes (the
    counter reset first) and of one int8 and one bf16 ``Predict`` call, a
@@ -231,7 +257,7 @@ non-zero without printing a result:
    each with exact launches (one more K7 under ``concat``) and within the
    int8 contract; a BN-warmed ``Unet(8)`` int8 on the card against the CPU
    within the int8 contract;
-20. kernels (int8 3d) — K7v (the int8 3×3×3 conv with K7's epilogue, the
+22. kernels (int8 3d) — K7v (the int8 3×3×3 conv with K7's epilogue, the
    activation scales folded into the weights) at ``encode2`` (16, 32×128²,
    16) → 32, ``decode1`` (16, 8×32², 384) → 128, ``middle_conv2`` (16,
    4×16², 128) → 256 and ``decode6`` (16, 32×128², 32) → 16, K8v (the
@@ -245,13 +271,13 @@ non-zero without printing a result:
    ``torch._int_mm`` on an im2col (K7v) or on the up-conv's product (K8v),
    and the bf16 cuDNN ``conv3d`` /
    ``conv_transpose3d`` of the layer; K7v / K8v rows with their rates as
-   in 18; and K11v (the trilinear decoder's int8 ×2 into its concat buffer)
+   in 20; and K11v (the trilinear decoder's int8 ×2 into its concat buffer)
    at its three levels, up1 (16, 4×16², 256) into channels [0, 256) of a
    384-channel buffer, up2 128 of 192 and up3 (16, 16×64², 64) into [0, 64)
    of 96, the extremes -128 and 127 on the first and last voxels, bit-equal to
    its plain version (the torch calls it replaced), timed beside its byte
    bound and those calls;
-21. int8 3d — ``Predict3D(quantized=True)`` at config 5 (a BN-warmed
+23. int8 3d — ``Predict3D(quantized=True)`` at config 5 (a BN-warmed
    ``UNet3D(32)``, a 64×512² uint8 blob volume, tiles (32, 128, 128), bf16
    outside the int8 trunk, two forward batches of 16): launches exact
    around the call (K7v 26, K8v 6, K10v 6, K9 10, beside K1's two, K2v and
@@ -270,7 +296,7 @@ non-zero without printing a result:
    mask IoU within 0.01 of bf16's; a BN-warmed ``UNet3D(8)`` int8 on the card
    against the CPU within the int8 contract; K11v launches 3 a forward batch
    of the trilinear decoder (its JSON entry counts that call);
-22. kernels (nested int8) — on the UNet++ int8 grid's row buffers at config
+24. kernels (nested int8) — on the UNet++ int8 grid's row buffers at config
    4's forward batch (16 tiles of 512²): K7 reading ``x_{0,1}``'s input in
    place (channels [0, 96) of row 0) and writing its slot, K10 pooling slot
    0, K9 quantizing ``g0_0``'s bf16 output and dequantizing the last cell
@@ -281,7 +307,7 @@ non-zero without printing a result:
    ``torch._int_mm`` on an ``F.unfold`` im2col of the same channels,
    for K11, the torch calls it replaces (``F.interpolate``, round, clip,
    int8, the slice copy);
-23. nested int8 — ``PredictMultiOutput(quantized=True)`` under
+25. nested int8 — ``PredictMultiOutput(quantized=True)`` under
    ``BIU_INT8_EXPERIMENTAL=1`` at config 4 (a BN-warmed
    ``MultiOutputNestedUNet(32)``, 40 uint8 1024² frames, 512² patches,
    ``safe_margin=20``, bf16 outside the grid): launches exact around the call
@@ -293,7 +319,7 @@ non-zero without printing a result:
    int8 bounds of bf16 (max under 25%, mean under 3% of its range floored at
    0.5); BN-warmed UNet++(8) at both depths (deep supervision on the 3-level
    one) on the card against the CPU within the same bounds;
-24. attention — ``Predict`` on a BN-warmed ``AttentionUnet(32)`` at config 1
+26. attention — ``Predict`` on a BN-warmed ``AttentionUnet(32)`` at config 1
    (64×1024² uint8, 256², bf16), float and then ``quantized=True`` (int8 by
    default): launches exact (float: K1 2, K2 1, K3 1 a chunk; int8 adds per
    forward batch K7 17, K8 4, K10 4, K9 14: the gated decoder's dequants and
@@ -302,7 +328,9 @@ non-zero without printing a result:
    ratio, peak memory, profiles; ``AttentionUnet(8)`` on the card against
    the CPU, float32 (one level on ≤ 0.1% of pixels) and int8 (the int8
    contract);
-25. the kernels' JSON line, then the last line
+27. ``[int8 e2e]``: the int8 / bf16 end-to-end ratio of each family its phase
+   measured (the ship set's ``Unet`` and ``AttentionUnet``, and UNet++ and
+   ``UNet3D``); the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -399,16 +427,26 @@ def main() -> int:
     ksiam = run("kernels siam", phase_kernels_siam, torch, dev)
     run("siam", phase_siam, torch, dev, kernels, ksiam)
     kernels.extend(ksiam)
+    ksiam_train = run("kernels siam training", phase_kernels_siam_training, torch, dev)
+    run("train siam", phase_train_siam, torch, dev, kernels, ksiam_train)
+    kernels.extend(ksiam_train)
     kint8 = run("kernels int8", phase_kernels_int8, torch, dev)
-    run("int8", phase_int8, torch, dev, kernels, kint8, trained)
+    # each int8 phase returns its family's int8 / bf16 end-to-end ratio
+    ratios = {"Unet (the ship set)": run("int8", phase_int8, torch, dev, kernels, kint8,
+                                         trained)}
     kernels.extend(kint8)
     kint8_3d = run("kernels int8 3d", phase_kernels_int8_3d, torch, dev)
-    run("int8 3d", phase_int8_3d, torch, dev, kernels, kint8_3d, trained3d)
+    ratios["UNet3D (outside the ship set)"] = run("int8 3d", phase_int8_3d, torch, dev,
+                                                  kernels, kint8_3d, trained3d)
     kernels.extend(kint8_3d)
     knested = run("kernels nested int8", phase_kernels_nested_int8, torch, dev)
-    run("nested int8", phase_nested_int8, torch, dev, kernels, knested)
+    ratios["UNet++ (outside the ship set)"] = run("nested int8", phase_nested_int8, torch, dev,
+                                                  kernels, knested)
     kernels.extend(knested)
-    run("attention", phase_attention, torch, dev, kernels)
+    ratios["AttentionUnet (the ship set)"] = run("attention", phase_attention, torch, dev,
+                                                 kernels)
+    log("[int8 e2e] int8 / bf16 end to end, each family as its phase measured it: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
     for k in kernels:
         # a timing-only row (a shape no path runs) reports 0 launches; its
         # kernel must be launched on a path all the same
@@ -1170,6 +1208,8 @@ def _stage(kernel: str, ancestors) -> str:
                        ("augment_batch", "K4 augment"), ("augment_heads", "K4h augment heads")):
         if key in low:
             return stage
+    if "xcorr" in low:
+        return "K6 / K6b corr join (forward, backward)"
     if "augment" in ancestors:
         return "augment draws (torch.rand, uniform_, flags)"
     if "upsample" in low:
@@ -1265,7 +1305,9 @@ def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float,
     for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         log(f"[{tag}]   {total / 1e3:9.3f} ms {count:5d}x  {name[:110]}")
     for label, key in (("K4", "augment_batch<"), ("K4h", "augment_heads<"),
-                       ("K4v", "augment_volume<"), ("K4hv", "augment_heads_volume<")):
+                       ("K4v", "augment_volume<"), ("K4hv", "augment_heads_volume<"),
+                       ("K6", "xcorr<"), ("K6b-in", "xcorr_grad_input<"),
+                       ("K6b-k", "xcorr_grad_kernel<")):
         hits = [(t, c) for name, (t, c) in by_name.items() if key in name]
         if hits:
             total, count = map(sum, zip(*hits))
@@ -1491,6 +1533,16 @@ def counted(torch, tag: str, counters, what: str, call, expect: dict):
             raise AssertionError(f"{what}: {c.__name__} launched {n} times, "
                                  f"want {expect.get(c, 0)}")
     return out, got
+
+
+def plus(expect: dict, extra: dict) -> dict:
+    """``expect`` with ``extra``'s launches added (a quantized call's
+    calibration: K1 and K2h, or K2v, on its sampled frames or volumes)."""
+    out = dict(expect)
+    for c, n in extra.items():
+        out[c] = out.get(c, 0) + n
+    return out
+
 
 
 def check_heads(name: str, res: dict, shape) -> None:
@@ -3160,7 +3212,300 @@ def phase_siam(torch, dev, kernels, ksiam) -> None:
         torch.backends.cudnn.allow_tf32 = True
 
 
-# --- 18. kernels (int8) --------------------------------------------------------
+# --- 18. kernels of Siam training ------------------------------------------------------
+
+# config 3's training leg (benchmarks/family_bench.py:262-290): 120 tiles of
+# 256², batch 12, Siam_UNet(32), lr 1e-4, bf16, resident and augmented tiles
+SIAM_TRAIN_TILES, SIAM_TRAIN_BATCH, SIAM_TRAIN_EPOCHS, SIAM_TRAIN_LR = 120, 12, 3, 1e-4
+# K6b's shapes, cur (B, C, H, W) and the kernel (kh, kw): config 3's training
+# batch ((12, 8·32, 16, 16) bf16 channels_last, the [train siam] path), the
+# siam_unet facade's defaults (float32, batch 4), an odd kernel (240² tiles)
+# and a plane larger than its kernel; the last field: whether a path runs it
+XCORR_GRAD_SHAPES = (
+    ((SIAM_TRAIN_BATCH, 8 * SIAM_FILTER, 16, 16), (16, 16), "bfloat16", True, True),
+    ((4, 8 * SIAM_FILTER, 16, 16), (16, 16), "float32", False, False),
+    ((SIAM_TRAIN_BATCH, 8 * SIAM_FILTER, 15, 15), (15, 15), "bfloat16", True, False),
+    ((SIAM_TRAIN_BATCH, 8 * SIAM_FILTER, 32, 32), (16, 16), "bfloat16", True, False),
+)
+
+
+def xcorr_grad_input_macs(h: int, w: int, kh: int, kw: int) -> int:
+    """Multiply-adds of K6b's grad input on one (h, w) plane: the taps whose
+    ``g[y + ph - u, x + pw - v]`` lies in the plane (the swapped padding)."""
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    rows = sum(min(kh, i + ph + 1) - max(0, i + ph - h + 1) for i in range(h))
+    cols = sum(min(kw, j + pw + 1) - max(0, j + pw - w + 1) for j in range(w))
+    return rows * cols
+
+
+def phase_kernels_siam_training(torch, dev) -> list:
+    """K6 at the Siam trainer's forward shape and K6b's two forms (grad input,
+    grad kernel) at ``XCORR_GRAD_SHAPES``: each bit-equal to its plain version
+    (and so within 1e-5 of the sum of |a·b| in float32, one ulp in bf16),
+    timed beside its bound and beside the autograd backward of one grouped
+    ``F.conv2d`` (the reference's formulation) on the same operands."""
+    import torch.nn.functional as F
+
+    from bio_image_unet_tpu_torch.ops.functional import (depthwise_xcorr,
+                                                         depthwise_xcorr_grad_input,
+                                                         depthwise_xcorr_grad_input_plain,
+                                                         depthwise_xcorr_grad_kernel,
+                                                         depthwise_xcorr_grad_kernel_plain,
+                                                         depthwise_xcorr_plain)
+
+    timer = Timer(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    source = "bio_image_unet_tpu_torch/csrc/depthwise_xcorr.cu"
+    replaces = "bio_image_unet_tpu/ops/functional.py:95"
+
+    def row(*args, timing_only=False):
+        rows.append(kernel_row("kernels siam training", *args))
+        rows[-1]["_timing_only"] = timing_only
+
+    def held(name, ours, ref, bound):
+        """``ours`` bit-equal to the plain version ``ref``, and within its
+        tolerance of it (1e-5 of ``bound``, the sum of |a·b|, in float32;
+        one ulp in bf16)."""
+        diff = (ours.float() - ref.float()).abs()
+        limit = (1e-5 * bound.float() if ours.dtype == torch.float32
+                 else torch.finfo(torch.bfloat16).eps * ref.float().abs())
+        if not (diff <= limit).all() or not torch.equal(ours, ref):
+            raise AssertionError(f"{name}: not bit-equal to the plain version "
+                                 f"(max {diff.max().item()})")
+        return diff.max().item()
+
+    def library(fn):
+        try:
+            return timer(fn, 5)
+        except RuntimeError as err:
+            log(f"[kernels siam training] grouped F.conv2d refused: {err}")
+            return None
+
+    for shape, kernel, dtype_name, cl, on_path in XCORR_GRAD_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        b, c, h, w = shape
+        kh, kw = kernel
+        cur, g = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
+        prev = torch.randn(shape[:2] + kernel, generator=gen, device=dev).to(dtype)
+        if cl:
+            cur, g, prev = (t.contiguous(memory_format=torch.channels_last)
+                            for t in (cur, g, prev))
+        name = (f"{'bf16 channels_last' if cl else 'float32'} {b}x{c}x{h}x{w} k{kh}x{kw}"
+                + ("" if on_path else " timing only"))
+        # the reference's grouped conv and its autograd backward
+        x_lib = cur.contiguous().reshape(1, b * c, h, w).requires_grad_()
+        w_lib = prev.contiguous().reshape(b * c, 1, kh, kw).requires_grad_()
+        g_lib = g.contiguous().reshape(1, b * c, h, w)
+        try:
+            with torch.enable_grad():
+                out_lib = F.conv2d(x_lib, w_lib, groups=b * c, padding="same")
+        except RuntimeError as err:
+            log(f"[kernels siam training] grouped F.conv2d refused {tuple(shape)}: {err}")
+            out_lib = None
+        # the bf16 operands could run on the tensor cores (a Toeplitz
+        # product), float32 ones on the CUDA cores
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_SCALAR_OPS_PER_S
+        e = cur.element_size()
+        plane, ker = b * c * h * w * e, b * c * kh * kw * e
+        if on_path:
+            # K6, the forward the trainer launches at this shape
+            ours = depthwise_xcorr(cur, prev)
+            torch.cuda.synchronize()
+            err = held("K6 " + name, ours, depthwise_xcorr_plain(cur, prev),
+                       depthwise_xcorr_plain(cur.abs(), prev.abs()))
+            row(f"k6_depthwise_xcorr[{name} siam training forward]", source, replaces,
+                depthwise_xcorr, err, timer(lambda: depthwise_xcorr(cur, prev)),
+                timer(lambda: depthwise_xcorr_plain(cur, prev), 3),
+                bound_ms(2 * plane + ker, 2 * b * c * xcorr_macs(h, w, kh, kw), peak),
+                None if out_lib is None else library(
+                    lambda: F.conv2d(x_lib.detach(), w_lib.detach(), groups=b * c,
+                                     padding="same")))
+        # K6b grad input: g and the kernel read once, dcur written once
+        ours = depthwise_xcorr_grad_input(g, prev)
+        torch.cuda.synchronize()
+        err = held("K6b-in " + name, ours, depthwise_xcorr_grad_input_plain(g, prev),
+                   depthwise_xcorr_grad_input_plain(g.abs(), prev.abs()))
+        row(f"k6b_xcorr_grad_input[{name}]", source, replaces, depthwise_xcorr_grad_input, err,
+            timer(lambda: depthwise_xcorr_grad_input(g, prev)),
+            timer(lambda: depthwise_xcorr_grad_input_plain(g, prev), 3),
+            bound_ms(2 * plane + ker, 2 * b * c * xcorr_grad_input_macs(h, w, kh, kw), peak),
+            None if out_lib is None else library(
+                lambda: torch.autograd.grad(out_lib, x_lib, g_lib, retain_graph=True)),
+            timing_only=not on_path)
+        # K6b grad kernel: g and cur read once, dprev written once
+        ours = depthwise_xcorr_grad_kernel(g, cur, kernel)
+        torch.cuda.synchronize()
+        err = held("K6b-k " + name, ours, depthwise_xcorr_grad_kernel_plain(g, cur, kernel),
+                   depthwise_xcorr_grad_kernel_plain(g.abs(), cur.abs(), kernel))
+        row(f"k6b_xcorr_grad_kernel[{name}]", source, replaces, depthwise_xcorr_grad_kernel,
+            err, timer(lambda: depthwise_xcorr_grad_kernel(g, cur, kernel)),
+            timer(lambda: depthwise_xcorr_grad_kernel_plain(g, cur, kernel), 3),
+            bound_ms(2 * plane + ker, 2 * b * c * xcorr_macs(h, w, kh, kw), peak),
+            None if out_lib is None else library(
+                lambda: torch.autograd.grad(out_lib, w_lib, g_lib, retain_graph=True)),
+            timing_only=not on_path)
+        if on_path:
+            # whether a launch holds the host: 50 calls enqueued behind a
+            # 20 ms device spin take ~the spin more on the host clock if so
+            for label, call in (("k6", lambda: depthwise_xcorr(cur, prev)),
+                                ("k6b grad input", lambda: depthwise_xcorr_grad_input(g, prev)),
+                                ("k6b grad kernel",
+                                 lambda: depthwise_xcorr_grad_kernel(g, cur, kernel)),
+                                ("torch.add (control)", lambda: torch.add(cur, cur))):
+                call()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(40 * HOST_LEAD_CYCLES)
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    call()
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                log(f"[kernels siam training] {label} {name}: 50 calls enqueued behind a ~20 ms "
+                    f"device spin in {host * 1e3:.3f} ms on the host clock "
+                    f"({host / 50 * 1e6:.1f} us a call)")
+        del cur, g, prev, ours, x_lib, w_lib, g_lib, out_lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --- 19. Siam training ------------------------------------------------------------------
+
+def write_pair_frames(root: Path, n: int, size: int, seed: int) -> tuple:
+    """``n`` W-doubled blob pairs (the left half the previous frame: the
+    current one shifted by up to 3 pixels, with noise) and the current
+    frames' masks as TIFFs under ``root``/image and ``root``/label (the
+    layout ``siam_unet.DataProcess`` reads)."""
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    rng = np.random.default_rng(seed)
+    for sub in ("image", "label"):
+        (root / sub).mkdir(parents=True)
+    for i in range(n):
+        img, mask = blob_sample(rng, (size, size), n_blobs=10, margin=16, radius=(8, 20))
+        prev = np.roll(img, tuple(rng.integers(-3, 4, 2)), (0, 1)).astype(np.float32)
+        prev = np.clip(prev + rng.normal(0, 8, prev.shape), 0, 255).astype(np.uint8)
+        tiff.imwrite(str(root / "image" / f"{i:04d}.tif"), np.concatenate([prev, img], 1))
+        tiff.imwrite(str(root / "label" / f"{i:04d}.tif"), mask)
+    return (str(root / "image") + "/", str(root / "label") + "/")
+
+
+def phase_train_siam(torch, dev, kernels, ksiam_train) -> None:
+    from bio_image_unet_tpu_torch import siam_unet
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.data.augment_device import augment_apply
+    from bio_image_unet_tpu_torch.ops.functional import (depthwise_xcorr,
+                                                         depthwise_xcorr_grad_input,
+                                                         depthwise_xcorr_grad_kernel)
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + ksiam_train}.values())
+    on_path = [k for k in ksiam_train if not k["_timing_only"]]
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        source = write_pair_frames(tmp / "frames", SIAM_TRAIN_TILES, TILE, seed=5)
+        data = siam_unet.DataProcess(source, dim_out=(TILE, TILE), aug_factor=None,
+                                     data_path=str(tmp / "data"), seed=0)
+        log(f"[train siam] set-up (pair frames, DataProcess) {time.perf_counter() - t0:.2f} s: "
+            f"{len(data)} pair tiles of {TILE}^2")
+        for join in ("max", "corr"):
+            out = tmp / f"run_{join}"
+            trainer = siam_unet.Trainer(data, SIAM_TRAIN_EPOCHS, batch_size=SIAM_TRAIN_BATCH,
+                                        n_filter=SIAM_FILTER, lr=SIAM_TRAIN_LR, mode=join,
+                                        val_split=0.0, save_dir=str(out), seed=0,
+                                        device_cache=True, half_precision=True,
+                                        device_augment=True)
+            steps = trainer._n_train // SIAM_TRAIN_BATCH
+            n = steps * SIAM_TRAIN_EPOCHS
+            # each step: K4's pair form once; under corr K6 and both K6b once
+            expect = {augment_apply: n}
+            if join == "corr":
+                expect.update({depthwise_xcorr: n, depthwise_xcorr_grad_input: n,
+                               depthwise_xcorr_grad_kernel: n})
+            torch.cuda.reset_peak_memory_stats()
+            _, got = counted(torch, "train siam", counters,
+                             f"Siam_UNet(32, {join}) {SIAM_TRAIN_EPOCHS} epochs of {steps} steps",
+                             trainer.start, expect)
+            peak = torch.cuda.max_memory_allocated()
+            if join == "corr":
+                for k in on_path:
+                    k["launches"] = got[k["_counter"]]
+            hist = trainer.history
+            for h in hist:
+                log(f"[train siam] {join}: epoch {h['epoch']}: train loss {h['train_loss']:.6f}, "
+                    f"lr {h['lr']:g}, training pass {h['train_seconds']:.3f} s")
+            if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
+                raise AssertionError(f"[train siam] {join}: the training loss did not fall")
+            best = min(h["train_seconds"] for h in hist[1:])
+            pps = steps * SIAM_TRAIN_BATCH / best
+            flops = 3 * siam_forward_flops(SIAM_FILTER, TILE, join)
+            log(f"[train siam] Siam_UNet(32, {join}): {pps:.1f} patches/s (best epoch after the "
+                f"first), step {best / steps * 1e3:.2f} ms; peak device memory "
+                f"{peak / 2**30:.2f} GiB; {flops / 1e9:.1f} GFLOP per pair tile forward+backward "
+                f"→ {flops * pps / 1e12:.1f} TFLOP/s, {flops * pps / PEAK_BF16_FLOPS:.4f} of the "
+                f"bf16 dense peak")
+            profile_train_epoch(torch, trainer, SIAM_TRAIN_EPOCHS, best, tag=f"train siam {join}")
+
+            # the trained checkpoint (the facade's model.ckpt, a .pt) through
+            # PredictSiam on the card: an 8-frame blob movie, mask IoU
+            rng = np.random.default_rng(8)
+            frames = [blob_sample(rng, (512, 512), n_blobs=40, margin=16, radius=(8, 20))
+                      for _ in range(8)]
+            movie = np.stack([f[0] for f in frames])
+            truth = np.stack([f[1] for f in frames]) > 0
+            src, res = str(tmp / "movie.tif"), str(tmp / "pred.tif")
+            tiff.imwrite(src, movie)
+            siam_unet.Predict(src, res, str(out / "model.ckpt"), resize_dim=(TILE, TILE),
+                              show_progress=False, half_precision=True)
+            pred = tiff.imread(res)
+            if pred.shape != movie.shape or pred.dtype != np.uint8:
+                raise AssertionError(f"PredictSiam on the trained model: {pred.shape} "
+                                     f"{pred.dtype}")
+            iou = float(((pred > 127) & truth).sum() / max(((pred > 127) | truth).sum(), 1))
+            log(f"[train siam→predict] {join}: the trained model.ckpt through PredictSiam on "
+                f"8×512² blob frames: mask IoU {iou:.4f} (foreground {truth.mean():.4f}, "
+                f"predicted {(pred > 127).mean():.4f})")
+    train_siam_card_vs_cpu(torch)
+
+
+def train_siam_card_vs_cpu(torch) -> None:
+    """``Siam_UNet(8, corr)`` on 15 pair tiles of 64² (12 training: 3 steps of
+    4), float32 with TF32 off, one epoch: the card's ``metrics.csv`` rows
+    against the CPU's, rtol 1e-3."""
+    from bio_image_unet_tpu_torch import siam_unet
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    items = []
+    for _ in range(15):
+        img, mask = blob_sample(rng, (64, 64))
+        prev = np.roll(img, 2, 1)
+        items.append({k: (v / 255.0).astype(np.float32)[None]
+                      for k, v in (("image", img), ("mask", mask), ("prev_image", prev))})
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            t = siam_unet.Trainer(items, 1, n_filter=8, batch_size=4, lr=SIAM_TRAIN_LR,
+                                  mode="corr", save_dir=str(Path(tmp) / dev), seed=0, device=dev)
+            t.start()
+            with open(Path(tmp) / dev / "metrics.csv") as fh:
+                rows[dev] = np.array([[float(v) for v in r[1:4]]
+                                      for r in list(csv.reader(fh))[1:]])
+    rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
+    log(f"[train siam] card vs CPU (Siam_UNet(8, corr), 64², float32, TF32 off, 1 epoch): card "
+        f"{rows['cuda'].tolist()}, CPU {rows['cpu'].tolist()}, max relative difference "
+        f"{rel.max():.2e}")
+    if not rel.max() <= 1e-3:
+        raise AssertionError("the card's Siam training run disagrees with the CPU's")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+# --- 20. kernels (int8) --------------------------------------------------------
 
 INT8_SOURCE = "bio_image_unet_tpu_torch/csrc/int8_trunk.cu"
 RESAMPLE_SOURCE = "bio_image_unet_tpu_torch/csrc/int8_resample.cu"
@@ -3378,7 +3723,7 @@ def phase_kernels_int8(torch, dev) -> list:
     return rows
 
 
-# --- 19. int8 -------------------------------------------------------------------
+# --- 21. int8 -------------------------------------------------------------------
 
 def write_warm_checkpoint(torch, path: str, name: str, n_filter: int, seed: int = 0,
                           **hyper) -> None:
@@ -3414,7 +3759,7 @@ def int8_contract(tag: str, what: str, q: np.ndarray, ref: np.ndarray) -> None:
         raise AssertionError(f"{what}: outside the int8 contract")
 
 
-def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
+def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> float:
     from bio_image_unet_tpu_torch import siam_unet
     from bio_image_unet_tpu_torch.data import tiff
     from bio_image_unet_tpu_torch.ops import histogram as hist
@@ -3447,10 +3792,12 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
 
         # the main path of this phase: launches exact around the call
         t0 = time.perf_counter()
+        # the calibration: K1 (two uint8 launches) and K2h on its two frames
+        cal = {hist.int_clip_bounds: 2, normalize_tile_float: 1}
         pred, got = counted(torch, "int8", counters, main,
                             lambda: Predict(movie, None, ckpt, quantized=True, **kw),
-                            {hist.int_clip_bounds: 2 * chunks, normalize_tile: chunks,
-                             sigmoid_stitch: chunks, **trunk(chunks)})
+                            plus({hist.int_clip_bounds: 2 * chunks, normalize_tile: chunks,
+                                  sigmoid_stitch: chunks, **trunk(chunks)}, cal))
         first = time.perf_counter() - t0
         if not pred.engine._quant_ready:
             raise AssertionError("the quantized Predict did not calibrate")
@@ -3462,12 +3809,17 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
         # above); each call's own peak device memory, the counter reset first
         times = {"int8": float("inf"), "bf16": float("inf")}
         call_peak = {"int8": 0, "bf16": 0}
-        results = {}
+        results, split = {}, {}
         for mode in ("bf16", "int8", "int8", "bf16", "bf16"):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            results[mode] = Predict(movie, None, ckpt, quantized=mode == "int8", **kw).result
-            times[mode] = min(times[mode], time.perf_counter() - t0)
+            call = Predict(movie, None, ckpt, quantized=mode == "int8", **kw)
+            dt = time.perf_counter() - t0
+            results[mode] = call.result
+            if dt < times[mode]:
+                times[mode] = dt
+                split[mode] = dict(call.engine.chunk_seconds,
+                                   calibration=call.engine.calibration_seconds)
             call_peak[mode] = max(call_peak[mode], torch.cuda.max_memory_allocated())
         if not np.array_equal(results["int8"], q_res):
             raise AssertionError("two quantized calls on one movie disagree")
@@ -3476,6 +3828,7 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
             f"not warmed): max {int(d.max())} levels, mean {d.mean():.4f} (not gated: see the "
             f"trained model below)")
         e2e = {m: FRAMES * H * W / 1e6 / t for m, t in times.items()}
+        ratio = e2e["int8"] / e2e["bf16"]
 
         # device-resident: both chunk programs on the movie on the card, in turns
         xs, ys = grid_starts(H, TILE, 0), grid_starts(W, TILE, 0)
@@ -3505,6 +3858,15 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
         resident_peak = torch.cuda.max_memory_allocated()
         resident_mps = {m: FRAMES * H * W / 1e6 / t for m, t in device.items()}
         ops = int8_trunk_ops(N_FILTER, TILE) * FRAMES * (H // TILE) * (W // TILE)
+        for mode in ("int8", "bf16"):
+            cal_s = split[mode].pop("calibration")
+            log(f"[int8] {main}: host split of the best {mode} call ({times[mode]:.3f} s): "
+                f"calibration {cal_s:.4f} s, the rest {times[mode] - cal_s:.4f} s ("
+                + ", ".join(f"{k} {v:.4f} s" for k, v in split[mode].items())
+                + "; host clock, download on the device clock, overlapped)")
+        log(f"[int8] {main}: the first int8 call's calibration "
+            f"{pred.engine.calibration_seconds:.4f} s (K1, K2h and the instrumented forward on "
+            f"the card, their first launches included)")
         log(f"[int8] {main}: end to end int8 {e2e['int8']:.2f} MP/s, bf16 {e2e['bf16']:.2f} MP/s "
             f"(ratio {e2e['int8'] / e2e['bf16']:.3f}; first call {first:.3f} s with the "
             f"calibration); device-resident int8 {resident_mps['int8']:.2f} MP/s, bf16 "
@@ -3539,8 +3901,8 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
         tkw = dict(resize_dim=(TILE, TILE), show_progress=False, half_precision=True)
         t_q, _ = counted(torch, "int8", counters, "trained Unet(32), 16x512^2 blobs",
                          lambda: Predict(blobs, None, str(tr), quantized=True, **tkw).result,
-                         {hist.int_clip_bounds: 2, normalize_tile: 1, sigmoid_stitch: 1,
-                          **trunk(1)})
+                         plus({hist.int_clip_bounds: 2, normalize_tile: 1, sigmoid_stitch: 1,
+                               **trunk(1)}, cal))
         t_b = Predict(blobs, None, str(tr), **tkw).result
         margin = _Engine._QUANT_CAL_MARGIN
         _Engine._QUANT_CAL_MARGIN = 0.02
@@ -3569,9 +3931,9 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
         m16 = movie[:CHUNK]
         res, _ = counted(torch, "int8", counters, "MultiOutputUnet(32) int8, 16x1024^2",
                          lambda: PredictMultiOutput(m16, mo, quantized=True, **mkw).result,
-                         {hist.int_clip_bounds: 2, normalize_tile_float: 1,
-                          margin_stitch: len(MO_HEADS), tile_sum: len(MO_HEADS),
-                          **trunk(1)})
+                         plus({hist.int_clip_bounds: 2, normalize_tile_float: 1,
+                               margin_stitch: len(MO_HEADS), tile_sum: len(MO_HEADS),
+                               **trunk(1)}, cal))
         ref = PredictMultiOutput(m16, mo, **mkw).result
         check_heads("MultiOutputUnet(32) int8", res, m16.shape)
         for head in MO_HEADS:
@@ -3591,14 +3953,17 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
             write_warm_checkpoint(torch, sp, "Siam_UNet", N_FILTER, seed=40 + seed, mode=join)
             q_out, b_out = str(tmp / "sq.tif"), str(tmp / "sb.tif")
             t0 = time.perf_counter()
-            counted(torch, "int8", counters, f"Siam_UNet(32, {join}) int8, 8x1024^2",
-                    lambda: siam_unet.Predict(src, q_out, sp, quantized=True, **skw),
-                    {hist.int_clip_bounds: 2, normalize_tile_pairs: 1, sigmoid_stitch: 1,
-                     **trunk(1, join == "concat")})
+            # the calibration: K1 over the sampled pairs' four planes, K2h on
+            # each plane set
+            sq, _ = counted(torch, "int8", counters, f"Siam_UNet(32, {join}) int8, 8x1024^2",
+                            lambda: siam_unet.Predict(src, q_out, sp, quantized=True, **skw),
+                            {hist.int_clip_bounds: 4, normalize_tile_float: 2,
+                             normalize_tile_pairs: 1, sigmoid_stitch: 1,
+                             **trunk(1, join == "concat")})
             dt = time.perf_counter() - t0
             siam_unet.Predict(src, b_out, sp, **skw)
             log(f"[int8] Siam_UNet(32, {join}): {8 * H * W / 1e6 / dt:.2f} MP/s end to end "
-                f"(one call, calibration included)")
+                f"(one call, calibration included: {sq.engine.calibration_seconds:.4f} s)")
             int8_contract("int8", f"Siam_UNet(32, {join}) int8 vs bf16",
                           tiff.imread(q_out), tiff.imread(b_out))
 
@@ -3610,9 +3975,10 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> None:
         int8_contract("int8", "Unet(8) int8: card vs CPU",
                       Predict(m, None, small, **ckw).result,
                       Predict(m, None, small, device="cpu", **ckw).result)
+    return ratio
 
 
-# --- 20. kernels (int8 3d) -------------------------------------------------------
+# --- 22. kernels (int8 3d) -------------------------------------------------------
 
 # Predict3D's forward batch at config 5: 2^23 tile voxels of (32, 128, 128)
 INT8_3D_BATCH = (1 << 23) // int(np.prod(VOL_TILE))
@@ -3799,7 +4165,7 @@ def phase_kernels_int8_3d(torch, dev) -> list:
     return rows
 
 
-# --- 21. int8 3d ------------------------------------------------------------------
+# --- 23. int8 3d ------------------------------------------------------------------
 
 def blob_volume(rng, shape, n_blobs: int = 12) -> np.ndarray:
     """A uint8 volume of bright Gaussian blobs on a noisy background (the
@@ -3858,7 +4224,7 @@ def resident_volume_passes(torch, dev, ckpt: str, vol: np.ndarray, vol_dev, q_re
     return fns, device
 
 
-def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
+def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> float:
     import os
 
     from bio_image_unet_tpu_torch.ops import histogram as hist
@@ -3885,6 +4251,9 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
                 k8.upsample2x_i8_3d: 3 * b * (not tconv and not nearest)}
 
     volume_expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1}
+    # a quantized call's calibration: K1 (two uint8 launches) and K2v in float
+    # mode on its sampled volumes
+    cal = {hist.int_clip_bounds: 2, normalize_tile_3d: 1}
     rng = np.random.default_rng(14)
     t0 = time.perf_counter()
     vol = blob_volume(rng, shape)
@@ -3913,7 +4282,7 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
             t0 = time.perf_counter()
             pred, got = counted(torch, "int8 3d", counters, main,
                                 lambda: Predict3D(vol, None, ckpt, quantized=True, **kw),
-                                {**volume_expect, **trunk(batches)})
+                                plus({**volume_expect, **trunk(batches)}, cal))
             first = time.perf_counter() - t0
         finally:
             _Engine._calibrate_int8_3d = calibrate
@@ -3925,15 +4294,20 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
 
         # end to end, int8 and bf16 back to back (best of two after the call above)
         times = {"int8": float("inf"), "bf16": float("inf")}
-        results = {}
+        results, best_cal = {}, 0.0
         for mode in ("bf16", "int8", "int8", "bf16", "bf16"):
             t0 = time.perf_counter()
-            results[mode] = Predict3D(vol, None, ckpt, quantized=mode == "int8", **kw).result
-            times[mode] = min(times[mode], time.perf_counter() - t0)
+            call = Predict3D(vol, None, ckpt, quantized=mode == "int8", **kw)
+            dt = time.perf_counter() - t0
+            results[mode] = call.result
+            if dt < times[mode]:
+                times[mode] = dt
+                best_cal = call.engine.calibration_seconds if mode == "int8" else best_cal
         if not np.array_equal(results["int8"], q_res):
             raise AssertionError("two quantized Predict3D calls on one volume disagree")
         int8_3d_bounds("int8 3d", f"{main}: int8 vs bf16", q_res, results["bf16"])
         e2e = {m: mvox / t for m, t in times.items()}
+        ratio = e2e["int8"] / e2e["bf16"]
 
         # device-resident: both volume programs on the volume on the card, in turns
         vol_dev = torch.from_numpy(vol).to(dev)
@@ -3944,7 +4318,8 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
         ops = int8_3d_trunk_ops(VOL_FILTER) * n_tiles * np.prod(VOL_TILE)
         log(f"[int8 3d] {main}: end to end int8 {e2e['int8']:.2f} Mvox/s, bf16 "
             f"{e2e['bf16']:.2f} Mvox/s (ratio {e2e['int8'] / e2e['bf16']:.3f}; first call "
-            f"{first:.3f} s, its calibration {calibration[0]:.3f} s); device-resident int8 "
+            f"{first:.3f} s, its calibration {calibration[0]:.3f} s; the best int8 call "
+            f"{times['int8']:.3f} s, its calibration {best_cal:.4f} s); device-resident int8 "
             f"{resident['int8']:.2f} Mvox/s ({device['int8'] * 1e3:.2f} ms), bf16 "
             f"{resident['bf16']:.2f} Mvox/s ({device['bf16'] * 1e3:.2f} ms) (ratio "
             f"{resident['int8'] / resident['bf16']:.3f}); int8 trunk "
@@ -3966,7 +4341,7 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
             t0 = time.perf_counter()
             q, got_tri = counted(torch, "int8 3d", counters, "trilinear UNet3D(32) int8",
                                  lambda: Predict3D(vol, None, tri, quantized=True, **kw).result,
-                                 {**volume_expect, **trunk(batches, tconv=False)})
+                                 plus({**volume_expect, **trunk(batches, tconv=False)}, cal))
             dt = time.perf_counter() - t0
             # K11v's path is this decoder's: its JSON entry counts this call
             for k in kint8_3d:
@@ -3999,9 +4374,10 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
             res, _ = counted(torch, "int8 3d", counters,
                              f"MultiOutputUnet3D(32) int8, {MO3_VOLS} volumes ([3d heads])",
                              lambda: PredictMultiOutput3D(vols, mo, quantized=True, **mkw).result,
-                             {hist.int_clip_bounds: 2, normalize_tile_3d: 1,
-                              blend_stitch_3d: len(MO3_HEADS),
-                              **trunk(-(-n_heads_tiles // bs), tconv=False, nearest=True)})
+                             plus({hist.int_clip_bounds: 2, normalize_tile_3d: 1,
+                                   blend_stitch_3d: len(MO3_HEADS),
+                                   **trunk(-(-n_heads_tiles // bs), tconv=False, nearest=True)},
+                                  cal))
             dt = time.perf_counter() - t0
             ref = PredictMultiOutput3D(vols, mo, **mkw).result
             check_heads3d("MultiOutputUnet3D(32) int8", res, (MO3_VOLS,) + shape)
@@ -4035,8 +4411,8 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
         n_t = int(np.prod([32 // T3_SHAPE[0], 128 // T3_SHAPE[1], 128 // T3_SHAPE[2]]))
         t_q, _ = counted(torch, "int8 3d", counters, "trained UNet3D(32), 32x128^2",
                          lambda: Predict3D(tvol, None, str(tr), quantized=True, **tkw).result,
-                         {**volume_expect, **trunk(-(-n_t // max(
-                             VOL_BATCH, min(n_t, (1 << 23) // int(np.prod(T3_SHAPE))))))})
+                         plus({**volume_expect, **trunk(-(-n_t // max(
+                             VOL_BATCH, min(n_t, (1 << 23) // int(np.prod(T3_SHAPE))))))}, cal))
         t_b = Predict3D(tvol, None, str(tr), **tkw).result
         ious = {m: float(((r > 127) & truth).sum() / max(((r > 127) | truth).sum(), 1))
                 for m, r in (("int8", t_q), ("bf16", t_b))}
@@ -4056,9 +4432,10 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> None:
         if not (card.engine._quant_ready and cpu.engine._quant_ready):
             raise AssertionError("card vs CPU: a quantized Predict3D did not calibrate")
         int8_contract("int8 3d", "UNet3D(8) int8: card vs CPU", card.result, cpu.result)
+    return ratio
 
 
-# --- 22. kernels (nested int8) -------------------------------------------------------
+# --- 24. kernels (nested int8) -------------------------------------------------------
 
 def phase_kernels_nested_int8(torch, dev) -> list:
     """The UNet++ int8 grid's kernels on its row buffers, at config 4's
@@ -4192,7 +4569,7 @@ def phase_kernels_nested_int8(torch, dev) -> list:
     return rows
 
 
-# --- 23. nested int8 ----------------------------------------------------------------
+# --- 25. nested int8 ----------------------------------------------------------------
 
 def nested_int8_ops(nf: int, s: int) -> float:
     """int8 operations of one s² tile through the UNet++ int8 grid: every
@@ -4214,7 +4591,7 @@ def nested_int8_bounds(tag: str, what: str, q: dict, ref: dict) -> None:
             raise AssertionError(f"{what} {head}: outside JAX's UNet++ int8 bounds")
 
 
-def phase_nested_int8(torch, dev, kernels, knested) -> None:
+def phase_nested_int8(torch, dev, kernels, knested) -> float:
     """``PredictMultiOutput(quantized=True)`` under ``BIU_INT8_EXPERIMENTAL=1``
     at config 4 (``family_bench.py:293-333``): a BN-warmed
     ``MultiOutputNestedUNet(32)``, 40 uint8 1024² frames, 512² patches,
@@ -4247,8 +4624,10 @@ def phase_nested_int8(torch, dev, kernels, knested) -> None:
         return {k8.qconv3x3: ((levels + 1) * (levels + 2) - 1) * b, k8.upsample2x_i8: cells * b,
                 k8.maxpool_i8: levels * b, k8.requant: 2 * b}
 
-    expect = {hist.int_clip_bounds: 2 * n_chunks, normalize_tile_float: n_chunks,
-              margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads, **grid(batches)}
+    # beside the calibration: K1 (two uint8 launches) and K2h on its two frames
+    expect = plus({hist.int_clip_bounds: 2 * n_chunks, normalize_tile_float: n_chunks,
+                   margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads,
+                   **grid(batches)}, {hist.int_clip_bounds: 2, normalize_tile_float: 1})
     rng = np.random.default_rng(16)
     movie = rng.integers(0, 255, (HEADS_FRAMES, H, W), dtype=np.uint8)
     kw = dict(max_patch_size=(P, P), half_precision=True, safe_margin=HEADS_MARGIN,
@@ -4294,6 +4673,7 @@ def phase_nested_int8(torch, dev, kernels, knested) -> None:
             nested_int8_bounds("nested int8", f"{main}: int8 vs bf16", q_res, results["bf16"])
             mp = HEADS_FRAMES * H * W / 1e6
             e2e = {m: mp / t for m, t in times.items()}
+            ratio = e2e["int8"] / e2e["bf16"]
 
             # device-resident: both chunk programs on the movie on the card, in turns
             xs, ys = grid_starts(H, P), grid_starts(W, P)
@@ -4365,11 +4745,12 @@ def phase_nested_int8(torch, dev, kernels, knested) -> None:
             os.environ.pop("BIU_INT8_EXPERIMENTAL", None)
         else:
             os.environ["BIU_INT8_EXPERIMENTAL"] = env
+    return ratio
 
 
-# --- 24. attention --------------------------------------------------------------------
+# --- 26. attention --------------------------------------------------------------------
 
-def phase_attention(torch, dev, kernels) -> None:
+def phase_attention(torch, dev, kernels) -> float:
     """``Predict`` on a BN-warmed ``AttentionUnet(32)`` at config 1
     (``benchmarks/probe_trunk_int8.py``: the 64×1024² uint8 movie, 256²
     tiles, bf16, fused): float, then ``quantized=True`` (int8 by default:
@@ -4378,7 +4759,7 @@ def phase_attention(torch, dev, kernels) -> None:
     from bio_image_unet_tpu_torch.ops import int8 as k8
     from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
     from bio_image_unet_tpu_torch.predict import Predict
-    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile, normalize_tile_float
     from bio_image_unet_tpu_torch.predict.predictor import _Engine
     from bio_image_unet_tpu_torch.predict.quant import Int8Unet2D
     from bio_image_unet_tpu_torch.predict.tiling import grid_starts
@@ -4403,7 +4784,9 @@ def phase_attention(torch, dev, kernels) -> None:
 
         # the main path of this phase, float then int8: launches exact
         res = {}
-        for mode, expect in (("bf16", frame), ("int8", {**frame, **gated})):
+        # int8 adds the gated trunk and the calibration (K1, K2h on two frames)
+        cal = {hist.int_clip_bounds: 2, normalize_tile_float: 1}
+        for mode, expect in (("bf16", frame), ("int8", plus({**frame, **gated}, cal))):
             pred, _ = counted(torch, "attention", counters, f"{main}, {mode}",
                               lambda: Predict(movie, None, ckpt, quantized=mode == "int8",
                                               **kw), expect)
@@ -4427,6 +4810,7 @@ def phase_attention(torch, dev, kernels) -> None:
             if not np.array_equal(out, res[mode]):
                 raise AssertionError(f"two {mode} calls on one movie disagree")
         e2e = {m: FRAMES * H * W / 1e6 / t for m, t in times.items()}
+        ratio = e2e["int8"] / e2e["bf16"]
 
         # device-resident: both chunk programs on the movie on the card, in turns
         xs, ys = grid_starts(H, TILE, 0), grid_starts(W, TILE, 0)
@@ -4486,6 +4870,7 @@ def phase_attention(torch, dev, kernels) -> None:
         int8_contract("attention", "AttentionUnet(8) int8: card vs CPU",
                       Predict(m, None, small, quantized=True, **skw).result,
                       Predict(m, None, small, quantized=True, device="cpu", **skw).result)
+    return ratio
 
 
 if __name__ == "__main__":

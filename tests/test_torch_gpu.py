@@ -5,7 +5,9 @@ against the same on the CPU; the int8 kernels K7–K10 and K7v, K8v, K10v
 bit-equal to theirs (K7, K9, K10 and K11 on channel ranges of the UNet++
 grid's row buffers too), K11 and K11v likewise, and ``quantized=True``
 prediction (2D, UNet++, AttentionUnet and 3D) on the card within the int8
-contract of the CPU's.  K6 and K10 (redesigned with register tiles and
+contract of the CPU's.  K6b (the two gradients of K6) is bit-equal to its
+plain versions, and Siam training on the card matches the CPU's.  K6 and K10
+(redesigned with register tiles and
 16-byte vectors) are bit-equal to their plain versions at every shape and
 vector width tested, and so are K5 and K5v (runs of 8 outputs from aligned
 16-byte loads) on tiles at an odd float16 offset, on column starts off 8,
@@ -41,7 +43,11 @@ from bio_image_unet_tpu_torch.models import (MultiOutputNestedUNet, MultiOutputU
 from bio_image_unet_tpu_torch.ops import histogram as hist
 from bio_image_unet_tpu_torch.ops.blocks import init_weights_
 from bio_image_unet_tpu_torch.ops import int8 as k8
-from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr, depthwise_xcorr_plain
+from bio_image_unet_tpu_torch.ops.functional import (depthwise_xcorr, depthwise_xcorr_grad_input,
+                                                     depthwise_xcorr_grad_input_plain,
+                                                     depthwise_xcorr_grad_kernel,
+                                                     depthwise_xcorr_grad_kernel_plain,
+                                                     depthwise_xcorr_plain)
 from bio_image_unet_tpu_torch.ops.stitch import (blend_stitch_3d, blend_stitch_3d_plain,
                                                   margin_stitch, margin_stitch_plain,
                                                   sigmoid_stitch, sigmoid_stitch_3d,
@@ -1062,9 +1068,90 @@ def test_depthwise_xcorr_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         depthwise_xcorr(torch.zeros((1, 1, 171, 171), device=cuda),
                         torch.zeros((1, 1, 170, 170), device=cuda))
+    # with a gradient the forward still launches K6 (its backward is K6b);
+    # K6b refuses what its staging does not fit
     x = torch.zeros((1, 2, 8, 8), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        depthwise_xcorr(x, x)
+    before = depthwise_xcorr.launches
+    assert depthwise_xcorr(x, x).requires_grad and depthwise_xcorr.launches == before + 1
+    g = torch.zeros((1, 1, 171, 171), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        depthwise_xcorr_grad_kernel(g, g, (3, 3))
+
+
+# K6b: the Siam trainer's shapes (bf16 (12, 256, 16, 16), the facade's
+# float32 batch 4), odd and even kernels, a plane larger than its kernel, a
+# kernel larger than its plane, the largest planes the staging takes
+XCORR_GRAD_CASES = [
+    ((12, 256, 16, 16), (16, 16), torch.bfloat16), ((4, 256, 16, 16), (16, 16), torch.float32),
+    ((3, 5, 7, 7), (7, 7), torch.float32), ((2, 7, 9, 11), (4, 6), torch.bfloat16),
+    ((2, 6, 24, 20), (5, 3), torch.float32), ((1, 3, 4, 5), (7, 6), torch.bfloat16),
+    ((1, 2, 170, 170), (9, 9), torch.float32)]
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("case", XCORR_GRAD_CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_depthwise_xcorr_grad_kernels_bit_equal_to_plain(cuda, case, channels_last):
+    shape, kernel, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cur, grad = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(2))
+    prev = torch.randn(shape[:2] + kernel, generator=g, device=cuda).to(dtype)
+    if channels_last:
+        cur, grad, prev = (t.contiguous(memory_format=torch.channels_last)
+                           for t in (cur, grad, prev))
+    before = (depthwise_xcorr_grad_input.launches, depthwise_xcorr_grad_kernel.launches)
+    d_cur = depthwise_xcorr_grad_input(grad, prev)
+    d_prev = depthwise_xcorr_grad_kernel(grad, cur, kernel)
+    torch.cuda.synchronize()
+    assert (depthwise_xcorr_grad_input.launches,
+            depthwise_xcorr_grad_kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert d_cur.dtype == d_prev.dtype == dtype and d_prev.shape == shape[:2] + kernel
+    assert torch.equal(d_cur, depthwise_xcorr_grad_input_plain(grad, prev))
+    assert torch.equal(d_prev, depthwise_xcorr_grad_kernel_plain(grad, cur, kernel))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_depthwise_xcorr_gradient_on_card_equals_cpu(cuda, dtype):
+    """The autograd Function on the card (K6 forward, K6b backward) against
+    the same on the CPU (the plain versions): bit-equal, channels_last."""
+    gen = torch.Generator().manual_seed(9)
+    cur, prev, grad = (torch.randn((3, 8, 16, 16), generator=gen).to(dtype) for _ in range(3))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        c, p = (t.to(dev).contiguous(memory_format=torch.channels_last).requires_grad_()
+                for t in (cur, prev))
+        out = depthwise_xcorr(c, p)
+        got[dev] = (out, *torch.autograd.grad(out, (c, p), grad.to(dev)))
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a.detach().cpu(), b.detach())
+
+
+@pytest.mark.parametrize("mode", ["corr", "max"])
+def test_siam_trainer_on_card_matches_cpu(cuda, tmp_path, mode):
+    """3 steps of ``Siam_UNet(8)`` in float32 (TF32 off) on the card against
+    the CPU; under ``corr`` each step launches K6 once and each K6b form
+    once, under ``max`` none."""
+    rng = np.random.default_rng(0)
+    items = []
+    for _ in range(15):
+        img, m = blob_sample(rng, (64, 64))
+        prev = np.roll(img, 2, 0)
+        items.append({k: (v / 255.0).astype(np.float32)[None]
+                      for k, v in (("image", img), ("mask", m), ("prev_image", prev))})
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        counts = [depthwise_xcorr.launches, depthwise_xcorr_grad_input.launches,
+                  depthwise_xcorr_grad_kernel.launches]
+        t = siam_unet.Trainer(items, 1, n_filter=8, mode=mode, batch_size=4, lr=1e-4,
+                              save_dir=str(tmp_path / dev), seed=0, device=dev, val_split=0.2)
+        t.start()
+        counts = [c.launches - n for c, n in zip(
+            (depthwise_xcorr, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel), counts)]
+        if dev == "cuda":
+            # 3 training steps and one validation batch of 3
+            assert counts == ([4, 3, 3] if mode == "corr" else [0, 0, 0]), counts
+        with open(os.path.join(tmp_path / dev, "metrics.csv")) as fh:
+            rows[dev] = np.array([[float(v) for v in r[1:3]] for r in list(csv.reader(fh))[1:]])
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-3)
 
 
 @pytest.mark.parametrize("mode,dtype,norm,add", [

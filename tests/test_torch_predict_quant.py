@@ -130,6 +130,60 @@ def test_predict_siam_quantized_matches_jax(tmp_path, ckpts, maxes, join, mode):
     assert_int8_contract(tiff.imread(ours), jtiff.imread(ref))
 
 
+@pytest.mark.parametrize("dtype,mode,invert", [(np.uint8, "first", False),
+                                               (np.float32, "single", True),
+                                               (np.uint16, "all", True)])
+def test_predict_quantized_calibration_on_the_card_path(ckpts, maxes, monkeypatch, dtype, mode,
+                                                        invert):
+    """The calibration cuts its tiles with the fused path's kernels (K1 or
+    the stack-global bounds, K2h in float32; on the CPU their plain
+    versions), never through the host normalization, and its maxes stay
+    within 2e-2 of JAX's host calibration: 'first' and 'all' bounds, a
+    float32 movie, ``invert``."""
+    movie = _movie(8, dtype, (3, 80, 72))
+    kw = dict(resize_dim=(32, 32), normalization_mode=mode, invert=invert, show_progress=False,
+              batch_size=8, quantized=True)
+    ref = JPredict(movie, None, ckpts["unet"], **kw)
+
+    def host_normalization(*args, **kwargs):
+        raise AssertionError("the int8 calibration normalized frames on the host")
+
+    monkeypatch.setattr(predictor, "_normalize_stack", host_normalization)
+    ours = Predict(movie, None, ckpts["unet"], device="cpu", **kw)
+    assert ours.engine._quant_ready and ours.engine.calibration_seconds > 0
+    assert_same_calibration(maxes)
+    assert_int8_contract(ours.result, ref.result)
+
+
+@pytest.mark.parametrize("join,mode,dtype,size", [("max", "all", np.uint16, (40, 48)),
+                                                  ("control", "single", np.uint8, (40, 44)),
+                                                  ("concat", "first", np.uint16, (40, 48))])
+def test_predict_siam_quantized_calibration_on_the_card_path(tmp_path, ckpts, maxes, monkeypatch,
+                                                             join, mode, dtype, size):
+    """The Siam pairs calibrate on tiles cut by K2h with the pair program's
+    bounds (K1 per frame, per prev plane, or K1's pair rows over one
+    uploaded block), never through the host normalization: maxes within
+    2e-2 of JAX's, on uint16 pages, inverted, and on frames narrower than
+    the tile (48² tiles of 40×44 frames: reflect-padded calibration tiles,
+    as JAX's)."""
+    src = str(tmp_path / "movie.tif")
+    tiff.imwrite(src, _movie(9, dtype, (5,) + size))
+    tile = (32, 32) if size[1] == 48 else (48, 48)
+    kw = dict(resize_dim=tile, normalization_mode=mode, invert=dtype == np.uint16,
+              show_progress=False, batch_size=4, frames_per_chunk=2, quantized=True)
+    ours, ref = str(tmp_path / "port.tif"), str(tmp_path / "jax.tif")
+    JPredictSiam(src, ref, ckpts[f"siam_{join}"], **kw)
+
+    def host_normalization(*args, **kwargs):
+        raise AssertionError("the int8 calibration normalized frames on the host")
+
+    monkeypatch.setattr(predictor, "_normalize_stack", host_normalization)
+    p = PredictSiam(src, ours, ckpts[f"siam_{join}"], device="cpu", **kw)
+    assert p.engine._quant_ready
+    assert_same_calibration(maxes)
+    assert_int8_contract(tiff.imread(ours), jtiff.imread(ref))
+
+
 def _warned(call):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

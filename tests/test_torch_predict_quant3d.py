@@ -131,6 +131,35 @@ def test_predict_multi_output_3d_quantized_matches_jax(ckpts, maxes, monkeypatch
         assert d.mean() / rg < 0.03, (head, d.mean(), rg)
 
 
+@pytest.mark.parametrize("family,mode,invert", [("tconv", "single", True), ("mo", "first", False)])
+def test_quantized_3d_calibration_on_the_card_path(ckpts, maxes, monkeypatch, family, mode,
+                                                    invert):
+    """The 3D calibration cuts its tiles with the fused path's kernels (K1
+    per volume or the stack-global bounds, K2v in float mode; on the CPU
+    their plain versions) from the call's own upload, never through the
+    host normalization; its maxes stay within 2e-2 of JAX's."""
+    monkeypatch.setenv("BIU_INT8_EXPERIMENTAL", "1")
+
+    def host_normalization(*args, **kwargs):
+        raise AssertionError("the int8 calibration normalized volumes on the host")
+
+    if family == "tconv":
+        vol = _blob_volume(6, np.uint16)
+        kw = dict(resize_dim=TILE, invert=invert, show_progress=False, quantized=True)
+        JPredict3D(vol, None, ckpts[family], **kw)
+        monkeypatch.setattr(predictor, "_normalize_stack", host_normalization)
+        p = Predict3D(vol, None, ckpts[family], device="cpu", **kw)
+    else:
+        vols = np.stack([_blob_volume(7), _blob_volume(8) // 3])
+        kw = dict(max_patch_size=TILE, normalization_mode=mode, show_progress=False,
+                  quantized=True)
+        JPredictMultiOutput3D(vols, ckpts[family], **kw)
+        monkeypatch.setattr(predictor, "_normalize_stack", host_normalization)
+        p = PredictMultiOutput3D(vols, ckpts[family], device="cpu", **kw)
+    assert p.engine._quant_ready and p.engine.calibration_seconds > 0
+    assert_same_calibration(maxes)
+
+
 def test_quantized_3d_gate_warnings_match_jax(ckpts, monkeypatch):
     """Without BIU_INT8_EXPERIMENTAL the trilinear ``UNet3D`` and
     ``MultiOutputUnet3D`` warn and run bf16 (equal to a bf16 call); the

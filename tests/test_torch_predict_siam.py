@@ -222,10 +222,13 @@ def test_device_rule_and_refusals(tmp_path, ckpts):
                              **kw).engine._quant_ready
     with pytest.raises(ValueError, match="not valid"):
         siam_unet.Predict(src, out, ckpts["max"], normalization_mode="median", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Siam training"):
-        siam_unet.DataProcess(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Siam training"):
-        siam_unet.Trainer([], 1)
+    # Siam training is ported: the facade's DataProcess and Trainer are the
+    # pair pipeline and the generic Trainer with a join
+    from bio_image_unet_tpu_torch.data.pipelines import DataProcessSiam
+    from bio_image_unet_tpu_torch.train import Trainer
+
+    assert siam_unet.DataProcess is DataProcessSiam
+    assert issubclass(siam_unet.Trainer, Trainer)
 
 
 def test_siam_modules_import_and_predict_without_jax(tmp_path):

@@ -375,7 +375,14 @@ def test_siam_checkpoint_rules(tmp_path, siam_ckpts):
     with pytest.raises(RuntimeError, match="conv_concat"):
         get_model("Siam_UNet", **no_mode).load_state_dict(sd, strict=True)
 
-    # the siamese trainer is a later slice
-    data = [{"image": np.zeros((1, 32, 32), np.float32), "mask": np.zeros((1, 32, 32), np.float32)}]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(data, 1, network="Siam_UNet", n_filter=4, save_dir=str(tmp_path), device="cpu")
+    # the siamese trainer rebuilds the join from ``mode`` and writes it into
+    # its checkpoint; ``network="Siam_UNet"`` without a mode is a plain trunk,
+    # as in JAX (get_model passes mode=None)
+    data = [{"image": np.zeros((1, 32, 32), np.float32), "mask": np.zeros((1, 32, 32), np.float32),
+             "prev_image": np.zeros((1, 32, 32), np.float32)}]
+    t = Trainer(data, 1, network="Siam_UNet", n_filter=4, mode="max", save_dir=str(tmp_path),
+                device="cpu")
+    assert t.model.mode == "max" and t.params_meta["mode"] == "max"
+    plain = Trainer(data, 1, network="Siam_UNet", n_filter=4, save_dir=str(tmp_path),
+                    device="cpu")
+    assert plain.model.mode is None and "mode" not in plain.params_meta

@@ -241,7 +241,7 @@ def test_trainer_device_rule_and_unported_options(tmp_path):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="auto")
-    for kw in ({"network": "AttentionUnet"}, {"mode": "max"},
+    for kw in ({"network": "AttentionUnet"},
                {"mesh": object()}, {"device_cache": "sharded"}, {"remat": True},
                {"profile_dir": str(tmp_path / "prof")}):
         with pytest.raises(NotImplementedError, match="not ported"):

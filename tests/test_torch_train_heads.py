@@ -429,11 +429,14 @@ def test_facade_defaults_and_logging(tmp_path):
 
 def test_unported_and_invalid_options(tmp_path):
     data = HeadTiles("chw", n=4)
-    for kw in ({"network": "AttentionUnet"}, {"mode": "max"}, {"mesh": object()},
+    for kw in ({"network": "AttentionUnet"}, {"mesh": object()},
                {"device_cache": "sharded"}, {"remat": True},
                {"profile_dir": str(tmp_path / "prof")}):
         with pytest.raises(NotImplementedError, match="not ported"):
             _port_trainer(tmp_path, data, **kw)
+    # the siamese join is ported, for networks that have one
+    with pytest.raises(ValueError, match="siamese join"):
+        _port_trainer(tmp_path, data, mode="max")
     # the 3D options are ported: with heads the temporal term does not apply
     # (trainer.py:436-458), and a 2D model drops use_interpolation
     t = _port_trainer(tmp_path, data, time_loss_weight=0.1, use_interpolation=True)
