@@ -1,4 +1,7 @@
-// K3: sigmoid*255 -> uint8 per tile, then the mean-overlap stitch.
+// K3: sigmoid*255 -> uint8 per tile, then the mean-overlap stitch, of every
+// channel of a tile (K3c is the form with more than one: Predict of a Unet
+// with out_channels != 1; predictor.py:1508-1595, the same epilogue with
+// ops/stitch.py:80 stitch_mean_frames_device over C channels).
 //
 // Replaces the epilogue of bio_image_unet_tpu/predict/predictor.py:450-463
 // _forward_with (sigmoid of the float32 logits at predict/fastpath.py:224-225,
@@ -19,8 +22,15 @@
 //
 // The design keeps the work per pixel near the bytes: a 3-D grid over
 // (frame, band of K3_ROWS rows, strip of K3_STRIP columns), one warp a row of
-// the strip, so no thread divides to find its pixel.  Each lane owns a run of
-// K3_RUN = 16 output pixels.  Where the run lies in one tile that alone
+// the strip, so no thread divides to find its pixel.  With C channels (K3c)
+// the C entry launches the kernel once a channel, its pointers moved to the
+// channel's plane of the first tile and of the first output frame, and the
+// kernel steps C planes from tile to tile and C (h, w) planes from output
+// frame to output frame: one channel is K3's own arithmetic, and the frame
+// loop holds no more registers than K3's (a channel index there, or a
+// channel taken from the grid, spilled the float32 instance to local
+// memory, the price ptxas paid to keep six blocks an SM).  Each lane owns a
+// run of K3_RUN = 16 output pixels.  Where the run lies in one tile that alone
 // covers it and its logits are 16-byte aligned (every run of an exact grid
 // whose tile width is a multiple of 16, the form of every path), the lane
 // reads them with two 16-byte loads (bf16) or four (float32) and writes its
@@ -155,19 +165,21 @@ __device__ __forceinline__ uint32_t mean_level(uint32_t sum, uint32_t cnt) {
 
 // K3: block (strip, band, frame) makes rows [band * K3_ROWS, + K3_ROWS) x
 // columns [strip * K3_STRIP, + K3_STRIP) of frame blockIdx.z (and of every
-// gridDim.z-th frame after it); warp = row, lane = run of K3_RUN columns
+// gridDim.z-th frame after it) of one channel, whose tiles lie `channels`
+// planes apart; warp = row, lane = run of K3_RUN columns
 template <typename T>
 __global__ void __launch_bounds__(K3_THREADS)
-sigmoid_stitch(const T* __restrict__ logits, int n_frames, int h, int w, int th, int tw, int nx,
-               int ny, const int* __restrict__ xs, const int* __restrict__ ys,
+sigmoid_stitch(const T* __restrict__ logits, int n_frames, int channels, int h, int w, int th,
+               int tw, int nx, int ny, const int* __restrict__ xs, const int* __restrict__ ys,
                const int* __restrict__ row_lo, const int* __restrict__ row_hi,
                const int* __restrict__ col_lo, const int* __restrict__ col_hi,
                uint8_t* __restrict__ out) {
   // the strip's column ranges, and each column's offset in its first two
-  // covering tiles (tile index * th * tw + column in the tile)
+  // covering tiles (tile index * the tile stride + column in the tile)
   __shared__ int s_lo[K3_STRIP], s_hi[K3_STRIP];
   __shared__ long long s_ca[K3_STRIP], s_cb[K3_STRIP];
-  const long long tile = (long long)th * tw;
+  const long long tile = (long long)th * tw * channels;
+  const int hc = h * channels;  // output rows from frame to frame
   const int c_strip = blockIdx.x * K3_STRIP;
   for (int k = threadIdx.x; k < K3_STRIP; k += K3_THREADS) {
     const int c = c_strip + k;
@@ -189,7 +201,7 @@ sigmoid_stitch(const T* __restrict__ logits, int n_frames, int h, int w, int th,
 
   for (int f = blockIdx.z; f < n_frames; f += gridDim.z) {
     const T* frame = logits + (long long)f * nx * ny * tile;
-    uint8_t* orow = out + ((long long)f * h + r) * w;
+    uint8_t* orow = out + ((long long)f * hc + r) * w;
     // a run in one tile that alone covers it, its logits 16-byte aligned
     bool fast = false;
     if (c0 + K3_RUN <= w && ni == 1) {
@@ -286,31 +298,37 @@ __global__ void sigmoid_stitch_3d(const T* __restrict__ logits, int d, int h, in
 
 extern "C" {
 
-// logits: (>= n_frames*nx*ny, th, tw) float32 (is_bf16 = 0) or bf16 (1);
-// xs (nx,), ys (ny,) int32 tile starts; row_lo/row_hi (h,) and col_lo/col_hi
-// (w,) int32 ranges of the tiles covering each row / column; out is
-// (n_frames, h, w) uint8.  One launch.
-int k3_sigmoid_stitch(const void* logits, int is_bf16, int n_frames, int h, int w,
+// logits: (>= n_frames*nx*ny, channels, th, tw) float32 (is_bf16 = 0) or
+// bf16 (1); xs (nx,), ys (ny,) int32 tile starts; row_lo/row_hi (h,) and
+// col_lo/col_hi (w,) int32 ranges of the tiles covering each row / column;
+// out is (n_frames, channels, h, w) uint8.  One launch a channel.
+int k3_sigmoid_stitch(const void* logits, int is_bf16, int n_frames, int channels, int h, int w,
                       int th, int tw, int nx, int ny, const void* xs, const void* ys,
                       const void* row_lo, const void* row_hi, const void* col_lo,
                       const void* col_hi, void* out, void* stream) {
-  if ((long long)n_frames * h * w == 0) return (int)cudaSuccess;
+  if ((long long)n_frames * channels * h * w == 0) return (int)cudaSuccess;
   const long long bands = (h + K3_ROWS - 1) / K3_ROWS;
-  if (bands > 65535) return (int)cudaErrorInvalidValue;
+  if (bands > 65535 || (long long)h * channels > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((w + K3_STRIP - 1) / K3_STRIP), (unsigned)bands,
                   (unsigned)(n_frames < 65535 ? n_frames : 65535));
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    sigmoid_stitch<__nv_bfloat16><<<grid, K3_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)logits, n_frames, h, w, th, tw, nx, ny, (const int*)xs,
-        (const int*)ys, (const int*)row_lo, (const int*)row_hi, (const int*)col_lo,
-        (const int*)col_hi, (uint8_t*)out);
-  else
-    sigmoid_stitch<float><<<grid, K3_THREADS, 0, s>>>(
-        (const float*)logits, n_frames, h, w, th, tw, nx, ny, (const int*)xs,
-        (const int*)ys, (const int*)row_lo, (const int*)row_hi, (const int*)col_lo,
-        (const int*)col_hi, (uint8_t*)out);
-  return (int)cudaGetLastError();
+  const long long plane = (long long)th * tw;
+  for (int c = 0; c < channels; ++c) {
+    uint8_t* o = (uint8_t*)out + (long long)c * h * w;
+    if (is_bf16)
+      sigmoid_stitch<__nv_bfloat16><<<grid, K3_THREADS, 0, s>>>(
+          (const __nv_bfloat16*)logits + c * plane, n_frames, channels, h, w, th, tw, nx, ny,
+          (const int*)xs, (const int*)ys, (const int*)row_lo, (const int*)row_hi,
+          (const int*)col_lo, (const int*)col_hi, o);
+    else
+      sigmoid_stitch<float><<<grid, K3_THREADS, 0, s>>>(
+          (const float*)logits + c * plane, n_frames, channels, h, w, th, tw, nx, ny,
+          (const int*)xs, (const int*)ys, (const int*)row_lo, (const int*)row_hi,
+          (const int*)col_lo, (const int*)col_hi, o);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // K3v: logits (>= nz*nx*ny, tz, tx, ty) float32 (is_bf16 = 0) or bf16 (1) of

@@ -5,8 +5,10 @@ Input is the JAX package's ``{'params', 'batch_stats'}`` tree with numpy (or
 array-like) leaves; output is the port's state dict of torch tensors:
 
 - conv kernel (*k, I, O) → (O, I, *k) under ``<block>.0.*`` (2D: (kh, kw);
-  3D: (kd, kh, kw)), the ConvBlocks ``up<i>_conv`` of ``MultiOutputUnet3D``
-  and ``conv_concat`` of a ``concat`` ``Siam_UNet`` included
+  3D: (kd, kh, kw)), the ConvBlocks ``up<i>_conv`` of ``MultiOutputUnet3D``,
+  ``conv_concat`` of a ``concat`` ``Siam_UNet`` and the legacy models' extra
+  1-channel block (``decode9`` of ``Unet_v0``, ``decode7`` of ``BabyUnet``)
+  included
 - transposed-conv kernel (*k, O, I) → (I, O, *k) under ``up<i>.*``
 - BatchNorm scale/bias/mean/var → ``<block>.1.{weight,bias,running_mean,
   running_var}`` plus a zero ``num_batches_tracked``
@@ -55,8 +57,8 @@ def _conv_bn(sd, prefix_conv: str, prefix_bn: str, conv: dict, bn: dict, stats: 
 
 def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet``, ``AttentionUnet``,
-    ``Siam_UNet``, ``MultiOutputUnet``, UNet++, ``UNet3D`` or ``MultiOutputUnet3D`` → the
-    port's state dict
+    ``Unet_v0``, ``BabyUnet``, ``Siam_UNet``, ``MultiOutputUnet``, UNet++, ``UNet3D`` or
+    ``MultiOutputUnet3D`` → the port's state dict
     (loadable with ``load_state_dict(strict=True)``)."""
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})

@@ -72,8 +72,11 @@ class Unet(nn.Module):
     ``attention`` (``AttentionUnet``) gates every skip with an
     ``AttentionBlock`` of ``4nf, 2nf, nf, max(nf // 2, 1)`` coefficients
     (``unet2d.py:104-109``), the up path as its gate; the decoder then
-    concatenates (attended skip, up) (``unet2d.py:170-201``).  Its bf16
-    compute mode (half-precision training) is not ported."""
+    concatenates (attended skip, up) (``unet2d.py:170-201``).  In bf16 the
+    gates compute in float32, as flax promotes JAX's dtype-less gate convs
+    (``ops/blocks.py:212-240``): their 1×1 convs, BatchNorms, σ and ``skip·psi``
+    on the bf16 skip and up path cast up exactly; the concat with the bf16 up
+    path is float32, and the next ``ConvBlock`` casts it to bf16."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  n_filter: int = 32, dilation: int = 1, dropout: float = 0.0,
@@ -161,16 +164,15 @@ class Unet(nn.Module):
             if prev_x is None:
                 raise ValueError("Siam mode requires prev_x")
             m4 = self.join(m4, self.encode(prev_x)[-1])
-        if self.attention and self.dtype is not None:
-            raise NotImplementedError("AttentionUnet's bf16 compute mode (half-precision "
-                                      "training) is not ported to PyTorch yet")
         h = self.middle_conv2(self.middle_conv1(m4))
         # concat order is (up, skip), (attended skip, up) with the gates
         # (unet2d.py:170-201)
         for i, skip in zip(range(1, 5), (e8, e6, e4, e2)):
             u = getattr(self, f"up{i}")(h)
             if self.attention:
-                h = torch.cat([getattr(self, f"attention{i}")(u, skip), u], dim=1)
+                # a float32 gate (bf16 inputs cast up); cat promotes u to it
+                gate = getattr(self, f"attention{i}")(u.float(), skip.float())
+                h = torch.cat([gate, u], dim=1)
             else:
                 h = torch.cat([u, skip], dim=1)
             h = getattr(self, f"decode{2 * i}")(getattr(self, f"decode{2 * i - 1}")(h))

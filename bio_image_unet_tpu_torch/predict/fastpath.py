@@ -28,6 +28,9 @@ the working dtype and return in float32, where a head's activation runs
                          emits only each head's deepest level
 - ``FoldedUNet3D``     — ``UNet3D`` and ``MultiOutputUnet3D``, both decoder
                          styles
+- ``FoldedLegacyUnet2D`` — ``Unet_v0`` and ``BabyUnet`` (``fastpath.py:332
+                         _build_fast_legacy``): ReLU blocks, skips from the
+                         first block of each level, always float32
 """
 
 from __future__ import annotations
@@ -321,12 +324,49 @@ class FoldedUNet3D(FoldedUnet2D):
         return h
 
 
+class FoldedLegacyUnet2D(FoldedUnet2D):
+    """The folded eval forward of ``Unet_v0`` (4 levels) and ``BabyUnet`` (3)
+    (``fastpath.py:332 _build_fast_legacy``): each ReLU block one conv with
+    its BatchNorm folded in, then ReLU; the skips are each level's first
+    block; the bottleneck's dropout is the identity in eval; the extra
+    1-channel block, then ``final``.  float32 whatever ``dtype`` asks, as
+    JAX's legacy forward is (the convolutions on cuDNN, TF32 as torch's
+    defaults allow it).  ``logits`` and ``__call__`` are those of
+    :class:`FoldedUnet2D`."""
+
+    def __init__(self, model, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(model, torch.float32, device)
+        self.levels = model.levels
+
+    def trunk(self, x: torch.Tensor, prev: None = None) -> torch.Tensor:
+        """The extra 1-channel block's output."""
+        def c(h, block):
+            p = self.params[block]
+            return torch.relu(F.conv2d(h, p["weight"], p["bias"], padding=1))
+
+        L, h, skips = self.levels, x.float(), []
+        for k in range(1, L + 1):
+            a = c(h, f"encode{2 * k - 1}")
+            skips.append(a)
+            h = F.max_pool2d(c(a, f"encode{2 * k}"), 2)
+        h = c(c(h, "middle_conv1"), "middle_conv2")
+        for i in range(1, L + 1):
+            up = self.params[f"up{i}"]
+            h = torch.cat([F.conv_transpose2d(h, up["weight"], up["bias"], stride=2),
+                           skips[L - i]], dim=1)
+            h = c(c(h, f"decode{2 * i - 1}"), f"decode{2 * i}")
+        return c(h, f"decode{2 * L + 1}")
+
+
 def folded_forward(model, dtype: Optional[torch.dtype] = None, device=None) -> _Folded:
     """The folded forward of a ported model."""
+    from ..models.legacy import BabyUnet, Unet_v0
     from ..models.nested_unet import MultiOutputNestedUNet
     from ..models.unet3d import MultiOutputUnet3D, UNet3D
 
-    if isinstance(model, MultiOutputNestedUNet):
+    if isinstance(model, (Unet_v0, BabyUnet)):
+        cls = FoldedLegacyUnet2D
+    elif isinstance(model, MultiOutputNestedUNet):
         cls = FoldedNestedUNet
     elif isinstance(model, (UNet3D, MultiOutputUnet3D)):
         cls = FoldedUNet3D

@@ -180,6 +180,13 @@ class _Engine:
         name = network or hp.get("model_name") or hp.get("network")
         if name is None:
             raise ValueError("network is not defined")
+        if name == "Unet_v0":
+            hp.setdefault("in_channels", 1)
+            hp.setdefault("out_channels", 1)
+        if name in ("Unet_v0", "BabyUnet"):
+            # the legacy models have no bf16 mode: the whole path runs float32
+            # (predictor.py:349-356)
+            half_precision = False
         self.model = get_model(name, **hp)
         self.model.load_state_dict(state["state_dict"], strict=True)
         self.model.eval()
@@ -420,11 +427,12 @@ class _Engine:
             lambda x, k: {"mask": fn(x)}, progress)["mask"]
 
     def host_predict_frames(self, norm: np.ndarray, xs, ys, resize_dim,
-                            progress=None) -> np.ndarray:
+                            progress=None, channels: int = 1) -> np.ndarray:
         """Host-staged path: (N, h, w) float32 frames already normalized to
         [0, 255] on the host are reflect-padded and cut into uint8 tiles in
         numpy (``predictor.py:1597 _split``); the forward and K3 run on the
-        device in batches of ``batch_size``."""
+        device in batches of ``batch_size``.  Returns (N, h, w) uint8 masks,
+        or (N, C, h, w) for a model of ``channels`` C > 1 outputs (K3c)."""
         n_frames, h, w = norm.shape
         th, tw = resize_dim
         plan = TilePlan(h, w, th, tw, xs, ys, self.device)
@@ -445,7 +453,8 @@ class _Engine:
             logits = self.forward_tiles(patches, bs)
             return {"mask": sigmoid_stitch(logits.contiguous(), n_chunk, plan)}
 
-        return self._run_chunks(n_frames, n_chunk, {"mask": ((h, w), np.uint8)},
+        shape = (h, w) if channels == 1 else (channels, h, w)
+        return self._run_chunks(n_frames, n_chunk, {"mask": (shape, np.uint8)},
                                 produce, step, progress)["mask"]
 
     # --- Siam pairs ------------------------------------------------------------
@@ -911,9 +920,11 @@ class Predict:
 
     ``imgs`` may be an array or a tif path; the network is rebuilt from the
     checkpoint's hyperparams.  Results are uint8-quantized probabilities,
-    kept in ``self.result`` and saved as a float16 tif when ``result_name``
-    is given.  Runs on CUDA unless ``device='cpu'`` is passed; raises when no
-    card is present and the CPU was not asked for.
+    (N, H, W), or (N, C, H, W) for a ``Unet`` of ``out_channels`` C > 1 (which
+    runs host-staged, as in JAX), squeezed, kept in ``self.result`` and saved
+    as a float16 tif when ``result_name`` is given.  Runs on CUDA unless
+    ``device='cpu'`` is passed; raises when no card is present and the CPU was
+    not asked for.
     """
 
     def __init__(self, imgs, result_name, model_params, network=None,
@@ -940,13 +951,15 @@ class Predict:
         self.engine = engine
         if engine.hyperparams.get("in_channels", 1) != 1:
             raise ValueError("tiled 2D Predict supports single-channel input")
-        if engine.hyperparams.get("out_channels", 1) != 1:
-            raise NotImplementedError("multi-channel output is not ported yet")
+        out_ch = int(engine.hyperparams.get("out_channels", 1))
         if engine.heads is not None:
             raise ValueError(f"{type(engine.model).__name__} is a multi-head model: "
                              "predict with PredictMultiOutput")
 
-        fused_blocker = _fused_blocker(imgs, device_pipeline)
+        # the fused program stitches one channel; more run host-staged, their
+        # uint8 tiles through the forward and K3c (predictor.py:1508-1509)
+        fused_blocker = ("multi-channel output (out_channels != 1)" if out_ch != 1
+                         else _fused_blocker(imgs, device_pipeline))
         if fused_blocker is None and any(self.resize_dim[a] - imgs.shape[a + 1]
                                          >= imgs.shape[a + 1] for a in range(2)):
             fused_blocker = ("tile more than 2× the frame extent (reflect "
@@ -971,7 +984,8 @@ class Predict:
         else:
             norm = _normalize_stack(imgs, normalization_mode, clip_threshold, invert)
             result = engine.host_predict_frames(norm, xs, ys, self.resize_dim,
-                                                progress=progress)
+                                                progress=progress, channels=out_ch)
+        # (N, h, w), or (N, C, h, w) like the reference, squeezed as JAX does
         self.result = np.squeeze(result)
         if result_name is not None:
             save_as_tif(self.result, result_name, normalize=normalize_result)

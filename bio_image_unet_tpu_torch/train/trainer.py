@@ -1,6 +1,7 @@
 """The generic Trainer (counterpart of ``bio_image_unet_tpu/train/trainer.py:114
-Trainer``) for the 2D ``Unet``, the siamese ``Siam_UNet`` (``mode=``), the
-multi-output family (``MultiOutputUnet``, ``MultiOutputNestedUNet``,
+Trainer``) for the 2D ``Unet`` and ``AttentionUnet``, the legacy ``Unet_v0``
+and ``BabyUnet``, the siamese ``Siam_UNet`` (``mode=``), the multi-output
+family (``MultiOutputUnet``, ``MultiOutputNestedUNet``,
 ``MultiOutputNestedUNet_3Levels``) and the 3D networks (``UNet3D``,
 ``MultiOutputUnet3D``).
 
@@ -44,7 +45,12 @@ weights give the same ``metrics.csv`` rows:
 How it runs on the card: an eager PyTorch step (autograd through cuDNN and
 PyTorch ops stands in for XLA's autodiff; the JAX package has no hand-written
 backward).  ``half_precision`` runs the convs in bf16 with float32
-parameters, BatchNorm, heads and logits (``models.*(dtype=...)``).
+parameters, BatchNorm, heads and logits (``models.*(dtype=...)``); an
+``AttentionUnet``'s gates compute in float32, as flax promotes them; the
+legacy models train in float32 whatever ``half_precision`` says, as in JAX.
+Their bottleneck's channel dropout draws from a ``torch.Generator`` of the
+Trainer seeded from (seed, epoch) (Philox on the card; the draws differ from
+JAX's threefry ones, as every random draw of the port does).
 ``device_cache`` keeps the training tiles on the card, the head targets
 concatenated along channels into one tensor (``HeadLayout``), and takes one
 index row per step; ``device_augment`` draws on a ``torch.Generator`` and
@@ -67,8 +73,7 @@ resume and one more equal two epochs straight.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
 raises without a card.  Not ported yet, each raising NotImplementedError:
-``AttentionUnet`` training, ``mesh`` and ``device_cache="sharded"``
-(multi-GPU), ``remat``, ``profile_dir``.
+``mesh`` and ``device_cache="sharded"`` (multi-GPU), ``remat``, ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -89,6 +94,7 @@ from ..data.augment_device import (HeadLayout, augment_batch, augment_batch_head
 from ..data.pipelines import DataLoader, random_split
 from ..losses import get_head_loss, get_loss, smooth_l1_loss
 from ..models import MODEL_REGISTRY, MultiOutputUnet3D, get_model
+from ..models.legacy import ChannelDropout2d
 from ..ops.blocks import init_weights_
 from ..utils.device import resolve_device
 
@@ -147,13 +153,13 @@ class ReduceLROnPlateau:
 
 def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(f"{what} is not ported to PyTorch yet (the {slice_name} "
-                              "slice of the port); the 2D Unet, Siam, multi-output and 3D "
-                              "trainers are")
+                              "slice of the port); single-device training of every model is")
 
 
 class Trainer:
-    """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet``, the
-    siamese ``Siam_UNet``, the multi-output family and the 3D networks; the
+    """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet``,
+    ``AttentionUnet``, ``Unet_v0`` and ``BabyUnet``, the siamese
+    ``Siam_UNet``, the multi-output family and the 3D networks; the
     dataset yields ``{'image': (C, H, W), 'mask': (C', H, W)}`` float32
     numpy items (``DataProcess2D``), with ``mode`` also ``'prev_image': (C,
     H, W)`` (``DataProcessSiam``), or, with heads, ``{'image': ..., <head>:
@@ -236,8 +242,6 @@ class Trainer:
                                use_interpolation=use_interpolation, output_heads=output_heads,
                                deep_supervision=deep_supervision,
                                dtype=torch.bfloat16 if half_precision else None)
-        if getattr(self.model, "attention", False):
-            _not_ported("AttentionUnet training", "AttentionUnet training")
         if mode is not None and getattr(self.model, "mode", None) != mode:
             raise ValueError(f"mode={mode!r} needs a network with a siamese join (Siam_UNet, "
                              f"Unet), got {network!r}")
@@ -432,6 +436,18 @@ class Trainer:
         gen.manual_seed(self.seed * 1_000_003 + epoch)
         return gen
 
+    def _seed_dropout(self, epoch: int) -> None:
+        """Hand each ``ChannelDropout2d`` (the legacy models' bottleneck) the
+        epoch's dropout stream: seeded from (seed, epoch) apart from the
+        augmentation's, so a resumed run draws what the uninterrupted run
+        would have."""
+        drops = [m for m in self.model.modules() if isinstance(m, ChannelDropout2d)]
+        if drops:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.seed * 1_000_003 + epoch + (1 << 40))
+            for m in drops:
+                m.generator = gen
+
     def _upload(self, batch: dict):
         """A loader batch on the device: the image, the targets concatenated
         along channels and, with a join, the prev image."""
@@ -476,6 +492,7 @@ class Trainer:
     def _iterate_train(self, epoch: int) -> float:
         print(f"\nStarting training epoch {epoch} ...")
         self.model.train()
+        self._seed_dropout(epoch)
         losses = [self._train_step(inputs, batch) for inputs, batch in self._batches(epoch)]
         if not losses:
             return float("nan")

@@ -1,13 +1,13 @@
 """2D U-Net facade of the port (counterpart of
 ``bio_image_unet_tpu/unet/__init__.py``, the surface of the reference's
-``bio_image_unet.unet``): ``DataProcess``, ``Trainer``, ``Predict``, ``Unet``
-and the losses.  ``AttentionUnet``, ``Unet_v0`` and ``BabyUnet`` come with
-the port's other 2D models."""
+``bio_image_unet.unet``): ``DataProcess``, ``Trainer``, ``Predict``, the
+models ``Unet``, ``AttentionUnet``, ``Unet_v0`` and ``BabyUnet``, and the
+losses."""
 
 from ..data.pipelines import DataProcess2D as DataProcess
 from ..losses import (BCEDiceLoss, BCELoss2d, SoftDiceLoss, TverskyLoss, logcoshDiceLoss,
                       logcoshTverskyLoss)
-from ..models import Unet
+from ..models import AttentionUnet, BabyUnet, Unet, Unet_v0
 from ..predict import Predict
 from ..train.trainer import Trainer as _GenericTrainer
 
@@ -35,6 +35,7 @@ class Trainer(_GenericTrainer):
 
 
 __all__ = [
-    "DataProcess", "Trainer", "Predict", "Unet", "BCEDiceLoss", "BCELoss2d", "SoftDiceLoss",
+    "DataProcess", "Trainer", "Predict", "Unet", "AttentionUnet", "Unet_v0", "BabyUnet",
+    "BCEDiceLoss", "BCELoss2d", "SoftDiceLoss",
     "TverskyLoss", "logcoshDiceLoss", "logcoshTverskyLoss",
 ]

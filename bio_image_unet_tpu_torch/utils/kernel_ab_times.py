@@ -1,6 +1,7 @@
 """Time the kernels redesigned for Hopper -- K9 (``requant``), K10
 (``maxpool_i8``), K11 (``upsample2x_i8``), K6 (``depthwise_xcorr``), K11v
-(``upsample2x_i8_3d``), K3 (``sigmoid_stitch``), K5 (``margin_stitch``) and
+(``upsample2x_i8_3d``), K3 (``sigmoid_stitch``, and its C-channel form K3c),
+K5 (``margin_stitch``) and
 K5v (``blend_stitch_3d``) -- and the other stitch and normalize kernels K1
 (its Siam chunk and pair rows too), K2, K2h, K2v, K2p, K5s and K3v on the card
 at the shapes ``chip_smoke.py`` gives them, under two timers, with the store
@@ -182,6 +183,25 @@ def stitch_forms(torch, dev, both, pkg) -> None:
         del logits
     torch.cuda.empty_cache()
 
+    # K3c: K3 over C channels (Predict of a Unet with out_channels C > 1), at
+    # chip_smoke.py's [kernels multichannel] shapes
+    for seed, (name, side, tile, add, dtype, c) in enumerate((
+            ("c2 exact bf16 (256, 2, 256^2) -> (16, 2, 1024^2)", FRAME, 256, 0, torch.bfloat16, 2),
+            ("c2 overlap bf16 (400, 2, 256^2) -> (16, 2, 1000^2)", 1000, 256, 1, torch.bfloat16,
+             2),
+            ("c2 exact float32 (64, 2, 512^2) -> (16, 2, 1024^2)", FRAME, 512, 0, torch.float32,
+             2),
+            ("c3 exact bf16 (256, 3, 256^2) -> (16, 3, 1024^2)", FRAME, 256, 0, torch.bfloat16,
+             3))):
+        starts = tiling.grid_starts(side, tile, add)
+        plan = tiling.TilePlan(side, side, tile, tile, starts, starts, dev)
+        g = gen(400 + seed)
+        logits = (torch.randn((CHUNK * plan.per_frame, c, tile, tile), generator=g, device=dev)
+                  * 4).to(dtype)
+        both(f"k3c {name}", lambda: stitch.sigmoid_stitch(logits, CHUNK, plan), True)
+        del logits
+    torch.cuda.empty_cache()
+
     # K1 / K1f: a 16-frame chunk of 1024^2 frames
     qs = (0.0, 99.8)
     g = gen(300)
@@ -344,7 +364,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package", type=Path, default=ROOT,
                     help="checkout whose bio_image_unet_tpu_torch is timed")
-    ap.add_argument("--forms", default="k9,k10,k11,k6,k11v,k3,k1,k2,k5,k5v,k3v,k5s,k2h,k2v,k2p",
+    ap.add_argument("--forms",
+                    default="k9,k10,k11,k6,k11v,k3,k3c,k1,k2,k5,k5v,k3v,k5s,k2h,k2v,k2p",
                     help="comma-separated prefixes of the forms to time (default: all)")
     args = ap.parse_args()
     prefixes = tuple(f"{p.strip()} " for p in args.forms.split(",") if p.strip())
@@ -363,6 +384,7 @@ def main() -> int:
 
     libs = {"k9 ": "int8_trunk", "k10 ": "int8_trunk", "k11 ": "int8_resample",
             "k6 ": "depthwise_xcorr", "k11v ": "int8_resample", "k3 ": "sigmoid_stitch",
+            "k3c ": "sigmoid_stitch",
             "k1 ": "clip_bounds", "k2 ": "normalize_tile", "k5 ": "margin_stitch",
             "k5v ": "margin_stitch", "k3v ": "sigmoid_stitch", "k5s ": "margin_stitch",
             "k2h ": "normalize_tile", "k2v ": "normalize_tile", "k2p ": "normalize_tile"}

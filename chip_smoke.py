@@ -330,7 +330,35 @@ non-zero without printing a result:
    contract);
 27. ``[int8 e2e]``: the int8 / bf16 end-to-end ratio of each family its phase
    measured (the ship set's ``Unet`` and ``AttentionUnet``, and UNet++ and
-   ``UNet3D``); the kernels' JSON line, then the last line
+   ``UNet3D``);
+28. legacy — ``Predict(network="Unet_v0")`` on an old-style ``.pt`` (no
+   ``model_name``) of a seeded ``Unet_v0(32)`` over 16 uint8 1024² frames in
+   256² tiles, fused: K1 → K2 → the BN-folded float32 legacy forward (cuDNN,
+   TF32 as torch's defaults allow) → K3 on float32 logits, launches exact (K1
+   2, K2 1, K3 1); ``half_precision=True`` gives the same masks; fused
+   against host-staged; end-to-end and device-resident MP/s, TFLOP/s, peak
+   memory and a profile; ``Unet_v0(8)`` and ``BabyUnet(4)`` on 2 × 512² on the
+   card against the CPU (float32, TF32 off) within one level on ≤ 0.1%;
+29. kernels (multichannel) — K3c, K3 over C channels: c = 2 on the exact
+   bf16 grid (256 tiles of 256² → 16 × 1024²), the overlapping grid (1000²,
+   ``add_tile=1``) and float32 512² tiles, and c = 3 on the exact grid, each
+   within one level of its plain version, timed beside its byte bound;
+30. multichannel — ``Predict`` of a seeded ``Unet(32, out_channels=2)`` on
+   16 uint8 1024² frames, 256² tiles, bf16, host-staged as JAX runs it: K3c
+   a chunk, one launch a channel, and nothing else (its launches are K3c's
+   in the JSON line);
+   (16, 2, 1024, 1024) masks; MP/s and the host's chunk stages; a
+   ``Unet(8, out_channels=2)`` on the card against the CPU within one level;
+31. train attention — ``[train]``'s leg with ``network="AttentionUnet"``
+   (its gates in float32, the rest bf16): K4 once a step and nothing else,
+   the loss falls, patches/s over the best epoch after the first, a profiled
+   epoch, the trained ``.pt`` through ``Predict`` (mask IoU), and
+   ``AttentionUnet(4)`` on 64² tiles, float32, TF32 off, one epoch on the
+   card against the CPU (``metrics.csv`` within rtol 1e-3);
+32. train legacy — ``Unet_v0(32)`` on the same frames for 2 epochs, float32
+   whatever ``half_precision`` says: K4 once a step, the loss falls,
+   patches/s, the share of the TF32 peak, a profiled epoch and the trained
+   ``.pt`` through ``Predict``; the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -360,6 +388,8 @@ PEAK_SCALAR_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
 # the dense int8 tensor-core rate (operations: two a multiply-add)
 PEAK_INT8_OPS = 1979e12
+# the dense TF32 tensor-core rate (the float32 convolutions under torch's defaults)
+PEAK_TF32_FLOPS = 495e12
 
 FRAMES, H, W, TILE, N_FILTER = 64, 1024, 1024, 256, 32
 CHUNK = 16
@@ -447,6 +477,12 @@ def main() -> int:
                                                  kernels)
     log("[int8 e2e] int8 / bf16 end to end, each family as its phase measured it: "
         + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+    run("legacy", phase_legacy, torch, dev, kernels)
+    kmc = run("kernels multichannel", phase_kernels_multichannel, torch, dev)
+    run("multichannel", phase_multichannel, torch, dev, kernels, kmc)
+    kernels.extend(kmc)
+    run("train attention", phase_train_attention, torch, dev, kernels, k4)
+    run("train legacy", phase_train_legacy, torch, dev, kernels, k4)
     for k in kernels:
         # a timing-only row (a shape no path runs) reports 0 launches; its
         # kernel must be launched on a path all the same
@@ -1143,10 +1179,25 @@ def write_blob_frames(root: Path, n: int, size: int, seed: int) -> tuple:
 
 def phase_train(torch, dev, kernels) -> bytes:
     """... and returns the trained ``.pt`` (its bytes), for ``[int8]``."""
+    k4 = kernels[-1]
+    trained, k4["launches"] = train_leg(torch, kernels, k4, "train")
+    train_card_vs_cpu(torch)
+    return trained
+
+
+def train_leg(torch, kernels, k4, tag: str, network: str = "Unet",
+              epochs: int = TRAIN_EPOCHS, timed_from: int = 0,
+              flops_per_tile: float = None, peak: float = PEAK_BF16_FLOPS) -> tuple:
+    """``[train]``'s leg for ``network``: ``DataProcess`` on the blob frames,
+    the ``unet`` facade's ``Trainer`` at ``train_bench.py``'s width (bf16,
+    resident and augmented tiles) for ``epochs``, launch counts exact (K4
+    once a step, nothing else); the losses must fall.  Prints patches/s over
+    the best epoch from ``timed_from`` on, the implied share of ``peak``, a
+    profiled epoch and the trained ``.pt`` through ``Predict`` (mask IoU).
+    Returns the trained ``.pt``'s bytes and K4's launches."""
     from bio_image_unet_tpu_torch import unet
 
     counters = {id(k["_counter"]): k["_counter"] for k in kernels}
-    k4 = kernels[-1]
     # the user's defaults: cuDNN may use TF32 for float32 convolutions
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as tmp:
@@ -1155,13 +1206,15 @@ def phase_train(torch, dev, kernels) -> bytes:
         source = write_blob_frames(tmp / "frames", TRAIN_FRAMES, TILE, seed=0)
         data = unet.DataProcess(source, dim_out=(TILE, TILE), aug_factor=None,
                                 data_path=str(tmp / "data"), seed=0)
-        trainer = unet.Trainer(data, TRAIN_EPOCHS, n_filter=N_FILTER, batch_size=TRAIN_BATCH,
-                               lr=TRAIN_LR, save_dir=str(tmp / "run"), seed=0,
-                               half_precision=True, device_cache=True, device_augment=True)
+        trainer = unet.Trainer(data, epochs, network=network, n_filter=N_FILTER,
+                               batch_size=TRAIN_BATCH, lr=TRAIN_LR, save_dir=str(tmp / "run"),
+                               seed=0, half_precision=True, device_cache=True,
+                               device_augment=True)
         steps = trainer._n_train // TRAIN_BATCH
-        log(f"[train] set-up (frames, DataProcess, Trainer, tiles to the card) "
-            f"{time.perf_counter() - t0:.2f} s: {len(data)} tiles, {trainer._n_train} "
-            f"training, {steps} steps of {TRAIN_BATCH} per epoch")
+        log(f"[{tag}] {network}(n_filter={N_FILTER}): set-up (frames, DataProcess, Trainer, "
+            f"tiles to the card) {time.perf_counter() - t0:.2f} s: {len(data)} tiles, "
+            f"{trainer._n_train} training, {steps} steps of {TRAIN_BATCH} per epoch; "
+            f"parameters {next(trainer.model.parameters()).dtype}")
 
         # the main path: every launch count is 0 just before, read just after
         for c in counters.values():
@@ -1170,33 +1223,33 @@ def phase_train(torch, dev, kernels) -> bytes:
         trainer.start()
         torch.cuda.synchronize()
         launches = {id(c): c.launches for c in counters.values()}
-        peak = torch.cuda.max_memory_allocated()
-        k4["launches"] = launches[id(k4["_counter"])]
-        log("[train] launches: " + ", ".join(f"{k['name']} {launches[id(k['_counter'])]}"
-                                             for k in kernels))
-        if k4["launches"] != steps * TRAIN_EPOCHS:
-            raise AssertionError(f"K4 launched {k4['launches']} times in "
-                                 f"{steps * TRAIN_EPOCHS} steps")
+        peak_mem = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] launches: " + ", ".join(f"{k['name']} {launches[id(k['_counter'])]}"
+                                              for k in kernels))
+        for c in counters.values():
+            want = steps * epochs if c is k4["_counter"] else 0
+            if launches[id(c)] != want:
+                raise AssertionError(f"[{tag}] {c.__name__} launched {launches[id(c)]} times in "
+                                     f"{steps * epochs} steps, want {want}")
         hist = trainer.history
         for h in hist:
-            log(f"[train] epoch {h['epoch']}: train loss {h['train_loss']:.6f}, val loss "
+            log(f"[{tag}] epoch {h['epoch']}: train loss {h['train_loss']:.6f}, val loss "
                 f"{h['val_loss']:.6f}, lr {h['lr']:g}, training pass {h['train_seconds']:.3f} s, "
                 f"epoch {h['seconds']:.3f} s")
         if not hist[-1]["train_loss"] < hist[0]["train_loss"]:
-            raise AssertionError("the training loss did not fall")
-        best = min(h["train_seconds"] for h in hist)
+            raise AssertionError(f"[{tag}] the training loss did not fall")
+        best = min(h["train_seconds"] for h in hist[timed_from:])
         patches = steps * TRAIN_BATCH / best
-        flops = 3 * unet_forward_flops(N_FILTER, TILE)
-        log(f"[train] {patches:.1f} patches/s (best epoch), step {best / steps * 1e3:.2f} ms; "
-            f"peak device memory {peak / 2**30:.2f} GiB; {flops / 1e9:.1f} GFLOP per tile "
-            f"forward+backward → {flops * patches / 1e12:.1f} TFLOP/s, "
-            f"{flops * patches / PEAK_BF16_FLOPS:.4f} of the bf16 dense peak")
+        flops = 3 * (flops_per_tile or unet_forward_flops(N_FILTER, TILE))
+        log(f"[{tag}] {patches:.1f} patches/s (best epoch from epoch {timed_from}), step "
+            f"{best / steps * 1e3:.2f} ms; peak device memory {peak_mem / 2**30:.2f} GiB; "
+            f"{flops / 1e9:.1f} GFLOP per tile forward+backward → "
+            f"{flops * patches / 1e12:.1f} TFLOP/s, {flops * patches / peak:.4f} of the "
+            f"{'bf16' if peak == PEAK_BF16_FLOPS else 'TF32'} dense peak")
 
-        profile_train_epoch(torch, trainer, TRAIN_EPOCHS, best)
-        predict_trained(torch, str(tmp / "run" / "model.pt"), counters)
-        trained = (tmp / "run" / "model.pt").read_bytes()
-    train_card_vs_cpu(torch)
-    return trained
+        profile_train_epoch(torch, trainer, epochs, best, tag=tag)
+        predict_trained(torch, str(tmp / "run" / "model.pt"), counters, tag)
+        return (tmp / "run" / "model.pt").read_bytes(), launches[id(k4["_counter"])]
 
 
 def _stage(kernel: str, ancestors) -> str:
@@ -1315,7 +1368,7 @@ def profile_train_epoch(torch, trainer, epoch: int, unprofiled_s: float,
                 f"device time each (warm L2, profiler on)")
 
 
-def predict_trained(torch, ckpt: str, counters) -> None:
+def predict_trained(torch, ckpt: str, counters, tag: str = "train") -> None:
     """The trained checkpoint through the port's ``Predict`` on a 16-frame
     blob movie of 512²: the mask IoU against the blob truth."""
     from bio_image_unet_tpu_torch.predict import Predict
@@ -1335,15 +1388,16 @@ def predict_trained(torch, ckpt: str, counters) -> None:
     pred = res > 127
     iou = float((pred & truth).sum() / max((pred | truth).sum(), 1))
     ran = [c.__name__ for c in counters.values() if c.launches > before[id(c)]]
-    log(f"[train→predict] trained .pt through Predict on 16×512² blobs: mask IoU {iou:.4f} "
+    log(f"[{tag}→predict] trained .pt through Predict on 16×512² blobs: mask IoU {iou:.4f} "
         f"(foreground {truth.mean():.4f} of pixels, predicted {pred.mean():.4f}); "
         f"kernels launched: {', '.join(ran)}")
 
 
-def train_card_vs_cpu(torch) -> None:
-    """``Unet(n_filter=8)`` on 15 blob tiles of 64² (12 training: 3 steps of
-    4), float32 with TF32 off, no augmentation, one epoch: the card's
-    ``metrics.csv`` rows against the CPU's, rtol 1e-3."""
+def train_card_vs_cpu(torch, network: str = "Unet", n_filter: int = 8,
+                      tag: str = "train") -> None:
+    """``network`` (``Unet(n_filter=8)``) on 15 blob tiles of 64² (12
+    training: 3 steps of 4), float32 with TF32 off, no augmentation, one
+    epoch: the card's ``metrics.csv`` rows against the CPU's, rtol 1e-3."""
     from bio_image_unet_tpu_torch.train import Trainer
     from bio_image_unet_tpu_torch.utils.synth import blob_sample
 
@@ -1358,14 +1412,15 @@ def train_card_vs_cpu(torch) -> None:
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         for dev in ("cuda", "cpu"):
-            t = Trainer(items, 1, n_filter=8, batch_size=4, lr=TRAIN_LR,
-                        save_dir=str(Path(tmp) / dev), seed=0, device=dev)
+            t = Trainer(items, 1, network=network, n_filter=n_filter, batch_size=4,
+                        lr=TRAIN_LR, save_dir=str(Path(tmp) / dev), seed=0, device=dev)
             t.start()
             with open(Path(tmp) / dev / "metrics.csv") as fh:
                 rows[dev] = np.array([[float(v) for v in r[1:4]]
                                       for r in list(csv.reader(fh))[1:]])
     rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
-    log(f"[train] card vs CPU (n_filter=8, 64², float32, TF32 off, 1 epoch): card "
+    log(f"[{tag}] card vs CPU ({network}(n_filter={n_filter}), 64², float32, TF32 off, "
+        f"1 epoch): card "
         f"{rows['cuda'].tolist()}, CPU {rows['cpu'].tolist()}, max relative difference "
         f"{rel.max():.2e}")
     if not rel.max() <= 1e-3:
@@ -4871,6 +4926,243 @@ def phase_attention(torch, dev, kernels) -> float:
                       Predict(m, None, small, quantized=True, **skw).result,
                       Predict(m, None, small, quantized=True, device="cpu", **skw).result)
     return ratio
+
+
+# --- 28-32. the rest of the 2D models: legacy, multi-channel, training ----------
+
+def legacy_forward_flops(nf: int, s: int) -> float:
+    """Multiply-add FLOPs of one s² tile through ``Unet_v0(n_filter=nf)``: the
+    widths of ``Unet``'s (the skips come from the first conv of a level, of
+    the same width), then the extra 1-channel 3×3 block and a 1×1 final conv
+    on 1 channel in place of ``Unet``'s nf-channel one."""
+    hw = s * s
+    return unet_forward_flops(nf, s) - 2 * nf * hw + 2 * nf * 9 * hw + 2 * hw
+
+
+def phase_legacy(torch, dev, kernels) -> None:
+    """``Predict(network="Unet_v0")`` on an old-style ``.pt`` of a seeded
+    ``Unet_v0(32)`` (no ``model_name``, as the reference's early checkpoints)
+    over 16 uint8 1024² frames in 256² tiles, fused: K1 → K2 → the folded
+    float32 legacy forward (B4, cuDNN) → K3 on float32 logits."""
+    from bio_image_unet_tpu_torch.models import get_model
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.blocks import init_weights_
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
+    from bio_image_unet_tpu_torch.predict import Predict
+    from bio_image_unet_tpu_torch.predict.fastpath import FoldedLegacyUnet2D
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+    from bio_image_unet_tpu_torch.predict.tiling import grid_starts
+
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    rng = np.random.default_rng(23)
+    movie = rng.integers(0, 255, (CHUNK, H, W), dtype=np.uint8)
+    kw = dict(resize_dim=(TILE, TILE), show_progress=False, batch_size=8)
+    main = f"Unet_v0(32) uint8 {CHUNK}x1024^2, 256^2 tiles, fused"
+
+    def write_legacy(path, name, nf, seed):
+        net = init_weights_(get_model(name, n_filter=nf), torch.Generator().manual_seed(seed),
+                            random_bn_stats=True)
+        torch.save({"state_dict": net.state_dict(), "epoch": 0, "best_loss": None,
+                    "n_filter": nf}, path)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = str(tmp / "unet_v0_nf32.pt")
+        write_legacy(ckpt, "Unet_v0", N_FILTER, 51)
+        expect = {hist.int_clip_bounds: 2, normalize_tile: 1, sigmoid_stitch: 1}
+        torch.cuda.reset_peak_memory_stats()
+        pred, _ = counted(torch, "legacy", counters, main,
+                          lambda: Predict(movie, None, ckpt, network="Unet_v0", **kw), expect)
+        call_peak = torch.cuda.max_memory_allocated()
+        engine = pred.engine
+        if engine.dtype != torch.float32 or not isinstance(engine.forward, FoldedLegacyUnet2D):
+            raise AssertionError(f"{main}: engine {engine.dtype} {type(engine.forward).__name__}")
+        res = pred.result
+        if res.shape != movie.shape or res.dtype != np.uint8:
+            raise AssertionError(f"{main}: result {res.shape} {res.dtype}")
+        best = float("inf")
+        for half in (False, True):
+            t0 = time.perf_counter()
+            out = Predict(movie, None, ckpt, network="Unet_v0", half_precision=half, **kw).result
+            best = min(best, time.perf_counter() - t0)
+            if not np.array_equal(out, res):
+                raise AssertionError(f"{main}: half_precision={half} gives other masks")
+        log(f"[legacy] {main}: half_precision=True gives the same masks as False (float32)")
+        host = Predict(movie, None, ckpt, network="Unet_v0", device_pipeline=False, **kw).result
+        check_fused_vs_host(main, res, host, movie.shape, tag="legacy")
+
+        # device-resident: the chunk program on the movie already on the card
+        xs, ys = grid_starts(H, TILE, 0), grid_starts(W, TILE, 0)
+        resident = _Engine(ckpt, "Unet_v0", 8, False, dev)
+        fn, n_chunk = resident.fused_runner(H, W, xs, ys, (TILE, TILE), (0.0, 99.8),
+                                            n_frames=CHUNK)
+        movie_dev = torch.from_numpy(movie).to(dev)
+        if not np.array_equal(fn(movie_dev).cpu().numpy(), res):
+            raise AssertionError(f"{main}: the device-resident program differs from Predict")
+        device = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(movie_dev)
+            torch.cuda.synchronize()
+            device = min(device, time.perf_counter() - t0)
+        mp = CHUNK * H * W / 1e6
+        flops = legacy_forward_flops(N_FILTER, TILE) * CHUNK * (H // TILE) * (W // TILE)
+        log(f"[legacy] {main}: end to end {mp / best:.2f} MP/s ({best:.3f} s, best of two "
+            f"after the counted call), device-resident {mp / device:.2f} MP/s "
+            f"({device * 1e3:.2f} ms; {flops / device / 1e12:.1f} TFLOP/s in float32 with "
+            f"TF32, {flops / 1e12:.2f} TFLOP a call); peak device memory of one call "
+            f"{call_peak / 2**30:.2f} GiB")
+        profile_pass(torch, lambda: fn(movie_dev), "legacy", f"{CHUNK} frames, float32")
+        del movie_dev, resident, fn
+
+        # card vs CPU: Unet_v0(8) and BabyUnet(4) on 2 x 512^2, float32, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        small = rng.integers(0, 255, (2, 512, 512), dtype=np.uint8)
+        for name, nf, seed in (("Unet_v0", 8, 52), ("BabyUnet", 4, 53)):
+            path = str(tmp / f"{name}_nf{nf}.pt")
+            write_legacy(path, name, nf, seed)
+            on_card = Predict(small, None, path, network=name, **kw).result
+            on_cpu = Predict(small, None, path, network=name, device="cpu", **kw).result
+            diff = np.abs(on_card.astype(int) - on_cpu.astype(int))
+            log(f"[legacy] {name}({nf}) 2x512^2: card vs CPU max {diff.max()} levels on "
+                f"{np.mean(diff > 0):.6f} of pixels")
+            if diff.max() > 1 or np.mean(diff > 0) > 1e-3:
+                raise AssertionError(f"the card's {name} Predict disagrees with the CPU's")
+        torch.backends.cudnn.allow_tf32 = True
+
+
+MC_CHANNELS = 2
+
+
+def phase_kernels_multichannel(torch, dev) -> list:
+    """K3c, K3 over C channels, at the multi-channel path's shapes: 16 frames
+    of 1024² from 256 bf16 logit tiles of 256² (c = 2 and 3), the overlapping
+    grid (1000² frames, ``add_tile=1``) and float32 512² tiles (c = 2); each
+    within one level of its plain version, timed beside its byte bound.  The
+    first form is ``[multichannel]``'s; the others report 0 launches."""
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch, sigmoid_stitch_plain
+    from bio_image_unet_tpu_torch.predict.tiling import TilePlan, grid_starts
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for c, side, tile, add, dtype, what in (
+            (2, H, TILE, 0, torch.bfloat16, "exact bf16"),
+            (2, 1000, TILE, 1, torch.bfloat16, "overlap bf16, add_tile=1"),
+            (2, H, 2 * TILE, 0, torch.float32, "exact float32 512^2 tiles"),
+            (3, H, TILE, 0, torch.bfloat16, "exact bf16")):
+        starts = grid_starts(side, tile, add)
+        plan = TilePlan(side, side, tile, tile, starts, starts, dev)
+        n = CHUNK * plan.per_frame
+        logits = (torch.randn((n, c, tile, tile), generator=g, device=dev) * 4).to(dtype)
+        ours = sigmoid_stitch(logits, CHUNK, plan)
+        torch.cuda.synchronize()
+        ref = sigmoid_stitch_plain(logits, CHUNK, plan)
+        if ours.shape != (CHUNK, c, side, side):
+            raise AssertionError(f"K3c c={c} {what}: result {tuple(ours.shape)}")
+        err = (ours.int() - ref.int()).abs().max().item()
+        if err > 1:
+            raise AssertionError(f"K3c c={c} {what}: kernel differs from plain by {err} levels")
+        n_logit = n * c * tile * tile
+        rows.append(kernel_row(
+            "kernels multichannel",
+            f"k3c_sigmoid_stitch[c={c} {what} ({n}, {c}, {tile}^2) -> {CHUNK}x{c}x{side}^2]",
+            "bio_image_unet_tpu_torch/csrc/sigmoid_stitch.cu",
+            "bio_image_unet_tpu/ops/stitch.py:80", sigmoid_stitch, err,
+            timer(lambda: sigmoid_stitch(logits, CHUNK, plan)),
+            timer(lambda: sigmoid_stitch_plain(logits, CHUNK, plan), 3),
+            # read each real tile's logits once, write each pixel of each
+            # channel once; about five operations per logit
+            bound_ms(n_logit * logits.element_size() + CHUNK * c * side * side, 5 * n_logit),
+            None))
+        # [multichannel] runs the first form; the others are timing rows
+        rows[-1]["_timing_only"] = len(rows) > 1
+        del logits, ours, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_multichannel(torch, dev, kernels, kmc) -> None:
+    """``Predict`` of a seeded ``Unet(32, out_channels=2)`` on 16 uint8 1024²
+    frames in 256² tiles, bf16: host-staged, as JAX runs it (the fused
+    program stitches one channel): host normalize and uint8 tiles, the
+    forward, K3c a 16-frame chunk (one launch a channel)."""
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
+    from bio_image_unet_tpu_torch.predict import Predict
+
+    torch.backends.cudnn.allow_tf32 = True
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels + kmc}.values())
+    rng = np.random.default_rng(29)
+    movie = rng.integers(0, 255, (CHUNK, H, W), dtype=np.uint8)
+    kw = dict(resize_dim=(TILE, TILE), show_progress=False, batch_size=8, half_precision=True)
+    main = f"Unet(32, out_channels={MC_CHANNELS}) uint8 {CHUNK}x1024^2, 256^2 tiles, bf16"
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "unet_c2_nf32.pt")
+        write_checkpoint(torch, ckpt, "Unet", N_FILTER, seed=41, out_channels=MC_CHANNELS)
+        torch.cuda.reset_peak_memory_stats()
+        pred, got = counted(torch, "multichannel", counters, main,
+                            lambda: Predict(movie, None, ckpt, **kw),
+                            {sigmoid_stitch: MC_CHANNELS})
+        call_peak = torch.cuda.max_memory_allocated()
+        kmc[0]["launches"] = got[sigmoid_stitch]
+        res = pred.result
+        want = (CHUNK, MC_CHANNELS, H, W)
+        if res.shape != want or res.dtype != np.uint8:
+            raise AssertionError(f"{main}: result {res.shape} {res.dtype}, want {want} uint8")
+        best, split = float("inf"), None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            p = Predict(movie, None, ckpt, **kw)
+            dt = time.perf_counter() - t0
+            if dt < best:
+                best, split = dt, dict(p.engine.chunk_seconds)
+            if not np.array_equal(p.result, res):
+                raise AssertionError(f"{main}: two calls disagree")
+        log(f"[multichannel] {main}: end to end {CHUNK * H * W / 1e6 / best:.2f} MP/s "
+            f"({best:.3f} s, best of two after the counted call); chunk stages of the best "
+            "call: " + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+            + f" (the rest: host normalization before the chunks); peak device memory of one "
+            f"call {call_peak / 2**30:.2f} GiB; mask means by channel "
+            + ", ".join(f"{res[:, c].mean():.2f}" for c in range(MC_CHANNELS)))
+
+        # card vs CPU: n_filter 8, float32 with TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        small = str(Path(tmp) / "unet_c2_nf8.pt")
+        write_checkpoint(torch, small, "Unet", 8, seed=42, out_channels=MC_CHANNELS)
+        m = rng.integers(0, 65535, (3, 300, 260), dtype=np.uint16)
+        skw = dict(resize_dim=(128, 128), add_tile=1, show_progress=False, batch_size=4)
+        on_card = Predict(m, None, small, **skw).result
+        on_cpu = Predict(m, None, small, device="cpu", **skw).result
+        diff = np.abs(on_card.astype(int) - on_cpu.astype(int))
+        log(f"[multichannel] Unet(8, out_channels={MC_CHANNELS}) uint16 3x300x260 add_tile=1: "
+            f"result {on_card.shape}; card vs CPU max {diff.max()} levels on "
+            f"{np.mean(diff > 0):.6f} of pixels")
+        if on_card.shape != (3, MC_CHANNELS, 300, 260) or diff.max() > 1 or \
+                np.mean(diff > 0) > 1e-3:
+            raise AssertionError("the card's multi-channel Predict disagrees with the CPU's")
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_train_attention(torch, dev, kernels, k4) -> None:
+    """``[train]``'s leg (config 2) with ``network="AttentionUnet"``: the
+    gates in float32 (as flax promotes them), the rest in bf16; 3 epochs,
+    patches/s over the best after the first; then card vs CPU at n_filter 4."""
+    # the gates' 1×1 convs and their products are not counted
+    train_leg(torch, kernels, k4, "train attention", network="AttentionUnet", timed_from=1)
+    train_card_vs_cpu(torch, "AttentionUnet", 4, tag="train attention")
+
+
+def phase_train_legacy(torch, dev, kernels, k4) -> None:
+    """``Unet_v0(32)`` on the same frames, 2 epochs: float32 whatever
+    ``half_precision`` says (TF32 convolutions, as torch's defaults allow),
+    the bottleneck's channel dropout drawn from the Trainer's generator."""
+    train_leg(torch, kernels, k4, "train legacy", network="Unet_v0", epochs=2, timed_from=1,
+              flops_per_tile=legacy_forward_flops(N_FILTER, TILE), peak=PEAK_TF32_FLOPS)
 
 
 if __name__ == "__main__":

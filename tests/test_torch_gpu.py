@@ -12,7 +12,10 @@ plain versions, and Siam training on the card matches the CPU's.  K6 and K10
 vector width tested, and so are K5 and K5v (runs of 8 outputs from aligned
 16-byte loads) on tiles at an odd float16 offset, on column starts off 8,
 past K5_STAGED column tiles and K5_ITEMS row covers, and past 65535 plane
-groups.
+groups.  K3c (K3 over C channels) is held to its plain version, the legacy
+``Unet_v0`` / ``BabyUnet`` and the multi-channel ``Predict`` on the card to
+the CPU's, and an ``AttentionUnet`` training step in bf16 and float32 on the
+card to the CPU's.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -1764,3 +1767,88 @@ def test_attention_predict_on_card_matches_cpu(cuda, gen, tmp_path, quantized):
         assert d.max() <= 4 and d.mean() < 0.5 and (d > 1).mean() < 0.01, (d.max(), d.mean())
     else:
         assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())
+
+
+# --- slice: K3c, the legacy models, multi-channel Predict, AttentionUnet training ---
+
+K3C_CASES = [
+    # (id, (F, h, w), tile, add_tile, dtype, channels)
+    ("exact-bf16-c2", (2, 128, 128), 64, 0, torch.bfloat16, 2),
+    ("exact-f32-c3", (2, 128, 128), 64, 0, torch.float32, 3),
+    ("overlap-bf16-c2", (2, 100, 90), 32, 1, torch.bfloat16, 2),
+    ("tile-40-f32-c3", (2, 70, 100), 40, 1, torch.float32, 3),
+    ("rows-1000-c2", (2, 1000, 1000), 256, 1, torch.bfloat16, 2),
+    ("exact-1024-c2", (2, 1024, 1024), 256, 0, torch.bfloat16, 2),
+    ("heavy-overlap-c2", (2, 64, 70), 32, 4, torch.float32, 2),
+]
+
+
+@pytest.mark.parametrize("case", K3C_CASES, ids=[c[0] for c in K3C_CASES])
+def test_sigmoid_stitch_channels_kernel_equals_plain(cuda, gen, case):
+    _, (n_frames, h, w), t, add, dtype, c = case
+    plan = TilePlan(h, w, t, t, grid_starts(h, t, add), grid_starts(w, t, add), cuda)
+    n = n_frames * plan.per_frame + 2
+    logits = torch.from_numpy((gen.standard_normal((n, c, t, t)) * 4).astype(np.float32))
+    logits = logits.to(cuda, dtype)
+    before = sigmoid_stitch.launches
+    ours = sigmoid_stitch(logits, n_frames, plan)
+    torch.cuda.synchronize()
+    assert sigmoid_stitch.launches == before + c and ours.shape == (n_frames, c, h, w)
+    ref = sigmoid_stitch_plain(logits, n_frames, plan)
+    assert (ours.int() - ref.int()).abs().max().item() <= 1
+    # each channel as a one-channel launch of its own
+    for k in range(c):
+        assert torch.equal(sigmoid_stitch(logits[:, k].contiguous(), n_frames, plan), ours[:, k])
+
+
+@pytest.mark.parametrize("name,nf", [("Unet_v0", 8), ("BabyUnet", 4)])
+def test_legacy_predict_on_card_matches_cpu(cuda, gen, tmp_path, name, nf):
+    from bio_image_unet_tpu_torch.models import get_model
+
+    net = init_weights_(get_model(name, n_filter=nf), torch.Generator().manual_seed(3),
+                        random_bn_stats=True)
+    path = str(tmp_path / f"{name}.pt")
+    torch.save({"state_dict": net.state_dict(), "model_name": name, "n_filter": nf}, path)
+    movie = _frames(gen, np.uint8, (2, 512, 512))
+    kw = dict(resize_dim=(256, 256), show_progress=False, batch_size=4)
+    before = sigmoid_stitch.launches
+    card = Predict(movie, None, path, half_precision=True, **kw)
+    assert card.engine.dtype == torch.float32 and sigmoid_stitch.launches == before + 1
+    cpu = Predict(movie, None, path, device="cpu", **kw).result
+    diff = np.abs(card.result.astype(int) - cpu.astype(int))
+    assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3, (diff.max(), np.mean(diff > 0))
+
+
+def test_multichannel_predict_on_card_matches_cpu(cuda, gen, tmp_path):
+    net = init_weights_(Unet(n_filter=8, out_channels=2), torch.Generator().manual_seed(4),
+                        random_bn_stats=True)
+    path = str(tmp_path / "unet_c2.pt")
+    torch.save({"state_dict": net.state_dict(), "model_name": "Unet", "n_filter": 8,
+                "out_channels": 2}, path)
+    movie = _frames(gen, np.uint16, (3, 100, 90))
+    kw = dict(resize_dim=(64, 64), add_tile=1, show_progress=False, batch_size=4)
+    counts = (normalize_tile.launches, sigmoid_stitch.launches)
+    card = Predict(movie, None, path, **kw).result
+    # host-staged: no K2; K3c a chunk, one launch a channel
+    assert (normalize_tile.launches, sigmoid_stitch.launches) == (counts[0], counts[1] + 2)
+    cpu = Predict(movie, None, path, device="cpu", **kw).result
+    assert card.shape == cpu.shape == (3, 2, 100, 90)
+    diff = np.abs(card.astype(int) - cpu.astype(int))
+    assert diff.max() <= 1 and np.mean(diff > 0) <= 1e-3, (diff.max(), np.mean(diff > 0))
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["f32", "bf16"])
+def test_attention_trainer_on_card_matches_cpu(cuda, tmp_path, half):
+    """3 steps and a validation pass of ``AttentionUnet(8)`` on the card
+    against the CPU: float32 (TF32 off) within rtol 1e-3, bf16 within rtol
+    2e-2 (the two devices' bf16 convs round differently)."""
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        t = Trainer(_Tiles(), 1, network="AttentionUnet", n_filter=8, batch_size=4, lr=1e-4,
+                    save_dir=str(out), seed=0, device=dev, device_cache=True,
+                    half_precision=half)
+        t.start()
+        with open(os.path.join(out, "metrics.csv")) as fh:
+            rows[dev] = np.array([[float(v) for v in r[1:3]] for r in list(csv.reader(fh))[1:]])
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=2e-2 if half else 1e-3)

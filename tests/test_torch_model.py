@@ -144,8 +144,9 @@ def test_checkpoint_refuses_biutpu01_and_garbage(unet_ckpt, tmp_path):
 def test_get_model_rules():
     net = get_model("Unet", n_filter=4, epoch=3, model_name="Unet", lr=0.1)
     assert isinstance(net, Unet) and net.n_filter == 4
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("Unet_v0", n_filter=4)
+    # every registry name of the JAX package is ported, the legacy ones too
+    assert get_model("Unet_v0", n_filter=4, model_name="Unet_v0").levels == 4
+    assert get_model("BabyUnet", model_name="BabyUnet").n_filter == 4
     assert get_model("AttentionUnet", n_filter=4, model_name="AttentionUnet").attention
     with pytest.raises(ValueError, match="unknown model"):
         get_model("NoSuchNet")

@@ -241,11 +241,14 @@ def test_trainer_device_rule_and_unported_options(tmp_path):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="auto")
-    for kw in ({"network": "AttentionUnet"},
-               {"mesh": object()}, {"device_cache": "sharded"}, {"remat": True},
+    for kw in ({"mesh": object()}, {"device_cache": "sharded"}, {"remat": True},
                {"profile_dir": str(tmp_path / "prof")}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu", **kw)
+    # AttentionUnet and the legacy models train
+    for network in ("AttentionUnet", "Unet_v0", "BabyUnet"):
+        assert Trainer(data, 1, network=network, n_filter=4, save_dir=str(tmp_path),
+                       device="cpu").params_meta["model_name"] == network
     # the 3D options are ported: the temporal loss applies to any single-output
     # model, and a 2D model drops use_interpolation as JAX's get_model does
     t = Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu",

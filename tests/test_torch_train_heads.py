@@ -429,8 +429,7 @@ def test_facade_defaults_and_logging(tmp_path):
 
 def test_unported_and_invalid_options(tmp_path):
     data = HeadTiles("chw", n=4)
-    for kw in ({"network": "AttentionUnet"}, {"mesh": object()},
-               {"device_cache": "sharded"}, {"remat": True},
+    for kw in ({"mesh": object()}, {"device_cache": "sharded"}, {"remat": True},
                {"profile_dir": str(tmp_path / "prof")}):
         with pytest.raises(NotImplementedError, match="not ported"):
             _port_trainer(tmp_path, data, **kw)
