@@ -9,25 +9,43 @@
 //
 // What bounds it on the card: bytes.  The least work reads each source pixel
 // once (16 MB for a (16, 1024, 1024) uint8 chunk) and writes each tile pixel
-// once (n_pad * th * tw bytes, 16 MB for the exact 256-tile grid).  This
-// kernel writes every output byte once and reads the source directly: one
-// thread makes VEC (4) neighbouring pixels of one tile row, mapping each
-// through the grid start and the reflect pad to its source pixel, normalizing
-// it in float32 and truncating.  Nothing intermediate touches device memory;
-// overlapping tiles re-read source pixels, which stay in L2 (50 MB).
+// once (n_pad * th * tw bytes, 16 MB for the exact 256-tile grid).  The
+// kernel (normalize_tile<T, O, RUN>) writes every output byte once and reads
+// the source directly; nothing intermediate touches device memory, and
+// overlapping tiles re-read source pixels from L2 (50 MB).  Its design
+// keeps the instructions a byte below what the bytes take:
+//
+// - A block owns a strip of one tile (blocks_per_tile strips a tile, iters
+//   runs a thread, both chosen by the wrapper, predict/normalize.py
+//   _k2_geometry), so the tile's frame, grid cell and bounds are worked out
+//   once a block, with one division, not once a thread.
+// - A thread makes RUN = 16 outputs of one tile row (where 16 divides the
+//   tile width; else 1): 16-byte stores, and, where the run lies inside the
+//   frame at a 16-byte aligned address (the exact grid's column starts are
+//   multiples of 256), 16-byte loads; the reflect and gather grids load
+//   pixel by pixel.
+// - uint8 frames: a block first maps the 256 levels its frame can hold
+//   through the float32 steps into a table in shared memory; a pixel is then
+//   one table read.  uint16 and float32 frames take the steps per pixel.
+// - The division is IEEE's without __fdiv_rn's slow-path call (which saves
+//   registers to local memory): the frame's reciprocal once, one float64
+//   Newton step from the hardware estimate, and per pixel the float nearest
+//   the product moved across the midpoint by an exact residual (NormRN).
 //
 // Exactness: clip = min(max(v, lo), hi) as jnp.clip; (v - fmin) / (fmax - fmin)
-// * 255 with __fsub_rn/__fdiv_rn/__fmul_rn (no FMA, IEEE division), 255 - v
-// for invert, truncation toward zero to uint8 -- the same float32 steps as the
-// JAX program, so the tiles are bit-identical.
+// * 255 with __fsub_rn, IEEE division and __fmul_rn (no FMA), 255 - v for
+// invert, truncation toward zero to uint8 -- the same float32 steps as the
+// JAX program, so the tiles are bit-identical (the table holds those steps'
+// results).
 //
 // K2h replaces bio_image_unet_tpu/predict/predictor.py:1101-1117 (the
 // multi-head fused program: _normalize_clip with scale=1.0, the reflect pad,
 // :102 _extract_tiles, the batch padded by the last tile, and the forward's
-// astype of the float32 tile to the working dtype, :455).  Same gather, same
-// float32 steps with scale 1 (times 1.0 is exact), no truncation: the tile is
-// written as float32 or rounded to bfloat16 (round to nearest even, as
-// astype does).  Bound by bytes as K2; its output is 2 or 4 bytes a pixel.
+// astype of the float32 tile to the working dtype, :455).  K2's kernel with
+// O = float or __nv_bfloat16: the same float32 steps with scale 1 (times 1.0
+// is exact), no truncation, the tile written as float32 or rounded to
+// bfloat16 (round to nearest even, as astype does).  Bound by bytes as K2;
+// its output is 2 or 4 bytes a pixel.
 //
 // K2v is the 3D form.  It replaces bio_image_unet_tpu/predict/predictor.py
 // :1222-1235 (Predict3D's fused program: _normalize_clip over the whole
@@ -124,32 +142,243 @@ __device__ __forceinline__ void store_row(O* o, const float* res) {
   }
 }
 
-// O = uint8_t: K2 (scale 255, truncation); O = float or __nv_bfloat16: K2h
-// (scale 1).
-template <typename T, typename O, int VEC>
-__global__ void normalize_tile(const T* __restrict__ x, int H, int W,
-                               const float* __restrict__ bounds, int Fb,
-                               const int* __restrict__ xs, const int* __restrict__ ys,
-                               int nx, int ny, int th, int tw, long long n_real,
-                               long long n_total, int invert, float scale,
-                               O* __restrict__ out) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_total * th * (tw / VEC)) return;
-  const TileRow tr(g, th, tw, VEC, nx, ny, n_real);
+constexpr int K2_THREADS = 256;  // one table entry a thread
+constexpr int K2_RUN = 16;       // outputs a thread where 16 divides the tile width
 
-  int pr = xs[tr.i] + tr.r;
-  if (pr >= H) pr = 2 * (H - 1) - pr;  // numpy/jnp 'reflect' (edge not repeated)
-  const T* row = x + ((size_t)tr.f * H + pr) * W;
-  const Norm norm(bounds, Fb, Fb == 1 ? 0 : (int)tr.f, scale, invert);
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  float res[VEC];
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    int pc = ys[tr.j] + tr.c0 + k;
-    if (pc >= W) pc = 2 * (W - 1) - pc;
-    res[k] = norm((float)row[pc]);
+// Norm's steps with IEEE division by the frame's span, without __fdiv_rn's
+// slow-path call (which saves registers to local memory).  inv: 1/den from
+// the hardware estimate (relative error below 2^-21; den scaled by 2^-64 or
+// 2^64 first, exactly, where its reciprocal would leave the estimate's
+// normal range) and one float64 Newton step, once a frame: within 2^-41 of
+// 1/den, so z = |a| * inv lies within 2^12 float64 ulps of |a| / den.  Where
+// the 29 bits of z below float32 precision are more than 2^13 from the
+// half-way pattern (all but about 3e-5 of the quotients), |a| / den lies on
+// the same side of the same midpoint and rounding z rounds the quotient.
+// Else (and below 2^-126) the exact path: the float nearest z is the rounded
+// quotient or a neighbour of it; the residual |a| - den q is exact in
+// float64, and so are the half-gaps to q's neighbours times den, so q moves
+// to the neighbour on whose side of the midpoint |a| / den lies.  A quotient
+// is a midpoint only below 2^-126 (subnormal spacing): there the tie goes
+// to the even neighbour, as IEEE division rounds it.  Needs a / den finite.
+// (A float32 path -- the quotient from a float reciprocal corrected by fused
+// multiply-adds, moved by its exact remainder -- was slower on the gather
+// grid: PERF.md section 6.)
+struct NormRN {
+  float lo, hi, fmin, den, scale;
+  double inv;
+  bool span;
+  int invert;
+  __device__ __forceinline__ NormRN(const float* bounds, int Fb, int col, float scale_, int inv_)
+      : scale(scale_), invert(inv_) {
+    lo = bounds[0 * Fb + col];
+    hi = bounds[1 * Fb + col];
+    fmin = bounds[2 * Fb + col];
+    const float fmax = bounds[3 * Fb + col];
+    span = fmax > fmin;
+    den = __fsub_rn(fmax, fmin);
+    const float e = den > 0x1p100f ? 0x1p-64f : (den < 0x1p-100f ? 0x1p64f : 1.0f);
+    const double y = (double)rcp_approx(span ? __fmul_rn(den, e) : 1.0f) * (double)e;
+    inv = y * (2.0 - (double)den * y);
   }
-  store_row<O, VEC>(out + (size_t)tr.t * th * tw + (size_t)tr.r * tw + tr.c0, res);
+  __device__ __forceinline__ float exact(double m) const {
+    const double bd = den;
+    float q = __double2float_rn(m * inv);
+    const double r = m - bd * (double)q;
+    const uint32_t qb = __float_as_uint(q);
+    const float up = __uint_as_float(qb + 1u), dn = __uint_as_float(qb - 1u);
+    const double h_up = bd * (0.5 * ((double)up - (double)q));
+    const double h_dn = bd * (0.5 * ((double)q - (double)dn));
+    if (r > h_up || (r == h_up && (qb & 1u)))
+      q = up;
+    else if (-r > h_dn || (-r == h_dn && (qb & 1u)))
+      q = dn;
+    return q;
+  }
+  __device__ __forceinline__ float quotient(float a) const {
+    if (a == 0.0f) return a;
+    const double m = fabs((double)a);
+    const double z = m * inv;
+    const int low = (int)(__double_as_longlong(z) & 0x1FFFFFFFLL) - (1 << 28);
+    const float q = z >= 0x1p-126 && (low > 8192 || low < -8192) ? __double2float_rn(z)
+                                                                  : exact(m);
+    return copysignf(q, a);
+  }
+  __device__ __forceinline__ float operator()(float v) const {
+    v = fminf(fmaxf(v, lo), hi);
+    v = span ? __fmul_rn(quotient(__fsub_rn(v, fmin)), scale) : 0.0f;
+    return invert ? __fsub_rn(scale, v) : v;
+  }
+};
+
+template <typename O>
+__device__ __forceinline__ O to_out(float v);
+template <>
+__device__ __forceinline__ uint8_t to_out<uint8_t>(float v) { return (uint8_t)__float2uint_rz(v); }
+template <>
+__device__ __forceinline__ float to_out<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ uint32_t out_bits(uint8_t v) { return v; }
+__device__ __forceinline__ uint32_t out_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t out_bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+
+__device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// element k of a 16-byte vector (k a constant after unrolling: a register
+// extract)
+template <typename T>
+__device__ __forceinline__ T element(const uint4& w, int k) {
+  if constexpr (sizeof(T) == 1) {
+    return (T)((word_of(w, k >> 2) >> ((k & 3) * 8)) & 0xFFu);
+  } else if constexpr (sizeof(T) == 2) {
+    return (T)((word_of(w, k >> 1) >> ((k & 1) * 16)) & 0xFFFFu);
+  } else {
+    return __uint_as_float(word_of(w, k));
+  }
+}
+
+// RUN values from a 16-byte aligned address
+template <typename T, int RUN>
+__device__ __forceinline__ void load_run(const T* p, T* v) {
+  constexpr int PER = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int q = 0; q < RUN / PER; ++q) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(p) + q);
+#pragma unroll
+    for (int k = 0; k < PER; ++k) v[q * PER + k] = element<T>(w, k);
+  }
+}
+
+// RUN values from a T-aligned address p with the run inside its row: the
+// aligned 16-byte chunks that hold them (each holds a byte of the run, so
+// none reads past the row), shifted into place word by word
+template <typename T, int RUN>
+__device__ __forceinline__ void load_run_shifted(const T* p, T* v) {
+  constexpr int NW = RUN * (int)sizeof(T) / 4;  // words of the run
+  constexpr int NC = NW / 4 + 1;                // chunks that may hold it
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint4* base = reinterpret_cast<const uint4*>(a & ~(uintptr_t)15);
+  const int o = (int)(a & 15);
+  const int last = (o + NW * 4 - 1) >> 4;  // the last chunk holding a byte of the run
+  uint32_t w[4 * NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const uint4 u = c <= last ? __ldg(base + c) : make_uint4(0u, 0u, 0u, 0u);
+    w[4 * c] = u.x;
+    w[4 * c + 1] = u.y;
+    w[4 * c + 2] = u.z;
+    w[4 * c + 3] = u.w;
+  }
+  const int q = o >> 2, sh = (o & 3) * 8;
+  uint32_t s[NW + 1];
+#pragma unroll
+  for (int i = 0; i <= NW; ++i)
+    s[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint4 word = make_uint4(__funnelshift_r(s[i], s[i + 1], sh), 0u, 0u, 0u);
+#pragma unroll
+    for (int k = 0; k < 4 / (int)sizeof(T); ++k) v[i * (4 / (int)sizeof(T)) + k] = element<T>(word, k);
+  }
+}
+
+// RUN outputs to a 16-byte aligned address, 16 bytes a store
+template <typename O, int RUN>
+__device__ __forceinline__ void store_run(O* o, const O* res) {
+  if constexpr (RUN == 1) {
+    *o = res[0];
+  } else {
+    constexpr int PER_WORD = 4 / (int)sizeof(O);
+    constexpr int WORDS = RUN / PER_WORD;
+    uint32_t wd[WORDS];
+#pragma unroll
+    for (int q = 0; q < WORDS; ++q) {
+      wd[q] = 0u;
+#pragma unroll
+      for (int k = 0; k < PER_WORD; ++k)
+        wd[q] |= out_bits(res[q * PER_WORD + k]) << (8 * (int)sizeof(O) * k);
+    }
+#pragma unroll
+    for (int q = 0; q < WORDS / 4; ++q)
+      reinterpret_cast<uint4*>(o)[q] =
+          make_uint4(wd[4 * q], wd[4 * q + 1], wd[4 * q + 2], wd[4 * q + 3]);
+  }
+}
+
+// O = uint8_t: K2 (scale 255, truncation); O = float or __nv_bfloat16: K2h
+// (scale 1).  Block b makes strip b % blocks_per_tile of tile b /
+// blocks_per_tile: its thread's runs start at elements (strip * iters + it) *
+// K2_THREADS * RUN + threadIdx.x * RUN of the tile (it < iters).
+template <typename T, typename O, int RUN>
+__global__ void __launch_bounds__(K2_THREADS)
+normalize_tile(const T* __restrict__ x, int H, int W, const float* __restrict__ bounds, int Fb,
+               const int* __restrict__ xs, const int* __restrict__ ys, int nx, int ny, int th,
+               int tw, long long n_real, int blocks_per_tile, int iters, int invert, float scale,
+               O* __restrict__ out) {
+  static_assert(K2_THREADS == 256, "one table entry a thread");
+  __shared__ __align__(16) unsigned char table_bytes[256 * sizeof(O)];
+  O* table = reinterpret_cast<O*>(table_bytes);
+  const unsigned b = blockIdx.x;
+  const long long t = b / (unsigned)blocks_per_tile;
+  const int strip = (int)(b - (unsigned)t * (unsigned)blocks_per_tile);
+  const long long ts = t < n_real ? t : n_real - 1;  // batch padding repeats the last real tile
+  const int per = nx * ny;
+  const long long f = ts / per;
+  const int ij = (int)(ts - f * per);
+  const int gi = ij / ny;
+  const int x0 = xs[gi], y0 = ys[ij - gi * ny];
+  const NormRN norm(bounds, Fb, Fb == 1 ? 0 : (int)f, scale, invert);
+  if constexpr (sizeof(T) == 1) {
+    // every level a uint8 frame can hold, through the float32 steps once
+    table[threadIdx.x] = to_out<O>(norm((float)threadIdx.x));
+    __syncthreads();
+  }
+  const T* frame = x + (size_t)f * H * W;
+  const int tile_px = th * tw;
+  O* tile = out + (size_t)t * tile_px;
+  for (int it = 0; it < iters; ++it) {
+    const int e = ((strip * iters + it) * K2_THREADS + (int)threadIdx.x) * RUN;
+    if (e >= tile_px) break;
+    const int r = e / tw, c0 = e - r * tw;
+    int pr = x0 + r;
+    if (pr >= H) pr = 2 * (H - 1) - pr;  // numpy/jnp 'reflect' (edge not repeated)
+    const T* row = frame + (size_t)pr * W;
+    const int pc0 = y0 + c0;
+    T v[RUN];
+    if (RUN > 1 && pc0 + RUN <= W) {
+      if ((reinterpret_cast<uintptr_t>(row + pc0) & 15u) == 0)
+        load_run<T, RUN>(row + pc0, v);
+      else
+        load_run_shifted<T, RUN>(row + pc0, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < RUN; ++k) {
+        int pc = pc0 + k;
+        if (pc >= W) pc = 2 * (W - 1) - pc;
+        v[k] = row[pc];
+      }
+    }
+    O res[RUN];
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) {
+      if constexpr (sizeof(T) == 1)
+        res[k] = table[v[k]];
+      else
+        res[k] = to_out<O>(norm((float)v[k]));
+    }
+    store_run<O, RUN>(tile + e, res);
+  }
 }
 
 // K2p: both tile sets of k Siam pairs, (2, n_total, th, tw) uint8, from a
@@ -188,25 +417,26 @@ __global__ void normalize_tile_pairs(const T* __restrict__ x, int H, int W,
 }
 
 template <typename T, typename O>
-static int launch(const void* x, int H, int W, const void* bounds, int Fb,
-                  const void* xs, const void* ys, int nx, int ny, int th, int tw,
-                  long long n_real, long long n_total, int invert, float scale, void* out,
-                  void* stream) {
-  const int threads = 256;
+static int launch(const void* x, int H, int W, const void* bounds, int Fb, const void* xs,
+                  const void* ys, int nx, int ny, int th, int tw, long long n_real,
+                  long long n_total, int invert, float scale, int run, int blocks_per_tile,
+                  int iters, void* out, void* stream) {
+  // the wrapper's geometry must cover each tile: blocks_per_tile strips of
+  // iters * K2_THREADS runs of RUN outputs, the runs inside one row
+  if ((run != 1 && !(run == K2_RUN && tw % K2_RUN == 0)) || blocks_per_tile < 1 || iters < 1 ||
+      (long long)blocks_per_tile * iters * K2_THREADS * run < (long long)th * tw ||
+      n_total * blocks_per_tile > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(n_total * blocks_per_tile);
   cudaStream_t s = (cudaStream_t)stream;
-  if (tw % 4 == 0) {
-    const long long groups = n_total * th * (tw / 4);
-    const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
-    normalize_tile<T, O, 4><<<blocks, threads, 0, s>>>(
-        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys,
-        nx, ny, th, tw, n_real, n_total, invert, scale, (O*)out);
-  } else {
-    const long long groups = n_total * th * tw;
-    const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
-    normalize_tile<T, O, 1><<<blocks, threads, 0, s>>>(
-        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys,
-        nx, ny, th, tw, n_real, n_total, invert, scale, (O*)out);
-  }
+  if (run == K2_RUN)
+    normalize_tile<T, O, K2_RUN><<<blocks, K2_THREADS, 0, s>>>(
+        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys, nx, ny, th,
+        tw, n_real, blocks_per_tile, iters, invert, scale, (O*)out);
+  else
+    normalize_tile<T, O, 1><<<blocks, K2_THREADS, 0, s>>>(
+        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys, nx, ny, th,
+        tw, n_real, blocks_per_tile, iters, invert, scale, (O*)out);
   return (int)cudaGetLastError();
 }
 
@@ -315,12 +545,12 @@ static int launch_pairs(const void* x, int H, int W, const void* bounds, int Fb,
 template <typename O>
 static int dispatch(const void* x, int dtype, int H, int W, const void* bounds, int Fb,
                     const void* xs, const void* ys, int nx, int ny, int th, int tw,
-                    long long n_real, long long n_total, int invert, float scale, void* out,
-                    void* stream) {
+                    long long n_real, long long n_total, int invert, float scale, int run,
+                    int blocks_per_tile, int iters, void* out, void* stream) {
   switch (dtype) {
-    case 0: return launch<uint8_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, out, stream);
-    case 1: return launch<uint16_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, out, stream);
-    case 2: return launch<float, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, out, stream);
+    case 0: return launch<uint8_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
+    case 1: return launch<uint16_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
+    case 2: return launch<float, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -330,12 +560,15 @@ extern "C" {
 // dtype: 0 = uint8, 1 = uint16, 2 = float32.  x is (F, H, W) contiguous;
 // bounds is (4, Fb) float32 (Fb = F per-frame, or 1 for stack-global bounds);
 // xs (nx,) and ys (ny,) int32 tile starts; out is (n_total, th, tw) uint8.
+// run, blocks_per_tile, iters: the launch geometry (predict/normalize.py
+// _k2_geometry).  One launch.
 int k2_normalize_tile(const void* x, int dtype, int H, int W, const void* bounds,
                       int Fb, const void* xs, const void* ys, int nx, int ny,
                       int th, int tw, long long n_real, long long n_total,
-                      int invert, void* out, void* stream) {
+                      int invert, int run, int blocks_per_tile, int iters, void* out,
+                      void* stream) {
   return dispatch<uint8_t>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real,
-                           n_total, invert, 255.0f, out, stream);
+                           n_total, invert, 255.0f, run, blocks_per_tile, iters, out, stream);
 }
 
 // K2h: the same arguments; out is (n_total, th, tw) float32 (out_bf16 = 0)
@@ -343,12 +576,14 @@ int k2_normalize_tile(const void* x, int dtype, int H, int W, const void* bounds
 int k2h_normalize_tile_float(const void* x, int dtype, int H, int W, const void* bounds,
                              int Fb, const void* xs, const void* ys, int nx, int ny,
                              int th, int tw, long long n_real, long long n_total,
-                             int invert, int out_bf16, void* out, void* stream) {
+                             int invert, int out_bf16, int run, int blocks_per_tile, int iters,
+                             void* out, void* stream) {
   if (out_bf16)
     return dispatch<__nv_bfloat16>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw,
-                                   n_real, n_total, invert, 1.0f, out, stream);
+                                   n_real, n_total, invert, 1.0f, run, blocks_per_tile, iters,
+                                   out, stream);
   return dispatch<float>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real,
-                         n_total, invert, 1.0f, out, stream);
+                         n_total, invert, 1.0f, run, blocks_per_tile, iters, out, stream);
 }
 
 // K2v: x is (V, D, H, W) contiguous (dtype as above); bounds (4, Fb) float32

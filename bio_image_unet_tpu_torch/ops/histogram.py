@@ -10,7 +10,9 @@ Siam pair-row form (``predictor.py:987-992``, ``'all'`` mode): row i is frames
 i and i+1 of a (k+1, h, w) block as one row of 2·h·w values, read in place.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/clip_bounds.cu``: a byte-wise radix select) and raises if it cannot;
+(``csrc/clip_bounds.cu``: a radix select, one launch a digit of the key,
+``DIGITS[dtype]``; the block that finishes a frame's pass last selects, so
+no other launch runs) and raises if it cannot;
 on a CPU tensor it takes the plain PyTorch version below, which repeats the
 JAX package's bitwise binary search step for step.
 """
@@ -25,7 +27,6 @@ import torch
 
 from . import _cuda
 
-_N_STAT = 6  # min, floor/ceil of q_lo, floor/ceil of q_hi, max
 _KEY_BITS = {torch.uint8: 8, torch.uint16: 16, torch.float32: 32}
 
 
@@ -103,11 +104,34 @@ def clip_bounds_plain(frames: torch.Tensor, q_lo: float, q_hi: float) -> torch.T
 
 # --- CUDA kernel -----------------------------------------------------------
 
-def _blocks_per_frame(n_frames: int, n_vec: int) -> int:
-    """About four blocks per SM over the whole chunk, never more blocks than
-    a frame has 16-byte loads for a 256-thread block."""
+# the kernel's digits of the key, from the top (csrc/clip_bounds.cu
+# digit_bits), and its launches a call: one radix pass a digit
+DIGITS = {torch.uint8: (8,), torch.uint16: (8, 8), torch.float32: (11, 11, 10)}
+LAUNCHES = {dtype: len(digits) for dtype, digits in DIGITS.items()}
+
+_THREADS = 256          # csrc/clip_bounds.cu K1_THREADS
+_FRAME_WORDS = 8224     # K1_FRAME_WORDS: int32 scratch a frame, zero at rest
+_SCRATCH = {}           # (device index, stream) -> int32 scratch, zero at rest
+
+
+def _blocks_per_frame(n_frames: int, n_items: int) -> int:
+    """Blocks of a pass over each row: about four per SM over the whole call,
+    never more than the row has loads (``n_items``: 16-byte loads, or
+    values) for a 256-thread block."""
     target = -(-4 * 132 // max(n_frames, 1))
-    return max(1, min(target, -(-n_vec // 256)))
+    return max(1, min(target, -(-n_items // _THREADS)))
+
+
+def _scratch(dev: torch.device, n_frames: int) -> torch.Tensor:
+    """The kernel's per-frame scratch on the current stream of ``dev``: zero
+    at rest, and zero again after each call's last launch; kept per stream,
+    since launches on one stream never overlap."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n_frames * _FRAME_WORDS:
+        buf = torch.zeros(max(n_frames, 16) * _FRAME_WORDS, dtype=torch.int32, device=dev)
+        _SCRATCH[key] = buf
+    return buf
 
 
 def _clip_bounds_cuda(flat: torch.Tensor, q_lo: float, q_hi: float, counter,
@@ -121,29 +145,22 @@ def _clip_bounds_cuda(flat: torch.Tensor, q_lo: float, q_hi: float, counter,
     if pairs:
         n, p = n - 1, 2 * stride
     ks, fracs = _quantile_plan(p, q_lo, q_hi)
-    ranks = [0, *ks, p - 1]
-    n_digits = _KEY_BITS[flat.dtype] // 8
     dev = flat.device
-    hist = torch.zeros((n_digits, n, _N_STAT, 256), dtype=torch.int32, device=dev)
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    scratch = _scratch(dev, n)
     vec_len = 16 // flat.element_size()
     vec = int(stride % vec_len == 0 and flat.data_ptr() % 16 == 0)
-    bpf = _blocks_per_frame(n, p // vec_len if vec else p)
+    items = p // vec_len if vec else p
     A = _cuda
-    hist_fn = A.function("clip_bounds", "k1_hist_pass",
-                         [A.P, A.I32, A.I64, A.I64, A.I32, A.I32, A.I32] + [A.I32] * 6
-                         + [A.P, A.I32, A.I32, A.P])
-    fin_fn = A.function("clip_bounds", "k1_finalize",
-                        [A.P, A.I32, A.I32] + [A.I32] * 6
-                        + [A.F32, A.F32, A.I32, A.I32, A.I32, A.P, A.P])
-    for d in range(n_digits):
-        A.launch(hist_fn, dev, flat.data_ptr(), A.DTYPE_CODE[flat.dtype], p, stride, n, d,
-                 n_digits, *ranks, hist.data_ptr(), bpf, vec)
+    fn = A.function("clip_bounds", "k1_clip_pass",
+                    [A.P, A.I32, A.I64, A.I64, A.I32, A.I32] + [A.I32] * 4
+                    + [A.F32, A.F32, A.I32, A.I32, A.P, A.I32, A.P, A.I32, A.I32, A.P])
+    bpf = _blocks_per_frame(n, items)
+    for d in range(LAUNCHES[flat.dtype]):
+        A.launch(fn, dev, flat.data_ptr(), A.DTYPE_CODE[flat.dtype], p, stride, n, d, *ks,
+                 fracs[0], fracs[1], int(ks[0] != ks[1]), int(ks[2] != ks[3]),
+                 scratch.data_ptr(), _FRAME_WORDS, out.data_ptr(), bpf, vec)
         counter.launches += 1
-    A.launch(fin_fn, dev, hist.data_ptr(), n, n_digits, *ranks, fracs[0], fracs[1],
-             int(ks[0] != ks[1]), int(ks[2] != ks[3]), int(flat.dtype == torch.float32),
-             out.data_ptr())
-    counter.launches += 1
     return out
 
 

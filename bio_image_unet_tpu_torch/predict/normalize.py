@@ -11,7 +11,9 @@ by the last tile): ``normalize_tile(frames, bounds, plan, n_total, invert)``
 maps (F, H, W) uint8/uint16/float32 frames and (4, F) or (4, 1) float32
 ``(lo, hi, fmin, fmax)`` bounds to (n_total, th, tw) uint8 tiles in
 frame-major grid order; tiles past the chunk's F·nx·ny repeat the last one.
-On a CUDA tensor the wrapper launches ``csrc/normalize_tile.cu`` or raises;
+On a CUDA tensor the wrapper launches ``csrc/normalize_tile.cu`` (a block a
+strip of one tile, 16 outputs a thread, uint8 frames through a per-frame
+table of their 256 levels; ``_k2_geometry`` lays out the launch) or raises;
 on a CPU tensor it takes the plain PyTorch version.
 
 K2h (counterpart of ``predictor.py:1101-1117``, the multi-head fused
@@ -178,6 +180,29 @@ def _check_frames(frames: torch.Tensor, plan, n_total: int, what: str) -> None:
         raise ValueError(f"n_total {n_total} < {n_frames * plan.per_frame} tiles")
 
 
+_K2_THREADS = 256  # csrc/normalize_tile.cu K2_THREADS
+_K2_RUN = 16       # K2_RUN: outputs a thread where 16 divides the tile width
+_K2_ITERS = 4      # runs a thread at most
+
+
+def _k2_geometry(th: int, tw: int, n_total: int):
+    """K2's launch geometry: ``(run, blocks_per_tile, iters)``.  A thread makes
+    ``run`` consecutive outputs of one tile row (16 where 16 divides ``tw``,
+    else 1), ``iters`` runs a block strip apart; a block of 256 threads
+    makes one strip of ``iters · 256 · run`` outputs of one tile, the tile's
+    ``blocks_per_tile`` strips in order (the last one cut at the tile's end).
+    Block b makes strip ``b % blocks_per_tile`` of tile ``b //
+    blocks_per_tile``; its thread's runs start at element ``((strip · iters
+    + it) · 256 + thread) · run`` of the tile."""
+    run = _K2_RUN if tw % _K2_RUN == 0 else 1
+    runs = th * tw // run
+    iters = min(_K2_ITERS, -(-runs // _K2_THREADS))
+    bpt = -(-runs // (_K2_THREADS * iters))
+    if n_total * bpt > 2 ** 31 - 1:
+        raise ValueError(f"{n_total} tiles of {th}x{tw} take more blocks than one launch has")
+    return run, bpt, iters
+
+
 def _launch(symbol: str, extra_types, frames, bounds, plan, n_total, invert, extra, out) -> None:
     dev = frames.device
     _cuda.require_cuda(frames, symbol)
@@ -187,11 +212,12 @@ def _launch(symbol: str, extra_types, frames, bounds, plan, n_total, invert, ext
     A = _cuda
     fn = A.function("normalize_tile", symbol,
                     [A.P, A.I32, A.I32, A.I32, A.P, A.I32, A.P, A.P, A.I32, A.I32,
-                     A.I32, A.I32, A.I64, A.I64, A.I32] + extra_types + [A.P, A.P])
+                     A.I32, A.I32, A.I64, A.I64, A.I32] + extra_types + [A.I32] * 3 + [A.P, A.P])
     A.launch(fn, dev, frames.data_ptr(), A.DTYPE_CODE[frames.dtype], plan.h, plan.w,
              bounds.data_ptr(), fb, plan.xs_t.data_ptr(), plan.ys_t.data_ptr(),
              plan.nx, plan.ny, plan.th, plan.tw, frames.shape[0] * plan.per_frame,
-             n_total, int(invert), *extra, out.data_ptr())
+             n_total, int(invert), *extra, *_k2_geometry(plan.th, plan.tw, n_total),
+             out.data_ptr())
 
 
 def normalize_tile(frames: torch.Tensor, bounds: torch.Tensor, plan,

@@ -1,11 +1,14 @@
 """Time the kernels redesigned for Hopper -- K9 (``requant``), K10
 (``maxpool_i8``), K11 (``upsample2x_i8``), K6 (``depthwise_xcorr``), K11v
 (``upsample2x_i8_3d``), K3 (``sigmoid_stitch``, and its C-channel form K3c),
-K5 (``margin_stitch``) and
-K5v (``blend_stitch_3d``) -- and the other stitch and normalize kernels K1
-(its Siam chunk and pair rows too), K2, K2h, K2v, K2p, K5s and K3v on the card
-at the shapes ``chip_smoke.py`` gives them, under two timers, with the store
-floors of K11's and K11v's output layouts.
+K5 (``margin_stitch``), K5v (``blend_stitch_3d``), K1 (``clip_bounds``, its
+Siam chunk and pair rows too) and K2 (``normalize_tile``, and its float mode
+K2h) -- and the other stitch and normalize kernels K2v, K2p, K5s and K3v on
+the card at the shapes ``chip_smoke.py`` gives them, under two timers, with
+the store floors of K11's and K11v's output layouts.  K1 and K2 are timed on
+uniform random frames and on frames of microscopy statistics
+(``microscopy_frames``: most pixels on a few background levels), in uint8
+and in their uint16 and float32 twins.
 
     python3 <checkout>/bio_image_unet_tpu_torch/utils/kernel_ab_times.py [--package DIR]
 
@@ -25,7 +28,8 @@ versions' outputs on the same inputs can be compared.  The store floor is
 the time of 16-byte stores alone into 64 of every 192 bytes of the UNet++ row
 buffer (K11's output) and into 64 of every 96 bytes of the 3D concat buffer
 (K11v's at up3), the load floor that of 16-byte loads alone of 32 of every
-192 bytes (K10's UNet++ input), each against the same bytes contiguous:
+192 bytes (K10's UNet++ input), each against the same bytes contiguous, and
+the read floor of K1's 16-frame chunk in each key type (16-byte loads alone):
 yardsticks compiled here, not kernels of the port.  Prints one JSON line;
 without a card it exits with code 2.
 """
@@ -86,6 +90,24 @@ extern "C" int load16_rows(const void* x, long long rows, int cv, int stride, in
                                                  (unsigned*)sink);
   return (int)cudaGetLastError();
 }
+// 16-byte loads of n contiguous 16-byte words, four in flight a thread
+__global__ void load16_flat(const uint4* x, long long n, unsigned* sink) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  unsigned acc = 0;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n; e += 4 * stride) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = e + u * stride < n ? __ldg(x + e + u * stride) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc ^= v[u].x ^ v[u].y ^ v[u].z ^ v[u].w;
+  }
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+extern "C" int load16_flat_n(const void* x, long long n, void* sink, void* st) {
+  load16_flat<<<132 * 8, 256, 0, (cudaStream_t)st>>>((const uint4*)x, n, (unsigned*)sink);
+  return (int)cudaGetLastError();
+}
 """
 
 
@@ -137,6 +159,42 @@ def load_floor(torch, _cuda, timed) -> dict:
             raise RuntimeError(f"load probe: CUDA error {err}")
 
     return {"slot": timed(lambda: run(stride), True), "dense": timed(lambda: run(width), True)}
+
+
+def microscopy_frames(seed: int, n: int = CHUNK, size: int = FRAME):
+    """``n`` uint8 frames of ``size``^2 with microscopy statistics, made by
+    ``utils.synth.blob_sample`` from a numpy generator seeded ``seed``: a dark
+    background clipped at 0 holds most pixels on a few levels (0 about half
+    of them), with 24 bright Gaussian blobs (sigmas 8 to 39 pixels at 1024^2,
+    scaled with ``size``); and their twins: uint16 (the
+    frames ×16 plus a camera offset of 96, a 12-bit range) and float32 (the
+    uint16 frames / 4095)."""
+    import numpy as np
+    from bio_image_unet_tpu_torch.utils.synth import blob_sample
+
+    rng = np.random.default_rng(seed)
+    u8 = np.stack([blob_sample(rng, (size, size), n_blobs=24, margin=min(48, size // 4),
+                               radius=(max(2, size // 128), max(3, size // 25)),
+                               noise=3.0)[0] for _ in range(n)])
+    u16 = (u8.astype(np.uint16) * 16 + 96).astype(np.uint16)
+    return u8, u16, u16.astype(np.float32) / np.float32(4095)
+
+
+def read_floor(torch, _cuda, timed, n_bytes: int) -> float:
+    """The read floor of ``n_bytes`` of contiguous device memory (K1's chunk):
+    16-byte loads alone, four in flight a thread, L2 flushed before each."""
+    fn = _probe(_cuda).load16_flat_n
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    x = torch.ones(n_bytes, dtype=torch.uint8, device="cuda")
+    sink = torch.empty(132 * 8 * 256, dtype=torch.int32, device="cuda")
+
+    def run():
+        err = fn(x.data_ptr(), n_bytes // 16, sink.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"load probe: CUDA error {err}")
+
+    return timed(run, True)
 
 
 def sha(torch, t) -> str:
@@ -202,18 +260,22 @@ def stitch_forms(torch, dev, both, pkg) -> None:
         del logits
     torch.cuda.empty_cache()
 
-    # K1 / K1f: a 16-frame chunk of 1024^2 frames
+    # K1 / K1f: a 16-frame chunk of 1024^2 frames, uniform random and of
+    # microscopy statistics (microscopy_frames), each in uint8, uint16, float32
     qs = (0.0, 99.8)
     g = gen(300)
-    for dt, x in (("uint8", torch.randint(0, 256, (CHUNK, FRAME, FRAME), generator=g, device=dev,
-                                          dtype=torch.int32).to(torch.uint8)),
-                  ("uint16", torch.randint(0, 65536, (CHUNK, FRAME, FRAME), generator=g,
-                                           device=dev, dtype=torch.int32).to(torch.uint16)),
-                  ("float32", torch.randn((CHUNK, FRAME, FRAME), generator=g, device=dev) * 40
-                   + 5)):
-        fn = hist.float_clip_bounds if dt == "float32" else hist.int_clip_bounds
-        both(f"k1 {dt} (16, 1024^2)", lambda: fn(x, *qs), True)
-        if dt != "float32":
+    uniform = (torch.randint(0, 256, (CHUNK, FRAME, FRAME), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint8),
+               torch.randint(0, 65536, (CHUNK, FRAME, FRAME), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.uint16),
+               torch.randn((CHUNK, FRAME, FRAME), generator=g, device=dev) * 40 + 5)
+    skewed = tuple(torch.from_numpy(m).to(dev) for m in microscopy_frames(301))
+    for kind, movies in (("", uniform), ("skewed ", skewed)):
+        for dt, x in zip(("uint8", "uint16", "float32"), movies):
+            fn = hist.float_clip_bounds if dt == "float32" else hist.int_clip_bounds
+            both(f"k1 {kind}{dt} (16, 1024^2)", lambda: fn(x, *qs), True)
+            if dt == "float32":
+                continue
             # K2 on the exact grid (uint8) and the gather grid (uint16 1000^2, add_tile=1)
             frames, side, add = (x, FRAME, 0) if dt == "uint8" else (
                 x[:, :1000, :1000].contiguous(), 1000, 1)
@@ -223,9 +285,9 @@ def stitch_forms(torch, dev, both, pkg) -> None:
             n_pad = -(-n // max(8, min(n, (1 << 24) // (256 * 256)))) * max(
                 8, min(n, (1 << 24) // (256 * 256)))
             bounds = hist.clip_bounds(frames, *qs)
-            both(f"k2 {'exact' if add == 0 else 'gather'} {dt} -> ({n_pad}, 256^2)",
+            both(f"k2 {kind}{'exact' if add == 0 else 'gather'} {dt} -> ({n_pad}, 256^2)",
                  lambda: normalize.normalize_tile(frames, bounds, plan, n_pad, False), True)
-        del x
+    del uniform, skewed
     torch.cuda.empty_cache()
 
     # K5 and K5s: one head's float16 tiles of a 16-frame chunk in 512^2
@@ -497,11 +559,14 @@ def main() -> int:
     k11v_floor = (store_floor(torch, _cuda, timed, N3D * math.prod(VOL_TILE), 2 * NF, 3 * NF, 0)
                   if "k11v " in prefixes else None)
     k10_floor = load_floor(torch, _cuda, timed) if "k10 " in prefixes else None
+    k1_floor = ({dt: read_floor(torch, _cuda, timed, CHUNK * FRAME * FRAME * size)
+                 for dt, size in (("uint8", 1), ("uint16", 2), ("float32", 4))}
+                if "k1 " in prefixes else None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"package": str(args.package.resolve()), "card": card, "ms": ms,
                       "k11_store_floor_ms": floor, "k11v_store_floor_ms": k11v_floor,
-                      "k10_load_floor_ms": k10_floor}))
+                      "k10_load_floor_ms": k10_floor, "k1_read_floor_ms": k1_floor}))
     return 0
 
 

@@ -17,8 +17,10 @@ non-zero without printing a result:
    the run failed where an instance has no tensor-core MMA or any ``__dp4a``
    (IDP); and of K9 (``requant``), K10 (``maxpool_i8``), K11
    (``upsample2x_i8``) and K11v (``upsample2x_i8_3d``, the resample
-   library), K6 (``xcorr``, the depthwise_xcorr library) and K3
-   (``sigmoid_stitch``), each instance's int↔float conversions (I2F, F2I,
+   library), K6 (``xcorr``, the depthwise_xcorr library), K3
+   (``sigmoid_stitch``), K5 / K5v (``margin_stitch``, ``blend_stitch_3d``),
+   K1 (``clip_pass``) and K2 / K2h (``normalize_tile``), each instance's
+   int↔float conversions (I2F, F2I,
    FRND), MUFU, FFMA / FMUL / FADD and 128-bit global loads and stores and
    shared loads logged, the run failed where one uses local memory (LDL /
    STL), a K6 instance holds an FFMA or a K11v instance converts between int
@@ -26,7 +28,9 @@ non-zero without printing a result:
 3. kernels — each kernel held against its plain PyTorch version on the card
    at the shapes the main path gives it (K1 / K1f bit-equal, K2 equal, K3
    within one uint8 level; K3 also on the float32 logits of 512² tiles that
-   ``Predict`` makes at its defaults), and timed with CUDA events (L2 flushed before
+   ``Predict`` makes at its defaults; K1 and K2 also on frames of microscopy
+   statistics, most pixels on a few background levels, in uint8 and its
+   uint16 and float32 twins), and timed with CUDA events (L2 flushed before
    every launch) beside its least possible time and, where one PyTorch call
    computes the same function, that call's time;
 4. main path — ``Predict`` on a random-weight ``Unet(n_filter=32)`` checkpoint
@@ -71,7 +75,7 @@ non-zero without printing a result:
    chunks and a tail of 8).  Around each call on that movie, fused and
    host-staged, the launch counts are set to 0 just before and read just
    after, and must be exactly what the path launches (fused, per chunk: K1's
-   two uint8 launches, K2h once, K5 and K5s once per head; host-staged: K5
+   uint8 launches, K2h once, K5 and K5s once per head; host-staged: K5
    and K5s).
    Prints end-to-end MP/s (best of two after a warm-up), device-resident
    MP/s, peak device memory, the implied share of the bf16 dense peak and a
@@ -119,7 +123,7 @@ non-zero without printing a result:
    (seeded, with BatchNorm statistics) on a 64×512² uint8 volume, tiles
    (32, 128, 128), bf16, ``batch_size=4`` (forward batch 16).  Around each
    call the launch counts are set to 0 just before and read just after, and
-   must be exactly K1's two uint8 launches, K2v once, K3v once.  Prints the
+   must be exactly K1's uint8 launches, K2v once, K3v once.  Prints the
    end-to-end and device-resident Mvox/s, peak device memory, the implied
    share of the bf16 dense peak (``unet3d_forward_flops``) and a profiled
    pass by stage; holds fused against host-staged at the same forward batch
@@ -572,7 +576,8 @@ def sass_functions(lib: Path) -> dict:
     return funcs
 
 
-MANGLED_TYPES = {"a": "int8", "13__nv_bfloat16": "bf16", "6__half": "float16", "f": "float32"}
+MANGLED_TYPES = {"a": "int8", "h": "uint8", "t": "uint16", "13__nv_bfloat16": "bf16",
+                 "6__half": "float16", "f": "float32"}
 
 
 def template_instance(kernel: str, name: str) -> str:
@@ -583,7 +588,7 @@ def template_instance(kernel: str, name: str) -> str:
         return name
     shown, rest = [], name[m.end():]
     while rest and not rest.startswith("E"):
-        arg = re.match(r"L([bi])(\d+)E|13__nv_bfloat16|6__half|[af]", rest)
+        arg = re.match(r"L([bi])(\d+)E|13__nv_bfloat16|6__half|[afht]", rest)
         if not arg:
             return name
         if arg.group(1) == "b":
@@ -599,8 +604,8 @@ def template_instance(kernel: str, name: str) -> str:
 def phase_sass(_cuda) -> None:
     """The machine code of the int8 libraries: every ``qconv`` instance must
     run its products on the tensor cores (an IMMA or GMMA instruction) and
-    hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's, K3's, K5's
-    and K5v's instances must not touch local memory, K6's must hold no fused
+    hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's, K3's, K5's,
+    K5v's, K1's and K2's instances must not touch local memory, K6's must hold no fused
     multiply-add (FFMA: the plain version rounds each product), K11v's no
     int<->float conversion (I2F, F2I, FRND: its blends are integer), and
     their conversions and wide accesses are logged."""
@@ -624,10 +629,10 @@ def phase_sass(_cuda) -> None:
     if bad:
         raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
-    # K9, K10, K11, K11v, K6, K3, K5 and K5v: what the redesigns removed
-    # (int<->float conversions at a quarter of the FMA rate, per-byte work,
-    # the division's slow-path call) and what they rely on (16-byte accesses,
-    # no FMA in K6, integer blends in K11v)
+    # K9, K10, K11, K11v, K6, K3, K5, K5v, K1 and K2: what the redesigns
+    # removed (int<->float conversions at a quarter of the FMA rate, per-byte
+    # work, the division's slow-path call) and what they rely on (16-byte
+    # accesses, no FMA in K6, integer blends in K11v)
     local, fused, converted = [], [], []
     libs = {"int8_trunk": funcs}
     for lib, kernel, want in (("int8_trunk", "requant", 30), ("int8_trunk", "maxpool_i8", 5),
@@ -637,7 +642,9 @@ def phase_sass(_cuda) -> None:
                               ("depthwise_xcorr", "xcorr_plane", 2),
                               ("sigmoid_stitch", "sigmoid_stitch", 2),
                               ("margin_stitch", "margin_stitch", 2),
-                              ("margin_stitch", "blend_stitch_3d", 2)):
+                              ("margin_stitch", "blend_stitch_3d", 2),
+                              ("clip_bounds", "clip_pass", 12),
+                              ("normalize_tile", "normalize_tile", 18)):
         if lib not in libs:
             libs[lib] = sass_functions(_cuda._lib_path(lib))
         found = libs[lib]
@@ -664,14 +671,14 @@ def phase_sass(_cuda) -> None:
             if kernel == "upsample2x_i8_3d" and count("I2F", "F2I", "FRND"):
                 converted.append(inst)
     if local:
-        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 / K5 / K5v instances use local "
-                           f"memory: {local}")
+        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 / K5 / K5v / K1 / K2 instances use "
+                           f"local memory: {local}")
     if fused:
         raise RuntimeError(f"K6 instances fuse a multiply and an add (FFMA): {fused}")
     if converted:
         raise RuntimeError(f"K11v instances convert between int and float: {converted}")
-    log("[sass] K9, K10, K11, K11v, K6, K3, K5 and K5v instances without local memory, K6 "
-        "without FFMA, K11v without I2F / F2I / FRND: yes")
+    log("[sass] K9, K10, K11, K11v, K6, K3, K5, K5v, K1 and K2 instances without local memory, "
+        "K6 without FFMA, K11v without I2F / F2I / FRND: yes")
 
 
 # --- 3. kernels -----------------------------------------------------------------
@@ -749,6 +756,7 @@ def phase_kernels(torch, dev) -> list:
     from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch, sigmoid_stitch_plain
     from bio_image_unet_tpu_torch.predict.normalize import normalize_tile, normalize_tile_plain
     from bio_image_unet_tpu_torch.predict.tiling import TilePlan, grid_starts
+    from bio_image_unet_tpu_torch.utils.kernel_ab_times import microscopy_frames
 
     timer = Timer(torch, dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -768,7 +776,10 @@ def phase_kernels(torch, dev) -> list:
             return None
         return timer(lambda: torch.sort(flat, dim=1), iters=5)
 
-    # K1 / K1f: 16-frame chunks of 1024² frames, the main path's shapes
+    # K1 / K1f: 16-frame chunks of 1024² frames, the main path's shapes, of
+    # uniform random values and of microscopy statistics (most pixels on a
+    # few background levels: kernel_ab_times.microscopy_frames, in uint8 and
+    # its uint16 and float32 twins)
     movies = {
         "uint8": torch.randint(0, 256, (CHUNK, H, W), generator=g, device=dev,
                                dtype=torch.int32).to(torch.uint8),
@@ -776,31 +787,32 @@ def phase_kernels(torch, dev) -> list:
                                 dtype=torch.int32).to(torch.uint16),
         "float32": torch.randn((CHUNK, H, W), generator=g, device=dev) * 40 + 5,
     }
-    for dt_name, x in movies.items():
-        is_f = dt_name == "float32"
-        wrapper = hist.float_clip_bounds if is_f else hist.int_clip_bounds
-        ours = wrapper(x, *qs)
-        torch.cuda.synchronize()
-        ref = hist.clip_bounds_plain(x, *qs)
-        if not torch.equal(ours.view(torch.int32), ref.view(torch.int32)):
-            raise AssertionError(f"K1 {dt_name}: kernel {ours.tolist()} != plain {ref.tolist()}")
-        n_pix = x.numel()
-        row(("k1f_float_clip_bounds" if is_f else "k1_int_clip_bounds") + f"[{dt_name}]",
-            "bio_image_unet_tpu_torch/csrc/clip_bounds.cu",
-            "bio_image_unet_tpu/ops/histogram.py:" + ("142" if is_f else "110"),
-            wrapper, (ours - ref).abs().max().item(),
-            timer(lambda: wrapper(x, *qs)), timer(lambda: hist.clip_bounds_plain(x, *qs), 3),
-            # least work: read every pixel once, one compare each; write 4 bounds
-            bound_ms(n_pix * x.element_size() + 4 * CHUNK * 4, n_pix),
-            library_sort(x))
+    skewed = {dt_name: torch.from_numpy(m).to(dev) for dt_name, m in
+              zip(movies, microscopy_frames(301, CHUNK, H))}
+    for kind, group in (("", movies), ("skewed ", skewed)):
+        for dt_name, x in group.items():
+            is_f = dt_name == "float32"
+            wrapper = hist.float_clip_bounds if is_f else hist.int_clip_bounds
+            ours = wrapper(x, *qs)
+            torch.cuda.synchronize()
+            ref = hist.clip_bounds_plain(x, *qs)
+            if not torch.equal(ours.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"K1 {kind}{dt_name}: kernel {ours.tolist()} != plain "
+                                     f"{ref.tolist()}")
+            n_pix = x.numel()
+            row(("k1f_float_clip_bounds" if is_f else "k1_int_clip_bounds")
+                + f"[{kind}{dt_name}]",
+                "bio_image_unet_tpu_torch/csrc/clip_bounds.cu",
+                "bio_image_unet_tpu/ops/histogram.py:" + ("142" if is_f else "110"),
+                wrapper, (ours - ref).abs().max().item(),
+                timer(lambda: wrapper(x, *qs)), timer(lambda: hist.clip_bounds_plain(x, *qs), 3),
+                # least work: read every pixel once, one compare each; write 4 bounds
+                bound_ms(n_pix * x.element_size() + 4 * CHUNK * 4, n_pix),
+                library_sort(x))
 
-    # K2 and K3 on the exact grid (uint8, 1024² in 256² tiles) and the
-    # overlapping grid (uint16, 1000² in 256² tiles, add_tile=1)
-    grids = {
-        "exact": (movies["uint8"], H, W, 0),
-        "gather": (movies["uint16"][:, :1000, :1000].contiguous(), 1000, 1000, 1),
-    }
-    for grid, (x, h, w, add) in grids.items():
+    def k2(grid, x, h, w, add):
+        """K2 held equal to plain on one grid and timed; its plan and padded
+        batch for K3."""
         plan = TilePlan(h, w, TILE, TILE, grid_starts(h, TILE, add), grid_starts(w, TILE, add), dev)
         n = CHUNK * plan.per_frame
         bs = max(8, min(n, (1 << 24) // (TILE * TILE)))
@@ -822,6 +834,22 @@ def phase_kernels(torch, dev) -> list:
             bound_ms(x.numel() * x.element_size() + bounds.numel() * 4 + out_bytes,
                      5 * out_bytes),
             None)
+        return plan, n, n_pad
+
+    # K2 on the skewed frames: a uint8 frame's level table read mostly at a
+    # few entries, the uint16 twin on the gather grid
+    k2("skewed exact", skewed["uint8"], H, W, 0)
+    k2("skewed gather", skewed["uint16"][:, :1000, :1000].contiguous(), 1000, 1000, 1)
+    del skewed
+
+    # K2 and K3 on the exact grid (uint8, 1024² in 256² tiles) and the
+    # overlapping grid (uint16, 1000² in 256² tiles, add_tile=1)
+    grids = {
+        "exact": (movies["uint8"], H, W, 0),
+        "gather": (movies["uint16"][:, :1000, :1000].contiguous(), 1000, 1000, 1),
+    }
+    for grid, (x, h, w, add) in grids.items():
+        plan, n, n_pad = k2(grid, x, h, w, add)
 
         logits = (torch.randn((n_pad, 1, TILE, TILE), generator=g, device=dev) * 4
                   ).to(torch.bfloat16)
@@ -1005,7 +1033,7 @@ STAGES = (("k7/k8 int8 conv, up-conv", ("qconv",)),
           ("k9 requant", ("requant",)),
           ("k10 int8 max pool", ("maxpool_i8",)),
           ("k11/k11v int8 upsample", ("upsample2x_i8",)),
-          ("k1 clip bounds", ("hist_pass", "finalize")),
+          ("k1 clip bounds", ("clip_pass",)),
           ("k2/k2h/k2v/k2p normalize+tile", ("normalize_tile",)),
           ("k6 depthwise xcorr", ("xcorr",)),
           ("copies host to device", ("memcpy htod",)),
@@ -1628,13 +1656,14 @@ def phase_heads(torch, dev, kernels, heads) -> None:
               show_progress=False)
     main = "UNet++ uint8 40x1024^2 exact (family_bench)"
     # the main movie runs in 3 chunks (16 + 16 + a tail of 8); per chunk K1
-    # launches a histogram pass per key byte and a finalize (2 for uint8),
+    # launches one radix pass per key byte (hist.LAUNCHES: 1 for uint8),
     # K2h once, K5 and K5s once per head (the exact grid leaves pixels
     # uncovered, so K5s runs); the host-staged path launches K5 and K5s only
     # (it normalizes and tiles on the host)
     n_chunks, n_heads = -(-HEADS_FRAMES // CHUNK), len(MO_HEADS)
-    fused_expect = {hist.int_clip_bounds: 2 * n_chunks, normalize_tile_float: n_chunks,
-                    margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads}
+    fused_expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8] * n_chunks,
+                    normalize_tile_float: n_chunks, margin_stitch: n_chunks * n_heads,
+                    tile_sum: n_chunks * n_heads}
     host_expect = {margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads}
 
     def max_diff(a, b) -> dict:
@@ -2310,8 +2339,9 @@ def phase_3d(torch, dev, kernels, k3d) -> None:
     vol_u16 = rng.integers(0, 65535, shape, dtype=np.uint16)
     kw = dict(resize_dim=VOL_TILE, show_progress=False, batch_size=VOL_BATCH, half_precision=True)
     main = "UNet3D uint8 64x512^2 (family_bench)"
-    # per call: K1's two uint8 launches over the whole volume, K2v once, K3v once
-    fused_expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1}
+    # per call: K1's uint8 launches over the whole volume, K2v once, K3v once
+    fused_expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_3d: 1,
+                    sigmoid_stitch_3d: 1}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = str(Path(tmp) / "unet3d_nf32.pt")
         write_checkpoint(torch, ckpt, "UNet3D", VOL_FILTER, seed=5)
@@ -2437,8 +2467,9 @@ def phase_3d_heads(torch, dev, kernels, k3d) -> None:
     kw = dict(max_patch_size=MO3_PATCH, overlap_factor=MO3_OVERLAP, blend_margin=MO3_MARGIN,
               batch_size=MO3_BATCH, half_precision=True, show_progress=False)
     main = "MultiOutputUnet3D uint8 2x64x512^2 (class defaults)"
-    # per call: K1's two uint8 launches (one row per volume), K2v once, K5v once per head
-    expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, blend_stitch_3d: len(MO3_HEADS)}
+    # per call: K1's uint8 launches (one row per volume), K2v once, K5v once per head
+    expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_3d: 1,
+              blend_stitch_3d: len(MO3_HEADS)}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = str(Path(tmp) / "mo_unet3d_nf32.pt")
         write_checkpoint(torch, ckpt, "MultiOutputUnet3D", VOL_FILTER, seed=8,
@@ -2753,7 +2784,8 @@ def phase_train_3d(torch, dev, kernels) -> bytes:
         res, _ = counted(torch, "train 3d→predict", counters, "UNet3D .pt through Predict3D",
                          lambda: Predict3D(vol, None, u3d_ckpt, resize_dim=T3_SHAPE,
                                            show_progress=False, half_precision=True).result,
-                         {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1})
+                         {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_3d: 1,
+                          sigmoid_stitch_3d: 1})
         if res.shape != vol.shape or res.dtype != np.uint8:
             raise AssertionError(f"Predict3D on the trained UNet3D: {res.shape} {res.dtype}")
         log(f"[train 3d→predict] Predict3D: {res.shape} uint8, mean {res.mean():.2f}")
@@ -2762,7 +2794,7 @@ def phase_train_3d(torch, dev, kernels) -> bytes:
                          lambda: PredictMultiOutput3D(vol, mo3d_ckpt, max_patch_size=T3H_SHAPE,
                                                       show_progress=False,
                                                       half_precision=True).result,
-                         {hist.int_clip_bounds: 2, normalize_tile_3d: 1,
+                         {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_3d: 1,
                           blend_stitch_3d: len(MO_TRAIN_HEADS)})
         for head, cfg in MO_TRAIN_HEADS.items():
             want = vol.shape if cfg["channels"] == 1 else (cfg["channels"],) + vol.shape
@@ -3055,7 +3087,9 @@ def phase_siam(torch, dev, kernels, ksiam) -> None:
     torch.backends.cudnn.allow_tf32 = True  # the user's default
     counters = list({id(k["_counter"]): k["_counter"] for k in kernels + ksiam}.values())
     rows = {k["name"]: k for k in ksiam}
-    k1_launches = {np.dtype(np.uint8): 2, np.dtype(np.uint16): 3, np.dtype(np.float32): 5}
+    k1_launches = {np.dtype(np.uint8): hist.LAUNCHES[torch.uint8],
+                   np.dtype(np.uint16): hist.LAUNCHES[torch.uint16],
+                   np.dtype(np.float32): hist.LAUNCHES[torch.float32]}
 
     def forward_batch(n_frames, fpc, tile, h, w, add=0, batch_size=8):
         per = len(grid_starts(h, tile, add)) * len(grid_starts(w, tile, add))
@@ -3847,12 +3881,13 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> float:
 
         # the main path of this phase: launches exact around the call
         t0 = time.perf_counter()
-        # the calibration: K1 (two uint8 launches) and K2h on its two frames
-        cal = {hist.int_clip_bounds: 2, normalize_tile_float: 1}
+        # the calibration: K1 (its uint8 launches) and K2h on its two frames
+        cal = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_float: 1}
         pred, got = counted(torch, "int8", counters, main,
                             lambda: Predict(movie, None, ckpt, quantized=True, **kw),
-                            plus({hist.int_clip_bounds: 2 * chunks, normalize_tile: chunks,
-                                  sigmoid_stitch: chunks, **trunk(chunks)}, cal))
+                            plus({hist.int_clip_bounds: hist.LAUNCHES[torch.uint8] * chunks,
+                                  normalize_tile: chunks, sigmoid_stitch: chunks,
+                                  **trunk(chunks)}, cal))
         first = time.perf_counter() - t0
         if not pred.engine._quant_ready:
             raise AssertionError("the quantized Predict did not calibrate")
@@ -3956,8 +3991,8 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> float:
         tkw = dict(resize_dim=(TILE, TILE), show_progress=False, half_precision=True)
         t_q, _ = counted(torch, "int8", counters, "trained Unet(32), 16x512^2 blobs",
                          lambda: Predict(blobs, None, str(tr), quantized=True, **tkw).result,
-                         plus({hist.int_clip_bounds: 2, normalize_tile: 1, sigmoid_stitch: 1,
-                               **trunk(1)}, cal))
+                         plus({hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile: 1,
+                               sigmoid_stitch: 1, **trunk(1)}, cal))
         t_b = Predict(blobs, None, str(tr), **tkw).result
         margin = _Engine._QUANT_CAL_MARGIN
         _Engine._QUANT_CAL_MARGIN = 0.02
@@ -3986,7 +4021,8 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> float:
         m16 = movie[:CHUNK]
         res, _ = counted(torch, "int8", counters, "MultiOutputUnet(32) int8, 16x1024^2",
                          lambda: PredictMultiOutput(m16, mo, quantized=True, **mkw).result,
-                         plus({hist.int_clip_bounds: 2, normalize_tile_float: 1,
+                         plus({hist.int_clip_bounds: hist.LAUNCHES[torch.uint8],
+                               normalize_tile_float: 1,
                                margin_stitch: len(MO_HEADS), tile_sum: len(MO_HEADS),
                                **trunk(1)}, cal))
         ref = PredictMultiOutput(m16, mo, **mkw).result
@@ -4012,7 +4048,8 @@ def phase_int8(torch, dev, kernels, kint8, trained: bytes) -> float:
             # each plane set
             sq, _ = counted(torch, "int8", counters, f"Siam_UNet(32, {join}) int8, 8x1024^2",
                             lambda: siam_unet.Predict(src, q_out, sp, quantized=True, **skw),
-                            {hist.int_clip_bounds: 4, normalize_tile_float: 2,
+                            {hist.int_clip_bounds: 2 * hist.LAUNCHES[torch.uint8],
+                             normalize_tile_float: 2,
                              normalize_tile_pairs: 1, sigmoid_stitch: 1,
                              **trunk(1, join == "concat")})
             dt = time.perf_counter() - t0
@@ -4305,10 +4342,11 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> float:
                 k8.maxpool_i8_3d: 3 * b * (not nearest), k8.requant: 5 * b,
                 k8.upsample2x_i8_3d: 3 * b * (not tconv and not nearest)}
 
-    volume_expect = {hist.int_clip_bounds: 2, normalize_tile_3d: 1, sigmoid_stitch_3d: 1}
-    # a quantized call's calibration: K1 (two uint8 launches) and K2v in float
+    volume_expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_3d: 1,
+                     sigmoid_stitch_3d: 1}
+    # a quantized call's calibration: K1 (its uint8 launches) and K2v in float
     # mode on its sampled volumes
-    cal = {hist.int_clip_bounds: 2, normalize_tile_3d: 1}
+    cal = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_3d: 1}
     rng = np.random.default_rng(14)
     t0 = time.perf_counter()
     vol = blob_volume(rng, shape)
@@ -4429,8 +4467,8 @@ def phase_int8_3d(torch, dev, kernels, kint8_3d, trained3d: bytes) -> float:
             res, _ = counted(torch, "int8 3d", counters,
                              f"MultiOutputUnet3D(32) int8, {MO3_VOLS} volumes ([3d heads])",
                              lambda: PredictMultiOutput3D(vols, mo, quantized=True, **mkw).result,
-                             plus({hist.int_clip_bounds: 2, normalize_tile_3d: 1,
-                                   blend_stitch_3d: len(MO3_HEADS),
+                             plus({hist.int_clip_bounds: hist.LAUNCHES[torch.uint8],
+                                   normalize_tile_3d: 1, blend_stitch_3d: len(MO3_HEADS),
                                    **trunk(-(-n_heads_tiles // bs), tconv=False, nearest=True)},
                                   cal))
             dt = time.perf_counter() - t0
@@ -4679,10 +4717,11 @@ def phase_nested_int8(torch, dev, kernels, knested) -> float:
         return {k8.qconv3x3: ((levels + 1) * (levels + 2) - 1) * b, k8.upsample2x_i8: cells * b,
                 k8.maxpool_i8: levels * b, k8.requant: 2 * b}
 
-    # beside the calibration: K1 (two uint8 launches) and K2h on its two frames
-    expect = plus({hist.int_clip_bounds: 2 * n_chunks, normalize_tile_float: n_chunks,
-                   margin_stitch: n_chunks * n_heads, tile_sum: n_chunks * n_heads,
-                   **grid(batches)}, {hist.int_clip_bounds: 2, normalize_tile_float: 1})
+    # beside the calibration: K1 (its uint8 launches) and K2h on its two frames
+    expect = plus({hist.int_clip_bounds: hist.LAUNCHES[torch.uint8] * n_chunks,
+                   normalize_tile_float: n_chunks, margin_stitch: n_chunks * n_heads,
+                   tile_sum: n_chunks * n_heads, **grid(batches)},
+                  {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_float: 1})
     rng = np.random.default_rng(16)
     movie = rng.integers(0, 255, (HEADS_FRAMES, H, W), dtype=np.uint8)
     kw = dict(max_patch_size=(P, P), half_precision=True, safe_margin=HEADS_MARGIN,
@@ -4822,7 +4861,8 @@ def phase_attention(torch, dev, kernels) -> float:
     torch.backends.cudnn.allow_tf32 = True  # the user's default
     counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
     chunks = FRAMES // CHUNK  # one forward batch of 256 tiles a chunk
-    frame = {hist.int_clip_bounds: 2 * chunks, normalize_tile: chunks, sigmoid_stitch: chunks}
+    frame = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8] * chunks, normalize_tile: chunks,
+             sigmoid_stitch: chunks}
     # the gated decoder: K9 dequantizes the up path and the skip and requantizes
     # the attended skip at each of the 4 levels, beside e1's quantize and the
     # last dequant
@@ -4840,7 +4880,7 @@ def phase_attention(torch, dev, kernels) -> float:
         # the main path of this phase, float then int8: launches exact
         res = {}
         # int8 adds the gated trunk and the calibration (K1, K2h on two frames)
-        cal = {hist.int_clip_bounds: 2, normalize_tile_float: 1}
+        cal = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile_float: 1}
         for mode, expect in (("bf16", frame), ("int8", plus({**frame, **gated}, cal))):
             pred, _ = counted(torch, "attention", counters, f"{main}, {mode}",
                               lambda: Predict(movie, None, ckpt, quantized=mode == "int8",
@@ -4971,7 +5011,8 @@ def phase_legacy(torch, dev, kernels) -> None:
         tmp = Path(tmp)
         ckpt = str(tmp / "unet_v0_nf32.pt")
         write_legacy(ckpt, "Unet_v0", N_FILTER, 51)
-        expect = {hist.int_clip_bounds: 2, normalize_tile: 1, sigmoid_stitch: 1}
+        expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8], normalize_tile: 1,
+                  sigmoid_stitch: 1}
         torch.cuda.reset_peak_memory_stats()
         pred, _ = counted(torch, "legacy", counters, main,
                           lambda: Predict(movie, None, ckpt, network="Unet_v0", **kw), expect)

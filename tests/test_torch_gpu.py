@@ -12,7 +12,13 @@ plain versions, and Siam training on the card matches the CPU's.  K6 and K10
 vector width tested, and so are K5 and K5v (runs of 8 outputs from aligned
 16-byte loads) on tiles at an odd float16 offset, on column starts off 8,
 past K5_STAGED column tiles and K5_ITEMS row covers, and past 65535 plane
-groups.  K3c (K3 over C channels) is held to its plain version, the legacy
+groups.  K1 (one launch a digit, the last block of a frame selecting) is
+bit-equal on frames whose background level holds 99% of the pixels, on 64
+frames and a 4 M-value row, on unaligned rows and Siam pair rows, and twice
+in a row (its scratch returns to zero); K2 (a strip of a tile a block, 16
+outputs a thread) on 16-byte aligned exact grids of each input type, the
+1000^2 gather grid, reflect pads, invert, global bounds and a constant frame.
+K3c (K3 over C channels) is held to its plain version, the legacy
 ``Unet_v0`` / ``BabyUnet`` and the multi-channel ``Predict`` on the card to
 the CPU's, and an ``AttentionUnet`` training step in bf16 and float32 on the
 card to the CPU's.
@@ -123,12 +129,93 @@ def test_clip_bounds_kernel_constant_frames(cuda):
                                       _bits(hist.clip_bounds_plain(x, 0.0, 99.8)))
 
 
+def _skewed(gen, dtype, shape):
+    """Microscopy-like frames: one background level holds >= 99% of each
+    frame's pixels, a few neighbouring levels the rest, and one pixel each
+    is the frame's minimum and maximum."""
+    n, h, w = shape
+    if dtype == np.float32:
+        back, near, lo, hi = 40.5, np.float32([40.25, 41.0, 41.5, 44.0]), -3.75, 1.0e4
+    else:
+        top = np.iinfo(dtype).max
+        back, near, lo, hi = 40 * (top // 255), np.arange(41, 45) * (top // 255), 2, top - 1
+    frames = np.full(shape, back, dtype=np.float64)
+    pick = gen.random(shape) < 0.003
+    frames[pick] = gen.choice(near, int(pick.sum()))
+    frames[:, 0, 1] = lo
+    frames[:, h - 1, w - 2] = hi
+    return frames.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("shape", [(3, 64, 64), (2, 37, 53), (16, 256, 256)])
+def test_clip_bounds_kernel_bit_equal_on_skewed_frames(cuda, gen, dtype, shape):
+    frames = _skewed(gen, dtype, shape)
+    counts = np.unique(frames[0], return_counts=True)[1]
+    assert counts.max() >= 0.99 * frames[0].size
+    x = torch.from_numpy(frames).to(cuda)
+    for qs in ((0.0, 99.8), (0.5, 99.5), (0.0, 100.0), (50.0, 99.99)):
+        ours = hist.clip_bounds(x, *qs)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_bits(ours), _bits(hist.clip_bounds_plain(x, *qs)),
+                                      err_msg=str(qs))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_clip_bounds_kernel_twice_gives_the_same_bits(cuda, gen, dtype):
+    """The kernel's scratch returns to zero after each call, and the last
+    block of each frame selects: a second call, a call on fewer frames and
+    one on other data all give the plain version's bits."""
+    wrapper = hist.float_clip_bounds if dtype == np.float32 else hist.int_clip_bounds
+    x = torch.from_numpy(_frames(gen, dtype, (8, 96, 80))).to(cuda)
+    y = torch.from_numpy(_skewed(gen, dtype, (3, 96, 80))).to(cuda)
+    before = wrapper.launches
+    first = hist.clip_bounds(x, 0.0, 99.8)
+    assert wrapper.launches == before + hist.LAUNCHES[x.dtype]
+    for t in (x, y, x[:2], x):
+        np.testing.assert_array_equal(_bits(hist.clip_bounds(t, 0.0, 99.8)),
+                                      _bits(hist.clip_bounds_plain(t, 0.0, 99.8)))
+    np.testing.assert_array_equal(_bits(hist.clip_bounds(x, 0.0, 99.8)), _bits(first))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_clip_bounds_kernel_on_64_frames_and_a_long_row(cuda, gen, dtype):
+    for shape in ((64, 128, 128), (1, 2048, 2048)):
+        x = torch.from_numpy(_frames(gen, dtype, shape)).to(cuda)
+        np.testing.assert_array_equal(_bits(hist.clip_bounds(x, 0.3, 99.7)),
+                                      _bits(hist.clip_bounds_plain(x, 0.3, 99.7)), str(shape))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("size", [(64, 64), (30, 37)])
+def test_pair_clip_bounds_kernel_on_skewed_pair_rows(cuda, gen, dtype, size):
+    block = _skewed(gen, dtype, (5,) + size)
+    dev = torch.from_numpy(block).to(cuda)
+    for qs in ((0.0, 99.98), (0.5, 99.5)):
+        ours = hist.pair_clip_bounds(dev, *qs)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_bits(ours), _bits(hist.pair_clip_bounds(
+            torch.from_numpy(block), *qs)), str(qs))
+
+
 K2_CASES = [
     ("exact", np.uint8, (2, 128, 128), 64, 0, False, False),
     ("gather", np.uint16, (2, 100, 90), 32, 1, False, False),
     ("reflect-pad", np.float32, (2, 48, 80), 64, 0, True, False),
     ("fixed-bounds", np.uint8, (3, 96, 96), 64, 0, False, True),
     ("odd-tile", np.uint8, (2, 40, 40), 30, 0, False, False),
+    # 16-byte loads on the exact grid (starts multiples of 16) for every
+    # input type, the 1000^2 gather grid, invert, global bounds (Fb = 1),
+    # reflect pads of both axes and a tile width that is a multiple of 16
+    # but not of 64
+    ("exact-16-aligned-u16", np.uint16, (2, 256, 256), 64, 0, False, False),
+    ("exact-16-aligned-f32", np.float32, (2, 256, 256), 128, 0, False, False),
+    ("gather-1000", np.uint8, (2, 1000, 1000), 256, 1, False, False),
+    ("gather-1000-u16-invert", np.uint16, (2, 1000, 1000), 256, 1, True, False),
+    ("invert-u8", np.uint8, (3, 128, 128), 64, 0, True, False),
+    ("global-bounds-f32", np.float32, (3, 96, 96), 64, 0, False, True),
+    ("reflect-both-u8", np.uint8, (2, 40, 56), 64, 0, False, False),
+    ("tile-48-u8", np.uint8, (2, 96, 100), 48, 1, False, False),
 ]
 
 
@@ -147,6 +234,30 @@ def test_normalize_tile_kernel_equals_plain(cuda, gen, case):
     assert normalize_tile.launches == before + 1
     ref = normalize_tile_plain(x, bounds, plan, n_total, invert)
     assert torch.equal(ours, ref)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("invert", [False, True])
+def test_normalize_tile_kernel_on_skewed_and_constant_frames(cuda, gen, dtype, invert):
+    """Skewed frames (the table of a uint8 frame read mostly at one level)
+    and a constant frame (span 0: every tile pixel 0, or 255 inverted)."""
+    frames = _skewed(gen, dtype, (3, 256, 256))
+    frames[1] = frames[1, 0, 0]
+    x = torch.from_numpy(frames).to(cuda)
+    bounds = hist.clip_bounds(x, 0.0, 99.8)
+    assert bounds[2, 1] == bounds[3, 1]
+    for add in (0, 1):
+        plan = TilePlan(256, 256, 64, 64, grid_starts(256, 64, add), grid_starts(256, 64, add),
+                        cuda)
+        n_total = 3 * plan.per_frame + 5
+        ours = normalize_tile(x, bounds, plan, n_total, invert)
+        torch.cuda.synchronize()
+        assert torch.equal(ours, normalize_tile_plain(x, bounds, plan, n_total, invert)), add
+        for out_dtype in (torch.float32, torch.bfloat16):
+            ours = normalize_tile_float(x, bounds, plan, n_total, out_dtype, invert)
+            torch.cuda.synchronize()
+            ref = normalize_tile_plain(x, bounds, plan, n_total, invert, out_dtype)
+            assert torch.equal(ours.float().view(torch.int32), ref.float().view(torch.int32))
 
 
 K3_CASES = [
