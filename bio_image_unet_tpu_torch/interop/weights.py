@@ -37,12 +37,26 @@ def _t(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(arr, dtype=np.float32)))
 
 
-def _kernel(arr) -> torch.Tensor:
+def to_torch_layout(value: np.ndarray) -> np.ndarray:
     """(*k, A, B) → (B, A, *k) at any spatial rank: a conv's (*k, I, O) to
-    (O, I, *k), a transposed conv's (*k, O, I) to (I, O, *k)."""
-    a = np.asarray(arr, dtype=np.float32)
-    nsp = a.ndim - 2
-    return _t(np.transpose(a, (nsp + 1, nsp) + tuple(range(nsp))))
+    (O, I, *k), a transposed conv's (*k, O, I) to (I, O, *k); vectors and
+    scalars unchanged."""
+    if value.ndim < 3:
+        return value
+    nsp = value.ndim - 2
+    return np.transpose(value, (nsp + 1, nsp) + tuple(range(nsp)))
+
+
+def to_flax_layout(value: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`to_torch_layout`: (B, A, *k) → (*k, A, B)."""
+    if value.ndim < 3:
+        return value
+    nsp = value.ndim - 2
+    return np.transpose(value, tuple(range(2, 2 + nsp)) + (1, 0))
+
+
+def _kernel(arr) -> torch.Tensor:
+    return _t(to_torch_layout(np.asarray(arr, dtype=np.float32)))
 
 
 def _conv_bn(sd, prefix_conv: str, prefix_bn: str, conv: dict, bn: dict, stats: dict) -> None:

@@ -61,19 +61,36 @@ the card, weights and activations are channels-last (``channels_last_3d``
 for the 3D networks).  The ``corr`` join's forward and backward are K6 and
 K6b (``ops/functional.py``).
 
-Checkpoints are reference-schema ``.pt`` files (``checkpoint.save``) that
-both packages' ``Predict``/``PredictMultiOutput`` read (with heads they carry
-``output_heads`` and ``deep_supervision``, ``:349-354``).  One divergence:
-``epoch`` in every checkpoint is the number of epochs completed, the epoch a
-resume continues from (the JAX package stores that only in its emergency
-checkpoint and the finished epoch's index elsewhere).  A resume restores
-weights, BatchNorm statistics, Adam and scheduler state and best loss, and
-advances the shuffle streams past the completed epochs, so one epoch, a
-resume and one more equal two epochs straight.
+Checkpoints that both packages' ``Predict``/``PredictMultiOutput`` read
+(with heads they carry ``output_heads`` and ``deep_supervision``,
+``:349-354``): a ``save_name`` ending in ``.ckpt`` (the JAX Trainer's
+``model.ckpt``) writes the JAX package's ``BIUTPU01`` format
+(``checkpoint.save_native``, the Adam state in optax's layout, so the JAX
+Trainer resumes from it), any other name the reference-schema ``.pt``
+(``checkpoint.save``); ``model_epoch_<n>`` and the emergency
+``model_interrupted`` take the same suffix.  ``load_weights`` takes either
+format.  One divergence: ``epoch`` in every checkpoint is the number of
+epochs completed, the epoch a resume continues from (the JAX package stores
+that only in its emergency checkpoint and the finished epoch's index
+elsewhere).  A resume restores weights, BatchNorm statistics, Adam and
+scheduler state and best loss, and advances the shuffle streams past the
+completed epochs, so one epoch, a resume and one more equal two epochs
+straight (a ``BIUTPU01`` file the JAX package wrote carries no
+``num_batches_tracked``, which then restarts at 0).
+
+``remat=True`` (``:517-521``, ``jax.checkpoint`` of the training forward)
+runs the forward under ``torch.utils.checkpoint`` (non-reentrant): its
+activations are recomputed in the backward pass.  The recompute leaves the
+BatchNorm running statistics as the first forward left them (flax updates
+them once) and replays the dropout masks of the legacy models from their
+generator's state at the forward.  ``profile_dir`` (``:755-756, 773-774``)
+runs one ``torch.profiler`` (CPU and, on the card, CUDA activities) over
+``start()`` and writes its Chrome trace JSON into ``profile_dir``, also when
+the run raises; it refuses to start inside another profiler.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
-raises without a card.  Not ported yet, each raising NotImplementedError:
-``mesh`` and ``device_cache="sharded"`` (multi-GPU), ``remat``, ``profile_dir``.
+raises without a card.  Not ported yet, raising NotImplementedError:
+``mesh`` and ``device_cache="sharded"`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -82,16 +99,19 @@ import csv
 import glob
 import os
 import time
+from contextlib import contextmanager
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as recompute_in_backward
 
 from .. import checkpoint
 from ..data import tiff
 from ..data.augment_device import (HeadLayout, augment_batch, augment_batch_heads,
                                    orientation_keys)
 from ..data.pipelines import DataLoader, random_split
+from ..interop.opt_state import param_names
 from ..losses import get_head_loss, get_loss, smooth_l1_loss
 from ..models import MODEL_REGISTRY, MultiOutputUnet3D, get_model
 from ..models.legacy import ChannelDropout2d
@@ -156,6 +176,54 @@ def _not_ported(what: str, slice_name: str):
                               "slice of the port); single-device training of every model is")
 
 
+class _RematContexts:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for the training
+    forward: the forward context notes the state of the dropout generators;
+    the recompute context replays the forward's draws from that state and
+    puts the BatchNorm buffers (running statistics, ``num_batches_tracked``)
+    and the generators back as it found them, so a recomputed step updates
+    the statistics once and draws the same masks."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.norms = [m for m in model.modules()
+                      if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                      and m.track_running_stats]
+        self.drops = [m for m in model.modules() if isinstance(m, ChannelDropout2d)]
+
+    def _generators(self):
+        return list({id(m.generator): m.generator for m in self.drops
+                     if m.generator is not None}.values())
+
+    def __call__(self):
+        gens = self._generators()
+        at_forward = []
+
+        @contextmanager
+        def forward():
+            at_forward[:] = [g.get_state() for g in gens]
+            yield
+
+        @contextmanager
+        def recompute():
+            buffers = [b for m in self.norms
+                       for b in (m.running_mean, m.running_var, m.num_batches_tracked)
+                       if b is not None]
+            kept = [b.clone() for b in buffers]
+            now = [g.get_state() for g in gens]
+            for g, st in zip(gens, at_forward):
+                g.set_state(st)
+            try:
+                yield
+            finally:
+                with torch.no_grad():
+                    for b, k in zip(buffers, kept):
+                        b.copy_(k)
+                for g, st in zip(gens, now):
+                    g.set_state(st)
+
+        return forward(), recompute()
+
+
 class Trainer:
     """``Trainer(dataset, num_epochs, ...).start()`` for the 2D ``Unet``,
     ``AttentionUnet``, ``Unet_v0`` and ``BabyUnet``, the siamese
@@ -208,10 +276,6 @@ class Trainer:
     ):
         if mesh is not None or device_cache == "sharded":
             _not_ported("mesh=/device_cache='sharded' (multi-GPU training)", "multi-GPU")
-        if remat:
-            _not_ported("remat=True (activation checkpointing)", "trainer-options")
-        if profile_dir:
-            _not_ported("profile_dir= (a profiler trace per run)", "trainer-observability")
         self.device = resolve_device(None if device == "auto" else device)
         self.num_epochs = num_epochs
         self.batch_size = batch_size
@@ -221,6 +285,11 @@ class Trainer:
         self.loss_params = tuple(loss_params)
         self.save_dir = save_dir
         self.save_name = save_name
+        # model_epoch_<n> and model_interrupted are written in save_name's format
+        self.suffix = ".ckpt" if save_name.endswith(".ckpt") else ".pt"
+        self.remat = bool(remat)
+        self.profile_dir = profile_dir
+        self.trace_paths = []
         self.save_iter = save_iter
         self.device_augment = device_augment
         self.grad_clip = grad_clip
@@ -301,9 +370,10 @@ class Trainer:
         self.channel_weights = self.channel_weights.to(self.device)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr)
         self.scheduler = ReduceLROnPlateau(scheduler_factor, scheduler_patience)
+        self._remat_contexts = _RematContexts(self.model)
         if load_path is not None:
             if state["optimizer_state_dict"] is not None:
-                self.optimizer.load_state_dict(state["optimizer_state_dict"])
+                self._load_optimizer(state["optimizer_state_dict"], state["state_dict"])
             if state["epoch"] is not None:
                 self.epoch_start = int(state["epoch"])
             if state["best_loss"] is not None:
@@ -364,6 +434,19 @@ class Trainer:
                                                  for k in ks], 1)).to(self.device)
                 for ks in groups)
 
+    def _load_optimizer(self, opt: dict, state_dict) -> None:
+        """A checkpoint's Adam state, numbered over its state dict's
+        parameters, renumbered by name to this model's
+        ``named_parameters()`` where the two orders differ."""
+        names = param_names(state_dict)
+        own = [n for n, _ in self.model.named_parameters()]
+        if names != own and sorted(names) == sorted(own):
+            where = {n: i for i, n in enumerate(names)}
+            opt = {"state": {j: opt["state"][where[n]] for j, n in enumerate(own)
+                             if where[n] in opt["state"]},
+                   "param_groups": [{**opt["param_groups"][0], "params": list(range(len(own)))}]}
+        self.optimizer.load_state_dict(opt)
+
     def _loss_kwargs(self):
         if self.loss_function in ("BCEDice", "Tversky", "logcoshTversky", "weightedBCE"):
             return {"alpha": self.loss_params[0], "beta": self.loss_params[1]}
@@ -419,7 +502,12 @@ class Trainer:
 
     def _train_step(self, inputs: Sequence[torch.Tensor],
                     batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        outputs = self._forward(inputs)
+        if self.remat:
+            outputs = recompute_in_backward(lambda *xs: self._forward(xs), *inputs,
+                                            use_reentrant=False,
+                                            context_fn=self._remat_contexts)
+        else:
+            outputs = self._forward(inputs)
         with torch.profiler.record_function("loss"):
             loss = self._compute_loss(outputs, batch, train=True)
         self.optimizer.zero_grad(set_to_none=True)
@@ -560,18 +648,53 @@ class Trainer:
 
     def _save(self, path: str, epoch: int) -> None:
         meta = {**self.params_meta, "scheduler_state": self.scheduler.state()}
-        checkpoint.save(path, self.model.state_dict(), meta, epoch=epoch,
-                        best_loss=self.best_loss, optimizer_state=self.optimizer.state_dict())
+        if path.endswith(".ckpt"):
+            checkpoint.save_native(path, self.model.state_dict(), meta, epoch=epoch,
+                                   best_loss=self.best_loss,
+                                   optimizer_state=self.optimizer.state_dict(),
+                                   grad_clip=self.grad_clip is not None)
+        else:
+            checkpoint.save(path, self.model.state_dict(), meta, epoch=epoch,
+                            best_loss=self.best_loss,
+                            optimizer_state=self.optimizer.state_dict())
+
+    def _start_profiler(self):
+        if torch._C._autograd._profiler_enabled():  # Kineto allows one at a time
+            raise RuntimeError("profile_dir= runs its own torch profiler over start(), and "
+                               "one is already running in this process (torch allows one "
+                               "at a time): close it, or drop profile_dir")
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(self.profile_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof) -> None:
+        """Stop the run's profiler and write its Chrome trace JSON (one file
+        a ``start()``; ``trace_paths`` lists them)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = os.path.join(self.profile_dir,
+                            f"trainer_{os.getpid()}_{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        self.trace_paths.append(path)
+        print(f"\nProfiler trace written to {path}")
 
     def start(self, test_data_path=None, result_path=None, test_resize_dim=(512, 512)):
         """Run training; optionally predict a folder of test tifs after each
         epoch.  Returns the best validation loss."""
         save_path = os.path.join(self.save_dir, self.save_name)
         self._epoch_reached = self.epoch_start
+        prof = self._start_profiler() if self.profile_dir else None
         try:
             self._run_epochs(save_path, test_data_path, result_path, test_resize_dim)
         except (KeyboardInterrupt, Exception):
-            emergency = os.path.join(self.save_dir, "model_interrupted.pt")
+            emergency = os.path.join(self.save_dir, f"model_interrupted{self.suffix}")
             try:
                 self._save(emergency, self._epoch_reached)
                 print(f"\nInterrupted — state saved to {emergency}")
@@ -579,6 +702,8 @@ class Trainer:
                 print(f"\nInterrupted — emergency checkpoint failed: {save_err}")
             raise
         finally:
+            if prof is not None:
+                self._stop_profiler(prof)
             if self.writer is not None:
                 self.writer.flush()
         return self.best_loss
@@ -613,7 +738,8 @@ class Trainer:
                 self.best_loss = val_loss
                 self._save(save_path, epoch + 1)
             if self.save_iter:
-                self._save(os.path.join(self.save_dir, f"model_epoch_{epoch}.pt"), epoch + 1)
+                self._save(os.path.join(self.save_dir, f"model_epoch_{epoch}{self.suffix}"),
+                           epoch + 1)
             if test_data_path is not None:
                 self._predict_test_folder(epoch, test_data_path, result_path, test_resize_dim)
 
@@ -621,7 +747,7 @@ class Trainer:
         from ..predict import Predict
 
         print("\nPredicting test data...")
-        ckpt = os.path.join(self.save_dir, f"model_epoch_{epoch}.pt")
+        ckpt = os.path.join(self.save_dir, f"model_epoch_{epoch}{self.suffix}")
         if not os.path.exists(ckpt):
             self._save(ckpt, epoch + 1)
         os.makedirs(result_path, exist_ok=True)

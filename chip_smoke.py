@@ -4,8 +4,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, each printing its lines; any failure raises and the script exits
-non-zero without printing a result:
+Phases, each announced by a ``[phase] <name>`` line before it starts and
+printing its own lines; any failure raises and the script exits non-zero
+without printing a result:
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build  — every kernel of ``bio_image_unet_tpu_torch/csrc`` compiled by nvcc
@@ -61,6 +62,29 @@ non-zero without printing a result:
    trained ``.pt`` through ``Predict`` on a 16-frame blob movie (mask IoU
    against the blob truth), and a small float32 training run on the card
    against the same on the CPU (``metrics.csv`` rows within rtol 1e-3);
+6b. checkpoints — ``[train]``'s trained ``Unet(32)`` ``.pt`` through
+   ``checkpoint.load`` → ``checkpoint.save_native`` (the JAX package's
+   ``BIUTPU01`` format, with the Adam state) → ``load``: every tensor
+   bit-equal, the Adam moments and step too, ``peek`` equal to the header;
+   then ``Predict`` on
+   the main movie (64×1024² uint8, 256², bf16, fused) from the ``.ckpt`` and
+   from the ``.pt``: masks byte-equal, launches exact around each call (K1,
+   K2 and K3 4 each, nothing else); prints the end-to-end MP/s, the engine
+   set-up seconds (the checkpoint's decode is in it), the decode alone and
+   the file sizes of both;
+6c. train resume — ``[train]``'s configuration (``Unet(32)``, batch 12, bf16,
+   K4) for 2 epochs with ``save_name="model.ckpt"``, then one epoch resumed
+   from that ``model.ckpt`` and one from the same state written as ``.pt``:
+   the two resumed optimizers hold bit-equal Adam moments, their
+   ``metrics.csv`` rows agree within rtol 1e-3, each resumed epoch's loss is
+   below the first run's first epoch's; K4 exactly once a step;
+6d. train options — one epoch of that configuration with ``remat=True`` and
+   one with ``remat=False`` from the same seed (``metrics.csv`` rows within
+   rtol 1e-3; peak memory and step time of both, a second training pass of
+   each timed alone and a profiled remat epoch by stage, no gate), then one with
+   ``profile_dir=`` outside every other profiler: one Chrome trace JSON,
+   which parses and holds K4's kernel and a convolution kernel; K4 exactly
+   once a step in each run;
 7. kernels (heads) — K2h (float tiles), K5 (safe-margin stitch, float16
    and float32 out) and K5s (the tile sum of the fill) against their plain
    versions at the multi-head path's shapes (a 16-frame chunk of 1024² uint8
@@ -432,7 +456,9 @@ def main() -> int:
     seconds = {}
 
     def run(name, fn, *args):
-        """``fn(*args)``, its wall time kept under ``name``."""
+        """``fn(*args)``, announced by ``[phase] <name>`` and its wall time
+        kept under ``name``; an exception propagates and ends the run."""
+        log(f"[phase] {name}")
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
@@ -446,6 +472,9 @@ def main() -> int:
     run("main", phase_main_path, torch, dev, kernels)
     kernels.append(k4)
     trained = run("train", phase_train, torch, dev, kernels)
+    run("checkpoints", phase_checkpoints, torch, dev, kernels, trained)
+    run("train resume", phase_train_resume, torch, dev, kernels)
+    run("train options", phase_train_options, torch, dev, kernels)
     heads = run("kernels heads", phase_kernels_heads, torch, dev)
     run("heads", phase_heads, torch, dev, kernels, heads)
     kernels.extend(heads)
@@ -1205,6 +1234,31 @@ def write_blob_frames(root: Path, n: int, size: int, seed: int) -> tuple:
     return (str(root / "image") + "/", str(root / "label") + "/")
 
 
+def config2_data(tmp: Path):
+    """``[train]``'s 150 blob frames of 256² through ``unet.DataProcess``."""
+    from bio_image_unet_tpu_torch import unet
+
+    source = write_blob_frames(tmp / "frames", TRAIN_FRAMES, TILE, seed=0)
+    return unet.DataProcess(source, dim_out=(TILE, TILE), aug_factor=None,
+                            data_path=str(tmp / "data"), seed=0)
+
+
+def config2_trainer(data, out: Path, epochs: int, **kw):
+    """``[train]``'s Trainer: ``Unet(32)``, batch 12, lr 1e-4, bf16, resident
+    and augmented tiles (K4)."""
+    from bio_image_unet_tpu_torch import unet
+
+    return unet.Trainer(data, epochs, n_filter=N_FILTER, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                        save_dir=str(out), seed=0, half_precision=True, device_cache=True,
+                        device_augment=True, **kw)
+
+
+def metrics_rows(out: Path) -> np.ndarray:
+    """``metrics.csv``'s (epoch, train loss, val loss, lr) rows."""
+    with open(out / "metrics.csv") as fh:
+        return np.array([[float(v) for v in r[:4]] for r in list(csv.reader(fh))[1:]])
+
+
 def phase_train(torch, dev, kernels) -> bytes:
     """... and returns the trained ``.pt`` (its bytes), for ``[int8]``."""
     k4 = kernels[-1]
@@ -1223,21 +1277,14 @@ def train_leg(torch, kernels, k4, tag: str, network: str = "Unet",
     the best epoch from ``timed_from`` on, the implied share of ``peak``, a
     profiled epoch and the trained ``.pt`` through ``Predict`` (mask IoU).
     Returns the trained ``.pt``'s bytes and K4's launches."""
-    from bio_image_unet_tpu_torch import unet
-
     counters = {id(k["_counter"]): k["_counter"] for k in kernels}
     # the user's defaults: cuDNN may use TF32 for float32 convolutions
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        source = write_blob_frames(tmp / "frames", TRAIN_FRAMES, TILE, seed=0)
-        data = unet.DataProcess(source, dim_out=(TILE, TILE), aug_factor=None,
-                                data_path=str(tmp / "data"), seed=0)
-        trainer = unet.Trainer(data, epochs, network=network, n_filter=N_FILTER,
-                               batch_size=TRAIN_BATCH, lr=TRAIN_LR, save_dir=str(tmp / "run"),
-                               seed=0, half_precision=True, device_cache=True,
-                               device_augment=True)
+        data = config2_data(tmp)
+        trainer = config2_trainer(data, tmp / "run", epochs, network=network)
         steps = trainer._n_train // TRAIN_BATCH
         log(f"[{tag}] {network}(n_filter={N_FILTER}): set-up (frames, DataProcess, Trainer, "
             f"tiles to the card) {time.perf_counter() - t0:.2f} s: {len(data)} tiles, "
@@ -1443,9 +1490,7 @@ def train_card_vs_cpu(torch, network: str = "Unet", n_filter: int = 8,
             t = Trainer(items, 1, network=network, n_filter=n_filter, batch_size=4,
                         lr=TRAIN_LR, save_dir=str(Path(tmp) / dev), seed=0, device=dev)
             t.start()
-            with open(Path(tmp) / dev / "metrics.csv") as fh:
-                rows[dev] = np.array([[float(v) for v in r[1:4]]
-                                      for r in list(csv.reader(fh))[1:]])
+            rows[dev] = metrics_rows(Path(tmp) / dev)[:, 1:]
     rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
     log(f"[{tag}] card vs CPU ({network}(n_filter={n_filter}), 64², float32, TF32 off, "
         f"1 epoch): card "
@@ -1453,6 +1498,216 @@ def train_card_vs_cpu(torch, network: str = "Unet", n_filter: int = 8,
         f"{rel.max():.2e}")
     if not rel.max() <= 1e-3:
         raise AssertionError("the card's training run disagrees with the CPU's")
+
+
+# --- 6b–6d. checkpoints in the JAX package's format, resume, remat, profile ----------
+
+def phase_checkpoints(torch, dev, kernels, trained: bytes) -> None:
+    from bio_image_unet_tpu_torch import checkpoint
+    from bio_image_unet_tpu_torch.interop.opt_state import param_names
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
+    from bio_image_unet_tpu_torch.predict import Predict
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile
+    from bio_image_unet_tpu_torch.predict.predictor import _Engine
+
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        pt, ck = Path(tmp) / "model.pt", Path(tmp) / "model.ckpt"
+        pt.write_bytes(trained)
+        state = checkpoint.load(str(pt))
+        if state["optimizer_state_dict"] is None:
+            raise AssertionError("[train]'s checkpoint holds no Adam state")
+        checkpoint.save_native(str(ck), state["state_dict"], state["hyperparams"],
+                               epoch=state["epoch"], best_loss=state["best_loss"],
+                               optimizer_state=state["optimizer_state_dict"])
+        back = checkpoint.load(str(ck))
+        for key, v in state["state_dict"].items():
+            w = back["state_dict"][key]
+            if v.dtype != w.dtype or not torch.equal(v, w):
+                raise AssertionError(f"[checkpoints] {key} differs after the BIUTPU01 round trip")
+        ours, theirs = state["optimizer_state_dict"], back["optimizer_state_dict"]
+        by_name = [dict(zip(param_names(st["state_dict"]), (o["state"][i] for i in
+                                                             range(len(o["state"])))))
+                   for st, o in ((state, ours), (back, theirs))]
+        if sorted(by_name[0]) != sorted(by_name[1]):
+            raise AssertionError("[checkpoints] the Adam states cover other parameters")
+        for name, moments in by_name[0].items():
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                if not torch.equal(moments[key], by_name[1][name][key]):
+                    raise AssertionError(f"[checkpoints] Adam {key} of {name} differs")
+        lr = theirs["param_groups"][0]["lr"]
+        if lr != float(np.float32(ours["param_groups"][0]["lr"])):
+            raise AssertionError(f"[checkpoints] Adam's lr {lr} after the round trip")
+        header = {"format": 1, "hyperparams": json.loads(json.dumps(state["hyperparams"])),
+                  "epoch": state["epoch"], "best_loss": state["best_loss"],
+                  "has_opt_state": True}
+        if checkpoint.peek(str(ck)) != header:
+            raise AssertionError(f"[checkpoints] peek {checkpoint.peek(str(ck))} is not the "
+                                 f"header {header}")
+        log(f"[checkpoints] trained Unet({N_FILTER}) .pt → BIUTPU01 → load: "
+            f"{len(state['state_dict'])} tensors bit-equal, "
+            f"Adam's moments and step of {len(ours['state'])} parameters bit-equal, "
+            f"peek equal to the header")
+
+        movie = np.random.default_rng(0).integers(0, 255, (FRAMES, H, W), dtype=np.uint8)
+        kw = dict(resize_dim=(TILE, TILE), show_progress=False, batch_size=8,
+                  half_precision=True)
+        chunks = FRAMES // CHUNK
+        expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8] * chunks,
+                  normalize_tile: chunks, sigmoid_stitch: chunks}
+        paths = {"ckpt": ck, "pt": pt}
+        results, best = {}, {name: float("inf") for name in paths}
+        for _ in range(2):
+            for name, path in paths.items():
+                t0 = time.perf_counter()
+                res, _ = counted(torch, "checkpoints", counters, f"Predict from the .{name}",
+                                 lambda: Predict(movie, None, str(path), **kw).result, expect)
+                best[name] = min(best[name], time.perf_counter() - t0)
+                results[name] = res
+        if results["ckpt"].shape != movie.shape or results["ckpt"].dtype != np.uint8:
+            raise AssertionError(f"[checkpoints] Predict gave {results['ckpt'].shape} "
+                                 f"{results['ckpt'].dtype}")
+        if not np.array_equal(results["ckpt"], results["pt"]):
+            diff = np.abs(results["ckpt"].astype(int) - results["pt"].astype(int))
+            raise AssertionError(f"[checkpoints] the masks from the .ckpt and the .pt differ "
+                                 f"(max {diff.max()} levels on {np.mean(diff > 0):.6f})")
+        setup, decode = {}, {}
+        for name, path in paths.items():
+            setup[name] = decode[name] = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                checkpoint.load(str(path))
+                decode[name] = min(decode[name], time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                _Engine(str(path), None, batch_size=8, half_precision=True, device=dev)
+                torch.cuda.synchronize()
+                setup[name] = min(setup[name], time.perf_counter() - t0)
+        for name, path in paths.items():
+            log(f"[checkpoints] .{name}: Predict {FRAMES}×{H}×{W} uint8 "
+                f"{FRAMES * H * W / 1e6 / best[name]:.2f} MP/s end to end (best of 2, "
+                f"{best[name]:.3f} s); engine set-up (load, fold, upload) {setup[name]:.4f} s, "
+                f"checkpoint.load alone {decode[name]:.4f} s (best of 3); file "
+                f"{path.stat().st_size} bytes")
+        log("[checkpoints] masks from the .ckpt and the .pt byte-equal")
+
+
+def phase_train_resume(torch, dev, kernels) -> None:
+    from bio_image_unet_tpu_torch import checkpoint
+    from bio_image_unet_tpu_torch.data.augment_device import augment_apply
+
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = config2_data(tmp)
+        first = config2_trainer(data, tmp / "first", 2, save_name="model.ckpt")
+        steps = first._n_train // TRAIN_BATCH
+        counted(torch, "train resume", counters, f"Unet({N_FILTER}) 2 epochs of {steps} steps",
+                first.start, {augment_apply: 2 * steps})
+        ck = tmp / "first" / "model.ckpt"
+        head = checkpoint.peek(str(ck))
+        state = checkpoint.load(str(ck))
+        pt = tmp / "state.pt"
+        checkpoint.save(str(pt), state["state_dict"], state["hyperparams"],
+                        epoch=state["epoch"], best_loss=state["best_loss"],
+                        optimizer_state=state["optimizer_state_dict"])
+        log(f"[train resume] model.ckpt: epoch {head['epoch']}, best loss "
+            f"{head['best_loss']:.6f}, Adam state {head['has_opt_state']}, scheduler "
+            f"{head['hyperparams']['scheduler_state']}; {ck.stat().st_size} bytes "
+            f"(the .pt {pt.stat().st_size})")
+        rows, trainers = {}, {}
+        for name, path in (("ckpt", ck), ("pt", pt)):
+            out = tmp / f"resumed_{name}"
+            t = config2_trainer(data, out, 1, load_weights=str(path), save_name=f"model.{name}")
+            if t.epoch_start != state["epoch"]:
+                raise AssertionError(f"[train resume] .{name}: resumed at epoch "
+                                     f"{t.epoch_start}, the file says {state['epoch']}")
+            trainers[name] = t
+            counted(torch, "train resume", counters, f"1 epoch resumed from the .{name}",
+                    t.start, {augment_apply: steps})
+            rows[name] = metrics_rows(out)
+        a, b = (trainers[n].optimizer.state_dict() for n in ("ckpt", "pt"))
+        log(f"[train resume] resumed rows (epoch, train loss, val loss, lr): .ckpt "
+            f"{rows['ckpt'].tolist()}, .pt {rows['pt'].tolist()}; first run "
+            f"{metrics_rows(tmp / 'first').tolist()}")
+        rel = np.abs(rows["ckpt"][:, 1:] - rows["pt"][:, 1:]) / np.abs(rows["pt"][:, 1:])
+        log(f"[train resume] .ckpt vs .pt resumed rows: max relative difference "
+            f"{rel.max():.2e}; Adam steps after the resume {a['state'][0]['step'].item():g} "
+            f"and {b['state'][0]['step'].item():g}")
+        if not rel.max() <= 1e-3:
+            raise AssertionError("[train resume] the runs resumed from the .ckpt and the .pt "
+                                 "disagree")
+        first_loss = first.history[0]["train_loss"]
+        for name, t in trainers.items():
+            if not t.history[0]["train_loss"] < first_loss:
+                raise AssertionError(f"[train resume] .{name}: resumed loss "
+                                     f"{t.history[0]['train_loss']} not below the first "
+                                     f"epoch's {first_loss}")
+
+
+TRACE_CONV = ("conv", "cudnn", "xmma", "gemm", "sm90", "implicit", "cutlass", "fprop", "dgrad",
+              "wgrad")
+
+
+def phase_train_options(torch, dev, kernels) -> None:
+    from bio_image_unet_tpu_torch.data.augment_device import augment_apply
+
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = config2_data(tmp)
+        rows, peak, step, warm = {}, {}, {}, {}
+        for remat in (False, True):
+            out = tmp / f"remat{int(remat)}"
+            t = config2_trainer(data, out, 1, remat=remat)
+            steps = t._n_train // TRAIN_BATCH
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counted(torch, "train options", counters, f"1 epoch, remat={remat}", t.start,
+                    {augment_apply: steps})
+            peak[remat] = torch.cuda.max_memory_allocated()
+            step[remat] = t.history[0]["train_seconds"] / steps
+            rows[remat] = metrics_rows(out)
+            # a second training pass, timed alone: the step once warm
+            t0 = time.perf_counter()
+            t.model.train()
+            t._iterate_train(1)
+            torch.cuda.synchronize()
+            warm[remat] = (time.perf_counter() - t0) / steps
+            if remat:
+                profile_train_epoch(torch, t, 2, warm[remat] * steps, tag="train options remat")
+            del t
+        rel = np.abs(rows[True][:, 1:] - rows[False][:, 1:]) / np.abs(rows[False][:, 1:])
+        log(f"[train options] remat=True rows {rows[True].tolist()}, remat=False "
+            f"{rows[False].tolist()}: max relative difference {rel.max():.2e}")
+        log(f"[train options] peak device memory (reset before each run): remat "
+            f"{peak[True] / 2**30:.3f} GiB, plain {peak[False] / 2**30:.3f} GiB; step over "
+            f"the {steps} steps of the run's epoch: remat {step[True] * 1e3:.2f} ms, plain "
+            f"{step[False] * 1e3:.2f} ms; of a second pass: remat {warm[True] * 1e3:.2f} ms, "
+            f"plain {warm[False] * 1e3:.2f} ms ({warm[True] / warm[False]:.3f}x)")
+        if not rel.max() <= 1e-3:
+            raise AssertionError("[train options] remat=True and remat=False disagree")
+
+        t = config2_trainer(data, tmp / "profiled", 1, profile_dir=str(tmp / "trace"))
+        counted(torch, "train options", counters, "1 epoch with profile_dir", t.start,
+                {augment_apply: steps})
+        files = sorted((tmp / "trace").iterdir())
+        if len(files) != 1 or [str(f) for f in files] != t.trace_paths:
+            raise AssertionError(f"[train options] profile_dir holds {files}, want the one "
+                                 f"trace {t.trace_paths}")
+        with open(files[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        k4 = [n for n in names if "augment_batch" in n]
+        conv = [n for n in names if any(c in n.lower() for c in TRACE_CONV)]
+        log(f"[train options] profile_dir trace {files[0].name}: "
+            f"{files[0].stat().st_size} bytes, {len(events)} events, {len(names)} kernels, "
+            f"K4 {len(k4)}, convolution kernels {len(conv)}")
+        if len(k4) != steps or not conv:
+            raise AssertionError(f"[train options] the trace holds K4 {len(k4)} times (want "
+                                 f"{steps}) and {len(conv)} convolution kernels")
 
 
 # --- 7. kernels of the multi-head path ---------------------------------------------
@@ -2100,9 +2355,7 @@ def train_heads_card_vs_cpu(torch) -> None:
                         output_heads=MO_TRAIN_HEADS, batch_size=4, lr=MO_LR, grad_clip=1.0,
                         save_dir=str(Path(tmp) / dev), seed=0, device=dev, device_cache=True)
             t.start()
-            with open(Path(tmp) / dev / "metrics.csv") as fh:
-                rows[dev] = np.array([[float(v) for v in r[1:4]]
-                                      for r in list(csv.reader(fh))[1:]])
+            rows[dev] = metrics_rows(Path(tmp) / dev)[:, 1:]
     rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
     log(f"[train heads] card vs CPU (UNet++ n_filter=4, 64², float32, TF32 off, 1 epoch): card "
         f"{rows['cuda'].tolist()}, CPU {rows['cpu'].tolist()}, max relative difference "
@@ -2831,9 +3084,7 @@ def train_3d_card_vs_cpu(torch) -> None:
                 raise AssertionError(f"the {dev} run's model is not on {dev}")
             t.start()
             weights[dev] = {k: v.float().cpu() for k, v in t.model.state_dict().items()}
-            with open(Path(tmp) / dev / "metrics.csv") as fh:
-                rows[dev] = np.array([[float(v) for v in r[1:4]]
-                                      for r in list(csv.reader(fh))[1:]])
+            rows[dev] = metrics_rows(Path(tmp) / dev)[:, 1:]
     rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
     dw = max(float((weights["cuda"][k] - v).abs().max()) for k, v in weights["cpu"].items())
     log(f"[train 3d] card vs CPU (UNet3D n_filter=4, (8, 32, 32), float32, TF32 off, 1 epoch): "
@@ -3538,7 +3789,7 @@ def phase_train_siam(torch, dev, kernels, ksiam_train) -> None:
                 f"bf16 dense peak")
             profile_train_epoch(torch, trainer, SIAM_TRAIN_EPOCHS, best, tag=f"train siam {join}")
 
-            # the trained checkpoint (the facade's model.ckpt, a .pt) through
+            # the trained checkpoint (the facade's model.ckpt, BIUTPU01) through
             # PredictSiam on the card: an 8-frame blob movie, mask IoU
             rng = np.random.default_rng(8)
             frames = [blob_sample(rng, (512, 512), n_blobs=40, margin=16, radius=(8, 20))
@@ -3582,9 +3833,7 @@ def train_siam_card_vs_cpu(torch) -> None:
             t = siam_unet.Trainer(items, 1, n_filter=8, batch_size=4, lr=SIAM_TRAIN_LR,
                                   mode="corr", save_dir=str(Path(tmp) / dev), seed=0, device=dev)
             t.start()
-            with open(Path(tmp) / dev / "metrics.csv") as fh:
-                rows[dev] = np.array([[float(v) for v in r[1:4]]
-                                      for r in list(csv.reader(fh))[1:]])
+            rows[dev] = metrics_rows(Path(tmp) / dev)[:, 1:]
     rel = np.abs(rows["cuda"] - rows["cpu"]) / np.abs(rows["cpu"])
     log(f"[train siam] card vs CPU (Siam_UNet(8, corr), 64², float32, TF32 off, 1 epoch): card "
         f"{rows['cuda'].tolist()}, CPU {rows['cpu'].tolist()}, max relative difference "

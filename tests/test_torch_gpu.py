@@ -21,7 +21,9 @@ outputs a thread) on 16-byte aligned exact grids of each input type, the
 K3c (K3 over C channels) is held to its plain version, the legacy
 ``Unet_v0`` / ``BabyUnet`` and the multi-channel ``Predict`` on the card to
 the CPU's, and an ``AttentionUnet`` training step in bf16 and float32 on the
-card to the CPU's.
+card to the CPU's.  The JAX package's ``BIUTPU01`` checkpoints predict on the
+card as their ``.pt`` twins do, ``remat`` steps equal plain ones and
+``profile_dir`` traces the kernels.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit (the kernels are
 built with nvcc on first use and have no CPU mode); without one they skip.
@@ -33,6 +35,7 @@ machine that has only PyTorch:
 
 import csv
 import itertools
+import json
 import os
 
 import numpy as np
@@ -45,7 +48,7 @@ from bio_image_unet_tpu_torch.data.augment_device import (HeadLayout, augment_ap
                                                           augment_heads_apply_plain,
                                                           augment_heads_volume_apply,
                                                           augment_volume_apply, draw)
-from bio_image_unet_tpu_torch import siam_unet
+from bio_image_unet_tpu_torch import checkpoint, siam_unet
 from bio_image_unet_tpu_torch.data import tiff
 from bio_image_unet_tpu_torch.models import (MultiOutputNestedUNet, MultiOutputUnet,
                                              MultiOutputUnet3D, Siam_UNet, UNet3D, Unet)
@@ -1963,3 +1966,105 @@ def test_attention_trainer_on_card_matches_cpu(cuda, tmp_path, half):
         with open(os.path.join(out, "metrics.csv")) as fh:
             rows[dev] = np.array([[float(v) for v in r[1:3]] for r in list(csv.reader(fh))[1:]])
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=2e-2 if half else 1e-3)
+
+
+# --- the JAX package's checkpoints, remat and profile_dir on the card -------------
+
+def _native_and_pt(tmp_path, cls, name, **hyper):
+    """One seeded model written both as ``BIUTPU01`` (``save_native``, with an
+    Adam state) and as ``.pt``."""
+    net = init_weights_(cls(n_filter=4, **hyper), torch.Generator().manual_seed(3),
+                        random_bn_stats=True)
+    optim = torch.optim.Adam(net.parameters())
+    for p in net.parameters():
+        p.grad = torch.ones_like(p)
+    optim.step()
+    meta = {"model_name": name, "n_filter": 4, **hyper}
+    ck, pt = str(tmp_path / f"{name}.ckpt"), str(tmp_path / f"{name}.pt")
+    checkpoint.save_native(ck, net.state_dict(), meta, epoch=1, optimizer_state=optim.state_dict())
+    checkpoint.save(pt, net.state_dict(), meta, epoch=1, optimizer_state=optim.state_dict())
+    return ck, pt
+
+
+@pytest.mark.parametrize("model", ["unet", "nested", "unet3d"])
+def test_predict_from_native_ckpt_on_card_equals_pt(cuda, gen, tmp_path, model):
+    """``Predict`` / ``PredictMultiOutput`` / ``Predict3D`` on the card from a
+    ``BIUTPU01`` file equal the same from the ``.pt`` of the same weights,
+    the kernels launched in both."""
+    if model == "unet":
+        ck, pt = _native_and_pt(tmp_path, Unet, "Unet")
+        movie = _frames(gen, np.uint8, (4, 96, 80))
+        kw = dict(resize_dim=(64, 64), show_progress=False)
+        run = lambda path: Predict(movie, None, path, **kw).result  # noqa: E731
+        counters = (hist.int_clip_bounds, normalize_tile, sigmoid_stitch)
+    elif model == "nested":
+        heads = {"mask": {"channels": 1, "activation": "sigmoid"},
+                 "orientation": {"channels": 2, "activation": None}}
+        ck, pt = _native_and_pt(tmp_path, MultiOutputNestedUNet, "MultiOutputNestedUNet",
+                                output_heads=heads)
+        movie = _frames(gen, np.uint8, (4, 64, 96))
+        kw = dict(max_patch_size=(32, 32), safe_margin=4, show_progress=False)
+        run = lambda path: PredictMultiOutput(movie, path, **kw).result  # noqa: E731
+        counters = (hist.int_clip_bounds, normalize_tile_float, margin_stitch)
+    else:
+        ck, pt = _native_and_pt(tmp_path, UNet3D, "UNet3D", use_interpolation=False)
+        movie = _frames(gen, np.uint8, (16, 64, 64))
+        kw = dict(resize_dim=(8, 32, 32), show_progress=False)
+        run = lambda path: Predict3D(movie, None, path, **kw).result  # noqa: E731
+        counters = (hist.int_clip_bounds, normalize_tile_3d, sigmoid_stitch_3d)
+    before = [c.launches for c in counters]
+    a = run(ck)
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    assert all(n > 0 for n in ran), ran
+    b = run(pt)
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        for head in a:
+            assert np.array_equal(a[head], b[head]), head
+    else:
+        assert a.shape == movie.shape and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("network", ["Unet", "Unet_v0"])
+def test_remat_on_card_equals_plain_step(cuda, tmp_path, network):
+    """One training step on the card with ``remat=True`` against a plain one,
+    float32 with TF32 off and deterministic cuDNN: loss, gradients and the
+    BatchNorm statistics (moved once) equal within 1e-6."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for remat in (False, True):
+            t = Trainer(_Tiles(), 1, network=network, n_filter=8, batch_size=4, lr=1e-4,
+                        save_dir=str(tmp_path / str(remat)), seed=0, remat=remat)
+            t.model.train()
+            t._seed_dropout(0)
+            inputs, batch = next(t._batches(0))
+            loss = t._train_step(inputs, batch)
+            out[remat] = (loss.item(), {n: p.grad.cpu() for n, p in t.model.named_parameters()},
+                          {k: v.cpu() for k, v in t.model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert abs(out[True][0] - out[False][0]) <= 1e-6 * max(1.0, abs(out[False][0]))
+    for i in (1, 2):
+        for k, v in out[False][i].items():
+            np.testing.assert_allclose(out[True][i][k].float().numpy(), v.float().numpy(),
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
+    tracked = {v.item() for k, v in out[True][2].items() if k.endswith("num_batches_tracked")}
+    assert tracked == {1}
+
+
+def test_profile_dir_on_card_traces_the_kernels(cuda, tmp_path):
+    """``profile_dir`` on the card: one Chrome trace a ``start()``, holding
+    K4 once a step and the convolutions."""
+    t = Trainer(_Tiles(n=30), 1, n_filter=8, batch_size=4, lr=1e-4, save_dir=str(tmp_path),
+                seed=0, device_cache=True, device_augment=True, half_precision=True,
+                profile_dir=str(tmp_path / "trace"))
+    t.start()
+    assert len(t.trace_paths) == 1 and os.listdir(tmp_path / "trace") == [
+        os.path.basename(t.trace_paths[0])]
+    with open(t.trace_paths[0]) as fh:
+        kernels = [e["name"] for e in json.load(fh)["traceEvents"] if e.get("cat") == "kernel"]
+    assert sum("augment_batch" in k for k in kernels) == 24 // 4
+    assert any("conv" in k.lower() or "xmma" in k or "sm90" in k or "gemm" in k.lower()
+               for k in kernels)

@@ -133,8 +133,11 @@ def test_checkpoint_refuses_biutpu01_and_garbage(unet_ckpt, tmp_path):
     _, _, variables = unet_ckpt
     native = tmp_path / "model.ckpt"
     jcheckpoint.save(str(native), variables, {"model_name": "Unet", "n_filter": N_FILTER})
-    with pytest.raises(NotImplementedError, match="not yet supported by the port"):
-        checkpoint.load(native)
+    # the JAX package's own format loads (tests/test_torch_checkpoint_native.py
+    # holds every model class to it); garbage still raises ValueError
+    state = checkpoint.load(native)
+    assert state["hyperparams"] == {"model_name": "Unet", "n_filter": N_FILTER}
+    assert sorted(state["state_dict"]) == sorted(Unet(n_filter=N_FILTER).state_dict())
     junk = tmp_path / "junk.pt"
     junk.write_bytes(b"not a checkpoint at all")
     with pytest.raises(ValueError):

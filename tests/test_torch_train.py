@@ -241,8 +241,7 @@ def test_trainer_device_rule_and_unported_options(tmp_path):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="auto")
-    for kw in ({"mesh": object()}, {"device_cache": "sharded"}, {"remat": True},
-               {"profile_dir": str(tmp_path / "prof")}):
+    for kw in ({"mesh": object()}, {"device_cache": "sharded"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu", **kw)
     # AttentionUnet and the legacy models train
