@@ -11,7 +11,8 @@ JAX package's, so each module's counterpart is easy to find:
 - :mod:`~bio_image_unet_tpu_torch.checkpoint` — reference ``.pt`` loading and saving
 - :mod:`~bio_image_unet_tpu_torch.interop`    — JAX variables → the port's state dict
 - :mod:`~bio_image_unet_tpu_torch.ops`        — blocks and the hand-written kernels
-  (K1 clip bounds with its Siam pair-row form, K3/K3v sigmoid + stitch, K5/K5s
+  (K1 clip bounds with its Siam pair-row form and the 256-bin histogram
+  oracle, K3/K3v sigmoid + stitch, K5/K5s
   safe-margin stitch, K5v 3D blend stitch, K6 depthwise cross-correlation and
   K6b its backward,
   K7–K10 the int8 trunk's conv, up-conv, requant and max pool) with their
@@ -35,9 +36,13 @@ JAX package's, so each module's counterpart is easy to find:
   (DataProcess, Trainer, Predict); :mod:`~bio_image_unet_tpu_torch.siam_unet` —
   the Siam facade (DataProcess, Trainer, Predict, ``Siam_UNet``, the losses)
 - :mod:`~bio_image_unet_tpu_torch.tools`      — host helpers: the Siam
-  training-input generators
+  training-input generators, frame search, folder image operations, movie
+  export (ffmpeg), the napari annotator, host/device introspection
 - :mod:`~bio_image_unet_tpu_torch.utils`      — device rule, synthetic data,
-  TIFF saving, the TensorBoard event writer
+  TIFF saving, segmentation metrics, the TensorBoard event writer, the
+  smoke recipes (``utils.test``)
+- ``python -m bio_image_unet_tpu_torch train|predict|devices`` — the
+  command line (:mod:`~bio_image_unet_tpu_torch.__main__`)
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.
@@ -45,6 +50,6 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 
 __version__ = "0.1.0"
 
-from . import checkpoint, progress  # noqa: F401
+from . import checkpoint, losses, progress  # noqa: F401
 
-__all__ = ["checkpoint", "progress", "__version__"]
+__all__ = ["checkpoint", "losses", "progress", "__version__"]

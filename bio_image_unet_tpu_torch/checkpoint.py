@@ -59,9 +59,13 @@ def _is_native(path) -> bool:
         return fh.read(8) == _MAGIC
 
 
-def _read_pt(path) -> dict:
+def _read_pt(path, meta: bool = False) -> dict:
+    """The ``.pt``'s dict, read with ``torch.load(weights_only=True)``; with
+    ``meta`` memory-mapped onto the meta device, so no tensor record is read
+    (a legacy, pre-zip file cannot be mapped and raises)."""
+    extra = {"map_location": "meta", "mmap": True} if meta else {"map_location": "cpu"}
     try:
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        ckpt = torch.load(path, weights_only=True, **extra)
     except Exception as err:
         raise ValueError(f"cannot read {path!r} as a torch checkpoint with "
                          f"torch.load(weights_only=True): {err}") from err
@@ -246,11 +250,13 @@ def load(path) -> Dict[str, Any]:
 
 def peek(path) -> Dict[str, Any]:
     """The hyperparams/epoch/best_loss of a checkpoint; of a ``BIUTPU01``
-    file its whole JSON header, as the JAX package's ``peek`` returns it,
-    without decoding the weights."""
+    file its whole JSON header, as the JAX package's ``peek`` returns it.
+    Neither format's weight bytes are read: a ``.pt`` is memory-mapped onto
+    the meta device.  A legacy (pre-zip) ``.pt`` raises ``ValueError``;
+    :func:`load` reads it."""
     if _is_native(path):
         with open(path, "rb") as fh:
             return _native_header(fh, path)
-    ckpt = _read_pt(path)
+    ckpt = _read_pt(path, meta=True)
     return {"hyperparams": _hyperparams(ckpt), "epoch": ckpt.get("epoch"),
             "best_loss": ckpt.get("best_loss")}

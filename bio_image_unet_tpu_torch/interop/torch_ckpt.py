@@ -133,10 +133,14 @@ def load_torch_checkpoint(path) -> dict:
 
 
 def export_torch_checkpoint(path, variables: dict, hyperparams: Optional[dict] = None,
-                            epoch=None, best_loss=None) -> None:
+                            epoch=None, best_loss=None,
+                            final_sequential: Optional[bool] = None) -> None:
     """Write a reference-loadable ``.pt`` from a JAX ``{'params',
-    'batch_stats'}`` tree of numpy arrays (through ``state_dict_from_jax``:
-    a ``UNet3D``'s bare ``final`` conv is recognised by its 5-D kernel)."""
+    'batch_stats'}`` tree of numpy arrays (through ``state_dict_from_jax``).
+    ``final_sequential`` as in JAX: True writes the ``final`` conv as
+    ``final.0.*``, False as ``final.*``; None recognises a ``UNet3D``'s bare
+    ``final`` conv by its 5-D kernel."""
     from ..checkpoint import save
 
-    save(path, state_dict_from_jax(variables), hyperparams, epoch=epoch, best_loss=best_loss)
+    save(path, state_dict_from_jax(variables, final_sequential), hyperparams, epoch=epoch,
+         best_loss=best_loss)

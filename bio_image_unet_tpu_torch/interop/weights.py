@@ -25,7 +25,7 @@ Any other block raises.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -69,11 +69,14 @@ def _conv_bn(sd, prefix_conv: str, prefix_bn: str, conv: dict, bn: dict, stats: 
     sd[f"{prefix_bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
-def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables: dict,
+                        final_sequential: Optional[bool] = None) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` of a 2D ``Unet``, ``AttentionUnet``,
     ``Unet_v0``, ``BabyUnet``, ``Siam_UNet``, ``MultiOutputUnet``, UNet++, ``UNet3D`` or
     ``MultiOutputUnet3D`` → the port's state dict
-    (loadable with ``load_state_dict(strict=True)``)."""
+    (loadable with ``load_state_dict(strict=True)``).  ``final_sequential``
+    names the ``final`` conv ``final.0.*`` (True) or ``final.*`` (False);
+    None takes it from the kernel's rank (bare in 3D only)."""
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
@@ -94,7 +97,9 @@ def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
             sd[f"{block}.weight"] = _kernel(p["kernel"])
             sd[f"{block}.bias"] = _t(p["bias"])
         elif block == "final":
-            prefix = "final" if np.ndim(p["kernel"]) == 5 else "final.0"
+            if final_sequential is None:
+                final_sequential = np.ndim(p["kernel"]) != 5
+            prefix = "final.0" if final_sequential else "final"
             sd[f"{prefix}.weight"] = _kernel(p["kernel"])
             sd[f"{prefix}.bias"] = _t(p["bias"])
         elif block.startswith("output_layers_") and set(p) == {"kernel", "bias"}:
@@ -105,3 +110,12 @@ def state_dict_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unmapped JAX param block: {block!r} "
                              f"(leaves {sorted(p)})")
     return sd
+
+
+def variables_to_torch_state_dict(variables: dict, final_sequential: Optional[bool] = None
+                                  ) -> Dict[str, np.ndarray]:
+    """:func:`state_dict_from_jax` as numpy arrays, the return type of the
+    JAX package's function of this name (``interop/torch_export.py:46``).
+    Its ``final_sequential`` defaults to True there; here None detects the
+    bare 3D ``final`` by its kernel's rank."""
+    return {k: v.numpy() for k, v in state_dict_from_jax(variables, final_sequential).items()}

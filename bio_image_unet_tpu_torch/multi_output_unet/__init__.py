@@ -26,7 +26,7 @@ class Trainer(_GenericTrainer):
                  levels=4, batch_size=4, lr=1e-4, in_channels=1,
                  output_heads=None, n_filter=64, deep_supervision=False,
                  dilation=False, val_split=0.2, save_dir="./",
-                 save_name="model.pt", save_iter=False, load_weights=False,
+                 save_name="model.ckpt", save_iter=False, load_weights=False,
                  device="auto", tensorboard=True, log_images=True, **kwargs):
         super().__init__(
             dataset, num_epochs, network=network, levels=levels,

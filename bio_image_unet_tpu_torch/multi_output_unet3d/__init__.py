@@ -24,7 +24,7 @@ class Trainer(_GenericTrainer):
 
     def __init__(self, dataset, output_heads, num_epochs, network="MultiOutputUnet3D",
                  use_interpolation=False, batch_size=4, lr=1e-3, in_channels=1, n_filter=64,
-                 dilation=1, val_split=0.2, save_dir="./", save_name="model.pt",
+                 dilation=1, val_split=0.2, save_dir="./", save_name="model.ckpt",
                  save_iter=False, load_weights=False, loss_function="BCEDice",
                  loss_params=(0.5, 0.5), time_loss_weight=None, device="auto", **kwargs):
         del loss_function, loss_params, time_loss_weight

@@ -3,7 +3,8 @@
 - :mod:`.blocks`    — ``ConvBlock`` (2D and 3D) / ``ConvTranspose`` /
   ``ConvTranspose3D`` with the reference schema
 - :mod:`.histogram` — K1 / K1f per-frame clip bounds and their Siam pair-row
-  form (``csrc/clip_bounds.cu``)
+  form (``csrc/clip_bounds.cu``); the 256-bin histogram oracle
+  (``u8_counts``, ``u8_percentile``, ``u8_clip_bounds``) in plain PyTorch
 - :mod:`.stitch`    — K3 / K3v sigmoid·255 → uint8 → mean stitch of frames /
   a volume (``csrc/sigmoid_stitch.cu``); K5 safe-margin weighted stitch, K5s
   tile sum and K5v 3D linear-blend stitch (``csrc/margin_stitch.cu``)
@@ -21,10 +22,15 @@ K4 (gather + augmentation of a training batch) in
 :mod:`..data.augment_device`.
 """
 
-from .blocks import ConvBlock, ConvTranspose, ConvTranspose3D, VGGBlock
+from .blocks import AttentionBlock, ConvBlock, ConvTranspose, ConvTranspose3D, VGGBlock
+from .functional import (depthwise_xcorr, downsample_nearest, max_pool, resize_linear,
+                         upsample_nearest)
 from .histogram import clip_bounds, float_clip_bounds, int_clip_bounds
-from .stitch import blend_stitch_3d, margin_stitch, sigmoid_stitch, sigmoid_stitch_3d, tile_sum
+from .stitch import (blend_stitch_3d, margin_stitch, sigmoid_stitch, sigmoid_stitch_3d,
+                     stitch_mean_device, tile_sum)
 
-__all__ = ["ConvBlock", "ConvTranspose", "ConvTranspose3D", "VGGBlock", "clip_bounds",
-           "int_clip_bounds", "float_clip_bounds", "sigmoid_stitch", "sigmoid_stitch_3d",
-           "margin_stitch", "tile_sum", "blend_stitch_3d"]
+__all__ = ["ConvBlock", "ConvTranspose", "ConvTranspose3D", "VGGBlock", "AttentionBlock",
+           "max_pool", "depthwise_xcorr", "upsample_nearest", "downsample_nearest",
+           "resize_linear", "stitch_mean_device", "clip_bounds", "int_clip_bounds",
+           "float_clip_bounds", "sigmoid_stitch", "sigmoid_stitch_3d", "margin_stitch",
+           "tile_sum", "blend_stitch_3d"]

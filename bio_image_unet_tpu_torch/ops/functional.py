@@ -9,7 +9,8 @@ spatial rank: (N, C, H, W) or (N, C, D, H, W) (counterpart of
 - ``upsample_linear``    ≙ bilinear / trilinear F.interpolate with either
                            ``align_corners`` convention; the reference's UNet++
                            (multi_output_nested_unet.py:73) takes ``True``, its
-                           UNet3D (unet3d.py:78-92) ``False``
+                           UNet3D (unet3d.py:78-92) ``False``; ``resize_linear``
+                           the same to given sizes
 - ``depthwise_xcorr``    ≙ ``functional.py:95``: K6, the ``corr`` join of
                            ``Siam_UNet`` (``csrc/depthwise_xcorr.cu``), with
                            its backward: K6b, ``depthwise_xcorr_grad_input``
@@ -57,6 +58,17 @@ def upsample_linear(x: torch.Tensor, factor: int = 2,
                     align_corners: bool = False) -> torch.Tensor:
     """×factor bilinear (4-D input) or trilinear (5-D) upsampling."""
     return F.interpolate(x, scale_factor=factor, mode=_LINEAR_MODE[x.dim()],
+                         align_corners=align_corners)
+
+
+def resize_linear(x: torch.Tensor, out_sizes, align_corners: bool = False) -> torch.Tensor:
+    """Bilinear (4-D input) or trilinear (5-D) resize of the spatial axes to
+    ``out_sizes`` (``functional.py:55``).  Where no axis shrinks it is the
+    JAX function's interpolation; JAX's ``align_corners=False`` form
+    (``jax.image.resize``) antialiases an axis that shrinks, this does not."""
+    if len(out_sizes) != x.dim() - 2:
+        raise ValueError(f"{len(out_sizes)} sizes for {x.dim() - 2} spatial axes")
+    return F.interpolate(x, size=tuple(int(s) for s in out_sizes), mode=_LINEAR_MODE[x.dim()],
                          align_corners=align_corners)
 
 

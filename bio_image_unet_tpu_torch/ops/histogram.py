@@ -8,6 +8,8 @@ uint8 and uint16 frames take K1 (``int_clip_bounds``), NaN-free float32 frames
 K1f (``float_clip_bounds``).  ``pair_clip_bounds(block, q_lo, q_hi)`` is their
 Siam pair-row form (``predictor.py:987-992``, ``'all'`` mode): row i is frames
 i and i+1 of a (k+1, h, w) block as one row of 2·h·w values, read in place.
+``u8_counts``, ``u8_percentile`` and ``u8_clip_bounds`` are the JAX
+package's 256-bin histogram oracle, in plain PyTorch (no path runs them).
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/clip_bounds.cu``: a radix select, one launch a digit of the key,
@@ -100,6 +102,66 @@ def clip_bounds_plain(frames: torch.Tensor, q_lo: float, q_hi: float) -> torch.T
         raise ValueError(f"clip bounds take uint8/uint16/float32 frames, got {flat.dtype}")
     lo, hi = _interp(stats, ks, fracs, 0), _interp(stats, ks, fracs, 1)
     return torch.stack([lo, hi, torch.maximum(vmin, lo), torch.minimum(vmax, hi)])
+
+
+# --- the 256-bin histogram oracle (B3) ---------------------------------------
+#
+# The JAX package's exact uint8 percentiles by value counts
+# (``histogram.py:20 u8_counts``, ``:40 u8_percentile``, ``:174
+# u8_clip_bounds``), kept there as the reference form of K1's uint8 bounds.
+# No path of either package runs them; here they are plain PyTorch on the
+# input's device, for callers that want full per-frame histograms and as a
+# second oracle for K1.
+
+def u8_counts(flat: torch.Tensor) -> torch.Tensor:
+    """(N, P) uint8 → (N, 256) int32 value counts, one ``bincount`` over
+    the values offset by 256 a row."""
+    if flat.dtype != torch.uint8 or flat.dim() != 2:
+        raise ValueError(f"u8_counts takes (N, P) uint8, got {tuple(flat.shape)} {flat.dtype}")
+    n = flat.shape[0]
+    rows = torch.arange(n, device=flat.device, dtype=torch.int64)[:, None] * 256
+    keys = (flat.to(torch.int64) + rows).reshape(-1)
+    return torch.bincount(keys, minlength=256 * n).reshape(n, 256).to(torch.int32)
+
+
+def _u8_order_stat(cum: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th (0-based) order statistic of each row of an (N, 256)
+    cumulative histogram: the least value v with cum[v] ≥ k + 1."""
+    want = torch.full((cum.shape[0], 1), k + 1, dtype=cum.dtype, device=cum.device)
+    return torch.searchsorted(cum, want).squeeze(1).to(torch.float32)
+
+
+def _u8_percentiles(cum: torch.Tensor, p: int, q_lo: float, q_hi: float):
+    """numpy's 'linear'-rule percentiles ``q_lo`` and ``q_hi`` from per-row
+    cumulative counts, blended as K1's plain version blends them."""
+    ks, fracs = _quantile_plan(p, q_lo, q_hi)
+    stats = torch.stack([_u8_order_stat(cum, k) for k in ks], dim=1)
+    return _interp(stats, ks, fracs, 0), _interp(stats, ks, fracs, 1)
+
+
+def _u8_cumulative(frames: torch.Tensor):
+    if frames.dtype != torch.uint8:
+        raise ValueError(f"the histogram oracle takes uint8 frames, got {frames.dtype}")
+    flat = frames.reshape(frames.shape[0], -1)
+    return torch.cumsum(u8_counts(flat).to(torch.int64), dim=1), flat.shape[1]
+
+
+def u8_percentile(frames: torch.Tensor, qs) -> List[torch.Tensor]:
+    """Exact per-frame percentiles ``qs`` (0–100) of (N, *spatial) uint8
+    frames: one (N,) float32 tensor a percentile, numpy's 'linear' rule."""
+    cum, p = _u8_cumulative(frames)
+    return [_u8_percentiles(cum, p, q, q)[0] for q in qs]
+
+
+def u8_clip_bounds(frames: torch.Tensor, q_lo: float, q_hi: float):
+    """Per-frame ``(lo, hi, fmin, fmax)`` of uint8 frames from one histogram:
+    the clip percentiles and the extremes clamped into [lo, hi], each (N,)
+    float32 — what K1 (:func:`int_clip_bounds`) returns as rows of a (4, N)
+    tensor, bit for bit."""
+    cum, p = _u8_cumulative(frames)
+    lo, hi = _u8_percentiles(cum, p, q_lo, q_hi)
+    vmin, vmax = _u8_order_stat(cum, 0), _u8_order_stat(cum, p - 1)
+    return lo, hi, torch.maximum(vmin, lo), torch.minimum(vmax, hi)
 
 
 # --- CUDA kernel -----------------------------------------------------------

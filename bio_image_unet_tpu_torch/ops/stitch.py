@@ -61,10 +61,17 @@ one fused multiply-add, ``fma(tile, w, acc)`` rounded once: XLA contracts the
 scan's ``block + patch * w`` so (the blend weights are fractions, so the two
 roundings of a separate multiply and add would differ from it).  Kernel in
 ``csrc/margin_stitch.cu``.
+
+``stitch_mean_device(patches, starts_per_axis, out_spatial, quantize_u8)`` is
+the JAX package's API function of that name (``ops/stitch.py:232``): the
+mean-overlap stitch of one frame's channels-last patches, in plain PyTorch on
+the patches' device.  No path of the port calls it; the predict paths stitch
+with K3.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -382,3 +389,23 @@ def blend_stitch_3d(tiles: torch.Tensor, n_vols: int, plan,
 
 
 blend_stitch_3d.launches = 0
+
+
+def stitch_mean_device(patches, starts_per_axis, out_spatial, quantize_u8: bool = False
+                       ) -> torch.Tensor:
+    """One frame's (N, th, tw, C) patches in grid order (x-major, the order
+    of ``predict.tiling.stitch_mean``) → the (H, W, C) float32 mean where
+    they overlap, summed in grid order, 0 where none lies; truncated to uint8
+    with ``quantize_u8``.  A numpy array is taken to the CPU."""
+    patches = torch.as_tensor(patches).to(torch.float32)
+    n, th, tw, c = patches.shape
+    out_h, out_w = int(out_spatial[0]), int(out_spatial[1])
+    gx, gy = np.meshgrid(np.asarray(starts_per_axis[0]), np.asarray(starts_per_axis[1]),
+                         indexing="ij")
+    out = torch.zeros((out_h, out_w, c), dtype=torch.float32, device=patches.device)
+    cnt = torch.zeros_like(out)
+    for patch, x0, y0 in zip(patches, gx.ravel().tolist(), gy.ravel().tolist()):
+        out[x0:x0 + th, y0:y0 + tw] += patch
+        cnt[x0:x0 + th, y0:y0 + tw] += 1.0
+    result = out / torch.clamp(cnt, min=1.0)
+    return result.to(torch.uint8) if quantize_u8 else result

@@ -63,8 +63,8 @@ K6b (``ops/functional.py``).
 
 Checkpoints that both packages' ``Predict``/``PredictMultiOutput`` read
 (with heads they carry ``output_heads`` and ``deep_supervision``,
-``:349-354``): a ``save_name`` ending in ``.ckpt`` (the JAX Trainer's
-``model.ckpt``) writes the JAX package's ``BIUTPU01`` format
+``:349-354``): a ``save_name`` ending in ``.ckpt`` (the default
+``model.ckpt``, as in the JAX Trainer) writes the JAX package's ``BIUTPU01`` format
 (``checkpoint.save_native``, the Adam state in optax's layout, so the JAX
 Trainer resumes from it), any other name the reference-schema ``.pt``
 (``checkpoint.save``); ``model_epoch_<n>`` and the emergency
@@ -249,7 +249,7 @@ class Trainer:
         dilation: Union[int, bool, Sequence[int]] = 1,
         val_split: float = 0.2,
         save_dir: str = "./",
-        save_name: str = "model.pt",
+        save_name: str = "model.ckpt",
         save_iter: bool = False,
         load_weights: Union[bool, str, None] = False,
         loss_function: str = "BCEDice",

@@ -20,7 +20,7 @@ class Trainer(_GenericTrainer):
     def __init__(self, dataset, num_epochs, network="Unet", batch_size=4,
                  lr=1e-3, in_channels=1, out_channels=1, channel_weights=None,
                  n_filter=64, dilation=1, val_split=0.2, save_dir="./",
-                 save_name="model.pt", save_iter=False, load_weights=False,
+                 save_name="model.ckpt", save_iter=False, load_weights=False,
                  loss_function="BCEDice", loss_params=(0.5, 0.5), device="auto",
                  **kwargs):
         super().__init__(

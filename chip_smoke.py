@@ -386,7 +386,28 @@ without printing a result:
 32. train legacy — ``Unet_v0(32)`` on the same frames for 2 epochs, float32
    whatever ``half_precision`` says: K4 once a step, the loss falls,
    patches/s, the share of the TF32 peak, a profiled epoch and the trained
-   ``.pt`` through ``Predict``; the kernels' JSON line, then the last line
+   ``.pt`` through ``Predict``;
+33. cli — the command line a user calls, in-process: ``main(["train",
+   ...])`` at ``[train]``'s width (``Unet(32)``, 256² tiles, batch 12, bf16,
+   ``--device-cache``, ``--device-augment``, 2 epochs) on 60 blob frames: K4
+   exactly once a step and nothing else, the checkpoint it prints
+   (``<workdir>/model/model.ckpt``) present; then ``main(["predict", ...])``
+   with the family read from that checkpoint on ``[main]``'s 64×1024² uint8
+   movie (a TIFF), 256², bf16: K1, K2 and K3 exactly as ``[checkpoints]``
+   counts them, the mask byte-equal to the ``unet`` facade's ``Predict``
+   with the same arguments; the wall times of CLI train and predict beside
+   the facade's.  Then two subprocesses (``sys.executable -m
+   bio_image_unet_tpu_torch``, the checkout on ``PYTHONPATH``): ``devices``
+   (exit 0, the card's name printed) and a 16-frame ``predict`` whose mask
+   equals the in-process CLI's;
+34. recipes — the five ``utils.test`` recipes on the card at their defaults
+   (4 epochs, n_filter 8, 64² images): each finishes and its
+   ``out/model.ckpt`` predicts; their seconds; ``utils.png_to_grayscale_tiff``
+   where PIL imports;
+35. histogram oracle — B3, the 256-bin histogram bounds
+   (``ops.histogram.u8_clip_bounds``, plain PyTorch) on the card, bit-equal
+   to K1 on ``[kernels]``'s uint8 chunk and on skewed frames, its time
+   beside K1's; the kernels' JSON line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -396,6 +417,7 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -516,6 +538,9 @@ def main() -> int:
     kernels.extend(kmc)
     run("train attention", phase_train_attention, torch, dev, kernels, k4)
     run("train legacy", phase_train_legacy, torch, dev, kernels, k4)
+    run("cli", phase_cli, torch, dev, kernels, k4, kind)
+    run("recipes", phase_recipes, torch)
+    run("histogram oracle", phase_histogram_oracle, torch, dev)
     for k in kernels:
         # a timing-only row (a shape no path runs) reports 0 launches; its
         # kernel must be launched on a path all the same
@@ -1245,9 +1270,11 @@ def config2_data(tmp: Path):
 
 def config2_trainer(data, out: Path, epochs: int, **kw):
     """``[train]``'s Trainer: ``Unet(32)``, batch 12, lr 1e-4, bf16, resident
-    and augmented tiles (K4)."""
+    and augmented tiles (K4), writing ``model.pt`` unless ``save_name`` says
+    otherwise."""
     from bio_image_unet_tpu_torch import unet
 
+    kw.setdefault("save_name", "model.pt")
     return unet.Trainer(data, epochs, n_filter=N_FILTER, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
                         save_dir=str(out), seed=0, half_precision=True, device_cache=True,
                         device_augment=True, **kw)
@@ -2235,7 +2262,7 @@ def phase_train_heads(torch, dev, kernels) -> None:
         trainer = multi_output_unet.Trainer(
             data, MO_EPOCHS, n_filter=HEADS_FILTER, output_heads=MO_TRAIN_HEADS,
             batch_size=MO_BATCH, lr=MO_LR, save_dir=str(tmp / "run"), seed=0,
-            half_precision=True, device_cache=True, device_augment=True)
+            half_precision=True, device_cache=True, device_augment=True, save_name="model.pt")
         steps = trainer._n_train // MO_BATCH
         nan_filled = sum(int((data[i]["orientation"] == 0).all(0).sum()) for i in range(len(data)))
         log(f"[train heads] set-up {time.perf_counter() - t0:.2f} s (frames and DataProcess "
@@ -2280,7 +2307,7 @@ def phase_train_heads(torch, dev, kernels) -> None:
             data, 1, network="MultiOutputNestedUNet_3Levels", n_filter=HEADS_FILTER,
             output_heads=MO_TRAIN_HEADS, deep_supervision=True, batch_size=MO_BATCH, lr=MO_LR,
             save_dir=str(tmp / "deep"), seed=0, half_precision=True, device_cache=True,
-            device_augment=True)
+            device_augment=True, save_name="model.pt")
         deep.start()
         loss = deep.history[0]["train_loss"]
         if not np.isfinite(loss):
@@ -2984,7 +3011,8 @@ def phase_train_3d(torch, dev, kernels) -> bytes:
         data = _Items([{"image": v, "mask": (v > 0.5).astype(np.float32)} for v in vols])
         trainer = unet3d.Trainer(data, T3_EPOCHS, batch_size=T3_BATCH, n_filter=VOL_FILTER,
                                  val_split=0.0, device_cache=True, half_precision=True,
-                                 device_augment=True, save_dir=str(tmp / "u3d"), seed=0)
+                                 device_augment=True, save_dir=str(tmp / "u3d"), seed=0,
+                                 save_name="model.pt")
         steps = trainer._n_train // T3_BATCH
         log(f"[train 3d] set-up {time.perf_counter() - t0:.2f} s: UNet3D(n_filter="
             f"{VOL_FILTER}), {trainer._n_train} resident volumes of {T3_SHAPE}, {steps} steps "
@@ -3013,7 +3041,7 @@ def phase_train_3d(torch, dev, kernels) -> bytes:
         heads = multi_output_unet3d.Trainer(
             _Items(items), MO_TRAIN_HEADS, T3H_EPOCHS, batch_size=T3H_BATCH, n_filter=VOL_FILTER,
             val_split=0.0, device_cache=True, half_precision=True, device_augment=True,
-            save_dir=str(tmp / "mo3d"), seed=0)
+            save_dir=str(tmp / "mo3d"), seed=0, save_name="model.pt")
         h_steps = heads._n_train // T3H_BATCH
         log(f"[train 3d heads] set-up {time.perf_counter() - t0:.2f} s: MultiOutputUnet3D("
             f"n_filter={VOL_FILTER}, use_interpolation={heads.model.use_interpolation}), heads "
@@ -5453,6 +5481,221 @@ def phase_train_legacy(torch, dev, kernels, k4) -> None:
     the bottleneck's channel dropout drawn from the Trainer's generator."""
     train_leg(torch, kernels, k4, "train legacy", network="Unet_v0", epochs=2, timed_from=1,
               flops_per_tile=legacy_forward_flops(N_FILTER, TILE), peak=PEAK_TF32_FLOPS)
+
+
+# --- 33–35. the command line, the recipes, the histogram oracle -----------------------
+
+CLI_FRAMES, CLI_EPOCHS = 60, 2
+
+
+def run_module(tag: str, args: list, timeout: float) -> str:
+    """``python -m bio_image_unet_tpu_torch <args>`` from the checkout (on
+    ``PYTHONPATH``); its stdout.  On a non-zero exit the tail of its stderr
+    is printed before the run fails."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bio_image_unet_tpu_torch", *args],
+                          cwd=str(REPO), env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        log(f"[{tag}] stderr of `-m bio_image_unet_tpu_torch {args[0]}` (tail):\n"
+            + proc.stderr[-4000:])
+        raise AssertionError(f"`python -m bio_image_unet_tpu_torch {args[0]}` exited with "
+                             f"{proc.returncode}")
+    log(f"[{tag}] `python -m bio_image_unet_tpu_torch {args[0]}`: exit 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return proc.stdout
+
+
+def phase_cli(torch, dev, kernels, k4, kind: str) -> None:
+    from bio_image_unet_tpu_torch import unet
+    from bio_image_unet_tpu_torch.__main__ import main as cli
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
+    from bio_image_unet_tpu_torch.predict.normalize import normalize_tile
+    from bio_image_unet_tpu_torch.train import trainer as trainer_mod
+
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    torch.backends.cudnn.allow_tf32 = True  # the user's default
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        source = write_blob_frames(tmp / "frames", CLI_FRAMES, TILE, seed=0)
+        argv = ["train", "--family", "unet", "--image-dir", source[0], "--label-dir", source[1],
+                "--workdir", str(tmp / "run"), "--n-filter", str(N_FILTER),
+                "--dim", str(TILE), str(TILE), "--batch-size", str(TRAIN_BATCH),
+                "--lr", str(TRAIN_LR), "--aug-factor", "1", "--half-precision",
+                "--device-cache", "--device-augment", "--epochs", str(CLI_EPOCHS)]
+
+        # the facade's training with the CLI's arguments first, for its wall time
+        t0 = time.perf_counter()
+        data = unet.DataProcess(source, dim_out=(TILE, TILE), aug_factor=1,
+                                data_path=str(tmp / "facade" / "data"))
+        unet.Trainer(data, CLI_EPOCHS, batch_size=TRAIN_BATCH, lr=TRAIN_LR, n_filter=N_FILTER,
+                     save_dir=str(tmp / "facade" / "model"), loss_function="BCEDice",
+                     load_weights=False, device_cache=True, half_precision=True,
+                     device_augment=True).start()
+        torch.cuda.synchronize()
+        t_facade_train = time.perf_counter() - t0
+
+        # the Trainer the CLI builds, kept to read its steps an epoch
+        trainers, start = [], trainer_mod.Trainer.start
+
+        def keep(self, *args, **kw):
+            trainers.append(self)
+            return start(self, *args, **kw)
+
+        trainer_mod.Trainer.start = keep
+        try:
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            if cli(argv) != 0:
+                raise AssertionError("[cli] train exited non-zero")
+            torch.cuda.synchronize()
+            t_cli_train = time.perf_counter() - t0
+        finally:
+            trainer_mod.Trainer.start = start
+        got = {c: c.launches for c in counters}
+        steps = trainers[0]._n_train // TRAIN_BATCH * CLI_EPOCHS
+        log("[cli] launches, CLI train: " + ", ".join(f"{c.__name__} {n}" for c, n in got.items()))
+        for c, n in got.items():
+            want = steps if c is k4["_counter"] else 0
+            if n != want:
+                raise AssertionError(f"[cli] train: {c.__name__} launched {n} times in {steps} "
+                                     f"steps, want {want}")
+        ckpt = tmp / "run" / "model" / "model.ckpt"
+        if not ckpt.is_file():
+            raise AssertionError(f"[cli] train left no {ckpt}")
+        log(f"[cli] train {CLI_EPOCHS} epochs of {steps // CLI_EPOCHS} steps of {TRAIN_BATCH} "
+            f"(Unet({N_FILTER}), {TILE}², bf16, resident, K4): CLI {t_cli_train:.2f} s, "
+            f"facade (run first) {t_facade_train:.2f} s (DataProcess included in both)")
+
+        # predict: the family read from the checkpoint; [main]'s movie as a TIFF
+        movie = np.random.default_rng(0).integers(0, 255, (FRAMES, H, W), dtype=np.uint8)
+        src = tmp / "movie.tif"
+        tiff.imwrite(str(src), movie)
+        chunks = FRAMES // CHUNK
+        expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8] * chunks,
+                  normalize_tile: chunks, sigmoid_stitch: chunks}
+        args = ["--resize-dim", str(TILE), str(TILE), "--half-precision"]
+
+        def cli_predict(out):
+            if cli(["predict", "--input", str(src), "--output", str(out), "--checkpoint",
+                    str(ckpt)] + args) != 0:
+                raise AssertionError("[cli] predict exited non-zero")
+
+        def facade_predict(out):
+            unet.Predict(str(src), str(out), str(ckpt), resize_dim=(TILE, TILE),
+                         show_progress=True, batch_size=8, half_precision=True)
+
+        times = {"CLI": float("inf"), "facade": float("inf")}
+        for _ in range(2):
+            for who, fn in (("CLI", cli_predict), ("facade", facade_predict)):
+                t0 = time.perf_counter()
+                counted(torch, "cli", counters, f"{who} predict", lambda: fn(tmp / f"{who}.tif"),
+                        expect)
+                times[who] = min(times[who], time.perf_counter() - t0)
+        ours, ref = tiff.imread(str(tmp / "CLI.tif")), tiff.imread(str(tmp / "facade.tif"))
+        if ours.shape != movie.shape or not np.isfinite(ours.astype(np.float32)).all():
+            raise AssertionError(f"[cli] predict wrote {ours.shape} {ours.dtype}")
+        if ours.dtype != ref.dtype or not np.array_equal(ours, ref):
+            diff = np.abs(ours.astype(np.int32) - ref.astype(np.int32))
+            raise AssertionError(f"[cli] the CLI's mask differs from the facade's (max "
+                                 f"{diff.max()} levels on {np.mean(diff > 0):.6f})")
+        log(f"[cli] predict {FRAMES}×{H}×{W} uint8 TIFF → {ours.dtype} TIFF, {TILE}², bf16 "
+            f"(best of 2, file read and write included): CLI {times['CLI']:.3f} s, facade "
+            f"{times['facade']:.3f} s, CLI / facade {times['CLI'] / times['facade']:.3f}; "
+            f"masks byte-equal")
+
+        # the -m entry in processes of their own
+        out = run_module("cli", ["devices"], timeout=180)
+        if kind not in out:
+            raise AssertionError(f"[cli] `devices` does not name the card {kind!r}: {out!r}")
+        log("[cli] `devices`: " + " | ".join(out.strip().splitlines()))
+        small = tmp / "movie16.tif"
+        tiff.imwrite(str(small), movie[:CHUNK])
+        in_process, spawned = tmp / "in_process16.tif", tmp / "spawned16.tif"
+        if cli(["predict", "--input", str(small), "--output", str(in_process), "--checkpoint",
+                str(ckpt)] + args) != 0:
+            raise AssertionError("[cli] predict exited non-zero")
+        run_module("cli", ["predict", "--input", str(small), "--output", str(spawned),
+                           "--checkpoint", str(ckpt)] + args, timeout=600)
+        a, b = tiff.imread(str(in_process)), tiff.imread(str(spawned))
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("[cli] the subprocess's 16-frame mask differs from the "
+                                 "in-process CLI's")
+        log(f"[cli] subprocess predict of {CHUNK} frames: mask equal to the in-process CLI's")
+
+
+def phase_recipes(torch) -> None:
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.utils import test as recipes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seconds = {}
+        for family in ("unet", "siam_unet", "unet3d", "multi_output_unet",
+                       "multi_output_unet3d"):
+            t0 = time.perf_counter()
+            base = recipes.__dict__[f"test_{family}"](base_dir=str(Path(tmp) / family))
+            torch.cuda.synchronize()
+            seconds[family] = time.perf_counter() - t0
+            if not (Path(base) / "out" / "model.ckpt").is_file():
+                raise AssertionError(f"[recipes] {family} left no out/model.ckpt")
+            preds = [p for p in (Path(base) / "pred.tif", Path(base) / "results") if p.exists()]
+            files = [f for p in preds for f in ([p] if p.is_file() else sorted(p.iterdir()))]
+            if not files:
+                raise AssertionError(f"[recipes] {family}: its model.ckpt predicted nothing")
+            for f in files:
+                if not np.isfinite(tiff.imread(str(f)).astype(np.float32)).all():
+                    raise AssertionError(f"[recipes] {family}: {f.name} is not finite")
+            recipes.delete_folder_with_retry(base)
+        log("[recipes] the five recipes at their defaults (4 epochs, n_filter 8, 64²) on the "
+            "card, each out/model.ckpt predicted: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+            + f"; total {sum(seconds.values()):.2f} s")
+
+        try:
+            from PIL import Image
+        except ImportError:
+            log("[recipes] PIL is absent: png_to_grayscale_tiff not run")
+            return
+        from bio_image_unet_tpu_torch.utils import png_to_grayscale_tiff
+
+        rgb = np.random.default_rng(4).integers(0, 200, (20, 30, 3), dtype=np.uint8)
+        Image.fromarray(rgb).save(Path(tmp) / "c.png")
+        png_to_grayscale_tiff(str(Path(tmp) / "c.png"), str(Path(tmp) / "c.tif"))
+        gray = tiff.imread(str(Path(tmp) / "c.tif"))
+        if gray.shape != (20, 30) or gray.dtype != np.uint8 or gray.max() != 255:
+            raise AssertionError(f"[recipes] png_to_grayscale_tiff gave {gray.shape} {gray.dtype}")
+        log("[recipes] png_to_grayscale_tiff: (20, 30) uint8, max 255")
+
+
+def phase_histogram_oracle(torch, dev) -> None:
+    """B3 on the card against K1, bit for bit, each timed by ``Timer``."""
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.utils.kernel_ab_times import microscopy_frames
+
+    timer = Timer(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    qs = (0.0, 99.8)
+    frames = {
+        # [kernels]'s uint8 chunk: the same generator, seed and first draw
+        "uniform": torch.randint(0, 256, (CHUNK, H, W), generator=g, device=dev,
+                                 dtype=torch.int32).to(torch.uint8),
+        "skewed": torch.from_numpy(microscopy_frames(301, CHUNK, H)[0]).to(dev),
+    }
+    for name, x in frames.items():
+        oracle = torch.stack(hist.u8_clip_bounds(x, *qs))
+        k1 = hist.int_clip_bounds(x, *qs)
+        torch.cuda.synchronize()
+        if not torch.equal(oracle.view(torch.int32), k1.view(torch.int32)):
+            raise AssertionError(f"[histogram oracle] {name}: u8_clip_bounds "
+                                 f"{oracle.tolist()} != K1 {k1.tolist()}")
+        log(f"[histogram oracle] {name} uint8 {CHUNK}×{H}×{W}: u8_clip_bounds bit-equal to K1; "
+            f"oracle {timer(lambda: hist.u8_clip_bounds(x, *qs), 5):.4f} ms, K1 "
+            f"{timer(lambda: hist.int_clip_bounds(x, *qs)):.4f} ms")
 
 
 if __name__ == "__main__":

@@ -424,7 +424,8 @@ def test_trainer_on_card_with_augment_and_bf16(cuda, tmp_path):
     once per step; the checkpoint it writes predicts on the card."""
     before = augment_apply.launches
     t = Trainer(_Tiles(n=30), 2, n_filter=8, batch_size=4, lr=1e-3, save_dir=str(tmp_path),
-                seed=0, device_cache=True, device_augment=True, half_precision=True)
+                seed=0, device_cache=True, device_augment=True, half_precision=True,
+                save_name="model.pt")
     t.start()
     assert augment_apply.launches - before == 2 * (24 // 4)
     assert all(np.isfinite(h["train_loss"]) for h in t.history)
@@ -710,7 +711,8 @@ def test_multi_output_trainer_on_card_with_augment_and_bf16(cuda, tmp_path):
     before = (augment_heads_apply.launches, augment_apply.launches)
     t = Trainer(_HeadTiles(n=30), 2, network="MultiOutputNestedUNet", n_filter=8,
                 output_heads=HEAD_LOSSES, batch_size=4, lr=1e-3, save_dir=str(tmp_path),
-                seed=0, device_cache=True, device_augment=True, half_precision=True)
+                seed=0, device_cache=True, device_augment=True, half_precision=True,
+                save_name="model.pt")
     t.start()
     assert augment_heads_apply.launches - before[0] == 2 * (24 // 4)
     assert augment_apply.launches == before[1]
@@ -1065,7 +1067,7 @@ def test_3d_trainer_on_card_with_augment_and_bf16(cuda, tmp_path, network):
     t = Trainer(_Volumes(n=20, heads=heads), 2, network=network, n_filter=8,
                 output_heads=HEAD_LOSSES if heads else None, batch_size=4, lr=1e-3,
                 save_dir=str(tmp_path), seed=0, device_cache=True, device_augment=True,
-                half_precision=True)
+                half_precision=True, save_name="model.pt")
     t.start()
     steps = 2 * (16 // 4)
     assert [c.launches - b for c, b in zip(counters, before)] == (

@@ -192,7 +192,8 @@ def test_trainer_trains_float32_and_writes_a_pt_jax_reads(tmp_path):
     for run in ("a", "b"):
         t = Trainer(_Blobs(), 2, network="BabyUnet", n_filter=N_FILTER, batch_size=4,
                     lr=1e-3, save_dir=str(tmp_path / run), seed=3, device="cpu",
-                    half_precision=True, device_cache=True, device_augment=True)
+                    half_precision=True, device_cache=True, device_augment=True,
+                    save_name="model.pt")
         assert all(p.dtype == torch.float32 for p in t.model.parameters())
         t.start()
         rows.append([(h["train_loss"], h["val_loss"]) for h in t.history])

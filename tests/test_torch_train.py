@@ -196,7 +196,7 @@ def test_resume_equals_straight_run(tmp_path, augment):
     straight.start()
     first = _port_trainer(tmp_path / "resumed", epochs=1, **kw)
     first.start()
-    state = checkpoint.load(str(tmp_path / "resumed" / "model.pt"))
+    state = checkpoint.load(str(tmp_path / "resumed" / "model.ckpt"))
     assert state["epoch"] == 1 and state["optimizer_state_dict"] is not None
     assert state["hyperparams"]["scheduler_state"]["scale"] == 1.0
     second = _port_trainer(tmp_path / "resumed", epochs=1, load_weights=True, **kw)
@@ -213,7 +213,7 @@ def test_checkpoint_read_back_by_jax_and_both_predicts_agree(tmp_path):
     """The port-trained ``.pt`` is read by the JAX package's restricted
     unpickler and ``checkpoint.load``; both ``Predict``s agree on it within
     one level on ≤ 0.1% of pixels."""
-    t = _port_trainer(tmp_path, epochs=1, save_iter=True)
+    t = _port_trainer(tmp_path, epochs=1, save_iter=True, save_name="model.pt")
     t.start()
     path = str(tmp_path / "model.pt")
     raw = read_pt(path)  # the torch-free reader: no fallback to torch.load
@@ -305,6 +305,6 @@ def test_emergency_checkpoint(tmp_path, monkeypatch):
     monkeypatch.setattr(t, "_iterate_val", crash_on_second)
     with pytest.raises(RuntimeError, match="boom"):
         t.start()
-    state = checkpoint.load(str(tmp_path / "model_interrupted.pt"))
+    state = checkpoint.load(str(tmp_path / "model_interrupted.ckpt"))
     assert state["epoch"] == 1
     assert all(torch.isfinite(v).all() for v in state["state_dict"].values())

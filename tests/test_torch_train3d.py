@@ -27,13 +27,14 @@ import pytest
 import torch
 from scipy import ndimage
 
+from bio_image_unet_tpu import checkpoint as jcheckpoint
 from bio_image_unet_tpu import unet3d as junet3d
 from bio_image_unet_tpu.data import pipelines as jpipe
 from bio_image_unet_tpu.data import tiff as jtiff
 from bio_image_unet_tpu.data.augment_jax import _spatial_tx, augment_batch
 from bio_image_unet_tpu.interop.torch_export import export_torch_checkpoint
 from bio_image_unet_tpu.parallel import get_mesh
-from bio_image_unet_tpu_torch import unet3d
+from bio_image_unet_tpu_torch import checkpoint, unet3d
 from bio_image_unet_tpu_torch.data import pipelines as tpipe
 from bio_image_unet_tpu_torch.data.augment_device import (augment_apply_plain,
                                                           augment_volume_apply, draw)
@@ -228,7 +229,7 @@ def test_unet3d_trainer_matches_jax(jax_run, tmp_path):
         if not (_pre_bn_bias(k) or k.endswith("running_mean")):
             close = np.isclose(a, b, rtol=1e-4, atol=1e-5).mean()
             assert close >= 0.9, (k, close)
-    meta = torch.load(str(tmp_path / "model.pt"), weights_only=True)
+    meta = jcheckpoint.peek(str(tmp_path / "model.ckpt"))["hyperparams"]
     assert meta["time_loss_weight"] == 0.1 and meta["use_interpolation"] is False
 
 
@@ -286,11 +287,11 @@ def test_unet3d_network_by_class_or_name_trains_3d(tmp_path, network):
     assert isinstance(t.model, UNet3D) and t.model.use_interpolation and not hasattr(t.model, "up1")
     assert t.volumetric and t.input_key == "image" and t._memory_format() == torch.channels_last_3d
     t.start()
-    state = torch.load(str(tmp_path / "model.pt"), weights_only=True)
+    state = checkpoint.peek(str(tmp_path / "model.ckpt"))["hyperparams"]
     assert state["model_name"] == "UNet3D" and state["use_interpolation"] is True
     assert state["time_loss_weight"] == 0.1
     vol = np.random.default_rng(0).integers(0, 255, (8, 20, 20), dtype=np.uint8)
-    res = Predict3D(vol, None, str(tmp_path / "model.pt"), resize_dim=SHAPE,
+    res = Predict3D(vol, None, str(tmp_path / "model.ckpt"), resize_dim=SHAPE,
                     show_progress=False, device="cpu").result
     assert res.shape == vol.shape and res.dtype == np.uint8
 
@@ -323,16 +324,16 @@ def test_time_loss_adds_smooth_l1_and_skips_batch_of_one(tmp_path):
 
 
 def test_unet3d_facade_defaults_and_loader_path(tmp_path):
-    """The facade's defaults are the JAX facade's (the checkpoint name aside:
-    ``.pt``), and the loader path (``device_cache=False``) trains an epoch
-    from ``DataProcess`` items with device augmentation."""
+    """The facade's defaults are the JAX facade's (the checkpoint too:
+    ``model.ckpt``, a ``BIUTPU01`` file the JAX package loads), and the
+    loader path (``device_cache=False``) trains an epoch from
+    ``DataProcess`` items with device augmentation."""
     ours = inspect.signature(unet3d.Trainer.__init__).parameters
     ref = inspect.signature(junet3d.Trainer.__init__).parameters
     assert list(ours) == list(ref)
     for name, p in ref.items():
-        if name != "save_name":
-            assert ours[name].default == p.default, name
-    assert ours["save_name"].default == "model.pt"
+        assert ours[name].default == p.default, name
+    assert ours["save_name"].default == "model.ckpt"
     assert unet3d.DataProcess is tpipe.DataProcess3D
     if torch.cuda.is_available():
         assert unet3d.Trainer(Volumes("czxy", n=4), 1, n_filter=N_FILTER,
@@ -347,6 +348,8 @@ def test_unet3d_facade_defaults_and_loader_path(tmp_path):
     assert t._device_data is None
     t.start()
     assert np.isfinite(t.history[0]["train_loss"]) and len(_rows(tmp_path)) == 1
+    state = jcheckpoint.load(str(tmp_path / "model.ckpt"))
+    assert state["hyperparams"]["model_name"] == "UNet3D" and state["epoch"] == 1
 
 
 def test_3d_training_runs_without_jax(tmp_path, volume_tiffs):

@@ -87,7 +87,7 @@ def float_runs(tmp_path_factory):
     t.start()
     ours = Trainer(BlobTiles("chw"), EPOCHS, network="AttentionUnet", batch_size=BATCH, lr=LR,
                    n_filter=N_FILTER, save_dir=str(root / "port"), seed=0, device="cpu",
-                   load_weights=init)
+                   load_weights=init, save_name="model.pt")
     assert ours.model.attention and ours.epoch_start == 0
     ours.start()
     trained = jax.tree_util.tree_map(np.asarray, {"params": t.params,

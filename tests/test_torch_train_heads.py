@@ -340,7 +340,8 @@ def test_trained_checkpoint_read_by_jax_and_both_predicts_agree(tmp_path):
     the JAX package's restricted unpickler (no fallback to ``torch.load``),
     carries the resolved heads, and both ``PredictMultiOutput``s agree."""
     t = _port_trainer(tmp_path, epochs=1, network="MultiOutputNestedUNet_3Levels",
-                      deep_supervision=True, device_cache=True, device_augment=True)
+                      deep_supervision=True, device_cache=True, device_augment=True,
+                      save_name="model.pt")
     t.start()
     path = str(tmp_path / "model.pt")
     raw = read_pt(path)
@@ -389,7 +390,7 @@ def test_tensorboard_event_file_round_trips(tmp_path):
 
 def test_facade_defaults_and_logging(tmp_path):
     """``multi_output_unet.Trainer`` keeps the JAX facade's defaults; a short
-    run writes TensorBoard scalars, validation grids and ``model.pt``."""
+    run writes TensorBoard scalars, validation grids and ``model.ckpt``."""
     data = HeadTiles("chw")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -398,7 +399,7 @@ def test_facade_defaults_and_logging(tmp_path):
                                   save_dir=str(tmp_path / "out"), device="cpu")
     assert type(t.model).__name__ == "MultiOutputNestedUNet" and t.levels == 4
     assert (t.lr, t.grad_clip, t.scheduler.patience, t.scheduler.factor) == (1e-4, 1.0, 5, 0.2)
-    assert t.writer is not None and t.log_images and t.save_name == "model.pt"
+    assert t.writer is not None and t.log_images and t.save_name == "model.ckpt"
     assert t.params_meta["model_name"] == "MultiOutputNestedUNet"
     assert t.params_meta["output_heads"] == HEADS and t.params_meta["deep_supervision"] is False
     import inspect
@@ -410,7 +411,7 @@ def test_facade_defaults_and_logging(tmp_path):
                                            torch.ones((1, 1, 4, 4))) > 0
     t.start()
     out = tmp_path / "out"
-    assert (out / "model.pt").exists()
+    assert (out / "model.ckpt").exists()
     assert any(f.startswith("events.out.tfevents") for f in os.listdir(out / "logs"))
     try:
         import matplotlib  # noqa: F401

@@ -25,6 +25,7 @@ import pytest
 import torch
 from scipy import ndimage
 
+from bio_image_unet_tpu import checkpoint as jcheckpoint
 from bio_image_unet_tpu import multi_output_unet3d as jmo3d
 from bio_image_unet_tpu.data import augment as jaug
 from bio_image_unet_tpu.data import pipelines as jpipe
@@ -375,26 +376,26 @@ def test_multi_output_unet3d_by_class_or_name_trains_3d(tmp_path, network):
         assert type(t.head_losses[name]) is type(get_head_loss(cfg["loss"], family="3d"))
     assert type(t.head_losses["mask"]) is not type(get_head_loss("BCEDiceLoss", family="2d"))
     t.start()
-    state = torch.load(str(tmp_path / "model.pt"), weights_only=True)
+    state = jcheckpoint.peek(str(tmp_path / "model.ckpt"))["hyperparams"]
     assert state["model_name"] == "MultiOutputUnet3D" and state["use_interpolation"] is False
     assert state["output_heads"] == HEADS
     vol = np.random.default_rng(0).integers(0, 255, (8, 20, 20), dtype=np.uint8)
-    res = PredictMultiOutput3D(vol, str(tmp_path / "model.pt"), max_patch_size=SHAPE,
+    res = PredictMultiOutput3D(vol, str(tmp_path / "model.ckpt"), max_patch_size=SHAPE,
                                show_progress=False, device="cpu").result
     assert res["mask"].shape == vol.shape and res["orientation"].shape == (2,) + vol.shape
 
 
 def test_multi_output_unet3d_facade_defaults_and_loader_path(tmp_path):
-    """The facade's defaults are the JAX facade's (the checkpoint name aside:
-    ``.pt``); ``output_heads`` is its second positional argument; the dead
+    """The facade's defaults are the JAX facade's (the checkpoint too:
+    ``model.ckpt``); ``output_heads`` is its second positional argument; the dead
     ``loss_function``/``time_loss_weight`` knobs are dropped; the loader
     path (``device_cache=False``) with device augmentation trains an epoch."""
     ours = inspect.signature(multi_output_unet3d.Trainer.__init__).parameters
     ref = inspect.signature(jmo3d.Trainer.__init__).parameters
     assert list(ours) == list(ref)
     for name, p in ref.items():
-        if name != "save_name":
-            assert ours[name].default == p.default, name
+        assert ours[name].default == p.default, name
+    assert ours["save_name"].default == "model.ckpt"
     assert multi_output_unet3d.DataProcess is tpipe.DataProcessMultiOutput3D
     t = multi_output_unet3d.Trainer(HeadVolumes("czxy", n=6), HEADS, 1, batch_size=2,
                                     n_filter=N_FILTER, save_dir=str(tmp_path), seed=0,
