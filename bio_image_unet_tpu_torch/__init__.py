@@ -38,6 +38,10 @@ JAX package's, so each module's counterpart is easy to find:
 - :mod:`~bio_image_unet_tpu_torch.tools`      — host helpers: the Siam
   training-input generators, frame search, folder image operations, movie
   export (ffmpeg), the napari annotator, host/device introspection
+- :mod:`~bio_image_unet_tpu_torch.parallel`   — multi-device on ``torch.distributed``
+  (one process per device): the mesh of ranks, the halo exchange, the
+  cross-rank BatchNorm; :mod:`~bio_image_unet_tpu_torch.testing` — the
+  cross-layout contract ``assert_mesh_parity``
 - :mod:`~bio_image_unet_tpu_torch.utils`      — device rule, synthetic data,
   TIFF saving, segmentation metrics, the TensorBoard event writer, the
   smoke recipes (``utils.test``)

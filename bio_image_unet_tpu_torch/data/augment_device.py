@@ -87,6 +87,24 @@ class AugmentDraws:
     def flag(self, name: str) -> torch.Tensor:
         return self.flags[:, FLAGS.index(name)]
 
+    def rows(self, lo: int, hi: int) -> "AugmentDraws":
+        """The draws of samples ``lo:hi`` of the batch."""
+        def cut(t):
+            return None if t is None else t[lo:hi].contiguous()
+
+        return AugmentDraws(cut(self.flags), cut(self.coef), cut(self.mult), cut(self.gauss),
+                            self.sigma, cut(self.mult_prev), cut(self.gauss_prev))
+
+
+def _draw_part(generator, b: int, shape, prev: bool, part, *dist_args) -> AugmentDraws:
+    """The draws of a batch of ``b`` samples; with ``part = (n, i)`` the batch
+    is share ``i`` of a global batch of ``n·b``: the global batch's draws are
+    made and its rows ``i·b:(i+1)·b`` kept, so each rank of a data mesh
+    applies its slice of what one device would draw."""
+    n, i = part or (1, 0)
+    d = draw(generator, n * b, (n * b,) + tuple(shape), prev, *dist_args)
+    return d.rows(i * b, (i + 1) * b) if n > 1 else d
+
 
 def draw(generator: torch.Generator, batch: int, field_shape, prev: bool = False,
          brightness_contrast: Tuple[float, float] = (0.25, 0.25),
@@ -314,13 +332,16 @@ augment_volume_apply.launches = 0
 def augment_batch(generator: torch.Generator, image, mask, prev=None, index=None,
                   brightness_contrast: Tuple[float, float] = (0.25, 0.25),
                   noise_mult: Optional[Tuple[float, float]] = (0.5, 1.2),
-                  gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8):
+                  gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8,
+                  part: Optional[Tuple[int, int]] = None):
     """One full augmentation draw of a batch (``augment_jax.py:132``): the
     draws from ``generator``, then K4, or K4v for volumes (5-D).  ``index``
-    gathers from a resident tile set; without it ``image`` is the batch."""
+    gathers from a resident tile set; without it ``image`` is the batch.
+    ``part = (n, i)``: the batch is share ``i`` of a global batch of ``n``
+    shares, and takes its rows of the global batch's draws."""
     b = image.shape[0] if index is None else index.shape[0]
-    d = draw(generator, b, (b,) + tuple(image.shape[1:]), prev is not None,
-             brightness_contrast, noise_mult, gauss_sigma, p_pipeline)
+    d = _draw_part(generator, b, image.shape[1:], prev is not None, part,
+                   brightness_contrast, noise_mult, gauss_sigma, p_pipeline)
     return augment_apply(image, mask, d, index, prev)
 
 
@@ -497,21 +518,23 @@ def augment_batch_heads(generator: torch.Generator, image,
                         layout: Optional[HeadLayout] = None,
                         brightness_contrast: Tuple[float, float] = (0.25, 0.25),
                         noise_mult: Optional[Tuple[float, float]] = (0.5, 1.2),
-                        gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8):
+                        gauss_sigma: Optional[float] = None, p_pipeline: float = 0.8,
+                        part: Optional[Tuple[int, int]] = None):
     """One full multi-head augmentation draw (``augment_jax.py:192``): the
     draws from ``generator``, then K4h, or K4hv for volumes (5-D).
     ``targets`` is {head: (N, C, S, S)} (or (N, C, Z, S, S)),
     concatenated here, with ``orientation_keys`` naming the orientation
     heads; or the concatenated (N, ΣC, S, S) tensor itself with its
     ``layout`` (a resident set is concatenated once).  ``index`` gathers from
-    a resident tile set; without it ``image`` is the batch.  → ``(image,
-    {head: (B, C, S, S)})``, the heads channel views of one tensor."""
+    a resident tile set; without it ``image`` is the batch; ``part`` as for
+    :func:`augment_batch`.  → ``(image, {head: (B, C, S, S)})``, the heads
+    channel views of one tensor."""
     if layout is None:
         layout = HeadLayout.of({k: v.shape[1] for k, v in targets.items()}, orientation_keys,
                                image.device)
         targets = layout.concat(targets)
     b = image.shape[0] if index is None else index.shape[0]
-    d = draw(generator, b, (b,) + tuple(image.shape[1:]), False, brightness_contrast,
-             noise_mult, gauss_sigma, p_pipeline)
+    d = _draw_part(generator, b, image.shape[1:], False, part, brightness_contrast,
+                   noise_mult, gauss_sigma, p_pipeline)
     img, tgt = augment_heads_apply(image, targets, layout.codes, d, index)
     return img, layout.split(tgt)

@@ -35,19 +35,25 @@ class ChannelDropout2d(nn.Module):
     flax's ``nn.Dropout(broadcast_dims=(1, 2))`` computes it
     (``where(keep, x / (1 - p), 0)``).  The draws come from ``generator``
     when one is set (the Trainer sets its own each epoch), else from torch's
-    default generator of the input's device; the identity in eval."""
+    default generator of the input's device; the identity in eval.  With
+    ``part = (n, i)`` the batch is share ``i`` of a global batch of ``n``
+    shares (a rank of a data mesh): the global batch's mask is drawn and its
+    rows kept."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
+        self.part: Optional[tuple] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty(x.shape[:2] + (1,) * (x.dim() - 2), device=x.device)
-        mask = mask.bernoulli_(keep, generator=self.generator).bool()
+        n, i = self.part or (1, 0)
+        b = x.shape[0]
+        mask = torch.empty((n * b,) + x.shape[1:2] + (1,) * (x.dim() - 2), device=x.device)
+        mask = mask.bernoulli_(keep, generator=self.generator).bool()[i * b:(i + 1) * b]
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
     def extra_repr(self) -> str:

@@ -46,6 +46,18 @@ the w8a8 int8 one once the engine has
 calibrated its activation scales on the movie or the volumes, before the
 first chunk or volume of the fused path; the gate, its warnings and the
 calibration follow ``predictor.py:373-414``, ``:472-626``.
+
+``mesh=`` (``parallel.get_mesh``; ``predictor.py:430-447``) runs a call on
+every rank of the mesh, each rank making the same call and getting the whole
+result: the 2D fused frames path (and the fused multi-head one) rounds each
+chunk's frame count up to a multiple of the ``data`` axis and runs K1 → K2 →
+forward → K3 (K5) on its contiguous block of frames with no collective, then
+all-gathers the uint8 masks (float16 heads; the fill's float64 K5s sums are
+all-reduced before the mean); the host-staged paths, Siam and the 3D paths
+split their forward batch over ``data`` and gather the logits or head tiles
+before the stitch.  Every rank calibrates int8 on the same sampled frames of
+the whole input, so int8 stays bitwise equal across layouts.  Only rank 0
+writes files.
 """
 
 from __future__ import annotations
@@ -65,6 +77,7 @@ from ..ops.histogram import clip_bounds, pair_clip_bounds
 from ..ops.stitch import (blend_stitch_3d, margin_stitch, sigmoid_stitch, sigmoid_stitch_3d,
                           tile_sum)
 from ..progress import ProgressNotifier
+from ..parallel.mesh import Placement, check_mesh, main_process
 from ..utils.device import resolve_device
 from ..utils.utils import save_as_tif
 from .fastpath import folded_forward
@@ -172,8 +185,14 @@ class _Engine:
     FUSED_PENDING_CHUNKS = 4
 
     def __init__(self, model_params, network=None, batch_size: int = 8,
-                 half_precision: bool = False, device=None, quantized: bool = False):
+                 half_precision: bool = False, device=None, quantized: bool = False,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = None if mesh is None else check_mesh(mesh, int(batch_size), self.device)
+        # this rank's place on the data axis: its block of frames, its share
+        # of a forward batch
+        self._n_data = self.mesh.shape["data"] if self.mesh is not None else 1
+        self._d = self.mesh.index("data") if self.mesh is not None else 0
         state = checkpoint.load(model_params)
         hp = dict(state["hyperparams"])
         self.hyperparams = hp
@@ -368,12 +387,43 @@ class _Engine:
         batch_size is the floor."""
         return max(self.batch_size, min(per_chunk, step_px // (th * tw)))
 
-    @torch.inference_mode()
+    def _mesh_batch(self, bs: int) -> int:
+        """A forward batch that splits evenly over the ``data`` axis
+        (``predictor.py:962-963``)."""
+        return _round_up(bs, self._n_data)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t`` along dim 0, in mesh order."""
+        return t if self.mesh is None else self.mesh.all_gather(t)
+
+    def _share(self, t, axis: int = 0):
+        """This rank's contiguous share of ``t`` (a tensor, or a chunk's host
+        frames) along ``axis``; all of it without a mesh."""
+        if self.mesh is None:
+            return t
+        return Placement(self.mesh, (None,) * axis + ("data",)).local(t)
+
+    def _mesh_chunk(self, n_frames: int):
+        """The fused frames paths' chunk (``predictor.py:704-708``): the
+        frame count rounded up to a multiple of the data axis, and each
+        rank's share of it."""
+        n_chunk = _round_up(min(self.FUSED_CHUNK_FRAMES, n_frames), self._n_data)
+        return n_chunk, n_chunk // self._n_data
+
     def forward_tiles(self, tiles_u8: torch.Tensor, bs: int, pairs: bool = False) -> torch.Tensor:
         """(n, *tile) uint8 tiles, n a multiple of ``bs`` → (n, 1, *tile)
         logits in the working dtype.  With ``pairs``, (2, n, th, tw) Siam
         tiles — the prev set, then the cur set — through the twin-input
-        forward."""
+        forward.  With a mesh, each rank forwards its share of the tiles in
+        batches of ``bs`` / data and the logits are gathered."""
+        if self.mesh is None:
+            return self._forward_tiles(tiles_u8, bs, pairs)
+        out = self._forward_tiles(self._share(tiles_u8, int(pairs)), bs // self._n_data, pairs)
+        return self._gather(out)
+
+    @torch.inference_mode()
+    def _forward_tiles(self, tiles_u8: torch.Tensor, bs: int, pairs: bool = False) -> torch.Tensor:
+        """:meth:`forward_tiles` on this rank alone."""
         outs = []
         for s in range(0, tiles_u8.shape[int(pairs)], bs):
             if pairs:
@@ -408,7 +458,7 @@ class _Engine:
         def fn(chunk: torch.Tensor) -> torch.Tensor:
             bounds = bounds_dev if bounds_dev is not None else clip_bounds(chunk, q_lo, q_hi)
             tiles = normalize_tile(chunk, bounds, plan, n_pad, invert)
-            logits = self.forward_tiles(tiles, bs)
+            logits = self._forward_tiles(tiles, bs)
             return sigmoid_stitch(logits.contiguous(), chunk.shape[0], plan)
 
         return fn, n_chunk
@@ -417,14 +467,17 @@ class _Engine:
                              clip_threshold, invert: bool, progress=None,
                              fixed_bounds: Optional[np.ndarray] = None) -> np.ndarray:
         """(N, h, w) uint8/uint16/float32 frames → (N, h, w) uint8 masks
-        through the fused device pipeline (``predictor.py:841``)."""
+        through the fused device pipeline (``predictor.py:841``); with a
+        mesh, each rank runs its block of every chunk's frames and the masks
+        are gathered."""
         n_frames, h, w = imgs.shape
-        fn, n_chunk = self.fused_runner(h, w, xs, ys, resize_dim, clip_threshold,
-                                        invert, fixed_bounds, n_frames, sample=imgs)
+        n_chunk, mine = self._mesh_chunk(n_frames)
+        fn, _ = self.fused_runner(h, w, xs, ys, resize_dim, clip_threshold,
+                                  invert, fixed_bounds, mine, sample=imgs)
         return self._run_chunks(
             n_frames, n_chunk, {"mask": ((h, w), np.uint8)},
-            lambda s: _pad_frames(imgs[s:s + n_chunk], n_chunk),
-            lambda x, k: {"mask": fn(x)}, progress)["mask"]
+            lambda s: self._share(_pad_frames(imgs[s:s + n_chunk], n_chunk)),
+            lambda x, k: {"mask": self._gather(fn(x))}, progress)["mask"]
 
     def host_predict_frames(self, norm: np.ndarray, xs, ys, resize_dim,
                             progress=None, channels: int = 1) -> np.ndarray:
@@ -477,7 +530,7 @@ class _Engine:
         th, tw = resize_dim
         plan = TilePlan(h, w, th, tw, xs, ys, self.device)
         n = k * plan.per_frame
-        bs = self.batch_policy(n, th, tw, self.PAIR_STEP_PX)
+        bs = self._mesh_batch(self.batch_policy(n, th, tw, self.PAIR_STEP_PX))
         n_pad = _round_up(n, bs)
         q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
 
@@ -512,13 +565,22 @@ class _Engine:
         cap = (1 << 22) if isinstance(self.model, MultiOutputNestedUNet) else (1 << 24)
         return max(1, min(n_tiles, cap // (th * tw)))
 
-    @torch.inference_mode()
     def forward_heads(self, tiles: torch.Tensor, bs: int) -> Dict[str, torch.Tensor]:
         """(n, th, tw) float tiles, n a multiple of ``bs`` → ``{head: (n, C,
         th, tw) float16}``, contiguous.  The dtype contract of
         ``_forward_with`` (``predictor.py:454-459``): tiles are cast to the
         working dtype, each head's 1×1 conv output goes to float32 for its
-        activation, and every head is rounded to float16 before any stitch."""
+        activation, and every head is rounded to float16 before any stitch.
+        With a mesh, each rank forwards its share and the head tiles are
+        gathered."""
+        if self.mesh is None:
+            return self._forward_heads(tiles, bs)
+        return {name: self._gather(t) for name, t in
+                self._forward_heads(self._share(tiles), bs // self._n_data).items()}
+
+    @torch.inference_mode()
+    def _forward_heads(self, tiles: torch.Tensor, bs: int) -> Dict[str, torch.Tensor]:
+        """:meth:`forward_heads` on this rank alone."""
         outs = {name: [] for name in self.heads}
         for s in range(0, tiles.shape[0], bs):
             x = tiles[s:s + bs, None].to(self.dtype)
@@ -553,17 +615,27 @@ class _Engine:
         def fn(chunk: torch.Tensor, k: int):
             bounds = bounds_dev if bounds_dev is not None else clip_bounds(chunk, q_lo, q_hi)
             tiles = normalize_tile_float(chunk, bounds, plan, n_pad, self.dtype)
-            heads = self.forward_heads(tiles, bs)
+            heads = self._forward_heads(tiles, bs)
             out = {name: margin_stitch(t, n_chunk, plan, torch.float16)
                    for name, t in heads.items()}
-            sums = ({name: tile_sum(t, k * plan.per_frame) for name, t in heads.items()}
-                    if need_fill else {})
+            # a rank whose block of the tail chunk holds no real frame adds 0
+            sums = ({name: (tile_sum(t, k * plan.per_frame) if k else
+                            torch.zeros((), dtype=torch.float64, device=t.device))
+                     for name, t in heads.items()} if need_fill else {})
             return out, sums
 
         return fn, n_chunk, plan
 
     def _heads_shapes(self, h: int, w: int, dtype) -> Dict[str, tuple]:
         return {name: ((cfg["channels"], h, w), dtype) for name, cfg in self.heads.items()}
+
+    def _sum_totals(self, totals: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each head's float64 fill sum over every rank's frames."""
+        if self.mesh is None or not totals:
+            return totals
+        names = list(totals)
+        both = self.mesh.all_reduce(torch.stack([totals[n] for n in names]))
+        return dict(zip(names, both))
 
     @staticmethod
     def _fill(results: Dict[str, np.ndarray], totals, plan, n_frames: int) -> None:
@@ -583,26 +655,30 @@ class _Engine:
         uint8/uint16/float32 frames → ``{head: (N, C, h, w) float16}``, each
         head stitched in float32 and rounded to float16, the uncovered pixels
         filled with the mean of every real head tile of the movie.  ``_bs`` is
-        the OOM back-off's batch."""
+        the OOM back-off's batch.  With a mesh, each rank runs its block of
+        every chunk's frames, the stitched heads are gathered and the fill's
+        sums added over the ranks."""
         n_frames, h, w = imgs.shape
-        fn, n_chunk, plan = self.heads_runner(h, w, xs, ys, patch_size, clip_threshold,
-                                              factors, fixed_bounds, n_frames, _bs, imgs)
+        n_chunk, mine = self._mesh_chunk(n_frames)
+        fn, _, plan = self.heads_runner(h, w, xs, ys, patch_size, clip_threshold,
+                                        factors, fixed_bounds, mine, _bs, imgs)
         totals = {}
 
         def step(x, k):
-            out, sums = fn(x, k)
+            out, sums = fn(x, min(max(k - self._d * mine, 0), mine))
             for name, v in sums.items():
                 totals[name] = v if name not in totals else totals[name] + v
-            return out
+            return {name: self._gather(t) for name, t in out.items()}
 
         def run():
             res = self._run_chunks(n_frames, n_chunk, self._heads_shapes(h, w, np.float16),
-                                   lambda s: _pad_frames(imgs[s:s + n_chunk], n_chunk),
+                                   lambda s: self._share(_pad_frames(imgs[s:s + n_chunk],
+                                                                     n_chunk)),
                                    step, progress)
-            self._fill(res, totals, plan, n_frames)
+            self._fill(res, self._sum_totals(totals), plan, n_frames)
             return res
 
-        bs = _bs or self.heads_batch(n_chunk * plan.per_frame, *patch_size)
+        bs = _bs or self.heads_batch(mine * plan.per_frame, *patch_size)
         return self._dispatch_with_oom_backoff(
             run, bs, lambda smaller: self.fused_predict_heads(
                 imgs, xs, ys, patch_size, clip_threshold, factors, fixed_bounds,
@@ -680,7 +756,8 @@ class _Engine:
         self._maybe_calibrate(sample, zs, xs, ys, tile, clip_threshold, invert, volumes=True)
         plan = TilePlan3D(d, h, w, tile, zs, xs, ys, self.device)
         n = plan.per_volume
-        bs = max(self.batch_size, min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile))))
+        bs = self._mesh_batch(max(self.batch_size,
+                                  min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile)))))
         n_pad = _round_up(n, bs)
         q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
 
@@ -728,7 +805,8 @@ class _Engine:
                               fixed_bounds=fixed_bounds)
         plan = TilePlan3D(d, h, w, tile, zs, xs, ys, self.device, factors)
         n = n_vols * plan.per_volume
-        bs = bs or max(1, min(n, self.VOLUME_STEP_VOXELS // int(np.prod(tile))))
+        bs = bs or self._mesh_batch(max(1, min(n, self.VOLUME_STEP_VOXELS
+                                               // int(np.prod(tile)))))
         n_pad = _round_up(n, bs)
         bounds_dev = self._fixed_bounds_on_device(fixed_bounds)
         q_lo, q_hi = float(clip_threshold[0]), float(clip_threshold[1])
@@ -754,7 +832,8 @@ class _Engine:
         return self._dispatch_with_oom_backoff(
             lambda: self._run_once(vols_dev, fn), bs,
             lambda smaller: self.fused_predict_heads_3d(vols, zs, xs, ys, tile, clip_threshold,
-                                                        factors, fixed_bounds, smaller))
+                                                        factors, fixed_bounds, smaller),
+            floor=self._n_data)
 
     def host_predict_heads_3d(self, patches: np.ndarray, n_vols: int,
                               plan: TilePlan3D) -> Dict[str, np.ndarray]:
@@ -771,17 +850,19 @@ class _Engine:
 
         return self._run_once(_pad_frames(patches, _round_up(len(patches), bs)), fn)
 
-    def _dispatch_with_oom_backoff(self, run: Callable, bs: int, retry: Callable):
+    def _dispatch_with_oom_backoff(self, run: Callable, bs: int, retry: Callable,
+                                   floor: int = 1):
         """Run ``run()``; when the card runs out of memory, halve the forward
-        batch, warn and ``retry(smaller)`` on the card (``predictor.py:1160``).
-        It never moves to the CPU."""
+        batch down to ``floor`` (a batch split over the data axis stays a
+        multiple of it), warn and ``retry(smaller)`` on the card
+        (``predictor.py:1160``).  It never moves to the CPU."""
         try:
             return run()
         except torch.cuda.OutOfMemoryError:
-            if bs <= 1:
+            if bs <= floor:
                 raise
         # retried outside the handler, so the failed attempt's tensors are freed
-        smaller = max(1, bs // 2)
+        smaller = _round_up(max(floor, bs // 2), floor)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
@@ -934,8 +1015,6 @@ class Predict:
                  mesh=None, device=None, device_pipeline: Optional[bool] = None,
                  quantized: bool = False,
                  progress_notifier: ProgressNotifier = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
         device = resolve_device(device)
         if isinstance(imgs, (str, os.PathLike)):
             imgs = tiff.imread(imgs)
@@ -947,7 +1026,8 @@ class Predict:
             imgs = imgs[None]
         self.imgs_shape = imgs.shape
 
-        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized,
+                         mesh)
         self.engine = engine
         if engine.hyperparams.get("in_channels", 1) != 1:
             raise ValueError("tiled 2D Predict supports single-channel input")
@@ -987,7 +1067,7 @@ class Predict:
                                                 progress=progress, channels=out_ch)
         # (N, h, w), or (N, C, h, w) like the reference, squeezed as JAX does
         self.result = np.squeeze(result)
-        if result_name is not None:
+        if result_name is not None and main_process():
             save_as_tif(self.result, result_name, normalize=normalize_result)
 
 
@@ -1010,8 +1090,6 @@ class PredictMultiOutput:
                  half_precision=False, safe_margin: int = 20, mesh=None, device=None,
                  device_pipeline: Optional[bool] = None, quantized: bool = False,
                  progress_notifier: ProgressNotifier = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
         device = resolve_device(device)
         if isinstance(imgs, (str, os.PathLike)):
             imgs = tiff.imread(imgs)
@@ -1021,7 +1099,8 @@ class PredictMultiOutput:
         self.imgs_shape = imgs.shape
         n_frames, h, w = imgs.shape
 
-        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized,
+                         mesh)
         self.engine = engine
         heads = engine.hyperparams["output_heads"]
         self.target_keys = list(heads)
@@ -1067,7 +1146,7 @@ class PredictMultiOutput:
             if r.shape[1] == 1:
                 r = r[:, 0]
             self.result[key] = np.squeeze(r).astype(np.float32)
-            if result_path is not None:
+            if result_path is not None and main_process():
                 os.makedirs(result_path, exist_ok=True)
                 tiff.imwrite(os.path.join(result_path, f"{key}.tif"), self.result[key],
                              compress=6 if compress_tif else None)
@@ -1105,8 +1184,6 @@ class PredictSiam:
                  frames_per_chunk: int = 8, device_pipeline: Optional[bool] = None,
                  quantized: bool = False, progress_notifier: ProgressNotifier = None):
         del normalize_result  # in the reference's signature; the masks are uint8
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
         if normalization_mode not in ("single", "first", "all"):
             raise ValueError(f"normalization_mode {normalization_mode} not valid!")
         device = resolve_device(device)
@@ -1115,7 +1192,7 @@ class PredictSiam:
         self.clip_threshold = clip_threshold
         self.result_name = result_name
         engine = _Engine(model_params, "Siam_UNet", batch_size, half_precision, device,
-                         quantized)
+                         quantized, mesh)
         self.engine = engine
         with tiff.TiffReader(tif_file) as reader:
             self._stream(reader, engine, resize_dim, add_tile, int(frames_per_chunk),
@@ -1249,9 +1326,15 @@ class PredictSiam:
             for mask in masks:
                 writer.write(mask)
 
-        with tiff.TiffWriter(self.result_name, bigtiff=out_bytes > _CLASSIC_TIFF_BYTES) as writer:
+        def run(sink):
             engine._run_chunks(n_frames, n_chunk, {"mask": ((h, w), np.uint8)}, produce, step,
-                               progress, sink=lambda arrays, s: write_frames(arrays["mask"]))
+                               progress, sink=sink)
+
+        if not main_process():  # the other ranks of a mesh compute and write nothing
+            run(lambda arrays, s: None)
+            return
+        with tiff.TiffWriter(self.result_name, bigtiff=out_bytes > _CLASSIC_TIFF_BYTES) as writer:
+            run(lambda arrays, s: write_frames(arrays["mask"]))
 
 
 class Predict3D:
@@ -1274,8 +1357,6 @@ class Predict3D:
                  device=None, device_pipeline: Optional[bool] = None, quantized: bool = False,
                  progress_notifier: ProgressNotifier = None):
         del normalization_mode  # accepted and ignored, as in the reference
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
         device = resolve_device(device)
         if isinstance(vol, (str, os.PathLike)):
             vol = tiff.imread(vol)
@@ -1284,7 +1365,8 @@ class Predict3D:
             raise ValueError(f"Predict3D takes a (Z, X, Y) volume, got shape {vol.shape}")
         self.vol_shape = vol.shape
         self.resize_dim = tuple(int(v) for v in resize_dim)
-        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized,
+                         mesh)
         self.engine = engine
         if engine.heads is not None:
             raise ValueError(f"{type(engine.model).__name__} is a multi-head model: "
@@ -1316,7 +1398,7 @@ class Predict3D:
                 plan = TilePlan3D(*self.vol_shape, self.resize_dim, *starts, engine.device)
                 self.result = engine.host_predict_volume(
                     _cut_tiles(norm[None], plan, np.uint8), plan)
-        if result_name is not None:
+        if result_name is not None and main_process():
             save_as_tif(self.result, result_name, normalize=normalize_result)
 
 
@@ -1359,8 +1441,6 @@ class PredictMultiOutput3D:
                  device_pipeline: Optional[bool] = None, quantized: bool = False,
                  progress_notifier: ProgressNotifier = None):
         del add_tile  # accepted in the reference's position; the grid is overlap_factor's
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-GPU predict) is not ported yet")
         device = resolve_device(device)
         if isinstance(imgs, (str, os.PathLike)):
             imgs = tiff.imread(imgs)
@@ -1368,7 +1448,8 @@ class PredictMultiOutput3D:
         if imgs.ndim == 3:
             imgs = imgs[None]  # (n_volumes, Z, X, Y)
         self.imgs_shape = imgs.shape
-        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized)
+        engine = _Engine(model_params, network, batch_size, half_precision, device, quantized,
+                         mesh)
         self.engine = engine
         self.target_keys = list(engine.hyperparams["output_heads"])
         if normalization_mode not in ("single", "first", "all"):
@@ -1409,7 +1490,7 @@ class PredictMultiOutput3D:
             if r.shape[1] == 1:
                 r = r[:, 0]
             self.result[key] = np.squeeze(r).astype(np.float32)
-            if result_path is not None:
+            if result_path is not None and main_process():
                 os.makedirs(result_path, exist_ok=True)
                 tiff.imwrite(os.path.join(result_path, f"{key}.tif"), self.result[key],
                              compress=6 if compress_tif else None)

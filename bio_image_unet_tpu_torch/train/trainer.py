@@ -89,8 +89,35 @@ runs one ``torch.profiler`` (CPU and, on the card, CUDA activities) over
 the run raises; it refuses to start inside another profiler.
 
 Runs on CUDA unless ``device="cpu"`` is passed (``"auto"`` means CUDA);
-raises without a card.  Not ported yet, raising NotImplementedError:
-``mesh`` and ``device_cache="sharded"`` (multi-GPU).
+raises without a card.
+
+``mesh=`` (``parallel.get_mesh``; ``:258-271``): every rank of a
+``torch.distributed`` group runs the same ``Trainer`` and holds the same
+parameters; only rank 0 writes files (checkpoints, ``metrics.csv``,
+TensorBoard, validation grids).  With no mesh and no process group the mesh is
+the mesh of one and nothing changes; with a process group the default is
+JAX's rule, the largest data axis ≤ the world size that divides
+``batch_size``, and a world it would leave ranks out of raises on every rank.
+Two layouts, as in JAX (``:382-392``):
+
+- the loader path and ``device_cache=True`` / ``"replicated"``: every rank
+  draws the same global batch order (the ``seed + 1`` permutation, the
+  loader's seed) and takes its contiguous slice of each batch; the K4 draws
+  are made for the whole batch and each rank applies its rows; BatchNorm
+  takes its statistics over the global batch (``parallel.batchnorm``); the
+  outputs and targets are gathered so every rank computes the loss of the
+  whole batch, and ``DistributedDataParallel`` adds up the gradients
+  (``broadcast_buffers=False``): the trajectory is the single-device one;
+- ``device_cache="sharded"``: each rank holds its shard of the training set
+  (padded by wrapping around), draws its own permutation of it from the one
+  ``seed + 1`` stream in JAX's order (``n_data`` permutations an epoch, rank
+  ``r`` takes the ``r``-th) and its own augmentation stream (seed, epoch,
+  rank); BatchNorm stays per rank, and after each step the gradients (DDP),
+  the BatchNorm running statistics and the loss are averaged over the data
+  axis (``:529-535``).
+
+Validation splits each batch over the data axis where it divides (else every
+rank runs it whole) and gives the single-device value.
 """
 
 from __future__ import annotations
@@ -116,6 +143,9 @@ from ..losses import get_head_loss, get_loss, smooth_l1_loss
 from ..models import MODEL_REGISTRY, MultiOutputUnet3D, get_model
 from ..models.legacy import ChannelDropout2d
 from ..ops.blocks import init_weights_
+from ..parallel.batchnorm import convert_batchnorm, gather_rows
+from ..parallel.mesh import (Placement, _world, check_mesh, data_sharding, get_mesh,
+                             main_process)
 from ..utils.device import resolve_device
 
 __all__ = ["ReduceLROnPlateau", "Trainer"]
@@ -171,9 +201,38 @@ class ReduceLROnPlateau:
         self.scale = float(state["scale"])
 
 
-def _not_ported(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (the {slice_name} "
-                              "slice of the port); single-device training of every model is")
+def _train_mesh(mesh, batch_size: int, device: torch.device):
+    """The Trainer's mesh (``trainer.py:258-271``): the given one, or the
+    mesh of one without a process group, or the largest data axis ≤ the
+    world size that divides ``batch_size``, which must span the world (every
+    rank computes the same rule, so every rank raises together)."""
+    if mesh is None:
+        world, size, _ = _world()
+        n_data = max(d for d in range(1, min(size, batch_size) + 1) if batch_size % d == 0)
+        if n_data < size:
+            raise ValueError(
+                f"batch_size {batch_size} splits over at most {n_data} of the {size} ranks: "
+                f"start {n_data} processes, pass a batch size that {size} divides, or pass "
+                "mesh=get_mesh(...) with the ranks to use")
+        mesh = get_mesh(n_data=n_data) if world is not None else get_mesh()
+    return check_mesh(mesh, batch_size, device)
+
+
+class _Net(torch.nn.Module):
+    """The training forward: the model, under ``torch.utils.checkpoint``
+    with ``remat``; the module ``DistributedDataParallel`` wraps on a mesh
+    (the recompute then stays inside one DDP forward)."""
+
+    def __init__(self, model: torch.nn.Module, remat_contexts=None):
+        super().__init__()
+        self.model = model
+        self.remat_contexts = remat_contexts
+
+    def forward(self, *xs):
+        if self.remat_contexts is None:
+            return self.model(*xs)
+        return recompute_in_backward(lambda *a: self.model(*a), *xs, use_reentrant=False,
+                                     context_fn=self.remat_contexts)
 
 
 class _RematContexts:
@@ -274,9 +333,14 @@ class Trainer:
         profile_dir: Optional[str] = None,
         device=None,
     ):
-        if mesh is not None or device_cache == "sharded":
-            _not_ported("mesh=/device_cache='sharded' (multi-GPU training)", "multi-GPU")
         self.device = resolve_device(None if device == "auto" else device)
+        self.mesh = _train_mesh(mesh, batch_size, self.device)
+        self._n_data, self._d = self.mesh.shape["data"], self.mesh.index("data")
+        self._cache_mode = ("sharded" if device_cache == "sharded"
+                            else ("replicated" if device_cache else None))
+        # over a process group the replicated layouts compute the global
+        # batch's BatchNorm statistics and loss; the sharded one its own
+        self._global_batch = self.mesh.distributed and self._cache_mode != "sharded"
         self.num_epochs = num_epochs
         self.batch_size = batch_size
         self.lr = lr
@@ -303,6 +367,7 @@ class Trainer:
         # one dict per epoch run: the metrics.csv row plus the training
         # pass's own wall time (``train_seconds``, validation excluded)
         self.history = []
+        self._writes = main_process()
         os.makedirs(save_dir, exist_ok=True)
 
         # --- model: seeded init, float32 parameters ---
@@ -368,9 +433,23 @@ class Trainer:
         if self.device.type == "cuda":
             self.model.to(memory_format=self._memory_format())
         self.channel_weights = self.channel_weights.to(self.device)
+        if self._global_batch:
+            convert_batchnorm(self.model, self.mesh.group("data"))
+            for m in self.model.modules():
+                if isinstance(m, ChannelDropout2d):
+                    m.part = (self._n_data, self._d)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr)
         self.scheduler = ReduceLROnPlateau(scheduler_factor, scheduler_patience)
         self._remat_contexts = _RematContexts(self.model)
+        self._net = _Net(self.model, self._remat_contexts if self.remat else None)
+        if self.mesh.distributed:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self._net = DistributedDataParallel(
+                self._net, device_ids=[torch.cuda.current_device() if self.device.index is None
+                                       else self.device.index]
+                if self.device.type == "cuda" else None,
+                process_group=self.mesh.group("data"), broadcast_buffers=False)
         if load_path is not None:
             if state["optimizer_state_dict"] is not None:
                 self._load_optimizer(state["optimizer_state_dict"], state["state_dict"])
@@ -407,12 +486,12 @@ class Trainer:
 
         # --- observability ---
         self.writer = None
-        if tensorboard:
+        if tensorboard and self._writes:
             from ..utils.tboard import SummaryWriter
 
             self.writer = SummaryWriter(log_dir=os.path.join(save_dir, "logs"))
         self.metrics_path = os.path.join(save_dir, "metrics.csv")
-        if not load_weights or not os.path.exists(self.metrics_path):
+        if self._writes and (not load_weights or not os.path.exists(self.metrics_path)):
             with open(self.metrics_path, "w", newline="") as fh:
                 csv.writer(fh).writerow(["epoch", "train_loss", "val_loss", "lr", "seconds"])
 
@@ -425,14 +504,37 @@ class Trainer:
             self._train_rng = np.random.default_rng(seed + 1)
             samples = [train_data[i] for i in range(len(train_data))]
             self._n_train = len(samples)
+            if self._cache_mode == "sharded":
+                # this rank's shard of the set padded (wrapping around) to a
+                # multiple of the data axis (trainer.py:403-407)
+                k = self._n_data
+                n_pad = -(-len(samples) // k) * k
+                samples = samples + samples[: n_pad - len(samples)]
+                self._n_local = n_pad // k
+                samples = samples[self._d * self._n_local:(self._d + 1) * self._n_local]
             for _ in range(self.epoch_start):
-                self._train_rng.permutation(self._n_train)
+                self._draw_epoch_order()
             # (input, targets[, prev])
             groups = [[self.input_key], self.layout.names] + [[k] for k in self.input_keys[1:]]
             self._device_data = tuple(
                 torch.from_numpy(np.concatenate([np.stack([s_[k] for s_ in samples])
                                                  for k in ks], 1)).to(self.device)
                 for ks in groups)
+
+    def _draw_epoch_order(self) -> np.ndarray:
+        """The resident set's index rows of one epoch, this rank's columns:
+        one global permutation of the training set, each rank taking its
+        slice of every row; sharded, one permutation of the shard for each
+        rank of the data axis in turn, this rank taking its own
+        (``trainer.py:608-632``)."""
+        if self._cache_mode == "sharded":
+            local_bs = self.batch_size // self._n_data
+            n_steps = self._n_local // local_bs
+            perms = [self._train_rng.permutation(self._n_local) for _ in range(self._n_data)]
+            return perms[self._d][: n_steps * local_bs].reshape(n_steps, local_bs)
+        n_steps = self._n_train // self.batch_size
+        perm = self._train_rng.permutation(self._n_train)[: n_steps * self.batch_size]
+        return Placement(self.mesh, (None, "data")).local(perm.reshape(n_steps, self.batch_size))
 
     def _load_optimizer(self, opt: dict, state_dict) -> None:
         """A checkpoint's Adam state, numbered over its state dict's
@@ -502,26 +604,50 @@ class Trainer:
 
     def _train_step(self, inputs: Sequence[torch.Tensor],
                     batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        if self.remat:
-            outputs = recompute_in_backward(lambda *xs: self._forward(xs), *inputs,
-                                            use_reentrant=False,
-                                            context_fn=self._remat_contexts)
-        else:
-            outputs = self._forward(inputs)
+        """One step on this rank's slice of the batch: with the global batch
+        (the replicated layouts over a process group) the outputs and
+        targets are gathered and the loss is the whole batch's, its gradient
+        scaled by the data axis so that DDP's average is the sum over the
+        ranks; sharded, the loss is this rank's and DDP averages."""
+        outputs = self._net(*(self._input(x) for x in inputs))
+        if self._global_batch:
+            outputs = gather_rows(outputs, self.mesh)
+            batch = {k: self.mesh.all_gather(v) for k, v in batch.items()}
         with torch.profiler.record_function("loss"):
             loss = self._compute_loss(outputs, batch, train=True)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        (loss * self._n_data if self._global_batch else loss).backward()
         if self.grad_clip is not None:
             torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.grad_clip)
         self.optimizer.step()
+        if self._cache_mode == "sharded" and self.mesh.distributed:
+            self._average_batchnorm_stats()
         return loss.detach()
+
+    def _average_batchnorm_stats(self) -> None:
+        """The per-rank BatchNorm running statistics averaged over the data
+        axis after a sharded step (JAX's ``pmean`` of the new batch stats)."""
+        bufs = [b for m in self.model.modules()
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm) and m.track_running_stats
+                for b in (m.running_mean, m.running_var)]
+        if not bufs:
+            return
+        with torch.no_grad():
+            flat = self.mesh.all_reduce(torch.cat([b.reshape(-1) for b in bufs]))
+            flat /= self._n_data
+            for b, v in zip(bufs, flat.split([b.numel() for b in bufs])):
+                b.copy_(v.view_as(b))
+
+    def _stream_offset(self) -> int:
+        """Sharded, each rank's random streams differ (JAX folds the
+        ``data`` axis index into the epoch key, ``trainer.py:588-589``)."""
+        return (self._d << 48) if self._cache_mode == "sharded" else 0
 
     def _augment_generator(self, epoch: int) -> torch.Generator:
         """The epoch's augmentation stream: seeded from (seed, epoch), so a
         resumed run draws what the uninterrupted run would have."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed * 1_000_003 + epoch)
+        gen.manual_seed(self.seed * 1_000_003 + epoch + self._stream_offset())
         return gen
 
     def _seed_dropout(self, epoch: int) -> None:
@@ -532,33 +658,38 @@ class Trainer:
         drops = [m for m in self.model.modules() if isinstance(m, ChannelDropout2d)]
         if drops:
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(self.seed * 1_000_003 + epoch + (1 << 40))
+            gen.manual_seed(self.seed * 1_000_003 + epoch + (1 << 40) + self._stream_offset())
             for m in drops:
                 m.generator = gen
 
-    def _upload(self, batch: dict):
+    def _upload(self, batch: dict, share: bool = False):
         """A loader batch on the device: the image, the targets concatenated
-        along channels and, with a join, the prev image."""
+        along channels and, with a join, the prev image; with ``share``,
+        this rank's slice of each."""
         target = np.concatenate([batch[k] for k in self.layout.names], 1)
-        return tuple(torch.from_numpy(a).to(self.device) for a in
-                     [batch[self.input_key], target] + [batch[k] for k in self.input_keys[1:]])
+        arrays = [batch[self.input_key], target] + [batch[k] for k in self.input_keys[1:]]
+        if share:
+            arrays = [data_sharding(self.mesh, a.ndim).local(a) for a in arrays]
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays)
 
     def _batches(self, epoch: int):
         """((image[, prev]), {target: tensor}) training batches of one epoch,
         on the device."""
         gen = self._augment_generator(epoch) if self.device_augment else None
+        # the replicated layouts draw for the global batch, each rank its rows
+        part = (self._n_data, self._d) if self._global_batch else None
 
         def augment(image, target, *prev, index=None):
             with torch.profiler.record_function("augment"):
                 if self.multi_output:
                     image, targets = augment_batch_heads(gen, image, target, index=index,
-                                                         layout=self.layout)
+                                                         layout=self.layout, part=part)
                     return (image,), targets
                 if prev:  # K4's pair form: image and prev take one draw
                     image, mask, p = augment_batch(gen, image, target, index=index,
-                                                   prev=prev[0])
+                                                   prev=prev[0], part=part)
                     return (image, p), {"mask": mask}
-                image, mask = augment_batch(gen, image, target, index=index)
+                image, mask = augment_batch(gen, image, target, index=index, part=part)
                 return (image,), {"mask": mask}
 
         def plain(image, target, *prev, index=None):
@@ -568,14 +699,12 @@ class Trainer:
 
         step = augment if gen is not None else plain
         if self._device_data is not None:
-            n_steps = self._n_train // self.batch_size
-            perm = self._train_rng.permutation(self._n_train)[: n_steps * self.batch_size]
-            rows = torch.from_numpy(perm.reshape(n_steps, self.batch_size)).to(self.device)
+            rows = torch.from_numpy(np.ascontiguousarray(self._draw_epoch_order())).to(self.device)
             for idx in rows:
                 yield step(*self._device_data, index=idx)
             return
         for batch in self.train_loader:
-            yield step(*self._upload(batch))
+            yield step(*self._upload(batch, share=self.mesh.distributed))
 
     def _iterate_train(self, epoch: int) -> float:
         print(f"\nStarting training epoch {epoch} ...")
@@ -584,7 +713,10 @@ class Trainer:
         losses = [self._train_step(inputs, batch) for inputs, batch in self._batches(epoch)]
         if not losses:
             return float("nan")
-        return float(torch.stack(losses).mean())
+        loss = torch.stack(losses).mean()
+        if self.mesh.distributed and not self._global_batch:  # sharded: this rank's losses
+            loss = self.mesh.all_reduce(loss) / self._n_data
+        return float(loss)
 
     @torch.no_grad()
     def _iterate_val(self, epoch: int) -> float:
@@ -594,10 +726,17 @@ class Trainer:
         for batch in self.val_loader:
             image, target, *prev = self._upload(batch)
             targets = self.layout.split(target)
-            outputs = self._forward((image, *prev))
+            inputs = (image, *prev)
+            if self.mesh.distributed and image.shape[0] % self._n_data == 0:
+                # this rank's slice of the batch, the outputs gathered (JAX
+                # shards a dividing batch and replicates the rest, :540-547)
+                outputs = gather_rows(self._forward([data_sharding(self.mesh, x.dim()).local(x)
+                                                     for x in inputs]), self.mesh)
+            else:
+                outputs = self._forward(inputs)
             losses.append(self._compute_loss(outputs, targets, train=False))
             last = (image, targets, outputs)
-        if self.log_images and last is not None:
+        if self.log_images and self._writes and last is not None:
             self._plot_validation(epoch, *last)
         return float(torch.stack(losses).mean()) if losses else float("nan")
 
@@ -647,6 +786,9 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _save(self, path: str, epoch: int) -> None:
+        """Write a checkpoint (rank 0 only: every rank holds the same state)."""
+        if not self._writes:
+            return
         meta = {**self.params_meta, "scheduler_state": self.scheduler.state()}
         if path.endswith(".ckpt"):
             checkpoint.save_native(path, self.model.state_dict(), meta, epoch=epoch,
@@ -697,7 +839,8 @@ class Trainer:
             emergency = os.path.join(self.save_dir, f"model_interrupted{self.suffix}")
             try:
                 self._save(emergency, self._epoch_reached)
-                print(f"\nInterrupted — state saved to {emergency}")
+                if self._writes:
+                    print(f"\nInterrupted — state saved to {emergency}")
             except Exception as save_err:
                 print(f"\nInterrupted — emergency checkpoint failed: {save_err}")
             raise
@@ -722,9 +865,10 @@ class Trainer:
             dt = time.time() - t0
             print(f"\nEpoch {epoch} completed in {dt:.2f} seconds "
                   f"(train {train_loss:.5f}, val {val_loss:.5f})")
-            with open(self.metrics_path, "a", newline="") as fh:
-                csv.writer(fh).writerow([epoch, train_loss, val_loss, self.lr * lr_scale,
-                                         round(dt, 2)])
+            if self._writes:
+                with open(self.metrics_path, "a", newline="") as fh:
+                    csv.writer(fh).writerow([epoch, train_loss, val_loss, self.lr * lr_scale,
+                                             round(dt, 2)])
             if self.writer is not None:
                 self.writer.add_scalar("Loss/train", train_loss, epoch)
                 self.writer.add_scalar("Loss/val", val_loss, epoch)
@@ -740,7 +884,7 @@ class Trainer:
             if self.save_iter:
                 self._save(os.path.join(self.save_dir, f"model_epoch_{epoch}{self.suffix}"),
                            epoch + 1)
-            if test_data_path is not None:
+            if test_data_path is not None and self._writes:
                 self._predict_test_folder(epoch, test_data_path, result_path, test_resize_dim)
 
     def _predict_test_folder(self, epoch, test_data_path, result_path, resize_dim):

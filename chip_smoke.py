@@ -407,7 +407,31 @@ without printing a result:
 35. histogram oracle — B3, the 256-bin histogram bounds
    (``ops.histogram.u8_clip_bounds``, plain PyTorch) on the card, bit-equal
    to K1 on ``[kernels]``'s uint8 chunk and on skewed frames, its time
-   beside K1's; the kernels' JSON line, then the last line
+   beside K1's;
+36. mesh — multi-device on ``torch.distributed``, as one card allows: a
+   world of one rank through NCCL (``parallel.initialize_distributed``,
+   in-process, its set-up time printed; the group destroyed in a
+   ``finally``).  ``unet.Predict(mesh=get_mesh())`` at ``[main]``'s width
+   (the 64×1024² uint8 movie, 256² tiles, ``Unet(32)``, bf16, fused): the
+   mask byte-equal to ``mesh=None``'s, K1, K2 and K3 4 launches each and
+   nothing else, both wall times; the same with ``quantized=True``
+   (byte-equal); config 2's ``Trainer`` (``Unet(32)``, 256², batch 12,
+   ``device_augment``, 2 epochs) with ``mesh=get_mesh()`` and
+   ``device_cache=True`` and ``"sharded"`` against ``mesh=None``:
+   ``metrics.csv`` within rtol 1e-3 (the largest difference printed), the
+   warm step's time of each, and the cross-rank BatchNorm against cuDNN's
+   within 1e-5 of each output's largest value at config 2's first
+   BatchNorm;
+   ``predict_frames_spatial_sharded`` on 16 of the 1024² frames (halo 128,
+   bf16 ``Unet(32)``) and ``predict_volume_spatial_sharded`` on a
+   (32, 512, 512) volume (``UNet3D(32)``, halo 64): rows farther than the
+   halo from the border against the unsharded folded forward on the same
+   input (bf16: JAX's fused-vs-host contract, cuDNN choosing its algorithms
+   by shape; the same in float32 with TF32 off, 4 frames: within one level
+   on ≤ 0.1%), their times; and ``PredictMultiOutput``, ``siam_unet.Predict``,
+   ``Predict3D`` and ``PredictMultiOutput3D`` at smaller depths of their
+   phases' shapes, each equal to ``mesh=None``'s; then the kernels' JSON
+   line, and the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
@@ -541,6 +565,7 @@ def main() -> int:
     run("cli", phase_cli, torch, dev, kernels, k4, kind)
     run("recipes", phase_recipes, torch)
     run("histogram oracle", phase_histogram_oracle, torch, dev)
+    run("mesh", phase_mesh, torch, dev, kernels)
     for k in kernels:
         # a timing-only row (a shape no path runs) reports 0 launches; its
         # kernel must be launched on a path all the same
@@ -1275,9 +1300,10 @@ def config2_trainer(data, out: Path, epochs: int, **kw):
     from bio_image_unet_tpu_torch import unet
 
     kw.setdefault("save_name", "model.pt")
+    kw.setdefault("device_cache", True)
     return unet.Trainer(data, epochs, n_filter=N_FILTER, batch_size=TRAIN_BATCH, lr=TRAIN_LR,
-                        save_dir=str(out), seed=0, half_precision=True, device_cache=True,
-                        device_augment=True, **kw)
+                        save_dir=str(out), seed=0, half_precision=True, device_augment=True,
+                        **kw)
 
 
 def metrics_rows(out: Path) -> np.ndarray:
@@ -5696,6 +5722,276 @@ def phase_histogram_oracle(torch, dev) -> None:
         log(f"[histogram oracle] {name} uint8 {CHUNK}×{H}×{W}: u8_clip_bounds bit-equal to K1; "
             f"oracle {timer(lambda: hist.u8_clip_bounds(x, *qs), 5):.4f} ms, K1 "
             f"{timer(lambda: hist.int_clip_bounds(x, *qs)):.4f} ms")
+
+
+
+# --- 36. mesh -------------------------------------------------------------------
+
+# the whole volume of [mesh]'s predict_volume_spatial_sharded
+SHARDED_VOLUME = (32, 512, 512)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def best_of(n: int, call) -> tuple:
+    """``call()`` ``n`` times: (its last result, the best wall time)."""
+    best, out = float("inf"), None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = call()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def phase_mesh(torch, dev, kernels) -> None:
+    """Multi-device on one card: NCCL at a world of one, every mesh path
+    against ``mesh=None``."""
+    import torch.distributed as dist
+
+    from bio_image_unet_tpu_torch import siam_unet, unet
+    from bio_image_unet_tpu_torch.data import tiff
+    from bio_image_unet_tpu_torch.ops import histogram as hist
+    from bio_image_unet_tpu_torch.ops.stitch import sigmoid_stitch
+    from bio_image_unet_tpu_torch.parallel import get_mesh, initialize_distributed
+    from bio_image_unet_tpu_torch.predict import (Predict3D, PredictMultiOutput,
+                                                  PredictMultiOutput3D,
+                                                  predict_frames_spatial_sharded,
+                                                  predict_volume_spatial_sharded)
+    from bio_image_unet_tpu_torch.predict.normalize import _normalize_stack, normalize_tile
+    from bio_image_unet_tpu_torch.predict.sharded import _quantize, _resolve_forward
+
+    counters = list({id(k["_counter"]): k["_counter"] for k in kernels}.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the Trainer's mesh=None takes the default mesh of a process group
+        # once there is one: its plain run comes first
+        data = config2_data(tmp / "train")
+        plain = _mesh_train_run(torch, data, tmp / "train_plain", {})
+        t0 = time.perf_counter()
+        initialize_distributed(backend="nccl", rank=0, world_size=1,
+                               init_method=f"tcp://127.0.0.1:{_free_port()}")
+        try:
+            mesh = get_mesh()
+            log(f"[mesh] NCCL world of 1 and its mesh {mesh.shape} in "
+                f"{time.perf_counter() - t0:.3f} s (init_process_group, new_group × 2)")
+            _mesh_predict(torch, tmp, mesh, counters, unet, hist, normalize_tile, sigmoid_stitch)
+            _mesh_train(torch, data, tmp, mesh, plain)
+            _mesh_sharded(torch, dev, tmp, mesh, predict_frames_spatial_sharded,
+                          predict_volume_spatial_sharded, _normalize_stack, _quantize,
+                          _resolve_forward)
+            _mesh_classes(torch, tmp, mesh, PredictMultiOutput, siam_unet, tiff, Predict3D,
+                          PredictMultiOutput3D)
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_predict(torch, tmp, mesh, counters, unet, hist, normalize_tile, sigmoid_stitch):
+    """``[main]``'s call with and without the mesh, float and int8."""
+    movie = np.random.default_rng(0).integers(0, 255, (FRAMES, H, W), dtype=np.uint8)
+    ckpt = str(tmp / "unet_nf32.pt")
+    write_checkpoint(torch, ckpt, "Unet", N_FILTER, out_channels=1)
+    kw = dict(resize_dim=(TILE, TILE), show_progress=False, batch_size=8, half_precision=True)
+    chunks = FRAMES // CHUNK
+    expect = {hist.int_clip_bounds: hist.LAUNCHES[torch.uint8] * chunks,
+              normalize_tile: chunks, sigmoid_stitch: chunks}
+    plain, t_plain = best_of(3, lambda: unet.Predict(movie, None, ckpt, **kw).result)
+    meshed, _ = counted(torch, "mesh", counters, "unet.Predict(mesh=get_mesh())",
+                        lambda: unet.Predict(movie, None, ckpt, mesh=mesh, **kw).result, expect)
+    meshed, t_mesh = best_of(2, lambda: unet.Predict(movie, None, ckpt, mesh=mesh, **kw).result)
+    if not np.array_equal(meshed, plain):
+        raise AssertionError("[mesh] Predict(mesh=get_mesh()) differs from mesh=None")
+    log(f"[mesh] unet.Predict {FRAMES}×{H}×{W} uint8, {TILE}², bf16: mesh=get_mesh() "
+        f"byte-equal to mesh=None; {t_mesh:.3f} s against {t_plain:.3f} s "
+        f"({t_mesh / t_plain:.3f}×; {FRAMES * H * W / 1e6 / t_mesh:.2f} against "
+        f"{FRAMES * H * W / 1e6 / t_plain:.2f} MP/s end to end)")
+    q_plain, tq_plain = best_of(2, lambda: unet.Predict(movie, None, ckpt, quantized=True,
+                                                        **kw).result)
+    q_mesh, tq_mesh = best_of(2, lambda: unet.Predict(movie, None, ckpt, quantized=True,
+                                                      mesh=mesh, **kw).result)
+    if not np.array_equal(q_mesh, q_plain):
+        raise AssertionError("[mesh] int8 Predict(mesh=get_mesh()) differs from mesh=None")
+    log(f"[mesh] unet.Predict(quantized=True): mesh=get_mesh() byte-equal to mesh=None; "
+        f"{tq_mesh:.3f} s against {tq_plain:.3f} s")
+
+
+def _mesh_train_run(torch, data, out: Path, kw: dict) -> tuple:
+    """Config 2's Trainer for 2 epochs: its rows and its warm step's ms."""
+    steps = (len(data) - int(np.ceil(len(data) * 0.2))) // TRAIN_BATCH
+    t = config2_trainer(data, out, 2, **kw)
+    t.start()
+    torch.cuda.synchronize()
+    return metrics_rows(out), t.history[-1]["train_seconds"] / steps * 1e3
+
+
+def _mesh_batchnorm(torch, mesh):
+    """``CrossRankBatchNorm`` on the card at the world of one against
+    ``nn.BatchNorm2d`` (cuDNN) on config 2's first BatchNorm input: forward,
+    input and affine gradients and running statistics within float32
+    rounding (1e-5 of each one's largest value)."""
+    from bio_image_unet_tpu_torch.parallel.batchnorm import CrossRankBatchNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (TRAIN_BATCH, N_FILTER, TILE, TILE)
+    x, dy = (torch.randn(shape, generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    x = x * 2 + 0.5
+    w = torch.rand(N_FILTER, generator=gen, device="cuda") + 0.5
+    b = torch.randn(N_FILTER, generator=gen, device="cuda")
+    outs = []
+    for cross in (False, True):
+        bn = torch.nn.BatchNorm2d(N_FILTER).cuda().train()
+        with torch.no_grad():
+            bn.weight.copy_(w)
+            bn.bias.copy_(b)
+        if cross:
+            bn = CrossRankBatchNorm(bn, mesh.group("data"))
+        xi = x.clone().requires_grad_()
+        y = bn(xi)
+        y.backward(dy)
+        outs.append({"y": y, "dx": xi.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+                     "running_mean": bn.running_mean, "running_var": bn.running_var})
+    worst = {}
+    for k, ref in outs[0].items():
+        # normwise: the largest difference over the largest value (a sum of
+        # 786k float32 terms moves its own last bits with the order)
+        worst[k] = float((outs[1][k] - ref).abs().max() / ref.abs().max())
+        if worst[k] > 1e-5:
+            raise AssertionError(f"[mesh] CrossRankBatchNorm {k} beyond 1e-5 of "
+                                 f"nn.BatchNorm2d's largest value: {worst[k]:.2e}")
+    log(f"[mesh] CrossRankBatchNorm (NCCL, world of one) against nn.BatchNorm2d (cuDNN) on "
+        f"{shape} float32 channels_last: largest difference over the largest value "
+        + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()) + " (≤ 1e-5)")
+
+
+def _mesh_train(torch, data, tmp, mesh, plain):
+    """Config 2's Trainer with the mesh (both cache modes) against its plain
+    run (``plain``: made before the process group).  The rows are held to
+    rtol 1e-3, the contract of a bf16 run computed another way (``[train
+    options]``' remat, card against CPU): at the world of one the
+    replicated layout runs the cross-rank BatchNorm in place of cuDNN's,
+    and a last-bit change of a statistic moves bf16 roundings downstream."""
+    _mesh_batchnorm(torch, mesh)
+    runs = {"mesh=None": plain}
+    for name, kw in (("mesh=get_mesh(), device_cache=True", {"mesh": mesh}),
+                     ("mesh=get_mesh(), device_cache='sharded'",
+                      {"mesh": mesh, "device_cache": "sharded"})):
+        runs[name] = _mesh_train_run(torch, data, tmp / f"train_{len(runs)}", kw)
+    ref, ref_ms = plain
+    for name, (rows, ms) in runs.items():
+        rel = np.abs(rows[:, 1:3] - ref[:, 1:3]) / np.abs(ref[:, 1:3])
+        log(f"[mesh] Trainer {name}: losses {rows[:, 1:3].round(6).tolist()}, max relative "
+            f"difference from mesh=None {rel.max():.2e}; warm step {ms:.2f} ms "
+            f"({ms / ref_ms:.3f}× mesh=None's)")
+        if rel.max() > 1e-3:
+            raise AssertionError(f"[mesh] Trainer {name}: metrics.csv beyond rtol 1e-3 of "
+                                 "mesh=None")
+
+
+def _mesh_sharded(torch, dev, tmp, mesh, frames_fn, volume_fn, normalize, quantize, resolve):
+    """The whole-frame sharded predictors against the unsharded folded
+    forward on the same input, rows past the halo: in bf16 (the main path's
+    ``Unet(32)`` and ``UNet3D(32)``; cuDNN picks its algorithms by shape, and
+    the halo-padded input is taller, so bf16 roundings move: JAX's bf16
+    fused-vs-host contract, < 1% beyond one level, at most 16) and in float32
+    with TF32 off (within one level on ≤ 0.1%)."""
+    def interior(tag, got, ref, halo, bf16):
+        diff = np.abs(got[:, halo:-halo].astype(np.int16) - ref[:, halo:-halo].astype(np.int16))
+        beyond = float(np.mean(diff > 1))
+        log(f"[mesh] {tag}: rows past the halo against the unsharded folded forward: "
+            f"{np.count_nonzero(diff) / diff.size:.6f} of the values differ, "
+            f"{beyond:.6f} by more than one level, max {int(diff.max())}")
+        ok = (beyond < 0.01 and diff.max() <= 16) if bf16 else \
+            (diff.max() <= 1 and np.mean(diff > 0) <= 1e-3)
+        if not ok:
+            raise AssertionError(f"[mesh] {tag}: beyond the contract of the unsharded forward")
+
+    def check(tag, fn, ckpt, x, halo, frames, bf16):
+        got, dt = best_of(2, lambda: fn(x, ckpt, mesh, halo=halo, half_precision=bf16))
+        _, fwd = resolve(ckpt, None, bf16, dev)
+        if frames:
+            norm = normalize(x, "single", (0.0, 99.8)).astype(np.uint8)[:, None]
+        else:
+            norm = normalize(x[None], "all", (0.0, 99.8))[0].astype(np.uint8)[None, None]
+        ref = quantize(fwd(torch.from_numpy(norm.astype(np.float32) / 255.0).to(dev)))
+        ref = ref[:, 0] if frames else ref[0, 0]
+        interior(f"{tag}, halo {halo}, {'bf16' if bf16 else 'float32'}, {dt:.3f} s", got, ref,
+                 halo, bf16)
+
+    rng = np.random.default_rng(1)
+    frames = rng.integers(0, 255, (CHUNK, H, W), dtype=np.uint8)
+    vol = rng.integers(0, 255, SHARDED_VOLUME, dtype=np.uint8)
+    ckpt, ck3 = str(tmp / "unet_nf32_sharded.pt"), str(tmp / "unet3d_nf32.pt")
+    write_checkpoint(torch, ckpt, "Unet", N_FILTER, out_channels=1)
+    write_checkpoint(torch, ck3, "UNet3D", VOL_FILTER, seed=5)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for bf16 in (True, False):
+            n = CHUNK if bf16 else 4
+            check(f"predict_frames_spatial_sharded {n}×{H}×{W} Unet({N_FILTER})", frames_fn,
+                  ckpt, frames[:n], 128, True, bf16)
+            check(f"predict_volume_spatial_sharded {SHARDED_VOLUME} UNet3D({VOL_FILTER})",
+                  volume_fn, ck3, vol, 64, False, bf16)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _mesh_classes(torch, tmp, mesh, PredictMultiOutput, siam_unet, tiff, Predict3D,
+                  PredictMultiOutput3D):
+    """The other four Predict classes at smaller depths of their phases'
+    shapes, each with the mesh equal to without."""
+    rng = np.random.default_rng(2)
+
+    def same(tag, a, b):
+        for key in (a if isinstance(a, dict) else [None]):
+            x, y = (a, b) if key is None else (a[key], b[key])
+            if not np.array_equal(x, y):
+                raise AssertionError(f"[mesh] {tag}{'' if key is None else ' ' + key}: "
+                                     "mesh=get_mesh() differs from mesh=None")
+        log(f"[mesh] {tag}: mesh=get_mesh() equal to mesh=None")
+
+    nested = str(tmp / "nested.pt")
+    write_checkpoint(torch, nested, "MultiOutputNestedUNet", HEADS_FILTER, output_heads=MO_HEADS)
+    movie = rng.integers(0, 255, (CHUNK, H, W), dtype=np.uint8)
+    kw = dict(max_patch_size=(HEADS_PATCH, HEADS_PATCH), safe_margin=HEADS_MARGIN,
+              half_precision=True, show_progress=False)
+    same(f"PredictMultiOutput UNet++({HEADS_FILTER}) {CHUNK}×{H}×{W}",
+         PredictMultiOutput(movie, nested, mesh=mesh, **kw).result,
+         PredictMultiOutput(movie, nested, **kw).result)
+
+    siam = str(tmp / "siam.pt")
+    write_checkpoint(torch, siam, "Siam_UNet", SIAM_FILTER, seed=20, mode="max")
+    src = str(tmp / "siam.tif")
+    tiff.imwrite(src, rng.integers(0, 255, (SIAM_CHUNK, H, W), dtype=np.uint8))
+    skw = dict(resize_dim=(TILE, TILE), half_precision=True, show_progress=False,
+               frames_per_chunk=SIAM_CHUNK)
+    siam_unet.Predict(src, str(tmp / "siam_mesh.tif"), siam, mesh=mesh, **skw)
+    siam_unet.Predict(src, str(tmp / "siam_plain.tif"), siam, **skw)
+    same(f"siam_unet.Predict Siam_UNet({SIAM_FILTER}, max) {SIAM_CHUNK}×{H}×{W}",
+         tiff.imread(str(tmp / "siam_mesh.tif")), tiff.imread(str(tmp / "siam_plain.tif")))
+
+    ck3 = str(tmp / "unet3d_classes.pt")
+    write_checkpoint(torch, ck3, "UNet3D", VOL_FILTER, seed=5)
+    vol = rng.integers(0, 255, (VOL_D, VOL_H, VOL_W), dtype=np.uint8)
+    vkw = dict(resize_dim=VOL_TILE, batch_size=VOL_BATCH, half_precision=True,
+               show_progress=False)
+    same(f"Predict3D UNet3D({VOL_FILTER}) {VOL_D}×{VOL_H}×{VOL_W}",
+         Predict3D(vol, None, ck3, mesh=mesh, **vkw).result,
+         Predict3D(vol, None, ck3, **vkw).result)
+
+    mo3 = str(tmp / "mo3d.pt")
+    write_checkpoint(torch, mo3, "MultiOutputUnet3D", VOL_FILTER, seed=8, output_heads=MO_HEADS)
+    vols = rng.integers(0, 255, (2, VOL_D, VOL_H, VOL_W), dtype=np.uint8)
+    hkw = dict(half_precision=True, show_progress=False)
+    same(f"PredictMultiOutput3D MultiOutputUnet3D({VOL_FILTER}) 2×{VOL_D}×{VOL_H}×{VOL_W}",
+         PredictMultiOutput3D(vols, mo3, mesh=mesh, **hkw).result,
+         PredictMultiOutput3D(vols, mo3, **hkw).result)
 
 
 if __name__ == "__main__":

@@ -436,8 +436,13 @@ def test_predict_3d_tif_io_facade_and_refusals(ckpts, rng, tmp_path):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Predict3D(vol, None, path, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from bio_image_unet_tpu_torch.parallel import get_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
         Predict3D(vol, None, path, mesh=object(), device="cpu", **kw)
+    np.testing.assert_array_equal(Predict3D(vol, None, path, mesh=get_mesh(), device="cpu",
+                                            **kw).result,
+                                  Predict3D(vol, None, path, device="cpu", **kw).result)
     # the transposed-conv UNet3D quantizes on quantized=True, as in JAX: the
     # engine calibrates on the volume and runs the int8 forward
     q = Predict3D(vol, None, path, quantized=True, device="cpu", **kw)

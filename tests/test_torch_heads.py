@@ -686,8 +686,13 @@ def test_predict_multi_output_device_rule_and_refusals(ckpts, rng):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PredictMultiOutput(movie, path, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from bio_image_unet_tpu_torch.parallel import get_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
         PredictMultiOutput(movie, path, mesh=object(), device="cpu", **kw)
+    one = PredictMultiOutput(movie, path, mesh=get_mesh(), device="cpu", **kw).result
+    for key, v in PredictMultiOutput(movie, path, device="cpu", **kw).result.items():
+        np.testing.assert_array_equal(one[key], v)
     # int8 prediction of MultiOutputUnet is ported
     assert PredictMultiOutput(movie, path, quantized=True, device="cpu", **kw).engine._quant_ready
     with pytest.raises(ValueError, match="not valid"):

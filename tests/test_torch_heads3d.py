@@ -353,8 +353,13 @@ def test_predict_multi_output_3d_blockers_batch_policy_and_refusals(ckpts, rng, 
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PredictMultiOutput3D(vols, path, **{**kw, "device": None})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from bio_image_unet_tpu_torch.parallel import get_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
         PredictMultiOutput3D(vols, path, mesh=object(), **kw)
+    one = PredictMultiOutput3D(vols, path, mesh=get_mesh(), **kw).result
+    for key, v in PredictMultiOutput3D(vols, path, **kw).result.items():
+        np.testing.assert_array_equal(one[key], v)
     # MultiOutputUnet3D's int8 graph is experimental in the JAX package: a warning and
     # the float path, as there; opted in, the fused path calibrates and runs int8
     monkeypatch.delenv("BIU_INT8_EXPERIMENTAL", raising=False)

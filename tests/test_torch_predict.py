@@ -134,8 +134,14 @@ def test_predict_without_device_never_runs_silently_on_cpu(ckpt, rng):
 def test_predict_later_slice_options_raise(ckpt, rng):
     movie = _movie(rng, np.uint8, (1, 32, 32))
     kw = dict(resize_dim=(32, 32), show_progress=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is ported: what is not a mesh is refused by name, and the mesh of
+    # one (no process group) predicts what no mesh does
+    from bio_image_unet_tpu_torch.parallel import get_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
         Predict(movie, None, ckpt, mesh=object(), **kw)
+    np.testing.assert_array_equal(Predict(movie, None, ckpt, mesh=get_mesh(), **kw).result,
+                                  Predict(movie, None, ckpt, **kw).result)
     # int8 prediction is ported: quantized=True calibrates and runs the int8 trunk
     assert Predict(movie, None, ckpt, quantized=True, **kw).engine._quant_ready
     with pytest.raises(ValueError, match="not valid"):

@@ -215,8 +215,14 @@ def test_device_rule_and_refusals(tmp_path, ckpts):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             siam_unet.Predict(src, out, ckpts["max"], **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    from bio_image_unet_tpu_torch.parallel import get_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
         siam_unet.Predict(src, out, ckpts["max"], mesh=object(), device="cpu", **kw)
+    siam_unet.Predict(src, out, ckpts["max"], device="cpu", **kw)
+    plain = tiff.imread(out)
+    siam_unet.Predict(src, out, ckpts["max"], mesh=get_mesh(), device="cpu", **kw)
+    np.testing.assert_array_equal(tiff.imread(out), plain)
     # int8 prediction of the max join is ported
     assert siam_unet.Predict(src, out, ckpts["max"], quantized=True, device="cpu",
                              **kw).engine._quant_ready

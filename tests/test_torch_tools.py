@@ -29,19 +29,16 @@ from bio_image_unet_tpu_torch.ops import stitch as tstitch
 from bio_image_unet_tpu_torch.utils.kernel_ab_times import microscopy_frames
 from torch_parity import write_seeded_checkpoint  # noqa: F401  (one torch thread)
 
-# names of the JAX package that the port does not have (yet), by subpackage:
-# JAX-only helpers, the flax modules of ops that have no torch counterpart,
-# and the multi-device surface that the multi-device slice ports
-# (predict.sharded here; parallel and testing are not compared until then)
+# names of the JAX package that the port does not have, by subpackage:
+# JAX-only helpers and the flax modules of ops that have no torch counterpart
 JAX_ONLY = {
     "models": {"UNet2DBase"},
     "ops": {"FirstVGGBlock", "TorchBatchNorm"},
-    "predict": {"predict_frames_spatial_sharded", "predict_volume_spatial_sharded"},
     "utils": {"enable_compilation_cache", "init_weights"},
 }
-SUBPACKAGES = ["", "checkpoint", "data", "interop", "losses", "models", "ops", "predict",
-               "progress", "train", "tools", "utils", "unet", "siam_unet", "unet3d",
-               "multi_output_unet", "multi_output_unet3d"]
+SUBPACKAGES = ["", "checkpoint", "data", "interop", "losses", "models", "ops", "parallel",
+               "predict", "progress", "testing", "train", "tools", "utils", "unet", "siam_unet",
+               "unet3d", "multi_output_unet", "multi_output_unet3d"]
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES, ids=[s or "top" for s in SUBPACKAGES])

@@ -241,9 +241,18 @@ def test_trainer_device_rule_and_unported_options(tmp_path):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="auto")
-    for kw in ({"mesh": object()}, {"device_cache": "sharded"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu", **kw)
+    # mesh= is ported: what is not a mesh is refused by name; the mesh of one
+    # (no process group) trains, device_cache="sharded" on it too
+    from bio_image_unet_tpu_torch.parallel import get_mesh as port_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
+        Trainer(data, 1, n_filter=4, save_dir=str(tmp_path), device="cpu", mesh=object())
+    for cache in (False, "sharded"):
+        t = Trainer(BlobTiles("chw"), 1, n_filter=4, save_dir=str(tmp_path / f"one_{cache}"),
+                    device="cpu", mesh=port_mesh(), device_cache=cache)
+        assert t.mesh.shape == {"data": 1, "spatial": 1} and not t.mesh.distributed
+        t.start()
+        assert np.isfinite(t.history[-1]["train_loss"])
     # AttentionUnet and the legacy models train
     for network in ("AttentionUnet", "Unet_v0", "BabyUnet"):
         assert Trainer(data, 1, network=network, n_filter=4, save_dir=str(tmp_path),

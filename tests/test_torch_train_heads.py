@@ -430,9 +430,15 @@ def test_facade_defaults_and_logging(tmp_path):
 
 def test_unported_and_invalid_options(tmp_path):
     data = HeadTiles("chw", n=4)
-    for kw in ({"mesh": object()}, {"device_cache": "sharded"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _port_trainer(tmp_path, data, **kw)
+    # mesh= is ported: what is not a mesh is refused by name; the mesh of one
+    # (no process group) builds the Trainer, device_cache="sharded" on it too
+    from bio_image_unet_tpu_torch.parallel import get_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
+        _port_trainer(tmp_path, data, mesh=object())
+    for cache in (False, "sharded"):
+        t = _port_trainer(tmp_path, data, mesh=get_mesh(), device_cache=cache)
+        assert t.mesh.shape == {"data": 1, "spatial": 1} and not t.mesh.distributed
     # the siamese join is ported, for networks that have one
     with pytest.raises(ValueError, match="siamese join"):
         _port_trainer(tmp_path, data, mode="max")
