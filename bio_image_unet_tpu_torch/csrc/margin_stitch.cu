@@ -69,12 +69,31 @@
 // The JAX program runs the whole movie at once and averages every real head
 // tile; the port runs 16-frame chunks, so each chunk adds the sum of its real
 // tiles (not the tail chunk's repeated frames, not the batch padding) into a
-// float64 total and the mean is taken after the last chunk.  Pass 1: each
-// block sums a grid-stride share in float64 and reduces it in shared memory
-// to one partial; pass 2: one block adds the partials in a fixed tree order,
-// so the result does not depend on scheduling.  (Float16 values summed in
-// float64 are exact for any realistic magnitude and count.)  Bound by bytes:
-// it reads the real tiles once.
+// float64 total and the mean is taken after the last chunk.  What bounds it:
+// bytes (it reads the real tiles once: 33.5 MB for one channel of a chunk,
+// 0.010 ms at 3.35 TB/s), and a reduction of one value a load keeps few of
+// them in flight.  The design (tile_sum<LOADS>, one launch):
+// - Wide loads, many in flight: a thread issues K5S_LOADS = 4 16-byte loads
+//   (8 values each) before it adds any, in about four 256-thread blocks an SM
+//   (>= 8 MB in flight across the card).  The head before the first 16-byte
+//   boundary and the ragged tail (each under 8 values) go to a lane each of
+//   the first threads (ops/stitch.py _k5s_geometry lays it out).
+// - Exact in any order, cheap per value: a float16 value times 2^24 is an
+//   integer below 2^40 with 11 significant bits.  Two float32 fused
+//   multiply-adds and a subtraction split it exactly into a multiple of 2^20
+//   and a remainder below 2^19, and float32 sums of 8 of each are exact; the
+//   thread adds them into a float64 sum (exact: at most 4096 values a thread,
+//   below 2^52), two conversions a vector in place of one a value (64-bit
+//   conversions issue at a quarter of the float32 rate).  The threads' sums
+//   meet in a fixed order (a butterfly a warp, the warps in order, the blocks
+//   by a fixed share a thread), so the result is the exact sum wherever the
+//   float64 sum is exact, bit-equal to tiles[:n].double().sum().
+// - A non-finite value makes its vector's float32 sums non-finite; the vector
+//   then adds flags (NaN, +inf, -inf) in place of its sum, and the result is
+//   what IEEE addition gives: NaN, +inf or -inf.
+// - One launch: the last block to arrive (an arrival count in per-stream
+//   scratch, zero at rest and reset by that block, as K1's) adds the blocks'
+//   partials in a fixed order; a second launch for them costs a few us.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -411,48 +430,147 @@ inline bool stitch_grid(long long n_vc, int d, int h, long long* bands, long lon
   return *bands <= 65535 && n_vc * d <= 0x7FFFFFFFLL;
 }
 
-constexpr int kSumThreads = 256;
+// K5s: one launch, K5S_THREADS threads a block and `blocks` blocks (the
+// wrapper's _k5s_geometry); a thread sums the 16-byte vectors k, k + stride,
+// ... of the aligned body (stride = the launch's thread count), K5S_LOADS
+// loads in flight, and at most one value of the unaligned head and one of the
+// ragged tail.
+constexpr int K5S_THREADS = 256;
+constexpr int K5S_LOADS = 4;            // 16-byte loads in flight a thread
+constexpr int K5S_MAX_VECTORS = 511;    // vectors a thread: 8 * 511 + 2 values < 4096
+constexpr int K5S_NAN = 1, K5S_POS_INF = 2, K5S_NEG_INF = 4;  // non-finite values met
+constexpr float K5S_C = 0x1.8p43f;      // C + X lies in [2^43, 2^44): ulp 2^20
 
-__device__ __forceinline__ double block_sum(double s, double* buf) {
-  buf[threadIdx.x] = s;
+// the flag of a float16 pattern (bits) with exponent 31, else 0
+__device__ __forceinline__ int special_of(uint32_t bits) {
+  if ((bits & 0x7C00u) != 0x7C00u) return 0;
+  return (bits & 0x3FFu) ? K5S_NAN : ((bits & 0x8000u) ? K5S_NEG_INF : K5S_POS_INF);
+}
+
+__device__ __forceinline__ float2 halves(uint32_t u) {
+  __half2_raw r;
+  r.x = (unsigned short)(u & 0xFFFFu);
+  r.y = (unsigned short)(u >> 16);
+  return __half22float2(__half2(r));
+}
+
+// X = v * 2^24 (exact: an integer, |X| < 2^40, 11 significant bits) split
+// exactly into h = X rounded to a multiple of 2^20 and l = X - h (|l| <=
+// 2^19), added into float32 sums that stay exact over 8 values (|hs| <=
+// 2^43 in units of 2^20, |ls| <= 2^22)
+__device__ __forceinline__ void split_add(float v, float& hs, float& ls) {
+  const float h = __fsub_rn(__fmaf_rn(v, 0x1p24f, K5S_C), K5S_C);
+  ls = __fadd_rn(ls, __fmaf_rn(v, 0x1p24f, -h));
+  hs = __fadd_rn(hs, h);
+}
+
+// 8 values into the thread's sum s (units of 2^-24, exact below 2^53); a
+// vector that holds a non-finite value adds its flags instead (its float32
+// sums are then not finite: finite values keep them below 2^45)
+__device__ __forceinline__ void add_vector(const uint4& w, double& s, int& flags) {
+  float hs = 0.0f, ls = 0.0f;
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = halves(u[i]);
+    split_add(f.x, hs, ls);
+    split_add(f.y, hs, ls);
+  }
+  if (fabsf(__fadd_rn(hs, ls)) <= 0x1p64f) {
+    s += (double)hs;
+    s += (double)ls;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) flags |= special_of(u[i] & 0xFFFFu) | special_of(u[i] >> 16);
+  }
+}
+
+__device__ __forceinline__ void add_single(__half x, double& s, int& flags) {
+  const int sp = special_of(__half_as_ushort(x));
+  if (sp) {
+    flags |= sp;
+    return;
+  }
+  float hs = 0.0f, ls = 0.0f;
+  split_add(__half2float(x), hs, ls);
+  s += (double)hs;
+  s += (double)ls;
+}
+
+// the block's sum and flags in thread 0, in a fixed order: a butterfly in
+// each warp (every lane adds the same two values), then the warps in order
+__device__ __forceinline__ void block_total(double& s, int& flags, double* ws, int* wf) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
+  flags = __reduce_or_sync(0xFFFFFFFFu, (unsigned)flags);
+  if ((threadIdx.x & 31) == 0) {
+    ws[threadIdx.x >> 5] = s;
+    wf[threadIdx.x >> 5] = flags;
+  }
   __syncthreads();
-  for (int stride = kSumThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) buf[threadIdx.x] += buf[threadIdx.x + stride];
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    s = ws[0];
+    flags = wf[0];
+#pragma unroll
+    for (int k = 1; k < K5S_THREADS / 32; ++k) {
+      s += ws[k];
+      flags |= wf[k];
+    }
   }
-  return buf[0];
 }
 
-__global__ void tile_sum_partial(const __half* __restrict__ x, long long n,
-                                 double* __restrict__ partials) {
-  __shared__ double buf[kSumThreads];
-  const long long step = (long long)gridDim.x * kSumThreads;
-  // the pairs are read as __half2, which needs 4-byte alignment: a view that
-  // starts at an odd float16 offset sums its first value on its own
-  const int lead = (reinterpret_cast<uintptr_t>(x) & 3) ? 1 : 0;
-  const long long pairs = (n - lead) / 2;
-  const __half2* x2 = reinterpret_cast<const __half2*>(x + lead);
+// scratch[0]: the blocks arrived (zero at rest; the last block resets it);
+// scratch[1 + b]: block b's flags; partials[b]: block b's sum
+template <int LOADS>
+__global__ void __launch_bounds__(K5S_THREADS, 4)
+tile_sum(const __half* __restrict__ x, int head, long long n_vec, int tail,
+         double* __restrict__ partials, int* __restrict__ scratch, double* __restrict__ out) {
+  __shared__ double ws[K5S_THREADS / 32];
+  __shared__ int wf[K5S_THREADS / 32];
+  __shared__ int last;
+  const uint4* vec = reinterpret_cast<const uint4*>(x + head);
+  const long long stride = (long long)gridDim.x * K5S_THREADS;
+  const long long g = (long long)blockIdx.x * K5S_THREADS + threadIdx.x;
   double s = 0.0;
-  for (long long k = (long long)blockIdx.x * kSumThreads + threadIdx.x; k < pairs; k += step) {
-    const float2 v = __half22float2(x2[k]);
-    s += (double)v.x;
-    s += (double)v.y;
+  int flags = 0;
+  for (long long k = g; k < n_vec; k += LOADS * stride) {
+    uint4 w[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u)
+      w[u] = k + u * stride < n_vec ? __ldg(vec + k + u * stride) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) add_vector(w[u], s, flags);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    if (lead) s += (double)__half2float(x[0]);
-    if ((n - lead) & 1) s += (double)__half2float(x[n - 1]);
+  if (g < head) add_single(x[g], s, flags);
+  if (g < tail) add_single(x[head + 8 * n_vec + g], s, flags);
+  block_total(s, flags, ws, wf);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = s;
+    scratch[1 + blockIdx.x] = flags;
+    __threadfence();
+    last = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u) == gridDim.x - 1;
   }
-  const double b = block_sum(s, buf);
-  if (threadIdx.x == 0) partials[blockIdx.x] = b;
-}
-
-__global__ void tile_sum_final(const double* __restrict__ partials, int n_blocks,
-                               double* __restrict__ out) {
-  __shared__ double buf[kSumThreads];
-  double s = 0.0;
-  for (int k = threadIdx.x; k < n_blocks; k += kSumThreads) s += partials[k];
-  const double b = block_sum(s, buf);
-  if (threadIdx.x == 0) out[0] = b;
+  __syncthreads();
+  if (!last) return;
+  // the last block adds the partials, each thread a fixed share, L1 bypassed
+  __threadfence();
+  s = 0.0;
+  flags = 0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += K5S_THREADS) {
+    s += __ldcg(partials + b);
+    flags |= __ldcg(scratch + 1 + b);
+  }
+  block_total(s, flags, ws, wf);
+  if (threadIdx.x == 0) {
+    scratch[0] = 0;
+    const double inf = __longlong_as_double(0x7FF0000000000000LL);
+    if (flags & K5S_NAN || (flags & K5S_POS_INF && flags & K5S_NEG_INF))
+      out[0] = __longlong_as_double(0x7FF8000000000000LL);
+    else if (flags)
+      out[0] = flags & K5S_POS_INF ? inf : -inf;
+    else
+      out[0] = s * 0x1p-24;
+  }
 }
 
 extern "C" {
@@ -491,15 +609,19 @@ int k5_margin_stitch(const void* tiles, int n_frames, int C, int h, int w, int t
   return (int)cudaSuccess;
 }
 
-// x: n float16 values (any float16 offset); partials: n_blocks float64 scratch;
-// out: one float64, the sum.  Two launches on the stream.
-int k5s_tile_sum(const void* x, long long n, int n_blocks, void* partials, void* out,
-                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  tile_sum_partial<<<n_blocks, kSumThreads, 0, s>>>((const __half*)x, n, (double*)partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile_sum_final<<<1, kSumThreads, 0, s>>>((const double*)partials, n_blocks, (double*)out);
+// x: head + 8 * n_vec + tail float16 values, x + head 16-byte aligned where
+// n_vec > 0 (ops/stitch.py _k5s_geometry); partials: blocks float64;
+// scratch: 1 + blocks int32, scratch[0] zero at rest; out: one float64, the
+// sum.  One launch.
+int k5s_tile_sum(const void* x, int head, long long n_vec, int tail, int blocks,
+                 void* partials, void* scratch, void* out, void* stream) {
+  if (blocks < 1 || head < 0 || head > 7 || tail < 0 || tail > 7 || n_vec < 0 ||
+      (n_vec > 0 && ((reinterpret_cast<uintptr_t>(x) + 2 * head) & 15)) ||
+      (n_vec + (long long)blocks * K5S_THREADS - 1) / ((long long)blocks * K5S_THREADS) >
+          K5S_MAX_VECTORS)
+    return (int)cudaErrorInvalidValue;
+  tile_sum<K5S_LOADS><<<blocks, K5S_THREADS, 0, (cudaStream_t)stream>>>(
+      (const __half*)x, head, n_vec, tail, (double*)partials, (int*)scratch, (double*)out);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,7 @@
 // What bounds it on the card: bytes.  The least work reads each source pixel
 // once (16 MB for a (16, 1024, 1024) uint8 chunk) and writes each tile pixel
 // once (n_pad * th * tw bytes, 16 MB for the exact 256-tile grid).  The
-// kernel (normalize_tile<T, O, RUN>) writes every output byte once and reads
+// kernel (normalize_tile<T, O, RUN, false>) writes every output byte once and reads
 // the source directly; nothing intermediate touches device memory, and
 // overlapping tiles re-read source pixels from L2 (50 MB).  Its design
 // keeps the instructions a byte below what the bytes take:
@@ -54,15 +54,20 @@
 // batch padded by the last tile) and :1324-1340 (PredictMultiOutput3D's:
 // scale 1, per-volume or stack-global bounds, the tile in the working dtype).
 // The JAX program materialises the normalized float32 volume, the padded
-// volume and three axis gathers.  Here one thread makes VEC neighbouring
-// voxels of one tile row (z, x fixed, VEC consecutive y): it maps each
-// through the grid start and the reflect pad of each axis to its source
-// voxel and normalizes it with K2's float32 steps.  Bound by bytes: the least
-// work reads each source voxel once and writes each tile voxel once
-// (n_pad * tz * tx * ty * sizeof(out)); overlapping tiles re-read source
-// voxels from L2.
+// volume and three axis gathers.  A 3D tile (tz, tx, ty) is tz stacked 2D
+// (tx, ty) tiles of the planes reflect(zs[iz] + rz) of its volume, so K2v is
+// K2's kernel with a 3D row map (normalize_tile<T, O, RUN, true>: a tile row
+// R = rz * tx + rx, two divisions a run) and K2's design whole: a strip of
+// one tile a block (its volume, grid cell, bounds and table once a block,
+// 32-bit indices within the tile), 16 outputs a thread (one 16-byte store
+// for uint8, two for bf16, four for float32), 16-byte loads where a run lies
+// inside the volume (PredictMultiOutput3D's in-plane starts 0, 230 and 256:
+// 230 is 6 mod 16, so those runs shift two aligned chunks into place), uint8
+// volumes through the 256-level table, uint16 and float32 through NormRN.
+// Bound by bytes: the least work reads each source voxel once and writes
+// each tile voxel once (151 MB of bf16 for PredictMultiOutput3D's 18 tiles of
+// (64, 256, 256)); overlapping tiles re-read source voxels from L2.
 
-//
 // K2p is the Siam pair mode.  It replaces the pair stage of
 // bio_image_unet_tpu/predict/predictor.py:995-1010 (fused_predict_pairs:
 // _normalize_clip of the prev planes block[:-1] and the cur planes block[1:]
@@ -85,7 +90,9 @@ __device__ __forceinline__ void store(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
 
 // clip to [lo, hi], min-max to [0, scale], optionally invert: the float32
-// steps of _normalize_clip (predictor.py:203), each rounded once
+// steps of _normalize_clip (predictor.py:203), each rounded once.  Only K2p
+// (not redesigned) uses it: its __fdiv_rn keeps a slow-path call, which
+// NormRN (below) does without.
 struct Norm {
   float lo, hi, fmin, den, scale;
   bool span;
@@ -316,15 +323,21 @@ __device__ __forceinline__ void store_run(O* o, const O* res) {
   }
 }
 
-// O = uint8_t: K2 (scale 255, truncation); O = float or __nv_bfloat16: K2h
-// (scale 1).  Block b makes strip b % blocks_per_tile of tile b /
-// blocks_per_tile: its thread's runs start at elements (strip * iters + it) *
-// K2_THREADS * RUN + threadIdx.x * RUN of the tile (it < iters).
-template <typename T, typename O, int RUN>
+// O = uint8_t: K2 / K2v (scale 255, truncation); O = float or
+// __nv_bfloat16: K2h / K2v's float mode (scale 1).  Block b makes strip b %
+// blocks_per_tile of tile b / blocks_per_tile: its thread's runs start at
+// elements (strip * iters + it) * K2_THREADS * RUN + threadIdx.x * RUN of the
+// tile (it < iters).  VOL = false (K2): a tile is th rows of tw of frame f,
+// grid cell (i, j).  VOL = true (K2v): a tile (tz, th, tw) is tz stacked 2D
+// tiles, its row R = rz * th + rx from row reflect(xs[i] + rx) of plane
+// reflect(zs[iz] + rz) of volume v, grid cell (iz, i, j); d, zs, nz and tz
+// are read only there.
+template <typename T, typename O, int RUN, bool VOL>
 __global__ void __launch_bounds__(K2_THREADS)
-normalize_tile(const T* __restrict__ x, int H, int W, const float* __restrict__ bounds, int Fb,
-               const int* __restrict__ xs, const int* __restrict__ ys, int nx, int ny, int th,
-               int tw, long long n_real, int blocks_per_tile, int iters, int invert, float scale,
+normalize_tile(const T* __restrict__ x, int d, int H, int W, const float* __restrict__ bounds,
+               int Fb, const int* __restrict__ zs, const int* __restrict__ xs,
+               const int* __restrict__ ys, int nz, int nx, int ny, int tz, int th, int tw,
+               long long n_real, int blocks_per_tile, int iters, int invert, float scale,
                O* __restrict__ out) {
   static_assert(K2_THREADS == 256, "one table entry a thread");
   __shared__ __align__(16) unsigned char table_bytes[256 * sizeof(O)];
@@ -333,9 +346,15 @@ normalize_tile(const T* __restrict__ x, int H, int W, const float* __restrict__ 
   const long long t = b / (unsigned)blocks_per_tile;
   const int strip = (int)(b - (unsigned)t * (unsigned)blocks_per_tile);
   const long long ts = t < n_real ? t : n_real - 1;  // batch padding repeats the last real tile
-  const int per = nx * ny;
-  const long long f = ts / per;
-  const int ij = (int)(ts - f * per);
+  const int per = (VOL ? nz : 1) * nx * ny;
+  const long long f = ts / per;  // the frame (K2) or the volume (K2v)
+  int ij = (int)(ts - f * per);
+  int z0 = 0;
+  if constexpr (VOL) {
+    const int iz = ij / (nx * ny);
+    ij -= iz * nx * ny;
+    z0 = zs[iz];
+  }
   const int gi = ij / ny;
   const int x0 = xs[gi], y0 = ys[ij - gi * ny];
   const NormRN norm(bounds, Fb, Fb == 1 ? 0 : (int)f, scale, invert);
@@ -344,16 +363,25 @@ normalize_tile(const T* __restrict__ x, int H, int W, const float* __restrict__ 
     table[threadIdx.x] = to_out<O>(norm((float)threadIdx.x));
     __syncthreads();
   }
-  const T* frame = x + (size_t)f * H * W;
-  const int tile_px = th * tw;
+  const T* frame = x + (size_t)f * (VOL ? d : 1) * H * W;
+  const int tile_px = (VOL ? tz : 1) * th * tw;
   O* tile = out + (size_t)t * tile_px;
   for (int it = 0; it < iters; ++it) {
     const int e = ((strip * iters + it) * K2_THREADS + (int)threadIdx.x) * RUN;
     if (e >= tile_px) break;
     const int r = e / tw, c0 = e - r * tw;
-    int pr = x0 + r;
-    if (pr >= H) pr = 2 * (H - 1) - pr;  // numpy/jnp 'reflect' (edge not repeated)
-    const T* row = frame + (size_t)pr * W;
+    const T* row;
+    if constexpr (VOL) {
+      const int rz = r / th;
+      int pz = z0 + rz, pr = x0 + r - rz * th;
+      if (pz >= d) pz = 2 * (d - 1) - pz;  // numpy/jnp 'reflect' (edge not repeated)
+      if (pr >= H) pr = 2 * (H - 1) - pr;
+      row = frame + ((size_t)pz * H + pr) * W;
+    } else {
+      int pr = x0 + r;
+      if (pr >= H) pr = 2 * (H - 1) - pr;  // numpy/jnp 'reflect' (edge not repeated)
+      row = frame + (size_t)pr * W;
+    }
     const int pc0 = y0 + c0;
     T v[RUN];
     if (RUN > 1 && pc0 + RUN <= W) {
@@ -416,107 +444,46 @@ __global__ void normalize_tile_pairs(const T* __restrict__ x, int H, int W,
       res);
 }
 
+// K2 and K2h (zs null, d = nz = tz = 1) and K2v: the wrapper's geometry must
+// cover each tile, blocks_per_tile strips of iters * K2_THREADS runs of RUN
+// outputs, the runs inside one row
 template <typename T, typename O>
-static int launch(const void* x, int H, int W, const void* bounds, int Fb, const void* xs,
-                  const void* ys, int nx, int ny, int th, int tw, long long n_real,
-                  long long n_total, int invert, float scale, int run, int blocks_per_tile,
-                  int iters, void* out, void* stream) {
-  // the wrapper's geometry must cover each tile: blocks_per_tile strips of
-  // iters * K2_THREADS runs of RUN outputs, the runs inside one row
+static int launch(const void* x, int d, int H, int W, const void* bounds, int Fb,
+                  const void* zs, const void* xs, const void* ys, int nz, int nx, int ny, int tz,
+                  int th, int tw, long long n_real, long long n_total, int invert, float scale,
+                  int run, int blocks_per_tile, int iters, void* out, void* stream) {
+  const long long tile_px = (long long)tz * th * tw;
   if ((run != 1 && !(run == K2_RUN && tw % K2_RUN == 0)) || blocks_per_tile < 1 || iters < 1 ||
-      (long long)blocks_per_tile * iters * K2_THREADS * run < (long long)th * tw ||
+      (long long)blocks_per_tile * iters * K2_THREADS * run < tile_px ||
+      tile_px > 0x7FFFFFFFLL - (long long)K2_THREADS * K2_RUN ||
       n_total * blocks_per_tile > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)(n_total * blocks_per_tile);
   cudaStream_t s = (cudaStream_t)stream;
-  if (run == K2_RUN)
-    normalize_tile<T, O, K2_RUN><<<blocks, K2_THREADS, 0, s>>>(
-        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys, nx, ny, th,
-        tw, n_real, blocks_per_tile, iters, invert, scale, (O*)out);
-  else
-    normalize_tile<T, O, 1><<<blocks, K2_THREADS, 0, s>>>(
-        (const T*)x, H, W, (const float*)bounds, Fb, (const int*)xs, (const int*)ys, nx, ny, th,
-        tw, n_real, blocks_per_tile, iters, invert, scale, (O*)out);
-  return (int)cudaGetLastError();
-}
-
-// K2v: tiles (n_total, tz, tx, ty) of (V, D, H, W) volumes in volume-major
-// z/x/y grid order; O = uint8_t: scale 255 and truncation, float or
-// __nv_bfloat16: scale 1.
-template <typename T, typename O, int VEC>
-__global__ void normalize_tile_3d(const T* __restrict__ x, int D, int H, int W,
-                                  const float* __restrict__ bounds, int Fb,
-                                  const int* __restrict__ zs, const int* __restrict__ xs,
-                                  const int* __restrict__ ys, int nz, int nx, int ny, int tz,
-                                  int tx, int ty, long long n_real, long long n_total,
-                                  int invert, float scale, O* __restrict__ out) {
-  const int tyv = ty / VEC;
-  const long long per_tile = (long long)tz * tx * tyv;
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_total * per_tile) return;
-  const long long t = g / per_tile;
-  const int rem = (int)(g - t * per_tile);
-  const int rz = rem / (tx * tyv);
-  const int rem2 = rem - rz * tx * tyv;
-  const int rx = rem2 / tyv;
-  const int c0 = (rem2 - rx * tyv) * VEC;
-
-  // batch padding repeats the last real tile
-  const long long ts = t < n_real ? t : n_real - 1;
-  const int per = nz * nx * ny;
-  const long long v = ts / per;
-  const int ijk = (int)(ts - v * per);
-  const int iz = ijk / (nx * ny);
-  const int ij = ijk - iz * nx * ny;
-  const int ix = ij / ny, iy = ij - (ij / ny) * ny;
-
-  int pz = zs[iz] + rz;
-  if (pz >= D) pz = 2 * (D - 1) - pz;  // numpy/jnp 'reflect' (edge not repeated)
-  int px = xs[ix] + rx;
-  if (px >= H) px = 2 * (H - 1) - px;
-  const T* row = x + (((size_t)v * D + pz) * H + px) * W;
-
-  const Norm norm(bounds, Fb, Fb == 1 ? 0 : (int)v, scale, invert);
-
-  O* o = out + (size_t)t * tz * tx * ty + ((size_t)rz * tx + rx) * ty + c0;
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) {
-    int py = ys[iy] + c0 + k;
-    if (py >= W) py = 2 * (W - 1) - py;
-    store(o + k, norm((float)row[py]));
+#define K2_LAUNCH(R, V)                                                                      \
+  normalize_tile<T, O, R, V><<<blocks, K2_THREADS, 0, s>>>(                                  \
+      (const T*)x, d, H, W, (const float*)bounds, Fb, (const int*)zs, (const int*)xs,        \
+      (const int*)ys, nz, nx, ny, tz, th, tw, n_real, blocks_per_tile, iters, invert, scale, \
+      (O*)out)
+  if (run == K2_RUN) {
+    if (zs) K2_LAUNCH(K2_RUN, true); else K2_LAUNCH(K2_RUN, false);
+  } else {
+    if (zs) K2_LAUNCH(1, true); else K2_LAUNCH(1, false);
   }
-}
-
-template <typename T, typename O>
-static int launch_3d(const void* x, int D, int H, int W, const void* bounds, int Fb,
-                     const void* zs, const void* xs, const void* ys, int nz, int nx, int ny,
-                     int tz, int tx, int ty, long long n_real, long long n_total, int invert,
-                     float scale, void* out, void* stream) {
-  const int threads = 256;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int vec = ty % 4 == 0 ? 4 : 1;
-  const long long groups = n_total * tz * tx * (ty / vec);
-  const unsigned blocks = (unsigned)((groups + threads - 1) / threads);
-  if (vec == 4)
-    normalize_tile_3d<T, O, 4><<<blocks, threads, 0, s>>>(
-        (const T*)x, D, H, W, (const float*)bounds, Fb, (const int*)zs, (const int*)xs,
-        (const int*)ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, scale, (O*)out);
-  else
-    normalize_tile_3d<T, O, 1><<<blocks, threads, 0, s>>>(
-        (const T*)x, D, H, W, (const float*)bounds, Fb, (const int*)zs, (const int*)xs,
-        (const int*)ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, scale, (O*)out);
+#undef K2_LAUNCH
   return (int)cudaGetLastError();
 }
 
 template <typename O>
-static int dispatch_3d(const void* x, int dtype, int D, int H, int W, const void* bounds,
-                       int Fb, const void* zs, const void* xs, const void* ys, int nz, int nx,
-                       int ny, int tz, int tx, int ty, long long n_real, long long n_total,
-                       int invert, float scale, void* out, void* stream) {
+static int dispatch(const void* x, int dtype, int d, int H, int W, const void* bounds, int Fb,
+                    const void* zs, const void* xs, const void* ys, int nz, int nx, int ny,
+                    int tz, int th, int tw, long long n_real, long long n_total, int invert,
+                    float scale, int run, int blocks_per_tile, int iters, void* out,
+                    void* stream) {
   switch (dtype) {
-    case 0: return launch_3d<uint8_t, O>(x, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, scale, out, stream);
-    case 1: return launch_3d<uint16_t, O>(x, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, scale, out, stream);
-    case 2: return launch_3d<float, O>(x, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, scale, out, stream);
+    case 0: return launch<uint8_t, O>(x, d, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
+    case 1: return launch<uint16_t, O>(x, d, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
+    case 2: return launch<float, O>(x, d, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -542,19 +509,6 @@ static int launch_pairs(const void* x, int H, int W, const void* bounds, int Fb,
   return (int)cudaGetLastError();
 }
 
-template <typename O>
-static int dispatch(const void* x, int dtype, int H, int W, const void* bounds, int Fb,
-                    const void* xs, const void* ys, int nx, int ny, int th, int tw,
-                    long long n_real, long long n_total, int invert, float scale, int run,
-                    int blocks_per_tile, int iters, void* out, void* stream) {
-  switch (dtype) {
-    case 0: return launch<uint8_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
-    case 1: return launch<uint16_t, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
-    case 2: return launch<float, O>(x, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real, n_total, invert, scale, run, blocks_per_tile, iters, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 extern "C" {
 
 // dtype: 0 = uint8, 1 = uint16, 2 = float32.  x is (F, H, W) contiguous;
@@ -567,8 +521,9 @@ int k2_normalize_tile(const void* x, int dtype, int H, int W, const void* bounds
                       int th, int tw, long long n_real, long long n_total,
                       int invert, int run, int blocks_per_tile, int iters, void* out,
                       void* stream) {
-  return dispatch<uint8_t>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real,
-                           n_total, invert, 255.0f, run, blocks_per_tile, iters, out, stream);
+  return dispatch<uint8_t>(x, dtype, 1, H, W, bounds, Fb, nullptr, xs, ys, 1, nx, ny, 1, th, tw,
+                           n_real, n_total, invert, 255.0f, run, blocks_per_tile, iters, out,
+                           stream);
 }
 
 // K2h: the same arguments; out is (n_total, th, tw) float32 (out_bf16 = 0)
@@ -579,27 +534,31 @@ int k2h_normalize_tile_float(const void* x, int dtype, int H, int W, const void*
                              int invert, int out_bf16, int run, int blocks_per_tile, int iters,
                              void* out, void* stream) {
   if (out_bf16)
-    return dispatch<__nv_bfloat16>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw,
-                                   n_real, n_total, invert, 1.0f, run, blocks_per_tile, iters,
-                                   out, stream);
-  return dispatch<float>(x, dtype, H, W, bounds, Fb, xs, ys, nx, ny, th, tw, n_real,
-                         n_total, invert, 1.0f, run, blocks_per_tile, iters, out, stream);
+    return dispatch<__nv_bfloat16>(x, dtype, 1, H, W, bounds, Fb, nullptr, xs, ys, 1, nx, ny, 1,
+                                   th, tw, n_real, n_total, invert, 1.0f, run, blocks_per_tile,
+                                   iters, out, stream);
+  return dispatch<float>(x, dtype, 1, H, W, bounds, Fb, nullptr, xs, ys, 1, nx, ny, 1, th, tw,
+                         n_real, n_total, invert, 1.0f, run, blocks_per_tile, iters, out,
+                         stream);
 }
 
 // K2v: x is (V, D, H, W) contiguous (dtype as above); bounds (4, Fb) float32
 // (Fb = V per-volume, or 1 stack-global); zs (nz,), xs (nx,), ys (ny,) int32
 // tile starts; out is (n_total, tz, tx, ty): out_code 0 = uint8 (scale 255),
 // 1 = float32, 2 = bfloat16 (scale 1).  Each tile may exceed its axis by
-// less than the axis's extent (one reflection).  One launch.
+// less than the axis's extent (one reflection).  run, blocks_per_tile,
+// iters: K2's geometry of a tile of tz * tx rows of ty (predict/normalize.py
+// _k2_geometry).  One launch.
 int k2v_normalize_tile_3d(const void* x, int dtype, int D, int H, int W, const void* bounds,
                           int Fb, const void* zs, const void* xs, const void* ys, int nz,
                           int nx, int ny, int tz, int tx, int ty, long long n_real,
-                          long long n_total, int invert, int out_code, void* out,
-                          void* stream) {
+                          long long n_total, int invert, int out_code, int run,
+                          int blocks_per_tile, int iters, void* out, void* stream) {
+  if (zs == nullptr) return (int)cudaErrorInvalidValue;
   switch (out_code) {
-    case 0: return dispatch_3d<uint8_t>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 255.0f, out, stream);
-    case 1: return dispatch_3d<float>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 1.0f, out, stream);
-    case 2: return dispatch_3d<__nv_bfloat16>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 1.0f, out, stream);
+    case 0: return dispatch<uint8_t>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 255.0f, run, blocks_per_tile, iters, out, stream);
+    case 1: return dispatch<float>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 1.0f, run, blocks_per_tile, iters, out, stream);
+    case 2: return dispatch<__nv_bfloat16>(x, dtype, D, H, W, bounds, Fb, zs, xs, ys, nz, nx, ny, tz, tx, ty, n_real, n_total, invert, 1.0f, run, blocks_per_tile, iters, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

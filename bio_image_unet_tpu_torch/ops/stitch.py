@@ -34,7 +34,11 @@ path); pixels no tile weighs are 0, and the caller writes the fill there.
 K5s (the ``jnp.mean`` fill of ``predictor.py:1133`` / ``ops/stitch.py:208``):
 ``tile_sum(tiles, n_real)`` is the float64 sum of the first ``n_real`` tiles
 (every channel), a 0-d tensor on the tiles' device.  The fill of a movie is
-the total over its chunks divided by the count of real tile values.
+the total over its chunks divided by the count of real tile values.  One
+launch (16-byte loads, an exact fixed-point split of each value, the blocks'
+partials added in a fixed order by the last block; ``_k5s_geometry`` lays
+it out), so the sum is exact and equal to the plain one wherever the
+float64 sum is exact; NaN and ±inf give what IEEE addition gives.
 
 Each wrapper launches ``csrc/margin_stitch.cu`` on a CUDA tensor or raises,
 and takes the plain PyTorch version on a CPU tensor.
@@ -209,8 +213,39 @@ def margin_stitch(tiles: torch.Tensor, n_frames: int, plan,
 
 margin_stitch.launches = 0
 
-# blocks of K5s's first pass: two per SM of an H100
-_SUM_BLOCKS = 264
+_K5S_THREADS = 256       # csrc/margin_stitch.cu K5S_THREADS
+_K5S_MAX_VECTORS = 511   # K5S_MAX_VECTORS: 16-byte vectors a thread at most
+_K5S_BLOCKS = 4 * 132    # about four blocks on each SM of an H100
+_SUM_SCRATCH = {}        # (device index, stream) -> (int32 scratch, float64 partials)
+
+
+def _k5s_geometry(n: int, address: int):
+    """K5s's launch layout for ``n`` float16 values at byte ``address``:
+    ``(head, n_vec, tail, blocks)``.  The ``head`` values before the first
+    16-byte boundary (all ``n`` where they do not reach it), then ``n_vec``
+    aligned vectors of 8 values, then ``tail`` values; ``blocks`` of 256
+    threads.  Thread g sums vectors g, g + stride, … (stride = 256 ·
+    blocks: at most 511 of them, so at most 4090 values a thread) and value
+    g of the head and of the tail where g is below their length."""
+    head = min(n, (-address % 16) // 2)
+    n_vec = (n - head) // 8
+    tail = n - head - 8 * n_vec
+    blocks = max(_K5S_BLOCKS, -(-n_vec // (_K5S_THREADS * _K5S_MAX_VECTORS)))
+    return head, n_vec, tail, blocks
+
+
+def _sum_scratch(dev: torch.device, blocks: int):
+    """K5s's scratch on the current stream of ``dev``: int32 arrivals (word
+    0, zero at rest: the last block resets it) and block flags, and the
+    blocks' float64 partials; kept per stream, since launches on one stream
+    never overlap."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _SUM_SCRATCH.get(key)
+    if buf is None or buf[1].numel() < blocks:
+        buf = (torch.zeros(1 + blocks, dtype=torch.int32, device=dev),
+               torch.empty(blocks, dtype=torch.float64, device=dev))
+        _SUM_SCRATCH[key] = buf
+    return buf
 
 
 def tile_sum_plain(tiles: torch.Tensor, n_real: int) -> torch.Tensor:
@@ -228,12 +263,14 @@ def tile_sum(tiles: torch.Tensor, n_real: int) -> torch.Tensor:
         return tile_sum_plain(tiles, n_real)
     dev = tiles.device
     _cuda.require_cuda(tiles, "tile_sum")
-    partials = torch.empty(_SUM_BLOCKS, dtype=torch.float64, device=dev)
+    head, n_vec, tail, blocks = _k5s_geometry(n_real * tiles[0].numel(), tiles.data_ptr())
+    scratch, partials = _sum_scratch(dev, blocks)
     out = torch.empty((), dtype=torch.float64, device=dev)
     A = _cuda
-    fn = A.function("margin_stitch", "k5s_tile_sum", [A.P, A.I64, A.I32, A.P, A.P, A.P])
-    A.launch(fn, dev, tiles.data_ptr(), n_real * tiles[0].numel(), _SUM_BLOCKS,
-             partials.data_ptr(), out.data_ptr())
+    fn = A.function("margin_stitch", "k5s_tile_sum",
+                    [A.P, A.I32, A.I64, A.I32, A.I32, A.P, A.P, A.P, A.P])
+    A.launch(fn, dev, tiles.data_ptr(), head, n_vec, tail, blocks, partials.data_ptr(),
+             scratch.data_ptr(), out.data_ptr())
     tile_sum.launches += 1
     return out
 

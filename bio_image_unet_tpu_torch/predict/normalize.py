@@ -34,8 +34,10 @@ bounds to (n_total, tz, tx, ty) tiles in volume-major z/x/y grid order.
 ``out_dtype`` uint8 is ``Predict3D``'s mode (scale 255, ``invert``,
 truncation); float32 or bfloat16 is ``PredictMultiOutput3D``'s (scale 1, the
 tile cast to the working dtype).  The reflect pad acts only on an axis whose
-tile exceeds the volume, by less than the volume's extent.  Kernel in the
-same source, its own entry point and launch counter.
+tile exceeds the volume, by less than the volume's extent.  K2's kernel with
+a 3D row map (a tile is tz stacked (tx, ty) tiles, its rows the planes'
+rows; ``_k2_geometry`` of tz · tx rows of ty lays out the launch), its own
+entry point and launch counter.
 
 K2p (counterpart of the pair stage of ``predictor.py:995-1010`` in
 ``fused_predict_pairs``: ``_normalize_clip`` of the prev planes ``block[:-1]``
@@ -309,14 +311,15 @@ def normalize_tile_3d(vols: torch.Tensor, bounds: torch.Tensor, plan, n_total: i
     fb = _check_bounds(bounds, vols.shape[0])
     out = torch.empty((n_total,) + plan.tile, dtype=out_dtype, device=dev)
     A = _cuda
+    tz, tx, ty = plan.tile
     fn = A.function("normalize_tile", "k2v_normalize_tile_3d",
                     [A.P, A.I32, A.I32, A.I32, A.I32, A.P, A.I32, A.P, A.P, A.P]
-                    + [A.I32] * 6 + [A.I64, A.I64, A.I32, A.I32, A.P, A.P])
+                    + [A.I32] * 6 + [A.I64, A.I64] + [A.I32] * 5 + [A.P, A.P])
     A.launch(fn, dev, vols.data_ptr(), A.DTYPE_CODE[vols.dtype], plan.d, plan.h, plan.w,
              bounds.data_ptr(), fb, plan.zs_t.data_ptr(), plan.xs_t.data_ptr(),
-             plan.ys_t.data_ptr(), plan.nz, plan.nx, plan.ny, *plan.tile,
+             plan.ys_t.data_ptr(), plan.nz, plan.nx, plan.ny, tz, tx, ty,
              vols.shape[0] * plan.per_volume, n_total, int(invert), _OUT_CODE[out_dtype],
-             out.data_ptr())
+             *_k2_geometry(tz * tx, ty, n_total), out.data_ptr())
     normalize_tile_3d.launches += 1
     return out
 

@@ -29,9 +29,11 @@ the time of 16-byte stores alone into 64 of every 192 bytes of the UNet++ row
 buffer (K11's output) and into 64 of every 96 bytes of the 3D concat buffer
 (K11v's at up3), the load floor that of 16-byte loads alone of 32 of every
 192 bytes (K10's UNet++ input), each against the same bytes contiguous, and
-the read floor of K1's 16-frame chunk in each key type (16-byte loads alone):
-yardsticks compiled here, not kernels of the port.  Prints one JSON line;
-without a card it exits with code 2.
+the read floor of K1's 16-frame chunk in each key type (16-byte loads alone),
+the read floor of K5s's one-channel chunk (64 float16 tiles of 512², 33.5 MB)
+and the store floor of K2v's float mode (18 bf16 tiles of (64, 256, 256),
+151 MB, 16-byte stores alone): yardsticks compiled here, not kernels of the
+port.  Prints one JSON line; without a card it exits with code 2.
 """
 
 from __future__ import annotations
@@ -193,6 +195,21 @@ def read_floor(torch, _cuda, timed, n_bytes: int) -> float:
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"load probe: CUDA error {err}")
+
+    return timed(run, True)
+
+
+def write_floor(torch, _cuda, timed, n_bytes: int) -> float:
+    """The store floor of ``n_bytes`` of contiguous device memory (K2v's
+    bf16 tiles): 16-byte stores alone, L2 flushed before each."""
+    fn = _probe(_cuda).store16_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+
+    def run():
+        err = fn(out.data_ptr(), n_bytes // 16, 1, 16, 0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"store probe: CUDA error {err}")
 
     return timed(run, True)
 
@@ -562,11 +579,18 @@ def main() -> int:
     k1_floor = ({dt: read_floor(torch, _cuda, timed, CHUNK * FRAME * FRAME * size)
                  for dt, size in (("uint8", 1), ("uint16", 2), ("float32", 4))}
                 if "k1 " in prefixes else None)
+    # K5s's chunk: 64 float16 tiles of 512^2; K2v's float mode: 18 bf16 tiles
+    # of (64, 256, 256)
+    k5s_floor = (read_floor(torch, _cuda, timed, CHUNK * 4 * P * P * 2)
+                 if "k5s " in prefixes else None)
+    k2v_floor = (write_floor(torch, _cuda, timed, 18 * VOL[0] * 256 * 256 * 2)
+                 if "k2v " in prefixes else None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"package": str(args.package.resolve()), "card": card, "ms": ms,
                       "k11_store_floor_ms": floor, "k11v_store_floor_ms": k11v_floor,
-                      "k10_load_floor_ms": k10_floor, "k1_read_floor_ms": k1_floor}))
+                      "k10_load_floor_ms": k10_floor, "k1_read_floor_ms": k1_floor,
+                      "k5s_read_floor_ms": k5s_floor, "k2v_store_floor_ms": k2v_floor}))
     return 0
 
 

@@ -19,8 +19,9 @@ without printing a result:
    (IDP); and of K9 (``requant``), K10 (``maxpool_i8``), K11
    (``upsample2x_i8``) and K11v (``upsample2x_i8_3d``, the resample
    library), K6 (``xcorr``, the depthwise_xcorr library), K3
-   (``sigmoid_stitch``), K5 / K5v (``margin_stitch``, ``blend_stitch_3d``),
-   K1 (``clip_pass``) and K2 / K2h (``normalize_tile``), each instance's
+   (``sigmoid_stitch``), K5 / K5v / K5s (``margin_stitch``,
+   ``blend_stitch_3d``, ``tile_sum``), K1 (``clip_pass``) and K2 / K2h / K2v
+   (``normalize_tile``), each instance's
    int↔float conversions (I2F, F2I,
    FRND), MUFU, FFMA / FMUL / FADD and 128-bit global loads and stores and
    shared loads logged, the run failed where one uses local memory (LDL /
@@ -684,7 +685,8 @@ def phase_sass(_cuda) -> None:
     """The machine code of the int8 libraries: every ``qconv`` instance must
     run its products on the tensor cores (an IMMA or GMMA instruction) and
     hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's, K3's, K5's,
-    K5v's, K1's and K2's instances must not touch local memory, K6's must hold no fused
+    K5v's, K5s's, K1's and K2's (with K2h's and K2v's) instances must not
+    touch local memory, K6's must hold no fused
     multiply-add (FFMA: the plain version rounds each product), K11v's no
     int<->float conversion (I2F, F2I, FRND: its blends are integer), and
     their conversions and wide accesses are logged."""
@@ -708,7 +710,7 @@ def phase_sass(_cuda) -> None:
     if bad:
         raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
-    # K9, K10, K11, K11v, K6, K3, K5, K5v, K1 and K2: what the redesigns
+    # K9, K10, K11, K11v, K6, K3, K5, K5v, K5s, K1 and K2 (K2h, K2v): what the redesigns
     # removed (int<->float conversions at a quarter of the FMA rate, per-byte
     # work, the division's slow-path call) and what they rely on (16-byte
     # accesses, no FMA in K6, integer blends in K11v)
@@ -722,8 +724,9 @@ def phase_sass(_cuda) -> None:
                               ("sigmoid_stitch", "sigmoid_stitch", 2),
                               ("margin_stitch", "margin_stitch", 2),
                               ("margin_stitch", "blend_stitch_3d", 2),
+                              ("margin_stitch", "tile_sum", 1),
                               ("clip_bounds", "clip_pass", 12),
-                              ("normalize_tile", "normalize_tile", 18)):
+                              ("normalize_tile", "normalize_tile", 36)):
         if lib not in libs:
             libs[lib] = sass_functions(_cuda._lib_path(lib))
         found = libs[lib]
@@ -750,14 +753,14 @@ def phase_sass(_cuda) -> None:
             if kernel == "upsample2x_i8_3d" and count("I2F", "F2I", "FRND"):
                 converted.append(inst)
     if local:
-        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 / K5 / K5v / K1 / K2 instances use "
-                           f"local memory: {local}")
+        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 / K5 / K5v / K5s / K1 / K2 / K2v "
+                           f"instances use local memory: {local}")
     if fused:
         raise RuntimeError(f"K6 instances fuse a multiply and an add (FFMA): {fused}")
     if converted:
         raise RuntimeError(f"K11v instances convert between int and float: {converted}")
-    log("[sass] K9, K10, K11, K11v, K6, K3, K5, K5v, K1 and K2 instances without local memory, "
-        "K6 without FFMA, K11v without I2F / F2I / FRND: yes")
+    log("[sass] K9, K10, K11, K11v, K6, K3, K5, K5v, K5s, K1, K2 and K2v instances without local "
+        "memory, K6 without FFMA, K11v without I2F / F2I / FRND: yes")
 
 
 # --- 3. kernels -----------------------------------------------------------------
@@ -2106,7 +2109,7 @@ def phase_heads(torch, dev, kernels, heads) -> None:
                                      "PredictMultiOutput")
             del ours, ref
         profile_pass(torch, run, "heads", f"{HEADS_FRAMES} frames",
-                     (("K5", "margin_stitch"), ("K5s", "tile_sum_partial|tile_sum_final")))
+                     (("K5", "margin_stitch"), ("K5s", "tile_sum")))
         del movie_dev, outs
 
         mp = HEADS_FRAMES * H * W / 1e6

@@ -18,6 +18,12 @@ frames and a 4 M-value row, on unaligned rows and Siam pair rows, and twice
 in a row (its scratch returns to zero); K2 (a strip of a tile a block, 16
 outputs a thread) on 16-byte aligned exact grids of each input type, the
 1000^2 gather grid, reflect pads, invert, global bounds and a constant frame.
+K5s (one launch, 16-byte loads, an exact fixed-point split) equals its plain
+version at every float16 offset 0–7, on 3 values, on mixed magnitudes (the
+exact sum) and with NaN / ±inf; K2v (K2's kernel with a 3D row map) equals its
+plain version for uint8, uint16 and float32 in, uint8, float32 and bf16 out,
+invert, global bounds, ``PredictMultiOutput3D``'s 0/230/256 grid and grids
+that reflect on every axis.
 K3c (K3 over C channels) is held to its plain version, the legacy
 ``Unet_v0`` / ``BabyUnet`` and the multi-channel ``Predict`` on the card to
 the CPU's, and an ``AttentionUnet`` training step in bf16 and float32 on the
@@ -60,6 +66,7 @@ from bio_image_unet_tpu_torch.ops.functional import (depthwise_xcorr, depthwise_
                                                      depthwise_xcorr_grad_kernel,
                                                      depthwise_xcorr_grad_kernel_plain,
                                                      depthwise_xcorr_plain)
+from bio_image_unet_tpu_torch.ops import stitch as stitch_module
 from bio_image_unet_tpu_torch.ops.stitch import (blend_stitch_3d, blend_stitch_3d_plain,
                                                   margin_stitch, margin_stitch_plain,
                                                   sigmoid_stitch, sigmoid_stitch_3d,
@@ -521,18 +528,62 @@ def test_margin_stitch_and_tile_sum_kernels_equal_plain(cuda, gen, case):
         np.float32(ref_total.item() / count).astype(np.float16)
 
 
-@pytest.mark.parametrize("offset,size", [(0, 5), (1, 5), (1, 4), (1, 1)])
+@pytest.mark.parametrize("offset,size", [(o, s) for o in range(8) for s in (1, 4, 5, 64)])
 def test_tile_sum_kernel_takes_any_float16_offset(cuda, gen, offset, size):
-    """K5s reads pairs of float16 values; a contiguous view that starts at an
-    odd float16 offset (not 4-byte aligned) sums its first value on its own."""
+    """K5s reads 16-byte vectors of 8 float16 values; a contiguous view that
+    starts at any float16 offset of a 16-byte line sums its unaligned head and
+    its ragged tail value by value (3 tiles of 1²: 3 values, no vector)."""
     n_tiles = 3
     flat = torch.from_numpy((gen.standard_normal(offset + n_tiles * size * size) * 2)
                             .astype(np.float16)).to(cuda)
     tiles = flat[offset:].view(n_tiles, 1, size, size)
-    assert tiles.is_contiguous() and tiles.data_ptr() % 4 == 2 * offset
+    assert tiles.is_contiguous() and tiles.data_ptr() % 16 == 2 * offset
     total = tile_sum(tiles, n_tiles)
     torch.cuda.synchronize()
     assert total.item() == tile_sum_plain(tiles, n_tiles).item()
+
+
+def test_tile_sum_kernel_is_exact_on_mixed_magnitudes(cuda, gen):
+    """Values from float16 subnormals to ±60000 (sums below 2^29, so the
+    float64 sum is exact): the kernel's sum is the exact one, equal to the
+    plain version's, at every offset, twice in a row (the arrival count is
+    back at zero after each call)."""
+    n = 64 * 512 * 512 + 7
+    v = gen.standard_normal(n) * 2
+    pick = gen.random(n)
+    v = np.where(pick < 1e-5, gen.uniform(-60000, 60000, n), v)
+    v = np.where((pick >= 1e-5) & (pick < 0.01), gen.uniform(-1000, 1000, n), v)
+    v = np.where((pick >= 0.01) & (pick < 0.02), gen.integers(-1023, 1024, n) * 2.0 ** -24, v)
+    v = v.astype(np.float16)
+    exact = int((v.astype(np.float64) * 2.0 ** 24).astype(np.int64).sum()) / 2.0 ** 24
+    flat = torch.from_numpy(v).to(cuda)
+    for offset in (0, 3, 7):
+        tiles = flat[offset: offset + 64 * 512 * 512].view(64, 1, 512, 512)
+        want = tile_sum_plain(tiles, 64).item()
+        for _ in range(2):
+            got = tile_sum(tiles, 64)
+            torch.cuda.synchronize()
+            assert got.item() == want
+        assert all(buf[0][0].item() == 0 for buf in stitch_module._SUM_SCRATCH.values())
+    assert tile_sum(flat.view(n, 1, 1, 1), n).item() == exact
+
+
+@pytest.mark.parametrize("specials", [(np.inf,), (-np.inf,), (np.inf, -np.inf), (np.nan,),
+                                      (-np.inf, np.nan)])
+def test_tile_sum_kernel_gives_the_plain_non_finite_result(cuda, gen, specials):
+    """NaN and ±inf in the head, a vector or the tail: NaN, +inf or -inf as
+    the plain float64 sum gives."""
+    n = 64 * 256 * 256 + 3
+    for where in ((1,), (n // 2,), (n - 2,), (2, n - 1)):
+        v = (gen.standard_normal(n + 3) * 2).astype(np.float16)
+        for i, pos in enumerate(where):
+            v[3 + pos] = specials[i % len(specials)]
+        for j, sp in enumerate(specials[len(where):]):
+            v[3 + n // 3 + j] = sp
+        tiles = torch.from_numpy(v).to(cuda)[3:].view(-1, 1, 1, 1)
+        got, want = tile_sum(tiles, n).item(), tile_sum_plain(tiles, n).item()
+        torch.cuda.synchronize()
+        assert (np.isnan(got) and np.isnan(want)) or got == want, (where, got, want)
 
 
 def test_heads_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -737,6 +788,25 @@ K2V_CASES = [
     ("fixed-bounds-f32-odd", np.uint16, (2, 9, 21, 23), (5, 15, 15), 0, False, True,
      torch.float32, 2),
     ("main-path", np.uint8, (1, 64, 512, 512), (32, 128, 128), 0, False, False, torch.uint8, 0),
+    # a float add_patch: PredictMultiOutput3D's overlap_starts, in-plane 0, 230
+    # and 256 (230 is 6 mod 16: shifted 16-byte loads)
+    ("heads-grid-u16-f32-invert", np.uint16, (1, 8, 512, 512), (8, 256, 256), 0.1, True, False,
+     torch.float32, 1),
+    ("heads-grid-f32-bf16-global", np.float32, (2, 8, 512, 512), (8, 256, 256), 0.1, False,
+     True, torch.bfloat16, 0),
+    ("heads-grid-u8-invert", np.uint8, (1, 8, 512, 512), (8, 256, 256), 0.1, True, False,
+     torch.uint8, 0),
+    ("main-path-heads-bf16", np.uint8, (2, 64, 512, 512), (64, 256, 256), 0.1, False, False,
+     torch.bfloat16, 0),
+    # every axis reflects
+    ("reflect-every-axis-u8-invert", np.uint8, (2, 6, 20, 24), (8, 32, 32), 0, True, False,
+     torch.uint8, 3),
+    ("reflect-every-axis-f32-bf16", np.float32, (1, 5, 17, 30), (8, 32, 32), 0, False, True,
+     torch.bfloat16, 0),
+    ("reflect-every-axis-u16-f32-invert", np.uint16, (1, 5, 17, 30), (8, 32, 32), 0, True,
+     False, torch.float32, 2),
+    ("calibration-u8-f32-invert", np.uint8, (1, 16, 64, 64), (8, 32, 32), 0, True, False,
+     torch.float32, 0),
 ]
 
 
@@ -747,7 +817,8 @@ def test_normalize_tile_3d_kernel_equals_plain(cuda, gen, case):
     bounds = hist.clip_bounds(x, 0.5, 99.5)
     if fixed:
         bounds = torch.stack([bounds[0, :1], bounds[1, :1], bounds[0, :1], bounds[1, :1]])
-    starts = [grid_starts(e, t, add) for e, t in zip((d, h, w), tile)]
+    starts = [overlap_starts(e, t, add) if isinstance(add, float) else grid_starts(e, t, add)
+              for e, t in zip((d, h, w), tile)]
     plan = TilePlan3D(d, h, w, tile, *starts, cuda)
     n_total = n_vols * plan.per_volume + extra
     before = normalize_tile_3d.launches
