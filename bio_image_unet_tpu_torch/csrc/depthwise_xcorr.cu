@@ -62,16 +62,37 @@
 //   (KH/2 before, (KH-1)/2 after: for even kernels the two differ);
 // - grad kernel (xcorr_grad_kernel): dprev[u,v] = sum_{y,x} g[y,x]
 //   cur[y+u-ph, x+v-pw], a reduction over the whole plane for each tap.
-// Both are the plane form's design: one block a (batch, channel) plane, g
-// and the other operand staged as float32 in shared memory without a halo,
-// one output a thread at a time, its range clipped to the plane exactly
-// and walked in the plain versions' order (u then v; y then x), products
-// and sums separately rounded: equal bit for bit to
-// ops/functional.py depthwise_xcorr_grad_input_plain / _kernel_plain on
-// finite inputs (a skipped tap adds a zero product to a sum that started
-// at +0, which never changes it).  Bound on the card by operations: at the
-// Siam trainer's (12, 256, 16, 16) a form makes 113 M products on real
-// pixels; the launch and the staging dominate there.
+// Both are K6's walk in disguise, and run on its tiles (xcorr_tiles):
+// - grad input = mirror o K6 o mirror: g is staged into K6's zero-haloed
+//   planes at the mirrored place (H-1-y, W-1-x), prev is the kernel as it
+//   is, and each output is stored at the mirrored place.  In the mirrored
+//   frame the swapped padding is K6's own, and the walk's kernel rows, then
+//   columns, are the plain version's u, then v.  Nothing is flipped in
+//   memory.
+// - grad kernel = K6 of cur with g as the kernel (H x W), on an output
+//   window of KH x KW: out[u,v] = sum_{y,x} cur[u+y-ph, v+x-pw] g[y,x],
+//   walked y, then x, as the plain version sums.  Every path's kernel is
+//   as large as its plane (models/unet2d.py correlates two H/16 planes);
+//   when it is not, the window reaches past K6's 'same' output, and the
+//   halo covers what it reads all the same (the same R - 1 rows and n S +
+//   2.. columns: what a region reads depends on ph, pw and the plane, not
+//   on the window).
+// The block's planes come from ops/functional.py xcorr_grad_geometry, not
+// K6's: at the trainer's (12, 256, 16, 16) K6's 32 planes a block give 96
+// blocks for 132 SMs; K6b takes 8 (384 blocks, ~3 an SM), the most that
+// still give every SM two blocks, among the sizes whose warps' tiles all
+// lie in the output (a warp then walks its 4 tiles' joint tap columns: 14%
+// more taps than K6's one tile a lane, on 25% fewer planes for the busiest
+// SM).  Products and sums as K6's: equal bit for bit to ops/functional.py
+// depthwise_xcorr_grad_input_plain / _kernel_plain on finite inputs.
+// Planes whose haloed staging does not fit (above ~112x112) take the plane
+// forms, xcorr_grad_input_plane / xcorr_grad_kernel_plane: one block a
+// plane, g and the other operand staged as float32 without a halo (up to
+// ~170x170, ops/functional.py xcorr_grad_fits), one output a thread at a
+// time, its range clipped to the plane exactly and walked in the same
+// order.  Bound on the card by operations: at the Siam trainer's (12, 256,
+// 16, 16) a form makes 113 M products on real pixels, 0.0068 ms at half the
+// float32 FMA rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,21 +158,21 @@ __device__ __forceinline__ float4 kernel4(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // the h x w planes of the block's ncg planes (plane c at src + base[c]) into
-// dst[c * plane + y * pitch + x], STAGE_LOADS loads of a thread in flight at
-// once; a warp reads one pixel's channels where they are the fastest axis
-// (ncg <= 32: one a lane), else 32 columns of a row
+// dst[c * plane + y * pitch + x] (FLIP: at (h-1-y, w-1-x)), STAGE_LOADS loads
+// of a thread in flight at once; a warp reads one pixel's channels where they
+// are the fastest axis (ncg <= 32: one a lane), else 32 columns of a row
 
 // the same with 16-byte loads of V elements along the fastest axis (the host
 // allows it where that axis is contiguous, the block's runs along it fill
 // whole vectors and every vector is 16-byte aligned), STAGE_VECS in flight
-template <typename T, typename D>
+template <bool FLIP, typename T, typename D>
 __device__ void stage16(const T* __restrict__ src, const Strides& st, const long long* base,
                         D* dst, int pitch, int plane, int ncg, int h, int w) {
   constexpr int V = 16 / sizeof(T);
   const bool cfast = st.c < st.w;
   const int per = cfast ? ncg / V : w / V;  // vectors a pixel, or a row
   const int units = cfast ? h * w * per : ncg * h * per;
-  const int step = cfast ? plane : 1;  // between the staged elements of a vector
+  const int step = cfast ? plane : FLIP ? -1 : 1;  // between the staged elements of a vector
   for (int u0 = threadIdx.x; u0 < units; u0 += blockDim.x * STAGE_VECS) {
     uint4 q[STAGE_VECS];
     int at[STAGE_VECS];
@@ -172,7 +193,7 @@ __device__ void stage16(const T* __restrict__ src, const Strides& st, const long
           x = vec;
         }
         q[i] = *reinterpret_cast<const uint4*>(src + base[c] + y * st.h + x * st.w);
-        at[i] = c * plane + y * pitch + x;
+        at[i] = FLIP ? c * plane + (h - 1 - y) * pitch + w - 1 - x : c * plane + y * pitch + x;
       }
     }
 #pragma unroll
@@ -183,11 +204,11 @@ __device__ void stage16(const T* __restrict__ src, const Strides& st, const long
   }
 }
 
-template <typename T, typename D>
+template <bool FLIP, typename T, typename D>
 __device__ void stage(const T* __restrict__ src, const Strides& st, const long long* base,
                       D* dst, int pitch, int plane, int ncg, int h, int w, int vec) {
   if (vec > 1) {
-    stage16(src, st, base, dst, pitch, plane, ncg, h, w);
+    stage16<FLIP>(src, st, base, dst, pitch, plane, ncg, h, w);
     return;
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
@@ -214,7 +235,8 @@ __device__ void stage(const T* __restrict__ src, const Strides& st, const long l
         x = (unit - row * wcols) * 32 + lane;
       }
       const bool ok = unit < units && c < ncg && x < w;
-      at[i] = ok ? c * plane + y * pitch + x : -1;
+      at[i] = !ok ? -1 : FLIP ? c * plane + (h - 1 - y) * pitch + w - 1 - x
+                              : c * plane + y * pitch + x;
       if (ok) v[i] = stage_value(src + base[c] + y * st.h + x * st.w, D());
     }
 #pragma unroll
@@ -223,29 +245,42 @@ __device__ void stage(const T* __restrict__ src, const Strides& st, const long l
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
-xcorr(const T* __restrict__ cur, const T* __restrict__ ker, T* __restrict__ out, Shape sh,
-      Geometry g, Strides sc, Strides sk, Strides so, int vx, int vk) {
+// the three walks on K6's tiles: out[i, j] = sum over the walk's kernel k
+// (KH_ x KW_, rows then columns) of in[i + u - ph, j + v - pw] k[u, v], in
+// zero outside the H x W plane, (ph, pw) the forward's padding, for the
+// OH x OW outputs.  FORWARD: in = cur, k = prev, OH x OW = H x W;
+// GRAD_INPUT: in = g staged mirrored, k = prev, each output stored
+// mirrored; GRAD_KERNEL: in = cur, k = g (H x W), OH x OW = KH x KW.
+enum Form { FORWARD, GRAD_INPUT, GRAD_KERNEL };
+
+template <typename T, Form FORM>
+__device__ __forceinline__ void xcorr_tiles(const T* __restrict__ in, const T* __restrict__ ker,
+                                            T* __restrict__ out, const Shape& sh,
+                                            const Geometry& g, const Strides& si,
+                                            const Strides& sk, const Strides& so, int vx,
+                                            int vk) {
   extern __shared__ __align__(16) float sm[];
-  __shared__ long long base[3][MAX_CG];  // each plane's offset in cur, ker, out
+  __shared__ long long base[3][MAX_CG];  // each plane's offset in in, ker, out
   float* sx = sm;                               // [cg][pad_t + H + pad_t][xp]
-  T* skr = reinterpret_cast<T*>(sm + g.cg * g.xplane);  // [cg][KH][kwp]
+  T* skr = reinterpret_cast<T*>(sm + g.cg * g.xplane);  // [cg][KH_][kwp]
   const int p0 = blockIdx.x * g.cg;
   const int ncg = min(g.cg, sh.planes - p0);
+  const int KH_ = FORM == GRAD_KERNEL ? sh.H : sh.KH, KW_ = FORM == GRAD_KERNEL ? sh.W : sh.KW;
+  const int OH = FORM == GRAD_KERNEL ? sh.KH : sh.H, OW = FORM == GRAD_KERNEL ? sh.KW : sh.W;
 
   float4* z = reinterpret_cast<float4*>(sm);
   for (int e = threadIdx.x; e < g.smem / 16; e += blockDim.x)
     z[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (threadIdx.x < ncg) {
     const int p = p0 + threadIdx.x, b = p / sh.C, c = p - b * sh.C;
-    base[0][threadIdx.x] = b * sc.b + c * sc.c;
+    base[0][threadIdx.x] = b * si.b + c * si.c;
     base[1][threadIdx.x] = b * sk.b + c * sk.c;
     base[2][threadIdx.x] = b * so.b + c * so.c;
   }
   __syncthreads();
-  stage(cur, sc, base[0], sx + g.pad_t * g.xp + g.pad_l, g.xp, g.xplane, ncg, sh.H, sh.W, vx);
-  stage(ker, sk, base[1], skr, g.kwp, g.kplane, ncg, sh.KH, sh.KW, vk);
+  stage<FORM == GRAD_INPUT>(in, si, base[0], sx + g.pad_t * g.xp + g.pad_l, g.xp, g.xplane, ncg,
+                            sh.H, sh.W, vx);
+  stage<false>(ker, sk, base[1], skr, g.kwp, g.kplane, ncg, KH_, KW_, vk);
   __syncthreads();
 
   const int ph = (sh.KH - 1) / 2, pw = (sh.KW - 1) / 2;
@@ -256,9 +291,12 @@ xcorr(const T* __restrict__ cur, const T* __restrict__ ker, T* __restrict__ out,
     const int i0 = tr * R, j0 = tc * S;
     const int jr = (tc - tc % g.n) * S;  // the warp's region: columns [jr, jr + n S)
     // the region's taps: rows exact, columns rounded out to multiples of 4
-    const int u_lo = max(0, ph - (i0 + R - 1)), u_hi = min(sh.KH, sh.H + ph - i0);
+    int u_hi = min(KH_, sh.H + ph - i0);
+    const int u_lo = max(0, ph - (i0 + R - 1));
     const int v_lo = max(0, pw - (jr + g.n * S - 1)) & ~3;
-    const int v_end = (min(sh.KW, sh.W + pw - jr) + 3) & ~3;
+    const int v_end = (min(KW_, sh.W + pw - jr) + 3) & ~3;
+    // a grad kernel window wider than the plane's reach: no tap, nothing read
+    if (FORM == GRAD_KERNEL && v_end <= v_lo) u_hi = u_lo;
 
     float acc[R][S];
 #pragma unroll
@@ -303,10 +341,35 @@ xcorr(const T* __restrict__ cur, const T* __restrict__ ker, T* __restrict__ out,
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int s = 0; s < S; ++s)
-          if (i0 + r < sh.H && j0 + s < sh.W)
-            store(o + (i0 + r) * so.h + (j0 + s) * so.w, acc[r][s]);
+          if (i0 + r < OH && j0 + s < OW)
+            store(o + (FORM == GRAD_INPUT ? (OH - 1 - i0 - r) * so.h + (OW - 1 - j0 - s) * so.w
+                                          : (i0 + r) * so.h + (j0 + s) * so.w),
+                  acc[r][s]);
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
+xcorr(const T* __restrict__ cur, const T* __restrict__ ker, T* __restrict__ out, Shape sh,
+      Geometry g, Strides sc, Strides sk, Strides so, int vx, int vk) {
+  xcorr_tiles<T, FORWARD>(cur, ker, out, sh, g, sc, sk, so, vx, vk);
+}
+
+// K6b grad input: g (B, C, H, W), ker (B, C, KH, KW) -> out (B, C, H, W)
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
+xcorr_grad_input(const T* __restrict__ g, const T* __restrict__ ker, T* __restrict__ out,
+                 Shape sh, Geometry geo, Strides sg, Strides sk, Strides so, int vg, int vk) {
+  xcorr_tiles<T, GRAD_INPUT>(g, ker, out, sh, geo, sg, sk, so, vg, vk);
+}
+
+// K6b grad kernel: g (B, C, H, W), cur (B, C, H, W) -> out (B, C, KH, KW)
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
+xcorr_grad_kernel(const T* __restrict__ g, const T* __restrict__ cur, T* __restrict__ out,
+                  Shape sh, Geometry geo, Strides sg, Strides sc, Strides so, int vg, int vc) {
+  xcorr_tiles<T, GRAD_KERNEL>(cur, g, out, sh, geo, sc, sg, so, vc, vg);
 }
 
 // the plane form: one block a (batch, channel) plane, [H][W] and [KH][KW]
@@ -361,11 +424,13 @@ __device__ void stage_plane(const T* __restrict__ src, const Strides& st, int b,
   }
 }
 
-// K6b grad input: g (B, C, H, W), ker (B, C, KH, KW) -> out (B, C, H, W)
+// K6b's large-plane forms (planes whose haloed staging does not fit), as
+// xcorr_plane: grad input, g (B, C, H, W), ker (B, C, KH, KW) -> out (B, C,
+// H, W)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-xcorr_grad_input(const T* __restrict__ g, const T* __restrict__ ker, T* __restrict__ out,
-                 Shape sh, Strides sg, Strides sk, Strides so) {
+xcorr_grad_input_plane(const T* __restrict__ g, const T* __restrict__ ker, T* __restrict__ out,
+                       Shape sh, Strides sg, Strides sk, Strides so) {
   extern __shared__ __align__(16) float sm[];
   const int hw = sh.H * sh.W;
   float* sgr = sm;       // [H][W]
@@ -391,11 +456,11 @@ xcorr_grad_input(const T* __restrict__ g, const T* __restrict__ ker, T* __restri
   }
 }
 
-// K6b grad kernel: g (B, C, H, W), cur (B, C, H, W) -> out (B, C, KH, KW)
+// grad kernel: g (B, C, H, W), cur (B, C, H, W) -> out (B, C, KH, KW)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-xcorr_grad_kernel(const T* __restrict__ g, const T* __restrict__ cur, T* __restrict__ out,
-                  Shape sh, Strides sg, Strides sc, Strides so) {
+xcorr_grad_kernel_plane(const T* __restrict__ g, const T* __restrict__ cur, T* __restrict__ out,
+                        Shape sh, Strides sg, Strides sc, Strides so) {
   extern __shared__ __align__(16) float sm[];
   const int hw = sh.H * sh.W;
   float* sgr = sm;       // [H][W]
@@ -422,11 +487,12 @@ xcorr_grad_kernel(const T* __restrict__ g, const T* __restrict__ cur, T* __restr
 }
 
 template <typename T>
-int launch_grad(int kernel_grad, const void* g, const void* other, void* out, const Shape& sh,
-                const Strides& sg, const Strides& sx, const Strides& so, void* stream) {
+int launch_grad_plane(int kernel_grad, const void* g, const void* other, void* out,
+                      const Shape& sh, const Strides& sg, const Strides& sx, const Strides& so,
+                      void* stream) {
   const int smem = (sh.H * sh.W + (kernel_grad ? sh.H * sh.W : sh.KH * sh.KW)) *
                    (int)sizeof(float);
-  auto fn = kernel_grad ? xcorr_grad_kernel<T> : xcorr_grad_input<T>;
+  auto fn = kernel_grad ? xcorr_grad_kernel_plane<T> : xcorr_grad_input_plane<T>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   fn<<<(unsigned)sh.planes, THREADS, smem, (cudaStream_t)stream>>>(
@@ -446,17 +512,34 @@ int launch_plane(const void* cur, const void* ker, void* out, const Shape& sh,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* cur, const void* ker, void* out, const Shape& sh, const Geometry& g,
-           int threads, int smem, const Strides& sc, const Strides& sk, const Strides& so,
-           int vx, int vk, void* stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(xcorr<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// one launch of a tiled kernel (xcorr, xcorr_grad_input, xcorr_grad_kernel)
+template <typename T, typename F>
+int launch(F fn, const void* a, const void* b, void* out, const Shape& sh, const Geometry& g,
+           int threads, const Strides& sa, const Strides& sb, const Strides& so, int va, int vb,
+           void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((sh.planes + g.cg - 1) / g.cg);
-  xcorr<T><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)cur, (const T*)ker, (T*)out, sh, g, sc, sk, so, vx, vk);
+  fn<<<blocks, threads, g.smem, (cudaStream_t)stream>>>((const T*)a, (const T*)b, (T*)out, sh, g,
+                                                        sa, sb, so, va, vb);
   return (int)cudaGetLastError();
+}
+
+// whether the host's staging is laid out for this file's R x S tiles, for a
+// walk of the KH_ x KW_ kernel over the H x W plane to OH x OW outputs:
+// every tile, the R - 1 halo rows, the region's n S + 2.. columns each side,
+// whole planes
+bool bad_geometry(int is_bf16, int H, int W, int KW, int KH_, int KW_, int OH, int OW,
+                  const Geometry& g, int threads, int vx, int vk) {
+  return g.cg < 1 || g.cg > MAX_CG || (g.cg & (g.cg - 1)) || g.cg * g.n != 32 || g.tpr % g.n ||
+         threads % 32 || threads > THREADS || (g.pad_l - (KW - 1) / 2) % 4 || g.xp % 4 ||
+         g.xplane % 32 != 4 || g.kwp % 4 || g.kplane % (is_bf16 ? 64 : 32) != 4 ||
+         g.smem % 16 || (vx != 1 && vx != (is_bf16 ? 8 : 4)) ||
+         (vk != 1 && vk != (is_bf16 ? 8 : 4)) || g.tiles != (OH + R - 1) / R * g.tpr ||
+         g.tpr * S < OW || g.pad_t != R - 1 || g.pad_l < g.n * S + 2 ||
+         g.xp < g.pad_l + W + (g.n - 1) * S + 7 || g.xplane < (H + 2 * g.pad_t) * g.xp ||
+         g.kwp < KW_ || g.kplane < KH_ * g.kwp ||
+         g.smem < g.cg * (4 * g.xplane + (is_bf16 ? 2 : 4) * g.kplane);
 }
 
 }  // namespace
@@ -476,24 +559,15 @@ int k6_depthwise_xcorr(const void* cur, const void* ker, void* out, int is_bf16,
                        long long kw, long long ob, long long oc, long long oh, long long ow,
                        void* stream) {
   if (B * C == 0) return 0;
-  if (cg < 1 || cg > MAX_CG || (cg & (cg - 1)) || cg * n != 32 || tpr % n || threads % 32 ||
-      threads > THREADS || (pad_l - (KW - 1) / 2) % 4 || xp % 4 || xplane % 32 != 4 ||
-      kwp % 4 || kplane % (is_bf16 ? 64 : 32) != 4 || smem % 16 ||
-      (vx != 1 && vx != (is_bf16 ? 8 : 4)) || (vk != 1 && vk != (is_bf16 ? 8 : 4)))
-    return (int)cudaErrorInvalidValue;
-  // the staging must be laid out for this file's R x S tiles: every tile, the
-  // R - 1 halo rows, the region's n S + 2.. columns each side, whole planes
-  if (tiles != (H + R - 1) / R * tpr || tpr * S < W || pad_t != R - 1 || pad_l < n * S + 2 ||
-      xp < pad_l + W + (n - 1) * S + 7 || xplane < (H + 2 * pad_t) * xp || kwp < KW ||
-      kplane < KH * kwp || smem < cg * (4 * xplane + (is_bf16 ? 2 : 4) * kplane))
+  const Geometry g{cg, n, tpr, tiles, pad_t, pad_l, xp, xplane, kwp, kplane, smem};
+  if (bad_geometry(is_bf16, H, W, KW, KH, KW, H, W, g, threads, vx, vk))
     return (int)cudaErrorInvalidValue;
   const Shape sh{B * C, C, H, W, KH, KW};
-  const Geometry g{cg, n, tpr, tiles, pad_t, pad_l, xp, xplane, kwp, kplane, smem};
   const Strides sc{cb, cc, ch, cw}, sk{kb, kc, kh, kw}, so{ob, oc, oh, ow};
   if (is_bf16)
-    return launch<__nv_bfloat16>(cur, ker, out, sh, g, threads, smem, sc, sk, so, vx, vk,
-                                 stream);
-  return launch<float>(cur, ker, out, sh, g, threads, smem, sc, sk, so, vx, vk, stream);
+    return launch<__nv_bfloat16>(xcorr<__nv_bfloat16>, cur, ker, out, sh, g, threads, sc, sk, so,
+                                 vx, vk, stream);
+  return launch<float>(xcorr<float>, cur, ker, out, sh, g, threads, sc, sk, so, vx, vk, stream);
 }
 
 // the same for planes whose haloed staging does not fit (xcorr_plane): the
@@ -515,20 +589,50 @@ int k6_depthwise_xcorr_plane(const void* cur, const void* ker, void* out, int is
 // K6b: kernel_grad 0 = the input's gradient (other = the kernel (B, C, KH,
 // KW), out (B, C, H, W)), 1 = the kernel's (other = cur (B, C, H, W), out
 // (B, C, KH, KW)); g (B, C, H, W); element strides (b, c, h, w) each, any
-// layout; the staged planes, (H W + KH KW) or 2 H W float32, within the
-// block's shared memory (cudaFuncSetAttribute refuses more).  One launch.
+// layout; cg ... smem: the staging that ops/functional.py
+// xcorr_grad_geometry chose; vg, vx: elements one staging load of g, of
+// other moves (16 bytes' worth, or 1).  One launch.
 int k6b_depthwise_xcorr_grad(int kernel_grad, const void* g, const void* other, void* out,
-                             int is_bf16, int B, int C, int H, int W, int KH, int KW,
+                             int is_bf16, int B, int C, int H, int W, int KH, int KW, int cg,
+                             int n, int tpr, int tiles, int pad_t, int pad_l, int xp, int xplane,
+                             int kwp, int kplane, int threads, int smem, int vg, int vx,
                              long long gb, long long gc, long long gh, long long gw,
                              long long xb, long long xc, long long xh, long long xw,
                              long long ob, long long oc, long long oh, long long ow,
                              void* stream) {
   if (B * C == 0) return 0;
+  const Geometry geo{cg, n, tpr, tiles, pad_t, pad_l, xp, xplane, kwp, kplane, smem};
+  // the walk's kernel and outputs: prev and H x W, or g and KH x KW
+  if (kernel_grad ? bad_geometry(is_bf16, H, W, KW, H, W, KH, KW, geo, threads, vx, vg)
+                  : bad_geometry(is_bf16, H, W, KW, KH, KW, H, W, geo, threads, vg, vx))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{B * C, C, H, W, KH, KW};
+  const Strides sg{gb, gc, gh, gw}, sx{xb, xc, xh, xw}, so{ob, oc, oh, ow};
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    return launch<T>(kernel_grad ? xcorr_grad_kernel<T> : xcorr_grad_input<T>, g, other, out, sh,
+                     geo, threads, sg, sx, so, vg, vx, stream);
+  }
+  return launch<float>(kernel_grad ? xcorr_grad_kernel<float> : xcorr_grad_input<float>, g,
+                       other, out, sh, geo, threads, sg, sx, so, vg, vx, stream);
+}
+
+// the same for planes whose haloed staging does not fit
+// (xcorr_grad_*_plane): the staged planes, (H W + KH KW) or 2 H W float32,
+// within the block's shared memory (cudaFuncSetAttribute refuses more).
+// One launch.
+int k6b_depthwise_xcorr_grad_plane(int kernel_grad, const void* g, const void* other, void* out,
+                                   int is_bf16, int B, int C, int H, int W, int KH, int KW,
+                                   long long gb, long long gc, long long gh, long long gw,
+                                   long long xb, long long xc, long long xh, long long xw,
+                                   long long ob, long long oc, long long oh, long long ow,
+                                   void* stream) {
+  if (B * C == 0) return 0;
   const Shape sh{B * C, C, H, W, KH, KW};
   const Strides sg{gb, gc, gh, gw}, sx{xb, xc, xh, xw}, so{ob, oc, oh, ow};
   if (is_bf16)
-    return launch_grad<__nv_bfloat16>(kernel_grad, g, other, out, sh, sg, sx, so, stream);
-  return launch_grad<float>(kernel_grad, g, other, out, sh, sg, sx, so, stream);
+    return launch_grad_plane<__nv_bfloat16>(kernel_grad, g, other, out, sh, sg, sx, so, stream);
+  return launch_grad_plane<float>(kernel_grad, g, other, out, sh, sg, sx, so, stream);
 }
 
 }  // extern "C"

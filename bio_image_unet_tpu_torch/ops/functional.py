@@ -28,6 +28,7 @@ renormalised, which at ×2 is the same interpolation as torch's.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -127,23 +128,34 @@ def xcorr_geometry(h: int, w: int, kh: int, kw: int,
     pad for all the region's outputs, and the halo holds what the region
     reads past the plane: R - 1 rows above and below, n·S + 2..5 columns
     left and n·S + 3 right."""
-    r, s = XCORR_R, XCORR_S
-    pw = (kw - 1) // 2
     for cg in (32, 16, 8, 4, 2, 1):
-        n = 32 // cg
-        tpr = _round_up(-(-w // s), n)
-        sw = n * s
-        pad_l = sw + 2 + (pw - sw - 2) % 4
-        xp = _round_up(pad_l + w + sw - s + 7, 4)
-        xplane = _bank_stride((h + 2 * (r - 1)) * xp)
-        kwp = _round_up(kw, 4)
-        kplane = _bank_stride(kh * kwp, 128 // kbytes)
-        smem = _round_up(cg * (4 * xplane + kbytes * kplane), 16)
-        if smem <= _SMEM_BYTES:
-            tiles = -(-h // r) * tpr
-            return XcorrGeometry(cg, n, tpr, tiles, r - 1, pad_l, xp, xplane, kwp, kplane,
-                                 min(XCORR_THREADS, cg * tiles), smem)
+        geo = _xcorr_layout(cg, h, w, kh, kw, h, w, (kw - 1) // 2, kbytes)
+        if geo is not None:
+            return geo
     return None
+
+
+def _xcorr_layout(cg: int, h: int, w: int, kh: int, kw: int, oh: int, ow: int, pw: int,
+                  kbytes: int) -> Optional[XcorrGeometry]:
+    """The staging of ``cg`` planes a block for a walk of a (kh, kw) kernel
+    over (h, w) planes to (oh, ow) outputs, ``pw`` columns of padding before
+    (K6's and K6b's, see ``xcorr_geometry``); None where it does not fit a
+    block's shared memory."""
+    r, s = XCORR_R, XCORR_S
+    n = 32 // cg
+    tpr = _round_up(-(-ow // s), n)
+    sw = n * s
+    pad_l = sw + 2 + (pw - sw - 2) % 4
+    xp = _round_up(pad_l + w + sw - s + 7, 4)
+    xplane = _bank_stride((h + 2 * (r - 1)) * xp)
+    kwp = _round_up(kw, 4)
+    kplane = _bank_stride(kh * kwp, 128 // kbytes)
+    smem = _round_up(cg * (4 * xplane + kbytes * kplane), 16)
+    if smem > _SMEM_BYTES:
+        return None
+    tiles = -(-oh // r) * tpr
+    return XcorrGeometry(cg, n, tpr, tiles, r - 1, pad_l, xp, xplane, kwp, kplane,
+                         min(XCORR_THREADS, cg * tiles), smem)
 
 
 def xcorr_plane_fits(h: int, w: int, kh: int, kw: int) -> bool:
@@ -309,10 +321,44 @@ def depthwise_xcorr_grad_kernel_plain(g: torch.Tensor, cur: torch.Tensor,
     return acc.to(g.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def xcorr_grad_geometry(planes: int, h: int, w: int, kh: int, kw: int, kernel_grad: bool,
+                        kbytes: int, sms: int) -> Optional[XcorrGeometry]:
+    """K6b's staging on K6's tiles for ``planes`` (h, w) planes and (kh, kw)
+    kernels of ``kbytes`` bytes an element: the grad input walks the kernel
+    over the (mirrored) plane to (h, w) outputs, the grad kernel walks g, a
+    (h, w) kernel, over cur to (kh, kw) outputs.  Of the block sizes whose
+    staging fits (``_xcorr_layout``) and whose warps' ``n`` tiles side by
+    side lie in the output's tile columns (no lane on a tile past them), the
+    largest that gives every one of ``sms`` SMs two blocks, else the
+    smallest (K6's largest fitting size leaves SMs idle at the Siam
+    trainer's 3072 planes: 96 blocks for 132).  None where no staging fits
+    (planes above ~112²): the wrapper then takes the plane forms
+    (``xcorr_grad_fits``).  Cached: the trainer asks for the same layout
+    twice a step."""
+    wkh, wkw = (h, w) if kernel_grad else (kh, kw)
+    oh, ow = (kh, kw) if kernel_grad else (h, w)
+    fit = [geo for cg in (32, 16, 8, 4, 2, 1)
+           if (geo := _xcorr_layout(cg, h, w, wkh, wkw, oh, ow, (kw - 1) // 2, kbytes))]
+    if not fit:
+        return None
+    lean = [geo for geo in fit if geo.n <= -(-ow // XCORR_S)] or fit[:1]
+    full = [geo for geo in lean if -(-planes // geo.cg) >= 2 * sms]
+    return full[0] if full else lean[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    """The streaming multiprocessors of CUDA device ``index`` (None: the
+    current one)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def xcorr_grad_fits(h: int, w: int, kh: int, kw: int) -> bool:
-    """Whether K6b takes (h, w) planes with (kh, kw) kernels: g and the other
-    operand (the kernel, or cur) staged in float32 within a block's shared
-    memory."""
+    """Whether K6b's plane forms (one block a plane, for planes whose haloed
+    staging ``xcorr_grad_geometry`` refuses) take (h, w) planes with (kh,
+    kw) kernels: g and the other operand (the kernel, or cur) staged in
+    float32 within a block's shared memory."""
     return 4 * (h * w + max(h * w, kh * kw)) <= _SMEM_OPTIN
 
 
@@ -327,15 +373,24 @@ def _xcorr_grad_launch(kernel_grad: int, g: torch.Tensor, other: torch.Tensor,
                          f"device, got {g.device} and {other.device}")
     b, c, h, w = g.shape
     kh, kw = (out if kernel_grad else other).shape[2:]
-    if not xcorr_grad_fits(h, w, kh, kw):
+    geo = xcorr_grad_geometry(b * c, h, w, kh, kw, bool(kernel_grad), g.element_size(),
+                              _sm_count(g.device.index))
+    if geo is None and not xcorr_grad_fits(h, w, kh, kw):
         raise ValueError(f"depthwise_xcorr's backward: planes of {h}x{w} and {kh}x{kw} do not "
                          f"fit one block's shared memory ({_SMEM_OPTIN} bytes)")
     A = _cuda
-    fn = A.function("depthwise_xcorr", "k6b_depthwise_xcorr_grad",
-                    [A.I32, A.P, A.P, A.P] + [A.I32] * 7 + [A.I64] * 12 + [A.P])
-    A.launch(fn, g.device, kernel_grad, g.data_ptr(), other.data_ptr(), out.data_ptr(),
-             int(g.dtype == torch.bfloat16), b, c, h, w, kh, kw, *g.stride(), *other.stride(),
-             *out.stride())
+    args = (kernel_grad, g.data_ptr(), other.data_ptr(), out.data_ptr(),
+            int(g.dtype == torch.bfloat16), b, c, h, w, kh, kw)
+    strides = (*g.stride(), *other.stride(), *out.stride())
+    if geo is None:  # large planes: the plane forms
+        fn = A.function("depthwise_xcorr", "k6b_depthwise_xcorr_grad_plane",
+                        [A.I32, A.P, A.P, A.P] + [A.I32] * 7 + [A.I64] * 12 + [A.P])
+        A.launch(fn, g.device, *args, *strides)
+    else:
+        fn = A.function("depthwise_xcorr", "k6b_depthwise_xcorr_grad",
+                        [A.I32, A.P, A.P, A.P] + [A.I32] * 21 + [A.I64] * 12 + [A.P])
+        A.launch(fn, g.device, *args, *geo, xcorr_stage_vector(g, geo.cg),
+                 xcorr_stage_vector(other, geo.cg), *strides)
 
 
 def depthwise_xcorr_grad_input(g: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:

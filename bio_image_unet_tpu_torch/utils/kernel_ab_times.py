@@ -1,5 +1,6 @@
 """Time the kernels redesigned for Hopper -- K9 (``requant``), K10
-(``maxpool_i8``), K11 (``upsample2x_i8``), K6 (``depthwise_xcorr``), K11v
+(``maxpool_i8``), K11 (``upsample2x_i8``), K6 (``depthwise_xcorr``), K6b
+(its two gradients, ``depthwise_xcorr_grad_input`` / ``_kernel``), K11v
 (``upsample2x_i8_3d``), K3 (``sigmoid_stitch``, and its C-channel form K3c),
 K5 (``margin_stitch``), K5v (``blend_stitch_3d``), K1 (``clip_bounds``, its
 Siam chunk and pair rows too) and K2 (``normalize_tile``, and its float mode
@@ -22,9 +23,10 @@ wrapper's host work where that outlasts the flush.  ``--package`` imports
 file lies in): two versions of the kernels are compared under the same
 timers by running this file in turns (A, B, B, A) in one call on one card;
 ``--forms k6,k10`` times only the forms whose names start so (and builds only
-their libraries).  The forms from K11v on draw their inputs from a generator
-seeded per form and print the sha256 of their output (``sha256``), so two
-versions' outputs on the same inputs can be compared.  The store floor is
+their libraries).  K6, K6b and the forms from K11v on print the sha256 of
+their output (``sha256``), K6b and the forms from K11v on drawing their inputs
+from a generator seeded per form, so two versions' outputs on the same inputs
+can be compared.  The store floor is
 the time of 16-byte stores alone into 64 of every 192 bytes of the UNet++ row
 buffer (K11's output) and into 64 of every 96 bytes of the 3D concat buffer
 (K11v's at up3), the load floor that of 16-byte loads alone of 32 of every
@@ -56,6 +58,12 @@ NNEST, P = 16, 512  # config 4's forward batch of UNet++ tiles
 N3D, VOL_TILE = 16, (32, 128, 128)  # config 5's forward batch, UNet3D(32)
 CHUNK, FRAME = 16, 1024  # a Predict chunk of 1024^2 frames
 VOL = (64, 512, 512)  # config 5's volume
+# K6b at chip_smoke.py's XCORR_GRAD_SHAPES: cur (B, C, H, W), the kernel,
+# dtype, channels_last
+K6B_SHAPES = (((12, 256, 16, 16), (16, 16), "bfloat16", True),
+              ((4, 256, 16, 16), (16, 16), "float32", False),
+              ((12, 256, 15, 15), (15, 15), "bfloat16", True),
+              ((12, 256, 32, 32), (16, 16), "bfloat16", True))
 
 PROBE_CU = r"""
 #include <cuda_runtime.h>
@@ -430,6 +438,26 @@ def normalize_forms(torch, dev, both, pkg, prefixes) -> None:
     torch.cuda.empty_cache()
 
 
+def xcorr_grad_forms(torch, dev, both, depthwise_xcorr_grad_input,
+                     depthwise_xcorr_grad_kernel) -> None:
+    """K6b's grad input and grad kernel at ``K6B_SHAPES``, each shape's
+    operands from its own seeded generator, each output hashed."""
+    for seed, (shape, kernel, dtype_name, cl) in enumerate(K6B_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(700 + seed)
+        dtype = getattr(torch, dtype_name)
+        cur, grad = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(2))
+        prev = torch.randn(shape[:2] + kernel, generator=g, device=dev).to(dtype)
+        if cl:
+            cur, grad, prev = (t.contiguous(memory_format=torch.channels_last)
+                               for t in (cur, grad, prev))
+        name = (f"{dtype_name}{' channels_last' if cl else ''} {shape} "
+                f"k{kernel[0]}x{kernel[1]}")
+        both(f"k6b in {name}", lambda: depthwise_xcorr_grad_input(grad, prev), True)
+        both(f"k6b kernel {name}", lambda: depthwise_xcorr_grad_kernel(grad, cur, kernel), True)
+        del cur, grad, prev
+    torch.cuda.empty_cache()
+
+
 def offset_view(torch, t, offset: int):
     """A contiguous copy of ``t`` that starts ``offset`` elements into its
     buffer (1: an odd float16 offset, 2 bytes past a 4-byte boundary)."""
@@ -444,7 +472,7 @@ def main() -> int:
     ap.add_argument("--package", type=Path, default=ROOT,
                     help="checkout whose bio_image_unet_tpu_torch is timed")
     ap.add_argument("--forms",
-                    default="k9,k10,k11,k6,k11v,k3,k3c,k1,k2,k5,k5v,k3v,k5s,k2h,k2v,k2p",
+                    default="k9,k10,k11,k6,k6b,k11v,k3,k3c,k1,k2,k5,k5v,k3v,k5s,k2h,k2v,k2p",
                     help="comma-separated prefixes of the forms to time (default: all)")
     args = ap.parse_args()
     prefixes = tuple(f"{p.strip()} " for p in args.forms.split(",") if p.strip())
@@ -458,11 +486,14 @@ def main() -> int:
     from bio_image_unet_tpu_torch.ops import histogram as hist
     from bio_image_unet_tpu_torch.ops import int8 as k8
     from bio_image_unet_tpu_torch.ops import stitch
-    from bio_image_unet_tpu_torch.ops.functional import depthwise_xcorr
+    from bio_image_unet_tpu_torch.ops.functional import (depthwise_xcorr,
+                                                         depthwise_xcorr_grad_input,
+                                                         depthwise_xcorr_grad_kernel)
     from bio_image_unet_tpu_torch.predict import normalize, tiling
 
     libs = {"k9 ": "int8_trunk", "k10 ": "int8_trunk", "k11 ": "int8_resample",
-            "k6 ": "depthwise_xcorr", "k11v ": "int8_resample", "k3 ": "sigmoid_stitch",
+            "k6 ": "depthwise_xcorr", "k6b ": "depthwise_xcorr", "k11v ": "int8_resample",
+            "k3 ": "sigmoid_stitch",
             "k3c ": "sigmoid_stitch",
             "k1 ": "clip_bounds", "k2 ": "normalize_tile", "k5 ": "margin_stitch",
             "k5v ": "margin_stitch", "k3v ": "sigmoid_stitch", "k5s ": "margin_stitch",
@@ -565,9 +596,10 @@ def main() -> int:
         if cl:
             cur = cur.contiguous(memory_format=torch.channels_last)
             prev = prev.contiguous(memory_format=torch.channels_last)
-        both(name, lambda: depthwise_xcorr(cur, prev))
+        both(name, lambda: depthwise_xcorr(cur, prev), True)
         del cur, prev
     torch.cuda.empty_cache()
+    xcorr_grad_forms(torch, dev, both, depthwise_xcorr_grad_input, depthwise_xcorr_grad_kernel)
 
     stitch_forms(torch, dev, both, (k8, hist, stitch, normalize, tiling))
     normalize_forms(torch, dev, both, (k8, hist, stitch, normalize, tiling), prefixes)

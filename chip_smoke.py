@@ -18,15 +18,16 @@ without printing a result:
    the run failed where an instance has no tensor-core MMA or any ``__dp4a``
    (IDP); and of K9 (``requant``), K10 (``maxpool_i8``), K11
    (``upsample2x_i8``) and K11v (``upsample2x_i8_3d``, the resample
-   library), K6 (``xcorr``, the depthwise_xcorr library), K3
+   library), K6 (``xcorr``, the depthwise_xcorr library) and K6b
+   (``xcorr_grad_input``, ``xcorr_grad_kernel`` and their plane forms), K3
    (``sigmoid_stitch``), K5 / K5v / K5s (``margin_stitch``,
    ``blend_stitch_3d``, ``tile_sum``), K1 (``clip_pass``) and K2 / K2h / K2v
    (``normalize_tile``), each instance's
    int↔float conversions (I2F, F2I,
    FRND), MUFU, FFMA / FMUL / FADD and 128-bit global loads and stores and
    shared loads logged, the run failed where one uses local memory (LDL /
-   STL), a K6 instance holds an FFMA or a K11v instance converts between int
-   and float;
+   STL), a K6 or K6b instance holds an FFMA or a K11v instance converts
+   between int and float;
 3. kernels — each kernel held against its plain PyTorch version on the card
    at the shapes the main path gives it (K1 / K1f bit-equal, K2 equal, K3
    within one uint8 level; K3 also on the float32 logits of 512² tiles that
@@ -84,8 +85,9 @@ without printing a result:
    rtol 1e-3; peak memory and step time of both, a second training pass of
    each timed alone and a profiled remat epoch by stage, no gate), then one with
    ``profile_dir=`` outside every other profiler: one Chrome trace JSON,
-   which parses and holds K4's kernel and a convolution kernel; K4 exactly
-   once a step in each run;
+   which parses and holds K4's kernel once a step and a convolution kernel
+   (each step's ``augment`` range logged with the launches it holds and the
+   K4 kernel they reached); K4 exactly once a step in each run;
 7. kernels (heads) — K2h (float tiles), K5 (safe-margin stitch, float16
    and float32 out) and K5s (the tile sum of the fill) against their plain
    versions at the multi-head path's shapes (a 16-frame chunk of 1024² uint8
@@ -223,9 +225,10 @@ without printing a result:
    small float32 run on the card against the CPU;
 18. kernels (siam training) — K6 at the Siam trainer's forward shape and
    K6b, K6's backward (grad input: g correlated with the flipped kernel, the
-   padding swapped; grad kernel: a reduction over the plane for each tap),
-   at config 3's training batch ((12, 256, 16, 16) bf16 channels_last), the
-   ``siam_unet`` facade's float32 batch 4, an odd kernel (15²) and a plane
+   padding swapped; grad kernel: a reduction over the plane for each tap;
+   both on K6's tiles, their staging logged), at config 3's training batch
+   ((12, 256, 16, 16) bf16 channels_last), the ``siam_unet`` facade's
+   float32 batch 4, an odd kernel (15²) and a plane
    larger than its kernel (32² with 16²): each bit-equal to its plain
    version (so within 1e-5 of the sum of |a·b| in float32, one ulp in bf16),
    timed beside its bound and beside the autograd backward of one grouped
@@ -436,6 +439,13 @@ without printing a result:
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without CUDA, or outside a checkout of the repository, it exits with code 2.
+
+    python3 chip_smoke.py --probe-trace
+
+runs only the device phase and then ``[train options]``'s ``profile_dir``
+Trainer sixteen times in one process, reading each trace as that phase does:
+four runs before any other profiler, eight after a profiled epoch, four with
+a device synchronize after the profiler's start.
 """
 
 from __future__ import annotations
@@ -512,6 +522,9 @@ def main() -> int:
         return out
 
     card = run("device", phase_device)
+    if sys.argv[1:] == ["--probe-trace"]:
+        probe_trainer_traces(torch)
+        return 0
     run("build", phase_build, _cuda)
     run("sass", phase_sass, _cuda)
     kernels = run("kernels", phase_kernels, torch, dev)
@@ -684,9 +697,9 @@ def template_instance(kernel: str, name: str) -> str:
 def phase_sass(_cuda) -> None:
     """The machine code of the int8 libraries: every ``qconv`` instance must
     run its products on the tensor cores (an IMMA or GMMA instruction) and
-    hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's, K3's, K5's,
-    K5v's, K5s's, K1's and K2's (with K2h's and K2v's) instances must not
-    touch local memory, K6's must hold no fused
+    hold no ``__dp4a`` (IDP); K9's, K10's, K11's, K11v's, K6's, K6b's, K3's,
+    K5's, K5v's, K5s's, K1's and K2's (with K2h's and K2v's) instances must
+    not touch local memory, K6's and K6b's must hold no fused
     multiply-add (FFMA: the plain version rounds each product), K11v's no
     int<->float conversion (I2F, F2I, FRND: its blends are integer), and
     their conversions and wide accesses are logged."""
@@ -710,10 +723,10 @@ def phase_sass(_cuda) -> None:
     if bad:
         raise RuntimeError(f"qconv instances without tensor-core MMAs or with IDP: {bad}")
 
-    # K9, K10, K11, K11v, K6, K3, K5, K5v, K5s, K1 and K2 (K2h, K2v): what the redesigns
-    # removed (int<->float conversions at a quarter of the FMA rate, per-byte
-    # work, the division's slow-path call) and what they rely on (16-byte
-    # accesses, no FMA in K6, integer blends in K11v)
+    # K9, K10, K11, K11v, K6, K6b, K3, K5, K5v, K5s, K1 and K2 (K2h, K2v): what the
+    # redesigns removed (int<->float conversions at a quarter of the FMA rate,
+    # per-byte work, the division's slow-path call) and what they rely on
+    # (16-byte accesses, no FMA in K6 and K6b, integer blends in K11v)
     local, fused, converted = [], [], []
     libs = {"int8_trunk": funcs}
     for lib, kernel, want in (("int8_trunk", "requant", 30), ("int8_trunk", "maxpool_i8", 5),
@@ -721,6 +734,10 @@ def phase_sass(_cuda) -> None:
                               ("int8_resample", "upsample2x_i8_3d", 5),
                               ("depthwise_xcorr", "xcorr", 2),
                               ("depthwise_xcorr", "xcorr_plane", 2),
+                              ("depthwise_xcorr", "xcorr_grad_input", 2),
+                              ("depthwise_xcorr", "xcorr_grad_kernel", 2),
+                              ("depthwise_xcorr", "xcorr_grad_input_plane", 2),
+                              ("depthwise_xcorr", "xcorr_grad_kernel_plane", 2),
                               ("sigmoid_stitch", "sigmoid_stitch", 2),
                               ("margin_stitch", "margin_stitch", 2),
                               ("margin_stitch", "blend_stitch_3d", 2),
@@ -753,14 +770,14 @@ def phase_sass(_cuda) -> None:
             if kernel == "upsample2x_i8_3d" and count("I2F", "F2I", "FRND"):
                 converted.append(inst)
     if local:
-        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K3 / K5 / K5v / K5s / K1 / K2 / K2v "
-                           f"instances use local memory: {local}")
+        raise RuntimeError(f"K9 / K10 / K11 / K11v / K6 / K6b / K3 / K5 / K5v / K5s / K1 / K2 / "
+                           f"K2v instances use local memory: {local}")
     if fused:
-        raise RuntimeError(f"K6 instances fuse a multiply and an add (FFMA): {fused}")
+        raise RuntimeError(f"K6 / K6b instances fuse a multiply and an add (FFMA): {fused}")
     if converted:
         raise RuntimeError(f"K11v instances convert between int and float: {converted}")
-    log("[sass] K9, K10, K11, K11v, K6, K3, K5, K5v, K5s, K1, K2 and K2v instances without local "
-        "memory, K6 without FFMA, K11v without I2F / F2I / FRND: yes")
+    log("[sass] K9, K10, K11, K11v, K6, K6b, K3, K5, K5v, K5s, K1, K2 and K2v instances without "
+        "local memory, K6 and K6b without FFMA, K11v without I2F / F2I / FRND: yes")
 
 
 # --- 3. kernels -----------------------------------------------------------------
@@ -1753,17 +1770,95 @@ def phase_train_options(torch, dev, kernels) -> None:
         if len(files) != 1 or [str(f) for f in files] != t.trace_paths:
             raise AssertionError(f"[train options] profile_dir holds {files}, want the one "
                                  f"trace {t.trace_paths}")
-        with open(files[0]) as fh:
-            events = json.load(fh)["traceEvents"]
-        names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-        k4 = [n for n in names if "augment_batch" in n]
-        conv = [n for n in names if any(c in n.lower() for c in TRACE_CONV)]
-        log(f"[train options] profile_dir trace {files[0].name}: "
-            f"{files[0].stat().st_size} bytes, {len(events)} events, {len(names)} kernels, "
-            f"K4 {len(k4)}, convolution kernels {len(conv)}")
+        k4, conv = read_trainer_trace(files[0], "train options")
         if len(k4) != steps or not conv:
             raise AssertionError(f"[train options] the trace holds K4 {len(k4)} times (want "
                                  f"{steps}) and {len(conv)} convolution kernels")
+
+
+def read_trainer_trace(path: Path, tag: str) -> tuple:
+    """The K4 and convolution kernels of a Trainer's ``profile_dir`` trace,
+    logged with, for each ``augment`` range on the host (K4's wrapper runs
+    in one a step), the kernel launches the range holds and the K4 kernels
+    they reached: where a trace lacks a K4, whether the launch or only its
+    kernel went missing."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in kernels]
+    k4 = [n for n in names if "augment_batch" in n]
+    conv = [n for n in names if any(c in n.lower() for c in TRACE_CONV)]
+    log(f"[{tag}] profile_dir trace {path.name}: {path.stat().st_size} bytes, "
+        f"{len(events)} events, {len(names)} kernels, K4 {len(k4)}, convolution kernels "
+        f"{len(conv)}")
+    by_corr = {e.get("args", {}).get("correlation"): e for e in kernels}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e.get("name", "")]
+    ranges = sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and e.get("name") == "augment"), key=lambda e: e["ts"])
+    t0 = min((e["ts"] for e in events if "ts" in e and e.get("ph") == "X"), default=0)
+    steps = []
+    for r in ranges:
+        inside = [e for e in launches if r["ts"] <= e["ts"] <= r["ts"] + r.get("dur", 0)]
+        reached = [by_corr[c] for c in (e.get("args", {}).get("correlation") for e in inside)
+                   if c in by_corr and "augment_batch" in by_corr[c].get("name", "")]
+        steps.append(f"{r['ts'] - t0:.0f} us: {len(inside)} launches, K4 "
+                     + (f"at {reached[0]['ts'] - t0:.0f} us" if reached else "none"))
+    first = min((e["ts"] for e in kernels), default=t0)
+    log(f"[{tag}] trace's augment ranges ({len(ranges)}; first device kernel at "
+        f"{first - t0:.0f} us): " + "; ".join(steps))
+    return k4, conv
+
+
+def probe_trainer_traces(torch) -> None:
+    """``chip_smoke.py --probe-trace``: the ``[train options]`` trainer's
+    ``profile_dir`` trace, read as ``[train options]`` reads it, in one
+    process: four runs with no profiler before them, one profiled epoch,
+    eight runs after it, and four runs whose profiler is followed by a
+    device synchronize before the epoch starts."""
+    from bio_image_unet_tpu_torch.data.augment_device import augment_apply
+    from bio_image_unet_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = config2_data(tmp)
+
+        def traced(i, tag):
+            t = config2_trainer(data, tmp / f"run{i}", 1, profile_dir=str(tmp / f"trace{i}"))
+            steps = t._n_train // TRAIN_BATCH
+            augment_apply.launches = 0
+            t.start()
+            torch.cuda.synchronize()
+            k4, _ = read_trainer_trace(Path(t.trace_paths[0]), tag)
+            log(f"[{tag}] K4 launched {augment_apply.launches} times for {steps} steps, "
+                f"the trace holds {len(k4)}")
+
+        for i in range(4):
+            traced(i, f"probe {i} before any profiler")
+        t = config2_trainer(data, tmp / "epoch", 1)
+        t.start()
+        t0 = time.perf_counter()
+        t.model.train()
+        t._iterate_train(1)
+        torch.cuda.synchronize()
+        profile_train_epoch(torch, t, 2, time.perf_counter() - t0, tag="probe epoch")
+        del t
+        for i in range(4, 12):
+            traced(i, f"probe {i} after a profiled epoch")
+        start = Trainer._start_profiler
+
+        def start_and_sync(self):
+            prof = start(self)
+            torch.cuda.synchronize(self.device)
+            return prof
+
+        Trainer._start_profiler = start_and_sync
+        try:
+            for i in range(12, 16):
+                traced(i, f"probe {i} synchronized after the profiler's start")
+        finally:
+            Trainer._start_profiler = start
 
 
 # --- 7. kernels of the multi-head path ---------------------------------------------
@@ -3648,10 +3743,12 @@ def phase_kernels_siam_training(torch, dev) -> list:
                                                          depthwise_xcorr_grad_input_plain,
                                                          depthwise_xcorr_grad_kernel,
                                                          depthwise_xcorr_grad_kernel_plain,
-                                                         depthwise_xcorr_plain)
+                                                         depthwise_xcorr_plain,
+                                                         xcorr_grad_geometry)
 
     timer = Timer(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(17)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     source = "bio_image_unet_tpu_torch/csrc/depthwise_xcorr.cu"
     replaces = "bio_image_unet_tpu/ops/functional.py:95"
@@ -3690,6 +3787,12 @@ def phase_kernels_siam_training(torch, dev) -> list:
                             for t in (cur, g, prev))
         name = (f"{'bf16 channels_last' if cl else 'float32'} {b}x{c}x{h}x{w} k{kh}x{kw}"
                 + ("" if on_path else " timing only"))
+        for form, kernel_grad in (("grad input", False), ("grad kernel", True)):
+            geo = xcorr_grad_geometry(b * c, h, w, kh, kw, kernel_grad, cur.element_size(), sms)
+            log(f"[kernels siam training] K6b {form} {name}: "
+                + ("the plane form" if geo is None else
+                   f"{geo.cg} planes a block, {geo.n} tiles a warp, {-(-b * c // geo.cg)} blocks "
+                   f"of {geo.threads} threads, {geo.smem} B of shared memory; {sms} SMs"))
         # the reference's grouped conv and its autograd backward
         x_lib = cur.contiguous().reshape(1, b * c, h, w).requires_grad_()
         w_lib = prev.contiguous().reshape(b * c, 1, kh, kw).requires_grad_()

@@ -65,7 +65,7 @@ from bio_image_unet_tpu_torch.ops.functional import (depthwise_xcorr, depthwise_
                                                      depthwise_xcorr_grad_input_plain,
                                                      depthwise_xcorr_grad_kernel,
                                                      depthwise_xcorr_grad_kernel_plain,
-                                                     depthwise_xcorr_plain)
+                                                     depthwise_xcorr_plain, xcorr_stage_vector)
 from bio_image_unet_tpu_torch.ops import stitch as stitch_module
 from bio_image_unet_tpu_torch.ops.stitch import (blend_stitch_3d, blend_stitch_3d_plain,
                                                   margin_stitch, margin_stitch_plain,
@@ -1270,12 +1270,16 @@ def test_depthwise_xcorr_refuses_what_the_kernel_does_not_take(cuda):
 
 # K6b: the Siam trainer's shapes (bf16 (12, 256, 16, 16), the facade's
 # float32 batch 4), odd and even kernels, a plane larger than its kernel, a
-# kernel larger than its plane, the largest planes the staging takes
+# kernel larger than its plane, the largest planes the staging takes (the
+# plane forms); the tiled forms at batch 1, on the timing-only 15² k 15² and
+# 32² k 16², and on the largest planes their staging takes
 XCORR_GRAD_CASES = [
     ((12, 256, 16, 16), (16, 16), torch.bfloat16), ((4, 256, 16, 16), (16, 16), torch.float32),
     ((3, 5, 7, 7), (7, 7), torch.float32), ((2, 7, 9, 11), (4, 6), torch.bfloat16),
     ((2, 6, 24, 20), (5, 3), torch.float32), ((1, 3, 4, 5), (7, 6), torch.bfloat16),
-    ((1, 2, 170, 170), (9, 9), torch.float32)]
+    ((1, 2, 170, 170), (9, 9), torch.float32), ((1, 256, 16, 16), (16, 16), torch.bfloat16),
+    ((2, 64, 15, 15), (15, 15), torch.bfloat16), ((2, 64, 32, 32), (16, 16), torch.bfloat16),
+    ((1, 2, 112, 112), (112, 112), torch.float32)]
 
 
 @pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
@@ -1295,6 +1299,44 @@ def test_depthwise_xcorr_grad_kernels_bit_equal_to_plain(cuda, case, channels_la
     assert (depthwise_xcorr_grad_input.launches,
             depthwise_xcorr_grad_kernel.launches) == (before[0] + 1, before[1] + 1)
     assert d_cur.dtype == d_prev.dtype == dtype and d_prev.shape == shape[:2] + kernel
+    assert torch.equal(d_cur, depthwise_xcorr_grad_input_plain(grad, prev))
+    assert torch.equal(d_prev, depthwise_xcorr_grad_kernel_plain(grad, cur, kernel))
+
+
+def _offset_view(t, offset):
+    """A copy of ``t`` in its memory format that starts ``offset`` elements
+    into its buffer."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].as_strided(t.shape, t.stride())
+    view.copy_(t)
+    return view
+
+
+# operands off a 16-byte boundary (one element in: element loads), and a g
+# expanded from one batch item (a batch stride of 0, as autograd hands over
+# the gradient of a sum that broadcasts); both memory formats
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("layout", ["offset", "expanded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_depthwise_xcorr_grad_kernels_on_odd_layouts(cuda, dtype, layout, channels_last):
+    shape, kernel = (3, 64, 16, 16), (16, 16)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cur, grad = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(2))
+    prev = torch.randn(shape[:2] + kernel, generator=g, device=cuda).to(dtype)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    cur, grad, prev = (t.contiguous(memory_format=fmt) for t in (cur, grad, prev))
+    if layout == "offset":
+        cur, grad, prev = (_offset_view(t, 1) for t in (cur, grad, prev))
+        assert grad.data_ptr() % 16 and xcorr_stage_vector(grad, 8) == 1
+    else:
+        grad = grad[:1].expand(shape)
+        assert grad.stride()[0] == 0
+    before = (depthwise_xcorr_grad_input.launches, depthwise_xcorr_grad_kernel.launches)
+    d_cur = depthwise_xcorr_grad_input(grad, prev)
+    d_prev = depthwise_xcorr_grad_kernel(grad, cur, kernel)
+    torch.cuda.synchronize()
+    assert (depthwise_xcorr_grad_input.launches,
+            depthwise_xcorr_grad_kernel.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(d_cur, depthwise_xcorr_grad_input_plain(grad, prev))
     assert torch.equal(d_prev, depthwise_xcorr_grad_kernel_plain(grad, cur, kernel))
 

@@ -39,6 +39,7 @@ from bio_image_unet_tpu_torch.predict.normalize import normalize_tile_pairs
 from bio_image_unet_tpu_torch.predict.tiling import TilePlan, grid_starts
 from bio_image_unet_tpu_torch.train import Trainer
 from torch_parity import write_seeded_checkpoint
+from torch_xcorr_tiles import tiled_walk
 
 MODES = ("max", "concat", "corr", "control")
 
@@ -136,36 +137,12 @@ def _xcorr_tiled(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     planes and kernels, R×S output tiles, each warp region's tap range (rows
     exact, columns rounded out to 4) walked u outer, v inner, a product and
     a sum rounded apiece; every read is checked to lie in the staged plane
-    and every 4-column window start to be 16-byte aligned."""
-    b, c, h, w = cur.shape
+    and every 4-column window start to be 16-byte aligned
+    (``torch_xcorr_tiles.tiled_walk``, the walk K6b shares)."""
+    h, w = cur.shape[2:]
     kh, kw = prev.shape[2:]
-    g = functional.xcorr_geometry(h, w, kh, kw, cur.element_size())
-    r_, s_ = functional.XCORR_R, functional.XCORR_S
-    ph, pw = (kh - 1) // 2, (kw - 1) // 2
-    rows = h + 2 * g.pad_t
-    x = torch.zeros((b * c, rows, g.xp))
-    x[:, g.pad_t:g.pad_t + h, g.pad_l:g.pad_l + w] = cur.float().reshape(b * c, h, w)
-    k = torch.zeros((b * c, kh, g.kwp))
-    k[:, :, :kw] = prev.float().reshape(b * c, kh, kw)
-    out = torch.empty((b * c, h, w))
-    assert g.xp % 4 == 0 and g.xplane % 32 == 4 and g.cg * g.n == 32 and g.tpr % g.n == 0
-    for tr in range(-(-h // r_)):
-        for tc in range(g.tpr):
-            i0, j0, jr = tr * r_, tc * s_, (tc - tc % g.n) * s_
-            u_lo, u_hi = max(0, ph - (i0 + r_ - 1)), min(kh, h + ph - i0)
-            v_lo = max(0, pw - (jr + g.n * s_ - 1)) // 4 * 4
-            v_end = -(-min(kw, w + pw - jr) // 4) * 4
-            y0, x0 = g.pad_t + i0 - ph, g.pad_l + j0 - pw
-            assert y0 + u_lo >= 0 and y0 + r_ - 1 + u_hi - 1 < rows
-            assert x0 + v_lo >= 0 and x0 + v_end + 3 < g.xp and v_end <= g.kwp
-            assert (x0 + v_lo) % 4 == 0
-            acc = torch.zeros((b * c, r_, s_))
-            for u in range(u_lo, u_hi):
-                for v in range(v_lo, v_end):
-                    win = x[:, y0 + u:y0 + u + r_, x0 + v:x0 + v + s_]
-                    acc = acc + win * k[:, u, v][:, None, None]
-            out[:, i0:i0 + r_, j0:j0 + s_] = acc[:, :min(r_, h - i0), :max(0, min(s_, w - j0))]
-    return out.reshape(b, c, h, w).to(cur.dtype)
+    geo = functional.xcorr_geometry(h, w, kh, kw, cur.element_size())
+    return tiled_walk(cur, prev, (kh, kw), (h, w), geo)
 
 
 # the Siam paths' K6 shapes scaled down in B and C (bf16 16² planes at 256²

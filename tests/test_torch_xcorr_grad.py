@@ -8,10 +8,11 @@ on the CPU.
   result.
 - The autograd Function of ``depthwise_xcorr`` equal bit for bit to the
   plain functions, and its forward to the plain forward.
-- The kernels' loops (a block a plane, each output's range clipped to the
-  plane exactly, in the plain versions' order), emulated on the CPU, equal
-  bit for bit to the plain versions: the order-and-rounding claim of
-  ``csrc/depthwise_xcorr.cu`` K6b.
+- The loops of K6b's plane forms (a block a plane, each output's range
+  clipped to the plane exactly, in the plain versions' order), emulated on
+  the CPU, equal bit for bit to the plain versions: the order-and-rounding
+  claim of ``csrc/depthwise_xcorr.cu`` K6b for planes above the tiled
+  staging (the tiled forms: ``tests/test_torch_xcorr_grad_tiled.py``).
 """
 
 import jax
@@ -29,18 +30,7 @@ from bio_image_unet_tpu_torch.ops.functional import (depthwise_xcorr,
                                                      depthwise_xcorr_grad_kernel,
                                                      depthwise_xcorr_grad_kernel_plain,
                                                      depthwise_xcorr_plain)
-
-# cur (B, C, H, W), kernel (kh, kw): odd, even, the trainer's 16x16 on 16²
-# planes, a plane larger than its kernel (odd and even), a kernel larger
-# than its plane
-GRAD_SHAPES = [
-    ((2, 3, 5, 5), (5, 5)),
-    ((2, 3, 4, 6), (4, 6)),
-    ((2, 4, 16, 16), (16, 16)),
-    ((3, 2, 9, 11), (3, 4)),
-    ((1, 3, 12, 10), (5, 3)),
-    ((1, 2, 3, 4), (6, 5)),
-]
+from torch_xcorr_tiles import GRAD_SHAPES, grad_inputs, shape_ids
 
 
 def _nhwc(a):
@@ -55,21 +45,9 @@ def _jax_grads(cur, prev, g):
     return (np.asarray(d_cur).transpose(0, 3, 1, 2), np.asarray(d_prev).transpose(0, 3, 1, 2))
 
 
-def _inputs(shape, kernel, seed):
-    rng = np.random.default_rng(seed)
-    cur = rng.standard_normal(shape).astype(np.float32)
-    prev = rng.standard_normal(shape[:2] + kernel).astype(np.float32)
-    g = rng.standard_normal(shape).astype(np.float32)
-    return cur, prev, g
-
-
-def _ids(v):
-    return "x".join(map(str, v))
-
-
-@pytest.mark.parametrize("shape,kernel", GRAD_SHAPES, ids=_ids)
+@pytest.mark.parametrize("shape,kernel", GRAD_SHAPES, ids=shape_ids)
 def test_plain_grads_match_jax_vjp(shape, kernel):
-    cur, prev, g = _inputs(shape, kernel, 3 * sum(shape) + sum(kernel))
+    cur, prev, g = grad_inputs(shape, kernel, 3 * sum(shape) + sum(kernel))
     ref_cur, ref_prev = _jax_grads(cur, prev, g)
     t = {k: torch.from_numpy(v) for k, v in (("cur", cur), ("prev", prev), ("g", g))}
     d_cur = depthwise_xcorr_grad_input_plain(t["g"], t["prev"])
@@ -94,10 +72,10 @@ def test_plain_grads_match_jax_vjp(shape, kernel):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,kernel", GRAD_SHAPES[:4], ids=_ids)
+@pytest.mark.parametrize("shape,kernel", GRAD_SHAPES[:4], ids=shape_ids)
 def test_autograd_function_equals_plain(shape, kernel, dtype):
     cur, prev, g = (torch.from_numpy(a).to(dtype)
-                    for a in _inputs(shape, kernel, sum(shape) * 5 + 1))
+                    for a in grad_inputs(shape, kernel, sum(shape) * 5 + 1))
     c, p = cur.clone().requires_grad_(), prev.clone().requires_grad_()
     out = depthwise_xcorr(c, p)
     assert out.requires_grad and out.dtype == dtype
@@ -115,7 +93,7 @@ def test_autograd_function_equals_plain(shape, kernel, dtype):
 
 
 def test_autograd_function_only_where_a_gradient_is_needed():
-    cur, prev, g = (torch.from_numpy(a) for a in _inputs((1, 2, 6, 6), (6, 6), 11))
+    cur, prev, g = (torch.from_numpy(a) for a in grad_inputs((1, 2, 6, 6), (6, 6), 11))
     assert depthwise_xcorr(cur, prev).grad_fn is None
     p = prev.clone().requires_grad_()
     out = depthwise_xcorr(cur, p)
@@ -134,7 +112,7 @@ def test_autograd_function_only_where_a_gradient_is_needed():
 
 
 def _grad_input_per_output(g, prev):
-    """K6b grad input (``xcorr_grad_input``) emulated in float32 on the CPU:
+    """K6b grad input's plane form (``xcorr_grad_input_plane``) emulated in float32 on the CPU:
     each output's taps clipped to the plane exactly, u outer, v inner, a
     product and a sum rounded apiece."""
     b, c, h, w = g.shape
@@ -153,8 +131,8 @@ def _grad_input_per_output(g, prev):
 
 
 def _grad_kernel_per_tap(g, cur, kernel):
-    """K6b grad kernel (``xcorr_grad_kernel``) emulated in float32 on the
-    CPU: each tap's outputs clipped to the plane exactly, y outer, x inner."""
+    """K6b grad kernel's plane form (``xcorr_grad_kernel_plane``) emulated
+    in float32 on the CPU: each tap's outputs clipped to the plane exactly, y outer, x inner."""
     b, c, h, w = g.shape
     kh, kw = kernel
     ph, pw = (kh - 1) // 2, (kw - 1) // 2
@@ -176,15 +154,15 @@ def _grad_kernel_per_tap(g, cur, kernel):
     ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v)[6:])
 def test_grad_kernels_loops_bit_equal_to_plain(shape, kernel, dtype):
     cur, prev, g = (torch.from_numpy(a).to(dtype)
-                    for a in _inputs(shape, kernel, 7 * sum(shape) + sum(kernel)))
+                    for a in grad_inputs(shape, kernel, 7 * sum(shape) + sum(kernel)))
     assert torch.equal(_grad_input_per_output(g, prev), depthwise_xcorr_grad_input_plain(g, prev))
     assert torch.equal(_grad_kernel_per_tap(g, cur, kernel),
                        depthwise_xcorr_grad_kernel_plain(g, cur, kernel))
 
 
 def test_grad_staging_limit():
-    """K6b stages g and the other operand in float32: up to ~170² planes
-    (the forward's plane form reaches as far)."""
+    """K6b's plane forms stage g and the other operand in float32: up to
+    ~170² planes (the forward's plane form reaches as far)."""
     assert functional.xcorr_grad_fits(16, 16, 16, 16)
     assert functional.xcorr_grad_fits(170, 170, 170, 170)
     assert not functional.xcorr_grad_fits(171, 171, 171, 171)
